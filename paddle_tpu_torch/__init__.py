@@ -17,9 +17,14 @@ from paddle_tpu_torch.place import CPUPlace, CUDAPlace, default_place
 from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 from paddle_tpu_torch import ops  # registers the op lowerings
 from paddle_tpu_torch.executor import Executor
+from paddle_tpu_torch.backward import append_backward, calc_gradient
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch import layers
+from paddle_tpu_torch import optimizer
+from paddle_tpu_torch.optimizer import SGD, Adam, SGDOptimizer, AdamOptimizer
+from paddle_tpu_torch import regularizer
+from paddle_tpu_torch import clip
 from paddle_tpu_torch import io
 from paddle_tpu_torch.io import (
     save_vars, save_persistables, load_vars, load_persistables,

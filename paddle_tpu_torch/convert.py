@@ -4,8 +4,11 @@ Weights and state cross between the JAX package and the port as numpy
 arrays (a bundle's ``__params__`` records, or a JAX scope read out with
 ``np.asarray``).  :func:`scope_from_numpy` turns such a name -> array
 map into a port :class:`~paddle_tpu_torch.scope.Scope` on a place's
-device.  bfloat16 arrays (numpy's ``ml_dtypes`` type, as JAX hands them
-out) go through ``torch.bfloat16`` bit for bit.
+device: a whole training scope (parameters, the learning rate, Adam's
+``moment1_*`` / ``moment2_*`` / ``beta*_pow_acc_*``) so that both
+packages take the same steps from it.  bfloat16 arrays (numpy's
+``ml_dtypes`` type, as JAX hands them out) go through ``torch.bfloat16``
+bit for bit.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from paddle_tpu_torch.framework import convert_np_dtype
 from paddle_tpu_torch.place import torch_device
 from paddle_tpu_torch.scope import Scope
 
-__all__ = ["torch_dtype", "to_tensor", "to_numpy", "scope_from_numpy"]
+__all__ = ["torch_dtype", "to_tensor", "to_numpy", "persistable_names",
+           "scope_from_numpy"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -68,12 +72,42 @@ def to_numpy(value):
     return np.asarray(value)
 
 
-def scope_from_numpy(arrays, place=None):
+def persistable_names(program):
+    """Names of the persistable variables ``program``'s global block
+    reads or writes: its parameters and optimizer state."""
+    block = program.global_block()
+    names = []
+    for op in block.ops:
+        for n in op.input_arg_names + op.output_arg_names:
+            v = block.vars.get(n)
+            if v is not None and v.persistable and n not in names:
+                names.append(n)
+    return names
+
+
+def scope_from_numpy(arrays, place=None, program=None):
     """A :class:`Scope` holding every ``name -> ndarray`` of ``arrays`` as
     a tensor on ``place``'s device (``None`` = ``cuda:0``; raises when that
-    device is absent)."""
+    device is absent).  With ``program``, every persistable variable it
+    uses must be in ``arrays`` with its declared shape, and is cast to its
+    declared dtype; a missing or misshapen one raises."""
     device = torch_device(place)
     scope = Scope()
+    declared = {}
+    if program is not None:
+        block = program.global_block()
+        for n in persistable_names(program):
+            if n not in arrays:
+                raise KeyError(f"scope_from_numpy: {n!r} of the program is "
+                               f"not among the arrays")
+            declared[n] = block.vars[n]
     for name, arr in arrays.items():
-        scope.set_var(name, to_tensor(arr, device))
+        var = declared.get(name)
+        if var is not None and var.shape is not None and \
+                tuple(np.shape(arr)) != tuple(var.shape):
+            raise ValueError(f"scope_from_numpy: {name!r} has shape "
+                             f"{np.shape(arr)}, the program declares "
+                             f"{tuple(var.shape)}")
+        scope.set_var(name, to_tensor(arr, device,
+                                      var.dtype if var is not None else None))
     return scope

@@ -1,11 +1,15 @@
 """Bias softmax: ``softmax(x + row_bias + tri_bias)`` over the last axis
-of attention scores (the port of ``_fsm_fwd_kernel``,
-``paddle_tpu/ops/attention_ops.py:755``).
+of attention scores and its backward ``dx = (dy - sum(dy * y)) * y``
+(the ports of ``_fsm_fwd_kernel`` and ``_fsm_bwd_kernel``,
+``paddle_tpu/ops/attention_ops.py:755`` and ``:767``).
 
-:func:`bias_softmax` launches the CUDA kernel of ``csrc/bias_softmax.cu``
-for tensors on the card and runs :func:`bias_softmax_reference`, the
-plain torch version, for tensors on the CPU.  There is no ``Sk % 128``
-gate: any row length up to :data:`MAX_ROW` runs the kernel.
+:func:`bias_softmax` and :func:`bias_softmax_grad` launch the CUDA
+kernels of ``csrc/bias_softmax.cu`` for tensors on the card and run
+their plain torch versions (``*_reference``) for tensors on the CPU.
+There is no ``Sk % 128`` gate: any row length up to :data:`MAX_ROW` runs
+the kernels.  :class:`BiasSoftmaxFunction` puts the pair under torch
+autograd; the IR's ``softmax_grad`` op calls the backward directly on
+the saved output.
 """
 
 from __future__ import annotations
@@ -16,11 +20,14 @@ import torch
 
 from paddle_tpu_torch.kernels.build import CudaKernel
 
-__all__ = ["BIAS_SOFTMAX", "MAX_ROW", "bias_softmax",
-           "bias_softmax_reference"]
+__all__ = ["BIAS_SOFTMAX", "BIAS_SOFTMAX_GRAD", "MAX_ROW", "bias_softmax",
+           "bias_softmax_reference", "bias_softmax_grad",
+           "bias_softmax_grad_reference", "BiasSoftmaxFunction"]
 
 BIAS_SOFTMAX = CudaKernel("bias_softmax", "bias_softmax.cu",
                           replaces="paddle_tpu/ops/attention_ops.py:755")
+BIAS_SOFTMAX_GRAD = CudaKernel("bias_softmax_grad", "bias_softmax.cu",
+                               replaces="paddle_tpu/ops/attention_ops.py:767")
 
 #: longest softmax row the kernel keeps in shared memory
 MAX_ROW = 8192
@@ -29,6 +36,8 @@ _SYMBOLS = {torch.float32: "bias_softmax_f32",
             torch.bfloat16: "bias_softmax_bf16"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _ARGTYPES = [_P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _P]
+_DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_GRAD_ARGTYPES = [_P, _P, _P, _L, _I, _P]
 
 
 def bias_softmax_reference(x, row_bias=None, tri_bias=None):
@@ -100,3 +109,66 @@ def bias_softmax(x, row_bias=None, tri_bias=None):
                             tb, tb_stride, out.data_ptr(), B, H, Sq, Sk,
                             stream)
     return out
+
+
+def bias_softmax_grad_reference(y, dy):
+    """Plain torch version of the backward: ``y`` the softmax output (any
+    shape, softmax over the last axis), ``dy`` its cotangent at its OWN
+    dtype; both read in float32, ``dx`` returned in ``y``'s dtype."""
+    yf, dyf = y.float(), dy.float()
+    return ((dyf - (dyf * yf).sum(-1, keepdim=True)) * yf).to(y.dtype)
+
+
+def bias_softmax_grad(y, dy):
+    """``dx = (dy - sum(dy * y)) * y`` over the last axis; see
+    :func:`bias_softmax_grad_reference`.  On the CPU it is the plain
+    version; on the card it launches the CUDA kernel (y and dy float32 or
+    bfloat16, same shape, contiguous) or raises."""
+    if y.device.type == "cpu":
+        return bias_softmax_grad_reference(y, dy)
+    if y.device.type != "cuda" or dy.device != y.device:
+        raise ValueError(f"bias_softmax_grad: no kernel for y on {y.device}"
+                         f" and dy on {dy.device}")
+    if y.shape != dy.shape or y.ndim < 1:
+        raise ValueError(f"bias_softmax_grad: y {tuple(y.shape)} and dy "
+                         f"{tuple(dy.shape)} must have one shape")
+    ty, tdy = _DTYPE_TAG.get(y.dtype), _DTYPE_TAG.get(dy.dtype)
+    if ty is None or tdy is None:
+        raise TypeError(f"bias_softmax_grad: y and dy must be float32 or "
+                        f"bfloat16, got {y.dtype} and {dy.dtype}")
+    if not (y.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("bias_softmax_grad: y and dy must be contiguous")
+    Sk = y.shape[-1]
+    if Sk > MAX_ROW:
+        raise ValueError(f"bias_softmax_grad: rows of {Sk} exceed the "
+                         f"kernel's {MAX_ROW}")
+    dx = torch.empty_like(y)
+    rows = y.numel() // max(Sk, 1)
+    if y.numel() == 0:
+        return dx
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        BIAS_SOFTMAX_GRAD.launch(f"bias_softmax_grad_{ty}_{tdy}",
+                                 _GRAD_ARGTYPES, y.data_ptr(), dy.data_ptr(),
+                                 dx.data_ptr(), rows, Sk, stream)
+    return dx
+
+
+class BiasSoftmaxFunction(torch.autograd.Function):
+    """``softmax(x + biases)`` under torch autograd: the forward kernel,
+    and the backward kernel on the saved output (the biases are masks and
+    get no grad).  ``setup_context`` form, so it also runs inside
+    ``torch.no_grad()`` callers' ``torch.func`` transforms on the CPU."""
+
+    @staticmethod
+    def forward(x, row_bias=None, tri_bias=None):
+        return bias_softmax(x, row_bias, tri_bias)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        return bias_softmax_grad(y, dy.contiguous()), None, None

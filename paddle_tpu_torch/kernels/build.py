@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port, by file name under ``csrc/``
-SOURCES = ("paged_decode.cu", "bias_softmax.cu")
+SOURCES = ("paged_decode.cu", "bias_softmax.cu", "flash_attention.cu")
 
 _lock = threading.Lock()
 _libs = {}

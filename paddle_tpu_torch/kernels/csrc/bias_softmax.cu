@@ -1,7 +1,7 @@
-// Bias softmax for Hopper (sm_90a), plain C interface.
+// Bias softmax and its backward for Hopper (sm_90a), plain C interface.
 //
-// Replaces: _fsm_fwd_kernel in paddle_tpu/ops/attention_ops.py (launched
-// by _pallas_softmax_fwd).  For attention scores x [B, H, Sq, Sk] it
+// Forward.  Replaces: _fsm_fwd_kernel in paddle_tpu/ops/attention_ops.py
+// (launched by _pallas_softmax_fwd).  For attention scores x [B, H, Sq, Sk] it
 // computes, over the last axis,
 //     out = softmax(x + row_bias[b] + tri_bias[b, i])
 // with the biases added in float32 and out written in x's dtype (float32
@@ -26,6 +26,19 @@
 // itself, so there is no Sk % 128 gate: any Sk up to 8192 (a 32 KB float32
 // row, inside the 48 KB a block gets without opting in) runs.  The block has
 // one thread per element up to 1024, rounded up to whole warps.
+//
+// Backward.  Replaces: _fsm_bwd_kernel in paddle_tpu/ops/attention_ops.py
+// (launched by _pallas_softmax_bwd).  For the saved probabilities y and
+// their cotangent dy (each float32 or bfloat16; dy is read at its OWN
+// dtype, float32 under AMP, because dx is made of the small differences
+// between dy's entries that a bf16 cast of dy would destroy) it computes
+//     dx = (dy - sum_j dy_j * y_j) * y
+// with dx written in y's dtype.  Bound: bytes — y and dy read once, dx
+// written once, 3 operations an element.  Design: one block per row; each
+// thread keeps its strided elements of y and dy in registers (at most 8,
+// so rows up to 8192 with 1024 threads), one block reduction gives the
+// dot product, and the same registers give dx: each element leaves device
+// memory once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +147,54 @@ int launch(const void* x, const void* row_bias, long rb_bstride,
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxPer = 8;  // row elements a thread keeps in registers
+
+template <typename TY, typename TD>
+__global__ void bias_softmax_grad_kernel(const TY* __restrict__ y,
+                                         const TD* __restrict__ dy,
+                                         TY* __restrict__ dx, int Sk) {
+  __shared__ float red[32];
+  const long r = blockIdx.x;
+  const TY* yr = y + r * Sk;
+  const TD* dyr = dy + r * Sk;
+  TY* dxr = dx + r * Sk;
+  float yv[kMaxPer], dv[kMaxPer];
+  float dot = 0.f;
+#pragma unroll
+  for (int t = 0; t < kMaxPer; ++t) {
+    const int j = threadIdx.x + t * blockDim.x;
+    yv[t] = 0.f;
+    dv[t] = 0.f;
+    if (j < Sk) {
+      yv[t] = load_f(yr, j);
+      dv[t] = load_f(dyr, j);
+      dot += yv[t] * dv[t];
+    }
+  }
+  dot = block_reduce(dot, red, false);
+#pragma unroll
+  for (int t = 0; t < kMaxPer; ++t) {
+    const int j = threadIdx.x + t * blockDim.x;
+    if (j < Sk) store_f(dxr, j, (dv[t] - dot) * yv[t]);
+  }
+}
+
+template <typename TY, typename TD>
+int launch_grad(const void* y, const void* dy, void* dx, long rows, int Sk,
+                void* stream) {
+  if (rows <= 0 || Sk <= 0) return 0;
+  if (Sk > kMaxSk || rows > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  // about 4 elements a thread, whole warps, at most 1024 threads (and so
+  // at most kMaxPer = 8 elements a thread at Sk = 8192)
+  int threads = (((Sk + 3) / 4 + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
+  if (threads * kMaxPer < Sk) return (int)cudaErrorInvalidValue;
+  bias_softmax_grad_kernel<TY, TD><<<(unsigned)rows, threads, 0,
+                                     (cudaStream_t)stream>>>(
+      (const TY*)y, (const TD*)dy, (TY*)dx, Sk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -152,6 +213,29 @@ int bias_softmax_bf16(const void* x, const void* row_bias, long rb_bstride,
                       int H, int Sq, int Sk, void* stream) {
   return launch<__nv_bfloat16>(x, row_bias, rb_bstride, tri_bias, tb_bstride,
                                out, B, H, Sq, Sk, stream);
+}
+
+// Backward: dx = (dy - sum(dy * y)) * y over rows of Sk; y and dx share
+// a dtype (the first tag), dy has its own (the second).
+int bias_softmax_grad_f32_f32(const void* y, const void* dy, void* dx,
+                              long rows, int Sk, void* stream) {
+  return launch_grad<float, float>(y, dy, dx, rows, Sk, stream);
+}
+
+int bias_softmax_grad_f32_bf16(const void* y, const void* dy, void* dx,
+                               long rows, int Sk, void* stream) {
+  return launch_grad<float, __nv_bfloat16>(y, dy, dx, rows, Sk, stream);
+}
+
+int bias_softmax_grad_bf16_f32(const void* y, const void* dy, void* dx,
+                               long rows, int Sk, void* stream) {
+  return launch_grad<__nv_bfloat16, float>(y, dy, dx, rows, Sk, stream);
+}
+
+int bias_softmax_grad_bf16_bf16(const void* y, const void* dy, void* dx,
+                                long rows, int Sk, void* stream) {
+  return launch_grad<__nv_bfloat16, __nv_bfloat16>(y, dy, dx, rows, Sk,
+                                                    stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Op registry + the op lowerings of the serving slice.
+"""Op registry + the op lowerings of the ported slices.
 
 Importing this package registers every op type the port lowers (the
 counterpart of ``paddle_tpu.ops``).
@@ -12,4 +12,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     nn_ops,
     persist_ops,
     attention_ops,
+    loss_ops,
+    optimizer_ops,
 )

@@ -1,7 +1,8 @@
-"""Linear-algebra / elementwise ops (the port's counterpart of
-``paddle_tpu.ops.math_ops``; reference ``paddle/fluid/operators/{mul,
-matmul,elementwise_*,scale}``).  Plain matrix products go to
-``torch.matmul``, as the JAX package left them to XLA."""
+"""Linear-algebra / elementwise / reduction ops (the port's counterpart
+of ``paddle_tpu.ops.math_ops``; reference ``paddle/fluid/operators/{mul,
+matmul,elementwise_*,scale,sum,mean,reduce_op,clip}``).  Plain matrix
+products go to ``torch.matmul``, as the JAX package left them to XLA.
+Their grads are the auto-vjp of these lowerings."""
 
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ def _infer_mul(op, block):
     out.lod_level = x.lod_level
 
 
-@register_op("mul", infer_shape=_infer_mul)
+@register_op("mul", infer_shape=_infer_mul, amp_cast=("X", "Y"))
 def mul_lower(ctx):
     """``x`` flattened to 2-D at ``x_num_col_dims``, ``y`` at
     ``y_num_col_dims``, multiplied, and unflattened."""
@@ -71,7 +72,7 @@ def _infer_matmul(op, block):
     out.dtype = x.dtype
 
 
-@register_op("matmul", infer_shape=_infer_matmul)
+@register_op("matmul", infer_shape=_infer_matmul, amp_cast=("X", "Y"))
 def matmul_lower(ctx):
     """Batched product with numpy broadcasting over the leading dims,
     optional transposes of the last two dims, and an ``alpha`` scale."""
@@ -116,11 +117,16 @@ def _make_elementwise(name, fn):
 
 
 _make_elementwise("add", torch.add)
+_make_elementwise("sub", torch.sub)
 _make_elementwise("mul", torch.mul)
+_make_elementwise("div", torch.div)
+_make_elementwise("max", torch.maximum)
+_make_elementwise("min", torch.minimum)
+_make_elementwise("pow", torch.pow)
 
 
 # ---------------------------------------------------------------------------
-# scale
+# scale / sum / mean / sign / clip
 # ---------------------------------------------------------------------------
 
 @register_op("scale", infer_shape=infer_shape_unary())
@@ -132,3 +138,119 @@ def scale_lower(ctx):
         ctx.set_output("Out", x * scale + bias)
     else:
         ctx.set_output("Out", (x + bias) * scale)
+
+
+@register_op("sum", infer_shape=infer_shape_unary())
+def sum_lower(ctx):
+    """Elementwise sum of every ``X`` (dtypes promote, as in the JAX
+    package: a bf16 and an f32 grad sum to f32)."""
+    xs = ctx.inputs("X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set_output("Out", out)
+
+
+def _infer_mean(op, block):
+    out = block.var(op.output("Out")[0])
+    out.shape = (1,)
+    out.dtype = block.var(op.input("X")[0]).dtype
+
+
+@register_op("mean", infer_shape=_infer_mean)
+def mean_lower(ctx):
+    ctx.set_output("Out", ctx.input("X").mean().reshape(1))
+
+
+@register_op("sign", infer_shape=infer_shape_unary())
+def sign_lower(ctx):
+    ctx.set_output("Out", torch.sign(ctx.input("X")))
+
+
+@register_op("clip", infer_shape=infer_shape_unary())
+def clip_lower(ctx):
+    ctx.set_output("Out", torch.clamp(ctx.input("X"), ctx.attr("min"),
+                                      ctx.attr("max")))
+
+
+@register_op("clip_by_norm", infer_shape=infer_shape_unary())
+def clip_by_norm_lower(ctx):
+    x = ctx.input("X")
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm)).to(x.dtype)
+    ctx.set_output("Out", x * scale)
+
+
+def _infer_scalar_out(op, block):
+    out = block.var(op.output("Out")[0])
+    out.shape = (1,)
+    out.dtype = block.var(op.input("X")[0]).dtype
+
+
+@register_op("squared_l2_norm", infer_shape=_infer_scalar_out)
+def squared_l2_norm_lower(ctx):
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.sum(x * x).reshape(1))
+
+
+# ---------------------------------------------------------------------------
+# reductions  (reference: reduce_op.cc functor family)
+# ---------------------------------------------------------------------------
+
+def _infer_reduce(op, block):
+    x = block.var(op.input("X")[0])
+    if x.shape is None:
+        raise ShapeInferenceSkip()
+    dim = op.attr("dim", [0])
+    if isinstance(dim, int):
+        dim = [dim]
+    keep = op.attr("keep_dim", False)
+    reduce_all = op.attr("reduce_all", False)
+    out = block.var(op.output("Out")[0])
+    if reduce_all:
+        out.shape = tuple([1] * len(x.shape)) if keep else (1,)
+    else:
+        dims = [d % len(x.shape) for d in dim]
+        if keep:
+            out.shape = tuple(1 if i in dims else d
+                              for i, d in enumerate(x.shape))
+        else:
+            shape = tuple(d for i, d in enumerate(x.shape) if i not in dims)
+            out.shape = shape if shape else (1,)
+    out.dtype = x.dtype
+
+
+def _prod(x, dim, keepdim):
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _make_reduce(name, fn):
+    @register_op("reduce_" + name, infer_shape=_infer_reduce)
+    def lower(ctx):
+        x = ctx.input("X")
+        dim = ctx.attr("dim", [0])
+        if isinstance(dim, int):
+            dim = [dim]
+        keep = ctx.attr("keep_dim", False)
+        if ctx.attr("reduce_all", False):
+            axes = tuple(range(x.ndim))
+        else:
+            axes = tuple(d % x.ndim for d in dim)
+        out = fn(x, axes, keep)
+        if out.ndim == 0:
+            out = out.reshape(1)
+        ctx.set_output("Out", out)
+    lower.__name__ = f"reduce_{name}_lower"
+    return lower
+
+
+_make_reduce("sum", lambda x, d, k: torch.sum(x, dim=d, keepdim=k))
+_make_reduce("mean", lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
+_make_reduce("max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_make_reduce("min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_make_reduce("prod", _prod)

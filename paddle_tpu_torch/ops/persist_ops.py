@@ -90,7 +90,7 @@ def read_record_names(path):
     return names
 
 
-@register_op("save_combine")
+@register_op("save_combine", no_gradient=True)
 def save_combine_lower(ctx):
     """All X inputs, in slot order, into one file."""
     path = ctx.attr("file_path")
@@ -105,7 +105,7 @@ def save_combine_lower(ctx):
             write_tensor(f, ctx.env[name], name=name)
 
 
-@register_op("load_combine")
+@register_op("load_combine", no_gradient=True)
 def load_combine_lower(ctx):
     """One file -> all Out outputs, in slot order, on the run's device."""
     with open(ctx.attr("file_path"), "rb") as f:

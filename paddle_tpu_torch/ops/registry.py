@@ -1,23 +1,39 @@
-"""Operator registry: shape inference and forward lowerings over torch
-tensors (the forward half of ``paddle_tpu.ops.registry``; reference
-``paddle/fluid/framework/op_registry.h:62``).
+"""Operator registry: shape inference, forward lowerings over torch
+tensors and grad-op makers (the port of ``paddle_tpu.ops.registry``;
+reference ``paddle/fluid/framework/op_registry.h:62``,
+``grad_op_desc_maker.h:33``).
 
 Each op registers ONE ``lower`` function, a function from input tensors
 to output tensors; the port's Executor calls them op by op.  Shape
 inference is the JAX package's, unchanged, so a program built with the
-port serializes to the same IR dict.  Gradient ops wait for the training
-slice.
+port serializes to the same IR dict.
+
+Gradients are IR-level, as in the JAX package: ``backward.py`` appends
+``<type>_grad`` ops.  The default grad lowering is ``torch.func.vjp`` of
+the forward lowering, re-run eagerly on the backward-time values (the
+JAX package leaves that recompute to XLA's CSE; here it is paid).  Ops
+with randomness, integer semantics, saved residuals or a hand-written
+backward kernel register an explicit grad lowering instead.
 """
 
 from __future__ import annotations
 
+import collections
+
+import torch
+
 __all__ = [
-    "OpDef", "register_op", "lookup", "all_ops", "resolve_lowering",
-    "LowerContext", "run_lowering", "ShapeInferenceSkip",
-    "infer_shape_unary", "infer_shape_elementwise",
+    "OpDef", "register_op", "register_grad_lower", "lookup", "all_ops",
+    "resolve_lowering", "LowerContext", "run_lowering",
+    "ShapeInferenceSkip", "infer_shape_unary", "infer_shape_elementwise",
+    "default_grad_maker", "auto_vjp_grad_lower", "GRAD_SUFFIX",
 ]
 
+GRAD_SUFFIX = "@GRAD"
+
 _REGISTRY = {}
+
+_INT_DTYPES = ("int32", "int64", "bool", "int8", "uint8", "int16")
 
 
 class ShapeInferenceSkip(Exception):
@@ -25,17 +41,60 @@ class ShapeInferenceSkip(Exception):
 
 
 class OpDef:
-    def __init__(self, type, lower=None, infer_shape=None):
+    def __init__(self, type, lower=None, infer_shape=None, grad_maker=None,
+                 grad_lower=None, no_grad_inputs=(), stop_gradient_outputs=(),
+                 uses_rng=False, stateful_outputs=(), amp_cast=(),
+                 amp_upcast=()):
         self.type = type
         self.lower = lower
         self.infer_shape = infer_shape
+        # mixed precision: when the program runs with amp enabled, float32
+        # tensors read through the listed input slots are cast to bfloat16
+        # (amp_cast — matrix products) or forced to float32 (amp_upcast —
+        # numerically sensitive ops).  Parameters stay float32 in the scope
+        # (master weights) and the vjp of the cast returns float32 grads.
+        self.amp_cast = frozenset(amp_cast)
+        self.amp_upcast = frozenset(amp_upcast)
+        # grad_maker: fn(op, block, no_grad_set) -> (list of op-desc dicts,
+        #   dict fwd_input_name -> grad_name).  None => default maker.
+        self.grad_maker = grad_maker
+        # explicit lowering of the <type>_grad op; None => auto-vjp
+        self.grad_lower = grad_lower
+        self.no_grad_inputs = frozenset(no_grad_inputs)  # slot names
+        self.stop_gradient_outputs = frozenset(stop_gradient_outputs)
+        self.uses_rng = uses_rng
+        # outputs that alias an input across steps (ParamOut of the
+        # optimizer ops): the structural verifier accepts them as in-place
+        # state updates
+        self.stateful_outputs = frozenset(stateful_outputs)
+        self.has_grad = True  # flipped by register_op(no_gradient=True)
 
 
-def register_op(type, *, infer_shape=None):
+def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
+                no_grad_inputs=(), stop_gradient_outputs=(), uses_rng=False,
+                no_gradient=False, stateful_outputs=(), amp_cast=(),
+                amp_upcast=()):
     """Decorator: register ``fn(ctx)`` as the lowering for op ``type``."""
 
     def deco(fn):
-        _REGISTRY[type] = OpDef(type, lower=fn, infer_shape=infer_shape)
+        opdef = OpDef(type, lower=fn, infer_shape=infer_shape,
+                      grad_maker=grad_maker, grad_lower=grad_lower,
+                      no_grad_inputs=no_grad_inputs,
+                      stop_gradient_outputs=stop_gradient_outputs,
+                      uses_rng=uses_rng, stateful_outputs=stateful_outputs,
+                      amp_cast=amp_cast, amp_upcast=amp_upcast)
+        opdef.has_grad = not no_gradient
+        _REGISTRY[type] = opdef
+        return fn
+
+    return deco
+
+
+def register_grad_lower(fwd_type):
+    """Decorator: register an explicit lowering for ``<fwd_type>_grad``."""
+
+    def deco(fn):
+        _REGISTRY[fwd_type].grad_lower = fn
         return fn
 
     return deco
@@ -47,16 +106,6 @@ def lookup(type):
 
 def all_ops():
     return dict(_REGISTRY)
-
-
-def resolve_lowering(op_type):
-    """The registered :class:`OpDef` of ``op_type``; raises when the port
-    has no lowering for it."""
-    opdef = lookup(op_type)
-    if opdef is None or opdef.lower is None:
-        raise NotImplementedError(
-            f"no lowering registered for op {op_type!r} in paddle_tpu_torch")
-    return opdef
 
 
 # ---------------------------------------------------------------------------
@@ -98,15 +147,19 @@ class LowerContext:
     """Hands an op lowering its input tensors / attrs; collects outputs.
 
     ``env`` maps variable name -> torch tensor.  ``aux`` carries
-    executor-level services: ``device`` (the run's ``torch.device``) and
-    ``generator`` (the run's ``torch.Generator`` for random init ops).
+    executor-level services: ``device`` (the run's ``torch.device``),
+    ``generator`` (the run's host ``torch.Generator`` for random init
+    ops), ``amp`` (mixed precision on) and ``rng_seed`` (the run's seed
+    for the per-op device generators of :meth:`generator`).
+    ``op_index`` is the op's position in its block.
     """
 
-    def __init__(self, op, env, block, aux=None):
+    def __init__(self, op, env, block, aux=None, op_index=0):
         self.op = op
         self.env = env
         self.block = block
         self.aux = aux or {}
+        self.op_index = op_index
         self.outputs = {}
 
     @property
@@ -114,11 +167,29 @@ class LowerContext:
         return self.aux["device"]
 
     # -- inputs ------------------------------------------------------------
+    def _amp_cast(self, slot, value):
+        """bf16-downcast / f32-upcast per the op's AMP slot lists (active
+        only when the executor enabled mixed precision for this run)."""
+        if value is None or not self.aux.get("amp"):
+            return value
+        opdef = lookup(self.op.type)
+        if opdef is None:
+            return value
+        if slot in opdef.amp_cast and value.dtype == torch.float32:
+            return value.to(torch.bfloat16)
+        if slot in opdef.amp_upcast and value.dtype == torch.bfloat16:
+            return value.to(torch.float32)
+        return value
+
     def input(self, slot):
         names = self.op.input(slot)
         if not names:
             return None
-        return self.env[names[0]]
+        return self._amp_cast(slot, self.env[names[0]])
+
+    def inputs(self, slot):
+        return [self._amp_cast(slot, self.env[n])
+                for n in self.op.input(slot)]
 
     # -- attrs -------------------------------------------------------------
     def attr(self, name, default=None):
@@ -131,6 +202,21 @@ class LowerContext:
             return
         self.outputs[names[0]] = value
 
+    # -- rng ---------------------------------------------------------------
+    def generator(self):
+        """A ``torch.Generator`` on the run's device, seeded from the run's
+        seed and this op's position: each random op of a step draws its
+        own reproducible stream, on the device that uses it."""
+        seed = self.aux.get("rng_seed")
+        if seed is None:
+            raise RuntimeError(
+                f"op {self.op.type} needs random numbers but the run "
+                f"provided no seed")
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((int(seed) * 1000003 + self.op_index)
+                        % (2 ** 63 - 1))
+        return gen
+
 
 def run_lowering(op, env, block, aux=None):
     """Execute one op's lowering against ``env``; merge outputs into env."""
@@ -139,3 +225,194 @@ def run_lowering(op, env, block, aux=None):
     opdef.lower(ctx)
     env.update(ctx.outputs)
     return ctx.outputs
+
+
+# ---------------------------------------------------------------------------
+# default grad maker (reference: DefaultGradOpDescMaker, grad_op_desc_maker.h)
+# ---------------------------------------------------------------------------
+
+def default_grad_maker(op, block, no_grad_set):
+    """Build the ``<type>_grad`` op desc for a forward op.
+
+    Inputs:  every forward input slot (same names), every forward output
+             slot, and ``<out_slot>@GRAD`` for each forward output.
+    Outputs: ``<in_slot>@GRAD`` for each differentiable forward input.
+    Returns (grad_op_descs, input_grad_map) where input_grad_map maps
+    forward input var name -> its grad var name.
+    """
+    from paddle_tpu_torch.framework import grad_var_name
+
+    opdef = lookup(op.type)
+    inputs = {}
+    outputs = {}
+    input_grad_map = {}
+    for slot, names in op.inputs.items():
+        inputs[slot] = list(names)
+    for slot, names in op.outputs.items():
+        inputs[slot] = list(names)
+        inputs[slot + GRAD_SUFFIX] = [grad_var_name(n) for n in names]
+    for slot, names in op.inputs.items():
+        if opdef is not None and slot in opdef.no_grad_inputs:
+            continue
+        grads = []
+        has_any = False
+        for n in names:
+            try:
+                v = block.var(n)
+            except KeyError:
+                v = None
+            if n in no_grad_set or (v is not None and (
+                    v.stop_gradient or v.dtype in _INT_DTYPES)):
+                grads.append("")  # empty = no grad needed for this arg
+            else:
+                g = grad_var_name(n)
+                grads.append(g)
+                input_grad_map[n] = g
+                has_any = True
+        if has_any:
+            outputs[slot + GRAD_SUFFIX] = grads
+    if not outputs:
+        return [], {}
+    desc = {"type": op.type + "_grad", "inputs": inputs, "outputs": outputs,
+            "attrs": dict(op.attrs)}
+    return [desc], input_grad_map
+
+
+# ---------------------------------------------------------------------------
+# auto-vjp lowering for <type>_grad ops
+# ---------------------------------------------------------------------------
+
+def auto_vjp_grad_lower(fwd_type):
+    """Generic lowering for a grad op: ``torch.func.vjp`` of the forward
+    lowering.
+
+    The forward lowering is re-run as a function of the differentiable
+    inputs with the REAL variable names, over the backward-time env, so
+    lowerings that consult the env by name keep working.  The
+    executor runs under ``torch.no_grad()``; ``torch.func.vjp`` ignores
+    that outer mode, so the recompute is differentiated all the same.
+    Missing output grads get zero cotangents.
+    """
+    fwd_def = _REGISTRY[fwd_type]
+
+    def lower(ctx):
+        op = ctx.op
+        # which forward input args need grads: (slot, idx, grad var name)
+        wanted = []
+        for slot, grad_names in op.outputs.items():
+            if not slot.endswith(GRAD_SUFFIX):
+                continue
+            in_slot = slot[:-len(GRAD_SUFFIX)]
+            for i, g in enumerate(grad_names):
+                if g:
+                    wanted.append((in_slot, i, g))
+        if not wanted:
+            return
+
+        # grad-op inputs partition into forward outputs (slots S where
+        # both S and S@GRAD are inputs), their grads, and forward inputs
+        fwd_out_slots = _fwd_output_slots(op)
+        fwd_in_slots = [s for s in op.inputs
+                        if not s.endswith(GRAD_SUFFIX)
+                        and s not in fwd_out_slots]
+        wanted_set = {(s, i) for s, i, _ in wanted}
+
+        diff_args = []      # (slot, idx, name) of differentiable args
+        primal_vals = []
+        for slot in fwd_in_slots:
+            for i, n in enumerate(op.input(slot)):
+                if (slot, i) in wanted_set:
+                    diff_args.append((slot, i, n))
+                    primal_vals.append(ctx.env[n])
+
+        from paddle_tpu_torch.framework import Operator
+        fop = Operator(ctx.block, fwd_type, {}, {}, dict(op.attrs))
+        fop.inputs = {s: list(op.inputs[s]) for s in fwd_in_slots}
+        fop.outputs = {s: list(op.inputs.get(s, [])) for s in fwd_out_slots}
+        # only outputs the forward actually produced take part in the vjp
+        out_names = [n for slot in fwd_out_slots
+                     for n in fop.outputs[slot] if n in ctx.env]
+
+        def fwd_fn(*primals):
+            # the primals over the backward-time env, without copying it
+            env = collections.ChainMap(
+                {n: v for (_, _, n), v in zip(diff_args, primals)}, ctx.env)
+            fctx = LowerContext(fop, env, ctx.block, aux=ctx.aux,
+                                op_index=ctx.op_index)
+            fwd_def.lower(fctx)
+            return tuple(fctx.outputs.get(n, env.get(n))
+                         for n in out_names)
+
+        outs, vjp_fn = torch.func.vjp(fwd_fn, *primal_vals)
+
+        # cotangents: the Out@GRAD inputs, in out_names order
+        grad_of_out = {}
+        for slot in fwd_out_slots:
+            onames = op.inputs.get(slot, [])
+            gnames = op.inputs.get(slot + GRAD_SUFFIX, [])
+            for i, n in enumerate(onames):
+                if i < len(gnames) and gnames[i]:
+                    grad_of_out[n] = gnames[i]
+        cots = []
+        for n, o in zip(out_names, outs):
+            g = grad_of_out.get(n)
+            if g and g in ctx.env:
+                cots.append(_match_cotangent_dtype(ctx.env[g], o))
+            else:
+                cots.append(torch.zeros_like(o))
+        grads = vjp_fn(tuple(cots))
+
+        for (slot, i, n), g in zip(diff_args, grads):
+            for ws, wi, gname in wanted:
+                if ws == slot and wi == i:
+                    ctx.outputs[gname] = g
+
+    return lower
+
+
+def _match_cotangent_dtype(cot, out_val):
+    """Cast a floating cotangent to the forward output's dtype — under
+    mixed precision an op's output may be bf16 while the incoming grad
+    is f32 (or the reverse)."""
+    if cot.dtype != out_val.dtype and cot.is_floating_point() and \
+            out_val.is_floating_point():
+        return cot.to(out_val.dtype)
+    return cot
+
+
+def _fwd_output_slots(grad_op):
+    """Forward output slots present on a default-maker grad op: slots S such
+    that both S and S@GRAD appear among the grad op's inputs."""
+    slots = []
+    for slot in grad_op.inputs:
+        if slot.endswith(GRAD_SUFFIX):
+            base = slot[:-len(GRAD_SUFFIX)]
+            if base in grad_op.inputs and base not in slots:
+                slots.append(base)
+    return slots
+
+
+def resolve_lowering(op_type):
+    """The :class:`OpDef` that lowers ``op_type``, synthesizing auto-vjp
+    lowerings for ``*_grad`` ops whose forward registered no explicit one;
+    raises when the port has no lowering for it."""
+    opdef = lookup(op_type)
+    if opdef is not None and opdef.lower is not None:
+        return opdef
+    if op_type.endswith("_grad"):
+        fwd = op_type[:-len("_grad")]
+        fwd_def = lookup(fwd)
+        if fwd_def is not None:
+            if fwd_def.grad_lower is not None:
+                lower = fwd_def.grad_lower
+            else:
+                if fwd_def.uses_rng:
+                    raise NotImplementedError(
+                        f"op {fwd!r} uses RNG; register an explicit grad "
+                        f"lowering instead of auto-vjp")
+                lower = auto_vjp_grad_lower(fwd)
+            opdef = OpDef(op_type, lower=lower)
+            _REGISTRY[op_type] = opdef
+            return opdef
+    raise NotImplementedError(
+        f"no lowering registered for op {op_type!r} in paddle_tpu_torch")

@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.convert import to_tensor, torch_dtype
-from paddle_tpu_torch.ops.registry import register_op
+from paddle_tpu_torch.ops.registry import (
+    auto_vjp_grad_lower, infer_shape_unary, register_grad_lower, register_op)
 
 
 # ---------------------------------------------------------------------------
@@ -22,12 +23,18 @@ def _infer_fill_constant(op, block):
     out.dtype = op.attr("dtype", "float32")
 
 
-@register_op("fill_constant", infer_shape=_infer_fill_constant)
+@register_op("fill_constant", infer_shape=_infer_fill_constant,
+             no_gradient=True)
 def fill_constant_lower(ctx):
     ctx.set_output("Out", torch.full(
         tuple(ctx.attr("shape")), ctx.attr("value", 0.0),
         dtype=torch_dtype(ctx.attr("dtype", "float32")),
         device=ctx.device))
+
+
+@register_op("assign", infer_shape=infer_shape_unary())
+def assign_lower(ctx):
+    ctx.set_output("Out", ctx.input("X"))
 
 
 def _infer_assign_value(op, block):
@@ -36,7 +43,8 @@ def _infer_assign_value(op, block):
     out.dtype = op.attr("dtype", "float32")
 
 
-@register_op("assign_value", infer_shape=_infer_assign_value)
+@register_op("assign_value", infer_shape=_infer_assign_value,
+             no_gradient=True)
 def assign_value_lower(ctx):
     dtype = ctx.attr("dtype", "float32")
     if dtype in ("float32", "float64", "bfloat16", "float16"):
@@ -48,7 +56,8 @@ def assign_value_lower(ctx):
     ctx.set_output("Out", to_tensor(host, ctx.device, dtype))
 
 
-@register_op("uniform_random", infer_shape=_infer_fill_constant)
+@register_op("uniform_random", infer_shape=_infer_fill_constant,
+             no_gradient=True, uses_rng=True)
 def uniform_random_lower(ctx):
     """``U[min, max)`` drawn on the host from the run's seeded
     ``torch.Generator`` (or one seeded from the op's own ``seed`` attr),
@@ -128,7 +137,8 @@ def _infer_lookup_table(op, block):
     out.lod_level = ids.lod_level
 
 
-@register_op("lookup_table", infer_shape=_infer_lookup_table)
+@register_op("lookup_table", infer_shape=_infer_lookup_table,
+             no_grad_inputs=("Ids",))
 def lookup_table_lower(ctx):
     """Rows of ``W`` at ``Ids``; a trailing 1 of the ids is squeezed
     (``[S, 1]`` decode ids give ``[S, d]``), and rows at ``padding_idx``
@@ -142,3 +152,16 @@ def lookup_table_lower(ctx):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
     ctx.set_output("Out", out)
+
+
+@register_grad_lower("lookup_table")
+def lookup_table_grad_lower(ctx):
+    """Dense grad of ``W``: the auto-vjp of the gather, a scatter-add into
+    a ``[vocab, dim]`` zero tensor.  ``is_sparse`` (a SelectedRows grad)
+    waits for the sparse subsystem."""
+    if ctx.attr("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table is_sparse=True needs SelectedRows grads, which "
+            "paddle_tpu_torch does not have yet; build the embedding with "
+            "is_sparse=False")
+    auto_vjp_grad_lower("lookup_table")(ctx)

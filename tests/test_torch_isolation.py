@@ -28,7 +28,8 @@ def _port_modules():
 
 
 def _port_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in (
+        "chip_smoke.py", "profile_torch_decode.py", "profile_torch_train.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

@@ -1,6 +1,8 @@
-"""Each op lowering of the PyTorch port's serving slice against the JAX
-package's lowering of the same op (``registry.run_lowering``), on the
-same seeded numpy inputs, with the IR traps of the gen LM as cases:
+"""Each op lowering of the PyTorch port against the JAX package's
+lowering of the same op (``registry.run_lowering``), and each grad op
+(the auto-vjp and the explicit grads) through both packages'
+``append_backward`` on the same one-op program, on the same seeded numpy
+inputs, with the IR traps of the gen LM as cases:
 ``lookup_table``'s trailing-1 squeeze, ``reshape``'s 0 / -1,
 ``elementwise_*``'s ``axis`` broadcast, ``mul``'s flattening,
 ``matmul``'s ``transpose_Y`` / ``alpha`` / batched broadcast,
@@ -118,6 +120,43 @@ def _cases():
         ("lookup_table_padding_idx", "lookup_table",
          {"W": _f(r, 10, 4), "Ids": np.array([[0, 3, 3, 9]], np.int32)},
          ["Out"], {"padding_idx": 3}),
+        ("elementwise_sub", "elementwise_sub",
+         {"X": _f(r, 3, 5), "Y": _f(r, 5)}, ["Out"], {"axis": -1}),
+        ("elementwise_div", "elementwise_div",
+         {"X": _f(r, 3, 5), "Y": np.abs(_f(r, 3, 5)) + 0.5}, ["Out"],
+         {"axis": -1}),
+        ("elementwise_max", "elementwise_max",
+         {"X": _f(r, 3, 5), "Y": _f(r, 3, 5)}, ["Out"], {"axis": -1}),
+        ("elementwise_min", "elementwise_min",
+         {"X": _f(r, 3, 5), "Y": _f(r, 3, 5)}, ["Out"], {"axis": -1}),
+        ("elementwise_pow", "elementwise_pow",
+         {"X": np.abs(_f(r, 3, 5)) + 0.1, "Y": _f(r, 3, 5)}, ["Out"],
+         {"axis": -1}),
+        ("sum", "sum", {"X": _f(r, 3, 5)}, ["Out"], {}),
+        ("mean", "mean", {"X": _f(r, 3, 5)}, ["Out"], {}),
+        ("sign", "sign", {"X": _f(r, 3, 5)}, ["Out"], {}),
+        ("sqrt", "sqrt", {"X": np.abs(_f(r, 3, 5))}, ["Out"], {}),
+        ("clip", "clip", {"X": _f(r, 3, 5)}, ["Out"],
+         {"min": -0.5, "max": 0.7}),
+        ("clip_by_norm", "clip_by_norm", {"X": _f(r, 3, 5)}, ["Out"],
+         {"max_norm": 1.0}),
+        ("squared_l2_norm", "squared_l2_norm", {"X": _f(r, 3, 5)}, ["Out"],
+         {}),
+        ("reduce_sum_all_keep", "reduce_sum", {"X": _f(r, 3, 4, 5)},
+         ["Out"], {"dim": [0], "keep_dim": True, "reduce_all": True}),
+        ("reduce_mean_dims", "reduce_mean", {"X": _f(r, 3, 4, 5)}, ["Out"],
+         {"dim": [0, -1], "keep_dim": False, "reduce_all": False}),
+        ("reduce_max_keep", "reduce_max", {"X": _f(r, 3, 4, 5)}, ["Out"],
+         {"dim": [1], "keep_dim": True, "reduce_all": False}),
+        ("reduce_min", "reduce_min", {"X": _f(r, 3, 4, 5)}, ["Out"],
+         {"dim": [2], "keep_dim": False, "reduce_all": False}),
+        ("reduce_prod", "reduce_prod", {"X": _f(r, 3, 4, 5)}, ["Out"],
+         {"dim": [0, 2], "keep_dim": False, "reduce_all": False}),
+        ("softmax_with_cross_entropy", "softmax_with_cross_entropy",
+         {"Logits": _f(r, 6, 10), "Label": _ids(r, 10, 6, 1)},
+         ["Loss", "Softmax"], {"soft_label": False}),
+        ("dropout_is_test", "dropout", {"X": _f(r, 3, 5)}, ["Out", "Mask"],
+         {"dropout_prob": 0.3, "is_test": True}),
         ("fill_constant", "fill_constant", {}, ["Out"],
          {"shape": [3, 2], "dtype": "float32", "value": 1.5}),
         ("fill_constant_int", "fill_constant", {}, ["Out"],
@@ -261,3 +300,122 @@ def test_persist_record_format_round_trips(tmp_path):
     np.testing.assert_array_equal(a2, f32)
     np.testing.assert_array_equal(np.asarray(b2, np.float32),
                                   np.asarray(bf16, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# grad ops: each package's append_backward on the same one-op program
+# ---------------------------------------------------------------------------
+
+def _grad_cases():
+    """(id, op type, {slot: array}, output slots, attrs).  The first output
+    slot carries the cotangent; every float input not in the op's
+    no-grad slots gets a grad."""
+    r = np.random.RandomState(17)
+    mask = np.ones((2, 12), np.float32)
+    mask[1, -4:] = 0.0
+    return [
+        ("mul", "mul", {"X": _f(r, 2, 6, 8), "Y": _f(r, 8, 5)}, ["Out"],
+         {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+        ("matmul_transpose_y_alpha", "matmul",
+         {"X": _f(r, 1, 2, 6, 8), "Y": _f(r, 1, 2, 6, 8)}, ["Out"],
+         {"transpose_X": False, "transpose_Y": True, "alpha": 0.25}),
+        ("matmul_batched", "matmul",
+         {"X": _f(r, 1, 2, 6, 6), "Y": _f(r, 1, 2, 6, 8)}, ["Out"],
+         {"transpose_X": False, "transpose_Y": False, "alpha": 1.0}),
+        ("elementwise_add_bias", "elementwise_add",
+         {"X": _f(r, 2, 6, 8), "Y": _f(r, 8)}, ["Out"], {"axis": 2}),
+        ("elementwise_mul_axis0", "elementwise_mul",
+         {"X": _f(r, 2, 6, 8), "Y": _f(r, 2, 6)}, ["Out"], {"axis": 0}),
+        ("elementwise_div", "elementwise_div",
+         {"X": _f(r, 3, 4), "Y": np.abs(_f(r, 3, 4)) + 0.5}, ["Out"],
+         {"axis": -1}),
+        ("scale", "scale", {"X": _f(r, 4, 8)}, ["Out"],
+         {"scale": 2.5, "bias": 0.5, "bias_after_scale": True}),
+        ("relu", "relu", {"X": _f(r, 3, 8)}, ["Out"], {}),
+        ("reshape", "reshape", {"X": _f(r, 2, 6, 8)}, ["Out"],
+         {"shape": [2, 6, 2, 4]}),
+        ("transpose", "transpose", {"X": _f(r, 2, 6, 2, 4)}, ["Out"],
+         {"axis": [0, 2, 1, 3]}),
+        ("layer_norm", "layer_norm",
+         {"X": _f(r, 2, 6, 8), "Scale": _f(r, 8), "Bias": _f(r, 8)},
+         ["Y", "Mean", "Variance"], {"epsilon": 1e-5, "begin_norm_axis": 2}),
+        ("softmax_no_bias", "softmax", {"X": _f(r, 3, 7)}, ["Out"], {}),
+        ("softmax_row_bias", "softmax",
+         {"X": _f(r, 2, 2, 5, 7),
+          "Bias": np.where(r.rand(2, 1, 1, 7) < 0.3, -1e9, 0.0)
+          .astype(np.float32)}, ["Out"], {}),
+        ("softmax_causal_plane", "softmax",
+         {"X": _f(r, 1, 2, 6, 6), "Bias": _causal(6, 5)}, ["Out"], {}),
+        ("softmax_with_cross_entropy", "softmax_with_cross_entropy",
+         {"Logits": _f(r, 6, 10), "Label": _ids(r, 10, 6, 1)},
+         ["Loss", "Softmax"], {"soft_label": False}),
+        ("reduce_sum_dim1", "reduce_sum", {"X": _f(r, 3, 4, 5)}, ["Out"],
+         {"dim": [1], "keep_dim": False, "reduce_all": False}),
+        ("mean", "mean", {"X": _f(r, 3, 4)}, ["Out"], {}),
+        ("lookup_table", "lookup_table",
+         {"W": _f(r, 10, 4), "Ids": _ids(r, 10, 2, 3)}, ["Out"],
+         {"is_sparse": False, "is_distributed": False, "padding_idx": -1}),
+        ("sdpa_cross_masked", "scaled_dot_product_attention",
+         {"Q": _f(r, 2, 2, 10, 8, scale=0.5),
+          "K": _f(r, 2, 2, 12, 8, scale=0.5),
+          "V": _f(r, 2, 2, 12, 8, scale=0.5), "KMask": mask},
+         ["Out", "Lse"], {"causal": False, "scale": 8 ** -0.5,
+                          "use_flash": True}),
+        ("sdpa_causal", "scaled_dot_product_attention",
+         {"Q": _f(r, 2, 2, 10, 8, scale=0.5),
+          "K": _f(r, 2, 2, 10, 8, scale=0.5),
+          "V": _f(r, 2, 2, 10, 8, scale=0.5)},
+         ["Out", "Lse"], {"causal": True, "scale": 8 ** -0.5,
+                          "use_flash": True}),
+    ]
+
+
+def _grad_program_dict(op_type, inputs, out_slots, attrs):
+    """One op, then ``loss = reduce_sum(out * cot)`` with the cotangent
+    ``cot`` a feed: the input grads are the op's vjp at ``cot``."""
+    d = _op_dict(op_type, inputs, out_slots, attrs)
+    block = d["blocks"][0]
+    for v in block["vars"]:
+        v["is_data"] = True
+        v["stop_gradient"] = not v["dtype"].startswith("float")
+    first = f"out_{out_slots[0]}"
+    block["vars"] += [
+        {"name": "cot", "shape": None, "dtype": "float32", "is_data": True,
+         "stop_gradient": True},
+        {"name": "prod", "shape": None, "dtype": "float32"},
+        {"name": "loss", "shape": [1], "dtype": "float32"}]
+    block["ops"] += [
+        {"type": "elementwise_mul", "inputs": {"X": [first], "Y": ["cot"]},
+         "outputs": {"Out": ["prod"]}, "attrs": {"axis": -1}},
+        {"type": "reduce_sum", "inputs": {"X": ["prod"]},
+         "outputs": {"Out": ["loss"]},
+         "attrs": {"dim": [0], "keep_dim": False, "reduce_all": True}}]
+    return d
+
+
+@pytest.mark.parametrize("case", _grad_cases(), ids=lambda c: c[0])
+def test_grad_matches_reference(case):
+    _, op_type, inputs, out_slots, attrs = case
+    d = _grad_program_dict(op_type, inputs, out_slots, attrs)
+    # the cotangent has the first output's shape: run the forward once
+    out_shape = _run_torch(_op_dict(op_type, inputs, out_slots, attrs),
+                           inputs)[f"out_{out_slots[0]}"].shape
+    feed = {f"in_{s}": a for s, a in inputs.items()}
+    feed["cot"] = _f(np.random.RandomState(5), *out_shape)
+    results = []
+    for pkg in (fluid, pt):
+        prog = pkg.Program.from_dict(d)
+        pkg.append_backward(prog.global_block().var("loss"))
+        grads = sorted(n for n in prog.global_block().vars
+                       if n.startswith("in_") and n.endswith("@GRAD"))
+        exe = pkg.Executor(pkg.CPUPlace())
+        vals = exe.run(prog, feed=feed, fetch_list=grads,
+                       scope=pkg.Scope())
+        results.append(dict(zip(grads, [np.asarray(v) for v in vals])))
+    want, got = results
+    assert set(got) == set(want) and want, sorted(want)
+    assert f"in_{next(iter(inputs))}@GRAD" in want
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        np.testing.assert_allclose(got[name], want[name], atol=TOL,
+                                   rtol=TOL, err_msg=name)
