@@ -21,27 +21,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``BF16_ATOL_SCALE`` times the output's RMS; see ``assert_matches``).
 3. Serving: export a seeded ``GenLongConfig`` bundle with the port, load
    ``GenPredictor`` on ``cuda:0`` and serve requests through
-   ``GenScheduler`` (continuous batching, paged KV decode).  Every stream
-   must complete, the scheduler must never crash, every greedy stream
-   must be token-identical to the port's own cache-free re-prefill, and
-   both kernels' launch counts over the run must equal what the run's
-   prefills and decode steps imply.
-4. Training, route A (composed attention, the bias-softmax kernels) and
-   route B (flash attention, the flash kernels): the Transformer-base
+   ``GenScheduler`` (continuous batching), once with the paged KV decode
+   (10 requests) and once with the dense decode (``paged=False``, 4
+   requests: its decode softmax takes a ``[S, 1, 1, L]`` row bias through
+   the bias-softmax kernel).  Every stream must complete, the scheduler
+   must never crash, every greedy stream must be token-identical to the
+   port's own cache-free re-prefill, and the kernels' launch counts over
+   the run must equal what the run's prefills and decode steps imply.
+4. Training, route A (composed attention, the bias-softmax kernels),
+   route B (streaming attention, the flash kernels) and route C
+   (single-pass attention, the ``smalls`` pair): the Transformer-base
    step of ``bench.py`` at full width and depth (d_model 512, 8 heads,
    d_inner 2048, 6 + 6 layers, vocab 10000), bf16 AMP, Adam lr 1e-4,
    dropout 0.1, through ``transformer()``, ``Adam.minimize`` and
    ``Executor.run`` on ``cuda:0``, a few steps on one fixed batch.  The
    loss must be finite and fall, and each of the route's kernels must
    launch exactly 18 times a step (6 encoder self, 6 decoder self and 6
-   cross attentions) while the other route's launch none.  Route A runs
-   S = 256 at B = 64 (``bench.py`` runs B = 256; cut for this script's
-   time limit), route B S = 2048 at B = 8 (the same 16384 tokens a step).
+   cross attentions) while every other kernel launches none.  Route A
+   runs S = 256 at B = 64 (``bench.py`` runs B = 256; cut for this
+   script's time limit), route B S = 2048 at B = 8, route C S = 512 at
+   B = 32 (each the same 16384 tokens a step).  Then the causal LM of
+   ``gen_lm_train_program`` (``GenLongConfig``) takes a few Adam steps:
+   a second model that trains through the bias-softmax kernels.
 5. Card against CPU: one step of the same program at full width and
    depth 1 + 1, float32, TF32 off, dropout 0, from one scope, on the card
    (kernels) and on the CPU (their plain versions), for each route; the
    losses and every parameter's grad (its first Adam moment) must agree
-   (``CARD_CPU_*``).
+   (``CARD_CPU_*``).  And every further optimizer (and ``noam_decay``
+   under ``Momentum``) takes three steps of a small fc program on the
+   card and on the CPU from one state: parameters and accumulators agree
+   to ``OPTIMIZER_TOL``.
 6. Report: a ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -291,11 +300,13 @@ def prefill_bias(T, p):
 TRAIN_HEADS, TRAIN_D = 8, 64
 ROUTE_A_B, ROUTE_A_S = 64, 256
 ROUTE_B_B, ROUTE_B_S = 8, 2048
+ROUTE_C_B, ROUTE_C_S = 32, 512
 
 
 def phase_softmax():
     """The bias-softmax forward against its plain version: the serving
-    prefill's causal planes ``[1, 2, T, T]`` in float32, and route A's
+    prefill's causal planes ``[1, 2, T, T]`` in float32, the dense decode
+    step's ``[8, 2, 1, 256]`` scores with a row bias, and route A's
     scores ``[64, 8, 256, 256]`` with a ``[64, 256]`` row bias (encoder
     self and cross attention) and with the decoder's ``[1, 256, 256]``
     causal plane, each in bfloat16 (what AMP hands it) and float32."""
@@ -308,6 +319,13 @@ def phase_softmax():
         x = torch.randn(1, 2, T, T, generator=g).cuda()
         cases[f"serving [1,2,{T},{T}] causal float32"] = (
             x, None, prefill_bias(T, max(1, T - 3)).cuda())
+    # the dense decode step: one query row a slot against the whole cache,
+    # masked by a [S, 1, 1, L] row bias (GenLongConfig: 8 slots, L = 256)
+    x = torch.randn(NUM_SLOTS, 2, 1, 256, generator=g).cuda()
+    live = torch.arange(256)[None, :] < torch.tensor(
+        [[0], [1], [16], [17], [100], [255], [256], [31]])
+    cases["dense decode [8,2,1,256] row float32"] = (
+        x, torch.where(live, 0.0, -1e9).cuda(), None)
     S = ROUTE_A_S
     shape = [ROUTE_A_B, TRAIN_HEADS, S, S]
     x = torch.randn(shape, generator=g).cuda()
@@ -527,6 +545,141 @@ def phase_flash():
     return worst, rows
 
 
+def phase_smalls():
+    """The single-pass pair against its plain versions: route C's
+    attention [32, 8, 512, 64], key-masked (encoder self, cross; a batch
+    row with every key off) and causal (decoder self), and causal with
+    the first key off (rows whose causal window is fully masked), each in
+    f32 and bf16; S = 1024 and a ragged S = 200.  Then route C's bf16 times beside the plain versions', SDPA's
+    forward and SDPA's backward (one call for dq, dk and dv, as the
+    backward kernel is), and the bound: the products the masks leave at
+    the bf16 tensor-core peak, each input read and output written once
+    (the backward's float32 dQ scratch is neither)."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import smalls_attention as sm
+    from paddle_tpu_torch.kernels.build import load_library
+    g = torch.Generator().manual_seed(SEED + 4)
+
+    # the rule's shared-memory sum is the kernel source's
+    smem = load_library(sm.SMALLS_FWD.source).smalls_fwd_smem_bytes
+    smem.restype = ctypes.c_long
+    for R, S, D, Dv in ((4, 512, 64, 64), (2, 1024, 64, 64),
+                        (1, 2000, 128, 96), (4, 200, 16, 128)):
+        if smem(R, S, D, Dv) != sm._fwd_smem_bytes(R, S, D, Dv):
+            raise AssertionError(
+                f"smalls: shared memory of R={R} S={S} D={D} Dv={Dv}: "
+                f"source {smem(R, S, D, Dv)}, rule "
+                f"{sm._fwd_smem_bytes(R, S, D, Dv)}")
+
+    def case(B, H, S, D, dtype, masked, first_key_off=False):
+        q, k, v = ((torch.randn(B, H, S, D, generator=g) * 0.5).to(dtype)
+                   .cuda() for _ in range(3))
+        do = torch.randn(B, H, S, D, generator=g).to(dtype).cuda()
+        mask = None
+        if masked or first_key_off:
+            mask = torch.ones(B, S)
+            if masked:
+                mask = (torch.rand(B, S, generator=g) > 0.2).float()
+                mask[0] = 0.0             # a row with every key masked
+            if first_key_off:
+                mask[:, 0] = 0.0
+            mask = mask.cuda()
+        return q, k, v, mask, do
+
+    worst = {"smalls_fwd": 0.0, "smalls_bwd": 0.0}
+    route_c = (ROUTE_C_B, TRAIN_HEADS, ROUTE_C_S, TRAIN_D)
+    cases = [(route_c, False, False), (route_c, True, False),
+             (route_c, True, True), ((4, 8, 1024, 64), True, False),
+             ((4, 8, 1024, 64), False, False), ((2, 4, 200, 64), True, True),
+             ((2, 4, 200, 64), False, False)]
+    for shape, causal, first_off in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, do = case(*shape, dtype, masked=not causal,
+                                     first_key_off=first_off)
+            scale = shape[3] ** -0.5
+            out, lse = sm.smalls_attention_fwd(q, k, v, mask, causal, scale)
+            grads = sm.smalls_attention_bwd(q, k, v, mask, out, lse, do,
+                                            causal, scale)
+            torch.cuda.synchronize()
+            ro, rl = sm.smalls_attention_fwd_reference(q, k, v, mask, causal,
+                                                       scale)
+            rgrads = sm.smalls_attention_bwd_reference(
+                q, k, v, mask, out, lse, do, causal, scale)
+            what = (f"smalls {list(shape)} {str(dtype)[6:]} "
+                    f"{'causal' if causal else 'key-masked'}"
+                    f"{', first key off' if first_off else ''}")
+            for n, a, b in (("out", out, ro), ("dq", grads[0], rgrads[0]),
+                            ("dk", grads[1], rgrads[1]),
+                            ("dv", grads[2], rgrads[2])):
+                assert_matches(a, b, f"{what} {n}")
+            torch.testing.assert_close(lse, rl, atol=F32_TOL, rtol=1e-6)
+            errs = {"smalls_fwd": max(max_err(out, ro), max_err(lse, rl)),
+                    "smalls_bwd": max(max_err(a, b)
+                                      for a, b in zip(grads, rgrads))}
+            for n, e in errs.items():
+                worst[n] = max(worst[n], e)
+            log(f"{what}: " + " ".join(f"{n}={e:.3e}"
+                                      for n, e in errs.items()))
+            del q, k, v, do, out, lse, grads, ro, rl, rgrads
+            torch.cuda.empty_cache()
+
+    rows = {}
+    B, H, S, D = route_c
+    for label, causal in (("causal", True), ("key-masked", False)):
+        q, k, v, mask, do = case(B, H, S, D, torch.bfloat16,
+                                 masked=not causal)
+        if mask is not None:
+            mask.fill_(1.0)           # the encoder's all-ones fake_batch mask
+        scale = D ** -0.5
+        out, lse = sm.smalls_attention_fwd(q, k, v, mask, causal, scale)
+        bwd_args = (q, k, v, mask, out, lse, do, causal, scale)
+        pairs = B * H * _pairs(S, S, causal)
+        el = 2                                    # bf16 bytes
+        mask_bytes = 0 if mask is None else 4 * B * S
+        nbytes = {"smalls_fwd": el * 4 * B * H * S * D + 4 * B * H * S * 2
+                  + mask_bytes,
+                  "smalls_bwd": el * 7 * B * H * S * D + 4 * B * H * S * 3
+                  + mask_bytes}
+        ops = {"smalls_fwd": pairs * 4 * D, "smalls_bwd": pairs * 10 * D}
+        it = dict(iters=20, warmup=3)
+        t_fwd = time_ms(lambda: sm.smalls_attention_fwd(
+            q, k, v, mask, causal, scale), **it)
+        t_bwd = time_ms(lambda: sm.smalls_attention_bwd(*bwd_args), **it)
+        dev = device_ms(lambda: sm.smalls_attention_bwd(*bwd_args),
+                        ("smalls_bwd_kernel",))["smalls_bwd_kernel"]
+        p_fwd = time_ms(lambda: sm.smalls_attention_fwd_reference(
+            q, k, v, mask, causal, scale), iters=5, warmup=1)
+        p_bwd = time_ms(lambda: sm.smalls_attention_bwd_reference(*bwd_args),
+                        iters=5, warmup=1)
+        attn_mask = None if mask is None else \
+            (mask > 0.5)[:, None, None, :].expand(B, 1, S, S)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=causal, scale=scale),
+            **it)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=attn_mask,
+                                            is_causal=causal, scale=scale)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), **it)
+        for n, ms, pl, lib in (("smalls_fwd", t_fwd, p_fwd, lib_fwd),
+                               ("smalls_bwd", t_bwd, p_bwd, lib_bwd)):
+            b, by = bound_ms(nbytes[n], ops[n], BF16_TC_OPS_PER_S)
+            rows[(n, label)] = dict(ms=ms, plain_ms=pl, library_ms=lib,
+                                    bound_ms=b, bound_by=by)
+            log(f"{n}[route C {label}, bf16 {[B, H, S, S, D]}] "
+                f"kernel_ms={ms:.5f} plain_ms={pl:.5f} library_ms={lib:.5f} "
+                f"(SDPA {'forward' if n == 'smalls_fwd' else 'backward'}) "
+                f"bound_ms={b:.6f} ({by})")
+        log(f"smalls backward[route C {label}] wrapper (delta + scratch + "
+            f"kernel) {t_bwd:.5f} ms by CUDA events, of which the kernel "
+            f"{dev:.5f} ms device time (torch.profiler)")
+        del q, k, v, do, out, lse, ql, kl, vl, ol
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: training through the port's entry points
 # ---------------------------------------------------------------------------
@@ -535,7 +688,8 @@ TRAIN_STEPS = 5
 #: per route: (batch, sequence length, kernels that must launch 18 a step)
 ROUTES = {"A": (ROUTE_A_B, ROUTE_A_S, ("bias_softmax", "bias_softmax_grad")),
           "B": (ROUTE_B_B, ROUTE_B_S, ("flash_fwd", "flash_dq",
-                                       "flash_dkdv"))}
+                                       "flash_dkdv")),
+          "C": (ROUTE_C_B, ROUTE_C_S, ("smalls_fwd", "smalls_bwd"))}
 
 
 def _transformer_program(pt, T, hp, B, S, amp):
@@ -624,7 +778,7 @@ def phase_train(route):
 CARD_CPU_LOSS_RTOL = 1e-5
 CARD_CPU_GRAD_RTOL = 2e-5
 CARD_CPU_KINK_GRAD_RTOL = 1e-3
-CARD_CPU = {"A": (2, ROUTE_A_S), "B": (1, ROUTE_B_S)}
+CARD_CPU = {"A": (2, ROUTE_A_S), "B": (1, ROUTE_B_S), "C": (1, ROUTE_C_S)}
 
 
 def phase_card_vs_cpu(route):
@@ -707,11 +861,145 @@ def phase_card_vs_cpu(route):
                 param_max=param_max, relu_kinks=kinks)
 
 
+#: each further optimizer on the card against the CPU: float32
+#: elementwise updates of a two-layer fc program, three steps from one
+#: state; the products of the forward and backward sum in different
+#: orders on the two devices
+OPTIMIZER_TOL = 1e-5
+OPTIMIZER_STEPS = 3
+
+
+def phase_optimizers():
+    """Every optimizer beside SGD and Adam (and ``noam_decay`` driving
+    ``Momentum`` through a ``Variable`` learning rate, and
+    ``ModelAverage`` beside SGD) takes ``OPTIMIZER_STEPS`` steps of a
+    small fc program on the card and on the CPU from one state; every
+    persistable variable (parameters, accumulators, the step counter)
+    must agree to ``OPTIMIZER_TOL``."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    O, L = pt.optimizer, pt.layers
+    makers = {
+        "Momentum": lambda: O.Momentum(0.01, momentum=0.9),
+        "Momentum(nesterov)": lambda: O.Momentum(0.01, momentum=0.9,
+                                                 use_nesterov=True),
+        "Adagrad": lambda: O.Adagrad(0.01),
+        "Adamax": lambda: O.Adamax(0.01),
+        "DecayedAdagrad": lambda: O.DecayedAdagrad(0.01),
+        "Adadelta": lambda: O.Adadelta(0.01),
+        "RMSProp": lambda: O.RMSProp(0.01, momentum=0.5),
+        "Ftrl": lambda: O.Ftrl(0.01, l1=0.01, l2=0.01),
+        "Momentum(noam_decay)": lambda: O.Momentum(L.noam_decay(64, 4),
+                                                   momentum=0.9),
+        "SGD + ModelAverage": lambda: O.SGD(0.01),
+    }
+    rng = np.random.RandomState(SEED % (2 ** 31))
+    feed = {"x": rng.randn(64, 32).astype("float32")}
+    worst = {}
+    for name, make in makers.items():
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            x = L.data(name="x", shape=[64, 32], dtype="float32",
+                       append_batch_size=False)
+            out = L.fc(L.fc(x, 64, act="relu"), 1)
+            loss = L.mean(out * out)
+            make().minimize(loss)
+            if "ModelAverage" in name:
+                O.ModelAverage(max_average_window=2)
+        cpu_scope = pt.Scope()
+        cpu = pt.Executor(pt.CPUPlace())
+        cpu.run(startup, scope=cpu_scope)
+        names = persistable_names(main)
+        card_scope = scope_from_numpy(
+            {n: to_numpy(cpu_scope.find_var(n)) for n in names}, None, main)
+        card = pt.Executor()
+        if card.device.type != "cuda":
+            raise AssertionError(f"Executor landed on {card.device}")
+        losses = []
+        for _ in range(OPTIMIZER_STEPS):
+            (a,) = cpu.run(main, feed=feed, fetch_list=[loss],
+                           scope=cpu_scope)
+            (b,) = card.run(main, feed=feed, fetch_list=[loss],
+                            scope=card_scope)
+            losses.append((float(a.reshape(())), float(b.reshape(()))))
+        err = 0.0
+        for n in names:
+            want = to_numpy(cpu_scope.find_var(n)).astype(np.float64)
+            got = to_numpy(card_scope.find_var(n)).astype(np.float64)
+            if card_scope.find_var(n).device.type != "cuda":
+                raise AssertionError(f"optimizers[{name}]: {n} left the card")
+            np.testing.assert_allclose(
+                got, want, rtol=OPTIMIZER_TOL, atol=OPTIMIZER_TOL,
+                err_msg=f"optimizers[{name}]: {n}")
+            err = max(err, float(np.abs(got - want).max()))
+        if not all(np.isfinite(l).all() for l in losses) or \
+                losses[-1][1] == losses[0][1]:
+            raise AssertionError(f"optimizers[{name}]: losses {losses}")
+        worst[name] = err
+        log(f"optimizers[{name}]: {len(names)} persistable variables, max "
+            f"abs diff card vs cpu {err:.3e} after {OPTIMIZER_STEPS} steps; "
+            f"card losses {[round(l[1], 6) for l in losses]}")
+    return worst
+
+
+GEN_TRAIN_B, GEN_TRAIN_T, GEN_TRAIN_STEPS = 8, 256, 4
+
+
+def phase_gen_lm_train():
+    """The causal LM of ``gen_lm_train_program`` at ``GenLongConfig`` takes
+    a few Adam steps on the card (float32): loss finite and falling, one
+    bias-softmax forward and backward a layer a step (its attention is
+    composed, masked by a ``[1, 1, T, T]`` causal plane)."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import gen_lm
+    from paddle_tpu_torch.models.gen_lm_long import GenLongConfig
+
+    hp = GenLongConfig()
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        cost, feeds = gen_lm.gen_lm_train_program(GEN_TRAIN_B, GEN_TRAIN_T,
+                                                  hp)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(cost)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED % (2 ** 31))
+    ids = rng.randint(0, hp.vocab_size, (GEN_TRAIN_B, GEN_TRAIN_T + 1))
+    feed = {"gen_ids": ids[:, :-1].astype("int32"),
+            "gen_labels": ids[:, 1:].astype("int32")}
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    losses = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                            scope=scope)[0].reshape(()))
+              for _ in range(GEN_TRAIN_STEPS)]
+    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    n = int(hp.n_layer) * GEN_TRAIN_STEPS
+    if launches != {"bias_softmax": n, "bias_softmax_grad": n}:
+        raise AssertionError(f"gen_lm train: launches {launches}, want {n} "
+                             f"of each bias-softmax kernel")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gen_lm train: losses {losses} not finite "
+                             f"and falling")
+    log(f"gen_lm train: B={GEN_TRAIN_B} T={GEN_TRAIN_T} feeds {feeds} "
+        f"losses {[round(x, 5) for x in losses]}; launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving through the port's entry points
 # ---------------------------------------------------------------------------
 
-def phase_serving():
+def phase_serving(paged=True):
+    """Serve requests through ``GenScheduler`` on the card and hold the
+    streams against the cache-free re-prefill: the paged decode (all of
+    ``PROMPT_LENS``) or, with ``paged=False``, the dense decode (every
+    third of them), whose decode step runs the bias-softmax kernel on a
+    ``[S, 1, 1, L]`` row bias and no paged-decode kernel."""
     import numpy as np
     import torch
     from paddle_tpu_torch.gen import GenPredictor, GenScheduler
@@ -721,17 +1009,21 @@ def phase_serving():
     from paddle_tpu_torch.models.gen_lm_long import GenLongConfig
 
     hp = GenLongConfig()
-    bundle = os.path.join(OUT_DIR, "gen_lm_long_bundle")
+    tag = "serving" if paged else "dense decode"
+    bundle = os.path.join(OUT_DIR, "gen_lm_long_bundle" if paged
+                          else "gen_lm_long_dense_bundle")
     t0 = time.perf_counter()
-    gen_lm.export_gen_model(bundle, hp, num_slots=NUM_SLOTS,
+    gen_lm.export_gen_model(bundle, hp, num_slots=NUM_SLOTS, paged=paged,
                             page_len=PAGE_LEN, seed=SEED)
     pred = GenPredictor(bundle)           # default place: cuda:0
-    if pred.device.type != "cuda":
-        raise AssertionError(f"GenPredictor landed on {pred.device}")
-    log(f"serving: exported and loaded GenLongConfig bundle in "
+    if pred.device.type != "cuda" or pred.paged != paged:
+        raise AssertionError(f"GenPredictor landed on {pred.device}, "
+                             f"paged={pred.paged}")
+    log(f"{tag}: exported and loaded GenLongConfig bundle in "
         f"{time.perf_counter() - t0:.2f}s (max_len={hp.max_len}, "
-        f"slots={NUM_SLOTS}, page_len={PAGE_LEN}, "
-        f"pages={pred.num_pages}, buckets={pred.page_buckets})")
+        f"slots={NUM_SLOTS}" + (
+            f", page_len={PAGE_LEN}, pages={pred.num_pages}, "
+            f"buckets={pred.page_buckets})" if paged else ", dense cache)"))
 
     # warm the path once (first CUDA calls, library handles), outside
     # the counted run
@@ -749,8 +1041,9 @@ def phase_serving():
 
     pred.decode_step = timed_decode
     rng = np.random.RandomState(SEED)
+    prompt_lens = PROMPT_LENS if paged else PROMPT_LENS[::3]
     prompts = [[int(t) for t in rng.randint(0, hp.vocab_size, n)]
-               for n in PROMPT_LENS]
+               for n in prompt_lens]
 
     pre0, dec0 = pred.prefills, pred.decode_steps
     for kern in ALL_KERNELS:
@@ -765,14 +1058,14 @@ def phase_serving():
         while True:
             ev = st.next_event(timeout=max(0.0, deadline - time.monotonic()))
             if ev is None:
-                raise AssertionError("serving: a stream timed out")
+                raise AssertionError(f"{tag}: a stream timed out")
             kind, value = ev
             if kind == "token":
                 toks.append(value)
             elif kind == "done":
                 break
             else:
-                raise AssertionError(f"serving: stream failed: {value!r}")
+                raise AssertionError(f"{tag}: stream failed: {value!r}")
         outs.append(toks)
     wall = time.perf_counter() - t0
     launches = {"bias_softmax": BIAS_SOFTMAX.launches,
@@ -786,24 +1079,27 @@ def phase_serving():
     sched.close()
 
     if failed is not None or crashes:
-        raise AssertionError(f"serving: scheduler failed={failed!r} "
+        raise AssertionError(f"{tag}: scheduler failed={failed!r} "
                              f"crashes={crashes}")
     bad = [st.error for st in streams if st.error is not None]
     if bad:
-        raise AssertionError(f"serving: failed streams {bad!r}")
+        raise AssertionError(f"{tag}: failed streams {bad!r}")
     if any(len(o) != MAX_NEW_TOKENS for o in outs):
-        raise AssertionError(f"serving: token counts "
+        raise AssertionError(f"{tag}: token counts "
                              f"{[len(o) for o in outs]}")
     n_layer = int(hp.n_layer)
-    want = {"bias_softmax": n_layer * prefills,
-            "paged_decode": n_layer * steps}
+    # a prefill runs one bias softmax a layer; a decode step one paged
+    # decode a layer, or (dense) one more bias softmax a layer
+    want = {"bias_softmax": n_layer * (prefills if paged
+                                       else prefills + steps),
+            "paged_decode": n_layer * steps if paged else 0}
     if prefills != len(prompts) or steps <= 0 or launches != want or \
             others:
         raise AssertionError(
-            f"serving: launches {launches} (and {others}) != expected {want} "
+            f"{tag}: launches {launches} (and {others}) != expected {want} "
             f"(prefills={prefills}, decode steps={steps})")
     tokens = sum(len(o) for o in outs)
-    log(f"serving: {len(prompts)} requests, prompt lens {list(PROMPT_LENS)},"
+    log(f"{tag}: {len(prompts)} requests, prompt lens {list(prompt_lens)},"
         f" {tokens} tokens in {wall:.3f}s = {tokens / wall:.1f} tokens/s; "
         f"{steps} decode steps, mean step {1e3 * np.mean(step_s):.3f} ms "
         f"(median {1e3 * np.median(step_s):.3f} ms); launches {launches}")
@@ -815,14 +1111,14 @@ def phase_serving():
             logits, _ = pred.prefill(seq)
             if logits.shape != (hp.vocab_size,) or \
                     not np.all(np.isfinite(logits)):
-                raise AssertionError("serving: bad prefill logits")
+                raise AssertionError(f"{tag}: bad prefill logits")
             ref = int(np.argmax(logits))
             if ref != tok:
                 raise AssertionError(
-                    f"serving: prompt of {len(prompt)} diverges from the "
+                    f"{tag}: prompt of {len(prompt)} diverges from the "
                     f"cache-free re-prefill at token {i}: {tok} != {ref}")
             seq.append(tok)
-    log(f"serving: all {len(prompts)} streams token-identical to the "
+    log(f"{tag}: all {len(prompts)} streams token-identical to the "
         f"cache-free re-prefill (max total length "
         f"{max(len(p) for p in prompts) + MAX_NEW_TOKENS} of "
         f"{hp.max_len})")
@@ -873,7 +1169,9 @@ def main():
                 log(f"  {src}: {line.strip()}")
 
     # the flash gate stays at its default (512): route A (S = 256) takes
-    # the composed attention, route B (S = 2048) the flash kernels
+    # the composed attention, routes B (S = 2048) and C (S = 512) the
+    # fused op, which runs the flash kernels on B and the single-pass
+    # pair on C (smalls_ok)
     os.environ.pop("PADDLE_TPU_FLASH_MIN_S", None)
     from paddle_tpu_torch.kernels import ALL_KERNELS
     errs, rows = {}, {}
@@ -891,13 +1189,22 @@ def main():
         # route B runs 12 key-masked (encoder self, cross) attentions a
         # step for 6 causal ones: the key-masked shape is the table's row
         rows[name] = flash_rows[(name, "key-masked")]
+    smalls_err, smalls_rows = phase_smalls()
+    for name in ("smalls_fwd", "smalls_bwd"):
+        errs[name] = smalls_err[name]
+        # route C, like route B: 12 key-masked attentions a step for 6
+        # causal ones
+        rows[name] = smalls_rows[(name, "key-masked")]
 
     by_path = {}
     by_path["serving"], serving = phase_serving()
+    by_path["dense_decode"], dense = phase_serving(paged=False)
     train = {}
-    for route in ("A", "B"):
+    for route in ROUTES:
         by_path[f"train_{route}"], train[route] = phase_train(route)
-    checks = {route: phase_card_vs_cpu(route) for route in ("A", "B")}
+    by_path["gen_lm_train"] = phase_gen_lm_train()
+    checks = {route: phase_card_vs_cpu(route) for route in ROUTES}
+    optimizers = phase_optimizers()
 
     kernels = []
     for k in ALL_KERNELS:
@@ -918,6 +1225,8 @@ def main():
                                  f"path")
     log(f"serving: tokens_per_s={serving['tokens_per_s']:.1f} "
         f"decode_step_ms={serving['decode_step_ms']:.3f}")
+    log(f"dense decode: tokens_per_s={dense['tokens_per_s']:.1f} "
+        f"decode_step_ms={dense['decode_step_ms']:.3f}")
     for route, t in train.items():
         log(f"train[{route}]: step_ms={t['step_ms']:.2f} "
             f"tokens_per_s={t['tokens_per_s']:.1f} "
@@ -926,6 +1235,8 @@ def main():
         log(f"card-vs-cpu[{route}]: loss_rel={c['loss_rel']:.3e} "
             f"grad_rel={c['grad_rel']:.3e} param_max={c['param_max']:.3e} "
             f"relu_kinks={c['relu_kinks']}")
+    log(f"optimizers: max abs diff card vs cpu "
+        f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

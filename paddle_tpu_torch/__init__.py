@@ -22,9 +22,15 @@ from paddle_tpu_torch import initializer
 from paddle_tpu_torch.param_attr import ParamAttr
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import optimizer
-from paddle_tpu_torch.optimizer import SGD, Adam, SGDOptimizer, AdamOptimizer
+from paddle_tpu_torch.optimizer import (
+    SGD, Momentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
+    Ftrl, SGDOptimizer, MomentumOptimizer, AdagradOptimizer, AdamOptimizer,
+    AdamaxOptimizer, DecayedAdagradOptimizer, AdadeltaOptimizer,
+    RMSPropOptimizer, FtrlOptimizer, ModelAverage,
+)
 from paddle_tpu_torch import regularizer
 from paddle_tpu_torch import clip
+from paddle_tpu_torch import nets
 from paddle_tpu_torch import io
 from paddle_tpu_torch.io import (
     save_vars, save_persistables, load_vars, load_persistables,

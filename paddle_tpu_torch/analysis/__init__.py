@@ -1,6 +1,8 @@
 """Program IR verifier: the structural pass that program rewriters run
-after they mutate a program (the part of ``paddle_tpu.analysis`` the
-training slice uses)."""
+after they mutate a program, and the shared op-metadata registry
+(``opmeta``): the parts of ``paddle_tpu.analysis`` ported so far."""
+
+from paddle_tpu_torch.analysis import opmeta  # noqa: F401
 
 from paddle_tpu_torch.analysis.analyzer import (  # noqa: F401
     verify_program, verify_transpiled)

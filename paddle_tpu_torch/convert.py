@@ -4,8 +4,12 @@ Weights and state cross between the JAX package and the port as numpy
 arrays (a bundle's ``__params__`` records, or a JAX scope read out with
 ``np.asarray``).  :func:`scope_from_numpy` turns such a name -> array
 map into a port :class:`~paddle_tpu_torch.scope.Scope` on a place's
-device: a whole training scope (parameters, the learning rate, Adam's
-``moment1_*`` / ``moment2_*`` / ``beta*_pow_acc_*``) so that both
+device: a whole training scope (parameters, the learning rate, every
+optimizer's accumulators by name: ``moment1_*`` / ``moment2_*`` /
+``beta*_pow_acc_*``, ``velocity_*``, ``moment_*``, ``inf_norm_*``,
+``_avg_squared_*``, ``mean_square_*``, ``squared_*`` / ``linear_*``,
+ModelAverage's ``@SUM_ACC`` / ``@CNT_ACC``, and the int64 step counter
+``@LR_DECAY_COUNTER@``, cast to its declared dtype) so that both
 packages take the same steps from it.  bfloat16 arrays (numpy's
 ``ml_dtypes`` type, as JAX hands them out) go through ``torch.bfloat16``
 bit for bit.

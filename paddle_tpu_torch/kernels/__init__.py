@@ -11,15 +11,21 @@ from paddle_tpu_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_fwd_reference)
 from paddle_tpu_torch.kernels.paged_decode import (  # noqa: F401
     PAGED_DECODE, paged_attention, paged_attention_reference)
+from paddle_tpu_torch.kernels.smalls_attention import (  # noqa: F401
+    SMALLS_BWD, SMALLS_FWD, smalls_attention_bwd,
+    smalls_attention_bwd_reference, smalls_attention_fwd,
+    smalls_attention_fwd_reference, smalls_ok)
 
 #: every kernel of the port, in the order of the TPU kernel table
-ALL_KERNELS = (FLASH_FWD, FLASH_DKDV, FLASH_DQ, BIAS_SOFTMAX,
-               BIAS_SOFTMAX_GRAD, PAGED_DECODE)
+ALL_KERNELS = (FLASH_FWD, FLASH_DKDV, FLASH_DQ, SMALLS_FWD, SMALLS_BWD,
+               BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, PAGED_DECODE)
 
 __all__ = ["ALL_KERNELS", "BIAS_SOFTMAX", "BIAS_SOFTMAX_GRAD", "FLASH_DKDV",
-           "FLASH_DQ", "FLASH_FWD", "PAGED_DECODE", "bias_softmax",
-           "bias_softmax_grad", "bias_softmax_grad_reference",
+           "FLASH_DQ", "FLASH_FWD", "PAGED_DECODE", "SMALLS_BWD", "SMALLS_FWD",
+           "bias_softmax", "bias_softmax_grad", "bias_softmax_grad_reference",
            "bias_softmax_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "flash_attention_fwd",
            "flash_attention_fwd_reference", "paged_attention",
-           "paged_attention_reference"]
+           "paged_attention_reference", "smalls_attention_bwd",
+           "smalls_attention_bwd_reference", "smalls_attention_fwd",
+           "smalls_attention_fwd_reference", "smalls_ok"]

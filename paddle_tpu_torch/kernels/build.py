@@ -4,10 +4,10 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library that
 ``ctypes`` loads: no PyTorch headers, so a build takes seconds.  The
 libraries go to ``_build/`` beside this file, named by a hash of the
-source and the flags, so a changed source rebuilds and an unchanged one
-is reused.  :func:`build_all` starts one ``nvcc`` per source, all at
-once.  Nothing here runs at import: the first CUDA launch of a kernel
-builds (or finds) its library.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source rebuilds and an unchanged one is reused.  :func:`build_all`
+starts one ``nvcc`` per source, all at once.  Nothing here runs at
+import: the first CUDA launch of a kernel builds (or finds) its library.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import subprocess
 import threading
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "CudaKernel",
-           "find_nvcc", "build_all", "library_path"]
+           "find_nvcc", "build_all", "library_path", "load_library"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -28,7 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port, by file name under ``csrc/``
-SOURCES = ("paged_decode.cu", "bias_softmax.cu", "flash_attention.cu")
+SOURCES = ("paged_decode.cu", "bias_softmax.cu", "flash_attention.cu",
+           "smalls_attention.cu")
 
 _lock = threading.Lock()
 _libs = {}
@@ -45,10 +46,13 @@ def find_nvcc():
 
 def library_path(source):
     """Where the library of ``source`` (a file name under ``csrc/``) is
-    built: keyed by a hash of the source text and the flags."""
+    built: keyed by a hash of the source text, of the headers beside it
+    (``csrc/*.cuh``) and of the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
@@ -88,7 +92,8 @@ def build_all(sources=SOURCES):
     return logs
 
 
-def _load(source):
+def load_library(source):
+    """The ``ctypes`` library of ``source``, built first if missing."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
@@ -116,7 +121,7 @@ class CudaKernel:
     def _entry(self, symbol, argtypes):
         hit = self._entries.get(symbol)
         if hit is None:
-            lib = _load(self.source)
+            lib = load_library(self.source)
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -37,7 +37,8 @@
 //     64-key tiles; dK/dV: one block per (b, h, 64-key tile), looping
 //     over the 64-query tiles.
 // Tiles are staged through shared memory in float32 (padded rows, no bank
-// conflicts).  256 threads form a 16 x 16 grid: thread (ty, tx) owns the
+// conflicts; the helpers are in attention_tiles.cuh, shared with the
+// single-pass kernels).  256 threads form a 16 x 16 grid: thread (ty, tx) owns the
 // rows ty + 16 i (i < 4) of the tile and the columns tx + 16 j of the
 // score tile (j < 4) and of the output (j < 8, so D <= 128).  Row
 // statistics are reduced across the 16 threads of a row with warp
@@ -52,112 +53,11 @@
 // (probability exactly 0) and a query past Sq is computed but never
 // written, so there is no tiling gate: any Sq, Sk and D, Dv <= 128.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // query and key tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxD = 128;     // head width limit (8 output columns a thread)
-constexpr float kNegInf = -1e9f;
 constexpr float kMInit = -1e30f;
-// a row max below this has seen only masked keys (see the causal skip)
-constexpr float kAllMasked = -5e8f;
-
-__device__ __forceinline__ float load_f(const float* p, long i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16(v);
-}
-
-// Reduce over the 16 lanes that share a row (tx = lane % 16).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// rows [r0, r0 + kTile) of a [S, width] matrix into shared memory as
-// float32 with a row stride of width + 1; rows past S are zero
-template <typename T>
-__device__ void load_tile(float* dst, const T* src, int r0, int S,
-                          int width) {
-  const int ld = width + 1;
-  for (int idx = threadIdx.x; idx < kTile * width; idx += kThreads) {
-    const int r = idx / width, c = idx % width;
-    const int gr = r0 + r;
-    dst[r * ld + c] = gr < S ? load_f(src, (long)gr * width + c) : 0.f;
-  }
-}
-
-// additive key bias of a key tile: 0 or (1 - mask) * NEG_INF for a real
-// key, -inf past Sk
-__device__ void load_key_bias(float* dst, const float* mask, int k0,
-                              int Sk) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int kc = k0 + j;
-    dst[j] = kc >= Sk ? -INFINITY
-                      : (mask ? (1.f - mask[kc]) * kNegInf : 0.f);
-  }
-}
-
-// acc[i][j] += sum_d A[row_i][d] * B[col_j][d] for the 4 x 4 score
-// micro-tile (rows ty + 16 i of A, rows tx + 16 j of B, both [64][w + 1])
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
-                                         const float* Bm, int width, int ty,
-                                         int tx) {
-  const int ld = width + 1;
-  for (int d = 0; d < width; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][jd] += sum_t P[row_i][t] * V[t][tx + 16 jd] over the tile, with P
-// [64][65] and V [64][width + 1]
-__device__ __forceinline__ void tile_mul(float (&acc)[4][8], const float* P,
-                                         const float* V, int width, int ty,
-                                         int tx) {
-  const int ld = width + 1;
-  for (int t = 0; t < kTile; ++t) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * (kTile + 1) + t];
-#pragma unroll
-    for (int jd = 0; jd < 8; ++jd) {
-      const int c = tx + 16 * jd;
-      if (c < width) {
-        const float vv = V[t * ld + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jd] = fmaf(p[i], vv, acc[i][jd]);
-      }
-    }
-  }
-}
 
 size_t fwd_smem(int D, int Dv) {
   return sizeof(float) * ((size_t)kTile * (D + 1) * 2 +
@@ -242,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jd = 0; jd < 8; ++jd) acc[i][jd] *= alpha;
     }
     __syncthreads();
-    tile_mul(acc, Ps, Vs, Dv, ty, tx);
+    tile_mul(acc, Ps, kTile + 1, Vs, Dv, ty, tx);
   }
 
 #pragma unroll
@@ -335,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    tile_mul(acc, Ss, Ks, D, ty, tx);
+    tile_mul(acc, Ss, kTile + 1, Ks, D, ty, tx);
   }
 
 #pragma unroll
@@ -437,8 +337,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    tile_mul(adv, Ps, dOs, Dv, ty, tx);  // dV += p^T . dO
-    tile_mul(adk, Ss, Qs, D, ty, tx);    // dK += dS^T . q
+    tile_mul(adv, Ps, kTile + 1, dOs, Dv, ty, tx);  // dV += p^T . dO
+    tile_mul(adk, Ss, kTile + 1, Qs, D, ty, tx);    // dK += dS^T . q
   }
 
 #pragma unroll

@@ -123,37 +123,38 @@ def flash_attention_bwd_reference(q, k, v, k_mask, out, lse, dout,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, k_mask, others=()):
+def _check(q, k, v, k_mask, others=(), what="flash attention"):
     """Validate the kernels' arguments; returns ``(dtype tag, mask
-    pointer or None, (B, H, Sq, Sk, D, Dv))``."""
+    pointer or None, (B, H, Sq, Sk, D, Dv))``.  ``what`` names the
+    caller in the messages."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash attention: no kernel for device {q.device}")
+        raise ValueError(f"{what}: no kernel for device {q.device}")
     for name, t in (("k", k), ("v", v)) + tuple(others):
         if t.device != q.device:
-            raise ValueError(f"flash attention: {name} on {t.device}, q on "
+            raise ValueError(f"{what}: {name} on {t.device}, q on "
                              f"{q.device}")
     tag = _TAG.get(q.dtype)
     if tag is None or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash attention: q, k, v must share float32 or "
+        raise TypeError(f"{what}: q, k, v must share float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash attention: q, k, v must be [B, H, S, D]")
+        raise ValueError(f"{what}: q, k, v must be [B, H, S, D]")
     B, H, Sq, D = q.shape
     Sk, Dv = k.shape[2], v.shape[3]
     if tuple(k.shape) != (B, H, Sk, D) or tuple(v.shape[:3]) != (B, H, Sk):
-        raise ValueError(f"flash attention: shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if D > MAX_HEAD or Dv > MAX_HEAD:
-        raise ValueError(f"flash attention: head widths {D}, {Dv} exceed "
+        raise ValueError(f"{what}: head widths {D}, {Dv} exceed "
                          f"the kernels' {MAX_HEAD}")
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(others):
         if not t.is_contiguous():
-            raise ValueError(f"flash attention: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     mask = None
     if k_mask is not None:
         if tuple(k_mask.shape) != (B, Sk) or k_mask.dtype != torch.float32 \
                 or not k_mask.is_contiguous() or k_mask.device != q.device:
-            raise ValueError(f"flash attention: k_mask must be a contiguous "
+            raise ValueError(f"{what}: k_mask must be a contiguous "
                              f"float32 [{B}, {Sk}] tensor on {q.device}")
         mask = k_mask.data_ptr()
     return tag, mask, (B, H, Sq, Sk, D, Dv)

@@ -1,11 +1,13 @@
 """Layers DSL (reference ``python/paddle/fluid/layers/``): the parts the
-serving slice builds its programs with."""
+ported slices build their programs with."""
 
 from paddle_tpu_torch.layers import math_op_patch  # applies Variable overloading
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.ops import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
+from paddle_tpu_torch.layers.learning_rate_scheduler import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import nn  # noqa: F401
 from paddle_tpu_torch.layers import tensor  # noqa: F401
 from paddle_tpu_torch.layers import ops  # noqa: F401

@@ -32,7 +32,8 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = ["GenConfig", "build_prefill_program", "build_decode_program",
-           "build_paged_decode_program", "export_gen_model",
+           "build_paged_decode_program", "gen_lm_train_program",
+           "export_gen_model",
            "META_FILENAME", "PAGE_LEN_DEFAULT", "cache_var_names",
            "paged_cache_var_names", "default_page_buckets"]
 
@@ -325,6 +326,40 @@ def build_paged_decode_program(hp, num_slots, page_len, num_pages):
                        param_attr=_pa("genlm_logits.w"))
     feeds = ["gen_token", "gen_pos", "gen_page_table", "gen_lens"]
     return feeds, [logits]
+
+
+# ---------------------------------------------------------------------------
+# training graph (teacher-forced)
+# ---------------------------------------------------------------------------
+
+def gen_lm_train_program(batch_size, seq_len, hp: GenConfig = None):
+    """Causal-LM training forward in the current program guard; returns
+    ``(avg_cost, feed_names)``.  Feeds: ``gen_ids`` / ``gen_labels``
+    [B, T] int32."""
+    hp = hp or GenConfig()
+    B, T = int(batch_size), int(seq_len)
+
+    ids = layers.data(name="gen_ids", shape=[B, T], dtype="int32",
+                      append_batch_size=False)
+    labels = layers.data(name="gen_labels", shape=[B, T], dtype="int32",
+                         append_batch_size=False)
+    pos_np = np.tile(np.arange(T, dtype="int32"), (B, 1))
+    pos = layers.assign(pos_np)
+    tri = np.triu(np.full((T, T), -1e9, dtype="float32"), 1)
+    bias = layers.assign(tri.reshape(1, 1, T, T))
+
+    x = _embed(ids, pos, hp)
+    for i in range(hp.n_layer):
+        q, k, v = _qkv(x, hp, i)
+        attn = _attend(q, k, v, bias, hp, i, q_len=T, k_len=T)
+        x = _block_tail(x, attn, hp, i)
+    logits = layers.fc(x, hp.vocab_size, num_flatten_dims=2,
+                       bias_attr=False, param_attr=_pa("genlm_logits.w"))
+    logits2d = layers.reshape(logits, shape=[B * T, hp.vocab_size])
+    labels2d = layers.reshape(labels, shape=[B * T, 1])
+    cost = layers.softmax_with_cross_entropy(logits2d, labels2d)
+    avg_cost = layers.mean(x=cost)
+    return avg_cost, ["gen_ids", "gen_labels"]
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     math_ops,
     tensor_ops,
     activation_ops,
+    logic_ops,
     nn_ops,
     persist_ops,
     attention_ops,

@@ -9,11 +9,22 @@ import torch
 from paddle_tpu_torch.ops.registry import register_op, infer_shape_unary
 
 
-@register_op("relu", infer_shape=infer_shape_unary())
-def relu_lower(ctx):
-    ctx.set_output("Out", torch.relu(ctx.input("X")))
+def _unary(name, fn):
+    @register_op(name, infer_shape=infer_shape_unary())
+    def lower(ctx):
+        ctx.set_output("Out", fn(ctx.input("X")))
+    lower.__name__ = name + "_lower"
+    return lower
 
 
-@register_op("sqrt", infer_shape=infer_shape_unary())
-def sqrt_lower(ctx):
-    ctx.set_output("Out", torch.sqrt(ctx.input("X")))
+_unary("sigmoid", torch.sigmoid)
+_unary("exp", torch.exp)
+_unary("relu", torch.relu)
+_unary("sqrt", torch.sqrt)
+_unary("ceil", torch.ceil)
+_unary("floor", torch.floor)
+
+
+@register_op("pow", infer_shape=infer_shape_unary())
+def pow_lower(ctx):
+    ctx.set_output("Out", torch.pow(ctx.input("X"), ctx.attr("factor", 1.0)))

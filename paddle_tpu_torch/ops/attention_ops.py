@@ -2,11 +2,14 @@
 ``paddle_tpu.ops.attention_ops``).
 
 ``scaled_dot_product_attention``: fused attention over [B, H, S, D]
-tensors through the flash kernels (:mod:`paddle_tpu_torch.kernels.
-flash_attention`), saving ``Out`` and the ``(m, log l)`` residual
-``Lse`` that its grad op reuses.  On the card every shape runs the
-streaming kernels (the single-pass small-S kernels of the JAX package
-are not ported yet); on the CPU their plain versions.
+tensors, saving ``Out`` and the ``(m, log l)`` residual ``Lse`` that its
+grad op reuses.  As in the reference (``_pallas_attention`` and
+``_pallas_attention_bwd``) the forward and the grad pick their kernels
+by one rule on the same shapes (:func:`attention_kernels`):
+self-attention shapes up to a measured length take the single-pass pair
+(:mod:`paddle_tpu_torch.kernels.smalls_attention`), every other shape
+the streaming flash kernels (:mod:`paddle_tpu_torch.kernels.
+flash_attention`); on the CPU their plain versions.
 
 ``paged_attention``: decode attention over the gen model's paged KV
 pool.  The pool lives as ``[num_pages, page_len, H*D]`` persistable tensors plus
@@ -23,6 +26,9 @@ import torch
 from paddle_tpu_torch.kernels.flash_attention import (flash_attention_bwd,
                                                       flash_attention_fwd)
 from paddle_tpu_torch.kernels.paged_decode import paged_attention
+from paddle_tpu_torch.kernels.smalls_attention import (smalls_attention_bwd,
+                                                       smalls_attention_fwd,
+                                                       smalls_ok)
 from paddle_tpu_torch.ops.registry import register_op, ShapeInferenceSkip
 
 
@@ -46,6 +52,17 @@ def _infer_attn(op, block):
         lse.dtype = "float32"
 
 
+def attention_kernels(q, k, v):
+    """``(forward, backward)`` wrappers for attention over these q, k, v
+    [B, H, S, D]: the single-pass pair where :func:`smalls_ok` admits the
+    shape, else the flash kernels.  Both lowerings call this on the same
+    tensors, so a forward's residual is read by the matching backward."""
+    B, H, Sq, D = q.shape
+    if smalls_ok(B * H, Sq, k.shape[2], D, v.shape[3]):
+        return smalls_attention_fwd, smalls_attention_bwd
+    return flash_attention_fwd, flash_attention_bwd
+
+
 def _kernel_mask(k_mask):
     """The key mask as the kernels take it (contiguous float32), or None."""
     return None if k_mask is None else k_mask.float().contiguous()
@@ -53,10 +70,10 @@ def _kernel_mask(k_mask):
 
 def _attn_grad_lower(ctx):
     """dQ, dK, dV from the forward's saved ``Out`` and ``Lse`` through the
-    flash backward kernels (no forward recompute).  As in the reference,
-    under AMP q/k/v are cast as the forward cast them, the incoming grad
-    is cast to q's dtype, and each grad is cast back to its primal's
-    dtype."""
+    backward kernels of the family the forward ran (no forward
+    recompute).  As in the reference, under AMP q/k/v are cast as the
+    forward cast them, the incoming grad is cast to q's dtype, and each
+    grad is cast back to its primal's dtype."""
     op = ctx.op
     qe = ctx.env[op.input("Q")[0]]
     ke = ctx.env[op.input("K")[0]]
@@ -73,7 +90,8 @@ def _attn_grad_lower(ctx):
     o = ctx.env[op.input("Out")[0]]
     lse = ctx.env[op.input("Lse")[0]]
     g = ctx.env[op.input("Out@GRAD")[0]]
-    dq, dk, dv = flash_attention_bwd(
+    _, attention_bwd = attention_kernels(q, k, v)
+    dq, dk, dv = attention_bwd(
         q, k, v, _kernel_mask(k_mask), o.contiguous(), lse.contiguous(),
         g.to(q.dtype).contiguous(), bool(ctx.attr("causal", False)),
         float(ctx.attr("scale", 1.0)))
@@ -92,10 +110,12 @@ def sdpa_lower(ctx):
     Out: [B, H, Sq, Dv] in Q's dtype; Lse: [B, H, Sq, 2] float32.
 
     attrs: causal (bool), scale (float), use_flash (bool; the port has
-    only the flash route, so the attr is kept for the IR and not read).
+    no unfused route behind this op, so the attr is kept for the IR and
+    not read).
     """
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
-    out, lse = flash_attention_fwd(
+    attention_fwd, _ = attention_kernels(q, k, v)
+    out, lse = attention_fwd(
         q, k, v, _kernel_mask(ctx.input("KMask")),
         bool(ctx.attr("causal", False)), float(ctx.attr("scale", 1.0)))
     ctx.set_output("Out", out)

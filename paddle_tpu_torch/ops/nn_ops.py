@@ -1,7 +1,8 @@
 """Normalisation, dropout and softmax (the port's counterpart of the
 ``layer_norm``, ``dropout`` and ``softmax`` lowerings of
 ``paddle_tpu.ops.nn_ops``; reference ``layer_norm_op.cc``,
-``dropout_op.cc``, ``softmax_op.cc``)."""
+``dropout_op.cc``, ``softmax_op.cc``), and the shape inference of
+``conv2d``, ``pool2d`` and ``batch_norm``."""
 
 from __future__ import annotations
 
@@ -10,8 +11,8 @@ import torch
 from paddle_tpu_torch.kernels.bias_softmax import (bias_softmax,
                                                    bias_softmax_grad)
 from paddle_tpu_torch.ops.registry import (
-    auto_vjp_grad_lower, infer_shape_unary, register_grad_lower,
-    register_op)
+    ShapeInferenceSkip, auto_vjp_grad_lower, infer_shape_unary,
+    register_grad_lower, register_op, register_shape_only)
 
 
 # ---------------------------------------------------------------------------
@@ -182,3 +183,81 @@ def softmax_grad_lower(ctx):
     dy = ctx.env[dy_names[0]]
     ctx.outputs[gnames[0]] = bias_softmax_grad(y.contiguous(),
                                                dy.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# conv2d / pool2d / batch_norm: shape inference only, so that programs
+# holding them (``nets.simple_img_conv_pool``, ``nets.img_conv_group``)
+# build the reference's IR; their lowerings come with the conv models
+# ---------------------------------------------------------------------------
+
+def _conv_out_size(i, k, s, p, d=1):
+    if i == -1:
+        return -1
+    ke = d * (k - 1) + 1
+    return (i + 2 * p - ke) // s + 1
+
+
+def _infer_conv2d(op, block):
+    x = block.var(op.input("Input")[0])
+    w = block.var(op.input("Filter")[0])
+    if x.shape is None or w.shape is None:
+        raise ShapeInferenceSkip()
+    strides = op.attr("strides", [1, 1])
+    paddings = op.attr("paddings", [0, 0])
+    dilations = op.attr("dilations", [1, 1])
+    n, _, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    out = block.var(op.output("Output")[0])
+    out.shape = (n, oc,
+                 _conv_out_size(h, kh, strides[0], paddings[0], dilations[0]),
+                 _conv_out_size(wd, kw, strides[1], paddings[1], dilations[1]))
+    out.dtype = x.dtype
+
+
+def _infer_pool2d(op, block):
+    x = block.var(op.input("X")[0])
+    if x.shape is None:
+        raise ShapeInferenceSkip()
+    ksize = op.attr("ksize")
+    strides = op.attr("strides", [1, 1])
+    paddings = op.attr("paddings", [0, 0])
+    gp = op.attr("global_pooling", False)
+    ceil_mode = op.attr("ceil_mode", False)
+    n, c, h, w = x.shape
+    if gp:
+        oh = ow = 1
+    else:
+        def osize(i, k, s, p):
+            if i == -1:
+                return -1
+            if ceil_mode:
+                return (i - k + 2 * p + s - 1) // s + 1
+            return (i - k + 2 * p) // s + 1
+        oh = osize(h, ksize[0], strides[0], paddings[0])
+        ow = osize(w, ksize[1], strides[1], paddings[1])
+    out = block.var(op.output("Out")[0])
+    out.shape = (n, c, oh, ow)
+    out.dtype = x.dtype
+
+
+def _infer_batch_norm(op, block):
+    x = block.var(op.input("X")[0])
+    y = block.var(op.output("Y")[0])
+    y.shape = x.shape
+    y.dtype = x.dtype
+    if x.shape is not None:
+        layout = op.attr("data_layout", "NCHW")
+        c = x.shape[1] if layout == "NCHW" else x.shape[-1]
+        for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+            names = op.output(slot)
+            if names:
+                v = block.var(names[0])
+                v.shape = (c,)
+                v.dtype = "float32"
+
+
+register_shape_only("conv2d", _infer_conv2d, amp_cast=("Input", "Filter"))
+register_shape_only("pool2d", _infer_pool2d)
+register_shape_only("batch_norm", _infer_batch_norm,
+                    no_grad_inputs=("Mean", "Variance"))

@@ -1,13 +1,16 @@
-"""Optimizer update ops (the port of ``sgd`` and ``adam`` in
-``paddle_tpu.ops.optimizer_ops``; reference
-``paddle/fluid/operators/{sgd,adam}_op``).
+"""Optimizer update ops (the port of ``paddle_tpu.ops.optimizer_ops``;
+reference ``paddle/fluid/operators/{sgd,momentum,adam,adamax,adagrad,
+adadelta,decayed_adagrad,rmsprop,ftrl,proximal_gd,proximal_adagrad}_op``
+and ``average_accumulates_op``).
 
 Each op consumes Param/Grad/state and emits ParamOut/state-out bound to
 the SAME variable names, so the executor's persistable write-back gives
-in-place update semantics.  As in the JAX package, the adam op emits
-Beta1PowOut/Beta2PowOut itself (the reference appends separate ``scale``
-ops for them).  Dense grads only: SelectedRows grads wait for the sparse
-subsystem.  The other optimizers' ops wait with them.
+in-place update semantics.  As in the JAX package, the adam and adamax
+ops emit Beta1PowOut/Beta2PowOut themselves (the reference appends
+separate ``scale`` ops for them), and every op follows that package's
+arithmetic step by step.  Dense grads only: the SelectedRows branches of
+``sgd``, ``adam`` and ``adagrad`` wait for ``selected_rows.py`` and raise
+until then (:func:`_dense_grad`).
 """
 
 from __future__ import annotations
@@ -18,9 +21,16 @@ from paddle_tpu_torch.ops.registry import register_op
 
 
 def _infer_param_out(op, block):
-    for in_slot, out_slot in (("Param", "ParamOut"),
+    for in_slot, out_slot in (("Param", "ParamOut"), ("Moment", "MomentOut"),
                               ("Moment1", "Moment1Out"),
                               ("Moment2", "Moment2Out"),
+                              ("Velocity", "VelocityOut"),
+                              ("InfNorm", "InfNormOut"),
+                              ("AvgSquaredGrad", "AvgSquaredGradOut"),
+                              ("AvgSquaredUpdate", "AvgSquaredUpdateOut"),
+                              ("MeanSquare", "MeanSquareOut"),
+                              ("SquaredAccumulator", "SquaredAccumOut"),
+                              ("LinearAccumulator", "LinearAccumOut"),
                               ("Beta1Pow", "Beta1PowOut"),
                               ("Beta2Pow", "Beta2PowOut")):
         ins, outs = op.input(in_slot), op.output(out_slot)
@@ -34,13 +44,45 @@ def _infer_param_out(op, block):
                 pass
 
 
+def _dense_grad(ctx):
+    """The op's ``Grad`` as a dense tensor.  The reference's ``sgd``,
+    ``adam`` and ``adagrad`` also take a SelectedRows grad (rows + values
+    of a sparse embedding grad); the port has no such type yet."""
+    g = ctx.input("Grad")
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            f"op {ctx.op.type!r}: Grad is a {type(g).__name__}, not a dense "
+            f"tensor; the SelectedRows branch of this update waits for "
+            f"paddle_tpu_torch/selected_rows.py")
+    return g
+
+
+def _lr(ctx, dtype=None):
+    lr = ctx.input("LearningRate").reshape(())
+    return lr if dtype is None else lr.to(dtype)
+
+
 @register_op("sgd", infer_shape=_infer_param_out, no_gradient=True,
              stateful_outputs=("ParamOut",))
 def sgd_lower(ctx):
-    p = ctx.input("Param")
-    g = ctx.input("Grad")
-    lr = ctx.input("LearningRate").reshape(()).to(p.dtype)
-    ctx.set_output("ParamOut", p - lr * g)
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    ctx.set_output("ParamOut", p - _lr(ctx, p.dtype) * g)
+
+
+@register_op("momentum", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut", "VelocityOut"))
+def momentum_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    v = ctx.input("Velocity")
+    mu = ctx.attr("mu")
+    lr = _lr(ctx, p.dtype)
+    v_new = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.set_output("ParamOut", p_new)
+    ctx.set_output("VelocityOut", v_new)
 
 
 @register_op("adam", infer_shape=_infer_param_out, no_gradient=True,
@@ -50,11 +92,11 @@ def adam_lower(ctx):
     """Bias-corrected Adam with the JAX package's arithmetic:
     ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``,
     ``p -= lr_t * m1 / (sqrt(m2) + eps)``."""
-    p, g = ctx.input("Param"), ctx.input("Grad")
+    p, g = ctx.input("Param"), _dense_grad(ctx)
     m1, m2 = ctx.input("Moment1"), ctx.input("Moment2")
     b1p = ctx.input("Beta1Pow").reshape(())
     b2p = ctx.input("Beta2Pow").reshape(())
-    lr = ctx.input("LearningRate").reshape(()).to(torch.float32)
+    lr = _lr(ctx, torch.float32)
     beta1 = ctx.attr("beta1", 0.9)
     beta2 = ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
@@ -67,3 +109,145 @@ def adam_lower(ctx):
     ctx.set_output("ParamOut", p_new)
     ctx.set_output("Moment1Out", m1n)
     ctx.set_output("Moment2Out", m2n)
+
+
+@register_op("adamax", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut", "MomentOut", "InfNormOut",
+                               "Beta1PowOut"))
+def adamax_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    m = ctx.input("Moment")
+    inf_norm = ctx.input("InfNorm")
+    b1p = ctx.input("Beta1Pow").reshape(())
+    lr = _lr(ctx)
+    beta1 = ctx.attr("beta1", 0.9)
+    beta2 = ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m_new = beta1 * m + (1.0 - beta1) * g
+    inf_new = torch.maximum(beta2 * inf_norm, torch.abs(g) + eps)
+    lr_t = lr / (1.0 - b1p)
+    ctx.set_output("ParamOut", p - lr_t * m_new / inf_new)
+    ctx.set_output("MomentOut", m_new)
+    ctx.set_output("InfNormOut", inf_new)
+    ctx.set_output("Beta1PowOut", (b1p * beta1).reshape(1))
+
+
+@register_op("adagrad", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut", "MomentOut"))
+def adagrad_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    m = ctx.input("Moment")
+    eps = ctx.attr("epsilon", 1e-6)
+    m_new = m + torch.square(g)
+    ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))
+    ctx.set_output("MomentOut", m_new)
+
+
+@register_op("decayed_adagrad", infer_shape=_infer_param_out,
+             no_gradient=True, stateful_outputs=("ParamOut", "MomentOut"))
+def decayed_adagrad_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    m = ctx.input("Moment")
+    decay = ctx.attr("decay", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    m_new = decay * m + (1.0 - decay) * torch.square(g)
+    ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))
+    ctx.set_output("MomentOut", m_new)
+
+
+@register_op("adadelta", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut", "AvgSquaredGradOut",
+                               "AvgSquaredUpdateOut"))
+def adadelta_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    asg = ctx.input("AvgSquaredGrad")
+    asu = ctx.input("AvgSquaredUpdate")
+    rho = ctx.attr("rho", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    asg_new = rho * asg + (1.0 - rho) * torch.square(g)
+    update = -torch.sqrt((asu + eps) / (asg_new + eps)) * g
+    asu_new = rho * asu + (1.0 - rho) * torch.square(update)
+    ctx.set_output("ParamOut", p + update)
+    ctx.set_output("AvgSquaredGradOut", asg_new)
+    ctx.set_output("AvgSquaredUpdateOut", asu_new)
+
+
+@register_op("rmsprop", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut", "MomentOut", "MeanSquareOut"))
+def rmsprop_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    m = ctx.input("Moment")
+    ms = ctx.input("MeanSquare")
+    rho = ctx.attr("decay", 0.9)
+    eps = ctx.attr("epsilon", 1e-10)
+    momentum = ctx.attr("momentum", 0.0)
+    ms_new = rho * ms + (1.0 - rho) * torch.square(g)
+    m_new = momentum * m + _lr(ctx) * g / torch.sqrt(ms_new + eps)
+    ctx.set_output("ParamOut", p - m_new)
+    ctx.set_output("MomentOut", m_new)
+    ctx.set_output("MeanSquareOut", ms_new)
+
+
+@register_op("ftrl", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut", "SquaredAccumOut",
+                               "LinearAccumOut"))
+def ftrl_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    sq = ctx.input("SquaredAccumulator")
+    lin = ctx.input("LinearAccumulator")
+    lr = _lr(ctx)
+    l1 = ctx.attr("l1", 0.0)
+    l2 = ctx.attr("l2", 0.0)
+    lr_power = ctx.attr("lr_power", -0.5)
+    sq_new = sq + torch.square(g)
+    sigma = (torch.pow(sq_new, -lr_power) - torch.pow(sq, -lr_power)) / lr
+    lin_new = lin + g - sigma * p
+    pre = torch.where(torch.abs(lin_new) > l1,
+                      (torch.sign(lin_new) * l1 - lin_new) /
+                      (torch.pow(sq_new, -lr_power) / lr + 2.0 * l2),
+                      torch.zeros_like(p))
+    ctx.set_output("ParamOut", pre)
+    ctx.set_output("SquaredAccumOut", sq_new)
+    ctx.set_output("LinearAccumOut", lin_new)
+
+
+def _soft_threshold(prox, lr, l1, l2):
+    """``sign(prox) * max(|prox| - lr * l1, 0) / (1 + lr * l2)``."""
+    return torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1,
+                                          min=0.0) / (1.0 + lr * l2)
+
+
+@register_op("proximal_gd", infer_shape=_infer_param_out, no_gradient=True,
+             stateful_outputs=("ParamOut",))
+def proximal_gd_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    lr = _lr(ctx)
+    ctx.set_output("ParamOut", _soft_threshold(
+        p - lr * g, lr, ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)))
+
+
+@register_op("proximal_adagrad", infer_shape=_infer_param_out,
+             no_gradient=True, stateful_outputs=("ParamOut", "MomentOut"))
+def proximal_adagrad_lower(ctx):
+    p, g = ctx.input("Param"), _dense_grad(ctx)
+    m_new = ctx.input("Moment") + torch.square(g)
+    lr_t = _lr(ctx) / torch.sqrt(m_new)
+    ctx.set_output("ParamOut", _soft_threshold(
+        p - lr_t * g, lr_t, ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)))
+    ctx.set_output("MomentOut", m_new)
+
+
+@register_op("average_accumulates", infer_shape=_infer_param_out,
+             no_gradient=True, stateful_outputs=("SumOut", "CountOut"))
+def average_accumulates_lower(ctx):
+    """ModelAverage's accumulator, as the JAX package has it: one running
+    sum and a count; once the count reaches ``max_average_window`` the
+    sum restarts from the current parameter."""
+    p = ctx.input("Param")
+    s = ctx.input("Sum")
+    c = ctx.input("Count").reshape(())
+    restart = c >= ctx.attr("max_average_window", 10000)
+    ctx.set_output("SumOut", torch.where(restart, p.to(s.dtype),
+                                         s + p.to(s.dtype)))
+    ctx.set_output("CountOut", torch.where(
+        restart, torch.ones_like(c), c + 1.0).reshape(1))

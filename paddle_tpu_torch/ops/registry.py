@@ -23,7 +23,8 @@ import collections
 import torch
 
 __all__ = [
-    "OpDef", "register_op", "register_grad_lower", "lookup", "all_ops",
+    "OpDef", "register_op", "register_shape_only", "register_grad_lower",
+    "lookup", "all_ops",
     "resolve_lowering", "LowerContext", "run_lowering",
     "ShapeInferenceSkip", "infer_shape_unary", "infer_shape_elementwise",
     "default_grad_maker", "auto_vjp_grad_lower", "GRAD_SUFFIX",
@@ -44,7 +45,7 @@ class OpDef:
     def __init__(self, type, lower=None, infer_shape=None, grad_maker=None,
                  grad_lower=None, no_grad_inputs=(), stop_gradient_outputs=(),
                  uses_rng=False, stateful_outputs=(), amp_cast=(),
-                 amp_upcast=()):
+                 amp_upcast=(), host=False):
         self.type = type
         self.lower = lower
         self.infer_shape = infer_shape
@@ -63,6 +64,9 @@ class OpDef:
         self.no_grad_inputs = frozenset(no_grad_inputs)  # slot names
         self.stop_gradient_outputs = frozenset(stop_gradient_outputs)
         self.uses_rng = uses_rng
+        # runs on the host (readers, printing): no port op does yet; the
+        # flag is kept for ``analysis.opmeta``
+        self.host = host
         # outputs that alias an input across steps (ParamOut of the
         # optimizer ops): the structural verifier accepts them as in-place
         # state updates
@@ -88,6 +92,15 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
         return fn
 
     return deco
+
+
+def register_shape_only(type, infer_shape, **flags):
+    """Register an op the port can build but not run yet: shape inference
+    (so programs holding it build the reference's IR) and no lowering
+    (:func:`resolve_lowering` raises for it).  ``flags`` as for
+    :func:`register_op`."""
+    _REGISTRY[type] = OpDef(type, lower=None, infer_shape=infer_shape,
+                            **flags)
 
 
 def register_grad_lower(fwd_type):
@@ -201,6 +214,10 @@ class LowerContext:
         if not names:
             return
         self.outputs[names[0]] = value
+
+    def set_outputs(self, slot, values):
+        for n, v in zip(self.op.output(slot), values):
+            self.outputs[n] = v
 
     # -- rng ---------------------------------------------------------------
     def generator(self):
@@ -402,7 +419,8 @@ def resolve_lowering(op_type):
     if op_type.endswith("_grad"):
         fwd = op_type[:-len("_grad")]
         fwd_def = lookup(fwd)
-        if fwd_def is not None:
+        if fwd_def is not None and (fwd_def.lower is not None or
+                                    fwd_def.grad_lower is not None):
             if fwd_def.grad_lower is not None:
                 lower = fwd_def.grad_lower
             else:

@@ -1,7 +1,7 @@
 """Creation / shape / gather ops (the port's counterpart of
 ``paddle_tpu.ops.tensor_ops``; reference ``paddle/fluid/operators/
-{fill_constant,assign_value,uniform_random,reshape,transpose,
-lookup_table}_op``)."""
+{fill_constant,assign_value,uniform_random,gaussian_random,cast,reshape,
+transpose,concat,split,lookup_table}_op``)."""
 
 from __future__ import annotations
 
@@ -56,21 +56,70 @@ def assign_value_lower(ctx):
     ctx.set_output("Out", to_tensor(host, ctx.device, dtype))
 
 
+def _host_generator(ctx):
+    """The generator of a random creation op: the run's seeded host
+    ``torch.Generator``, or one seeded from the op's own ``seed`` attr.
+    Drawing on the host gives the same values on every device."""
+    seed = ctx.attr("seed", 0)
+    return torch.Generator().manual_seed(int(seed)) if seed \
+        else ctx.aux["generator"]
+
+
 @register_op("uniform_random", infer_shape=_infer_fill_constant,
              no_gradient=True, uses_rng=True)
 def uniform_random_lower(ctx):
-    """``U[min, max)`` drawn on the host from the run's seeded
-    ``torch.Generator`` (or one seeded from the op's own ``seed`` attr),
-    so the same seed gives the same values on every device."""
-    seed = ctx.attr("seed", 0)
-    gen = torch.Generator().manual_seed(int(seed)) if seed \
-        else ctx.aux["generator"]
+    """``U[min, max)`` in float32, cast to ``dtype`` (see
+    :func:`_host_generator`)."""
     lo = float(ctx.attr("min", -1.0))
     hi = float(ctx.attr("max", 1.0))
-    u = torch.rand(tuple(ctx.attr("shape")), generator=gen,
+    u = torch.rand(tuple(ctx.attr("shape")), generator=_host_generator(ctx),
                    dtype=torch.float32)
     ctx.set_output("Out", to_tensor(u * (hi - lo) + lo, ctx.device,
                                     ctx.attr("dtype", "float32")))
+
+
+@register_op("gaussian_random", infer_shape=_infer_fill_constant,
+             no_gradient=True, uses_rng=True)
+def gaussian_random_lower(ctx):
+    """``N(mean, std**2)`` in float32, cast to ``dtype``; seeded as
+    ``uniform_random`` is (see :func:`_host_generator`)."""
+    n = torch.randn(tuple(ctx.attr("shape")), generator=_host_generator(ctx),
+                    dtype=torch.float32)
+    out = n * float(ctx.attr("std", 1.0)) + float(ctx.attr("mean", 0.0))
+    ctx.set_output("Out", to_tensor(out, ctx.device,
+                                    ctx.attr("dtype", "float32")))
+
+
+# ---------------------------------------------------------------------------
+# cast
+# ---------------------------------------------------------------------------
+
+def _infer_cast(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape = x.shape
+    out.dtype = op.attr("out_dtype", "float32")
+
+
+def _cast_grad_maker(op, block, no_grad_set):
+    """cast grad = cast back (reference cast_op.cc CastOpGradMaker)."""
+    from paddle_tpu_torch.framework import grad_var_name
+    x = op.input("X")[0]
+    if x in no_grad_set:
+        return [], {}
+    g_out = grad_var_name(op.output("Out")[0])
+    g_x = grad_var_name(x)
+    in_dtype = op.attr("in_dtype", "float32")
+    desc = {"type": "cast", "inputs": {"X": [g_out]},
+            "outputs": {"Out": [g_x]},
+            "attrs": {"in_dtype": op.attr("out_dtype"), "out_dtype": in_dtype}}
+    return [desc], {x: g_x}
+
+
+@register_op("cast", infer_shape=_infer_cast, grad_maker=_cast_grad_maker)
+def cast_lower(ctx):
+    ctx.set_output("Out", ctx.input("X").to(
+        torch_dtype(ctx.attr("out_dtype", "float32"))))
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +167,62 @@ def _infer_transpose(op, block):
 @register_op("transpose", infer_shape=_infer_transpose)
 def transpose_lower(ctx):
     ctx.set_output("Out", ctx.input("X").permute(*ctx.attr("axis")))
+
+
+# ---------------------------------------------------------------------------
+# concat / split
+# ---------------------------------------------------------------------------
+
+def _infer_concat(op, block):
+    xs = [block.var(n) for n in op.input("X")]
+    axis = op.attr("axis", 0)
+    out = block.var(op.output("Out")[0])
+    if all(x.shape is not None for x in xs):
+        shape = list(xs[0].shape)
+        shape[axis] = sum(x.shape[axis] for x in xs) \
+            if all(x.shape[axis] != -1 for x in xs) else -1
+        out.shape = tuple(shape)
+    out.dtype = xs[0].dtype
+    out.lod_level = xs[0].lod_level
+
+
+@register_op("concat", infer_shape=_infer_concat)
+def concat_lower(ctx):
+    ctx.set_output("Out", torch.cat(ctx.inputs("X"),
+                                    dim=ctx.attr("axis", 0)))
+
+
+def _infer_split(op, block):
+    x = block.var(op.input("X")[0])
+    axis = op.attr("axis", 0)
+    num = op.attr("num", 0)
+    sections = op.attr("sections", [])
+    outs = [block.var(n) for n in op.output("Out")]
+    if x.shape is not None:
+        for i, o in enumerate(outs):
+            shape = list(x.shape)
+            if num:
+                shape[axis] = x.shape[axis] // num if x.shape[axis] != -1 else -1
+            elif sections:
+                shape[axis] = sections[i]
+            o.shape = tuple(shape)
+            o.dtype = x.dtype
+
+
+@register_op("split", infer_shape=_infer_split)
+def split_lower(ctx):
+    """``num`` equal parts along ``axis``, or parts of ``sections``."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", 0)
+    num = ctx.attr("num", 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError(f"split: axis {axis} of {tuple(x.shape)} does "
+                             f"not divide into {num} parts")
+        parts = x.shape[axis] // num
+    else:
+        parts = list(ctx.attr("sections", []))
+    ctx.set_outputs("Out", torch.split(x, parts, dim=axis))
 
 
 # ---------------------------------------------------------------------------

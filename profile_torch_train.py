@@ -2,12 +2,13 @@
 """Where the time of the port's Transformer-base training step goes, on
 one NVIDIA GPU.
 
-    python3 profile_torch_train.py [--routes A B] [--steps N]
+    python3 profile_torch_train.py [--routes A B C] [--steps N]
 
 Builds the port's kernels and, for each route of ``chip_smoke.py``'s
 training phase (A: composed attention, S = 256, B = 64; B: flash
-attention, S = 2048, B = 8; Transformer-base at full width and depth,
-bf16 AMP, Adam lr 1e-4, dropout 0.1), runs two warm-up steps and then
+attention, S = 2048, B = 8; C: single-pass attention, S = 512, B = 32;
+Transformer-base at full width and depth, bf16 AMP, Adam lr 1e-4, dropout
+0.1), runs two warm-up steps and then
 
 * ``--steps`` steps timed on the host clock (each ends in the loss's
   device-to-host copy): ms a step and target tokens/s;
@@ -41,7 +42,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "runs", "profile_torch_train")
 SEED = 20260416
-ROUTES = {"A": (64, 256), "B": (8, 2048)}
+ROUTES = {"A": (64, 256), "B": (8, 2048), "C": (32, 512)}
 
 
 def build(pt, T, B, S):
@@ -211,7 +212,7 @@ def profile_route(route, steps, pt, registry, torch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--routes", nargs="+", default=["A", "B"],
+    ap.add_argument("--routes", nargs="+", default=sorted(ROUTES),
                     choices=sorted(ROUTES))
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()

@@ -26,6 +26,10 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_fwd_reference)
 from paddle_tpu_torch.kernels.paged_decode import (
     PAGED_DECODE, paged_attention, paged_attention_reference)
+from paddle_tpu_torch.kernels.smalls_attention import (
+    SMALLS_BWD, SMALLS_FWD, SmallsAttentionFunction, smalls_attention_bwd,
+    smalls_attention_bwd_reference, smalls_attention_fwd,
+    smalls_attention_fwd_reference)
 
 TOL = 1e-5
 
@@ -218,3 +222,80 @@ def test_flash_and_softmax_grad_wrappers_raise_on_bad_arguments(
         bias_softmax_grad(y.double(), y.double())
     with pytest.raises(ValueError):
         bias_softmax_grad(y, y[:, :4].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal,first_key_off", [
+    ((2, 4, 128, 16, 16), False, False), ((2, 4, 128, 16, 16), True, True),
+    ((2, 2, 200, 64, 64), True, False), ((1, 2, 37, 128, 96), False, False),
+    ((2, 8, 512, 64, 64), True, True), ((2, 8, 512, 64, 64), False, False),
+    ((1, 2, 1024, 64, 64), True, False), ((1, 1, 2000, 64, 64), True, True)])
+def test_single_pass_kernels_match_plain_versions_on_card(
+        cuda_toolchain, dtype, shape, causal, first_key_off):
+    """The forward and the one backward kernel, at 32 and 16 query rows a
+    forward block (S up to 1024; 2000), ragged S, unequal head widths,
+    and rows whose causal window is fully key-masked
+    (``first_key_off``)."""
+    B, H, S, D, Dv = shape
+    q, k, v, mask, g = _flash_case(S, B, H, S, S, D, Dv)
+    if first_key_off:
+        mask[:, 0] = 0.0
+    dt = getattr(torch, dtype)
+    tq, tk, tv, tg = _cuda(q, k, v, g, dtype=dt)
+    tm = torch.from_numpy(mask).cuda()
+    before = (SMALLS_FWD.launches, SMALLS_BWD.launches)
+    out, lse = smalls_attention_fwd(tq, tk, tv, tm, causal, D ** -0.5)
+    grads = smalls_attention_bwd(tq, tk, tv, tm, out, lse, tg, causal,
+                                 D ** -0.5)
+    torch.cuda.synchronize()
+    assert (SMALLS_FWD.launches, SMALLS_BWD.launches) == \
+        tuple(n + 1 for n in before)
+    want = smalls_attention_fwd_reference(tq, tk, tv, tm, causal, D ** -0.5)
+    wgrads = smalls_attention_bwd_reference(tq, tk, tv, tm, out, lse, tg,
+                                            causal, D ** -0.5)
+    _assert_matches(out, want[0])
+    torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
+    for a, b in zip(grads, wgrads):
+        _assert_matches(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 32, 64])
+def test_single_pass_forward_at_each_row_count_on_card(cuda_toolchain, rows):
+    q, k, v, mask, _ = _flash_case(rows, 2, 2, 300, 300, 64, 64)
+    tq, tk, tv = _cuda(q, k, v, dtype=torch.bfloat16)
+    tm = torch.from_numpy(mask).cuda()
+    out, lse = smalls_attention_fwd(tq, tk, tv, tm, True, 0.125, rows=rows)
+    want = smalls_attention_fwd_reference(tq, tk, tv, tm, True, 0.125)
+    _assert_matches(out, want[0])
+    torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
+    with pytest.raises(RuntimeError, match="invalid"):
+        smalls_attention_fwd(tq, tk, tv, tm, True, 0.125, rows=48)
+
+
+@pytest.mark.cuda
+def test_single_pass_attention_under_torch_autograd_on_card(cuda_toolchain):
+    q, k, v, mask, g = _flash_case(5, 2, 2, 96, 96, 32, 32)
+    tq, tk, tv, tg = _cuda(q, k, v, g)
+    tm = torch.from_numpy(mask).cuda()
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    out, lse = SmallsAttentionFunction.apply(*leaves, tm, True, 0.2)
+    got = torch.autograd.grad(out, leaves, tg)
+    want = smalls_attention_bwd_reference(tq, tk, tv, tm, out.detach(), lse,
+                                          tg, True, 0.2)
+    for a, b in zip(got, want):
+        _assert_matches(a, b)
+
+
+@pytest.mark.cuda
+def test_single_pass_wrappers_raise_on_bad_arguments(cuda_toolchain):
+    q = torch.randn(1, 2, 8, 16, device="cuda")
+    with pytest.raises(ValueError, match="Sq 8 != Sk 4"):
+        smalls_attention_fwd(q, q[:, :, :4].contiguous(),
+                             q[:, :, :4].contiguous())
+    with pytest.raises(TypeError):
+        smalls_attention_fwd(q.half(), q.half(), q.half())
+    long = torch.randn(1, 1, 4096, 16, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        smalls_attention_fwd(long, long, long)

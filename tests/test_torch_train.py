@@ -7,7 +7,11 @@ the flash route (the ``scaled_dot_product_attention`` op, the flash
 kernels), the latter with ``PADDLE_TPU_FLASH_MIN_S`` set low on both
 sides, a sequence length that is no multiple of 128 and a source length
 unlike the target's, so the JAX package runs its streaming Pallas
-kernels (interpret mode) and cross-attention has Sq != Sk.
+kernels (interpret mode) and cross-attention has Sq != Sk.  In the port
+the self-attentions of this route (Sq == Sk) take the single-pass pair's
+plain versions and the cross-attentions the flash kernels'
+(``smalls_ok``); ``tests/test_torch_smalls.py`` trains a model where both
+packages take the single-pass kernels.
 
 - The train programs (forward, IR backward, Adam) serialize to the same
   IR dicts, ignoring each op's ``creation_site``.
@@ -218,8 +222,9 @@ def test_adam_steps_match_reference_f32(route, monkeypatch):
 
 
 #: where the attention grad of the port is made wrong, by route
-_ATTENTION_GRAD = {"composed": (nn_ops, "bias_softmax_grad"),
-                   "flash": (attention_ops, "flash_attention_bwd")}
+_ATTENTION_GRAD = {"composed": (nn_ops, ("bias_softmax_grad",)),
+                   "flash": (attention_ops, ("flash_attention_bwd",
+                                             "smalls_attention_bwd"))}
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
@@ -228,20 +233,23 @@ def test_leaf_grad_check_sees_one_wrong_attention(route, monkeypatch):
     an attention grad 1% off in one of the six attentions, where the
     parameters after an Adam step hardly move: chip_smoke's card-vs-CPU
     check relies on it."""
-    module, name = _ATTENTION_GRAD[route]
-    right = getattr(module, name)
+    module, names = _ATTENTION_GRAD[route]
     calls = []
 
-    def one_percent_off_once(*args):
-        out = right(*args)
-        calls.append(1)
-        if len(calls) != 2:
-            return out
-        if isinstance(out, tuple):
-            return tuple(t * 0.99 for t in out)
-        return out * 0.99
+    def one_percent_off_once(right):
+        def wrapped(*args):
+            out = right(*args)
+            calls.append(1)
+            if len(calls) != 2:
+                return out
+            if isinstance(out, tuple):
+                return tuple(t * 0.99 for t in out)
+            return out * 0.99
+        return wrapped
 
-    monkeypatch.setattr(module, name, one_percent_off_once)
+    for name in names:
+        monkeypatch.setattr(module, name,
+                            one_percent_off_once(getattr(module, name)))
     jl, tl, jp, tp, jm1, tm1 = _three_steps(route, monkeypatch, amp=None,
                                             steps=1)
     assert len(calls) == 6
