@@ -51,7 +51,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    under ``Momentum``) takes three steps of a small fc program on the
    card and on the CPU from one state: parameters and accumulators agree
    to ``OPTIMIZER_TOL``.
-6. Report: a ``{"kernels": [...]}`` line, the card's name and power
+6. The conv zoo.  ``conv3x3_bn_act`` against its plain version at
+   ResNet-50's four 3x3 shapes (N = 256, bf16, ReLU on and off; one
+   float32 case held to ``kernels.conv3x3.f32_tolerance``), with cuDNN's
+   time beside it.  ResNet-50 (``resnet_train_program`` at full width
+   and depth, 224x224, 1000 classes, B = 256 as ``bench_resnet.py``),
+   VGG-16 (32x32x3, 10 classes) and the MNIST convnet train a few steps
+   with ``Momentum(0.01, 0.9)`` and bf16 AMP: loss finite and falling, no
+   hand-written kernel launched (cuDNN convs), ResNet-50's step time,
+   images/s, MFU and peak memory reported.  Then the trained ResNet-50
+   goes through ``save_inference_model`` / ``load_inference_model`` and
+   runs on the card in float32: its predictions equal the test clone's,
+   and each of its sixteen 3x3 ``conv2d -> batch_norm -> relu`` chains,
+   run through ``conv3x3_bn_act`` with the batch norm folded, gives the
+   program's own output (exactly 16 launches, the kernel's path); the
+   same inputs in bf16 against the plain version.  One float32 step of
+   ResNet-50 (B = 2) on the card and on the CPU from one scope: the loss
+   to ``CARD_CPU_LOSS_RTOL``, the running batch-norm statistics to
+   ``F32_TOL``, the grads (velocities) above every ReLU kink to
+   ``CARD_CPU_TOP_GRAD_RTOL`` and all of them against a float64 step on
+   the CPU (``CARD_CPU_F64_FACTOR``).
+7. Report: a ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  Exits non-zero when CUDA is
@@ -991,6 +1011,476 @@ def phase_gen_lm_train():
 
 
 # ---------------------------------------------------------------------------
+# the conv zoo: the 3x3 kernel, ResNet-50, VGG-16 and MNIST
+# ---------------------------------------------------------------------------
+
+#: ResNet-50's 3x3 bodies ``(H, C, Co)``, all stride 1 (the reference's
+#: ``SHAPES_3X3``, ``exp_resnet_conv.py:36``), at ``bench_resnet.py``'s
+#: batch
+CONV3X3_SHAPES = ((56, 64, 64), (28, 128, 128), (14, 256, 256),
+                  (7, 512, 512))
+CONV3X3_N = 256
+
+
+def _conv3x3_case(N, H, C, Co, dtype, g):
+    import torch
+    x = torch.randn(N, H, H, C, generator=g).to(dtype).cuda()
+    w = (torch.randn(3, 3, C, Co, generator=g) * (2.0 / (9 * C)) ** 0.5)
+    scale = torch.rand(Co, generator=g) + 0.5
+    bias = torch.randn(Co, generator=g) * 0.1
+    return x, w.to(dtype).cuda(), scale.cuda(), bias.cuda()
+
+
+def assert_conv3x3_f32(got, want, x, w, scale, what):
+    """float32 ``conv3x3_bn_act`` outputs against each other: the two sum
+    the 9 * C products in different orders, so each element is held to
+    ``kernels.conv3x3.f32_tolerance`` (8 sqrt(K) roundings of the sum of
+    magnitudes), plus ``F32_TOL`` of itself for an epilogue that rounds
+    otherwise (a batch norm's own, on the inference path)."""
+    import torch
+    from paddle_tpu_torch.kernels.conv3x3 import f32_tolerance
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    tol = f32_tolerance(x, w, scale) + F32_TOL * want.float().abs()
+    if not bool((err <= tol).all()):
+        worst = float((err / tol).max())
+        raise AssertionError(f"{what}: max error {float(err.max()):.3e} is "
+                             f"{worst:.2f} x its bound")
+
+
+def phase_conv3x3():
+    """``conv3x3_bn_act`` against its plain version at ResNet-50's four
+    3x3 shapes, N = 256, bf16 (what AMP would hand it), ReLU on and off,
+    and once in float32; then each shape's bf16 times beside the plain
+    version's, cuDNN's (``F.conv2d`` in NCHW and in ``channels_last``,
+    the faster, plus the same epilogue; a yardstick) and the bound: the
+    products at the bf16 tensor-core peak, x and out written once, w,
+    scale and bias read once."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels.conv3x3 import (conv3x3_bn_act,
+                                                  conv3x3_bn_act_reference)
+    g = torch.Generator().manual_seed(SEED + 5)
+    worst, rows = 0.0, {}
+    for H, C, Co in CONV3X3_SHAPES:
+        x, w, scale, bias = _conv3x3_case(CONV3X3_N, H, C, Co,
+                                          torch.bfloat16, g)
+        for relu in (True, False):
+            got = conv3x3_bn_act(x, w, scale, bias, relu)
+            torch.cuda.synchronize()
+            want = conv3x3_bn_act_reference(x, w, scale, bias, relu)
+            err = max_err(got, want)
+            what = (f"conv3x3 [{CONV3X3_N}, {H}, {H}, {C}] -> {Co} bf16 "
+                    f"relu={relu}")
+            assert_matches(got, want, what)
+            worst = max(worst, err)
+            log(f"{what}: max_abs_err={err:.3e}")
+            del got, want
+        nbytes = 2 * (x.numel() + w.numel() + CONV3X3_N * H * H * Co) \
+            + 8 * Co
+        ops = 2 * CONV3X3_N * H * H * C * Co * 9
+        b, by = bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
+        ms = time_ms(lambda: conv3x3_bn_act(x, w, scale, bias), iters=10,
+                     warmup=2)
+        plain = time_ms(lambda: conv3x3_bn_act_reference(x, w, scale, bias),
+                        iters=3, warmup=1)
+        lib = {}
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        for layout, fmt in (("nchw", torch.contiguous_format),
+                            ("channels_last", torch.channels_last)):
+            xl, wl = (t.contiguous(memory_format=fmt) for t in (xn, wn))
+            lib[layout] = time_ms(lambda: torch.relu(
+                F.conv2d(xl, wl, padding=1).float()
+                * scale[:, None, None] + bias[:, None, None]).to(x.dtype),
+                iters=20, warmup=3)
+        library = min(lib.values())
+        log(f"conv3x3[{H}x{H}x{C}->{Co}, N={CONV3X3_N}, bf16] kernel_ms="
+            f"{ms:.5f} ({ops / ms / 1e9:.2f} TFLOP/s) plain_ms={plain:.5f} "
+            f"library_ms={library:.5f} (cuDNN F.conv2d + epilogue: nchw "
+            f"{lib['nchw']:.5f}, channels_last {lib['channels_last']:.5f}) "
+            f"bound_ms={b:.6f} ({by})")
+        rows[(H, C, Co)] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                                bound_ms=b, bound_by=by)
+        del x, w, xn, wn
+        torch.cuda.empty_cache()
+    # float32: the products summed in another order than the plain version
+    x, w, scale, bias = _conv3x3_case(64, 28, 128, 128, torch.float32, g)
+    got = conv3x3_bn_act(x, w, scale, bias)
+    torch.cuda.synchronize()
+    want = conv3x3_bn_act_reference(x, w, scale, bias)
+    assert_conv3x3_f32(got, want, x, w, scale, "conv3x3 f32")
+    err = max_err(got, want)
+    worst = max(worst, err)
+    log(f"conv3x3 [64, 28, 28, 128] -> 128 float32 relu=True: "
+        f"max_abs_err={err:.3e}")
+    torch.cuda.empty_cache()
+    return worst, rows
+
+
+#: ``bench_resnet.py``'s batch (its ``PADDLE_TPU_BENCH_BATCH`` default)
+RESNET_B = 256
+CONV_TRAIN_STEPS = 5
+#: batch per model; VGG-16 and MNIST at the reference builders' own
+#: image sizes (32x32x3 with 10 classes, 1x28x28)
+CONV_MODELS = {"resnet50": RESNET_B, "vgg16": 128, "mnist": 128}
+RESNET_INFER_B = 32
+
+
+def _conv_program(pt, model, B, optimize=True):
+    """``(main, startup, test clone, cost, predict, feed names)`` of a conv
+    model's train program, built inside one name scope so that programs
+    of other batches share its parameter names."""
+    from paddle_tpu_torch.framework import unique_name_scope
+    from paddle_tpu_torch.models import mnist, resnet, vgg
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name_scope(f"{model}_"), pt.program_guard(main, startup):
+        if model == "resnet50":
+            cost, _, feeds = resnet.resnet_train_program(B, class_dim=1000,
+                                                         depth=50)
+        elif model == "vgg16":
+            cost, _, feeds = vgg.vgg_train_program(B)
+        else:
+            cost, _, feeds = mnist.mnist_train_program(B)
+        test = main.clone(for_test=True)
+        if optimize:
+            pt.optimizer.Momentum(learning_rate=0.01,
+                                  momentum=0.9).minimize(cost)
+    ce = next(op for op in main.global_block().ops
+              if op.type == "cross_entropy")
+    predict = main.global_block().var(ce.input("X")[0])
+    return main, startup, test, cost, predict, feeds
+
+
+def _conv_feed(main, feeds, classes, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    shape = tuple(main.global_block().var(feeds[0]).shape)
+    return {feeds[0]: rng.rand(*shape).astype("float32"),
+            feeds[1]: rng.randint(0, classes, (shape[0], 1)).astype("int64")}
+
+
+def phase_train_conv(model):
+    """A conv model trains on the card through ``resnet_train_program`` /
+    ``vgg_train_program`` / ``mnist_train_program``, ``Momentum(0.01,
+    0.9).minimize`` and ``Executor.run``, bf16 AMP, a few steps on one
+    fixed seeded batch: loss finite and falling, and no hand-written
+    kernel launched (the convs are cuDNN's, as the reference's are
+    XLA's).  Returns the launches, the numbers, and for ResNet-50 the
+    trained state."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.flops import program_matmul_flops
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+
+    B = CONV_MODELS[model]
+    main, startup, test, cost, predict, feeds = _conv_program(pt, model, B)
+    main.amp = True
+    fwd_flops = program_matmul_flops(main.global_block())
+    scope, exe = pt.Scope(), pt.Executor()
+    if exe.device.type != "cuda":
+        raise AssertionError(f"Executor landed on {exe.device}")
+    exe.run(startup, scope=scope)
+    classes = 1000 if model == "resnet50" else 10
+    feed = _conv_feed(main, feeds, classes, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    losses, step_s = [], []
+    for _ in range(CONV_TRAIN_STEPS):
+        t = time.perf_counter()
+        (loss,) = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_s.append(time.perf_counter() - t)   # the fetch synchronizes
+        losses.append(float(np.asarray(loss).reshape(())))
+    launches = {k.name: k.launches for k in ALL_KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"train[{model}]: hand-written kernels "
+                             f"launched: {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train[{model}]: losses {losses} not finite "
+                             f"and falling")
+    steady = float(np.mean(step_s[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mfu = 3 * fwd_flops / steady / BF16_TC_OPS_PER_S
+    log(f"train[{model}]: B={B} losses {[round(x, 5) for x in losses]}; "
+        f"step s {[round(x, 4) for x in step_s]}; steady {1e3 * steady:.2f}"
+        f" ms a step = {B / steady:.1f} images/s; MFU {100 * mfu:.2f}% "
+        f"(3 x {fwd_flops / 1e9:.1f} GFLOP of conv and fc a forward over "
+        f"{BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} "
+        f"GiB")
+    out = dict(step_ms=1e3 * steady, images_per_s=B / steady, mfu=mfu,
+               peak_gib=peak, losses=losses, batch=B)
+    state = (scope, exe) if model == "resnet50" else None
+    del scope, exe
+    torch.cuda.empty_cache()
+    return launches, out, state
+
+
+def phase_infer_conv3x3(state):
+    """The path that runs the kernel.  The trained ResNet-50 (its scope) is
+    saved with ``save_inference_model`` (the test clone of its program at
+    ``RESNET_INFER_B``, same parameter names), loaded with
+    ``load_inference_model`` and run on the card in float32 (TF32 off);
+    its predictions must equal the test clone's.  Then for each of the
+    sixteen 3x3 ``conv2d -> batch_norm -> relu`` chains of the loaded
+    program, the kernel runs on the conv's input from that run (NHWC),
+    the filter (HWIO) and the batch norm folded into scale and bias, and
+    must give the program's own ReLU output (``assert_conv3x3_f32``):
+    exactly 16 launches, the counted path.  Then the same inputs in bf16
+    against the plain version (not counted)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.kernels.conv3x3 import (
+        conv3x3_bn_act, conv3x3_bn_act_reference, fold_batch_norm)
+    from paddle_tpu_torch.models.resnet import conv3x3_bn_relu_chains
+
+    scope, exe = state
+    _, _, test, _, predict, feeds = _conv_program(pt, "resnet50",
+                                                  RESNET_INFER_B,
+                                                  optimize=False)
+    test.amp = False
+    bundle = os.path.join(OUT_DIR, "resnet50_inference")
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(bundle, [feeds[0]], [predict], exe,
+                                   main_program=test)
+    infer_scope = pt.Scope()
+    with pt.scope_guard(infer_scope):
+        loaded, feed_names, fetch = pt.io.load_inference_model(bundle, exe)
+    loaded.amp = False
+    chains = conv3x3_bn_relu_chains(loaded)
+    if len(chains) != 16:
+        raise AssertionError(f"infer: {len(chains)} 3x3 conv-bn-relu chains, "
+                             f"want 16")
+    test_feed = _conv_feed(test, feeds, 1000, SEED + 6)
+    feed = {feed_names[0]: test_feed[feeds[0]]}
+    names = [fetch[0].name]
+    for conv, _, relu in chains:
+        names += [conv.input("Input")[0], relu.output("Out")[0]]
+    got = exe.run(loaded, feed=feed, fetch_list=names, scope=infer_scope,
+                  return_numpy=False)
+    (want,) = exe.run(test, feed=test_feed, fetch_list=[predict],
+                      scope=scope)
+    pred = got[0].cpu().numpy()
+    if pred.shape != (RESNET_INFER_B, 1000) or \
+            not np.isfinite(pred).all():
+        raise AssertionError(f"infer: predictions {pred.shape}")
+    np.testing.assert_allclose(pred, want, rtol=F32_TOL, atol=1e-7,
+                               err_msg="infer: loaded vs test clone")
+    pred_diff = float(np.abs(pred - want).max())
+
+    def operands(i):
+        conv, bn, _ = chains[i]
+        x = got[1 + 2 * i].permute(0, 2, 3, 1).contiguous()
+        w = infer_scope.find_var(conv.input("Filter")[0])
+        w = w.permute(2, 3, 1, 0).contiguous()
+        scale, bias = fold_batch_norm(
+            *(infer_scope.find_var(bn.input(s)[0])
+              for s in ("Scale", "Bias", "Mean", "Variance")),
+            bn.attr("epsilon"))
+        return x, w, scale, bias
+
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    outs = [conv3x3_bn_act(*operands(i)) for i in range(len(chains))]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    if launches != {"conv3x3": 16}:
+        raise AssertionError(f"infer: launches {launches}, want 16 conv3x3")
+    worst = worst_bf16 = 0.0
+    for i, out in enumerate(outs):
+        x, w, scale, bias = operands(i)
+        ref = got[2 + 2 * i].permute(0, 2, 3, 1)
+        assert_conv3x3_f32(out, ref, x, w, scale,
+                           f"infer chain {i} {tuple(x.shape)}")
+        worst = max(worst, max_err(out, ref))
+    for i in range(len(chains)):
+        x, w, scale, bias = operands(i)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        kb = conv3x3_bn_act(xb, wb, scale, bias)
+        torch.cuda.synchronize()
+        pb = conv3x3_bn_act_reference(xb, wb, scale, bias)
+        assert_matches(kb, pb, f"infer chain {i} bf16")
+        worst_bf16 = max(worst_bf16, max_err(kb, pb))
+    log(f"infer: ResNet-50 bundle loaded and run on the card (B="
+        f"{RESNET_INFER_B}, float32): predictions equal the test clone's "
+        f"(max diff {pred_diff:.3e}); 16 chains through conv3x3 against the "
+        f"program's relu'd batch norm: max_abs_err {worst:.3e}; in bf16 "
+        f"against the plain version {worst_bf16:.3e}; launches {launches}")
+    return launches, max(worst, worst_bf16)
+
+
+#: ResNet-50 card against CPU.  A ReLU input within rounding of 0 (a
+#: "kink": on one device it passes its grad, on the other not) moves every
+#: leaf below it, and in ResNet-50 the batch norms' backward spreads each
+#: such change over its channel and carries it through up to 52 more
+#: batch norms: the ~100 kinks of B = 2 at 224x224 (of 18M ReLU inputs)
+#: move those leaves by about 3% (measured on an H100, PR 4).  It is the
+#: float32 computation itself: on the CPU, the port's and the JAX
+#: package's float32 grads of this step lie alike 1-3% from float64
+#: grads (measured, PR 4).  So every leaf is held against a float64 step
+#: on the CPU from the same state: the card's float32 leaves may lie at
+#: most ``CARD_CPU_F64_FACTOR`` times as far from it as the CPU's float32
+#: leaves do, at the worst leaf and at the median (measured: 1.32 times,
+#: at both).  The leaves whose grads pass no kinked ReLU (the forward ops
+#: after the last kinked one: at least the fc) see only the forward's
+#: float32 differences, which grow through 53 batch norms to about 1e-5
+#: of the logits (the loss 6.6e-6 apart, measured): they are held to
+#: ``CARD_CPU_TOP_GRAD_RTOL`` (measured: 2.2e-5 at the fc weights).
+CARD_CPU_F64_FACTOR = 2.0
+CARD_CPU_TOP_GRAD_RTOL = 1e-4
+RESNET_CARD_CPU_B = 2
+
+
+def _resnet50_program(pt, B, dtype):
+    """``resnet_train_program``'s ResNet-50 with its image in ``dtype``
+    (the model's parameters take that dtype) and Momentum, in the name
+    scope of ``_conv_program``, so both dtypes share parameter names."""
+    from paddle_tpu_torch.framework import unique_name_scope
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    main.amp = False
+    L = pt.layers
+    with unique_name_scope("resnet50_"), pt.program_guard(main, startup):
+        image = L.data(name="image", shape=[B, 3, 224, 224], dtype=dtype,
+                       append_batch_size=False)
+        label = L.data(name="label", shape=[B, 1], dtype="int64",
+                       append_batch_size=False)
+        predict = resnet.resnet_imagenet(image, 1000, depth=50)
+        cost = L.mean(x=L.cross_entropy(input=predict, label=label))
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            cost)
+    return main, startup, cost
+
+
+def phase_card_vs_cpu_resnet50():
+    """One float32 step of ResNet-50 at full width and depth (224x224,
+    1000 classes), B = 2, TF32 off, Momentum(0.01, 0.9), from one scope,
+    on the card and on the CPU (and once more on the CPU in float64).
+    The loss is held to ``CARD_CPU_LOSS_RTOL``, the running batch-norm
+    statistics to ``F32_TOL``, and every parameter's grad, read as its
+    velocity (``0.9 * 0 + grad`` after one step), to the kink rule above
+    ``CARD_CPU_TOP_GRAD_RTOL`` and ``CARD_CPU_F64_FACTOR``."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+
+    B = RESNET_CARD_CPU_B
+    main, startup, cost = _resnet50_program(pt, B, "float32")
+    main64, _, cost64 = _resnet50_program(pt, B, "float64")
+    cpu_scope = pt.Scope()
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    names = persistable_names(main)
+    state = {n: to_numpy(cpu_scope.find_var(n)) for n in names}
+    card_scope = scope_from_numpy(state, None, main)
+    f64_scope = scope_from_numpy(state, pt.CPUPlace(), main64)
+    rng = np.random.RandomState(SEED % (2 ** 31) + 7)
+    image = rng.rand(B, 3, 224, 224)
+    label = rng.randint(0, 1000, (B, 1)).astype("int64")
+    feed = {"image": image.astype("float32"), "label": label}
+    block = main.global_block()
+    ops = block.ops
+    relus = [i for i, op in enumerate(ops) if op.type == "relu"]
+    relu_in = [ops[i].input("X")[0] for i in relus]
+    t = time.perf_counter()
+    cpu_loss, *cpu_relu = cpu.run(main, feed=feed,
+                                  fetch_list=[cost] + relu_in,
+                                  scope=cpu_scope)
+    cpu_s = time.perf_counter() - t
+    cpu.run(main64, feed={"image": image, "label": label},
+            fetch_list=[cost64], scope=f64_scope)
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    card_loss, *card_relu = pt.Executor().run(
+        main, feed=feed, fetch_list=[cost] + relu_in, scope=card_scope)
+    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    if launches:
+        raise AssertionError(f"card-vs-cpu[resnet50]: launches {launches}")
+    a, b = float(card_loss.reshape(())), float(cpu_loss.reshape(()))
+    if not abs(a - b) <= CARD_CPU_LOSS_RTOL * abs(b):
+        raise AssertionError(f"card-vs-cpu[resnet50]: loss {a} vs {b}")
+    stats = [n for op in ops if op.type == "batch_norm"
+             for n in op.input("Mean") + op.input("Variance")]
+    stats_max = 0.0
+    for n in stats:
+        want = to_numpy(cpu_scope.find_var(n))
+        got = to_numpy(card_scope.find_var(n))
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL,
+                                   err_msg=f"card-vs-cpu[resnet50]: {n}")
+        stats_max = max(stats_max, float(np.abs(got - want).max()))
+    # kinks, and the leaves whose grads pass no kinked ReLU
+    kinked = [i for i, x, y in zip(relus, cpu_relu, card_relu)
+              if ((x > 0) != (y > 0)).any()]
+    kinks = sum(int(((x > 0) != (y > 0)).sum())
+                for x, y in zip(cpu_relu, card_relu))
+    last_kink = max(kinked, default=-1)
+    seed_at = next(i for i, op in enumerate(ops) if op.type == "fill_constant"
+                   and op.output("Out")[0] == cost.name + "@GRAD")
+    above = {n for op in ops[last_kink + 1:seed_at]
+             for n in op.input_arg_names}
+    velocity = {op.input("Param")[0]: op.input("Velocity")[0]
+                for op in ops if op.type == "momentum"}
+    if set(velocity) != {p.name for p in block.all_parameters()}:
+        raise AssertionError("card-vs-cpu[resnet50]: a parameter has no "
+                             "momentum op")
+
+    def leaf_rel(scope, ref):
+        out = {}
+        for p, v in velocity.items():
+            want = to_numpy(ref.find_var(v)).astype(np.float64)
+            got = to_numpy(scope.find_var(v)).astype(np.float64)
+            norm = float(np.linalg.norm(want))
+            if not norm > 0:
+                raise AssertionError(f"card-vs-cpu[resnet50]: {p} got no "
+                                     f"grad")
+            out[p] = float(np.linalg.norm(got - want)) / norm
+        return out
+
+    rel = leaf_rel(card_scope, cpu_scope)
+    card64 = leaf_rel(card_scope, f64_scope)
+    cpu64 = leaf_rel(cpu_scope, f64_scope)
+    strict = {p: r for p, r in rel.items() if p in above}
+    worst = max(rel, key=rel.get)
+    med = {k: float(np.median(list(d.values())))
+           for k, d in (("card", card64), ("cpu", cpu64), ("rel", rel))}
+    log(f"card-vs-cpu[resnet50] B={B} 224x224 f32: loss card {a!r} cpu {b!r}"
+        f" (rel {abs(a - b) / abs(b):.2e}); {kinks} of "
+        f"{sum(x.size for x in cpu_relu)} ReLU inputs on different sides of "
+        f"0, in {len(kinked)} of {len(relus)} ReLU ops; grads (velocities) "
+        f"|card - cpu| / |cpu| worst {rel[worst]:.3e} ({worst}), median "
+        f"{med['rel']:.3e}; the {len(strict)} leaves above every kink: "
+        f"worst {max(strict.values(), default=0.0):.3e}; from the CPU's "
+        f"float64 step: card worst {max(card64.values()):.3e} median "
+        f"{med['card']:.3e}, cpu worst {max(cpu64.values()):.3e} median "
+        f"{med['cpu']:.3e}; running statistics max abs diff "
+        f"{stats_max:.3e} over {len(stats)}; cpu step {cpu_s:.2f}s")
+    bad = {p: r for p, r in strict.items() if r > CARD_CPU_TOP_GRAD_RTOL}
+    if not strict or bad:
+        raise AssertionError(f"card-vs-cpu[resnet50]: leaves above every "
+                             f"kink {strict} (bound "
+                             f"{CARD_CPU_TOP_GRAD_RTOL})")
+    if max(card64.values()) > CARD_CPU_F64_FACTOR * max(cpu64.values()) \
+            or med["card"] > CARD_CPU_F64_FACTOR * med["cpu"]:
+        raise AssertionError(
+            f"card-vs-cpu[resnet50]: the card's float32 grads lie farther "
+            f"from float64 than {CARD_CPU_F64_FACTOR} x the CPU's: worst "
+            f"{max(card64.values())} vs {max(cpu64.values())}, median "
+            f"{med['card']} vs {med['cpu']}")
+    return dict(loss_rel=abs(a - b) / abs(b), grad_rel=rel[worst],
+                strict_rel=max(strict.values()), card_f64=med["card"],
+                cpu_f64=med["cpu"], stats_max=stats_max, relu_kinks=kinks)
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving through the port's entry points
 # ---------------------------------------------------------------------------
 
@@ -1195,6 +1685,10 @@ def main():
         # route C, like route B: 12 key-masked attentions a step for 6
         # causal ones
         rows[name] = smalls_rows[(name, "key-masked")]
+    errs["conv3x3"], conv_rows = phase_conv3x3()
+    # ResNet-50's first stage runs 3 of its 16 bodies at 56x56x64 and its
+    # largest activations: the table's row
+    rows["conv3x3"] = conv_rows[CONV3X3_SHAPES[0]]
 
     by_path = {}
     by_path["serving"], serving = phase_serving()
@@ -1203,7 +1697,17 @@ def main():
     for route in ROUTES:
         by_path[f"train_{route}"], train[route] = phase_train(route)
     by_path["gen_lm_train"] = phase_gen_lm_train()
+    conv_train, resnet_state = {}, None
+    for model in CONV_MODELS:
+        by_path[f"{model}_train"], conv_train[model], state = \
+            phase_train_conv(model)
+        resnet_state = resnet_state or state
+    by_path["resnet50_infer"], infer_err = phase_infer_conv3x3(resnet_state)
+    errs["conv3x3"] = max(errs["conv3x3"], infer_err)
+    del resnet_state
+    torch.cuda.empty_cache()
     checks = {route: phase_card_vs_cpu(route) for route in ROUTES}
+    resnet_check = phase_card_vs_cpu_resnet50()
     optimizers = phase_optimizers()
 
     kernels = []
@@ -1235,6 +1739,13 @@ def main():
         log(f"card-vs-cpu[{route}]: loss_rel={c['loss_rel']:.3e} "
             f"grad_rel={c['grad_rel']:.3e} param_max={c['param_max']:.3e} "
             f"relu_kinks={c['relu_kinks']}")
+    for model, t in conv_train.items():
+        log(f"train[{model}]: B={t['batch']} step_ms={t['step_ms']:.2f} "
+            f"images_per_s={t['images_per_s']:.1f} mfu={t['mfu']:.4f} "
+            f"peak_gib={t['peak_gib']:.2f}")
+    log("card-vs-cpu[resnet50]: " + " ".join(
+        f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in resnet_check.items()))
     log(f"optimizers: max abs diff card vs cpu "
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log(json.dumps({"kernels": kernels}))

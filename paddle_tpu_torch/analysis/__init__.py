@@ -1,6 +1,7 @@
 """Program IR verifier: the structural pass that program rewriters run
-after they mutate a program, and the shared op-metadata registry
-(``opmeta``): the parts of ``paddle_tpu.analysis`` ported so far."""
+after they mutate a program, the shared op-metadata registry
+(``opmeta``) and the matrix-product FLOP count (``flops``): the parts of
+``paddle_tpu.analysis`` (and ``bench_resnet.py``) ported so far."""
 
 from paddle_tpu_torch.analysis import opmeta  # noqa: F401
 

@@ -1,7 +1,8 @@
-"""Model programs of the serving slice: the generative LM
-(:mod:`gen_lm`, :mod:`gen_lm_long`) and the position table it shares
-with the Transformer (:mod:`transformer`)."""
+"""Model programs of the port: the generative LM (:mod:`gen_lm`,
+:mod:`gen_lm_long`), the Transformer (:mod:`transformer`) and the conv
+zoo (:mod:`resnet`, :mod:`vgg`, :mod:`mnist`)."""
 
-from paddle_tpu_torch.models import gen_lm, gen_lm_long, transformer
+from paddle_tpu_torch.models import (gen_lm, gen_lm_long, mnist, resnet,
+                                     transformer, vgg)
 
-__all__ = ["gen_lm", "gen_lm_long", "transformer"]
+__all__ = ["gen_lm", "gen_lm_long", "mnist", "resnet", "transformer", "vgg"]

@@ -2,9 +2,8 @@
 ``python/paddle/fluid/nets.py``: ``simple_img_conv_pool``,
 ``img_conv_group``, ``sequence_conv_pool``, ``glu``,
 ``scaled_dot_product_attention``).  All five build the JAX package's IR;
-``glu`` and ``scaled_dot_product_attention`` also run (their ops have
-lowerings), the convolution helpers run once the conv ops do, and
-``sequence_conv_pool`` needs ``layers.sequence``, which is not ported."""
+all but ``sequence_conv_pool`` also run (it needs ``layers.sequence``,
+which is not ported)."""
 
 from __future__ import annotations
 

@@ -14,5 +14,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     persist_ops,
     attention_ops,
     loss_ops,
+    metric_ops,
     optimizer_ops,
 )

@@ -23,7 +23,7 @@ import collections
 import torch
 
 __all__ = [
-    "OpDef", "register_op", "register_shape_only", "register_grad_lower",
+    "OpDef", "register_op", "register_grad_lower",
     "lookup", "all_ops",
     "resolve_lowering", "LowerContext", "run_lowering",
     "ShapeInferenceSkip", "infer_shape_unary", "infer_shape_elementwise",
@@ -92,15 +92,6 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
         return fn
 
     return deco
-
-
-def register_shape_only(type, infer_shape, **flags):
-    """Register an op the port can build but not run yet: shape inference
-    (so programs holding it build the reference's IR) and no lowering
-    (:func:`resolve_lowering` raises for it).  ``flags`` as for
-    :func:`register_op`."""
-    _REGISTRY[type] = OpDef(type, lower=None, infer_shape=infer_shape,
-                            **flags)
 
 
 def register_grad_lower(fwd_type):

@@ -270,3 +270,28 @@ def lookup_table_grad_lower(ctx):
             "paddle_tpu_torch does not have yet; build the embedding with "
             "is_sparse=False")
     auto_vjp_grad_lower("lookup_table")(ctx)
+
+
+# ---------------------------------------------------------------------------
+# top_k
+# ---------------------------------------------------------------------------
+
+def _infer_top_k(op, block):
+    x = block.var(op.input("X")[0])
+    k = op.attr("k", 1)
+    out = block.var(op.output("Out")[0])
+    idx = block.var(op.output("Indices")[0])
+    if x.shape is not None:
+        out.shape = tuple(x.shape[:-1]) + (k,)
+        idx.shape = out.shape
+    out.dtype = x.dtype
+    idx.dtype = "int64"
+
+
+@register_op("top_k", infer_shape=_infer_top_k, no_gradient=True)
+def top_k_lower(ctx):
+    """The ``k`` largest values of the last axis, largest first, and their
+    int64 indices (ties may be ordered otherwise than by ``lax.top_k``)."""
+    vals, idx = torch.topk(ctx.input("X"), int(ctx.attr("k", 1)), dim=-1)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idx)

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's Transformer-base training step goes, on
-one NVIDIA GPU.
+"""Where the time of the port's training steps goes, on one NVIDIA GPU.
 
-    python3 profile_torch_train.py [--routes A B C] [--steps N]
+    python3 profile_torch_train.py [--model transformer] [--routes A B C]
+                                   [--steps N]
+    python3 profile_torch_train.py --model resnet [--batch 256] [--steps N]
 
-Builds the port's kernels and, for each route of ``chip_smoke.py``'s
-training phase (A: composed attention, S = 256, B = 64; B: flash
-attention, S = 2048, B = 8; C: single-pass attention, S = 512, B = 32;
-Transformer-base at full width and depth, bf16 AMP, Adam lr 1e-4, dropout
-0.1), runs two warm-up steps and then
+Builds the port's kernels and then, for the Transformer-base step, each
+route of ``chip_smoke.py``'s training phase (A: composed attention,
+S = 256, B = 64; B: flash attention, S = 2048, B = 8; C: single-pass
+attention, S = 512, B = 32; full width and depth, bf16 AMP, Adam lr 1e-4,
+dropout 0.1) or, with ``--model resnet``, the ResNet-50 step of
+``bench_resnet.py`` (224x224, 1000 classes, B = 256, bf16 AMP,
+Momentum(0.01, 0.9)); runs two warm-up steps and then
 
 * ``--steps`` steps timed on the host clock (each ends in the loss's
-  device-to-host copy): ms a step and target tokens/s;
+  device-to-host copy): ms a step and target tokens/s (images/s for
+  ResNet-50, with its MFU: 3 x the conv and fc FLOPs of one forward from
+  the IR, over the 989 TFLOP/s bf16 dense peak, ``bench_resnet.py``'s
+  convention);
 * one step with a CUDA synchronize around every op, timed on the host
   clock, grouped by op type and by phase (forward, backward, optimizer).
   Synchronizing serializes host and device, so these times add up to
@@ -43,6 +49,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "runs", "profile_torch_train")
 SEED = 20260416
 ROUTES = {"A": (64, 256), "B": (8, 2048), "C": (32, 512)}
+PEAK_BF16 = 989e12
+#: the update ops of the optimizers profiled here
+OPTIMIZER_OPS = ("adam", "momentum")
 
 
 def build(pt, T, B, S):
@@ -55,6 +64,23 @@ def build(pt, T, B, S):
         pt.optimizer.Adam(learning_rate=1e-4).minimize(cost)
     main.amp = True
     return main, startup, cost, T.fake_batch(B, S, S, hp, seed=SEED)
+
+
+def build_resnet(pt, B):
+    import numpy as np
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        cost, _, feeds = resnet.resnet_train_program(B, class_dim=1000,
+                                                     depth=50)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            cost)
+    main.amp = True
+    rng = np.random.RandomState(SEED % (2 ** 31))
+    feed = {"image": rng.rand(B, 3, 224, 224).astype("float32"),
+            "label": rng.randint(0, 1000, (B, 1)).astype("int64")}
+    return main, startup, cost, feed
 
 
 def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
@@ -94,7 +120,8 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
             torch.cuda.synchronize()
             i = ctx.op_index
             phase = ("forward" if i < seed_at else
-                     "optimizer" if ctx.op.type == "adam" else "backward")
+                     "optimizer" if ctx.op.type in OPTIMIZER_OPS
+                     else "backward")
             times[(phase, ctx.op.type)] += time.perf_counter() - t
             counts[(phase, ctx.op.type)] += 1
             seen["env"], seen["aux"] = ctx.env, ctx.aux
@@ -132,14 +159,39 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
 
 
 def profile_route(route, steps, pt, registry, torch):
-    from torch.profiler import ProfilerActivity, profile
-    import numpy as np
     from paddle_tpu_torch.models import transformer as T
     B, S = ROUTES[route]
     main, startup, cost, feed = build(pt, T, B, S)
+    out = profile_step(f"route {route}: B={B} S={S}", main, startup, cost,
+                       feed, steps, B * S, "tokens", pt, registry, torch)
+    out.update(B=B, S=S)
+    return out
+
+
+def profile_resnet(B, steps, pt, registry, torch):
+    from paddle_tpu_torch.analysis.flops import program_matmul_flops
+    main, startup, cost, feed = build_resnet(pt, B)
+    fwd_flops = program_matmul_flops(main.global_block())
+    out = profile_step(f"resnet50: B={B} 224x224", main, startup, cost,
+                       feed, steps, B, "images", pt, registry, torch)
+    mfu = 3 * fwd_flops / (out["step_ms"] / 1e3) / PEAK_BF16
+    print(f"  MFU {100 * mfu:.2f}% (3 x {fwd_flops / 1e9:.1f} GFLOP of conv "
+          f"and fc a forward over {PEAK_BF16 / 1e12:.0f} TFLOP/s); peak "
+          f"memory {out['peak_gib']:.2f} GiB")
+    out.update(B=B, fwd_gflops=fwd_flops / 1e9, mfu=mfu)
+    return out
+
+
+def profile_step(label, main, startup, cost, feed, steps, units, unit,
+                 pt, registry, torch):
+    """Warm-up, timed steps, a synchronized per-op step and a profiled
+    step of one training program; ``units`` of ``unit`` a step."""
+    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
     scope = pt.Scope()
     exe = pt.Executor()
     exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
     step_s = []
@@ -156,7 +208,9 @@ def profile_route(route, steps, pt, registry, torch):
         exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t
-    prof.export_chrome_trace(os.path.join(OUT_DIR, f"trace_{route}.json"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof.export_chrome_trace(os.path.join(
+        OUT_DIR, f"trace_{label.split(':')[0].replace(' ', '_')}.json"))
     kernels = {}
     device_us = 0.0
     for ev in prof.events():
@@ -174,8 +228,8 @@ def profile_route(route, steps, pt, registry, torch):
     phases = collections.defaultdict(float)
     for (phase, _), s in times.items():
         phases[phase] += s
-    print(f"route {route}: B={B} S={S}: {1e3 * step:.2f} ms a step "
-          f"(mean of {steps}) = {B * S / step:.1f} tokens/s")
+    print(f"{label}: {1e3 * step:.2f} ms a step (mean of {steps}) = "
+          f"{units / step:.1f} {unit}/s")
     print(f"  synchronized per-op step {1e3 * sync_wall:.2f} ms: "
           + ", ".join(f"{p} {1e3 * s:.2f} ms" for p, s in phases.items()))
     for (phase, typ), s in sorted(times.items(), key=lambda kv: -kv[1])[:16]:
@@ -196,7 +250,8 @@ def profile_route(route, steps, pt, registry, torch):
     del scope, exe
     torch.cuda.empty_cache()
     return {
-        "B": B, "S": S, "step_ms": 1e3 * step, "tokens_per_s": B * S / step,
+        "step_ms": 1e3 * step, f"{unit}_per_s": units / step,
+        "peak_gib": peak,
         "sync_step_ms": 1e3 * sync_wall,
         "sync_phase_ms": {p: 1e3 * s for p, s in phases.items()},
         "sync_op_ms": {f"{p}:{t}": 1e3 * s for (p, t), s in times.items()},
@@ -212,8 +267,12 @@ def profile_route(route, steps, pt, registry, torch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="transformer",
+                    choices=("transformer", "resnet"))
     ap.add_argument("--routes", nargs="+", default=sorted(ROUTES),
                     choices=sorted(ROUTES))
+    ap.add_argument("--batch", type=int, default=256,
+                    help="ResNet-50's batch (bench_resnet.py's default)")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
 
@@ -237,9 +296,13 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     print(f"card: {card}")
     summary = {"card": card}
-    for route in args.routes:
-        summary[route] = profile_route(route, args.steps, pt, registry,
-                                       torch)
+    if args.model == "resnet":
+        summary["resnet50"] = profile_resnet(args.batch, args.steps, pt,
+                                             registry, torch)
+    else:
+        for route in args.routes:
+            summary[route] = profile_route(route, args.steps, pt, registry,
+                                           torch)
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(card)

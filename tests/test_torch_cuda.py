@@ -10,13 +10,18 @@ versions sum in different orders); bfloat16 outputs one bf16 rounding of
 the same float32 value, ``rtol = 2**-7`` (one ulp of the value) plus
 ``2**-8`` times the output's RMS for elements near zero (see
 ``_assert_matches``); a dead paged slot (lens 0) is compared for
-finiteness only, as nothing reads it."""
+finiteness only, as nothing reads it; the float32 3x3 conv sums 9 * C
+products in another order than its plain version and is held to
+``kernels.conv3x3.f32_tolerance``."""
 
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels.conv3x3 import (
+    CONV3X3, conv3x3_bn_act, conv3x3_bn_act_reference, f32_tolerance,
+    fold_batch_norm)
 from paddle_tpu_torch.kernels.bias_softmax import (
     BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, bias_softmax, bias_softmax_grad,
     bias_softmax_grad_reference, bias_softmax_reference)
@@ -299,3 +304,108 @@ def test_single_pass_wrappers_raise_on_bad_arguments(cuda_toolchain):
     long = torch.randn(1, 1, 4096, 16, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         smalls_attention_fwd(long, long, long)
+
+
+# ---------------------------------------------------------------------------
+# the 3x3 conv + folded batch norm + ReLU kernel
+# ---------------------------------------------------------------------------
+
+def _conv3x3_case(seed, N, H, C, Co, dtype):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(N, H, H, C).astype("float32"))
+    w = torch.from_numpy((rng.randn(3, 3, C, Co) * (2.0 / (9 * C)) ** 0.5)
+                         .astype("float32"))
+    scale = torch.from_numpy(rng.rand(Co).astype("float32") + 0.5)
+    bias = torch.from_numpy(rng.randn(Co).astype("float32") * 0.1)
+    return (x.to(dtype).cuda(), w.to(dtype).cuda(), scale.cuda(),
+            bias.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(2, 9, 24, 40), (4, 7, 512, 512)],
+                         ids=["small", "stage4"])
+def test_conv3x3_kernel_matches_plain_version_on_card(cuda_toolchain, shape,
+                                                      relu, dtype):
+    """A small ragged case (9x9 pixels, channels no multiple of the
+    kernel's tiles) and ResNet-50's last stage (7x7x512 -> 512)."""
+    x, w, scale, bias = _conv3x3_case(7, *shape, getattr(torch, dtype))
+    before = CONV3X3.launches
+    got = conv3x3_bn_act(x, w, scale, bias, relu)
+    torch.cuda.synchronize()
+    assert CONV3X3.launches == before + 1
+    want = conv3x3_bn_act_reference(x, w, scale, bias, relu)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    if dtype == "bfloat16":
+        _assert_matches(got, want)
+    else:
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= f32_tolerance(x, w, scale)).all())
+
+
+@pytest.mark.cuda
+def test_conv3x3_wrapper_raises_on_bad_arguments(cuda_toolchain):
+    x, w, scale, bias = _conv3x3_case(8, 1, 8, 16, 8, torch.float32)
+    with pytest.raises(TypeError):
+        conv3x3_bn_act(x, w.bfloat16(), scale, bias)
+    with pytest.raises(TypeError):
+        conv3x3_bn_act(x, w, scale.double(), bias)
+    with pytest.raises(ValueError):
+        conv3x3_bn_act(x, w[:2].contiguous(), scale, bias)
+    with pytest.raises(ValueError):
+        conv3x3_bn_act(x.transpose(1, 2), w, scale, bias)
+
+
+@pytest.mark.cuda
+def test_conv3x3_chains_of_a_resnet50_inference_program_on_card(
+        cuda_toolchain):
+    """The sixteen 3x3 conv -> batch norm -> relu chains of a ResNet-50
+    inference program (64x64 images, random batch-norm statistics), each
+    through the kernel with the batch norm folded, against the program's
+    own output on the card (float32, TF32 off)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        image = pt.layers.data(name="image", shape=[2, 3, 64, 64],
+                               dtype="float32", append_batch_size=False)
+        predict = resnet.resnet_imagenet(image, 10, depth=50)
+    test = main.clone(for_test=True)
+    chains = resnet.conv3x3_bn_relu_chains(test)
+    assert len(chains) == 16
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(3)
+    for _, bn, _ in chains:
+        C = scope.find_var(bn.input("Scale")[0]).shape[0]
+        for slot, value in (("Scale", rng.rand(C) + 0.5),
+                            ("Bias", rng.randn(C) * 0.1),
+                            ("Mean", rng.randn(C) * 0.1),
+                            ("Variance", rng.rand(C) + 0.5)):
+            scope.set_var(bn.input(slot)[0], torch.tensor(
+                value, dtype=torch.float32, device="cuda"))
+    fetch = [predict.name]
+    for conv, _, relu in chains:
+        fetch += [conv.input("Input")[0], relu.output("Out")[0]]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = exe.run(test, feed={"image": rng.rand(2, 3, 64, 64).astype(
+            "float32")}, fetch_list=fetch, scope=scope, return_numpy=False)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    before = CONV3X3.launches
+    for i, (conv, bn, _) in enumerate(chains):
+        x = got[1 + 2 * i].permute(0, 2, 3, 1).contiguous()
+        w = scope.find_var(conv.input("Filter")[0]).permute(2, 3, 1, 0)
+        w = w.contiguous()
+        scale, bias = fold_batch_norm(
+            *(scope.find_var(bn.input(s)[0])
+              for s in ("Scale", "Bias", "Mean", "Variance")),
+            bn.attr("epsilon"))
+        out = conv3x3_bn_act(x, w, scale, bias)
+        want = got[2 + 2 * i].permute(0, 2, 3, 1)
+        tol = f32_tolerance(x, w, scale) + TOL * want.abs()
+        assert bool(((out - want).abs() <= tol).all()), i
+    assert CONV3X3.launches == before + 16

@@ -444,25 +444,33 @@ def test_nets_validation_and_helpers_that_wait():
 
 
 def test_nets_conv_helpers_build_reference_ir():
-    """The convolution helpers build the reference's IR now; their ops
-    get lowerings with the conv zoo."""
+    """The convolution helpers build the reference's IR and, now that
+    their ops lower, run: the inference clone (dropout and batch norm in
+    test mode) gives the reference's output from one scope."""
     def build(pkg, names):
         main, startup = pkg.Program(), pkg.Program()
         with names("cv_"), pkg.program_guard(main, startup):
             img = pkg.layers.data(name="img", shape=[2, 3, 16, 16],
                                   dtype="float32", append_batch_size=False)
             a = pkg.nets.simple_img_conv_pool(img, 4, 3, 2, 2, "relu")
-            pkg.nets.img_conv_group(a, [4, 4], 2, conv_act="relu",
-                                    conv_with_batchnorm=[True, False],
-                                    conv_batchnorm_drop_rate=[0.1, 0.0])
-        return main
-    jm, tm = (build(pkg, names) for pkg, names in PKGS)
+            out = pkg.nets.img_conv_group(
+                a, [4, 4], 2, conv_act="relu",
+                conv_with_batchnorm=[True, False],
+                conv_batchnorm_drop_rate=[0.1, 0.0])
+        return main, startup, out
+    (jm, js, jo), (tm, ts, to) = (build(pkg, names) for pkg, names in PKGS)
     assert _strip(tm.to_dict()) == _strip(jm.to_dict())
-    with pytest.raises(NotImplementedError,
-                       match="no lowering registered for op 'conv2d'"):
-        pt.Executor(pt.CPUPlace()).run(
-            tm, feed={"img": np.zeros((2, 3, 16, 16), "float32")},
-            scope=pt.Scope())
+    assert _strip(ts.to_dict()) == _strip(js.to_dict())
+    jexe, jscope, tscope = _transplant(js, tm)
+    feed = {"img": np.random.RandomState(5).randn(2, 3, 16, 16)
+            .astype("float32")}
+    (want,) = jexe.run(jm.clone(for_test=True), feed=feed, fetch_list=[jo],
+                       scope=jscope)
+    (got,) = pt.Executor(pt.CPUPlace()).run(
+        tm.clone(for_test=True), feed=feed, fetch_list=[to], scope=tscope)
+    assert got.shape == (2, 4, 6, 6)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
 
 
 # ---------------------------------------------------------------------------
