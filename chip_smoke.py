@@ -42,7 +42,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    script's time limit), route B S = 2048 at B = 8, route C S = 512 at
    B = 32 (each the same 16384 tokens a step).  Then the causal LM of
    ``gen_lm_train_program`` (``GenLongConfig``) takes a few Adam steps:
-   a second model that trains through the bias-softmax kernels.
+   a second model that trains through the bias-softmax kernels.  Then
+   the ``[B, S, H, D]`` attention of ``exp_torch_bshd_attn.py`` (the
+   ``bshd`` pair: no head transposes): its ``check_numerics`` and a few
+   forward + backward steps at B 256, S 256, H 8, D 64, bf16, causal,
+   exactly the pair's launches and no other kernel's; then its routes
+   with the transposes (the single-pass pair, the composed matmuls) and
+   SDPA, their grads against SDPA's and their times.
 5. Card against CPU: one step of the same program at full width and
    depth 1 + 1, float32, TF32 off, dropout 0, from one scope, on the card
    (kernels) and on the CPU (their plain versions), for each route; the
@@ -698,6 +704,168 @@ def phase_smalls():
         del q, k, v, do, out, lse, ql, kl, vl, ol
         torch.cuda.empty_cache()
     return worst, rows
+
+
+def phase_bshd():
+    """The [B, S, H, D] pair against its plain versions: the flagship
+    attention of ``exp_torch_bshd_attn.py`` [256, 256, 8, 64] in bf16,
+    key-masked (a bf16 mask, as the original passes it, with a batch row
+    whose every key is off) and causal with the first key off (rows whose
+    causal window is fully masked); a ragged [4, 200, 8, 64] in float32
+    (a float32 mask), the same two, to ``F32_TOL``.  Then the flagship's
+    bf16 times as the path runs it (causal, all-ones mask) beside the
+    plain versions', SDPA's forward and backward on the transposed views
+    (one call each for the same function), and the bound: the products
+    the causal mask leaves at the bf16 tensor-core peak, each input read
+    and output written once (the backward's float32 dQ scratch is
+    neither)."""
+    import torch
+    import torch.nn.functional as F
+    import exp_torch_bshd_attn as exp
+    from paddle_tpu_torch.kernels import bshd_attention as ba
+    g = torch.Generator().manual_seed(SEED + 8)
+    H, D = exp.H, exp.D
+
+    def case(B, S, dtype, masked, first_key_off):
+        q, k, v, do = (torch.randn(B, S, H, D, generator=g).to(dtype).cuda()
+                       for _ in range(4))
+        mask = torch.ones(B, S)
+        if masked:
+            mask = (torch.rand(B, S, generator=g) > 0.2).float()
+            mask[0] = 0.0                 # a row with every key masked
+        if first_key_off:
+            mask[:, 0] = 0.0
+        return q, k, v, mask.to(dtype).cuda(), do
+
+    worst = {"bshd_fwd": 0.0, "bshd_bwd": 0.0}
+    flagship, ragged = (exp.B, exp.S), (4, 200)
+    cases = [(flagship, torch.bfloat16, False),
+             (flagship, torch.bfloat16, True),
+             (ragged, torch.float32, False), (ragged, torch.float32, True)]
+    for (B, S), dtype, causal in cases:
+        q, k, v, mask, do = case(B, S, dtype, masked=not causal,
+                                 first_key_off=causal)
+        scale = D ** -0.5
+        out, res = ba.bshd_attention_fwd(q, k, v, mask, causal, scale)
+        grads = ba.bshd_attention_bwd(q, k, v, mask, out, res, do, causal,
+                                      scale)
+        torch.cuda.synchronize()
+        ro, rr = ba.bshd_attention_fwd_reference(q, k, v, mask, causal,
+                                                 scale)
+        rgrads = ba.bshd_attention_bwd_reference(q, k, v, mask, out, res, do,
+                                                 causal, scale)
+        what = (f"bshd {[B, S, H, D]} {str(dtype)[6:]} "
+                f"{'causal, first key off' if causal else 'key-masked'}")
+        for n, a, b in (("out", out, ro), ("dq", grads[0], rgrads[0]),
+                        ("dk", grads[1], rgrads[1]),
+                        ("dv", grads[2], rgrads[2])):
+            assert_matches(a, b, f"{what} {n}")
+        torch.testing.assert_close(res, rr, atol=F32_TOL, rtol=1e-6)
+        errs = {"bshd_fwd": max(max_err(out, ro), max_err(res, rr)),
+                "bshd_bwd": max(max_err(a, b)
+                                for a, b in zip(grads, rgrads))}
+        for n, e in errs.items():
+            worst[n] = max(worst[n], e)
+        log(f"{what}: " + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
+        del q, k, v, do, mask, out, res, grads, ro, rr, rgrads
+        torch.cuda.empty_cache()
+
+    B, S = flagship
+    q, k, v, do, mask = exp.make_inputs(g)
+    scale = D ** -0.5
+    out, res = ba.bshd_attention_fwd(q, k, v, mask, True, scale)
+    bwd_args = (q, k, v, mask, out, res, do, True, scale)
+    pairs = B * H * _pairs(S, S, True)
+    el = 2                                        # bf16 bytes
+    mask_bytes = 4 * B * S                        # the kernels' float32 mask
+    nbytes = {"bshd_fwd": el * 4 * B * S * H * D + 4 * B * S * H * 2
+              + mask_bytes,
+              "bshd_bwd": el * 7 * B * S * H * D + 4 * B * S * H * 3
+              + mask_bytes}
+    ops = {"bshd_fwd": pairs * 4 * D, "bshd_bwd": pairs * 10 * D}
+    it = dict(iters=20, warmup=3)
+    t_fwd = time_ms(lambda: ba.bshd_attention_fwd(q, k, v, mask, True,
+                                                  scale), **it)
+    t_bwd = time_ms(lambda: ba.bshd_attention_bwd(*bwd_args), **it)
+    dev = device_ms(lambda: ba.bshd_attention_bwd(*bwd_args),
+                    ("bshd_bwd_kernel",))["bshd_bwd_kernel"]
+    p_fwd = time_ms(lambda: ba.bshd_attention_fwd_reference(
+        q, k, v, mask, True, scale), iters=5, warmup=1)
+    p_bwd = time_ms(lambda: ba.bshd_attention_bwd_reference(*bwd_args),
+                    iters=5, warmup=1)
+    heads = [x.transpose(1, 2) for x in (q, k, v)]    # views, no copy
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, is_causal=True, scale=scale), **it)
+    leaves = [x.detach().requires_grad_() for x in heads]
+    ol = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        ol, leaves, do.transpose(1, 2), retain_graph=True), **it)
+    rows = {}
+    for n, ms, pl, lib in (("bshd_fwd", t_fwd, p_fwd, lib_fwd),
+                           ("bshd_bwd", t_bwd, p_bwd, lib_bwd)):
+        b, by = bound_ms(nbytes[n], ops[n], BF16_TC_OPS_PER_S)
+        rows[n] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=b,
+                       bound_by=by)
+        log(f"{n}[causal, all-ones mask, bf16 {[B, S, H, D]}] "
+            f"kernel_ms={ms:.5f} plain_ms={pl:.5f} library_ms={lib:.5f} "
+            f"(SDPA {'forward' if n == 'bshd_fwd' else 'backward'}) "
+            f"bound_ms={b:.6f} ({by})")
+    log(f"bshd backward wrapper (delta + scratch + kernel) {t_bwd:.5f} ms "
+        f"by CUDA events, of which the kernel {dev:.5f} ms device time "
+        f"(torch.profiler)")
+    del q, k, v, do, mask, out, res, heads, leaves, ol
+    torch.cuda.empty_cache()
+    return worst, rows
+
+
+#: forward + backward steps of the bshd route on its path
+BSHD_PATH_STEPS = 5
+
+
+def phase_bshd_path():
+    """The path that runs the [B, S, H, D] pair: ``exp_torch_bshd_attn``'s
+    ``check_numerics`` on the card (the pair under autograd against
+    float32 attention and its plain versions, causal and not), then
+    ``BSHD_PATH_STEPS`` forward + backward steps of its ``bshd`` route at
+    the flagship shape, the counts set to 0 just before and read just
+    after: exactly ``len(CASES) + BSHD_PATH_STEPS`` launches of each
+    kernel of the pair and none of any other.  Then, outside that window
+    (the comparison routes launch the single-pass and bias-softmax
+    kernels), the experiment's four routes: grads against SDPA's and
+    forward + backward times."""
+    import torch
+    import exp_torch_bshd_attn as exp
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    q, k, v, do, mask = exp.make_inputs(torch.Generator().manual_seed(
+        SEED + 9))
+    table = exp.routes(q, k, v, do, mask)
+
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    numerics = exp.check_numerics()
+    for _ in range(BSHD_PATH_STEPS):
+        grads = table["bshd"]()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    n = len(exp.CASES) + BSHD_PATH_STEPS
+    if launches != {"bshd_fwd": n, "bshd_bwd": n}:
+        raise AssertionError(f"bshd path: launches {launches}, want {n} "
+                             f"bshd_fwd and {n} bshd_bwd")
+    for x in grads:
+        if tuple(x.shape) != tuple(q.shape) or not torch.isfinite(x).all():
+            raise AssertionError(f"bshd path: grad {tuple(x.shape)} not "
+                                 f"finite [B, S, H, D]")
+    route_errs = exp.compare_routes(table)
+    times = exp.time_routes(table)
+    log(f"bshd path: check_numerics {numerics}; {BSHD_PATH_STEPS} steps of "
+        f"the bshd route at {list(q.shape)}; launches {launches}")
+    log("bshd routes (forward + backward, causal, bf16 "
+        f"{list(q.shape)}): " + " ".join(
+            f"{r}={times[f'{r}_ms']:.4f}ms (grads {route_errs[r]:.3e} from "
+            f"SDPA's)" for r in table))
+    del table, grads, q, k, v, do, mask
+    torch.cuda.empty_cache()
+    return launches, dict(numerics=numerics, route_errs=route_errs, **times)
 
 
 # ---------------------------------------------------------------------------
@@ -1685,6 +1853,9 @@ def main():
         # route C, like route B: 12 key-masked attentions a step for 6
         # causal ones
         rows[name] = smalls_rows[(name, "key-masked")]
+    bshd_err, bshd_rows = phase_bshd()
+    for name in ("bshd_fwd", "bshd_bwd"):
+        errs[name], rows[name] = bshd_err[name], bshd_rows[name]
     errs["conv3x3"], conv_rows = phase_conv3x3()
     # ResNet-50's first stage runs 3 of its 16 bodies at 56x56x64 and its
     # largest activations: the table's row
@@ -1697,6 +1868,9 @@ def main():
     for route in ROUTES:
         by_path[f"train_{route}"], train[route] = phase_train(route)
     by_path["gen_lm_train"] = phase_gen_lm_train()
+    by_path["bshd_attention"], bshd_path = phase_bshd_path()
+    for name, e in (("bshd_fwd", "fwd_plain"), ("bshd_bwd", "bwd_plain")):
+        errs[name] = max(errs[name], bshd_path["numerics"][e])
     conv_train, resnet_state = {}, None
     for model in CONV_MODELS:
         by_path[f"{model}_train"], conv_train[model], state = \
@@ -1748,6 +1922,8 @@ def main():
         for k, v in resnet_check.items()))
     log(f"optimizers: max abs diff card vs cpu "
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
+    log("bshd attention (forward + backward): " + " ".join(
+        f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port, by file name under ``csrc/``
 SOURCES = ("paged_decode.cu", "bias_softmax.cu", "flash_attention.cu",
-           "smalls_attention.cu", "conv3x3.cu")
+           "smalls_attention.cu", "conv3x3.cu", "bshd_attention.cu")
 
 _lock = threading.Lock()
 _libs = {}

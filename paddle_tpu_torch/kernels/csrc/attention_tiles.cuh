@@ -1,6 +1,7 @@
-// Tile helpers shared by the attention kernels (flash_attention.cu,
-// smalls_attention.cu): loads into padded float32 shared-memory tiles and
-// the CUDA-core micro-tile products.
+// Tile helpers shared by the attention kernels (flash_attention.cu, and
+// smalls_attention.cu and bshd_attention.cu through
+// single_pass_attention.cuh): loads into padded float32 shared-memory
+// tiles and the CUDA-core micro-tile products.
 //
 // 256 threads form a 16 x 16 grid: thread (ty, tx) owns the rows
 // ty + 16 i (i < R) of a tile and the columns tx + 16 j of a 64-wide score
@@ -51,17 +52,26 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// rows [r0, r0 + rows) of a [S, width] matrix into shared memory as
-// float32 with a row stride of width + 1; rows past S are zero
+// rows [r0, r0 + rows) of an [S, width] matrix whose row r starts at
+// src + r * stride into shared memory as float32 with a row stride of
+// width + 1; rows past S are zero
 template <typename T>
-__device__ void load_tile(float* dst, const T* src, int r0, int S, int width,
-                          int rows = kTile) {
+__device__ void load_tile_strided(float* dst, const T* src, long stride,
+                                  int r0, int S, int width,
+                                  int rows = kTile) {
   const int ld = width + 1;
   for (int idx = threadIdx.x; idx < rows * width; idx += kThreads) {
     const int r = idx / width, c = idx % width;
     const int gr = r0 + r;
-    dst[r * ld + c] = gr < S ? load_f(src, (long)gr * width + c) : 0.f;
+    dst[r * ld + c] = gr < S ? load_f(src, (long)gr * stride + c) : 0.f;
   }
+}
+
+// the same for a dense [S, width] matrix
+template <typename T>
+__device__ void load_tile(float* dst, const T* src, int r0, int S, int width,
+                          int rows = kTile) {
+  load_tile_strided(dst, src, (long)width, r0, S, width, rows);
 }
 
 // additive key bias of the keys [k0, k0 + n): 0 or (1 - mask) * NEG_INF

@@ -19,6 +19,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.kernels.bshd_attention import (
+    BSHD_BWD, BSHD_FWD, BshdAttentionFunction, bshd_attention_bwd,
+    bshd_attention_bwd_reference, bshd_attention_fwd,
+    bshd_attention_fwd_reference, bshd_attn, bshd_max_s)
 from paddle_tpu_torch.kernels.conv3x3 import (
     CONV3X3, conv3x3_bn_act, conv3x3_bn_act_reference, f32_tolerance,
     fold_batch_norm)
@@ -304,6 +308,129 @@ def test_single_pass_wrappers_raise_on_bad_arguments(cuda_toolchain):
     long = torch.randn(1, 1, 4096, 16, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         smalls_attention_fwd(long, long, long)
+
+
+# ---------------------------------------------------------------------------
+# the single-pass pair in the [B, S, H, D] layout
+# ---------------------------------------------------------------------------
+
+def _bshd_case(seed, B, S, H, D, first_key_off=False):
+    """q/k/v/dO [B, S, H, D] at unit variance; a key mask with a tenth of
+    the keys off and the last batch row fully masked (or, with
+    ``first_key_off``, key 0 off in every row: rows whose causal window
+    is fully masked)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (rng.randn(B, S, H, D).astype("float32") for _ in range(4))
+    mask = (rng.rand(B, S) > 0.1).astype("float32")
+    if first_key_off:
+        mask[:, 0] = 0.0
+    else:
+        mask[-1] = 0.0
+    return q, k, v, mask, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_dtype", ["float32", "q"])
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 33, 3, 8), False), ((2, 33, 3, 8), True),
+    ((2, 200, 8, 64), True), ((3, 256, 8, 64), False),
+    ((1, 97, 2, 128), True), ((1, 1000, 4, 64), False)])
+def test_bshd_kernels_match_plain_versions_on_card(
+        cuda_toolchain, dtype, mask_dtype, shape, causal):
+    """The forward and the one backward kernel at odd and ragged S, head
+    widths 8 to 128, rows with every key masked (key-masked: a whole
+    batch row; causal: key 0 off), the mask in float32 or in q's dtype
+    (as the original passes it)."""
+    B, S, H, D = shape
+    q, k, v, mask, g = _bshd_case(S, B, S, H, D, first_key_off=causal)
+    dt = getattr(torch, dtype)
+    tq, tk, tv, tg = _cuda(q, k, v, g, dtype=dt)
+    tm = torch.from_numpy(mask).to(
+        dt if mask_dtype == "q" else torch.float32).cuda()
+    before = (BSHD_FWD.launches, BSHD_BWD.launches)
+    out, res = bshd_attention_fwd(tq, tk, tv, tm, causal, D ** -0.5)
+    grads = bshd_attention_bwd(tq, tk, tv, tm, out, res, tg, causal,
+                               D ** -0.5)
+    torch.cuda.synchronize()
+    assert (BSHD_FWD.launches, BSHD_BWD.launches) == \
+        tuple(n + 1 for n in before)
+    assert out.shape == res.shape[:3] + (D,) and res.shape[3] == 2
+    want = bshd_attention_fwd_reference(tq, tk, tv, tm, causal, D ** -0.5)
+    wgrads = bshd_attention_bwd_reference(tq, tk, tv, tm, out, res, tg,
+                                          causal, D ** -0.5)
+    _assert_matches(out, want[0])
+    torch.testing.assert_close(res, want[1], atol=1e-5, rtol=1e-6)
+    for a, b in zip(grads, wgrads):
+        _assert_matches(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bshd_pair_equals_the_bhsd_pair_on_card(cuda_toolchain, dtype,
+                                                causal):
+    """One arithmetic in two layouts: the [B, S, H, D] kernels give, bit
+    for bit, what the [B, H, S, D] single-pass kernels give on the
+    transposed tensors (the same sums in the same order; only the
+    addresses differ)."""
+    B, S, H, D = 2, 150, 4, 32
+    q, k, v, mask, g = _bshd_case(7, B, S, H, D, first_key_off=causal)
+    dt = getattr(torch, dtype)
+    tq, tk, tv, tg = _cuda(q, k, v, g, dtype=dt)
+    tm = torch.from_numpy(mask).cuda()
+    out, res = bshd_attention_fwd(tq, tk, tv, tm, causal, 0.2)
+    grads = bshd_attention_bwd(tq, tk, tv, tm, out, res, tg, causal, 0.2)
+
+    def heads_first(x):
+        return x.transpose(1, 2).contiguous()
+
+    hq, hk, hv, hg = (heads_first(x) for x in (tq, tk, tv, tg))
+    hout, lse = smalls_attention_fwd(hq, hk, hv, tm, causal, 0.2)
+    hgrads = smalls_attention_bwd(hq, hk, hv, tm, hout, lse, hg, causal,
+                                  0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, heads_first(hout))
+    assert torch.equal(res, heads_first(lse))
+    for a, b in zip(grads, hgrads):
+        assert torch.equal(a, heads_first(b))
+
+
+@pytest.mark.cuda
+def test_bshd_attention_under_torch_autograd_on_card(cuda_toolchain):
+    q, k, v, mask, g = _bshd_case(5, 2, 96, 3, 32)
+    tq, tk, tv, tg = _cuda(q, k, v, g, dtype=torch.bfloat16)
+    tm = torch.from_numpy(mask).to(torch.bfloat16).cuda()
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    out = bshd_attn(*leaves, tm, True, 0.2)
+    got = torch.autograd.grad(out, leaves, tg)
+    _, res = BshdAttentionFunction.apply(*leaves, tm, True, 0.2)
+    want = bshd_attention_bwd_reference(
+        *(t.detach() for t in (tq, tk, tv)), tm, out.detach(), res, tg,
+        True, 0.2)
+    for a, b in zip(got, want):
+        _assert_matches(a, b)
+
+
+@pytest.mark.cuda
+def test_bshd_wrappers_raise_on_bad_arguments(cuda_toolchain):
+    q = torch.randn(1, 8, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="one \\[B, S, H, D\\] shape"):
+        bshd_attention_fwd(q, q[:, :4].contiguous(), q)
+    with pytest.raises(TypeError):
+        bshd_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(1, 2).contiguous().transpose(1, 2)
+        bshd_attention_fwd(t, t, t)
+    for bad in (torch.ones(1, 8, dtype=torch.int32, device="cuda"),
+                torch.ones(1, 8, dtype=torch.float16, device="cuda"),
+                torch.ones(1, 7, device="cuda")):
+        with pytest.raises(ValueError, match="k_mask"):
+            bshd_attention_fwd(q, q, q, bad)
+    S = bshd_max_s(16) + 1
+    long = torch.randn(1, S, 1, 16, device="cuda")
+    with pytest.raises(ValueError, match=f"exceeds the {S - 1} keys"):
+        bshd_attention_fwd(long, long, long)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ def _port_modules():
 def _port_sources():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "profile_torch_decode.py", "profile_torch_train.py",
-        "exp_torch_smalls_attn.py", "exp_torch_resnet_conv.py")]
+        "exp_torch_smalls_attn.py", "exp_torch_resnet_conv.py",
+        "exp_torch_bshd_attn.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -43,7 +44,8 @@ def test_every_port_module_imports_with_jax_blocked():
     for new in ("kernels.smalls_attention", "nets", "analysis.opmeta",
                 "ops.logic_ops", "layers.learning_rate_scheduler",
                 "kernels.conv3x3", "ops.metric_ops", "models.resnet",
-                "models.vgg", "models.mnist", "analysis.flops"):
+                "models.vgg", "models.mnist", "analysis.flops",
+                "kernels.bshd_attention"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
