@@ -19,6 +19,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``atol = rtol = 1e-5`` (the two sum in different orders), bfloat16
    outputs within one bf16 rounding of themselves (``BF16_RTOL``, plus
    ``BF16_ATOL_SCALE`` times the output's RMS; see ``assert_matches``).
+   The bfloat16 single-pass forward (tensor cores) is held to one
+   rounding of the plain version with tensor-core-summed scores, and of
+   the float32-product one plus each element's rounding-flip slack
+   (``assert_forward_matches``); its log line counts the elements that
+   needed the slack.  The single-pass forward kernels' bfloat16
+   instantiations must hold
+   tensor-core instructions (``HMMA``) in ``cuobjdump -sass`` of the
+   built libraries.
 3. Serving: export a seeded ``GenLongConfig`` bundle with the port, load
    ``GenPredictor`` on ``cuda:0`` and serve requests through
    ``GenScheduler`` (continuous batching), once with the paged KV decode
@@ -77,7 +85,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``F32_TOL``, the grads (velocities) above every ReLU kink to
    ``CARD_CPU_TOP_GRAD_RTOL`` and all of them against a float64 step on
    the CPU (``CARD_CPU_F64_FACTOR``).
-7. Report: a ``{"kernels": [...]}`` line, the card's name and power
+7. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
+   single-pass kernels also name the second TPU kernel each stands for,
+   ``also_replaces``, the forwards what their redesign changed and their
+   SASS's tensor-core instruction counts), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  Exits non-zero when CUDA is
@@ -205,6 +216,46 @@ def assert_matches(got, want, what):
     else:
         tol = dict(atol=F32_TOL, rtol=F32_TOL)
     torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{what}: {m}")
+
+
+def assert_forward_matches(out, want, q, k, v, mask, causal, scale, what):
+    """A bfloat16 single-pass forward's ``out`` [B, H, S, Dv] against two
+    plain versions on the same [B, H, S, D] inputs (views of another
+    layout will do): ``want``, whose scores are a float32 product (the
+    one the CPU tests tie to the reference), within one rounding plus
+    each element's rounding-flip slack
+    (``smalls_attention.forward_rounding_slack``: the kernel sums its
+    scores in another order, so ``T(e)`` may round a key's weight the
+    other way where ``e`` lies near a bf16 rounding boundary, and nowhere
+    else); and the plain version with tensor-core-summed scores within
+    one rounding.  Returns a note for the log: the elements beyond one
+    rounding of ``want``, the largest err / tolerance, and where some
+    are beyond, the largest err / (tolerance + slack)."""
+    import torch
+    from paddle_tpu_torch.kernels import smalls_attention as sm
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite output")
+    g, w = out.float(), want.float()
+    rms = float(w.square().mean().sqrt().item())
+    tol = BF16_ATOL_SCALE * rms + BF16_RTOL * w.abs()
+    ratio = (g - w).abs() / tol
+    n_over = int((ratio > 1).sum().item())
+    note = (f"{n_over} elements beyond one rounding (rounding flips), "
+            f"err/tol {float(ratio.max().item()):.3f}")
+    if n_over:
+        slack = sm.forward_rounding_slack(q, k, v, mask, causal, scale)
+        flip = (g - w).abs() / (tol + slack)
+        worst = float(flip.max().item())
+        if worst > 1:
+            raise AssertionError(
+                f"{what}: {int((flip > 1).sum().item())} elements beyond "
+                f"one rounding plus their rounding-flip slack (largest "
+                f"err / (tolerance + slack) {worst:.3f})")
+        note += f", err/(tol + slack) {worst:.3f}"
+    tc_want, _ = sm.smalls_attention_fwd_reference(q, k, v, mask, causal,
+                                                   scale, tensor_core=True)
+    assert_matches(out, tc_want, f"{what} (tensor-core scores)")
+    return note
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +627,9 @@ def phase_smalls():
     attention [32, 8, 512, 64], key-masked (encoder self, cross; a batch
     row with every key off) and causal (decoder self), and causal with
     the first key off (rows whose causal window is fully masked), each in
-    f32 and bf16; S = 1024 and a ragged S = 200.  Then route C's bf16 times beside the plain versions', SDPA's
+    f32 and bf16 (the bf16 forward on the tensor cores); S = 1024, a
+    ragged S = 200 and head widths 16, 96 and 128 at S = 512.  Then
+    route C's bf16 times beside the plain versions', SDPA's
     forward and SDPA's backward (one call for dq, dk and dv, as the
     backward kernel is), and the bound: the products the masks leave at
     the bf16 tensor-core peak, each input read and output written once
@@ -588,16 +641,22 @@ def phase_smalls():
     from paddle_tpu_torch.kernels.build import load_library
     g = torch.Generator().manual_seed(SEED + 4)
 
-    # the rule's shared-memory sum is the kernel source's
+    # the rule's shared-memory sums (the float32 body's and the bfloat16
+    # tensor-core body's) are the kernel source's
     smem = load_library(sm.SMALLS_FWD.source).smalls_fwd_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 5
     smem.restype = ctypes.c_long
     for R, S, D, Dv in ((4, 512, 64, 64), (2, 1024, 64, 64),
-                        (1, 2000, 128, 96), (4, 200, 16, 128)):
-        if smem(R, S, D, Dv) != sm._fwd_smem_bytes(R, S, D, Dv):
-            raise AssertionError(
-                f"smalls: shared memory of R={R} S={S} D={D} Dv={Dv}: "
-                f"source {smem(R, S, D, Dv)}, rule "
-                f"{sm._fwd_smem_bytes(R, S, D, Dv)}")
+                        (1, 2000, 128, 96), (4, 200, 16, 128),
+                        (2, 512, 8, 20), (1, 3000, 64, 64)):
+        for bf16 in (0, 1):
+            src = smem(bf16, R, S, D, Dv)
+            rule = sm._fwd_smem_bytes(R, S, D, Dv, bf16=bool(bf16))
+            if src != rule:
+                raise AssertionError(
+                    f"smalls: shared memory of R={R} S={S} D={D} Dv={Dv} "
+                    f"({'bf16' if bf16 else 'f32'} body): source {src}, "
+                    f"rule {rule}")
 
     def case(B, H, S, D, dtype, masked, first_key_off=False):
         q, k, v = ((torch.randn(B, H, S, D, generator=g) * 0.5).to(dtype)
@@ -619,7 +678,8 @@ def phase_smalls():
     cases = [(route_c, False, False), (route_c, True, False),
              (route_c, True, True), ((4, 8, 1024, 64), True, False),
              ((4, 8, 1024, 64), False, False), ((2, 4, 200, 64), True, True),
-             ((2, 4, 200, 64), False, False)]
+             ((2, 4, 200, 64), False, False), ((2, 4, 512, 16), True, True),
+             ((2, 4, 512, 96), False, False), ((2, 4, 512, 128), True, False)]
     for shape, causal, first_off in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, do = case(*shape, dtype, masked=not causal,
@@ -636,7 +696,13 @@ def phase_smalls():
             what = (f"smalls {list(shape)} {str(dtype)[6:]} "
                     f"{'causal' if causal else 'key-masked'}"
                     f"{', first key off' if first_off else ''}")
-            for n, a, b in (("out", out, ro), ("dq", grads[0], rgrads[0]),
+            flips = ""
+            if dtype == torch.bfloat16:
+                flips = " out: " + assert_forward_matches(
+                    out, ro, q, k, v, mask, causal, scale, f"{what} out")
+            else:
+                assert_matches(out, ro, f"{what} out")
+            for n, a, b in (("dq", grads[0], rgrads[0]),
                             ("dk", grads[1], rgrads[1]),
                             ("dv", grads[2], rgrads[2])):
                 assert_matches(a, b, f"{what} {n}")
@@ -647,7 +713,7 @@ def phase_smalls():
             for n, e in errs.items():
                 worst[n] = max(worst[n], e)
             log(f"{what}: " + " ".join(f"{n}={e:.3e}"
-                                      for n, e in errs.items()))
+                                      for n, e in errs.items()) + flips)
             del q, k, v, do, out, lse, grads, ro, rl, rgrads
             torch.cuda.empty_cache()
 
@@ -706,6 +772,47 @@ def phase_smalls():
     return worst, rows
 
 
+def phase_sass():
+    """Tensor-core instructions of the forward kernels: ``cuobjdump
+    -sass`` of the built ``smalls_attention.cu`` and ``bshd_attention.cu``
+    libraries, the ``HMMA`` / ``HGMMA`` count of each instantiation of
+    ``smalls_fwd_kernel`` and ``bshd_fwd_kernel``.  Fails if a bfloat16
+    instantiation has none (its products are not on the tensor cores).
+    Returns ``{wrapper name: {instantiation: count}}``."""
+    import re
+    from paddle_tpu_torch.kernels import build
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    found = {}
+    for name, source in (("smalls_fwd", "smalls_attention.cu"),
+                         ("bshd_fwd", "bshd_attention.cu")):
+        kernel = f"{name}_kernel"
+        sass = subprocess.run(
+            [cuobjdump, "-sass", build.library_path(source)],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        counts = {}
+        for part in sass.split("Function : ")[1:]:
+            symbol = part.split("\n", 1)[0].strip()
+            if kernel not in symbol:
+                continue
+            dtype = "bf16" if "__nv_bfloat16" in symbol else "f32"
+            args = re.findall(r"Li(\d+)E", symbol)    # R, and kW for bf16
+            label = f"{dtype} " + " ".join(
+                f"{n}={a}" for n, a in zip(("R", "W"), args))
+            counts[label] = len(re.findall(r"\bH(?:G)?MMA\b", part))
+        if not any(k.startswith("bf16") for k in counts):
+            raise AssertionError(f"{kernel}: no bf16 instantiation in the "
+                                 f"SASS of {source}")
+        for label, n in counts.items():
+            if label.startswith("bf16") and n == 0:
+                raise AssertionError(f"{kernel} {label}: no HMMA/HGMMA "
+                                     f"instruction in its SASS")
+        found[name] = counts
+        log(f"sass {kernel}: HMMA/HGMMA instructions by instantiation "
+            f"{counts}")
+    return found
+
+
 def phase_bshd():
     """The [B, S, H, D] pair against its plain versions: the flagship
     attention of ``exp_torch_bshd_attn.py`` [256, 256, 8, 64] in bf16,
@@ -756,7 +863,14 @@ def phase_bshd():
                                                  causal, scale)
         what = (f"bshd {[B, S, H, D]} {str(dtype)[6:]} "
                 f"{'causal, first key off' if causal else 'key-masked'}")
-        for n, a, b in (("out", out, ro), ("dq", grads[0], rgrads[0]),
+        flips = ""
+        if dtype == torch.bfloat16:
+            heads = [x.transpose(1, 2) for x in (out, ro, q, k, v)]
+            flips = " out: " + assert_forward_matches(
+                *heads, mask, causal, scale, f"{what} out")
+        else:
+            assert_matches(out, ro, f"{what} out")
+        for n, a, b in (("dq", grads[0], rgrads[0]),
                         ("dk", grads[1], rgrads[1]),
                         ("dv", grads[2], rgrads[2])):
             assert_matches(a, b, f"{what} {n}")
@@ -766,7 +880,8 @@ def phase_bshd():
                                 for a, b in zip(grads, rgrads))}
         for n, e in errs.items():
             worst[n] = max(worst[n], e)
-        log(f"{what}: " + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
+        log(f"{what}: " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+            + flips)
         del q, k, v, do, mask, out, res, grads, ro, rr, rgrads
         torch.cuda.empty_cache()
 
@@ -1787,6 +1902,18 @@ def phase_serving(paged=True):
 
 # ---------------------------------------------------------------------------
 
+#: what the report line says beside a kernel's own fields: the second
+#: TPU kernel a port stands for (``exp_smalls_attn.py`` runs the same two
+#: bodies as ``attention_ops.py``), and what a redesign of its first port
+#: changed
+KERNEL_NOTES = {
+    "smalls_fwd": {"also_replaces": "exp_smalls_attn.py:48",
+                   "redesigned": "bf16 forward on the tensor cores"},
+    "smalls_bwd": {"also_replaces": "exp_smalls_attn.py:74"},
+    "bshd_fwd": {"redesigned": "bf16 forward on the tensor cores"},
+}
+
+
 def main():
     try:
         import torch
@@ -1847,6 +1974,7 @@ def main():
         # route B runs 12 key-masked (encoder self, cross) attentions a
         # step for 6 causal ones: the key-masked shape is the table's row
         rows[name] = flash_rows[(name, "key-masked")]
+    tensor_core = phase_sass()
     smalls_err, smalls_rows = phase_smalls()
     for name in ("smalls_fwd", "smalls_bwd"):
         errs[name] = smalls_err[name]
@@ -1897,6 +2025,9 @@ def main():
             "max_abs_err": errs[k.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        kernels[-1].update(KERNEL_NOTES.get(k.name, {}))
+        if k.name in tensor_core:
+            kernels[-1]["sass_mma"] = tensor_core[k.name]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on a main "

@@ -18,10 +18,10 @@
 // The TPU kernels take a whole batch row (all S keys of all H heads) per
 // grid step and loop over the heads inside.  Here the grid is the smalls
 // pair's: a forward block per (b, h, tile of query rows), a backward
-// block per (b, h); the bodies, their arithmetic, the causal skip and
-// its care for fully masked rows, what bounds them and what they do not
-// yet use (wgmma, TMA) are single_pass_attention.cuh's, with the
-// [B,S,H,.] row order.
+// block per (b, h); the bodies (the bfloat16 forward on the tensor
+// cores, the rest on the CUDA cores), their arithmetic, the causal skip
+// and its care for fully masked rows and what bounds them are
+// single_pass_attention.cuh's, with the [B,S,H,.] row order.
 
 #include "single_pass_attention.cuh"
 
@@ -36,6 +36,20 @@ __global__ void __launch_bounds__(kThreads)
                     int nq_tiles) {
   single_pass_fwd<T, R, true>(q, k, v, mask, out, res, H, S, D, Dv, scale,
                               causal, nq_tiles);
+}
+
+// the bfloat16 forward, on the tensor cores
+template <int R, int kW>
+__global__ void __launch_bounds__(tc_threads(R), tc_min_blocks(R, kW))
+    bshd_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ mask,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ res, int H, int S, int D, int Dv,
+                       float scale, int causal, int nq_tiles) {
+  single_pass_fwd_tc<R, kW, true>(q, k, v, mask, out, res, H, S, D, Dv,
+                                  scale, causal, nq_tiles);
 }
 
 template <typename T>
@@ -53,9 +67,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct BshdKernels {
-  template <typename T, int R>
+  template <typename T, int R, int kW>
   static fwd_kernel_t<T> fwd() {
-    return bshd_fwd_kernel<T, R>;
+    if constexpr (std::is_same<T, float>::value)
+      return bshd_fwd_kernel<T, R>;
+    else
+      return bshd_fwd_kernel_tc<R, kW>;
   }
   template <typename T>
   static bwd_kernel_t<T> bwd() {

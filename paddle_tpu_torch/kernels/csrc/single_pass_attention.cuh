@@ -31,24 +31,72 @@
 // order are the same in both.  A row of D = 64 bf16 values is one
 // 128-byte run in both, so the tile loads stay coalesced.
 //
+// Replaces (TPU kernels, file:line of the Pallas body):
+//   forward:  _smalls_fwd_kernel  paddle_tpu/ops/attention_ops.py:309 and
+//             exp_smalls_attn.py:48 (smalls_attention.cu),
+//             _bshd_fwd_kernel    exp_bshd_attn.py:42 (bshd_attention.cu);
+//   backward: _smalls_bwd_kernel  attention_ops.py:327, exp_smalls_attn.py:74,
+//             _bshd_bwd_kernel    exp_bshd_attn.py:69.
+//
 // What bounds them on this card.  Operations: 4 S^2 D a (b, h) pair for
 // the forward (two products), 10 S^2 D for the backward (five), about
-// half under the causal mask; the bytes (each input read once, each
-// output written once) are small beside that from S = 128 on.  The bound
-// is the tensor-core rate of the inputs' type.  These kernels do their
-// products on the CUDA cores in float32: no wgmma / mma, no TMA, no
-// cp.async pipelining of the tiles yet.
+// half under the causal mask.  At the S these kernels take (route C's
+// 512, the [B,S,H,D] flagship's 256, D = 64) the bytes bound both: each
+// input read and each output written once takes longer at 3.35 TB/s than
+// the causal products at the bf16 tensor-core peak (PERF.md's kernel
+// table).  Neither bound is near: what a block re-reads (its pair's k and
+// v, from L2, once per tile of query rows) and what it keeps in shared
+// memory (its rows' float32 scores) decide the time.
+//
+// The body by dtype (each source's K::fwd<T, R, kW> picks the kernel, and
+// the launchers its threads and shared memory; no body is tried and
+// another taken on failure):
+//   float32  -> the CUDA-core bodies below (single_pass_fwd, and
+//               single_pass_bwd for both dtypes): float32 products, as in
+//               the reference, and bit-stable (TF32 tensor cores would
+//               round the operands to 10 bits);
+//   bfloat16 -> the forward on the tensor cores (single_pass_fwd_tc); the
+//               backward stays on the CUDA-core body.
 //
 // Design.  The TPU kernels hold a pair's whole [S, S] score tile in VMEM
 // (and the [B,S,H,D] one all H heads of a batch row at once).  A block
 // here has 227 KB of shared memory (one pair's float32 scores are 1 MB at
 // S = 512) and the card wants many blocks, so what is kept of the idea is
-// "one pass, no online softmax, no running state":
-//   forward: one block per (pair, tile of 16 R query rows; R = 4, 2 or 1
-//     is the caller's choice, 2 where it fits), holding the scores of its
-//     rows against ALL S keys in shared memory: key tiles of 64 stream
-//     through once for q . k, each row's max and sum are taken over the
-//     finished row, and the v tiles stream through once for p . v.
+// "one pass, no online softmax, no running state": a forward block owns a
+// tile of 16 R query rows of one pair (R = 4, 2 or 1, the caller's choice,
+// 2 where it fits) and holds their scores against ALL S keys in shared
+// memory; key tiles of 64 stream through once for q . k, each row's max
+// and sum are taken over the finished row, and the v tiles stream through
+// once for T(e) . v.
+//   bfloat16 forward (4 R warps): warp w owns the 16 query rows w % R of
+//     the block, its q fragments in registers (ldmatrix from a bf16 tile)
+//     for the whole pass, and of the 4 warps of those rows, slice w / R:
+//     16 keys of each 64-key tile for q . k, 16-column pairs of the
+//     output for T(e) . v.  q, k and v stay bf16 in shared memory
+//     (rows of the head width rounded up to 16, + 8 bf16 so the 8 row
+//     addresses of an ldmatrix fall in distinct banks), k and v in two
+//     slots that cp.async fills with the next tile while the current one
+//     is multiplied (16-byte copies where the rows start on 16 bytes,
+//     element copies else).  Both products are mma.sync m16n8k16, bf16
+//     operands and float32 sums: q . k from ldmatrix fragments of k, its
+//     scaled, biased float32 scores stored into the rows' score buffer
+//     (a row stride of the padded keys + 8, so a fragment's 8-byte
+//     accesses meet no bank twice) while each thread keeps the maxima of
+//     its two rows; the slices' maxima meet in shared memory, a warp a
+//     row turns the finished row into e = exp(s - m), sums l from the
+//     float32 e and leaves T(e) in its place; T(e) . v reads its A
+//     fragments straight from the score rows and v through
+//     ldmatrix.trans, sums in float32 registers, divides by l at the
+//     store.  One barrier a key or v tile.  What paces it is latency (a
+//     block's chain of tile loads, products and barriers), so it is
+//     built for resident warps: 4 warps for 16 rows, a build for head
+//     widths up to 64 (fewer registers for q fragments and sums) and
+//     one up to 128, and launch bounds that hold a block of 32 rows at
+//     64 registers (4 blocks an SM where shared memory allows).  No
+//     wgmma / TMA yet.
+//   float32 forward (256 threads as 16 x 16): tiles widened to float32
+//     rows of D + 1, both products as fmaf micro-tiles (tile_dot,
+//     tile_mul of attention_tiles.cuh), synchronous tile loads.
 //   backward: one block per pair, so that dK and dV (sums over all
 //     queries) and dQ (a sum over all keys) need no atomics and the
 //     result does not depend on the launch order.  Key tiles outside,
@@ -57,17 +105,18 @@
 //     device memory ([B H, S, D] in either layout, allocated by the
 //     caller) of which a block touches only its pair's slice, each element
 //     always by the same thread, and the last key tile writes dQ in T.
-// Both share the flash kernels' thread layout and tile helpers
-// (attention_tiles.cuh) and their causal tile skip: tiles above the
-// diagonal are skipped, unless a row of the tile has seen nothing but
-// masked keys (its max below -5e8), where the causal -1e9 entries tie
-// with the masked ones and count, as in the plain version; the block
-// votes (__syncthreads_or) to walk on.  For every other row a skipped
-// entry is exp(<= -5e8) == 0 exactly.  Ragged S is masked inside (a key
-// past S scores -inf, a query past S is computed and never written): any
-// S the forward's shared memory holds, D, Dv <= 128.
+// All keep the flash kernels' causal tile skip: tiles above the diagonal
+// are skipped, unless a row of the tile has seen nothing but masked keys
+// (its max below -5e8), where the causal -1e9 entries tie with the
+// masked ones and count, as in the plain version; the block votes
+// (__syncthreads_or) to walk on.  For every other row a skipped entry is
+// exp(<= -5e8) == 0 exactly.  Ragged S is masked inside (a key past S
+// scores -inf, a query past S is computed and never written): any S the
+// forward's shared memory holds, D, Dv <= 128.
 
 #pragma once
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 
@@ -240,6 +289,395 @@ __device__ __forceinline__ void single_pass_fwd(
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bfloat16 forward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// warps of a row group (16 query rows): the key and output-column slices
+constexpr int kTcSlices = 4;
+// threads of a forward block of 16 R query rows: 4 warps a row group
+__host__ __device__ constexpr int tc_threads(int R) {
+  return 32 * kTcSlices * R;
+}
+// blocks of 16 R query rows (head widths up to kW) an SM should hold at
+// once, which bounds a thread's registers to 65536 / (threads * blocks):
+// latency, not issue or bandwidth, paces the body, so it wants resident
+// warps.  R = 2 at kW = 64 fits 64 registers with no spill (4 blocks, 32
+// warps an SM where shared memory allows, as at S = 256); at kW = 128 it
+// spills there, and takes 3.
+__host__ __device__ constexpr int tc_min_blocks(int R, int kW) {
+  return R == 1 ? 4 : R == 2 ? (kW == 64 ? 4 : 3) : 1;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0
+// fills the 16 bytes with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b over a 16 x 8 x 16 tile: bf16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// rows [r0, r0 + rows) of a bf16 matrix (row r at src + r * stride,
+// `width` columns) into a shared tile [rows][ld] of bf16 whose columns
+// [width, pad) are zero, as are the rows past S, by the block's kThr
+// threads.  `vec`: every row starts on 16 bytes and width % 8 == 0, so
+// 16-byte cp.async chunks carry it (the caller waits for its group); else
+// element copies, complete at the next barrier.
+template <int kThr>
+__device__ __forceinline__ void load_tile_bf16(
+    __nv_bfloat16* dst, int ld, const __nv_bfloat16* src, long stride,
+    int r0, int S, int width, int pad, int rows, bool vec) {
+  if (vec) {
+    const int chunks = pad / 8;
+    for (int idx = threadIdx.x; idx < rows * chunks; idx += kThr) {
+      const int r = idx / chunks, c = (idx % chunks) * 8;
+      const bool live = r0 + r < S && c < width;
+      cp_async16(dst + r * ld + c,
+                 live ? src + (long)(r0 + r) * stride + c : src,
+                 live ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * pad; idx += kThr) {
+      const int r = idx / pad, c = idx % pad;
+      dst[r * ld + c] = r0 + r < S && c < width
+                            ? src[(long)(r0 + r) * stride + c]
+                            : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
+
+// score row stride of the tensor-core body: the padded keys + 8 floats,
+// so that the 8-byte accesses of a fragment (4 rows x 4 lanes of a half
+// warp) fall in 32 distinct banks
+__host__ __device__ inline int score_ld_tc(int S) {
+  return (S + kTile - 1) / kTile * kTile + 8;
+}
+
+size_t fwd_smem_tc(int R, int S, int D, int Dv) {
+  const int w = round16(D > Dv ? D : Dv);
+  return sizeof(float) * (size_t)16 * R * score_ld_tc(S) +
+         sizeof(__nv_bfloat16) * 2 * (size_t)kTile * (w + 8) +
+         sizeof(float) * (size_t)(kTcSlices + 2) * 16 * R;
+}
+
+// The bfloat16 forward (see the note at the top).  4 R warps; warp w owns
+// row group w % R (16 query rows, its Q fragments in registers) and slice
+// w / R of the 4 warps of that group: 16 keys of every key tile in pass
+// 1, 16-column pairs sl and sl + 4 of the output in pass 3.  kW (64 or
+// 128) bounds D and Dv: the registers kept for q fragments and sums.
+template <int R, int kW, bool kBshd>
+__device__ __forceinline__ void single_pass_fwd_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int S,
+    int D, int Dv, float scale, int causal, int nq_tiles) {
+  constexpr int kRows = 16 * R;            // query rows of a block
+  constexpr int C = kTcSlices;             // warps of a row group
+  constexpr int kWarps = C * R;
+  constexpr int kThr = tc_threads(R);
+  constexpr int kColPairs = kW / 16 / C;   // 16-column pairs a warp may own
+  extern __shared__ __align__(16) float tc_smem[];
+  const int ldS = score_ld_tc(S);
+  const int nk = (S + kTile - 1) / kTile;
+  const int dpad = round16(D), vpad = round16(Dv);
+  const int ldt = round16(D > Dv ? D : Dv) + 8;  // bf16 tile row stride
+  float* Sc = tc_smem;                            // [kRows][ldS] scores
+  __nv_bfloat16* ring =                           // [2][64][ldt] tiles
+      reinterpret_cast<__nv_bfloat16*>(Sc + kRows * ldS);
+  float* red = reinterpret_cast<float*>(ring + 2 * kTile * ldt);  // [C][kRows]
+  float* mrow = red + C * kRows;                  // [kRows] row max
+  float* lrow = mrow + kRows;                     // [kRows] row sum
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % R, sl = warp / R;
+  const int g = lane / 4, t = lane % 4;  // fragment row and column pair
+  const long bh = blockIdx.x / nq_tiles;
+  const int q0 = (int)(blockIdx.x % nq_tiles) * kRows;
+  const PairRows<kBshd> rows(bh, H, S);
+  const float* kmask = mask ? mask + (bh / H) * S : nullptr;
+  const __nv_bfloat16* qb = q + rows.first * D;
+  const __nv_bfloat16* kb = k + rows.first * D;
+  const __nv_bfloat16* vb = v + rows.first * Dv;
+  const long qks = rows.step * D, vst = rows.step * Dv;
+  const bool vec_qk = D % 8 == 0 && qks % 8 == 0 && aligned16(qb) &&
+                      aligned16(kb);
+  const bool vec_v = Dv % 8 == 0 && vst % 8 == 0 && aligned16(vb);
+  auto slot = [&](int i) { return ring + (i & 1) * kTile * ldt; };
+
+  // the query tile through slot 1, into registers as A fragments
+  load_tile_bf16<kThr>(slot(1), ldt, qb, qks, q0, S, D, dpad, kRows, vec_qk);
+  load_tile_bf16<kThr>(slot(0), ldt, kb, qks, 0, S, D, dpad, kTile, vec_qk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int nks = dpad / 16;
+  uint32_t qf[kW / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < kW / 16; ++ks)
+    if (ks < nks)
+      ldmatrix_x4(qf[ks], slot(1) + (16 * rg + lane % 16) * ldt + 16 * ks +
+                              (lane / 16) * 8);
+  __syncthreads();  // slot 1 is free
+
+  // this thread's partial maxima of its rows g and g + 8 (over its
+  // columns), published per slice into red
+  float mx[2] = {-INFINITY, -INFINITY};
+  auto publish_max = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t == 0) red[sl * kRows + 16 * rg + g + 8 * h] = mx[h];
+    }
+  };
+  auto row_max_of = [&](int r) {
+    float m = red[r];
+#pragma unroll
+    for (int c = 1; c < C; ++c) m = fmaxf(m, red[c * kRows + r]);
+    return m;
+  };
+
+  // pass 1: s = q . k for every key tile, into shared memory
+  const int nlive = causal ? min(nk, (q0 + kRows - 1) / kTile + 1) : nk;
+  int kend = nlive;  // key tiles that take part
+  bool prefetched = true;  // tile kt's load was issued (tile 0: above)
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt == nlive) {  // above the diagonal from here: see the causal skip
+      publish_max();
+      __syncthreads();
+      bool need = false;
+      if (threadIdx.x < kRows)
+        need = row_max_of(threadIdx.x) < kAllMasked &&
+               q0 + (int)threadIdx.x < S;
+      if (!__syncthreads_or(need)) break;
+      kend = nk;
+    }
+    if (!prefetched) {  // the first tile past the vote
+      load_tile_bf16<kThr>(slot(kt), ldt, kb, qks, kt * kTile, S, D, dpad,
+                           kTile, vec_qk);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    // one barrier a tile: tile kt is in for every thread, and every
+    // thread is done with tile kt - 1, whose slot takes tile kt + 1 now
+    __syncthreads();
+    prefetched = kt + 1 < kend;
+    if (prefetched) {  // the next tile lands while this one is scored
+      load_tile_bf16<kThr>(slot(kt + 1), ldt, kb, qks, (kt + 1) * kTile, S,
+                           D, dpad, kTile, vec_qk);
+      cp_async_commit();
+    }
+
+    const __nv_bfloat16* Kt = slot(kt);
+    const int n0 = 16 * sl;               // this warp's 16 keys of the tile
+    const int c0 = kt * kTile + n0 + 2 * t;
+    float bias[2][2];                     // columns c0 + 8 j + e
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + e;
+        bias[j][e] = c >= S ? -INFINITY
+                            : (kmask ? (1.f - kmask[c]) * kNegInf : 0.f);
+      }
+    float acc[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kW / 16; ++ks) {
+      if (ks < nks) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, Kt + (n0 + (lane / 16) * 8 + lane % 8) * ldt +
+                            16 * ks + ((lane / 8) % 2) * 8);
+        mma_bf16(acc[0], qf[ks], bf[0], bf[1]);
+        mma_bf16(acc[1], qf[ks], bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = c0 + 8 * j;           // columns c, c + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * rg + g + 8 * h;  // block row
+        const int qr = q0 + r;
+        float x[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          x[e] = acc[j][2 * h + e] * scale + bias[j][e];
+          if (causal && c + e > qr) x[e] += kNegInf;
+        }
+        *reinterpret_cast<float2*>(Sc + r * ldS + c) =
+            make_float2(x[0], x[1]);
+        mx[h] = fmaxf(mx[h], fmaxf(x[0], x[1]));
+      }
+    }
+  }
+
+  // the first v tile lands during pass 2, in the slot that the last key
+  // tile but one used (v tile j in slot kend + j)
+  load_tile_bf16<kThr>(slot(kend), ldt, vb, vst, 0, S, Dv, vpad, kTile,
+                       vec_v);
+  cp_async_commit();
+
+  // pass 2: each row's max (from the slices' maxima) and sum over the
+  // finished row; T(e) is left in place of the scores, as float32
+  publish_max();
+  __syncthreads();
+  const int kcols = kend * kTile;
+  for (int r = warp; r < kRows; r += kWarps) {
+    const float m = row_max_of(r);
+    float* row = Sc + r * ldS;
+    float sum = 0.f;
+    for (int c = 2 * lane; c < kcols; c += 64) {
+      const float2 x = *reinterpret_cast<const float2*>(row + c);
+      const float e0 = expf(x.x - m), e1 = expf(x.y - m);
+      sum += e0;
+      sum += e1;
+      *reinterpret_cast<float2*>(row + c) =
+          make_float2(round_to<__nv_bfloat16>(e0),
+                      round_to<__nv_bfloat16>(e1));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      mrow[r] = m;
+      lrow[r] = sum;
+    }
+  }
+
+  // pass 3: out = T(e) . v / l; T(e) read from the score rows as A
+  // fragments, v through ldmatrix.trans as B fragments
+  float oacc[kColPairs][2][4] = {};
+  const int vpairs = vpad / 16;
+  for (int kt = 0; kt < kend; ++kt) {
+    cp_async_wait<0>();
+    // v tile kt is in for every thread, every thread is done with tile
+    // kt - 1 (first tile: T(e) and l are complete)
+    __syncthreads();
+    if (kt + 1 < kend) {
+      load_tile_bf16<kThr>(slot(kend + kt + 1), ldt, vb, vst,
+                           (kt + 1) * kTile, S, Dv, vpad, kTile, vec_v);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* Vt = slot(kend + kt);
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      const float* p0 =
+          Sc + (16 * rg + g) * ldS + kt * kTile + 16 * ks + 2 * t;
+      const float* p1 = p0 + 8 * ldS;
+      uint32_t a[4];
+      float2 x = *reinterpret_cast<const float2*>(p0);
+      a[0] = pack_bf16(x.x, x.y);
+      x = *reinterpret_cast<const float2*>(p1);
+      a[1] = pack_bf16(x.x, x.y);
+      x = *reinterpret_cast<const float2*>(p0 + 8);
+      a[2] = pack_bf16(x.x, x.y);
+      x = *reinterpret_cast<const float2*>(p1 + 8);
+      a[3] = pack_bf16(x.x, x.y);
+#pragma unroll
+      for (int pi = 0; pi < kColPairs; ++pi) {
+        const int cp = sl + pi * C;  // 16-column pair of the output
+        if (cp < vpairs) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, Vt + (16 * ks + ((lane / 8) % 2) * 8 +
+                                      lane % 8) * ldt +
+                                    16 * cp + (lane / 16) * 8);
+          mma_bf16(oacc[pi][0], a, bf[0], bf[1]);
+          mma_bf16(oacc[pi][1], a, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  const bool vec_out = Dv % 2 == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * rg + g + 8 * h;
+    const int qr = q0 + r;
+    if (qr >= S) continue;
+    const float l = lrow[r];
+    __nv_bfloat16* orow = out + rows(qr) * Dv;
+#pragma unroll
+    for (int pi = 0; pi < kColPairs; ++pi) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = 16 * (sl + pi * C) + 8 * j + 2 * t;
+        const float o0 = oacc[pi][j][2 * h] / l;
+        const float o1 = oacc[pi][j][2 * h + 1] / l;
+        if (vec_out && c + 1 < Dv) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(o0, o1);
+        } else {
+          if (c < Dv) orow[c] = __float2bfloat16(o0);
+          if (c + 1 < Dv) orow[c + 1] = __float2bfloat16(o1);
+        }
+      }
+    }
+  }
+  for (int r = threadIdx.x; r < kRows; r += kThr) {
+    const int qr = q0 + r;
+    if (qr >= S) continue;
+    const long row = rows(qr);
+    lse[row * 2] = mrow[r];
+    lse[row * 2 + 1] = logf(lrow[r]);
+  }
+}
+
+// shared memory of the forward body of a dtype: float32 runs the
+// CUDA-core body, bfloat16 the tensor-core one (see the note at the top)
+template <typename T>
+size_t fwd_smem_of(int R, int S, int D, int Dv) {
+  return std::is_same<T, float>::value ? fwd_smem(R, S, D, Dv)
+                                       : fwd_smem_tc(R, S, D, Dv);
+}
+
 size_t bwd_smem(int D, int Dv) {
   return sizeof(float) * ((size_t)kTile * (D + 1) * 2 +
                           (size_t)kTile * (Dv + 1) * 2 +
@@ -383,8 +821,8 @@ __device__ __forceinline__ void single_pass_bwd(
 }
 
 // ---------------------------------------------------------------------------
-// launchers.  K names a source's kernels: K::fwd<T, R>() and K::bwd<T>()
-// return its __global__ functions, of these types.
+// launchers.  K names a source's kernels: K::fwd<T, R, kW>() and
+// K::bwd<T>() return its __global__ functions, of these types.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -403,20 +841,22 @@ bool bad_shape(int B, int H, int S, int D, int Dv) {
          Dv > kMaxD;
 }
 
-template <class K, typename T, int R>
+template <class K, typename T, int R, int kW>
 int launch_fwd_rows(const void* q, const void* k, const void* v,
                     const void* mask, void* out, void* lse, int B, int H,
                     int S, int D, int Dv, float scale, int causal,
                     void* stream) {
-  const fwd_kernel_t<T> kernel = K::template fwd<T, R>();
+  const fwd_kernel_t<T> kernel = K::template fwd<T, R, kW>();
   const int nt = (S + 16 * R - 1) / (16 * R);
   const long blocks = (long)B * H * nt;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(R, S, D, Dv);
+  const size_t smem = fwd_smem_of<T>(R, S, D, Dv);
+  const int threads = std::is_same<T, float>::value ? kThreads
+                                                     : tc_threads(R);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)mask, (T*)out,
       (float*)lse, H, S, D, Dv, scale, causal, nt);
   return (int)cudaGetLastError();
@@ -424,22 +864,37 @@ int launch_fwd_rows(const void* q, const void* k, const void* v,
 
 // R (16 R query rows a block) is the caller's choice: it weighs rows a
 // block (reuse of a key tile) against blocks an SM (see smalls_fwd_rows in
-// kernels/smalls_attention.py)
+// kernels/smalls_attention.py).  The bfloat16 body is built for head
+// widths up to 64 and up to 128 (kW); the float32 body has one build.
+template <class K, typename T, int R>
+int launch_fwd_width(const void* q, const void* k, const void* v,
+                     const void* mask, void* out, void* lse, int B, int H,
+                     int S, int D, int Dv, float scale, int causal,
+                     void* stream) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (D <= 64 && Dv <= 64)
+      return launch_fwd_rows<K, T, R, 64>(q, k, v, mask, out, lse, B, H, S,
+                                          D, Dv, scale, causal, stream);
+  }
+  return launch_fwd_rows<K, T, R, kMaxD>(q, k, v, mask, out, lse, B, H, S,
+                                         D, Dv, scale, causal, stream);
+}
+
 template <class K, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                void* out, void* lse, int B, int H, int S, int D, int Dv,
                float scale, int causal, int R, void* stream) {
   if (bad_shape(B, H, S, D, Dv) || (R != 1 && R != 2 && R != 4) ||
-      fwd_smem(R, S, D, Dv) > kMaxSmem)
+      fwd_smem_of<T>(R, S, D, Dv) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   if (R == 4)
-    return launch_fwd_rows<K, T, 4>(q, k, v, mask, out, lse, B, H, S, D, Dv,
-                                    scale, causal, stream);
+    return launch_fwd_width<K, T, 4>(q, k, v, mask, out, lse, B, H, S, D,
+                                     Dv, scale, causal, stream);
   if (R == 2)
-    return launch_fwd_rows<K, T, 2>(q, k, v, mask, out, lse, B, H, S, D, Dv,
-                                    scale, causal, stream);
-  return launch_fwd_rows<K, T, 1>(q, k, v, mask, out, lse, B, H, S, D, Dv,
-                                  scale, causal, stream);
+    return launch_fwd_width<K, T, 2>(q, k, v, mask, out, lse, B, H, S, D,
+                                     Dv, scale, causal, stream);
+  return launch_fwd_width<K, T, 1>(q, k, v, mask, out, lse, B, H, S, D, Dv,
+                                   scale, causal, stream);
 }
 
 template <class K, typename T>

@@ -9,7 +9,8 @@
 //
 // q, k [B,H,S,D], v [B,H,S,Dv], out [B,H,S,Dv], lse [B,H,S,2] float32,
 // delta [B,H,S].  What they compute, what bounds them and how they are
-// built: single_pass_attention.cuh, whose bodies they run with the
+// built (the bfloat16 forward on the tensor cores, the rest on the CUDA
+// cores): single_pass_attention.cuh, whose bodies they run with the
 // [B,H,S,.] layout (bshd_attention.cu runs the same bodies on [B,S,H,D]).
 
 #include "single_pass_attention.cuh"
@@ -27,6 +28,20 @@ __global__ void __launch_bounds__(kThreads)
                                causal, nq_tiles);
 }
 
+// the bfloat16 forward, on the tensor cores
+template <int R, int kW>
+__global__ void __launch_bounds__(tc_threads(R), tc_min_blocks(R, kW))
+    smalls_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const float* __restrict__ mask,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int H, int S, int D,
+                         int Dv, float scale, int causal, int nq_tiles) {
+  single_pass_fwd_tc<R, kW, false>(q, k, v, mask, out, lse, H, S, D, Dv,
+                                   scale, causal, nq_tiles);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     smalls_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -42,9 +57,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 struct SmallsKernels {
-  template <typename T, int R>
+  template <typename T, int R, int kW>
   static fwd_kernel_t<T> fwd() {
-    return smalls_fwd_kernel<T, R>;
+    if constexpr (std::is_same<T, float>::value)
+      return smalls_fwd_kernel<T, R>;
+    else
+      return smalls_fwd_kernel_tc<R, kW>;
   }
   template <typename T>
   static bwd_kernel_t<T> bwd() {
@@ -83,10 +101,12 @@ SMALLS_ENTRIES(bf16, __nv_bfloat16)
 
 #undef SMALLS_ENTRIES
 
-// shared-memory bytes of the forward with 16 R query rows a block, for the
-// wrapper's dispatch rule
-long smalls_fwd_smem_bytes(int R, int S, int D, int Dv) {
-  return (long)fwd_smem(R, S, D, Dv);
+// shared-memory bytes of the forward with 16 R query rows a block, of the
+// float32 body (bf16 = 0) or the bfloat16 one (1), for the wrapper's
+// dispatch rule
+long smalls_fwd_smem_bytes(int bf16, int R, int S, int D, int Dv) {
+  return (long)(bf16 ? fwd_smem_of<__nv_bfloat16>(R, S, D, Dv)
+                     : fwd_smem_of<float>(R, S, D, Dv));
 }
 
 const char* kernel_error_string(int code) {

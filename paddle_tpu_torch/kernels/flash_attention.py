@@ -58,12 +58,18 @@ _DKDV_ARGS = [_P] * 9 + _SHAPE
 def _scores(q, k, k_mask, causal, scale):
     """float32 [B, H, Sq, Sk] masked, scaled scores."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return _masked(s, k_mask, causal)
+
+
+def _masked(s, k_mask, causal):
+    """Scaled float32 scores [B, H, Sq, Sk] with the key mask's and the
+    causal ``NEG_INF`` added, in the kernels' order."""
     if k_mask is not None:
         s = s + (1.0 - k_mask.float())[:, None, None, :] * NEG_INF
     if causal:
-        Sq, Sk = q.shape[2], k.shape[2]
-        row = torch.arange(Sq, device=q.device)[:, None]
-        col = torch.arange(Sk, device=q.device)[None, :]
+        Sq, Sk = s.shape[2], s.shape[3]
+        row = torch.arange(Sq, device=s.device)[:, None]
+        col = torch.arange(Sk, device=s.device)[None, :]
         s = s + torch.where(col > row, NEG_INF, 0.0).to(s.dtype)
     return s
 

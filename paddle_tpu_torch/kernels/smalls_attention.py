@@ -11,7 +11,9 @@ residual ``[B, H, S, 2]``, in one pass over all S keys of a tile of query
 rows (no online softmax), and round the probabilities and ``dS`` to the
 operands' type before each product, where the reference casts them.
 ``delta = rowsum(dO * out)`` is a torch reduction outside the kernel, as
-in the reference (``attention_ops.py:397``).
+in the reference (``attention_ops.py:397``).  The bfloat16 forward runs
+on the tensor cores (``mma.sync``), the float32 forward and the backward
+on the CUDA cores (``csrc/single_pass_attention.cuh``).
 
 :func:`smalls_ok` is the dispatch rule that the attention op's forward
 and grad lowerings share (the port of ``_smalls_group``): which shapes
@@ -25,14 +27,16 @@ import ctypes
 import torch
 
 from paddle_tpu_torch.kernels.build import CudaKernel
-from paddle_tpu_torch.kernels.flash_attention import MAX_HEAD, _scores
+from paddle_tpu_torch.kernels.flash_attention import (MAX_HEAD, _masked,
+                                                      _scores)
 from paddle_tpu_torch.kernels.flash_attention import _check as _check_qkv
 
 __all__ = ["SMALLS_FWD", "SMALLS_BWD", "SMALLS_MAX_S", "smalls_ok",
            "fwd_rows_fit", "smalls_fwd_rows", "smalls_attention_fwd",
            "smalls_attention_bwd",
            "smalls_attention_fwd_reference",
-           "smalls_attention_bwd_reference", "SmallsAttentionFunction"]
+           "smalls_attention_bwd_reference", "forward_rounding_slack",
+           "SmallsAttentionFunction"]
 
 SMALLS_FWD = CudaKernel("smalls_fwd", "smalls_attention.cu",
                         replaces="paddle_tpu/ops/attention_ops.py:309")
@@ -58,20 +62,32 @@ _FWD_ARGS = [_P] * 6 + _SHAPE[:-1] + [_I, _P]
 _BWD_ARGS = [_P] * 11 + _SHAPE
 
 
-def _fwd_smem_bytes(rows16, S, D, Dv):
+def _fwd_smem_bytes(rows16, S, D, Dv, bf16=False):
     """Shared memory of the forward kernel with ``16 * rows16`` query rows
-    a block (``fwd_smem`` of ``csrc/smalls_attention.cu``): the query
-    tile, one k / v tile, the key bias and the rows' float32 scores."""
+    a block (``fwd_smem`` of ``csrc/single_pass_attention.cuh``).  The
+    float32 body: the query tile, one k / v tile, the key bias and the
+    rows' float32 scores.  The bfloat16 (tensor-core) body: the rows'
+    float32 scores at a row stride of the padded keys + 8, two bf16 k / v
+    tiles of 64 rows at the head width rounded up to 16, + 8, and the
+    rows' partial maxima (one for each of the 4 warps of a row group),
+    maxima and sums."""
     keys = -(-S // _KEY_TILE) * _KEY_TILE
+    if bf16:
+        width = -(-max(D, Dv) // 16) * 16
+        return (4 * 16 * rows16 * (keys + 8) + 2 * 2 * _KEY_TILE * (width + 8)
+                + 4 * (4 + 2) * 16 * rows16)
     return 4 * (16 * rows16 * (D + 1) + _KEY_TILE * (max(D, Dv) + 1) + keys
                 + 16 * rows16 * (keys + 16))
 
 
 def fwd_rows_fit(rows, S, D, Dv):
     """Whether a forward block can own ``rows`` (16, 32 or 64) query rows
-    at this shape: their scores against all S keys fit shared memory."""
-    return rows in (16, 32, 64) and \
-        _fwd_smem_bytes(rows // 16, S, D, Dv) <= _MAX_SMEM
+    at this shape in either dtype: their scores against all S keys fit
+    shared memory in the float32 body and in the bfloat16 one (whose sum
+    fits wherever the float32 one does, so the float32 sum decides)."""
+    return rows in (16, 32, 64) and max(
+        _fwd_smem_bytes(rows // 16, S, D, Dv),
+        _fwd_smem_bytes(rows // 16, S, D, Dv, bf16=True)) <= _MAX_SMEM
 
 
 def smalls_fwd_rows(S, D, Dv):
@@ -114,17 +130,59 @@ def smalls_ok(BH, Sq, Sk, D, Dv=None):
 # ---------------------------------------------------------------------------
 
 def smalls_attention_fwd_reference(q, k, v, k_mask=None, causal=False,
-                                   scale=1.0):
+                                   scale=1.0, tensor_core=False):
     """``(out, lse)``: out [B,H,S,Dv] in q's dtype, lse [B,H,S,2] float32
     holding the row max ``m`` and ``log l`` apart.  Scores, max, exp and
     sum in float32; ``exp(s - m)`` is rounded to v's dtype before the
-    product with v, which sums in float32."""
-    s = _scores(q, k, k_mask, causal, scale)
+    product with v, which sums in float32.
+
+    The scores are a float32 product of the widened operands, or with
+    ``tensor_core`` (bfloat16 on the card) a bf16 matrix product with
+    float32 sums: the same sums in another order, as the tensor cores
+    take them.  The bf16 kernel sums in a third order, so its ``T(e)``
+    may round a key's weight the other way where ``e`` lies near a bf16
+    rounding boundary (:func:`forward_rounding_slack`)."""
+    if tensor_core:
+        B, H, Sq, D = q.shape
+        Sk = k.shape[2]
+        s = torch.bmm(q.reshape(B * H, Sq, D),
+                      k.reshape(B * H, Sk, D).transpose(1, 2),
+                      out_dtype=torch.float32).view(B, H, Sq, Sk)
+        s = _masked(s * scale, k_mask, causal)
+    else:
+        s = _scores(q, k, k_mask, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
     out = torch.matmul(e.to(v.dtype).float(), v.float()) / l
     return out.to(q.dtype), torch.cat([m, torch.log(l)], dim=-1)
+
+
+def forward_rounding_slack(q, k, v, k_mask=None, causal=False, scale=1.0):
+    """[B, H, S, Dv] float32: how far a bfloat16 forward whose float32
+    sums run in another order may lie from
+    :func:`smalls_attention_fwd_reference` through ``T(e)`` alone.
+
+    Two float32 sums of ``q . k`` (exact bf16 products; tensor cores
+    truncate their sums) differ by at most ``ds = scale D 2**-22
+    sum_d |q_d k_d|`` with the scale's rounding; ``x = s - m`` then moves
+    by ``ds`` plus the row's largest ``ds`` (the max) plus its own
+    rounding, and ``exp`` adds ``2**-20``: ``e = exp(x)`` moves by a
+    relative ``rho`` at most.  Where ``e (1 - rho)`` and ``e (1 + rho)``
+    round to two bf16 values, ``T(e)`` may round either way, and the
+    output moves by at most their gap times ``|v| / l`` for that key
+    (``l`` sums the unrounded ``e``).  The slack sums that over a row's
+    keys: zero unless a key lies that close to a rounding boundary."""
+    s = _scores(q, k, k_mask, causal, scale)
+    ds = torch.matmul(q.float().abs(), k.float().abs().transpose(-1, -2)) \
+        * (abs(scale) * q.shape[-1] * 2.0 ** -22)
+    x = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(x)
+    rho = ds + ds.amax(dim=-1, keepdim=True) + x.abs() * 2.0 ** -23 \
+        + 2.0 ** -20
+    gap = (e * (1 + rho)).to(v.dtype).float() - \
+        (e * (1 - rho)).to(v.dtype).float()
+    return torch.matmul(gap, v.float().abs()) / e.sum(dim=-1, keepdim=True)
 
 
 def smalls_attention_bwd_reference(q, k, v, k_mask, out, lse, dout,

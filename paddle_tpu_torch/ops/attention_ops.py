@@ -4,12 +4,15 @@
 ``scaled_dot_product_attention``: fused attention over [B, H, S, D]
 tensors, saving ``Out`` and the ``(m, log l)`` residual ``Lse`` that its
 grad op reuses.  As in the reference (``_pallas_attention`` and
-``_pallas_attention_bwd``) the forward and the grad pick their kernels
-by one rule on the same shapes (:func:`attention_kernels`):
-self-attention shapes up to a measured length take the single-pass pair
-(:mod:`paddle_tpu_torch.kernels.smalls_attention`), every other shape
-the streaming flash kernels (:mod:`paddle_tpu_torch.kernels.
-flash_attention`); on the CPU their plain versions.
+``_pallas_attention_bwd``) the forward and the grad pick their route by
+one rule on the same shapes (:func:`attention_kernels`): self-attention
+shapes up to a measured length take the single-pass pair
+(:mod:`paddle_tpu_torch.kernels.smalls_attention`), other shapes the
+streaming flash kernels (:mod:`paddle_tpu_torch.kernels.
+flash_attention`), on the CPU their plain versions; ``use_flash=False``
+and head widths beyond the kernels' take the unfused route, the
+reference's ``_reference_attention`` (:func:`unfused_attention_fwd`),
+which sets no ``Lse``.
 
 ``paged_attention``: decode attention over the gen model's paged KV
 pool.  The pool lives as ``[num_pages, page_len, H*D]`` persistable tensors plus
@@ -23,7 +26,10 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.kernels.flash_attention import (flash_attention_bwd,
+from paddle_tpu_torch.kernels.bias_softmax import (bias_softmax,
+                                                   bias_softmax_grad)
+from paddle_tpu_torch.kernels.flash_attention import (MAX_HEAD, NEG_INF,
+                                                      flash_attention_bwd,
                                                       flash_attention_fwd)
 from paddle_tpu_torch.kernels.paged_decode import paged_attention
 from paddle_tpu_torch.kernels.smalls_attention import (smalls_attention_bwd,
@@ -52,13 +58,69 @@ def _infer_attn(op, block):
         lse.dtype = "float32"
 
 
-def attention_kernels(q, k, v):
-    """``(forward, backward)`` wrappers for attention over these q, k, v
-    [B, H, S, D]: the single-pass pair where :func:`smalls_ok` admits the
-    shape, else the flash kernels.  Both lowerings call this on the same
-    tensors, so a forward's residual is read by the matching backward."""
+def _unfused_scores(q, k, k_mask, causal, scale):
+    """float32 ``(q . k) * scale`` and the additive biases as the
+    bias-softmax kernel takes them: ``(1 - mask) * NEG_INF`` [B, Sk] and
+    the causal ``NEG_INF`` above the diagonal [Sq, Sk] (or None)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    row_bias = None if k_mask is None else \
+        ((1.0 - k_mask.float()) * NEG_INF).contiguous()
+    tri_bias = None
+    if causal:
+        Sq, Sk = q.shape[2], k.shape[2]
+        row = torch.arange(Sq, device=q.device)[:, None]
+        col = torch.arange(Sk, device=q.device)[None, :]
+        tri_bias = torch.where(col > row, NEG_INF, 0.0).to(torch.float32)
+    return s, row_bias, tri_bias
+
+
+def unfused_attention_fwd(q, k, v, k_mask=None, causal=False, scale=1.0):
+    """The reference's ``_reference_attention``: scores in float32,
+    ``softmax(s + biases)`` in float32 through the bias-softmax kernel
+    (its plain version on the CPU), the probabilities rounded to v's
+    dtype, ``p . v`` summed in float32, the output in q's dtype.  Returns
+    ``(out, None)``: this route keeps no ``Lse`` residual (the reference
+    sets none on it); its grad recomputes what it needs."""
+    s, row_bias, tri_bias = _unfused_scores(q, k, k_mask, causal, scale)
+    p = bias_softmax(s, row_bias, tri_bias)
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), None
+
+
+def unfused_attention_bwd(q, k, v, k_mask, out, lse, dout, causal=False,
+                          scale=1.0):
+    """``(dq, dk, dv)`` of :func:`unfused_attention_fwd`: the vjp of the
+    reference's route, cast for cast.  ``p`` is recomputed (``out`` and
+    ``lse`` are not read); the grad of the rounded ``p`` and each input's
+    grad are rounded to their primal's dtype, where the reference's
+    transposed products round them; the softmax grad runs through the
+    bias-softmax grad kernel."""
+    s, row_bias, tri_bias = _unfused_scores(q, k, k_mask, causal, scale)
+    p = bias_softmax(s, row_bias, tri_bias)
+    g = dout.float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2)).to(v.dtype)
+    ds = bias_softmax_grad(p, dp.contiguous()) * scale
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_kernels(q, k, v, use_flash=True):
+    """``(forward, backward)`` routes for attention over these q, k, v
+    [B, H, S, D]: the unfused route (:func:`unfused_attention_fwd`) when
+    ``use_flash`` is False or a head width exceeds the kernels'
+    ``MAX_HEAD``, as the reference takes ``_reference_attention`` when
+    ``use_flash`` is off or no kernel tiling fits; else the single-pass
+    pair where :func:`smalls_ok` admits the shape, else the flash
+    kernels.  Both lowerings call this on the same tensors and attrs, so
+    a forward and its grad never mix routes, and a kernel forward's
+    residual is read by the matching backward."""
     B, H, Sq, D = q.shape
-    if smalls_ok(B * H, Sq, k.shape[2], D, v.shape[3]):
+    Dv = v.shape[3]
+    if not use_flash or D > MAX_HEAD or Dv > MAX_HEAD:
+        return unfused_attention_fwd, unfused_attention_bwd
+    if smalls_ok(B * H, Sq, k.shape[2], D, Dv):
         return smalls_attention_fwd, smalls_attention_bwd
     return flash_attention_fwd, flash_attention_bwd
 
@@ -69,11 +131,12 @@ def _kernel_mask(k_mask):
 
 
 def _attn_grad_lower(ctx):
-    """dQ, dK, dV from the forward's saved ``Out`` and ``Lse`` through the
-    backward kernels of the family the forward ran (no forward
-    recompute).  As in the reference, under AMP q/k/v are cast as the
-    forward cast them, the incoming grad is cast to q's dtype, and each
-    grad is cast back to its primal's dtype."""
+    """dQ, dK, dV through the backward of the route the forward ran: the
+    kernels' from the saved ``Out`` and ``Lse`` (no forward recompute),
+    the unfused route's from q, k, v alone.  As in the reference, under
+    AMP q/k/v are cast as the forward cast them, the incoming grad is
+    cast to q's dtype, and each grad is cast back to its primal's
+    dtype."""
     op = ctx.op
     qe = ctx.env[op.input("Q")[0]]
     ke = ctx.env[op.input("K")[0]]
@@ -87,14 +150,17 @@ def _attn_grad_lower(ctx):
             else x
 
     q, k, v = (cast_in(x).contiguous() for x in (qe, ke, ve))
-    o = ctx.env[op.input("Out")[0]]
-    lse = ctx.env[op.input("Lse")[0]]
     g = ctx.env[op.input("Out@GRAD")[0]]
-    _, attention_bwd = attention_kernels(q, k, v)
+    _, attention_bwd = attention_kernels(
+        q, k, v, bool(ctx.attr("use_flash", True)))
+    if attention_bwd is unfused_attention_bwd:
+        o = lse = None
+    else:
+        o = ctx.env[op.input("Out")[0]].contiguous()
+        lse = ctx.env[op.input("Lse")[0]].contiguous()
     dq, dk, dv = attention_bwd(
-        q, k, v, _kernel_mask(k_mask), o.contiguous(), lse.contiguous(),
-        g.to(q.dtype).contiguous(), bool(ctx.attr("causal", False)),
-        float(ctx.attr("scale", 1.0)))
+        q, k, v, _kernel_mask(k_mask), o, lse, g.to(q.dtype).contiguous(),
+        bool(ctx.attr("causal", False)), float(ctx.attr("scale", 1.0)))
     for slot, val, prim in (("Q@GRAD", dq, qe), ("K@GRAD", dk, ke),
                             ("V@GRAD", dv, ve)):
         names = op.output(slot)
@@ -109,18 +175,19 @@ def sdpa_lower(ctx):
     """Q, K, V: [B, H, S, D]; KMask: [B, S_k] (1 = attend), optional;
     Out: [B, H, Sq, Dv] in Q's dtype; Lse: [B, H, Sq, 2] float32.
 
-    attrs: causal (bool), scale (float), use_flash (bool; the port has
-    no unfused route behind this op, so the attr is kept for the IR and
-    not read).
+    attrs: causal (bool), scale (float), use_flash (bool, default True;
+    False takes the unfused route, see :func:`attention_kernels`).
     """
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
-    attention_fwd, _ = attention_kernels(q, k, v)
+    attention_fwd, _ = attention_kernels(
+        q, k, v, bool(ctx.attr("use_flash", True)))
     out, lse = attention_fwd(
         q, k, v, _kernel_mask(ctx.input("KMask")),
         bool(ctx.attr("causal", False)), float(ctx.attr("scale", 1.0)))
     ctx.set_output("Out", out)
-    # saved residual; consumed by the grad op
-    ctx.set_output("Lse", lse)
+    if lse is not None:
+        # saved residual; consumed by the grad op
+        ctx.set_output("Lse", lse)
 
 
 # ---------------------------------------------------------------------------

@@ -291,7 +291,12 @@ def _infer_top_k(op, block):
 @register_op("top_k", infer_shape=_infer_top_k, no_gradient=True)
 def top_k_lower(ctx):
     """The ``k`` largest values of the last axis, largest first, and their
-    int64 indices (ties may be ordered otherwise than by ``lax.top_k``)."""
-    vals, idx = torch.topk(ctx.input("X"), int(ctx.attr("k", 1)), dim=-1)
-    ctx.set_output("Out", vals)
-    ctx.set_output("Indices", idx)
+    int64 indices.  Equal values keep their index order (the lowest
+    index first, as ``lax.top_k`` orders ties) on every device: a stable
+    descending sort of the axis, cut to ``k``.  A NaN sorts above every
+    number (``torch.sort``'s order), so NaNs come first."""
+    k = int(ctx.attr("k", 1))
+    vals, idx = torch.sort(ctx.input("X"), dim=-1, descending=True,
+                           stable=True)
+    ctx.set_output("Out", vals[..., :k].contiguous())
+    ctx.set_output("Indices", idx[..., :k].contiguous())

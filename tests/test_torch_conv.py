@@ -8,8 +8,8 @@ them (``models/mnist.py``, ``models/resnet.py``, ``models/vgg.py``).
 - Each op, run alone on seeded numpy inputs, gives the reference's
   outputs and grads (of ``mean(out * w)``, ``w`` fixed) within
   ``F32_TOL``: both packages compute in float32 and sum in different
-  orders.  ``top_k`` and ``accuracy`` run on inputs without ties
-  (``torch.topk`` and ``lax.top_k`` may order ties otherwise).
+  orders.  ``top_k`` and ``accuracy`` run here on inputs without ties;
+  tied inputs are ``tests/test_torch_ops.py``'s cases.
 - Three Momentum steps (lr 1e-3) of ResNet-18, ``resnet_cifar10(depth=8)``
   and the MNIST convnet from one transplanted scope give the reference's
   losses, parameters, velocities and running batch-norm statistics

@@ -9,7 +9,11 @@ Tolerance: float32 ``atol = rtol = 1e-5`` (the kernels and their plain
 versions sum in different orders); bfloat16 outputs one bf16 rounding of
 the same float32 value, ``rtol = 2**-7`` (one ulp of the value) plus
 ``2**-8`` times the output's RMS for elements near zero (see
-``_assert_matches``); a dead paged slot (lens 0) is compared for
+``_assert_matches``); the bfloat16 single-pass forward, whose tensor
+cores sum the scores in another order, also within each element's
+rounding-flip slack of the float32-product plain version and within one
+rounding of the tensor-core-summed one (``_assert_forward_matches``); a
+dead paged slot (lens 0) is compared for
 finiteness only, as nothing reads it; the float32 3x3 conv sums 9 * C
 products in another order than its plain version and is held to
 ``kernels.conv3x3.f32_tolerance``."""
@@ -36,9 +40,10 @@ from paddle_tpu_torch.kernels.flash_attention import (
 from paddle_tpu_torch.kernels.paged_decode import (
     PAGED_DECODE, paged_attention, paged_attention_reference)
 from paddle_tpu_torch.kernels.smalls_attention import (
-    SMALLS_BWD, SMALLS_FWD, SmallsAttentionFunction, smalls_attention_bwd,
-    smalls_attention_bwd_reference, smalls_attention_fwd,
-    smalls_attention_fwd_reference)
+    SMALLS_BWD, SMALLS_FWD, SmallsAttentionFunction, forward_rounding_slack,
+    smalls_attention_bwd, smalls_attention_bwd_reference,
+    smalls_attention_fwd, smalls_attention_fwd_reference)
+from paddle_tpu_torch.ops import attention_ops
 
 TOL = 1e-5
 
@@ -53,6 +58,26 @@ def _assert_matches(got, want):
                                    rtol=2.0 ** -7)
     else:
         torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+
+
+def _assert_forward_matches(out, want, q, k, v, mask, causal, scale):
+    """A single-pass forward's ``out`` [B, H, S, Dv] against ``want``,
+    its plain version on the same [B, H, S, D] inputs (views of another
+    layout will do).  float32 within ``TOL``.  bfloat16 (the tensor-core
+    body, whose score sums run in another order than the plain
+    version's float32 product) within one rounding plus each element's
+    rounding-flip slack (``forward_rounding_slack``), and within one
+    rounding of the plain version with tensor-core-summed scores."""
+    if out.dtype != torch.bfloat16:
+        _assert_matches(out, want)
+        return
+    assert torch.isfinite(out).all()
+    g, w = out.float(), want.float()
+    tol = 2.0 ** -8 * float(w.square().mean().sqrt()) + 2.0 ** -7 * w.abs()
+    slack = forward_rounding_slack(q, k, v, mask, causal, scale)
+    assert ((g - w).abs() <= tol + slack).all()
+    _assert_matches(out, smalls_attention_fwd_reference(
+        q, k, v, mask, causal, scale, tensor_core=True)[0])
 
 
 def _paged_case(seed, S=4, H=2, D=8, PL=8, P=3, NP=16, lens=None):
@@ -263,7 +288,7 @@ def test_single_pass_kernels_match_plain_versions_on_card(
     want = smalls_attention_fwd_reference(tq, tk, tv, tm, causal, D ** -0.5)
     wgrads = smalls_attention_bwd_reference(tq, tk, tv, tm, out, lse, tg,
                                             causal, D ** -0.5)
-    _assert_matches(out, want[0])
+    _assert_forward_matches(out, want[0], tq, tk, tv, tm, causal, D ** -0.5)
     torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
     for a, b in zip(grads, wgrads):
         _assert_matches(a, b)
@@ -277,7 +302,7 @@ def test_single_pass_forward_at_each_row_count_on_card(cuda_toolchain, rows):
     tm = torch.from_numpy(mask).cuda()
     out, lse = smalls_attention_fwd(tq, tk, tv, tm, True, 0.125, rows=rows)
     want = smalls_attention_fwd_reference(tq, tk, tv, tm, True, 0.125)
-    _assert_matches(out, want[0])
+    _assert_forward_matches(out, want[0], tq, tk, tv, tm, True, 0.125)
     torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
     with pytest.raises(RuntimeError, match="invalid"):
         smalls_attention_fwd(tq, tk, tv, tm, True, 0.125, rows=48)
@@ -308,6 +333,102 @@ def test_single_pass_wrappers_raise_on_bad_arguments(cuda_toolchain):
     long = torch.randn(1, 1, 4096, 16, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         smalls_attention_fwd(long, long, long)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 2, 77, 12, 20), 0),        # widths off 8: element copies
+    ((2, 4, 130, 64, 64), 1),       # rows off 16 bytes: element copies
+    ((1, 2, 300, 96, 96), 0), ((1, 2, 200, 128, 128), 0)])
+def test_single_pass_forward_tile_copies_on_card(cuda_toolchain, shape,
+                                                 offset):
+    """The bfloat16 forward's tiles come by 16-byte ``cp.async`` where
+    every row starts on 16 bytes and the widths are multiples of 8, else
+    by element copies; both give the plain version's output (causal and
+    key-masked, a batch row fully masked)."""
+    B, H, S, D, Dv = shape
+    q, k, v, mask, _ = _flash_case(S + offset, B, H, S, S, D, Dv)
+
+    def placed(x):
+        # a contiguous tensor that starts `offset` elements into its
+        # storage
+        t = torch.from_numpy(x).to(torch.bfloat16).cuda().reshape(-1)
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype,
+                          device=t.device)
+        buf[offset:] = t
+        return buf[offset:].view(x.shape)
+
+    tq, tk, tv = placed(q), placed(k), placed(v)
+    tm = torch.from_numpy(mask).cuda()
+    for causal in (False, True):
+        out, lse = smalls_attention_fwd(tq, tk, tv, tm, causal, 0.15)
+        want = smalls_attention_fwd_reference(tq, tk, tv, tm, causal, 0.15)
+        _assert_forward_matches(out, want[0], tq, tk, tv, tm, causal, 0.15)
+        torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_top_k_orders_ties_on_card(cuda_toolchain):
+    """``top_k`` on the card: tied values lowest index first, as on the
+    CPU and in ``lax.top_k``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import registry
+    d = {"blocks": [{"idx": 0, "parent_idx": -1, "vars": [
+        {"name": "x", "shape": [3, 5], "dtype": "float32",
+         "persistable": False},
+        {"name": "out", "shape": None, "dtype": "float32"},
+        {"name": "idx", "shape": None, "dtype": "int64"}],
+        "ops": [{"type": "top_k", "inputs": {"X": ["x"]},
+                 "outputs": {"Out": ["out"], "Indices": ["idx"]},
+                 "attrs": {"k": 3}}]}]}
+    block = pt.Program.from_dict(d).global_block()
+    x = torch.tensor([[1, 3, 3, 2, 3], [0.5] * 5, [4, 4, 1, 9, 4]])
+    got = {}
+    for dev in ("cpu", "cuda"):
+        env = {"x": x.to(dev)}
+        registry.run_lowering(block.ops[0], env, block,
+                              aux={"device": torch.device(dev)})
+        got[dev] = (env["out"].cpu(), env["idx"].cpu())
+    assert got["cuda"][1].tolist() == [[1, 2, 4], [0, 1, 2], [3, 0, 1]]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,use_flash", [(64, False), (256, True)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_unfused_route_on_card(cuda_toolchain, dtype, D, use_flash, causal):
+    """The unfused route (``use_flash=False``, or D over the kernels'
+    128) on the card against itself on the CPU (the plain bias-softmax):
+    float32 to 1e-5, bfloat16 to one rounding.  Its softmax runs the
+    bias-softmax kernels and no attention kernel."""
+    B, H, Sq, Sk = 2, 2, 48, 48 if causal else 80
+    q, k, v, mask, g = _flash_case(D + causal, B, H, Sq, Sk, D, D)
+    dt = getattr(torch, dtype)
+    fwd, bwd = attention_ops.attention_kernels(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        use_flash)
+    assert (fwd, bwd) == (attention_ops.unfused_attention_fwd,
+                          attention_ops.unfused_attention_bwd)
+    cpu = [torch.from_numpy(x).to(dt) for x in (q, k, v, g)]
+    card = [x.cuda() for x in cpu]
+    cm = torch.from_numpy(mask)
+    kernels = (BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, SMALLS_FWD, SMALLS_BWD,
+               FLASH_FWD, FLASH_DQ, FLASH_DKDV)
+    before = [kern.launches for kern in kernels]
+    out, lse = fwd(*card[:3], cm.cuda(), causal, D ** -0.5)
+    grads = bwd(*card[:3], cm.cuda(), None, None, card[3], causal,
+                D ** -0.5)
+    torch.cuda.synchronize()
+    assert lse is None
+    assert [kern.launches - n for kern, n in zip(kernels, before)] == \
+        [2, 1, 0, 0, 0, 0, 0]
+    want_out, _ = fwd(*cpu[:3], cm, causal, D ** -0.5)
+    want = bwd(*cpu[:3], cm, None, None, cpu[3], causal, D ** -0.5)
+    for a, b in zip((out, *grads), (want_out, *want)):
+        assert a.dtype == dt
+        _assert_matches(a.cpu(), b)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +480,8 @@ def test_bshd_kernels_match_plain_versions_on_card(
     want = bshd_attention_fwd_reference(tq, tk, tv, tm, causal, D ** -0.5)
     wgrads = bshd_attention_bwd_reference(tq, tk, tv, tm, out, res, tg,
                                           causal, D ** -0.5)
-    _assert_matches(out, want[0])
+    _assert_forward_matches(*(x.transpose(1, 2) for x in (
+        out, want[0], tq, tk, tv)), tm, causal, D ** -0.5)
     torch.testing.assert_close(res, want[1], atol=1e-5, rtol=1e-6)
     for a, b in zip(grads, wgrads):
         _assert_matches(a, b)

@@ -233,6 +233,24 @@ def test_lowering_matches_reference(case):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+@pytest.mark.parametrize("x,k,want_idx", [
+    (np.array([[1, 3, 3, 2, 3]], np.float32), 3, [[1, 2, 4]]),
+    (np.full((2, 6), 0.5, np.float32), 4, [[0, 1, 2, 3]] * 2)],
+    ids=["ties", "all_equal"])
+def test_top_k_orders_ties_as_the_reference(x, k, want_idx):
+    """Tied values come lowest index first, as ``lax.top_k`` orders them
+    (``accuracy`` reads these indices)."""
+    d = _op_dict("top_k", {"X": x}, ["Out", "Indices"], {"k": k})
+    want = _run_jax(d, {"X": x})
+    got = _run_torch(d, {"X": x})
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name],
+                                      want[name].astype(got[name].dtype))
+    np.testing.assert_array_equal(got["out_Indices"], want_idx)
+    assert got["out_Indices"].dtype == np.int64
+
+
 def test_infer_shape_matches_reference():
     """Build-time shape inference of every case agrees (the IR dicts of
     the two packages depend on it)."""
