@@ -22,11 +22,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    The bfloat16 single-pass forward (tensor cores) is held to one
    rounding of the plain version with tensor-core-summed scores, and of
    the float32-product one plus each element's rounding-flip slack
-   (``assert_forward_matches``); its log line counts the elements that
-   needed the slack.  The single-pass forward kernels' bfloat16
-   instantiations must hold
-   tensor-core instructions (``HMMA``) in ``cuobjdump -sass`` of the
-   built libraries.
+   (``assert_forward_matches``); the bfloat16 flash forward to one
+   rounding of the row-max plain version plus the slack of its tiles'
+   running max, and of the plain version that tiles as it does plus the
+   rounding-flip slack (``assert_flash_forward_matches``); the bfloat16
+   flash dQ and dK/dV (tensor cores) to one rounding plus the flip slack
+   of ``T(p)`` and ``T(dS)`` (``assert_flash_backward_matches``); the log
+   lines count the elements that needed a slack.  The bfloat16
+   instantiations of the single-pass forward kernels and of the flash dQ
+   and dK/dV kernels must hold tensor-core instructions (``HMMA``) in
+   ``cuobjdump -sass`` of the built libraries.
 3. Serving: export a seeded ``GenLongConfig`` bundle with the port, load
    ``GenPredictor`` on ``cuda:0`` and serve requests through
    ``GenScheduler`` (continuous batching), once with the paged KV decode
@@ -87,8 +92,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the CPU (``CARD_CPU_F64_FACTOR``).
 7. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
-   ``also_replaces``, the forwards what their redesign changed and their
-   SASS's tensor-core instruction counts), the card's name and power
+   ``also_replaces``, the redesigned kernels what their redesign changed
+   and their SASS's tensor-core instruction counts, ``flash_fwd`` its
+   repair), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  Exits non-zero when CUDA is
@@ -218,6 +224,34 @@ def assert_matches(got, want, what):
     torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{what}: {m}")
 
 
+def _one_rounding(got, want):
+    """``(tolerance, err / tolerance)`` of a bfloat16 output against its
+    plain version: one rounding (``BF16_RTOL``, ``BF16_ATOL_SCALE``)."""
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt().item())
+    tol = BF16_ATOL_SCALE * rms + BF16_RTOL * w.abs()
+    return tol, (g - w).abs() / tol
+
+
+def _within_slack(got, want, tol, ratio, slack_fn, what):
+    """Fail if an element lies beyond one rounding plus its slack (the
+    slack is computed only where some element is beyond one rounding);
+    returns a note: elements beyond one rounding, the largest err / tol
+    and, where some are beyond, the largest err / (tol + slack)."""
+    n_over = int((ratio > 1).sum().item())
+    note = f"{n_over} beyond one rounding, err/tol {float(ratio.max()):.3f}"
+    if n_over:
+        flip = (got.float() - want.float()).abs() / (tol + slack_fn())
+        worst = float(flip.max().item())
+        if worst > 1:
+            raise AssertionError(
+                f"{what}: {int((flip > 1).sum().item())} elements beyond one "
+                f"rounding plus their rounding-flip slack (largest err / "
+                f"(tolerance + slack) {worst:.3f})")
+        note += f", err/(tol + slack) {worst:.3f}"
+    return note
+
+
 def assert_forward_matches(out, want, q, k, v, mask, causal, scale, what):
     """A bfloat16 single-pass forward's ``out`` [B, H, S, Dv] against two
     plain versions on the same [B, H, S, D] inputs (views of another
@@ -231,36 +265,75 @@ def assert_forward_matches(out, want, q, k, v, mask, causal, scale, what):
     one rounding.  Returns a note for the log: the elements beyond one
     rounding of ``want``, the largest err / tolerance, and where some
     are beyond, the largest err / (tolerance + slack)."""
-    import torch
     from paddle_tpu_torch.kernels import smalls_attention as sm
-    if not torch.isfinite(out).all():
+    if not out.isfinite().all():
         raise AssertionError(f"{what}: non-finite output")
-    g, w = out.float(), want.float()
-    rms = float(w.square().mean().sqrt().item())
-    tol = BF16_ATOL_SCALE * rms + BF16_RTOL * w.abs()
-    ratio = (g - w).abs() / tol
-    n_over = int((ratio > 1).sum().item())
-    note = (f"{n_over} elements beyond one rounding (rounding flips), "
-            f"err/tol {float(ratio.max().item()):.3f}")
-    if n_over:
-        slack = sm.forward_rounding_slack(q, k, v, mask, causal, scale)
-        flip = (g - w).abs() / (tol + slack)
-        worst = float(flip.max().item())
-        if worst > 1:
-            raise AssertionError(
-                f"{what}: {int((flip > 1).sum().item())} elements beyond "
-                f"one rounding plus their rounding-flip slack (largest "
-                f"err / (tolerance + slack) {worst:.3f})")
-        note += f", err/(tol + slack) {worst:.3f}"
+    tol, ratio = _one_rounding(out, want)
+    note = _within_slack(
+        out, want, tol, ratio,
+        lambda: sm.forward_rounding_slack(q, k, v, mask, causal, scale),
+        what)
     tc_want, _ = sm.smalls_attention_fwd_reference(q, k, v, mask, causal,
                                                    scale, tensor_core=True)
     assert_matches(out, tc_want, f"{what} (tensor-core scores)")
     return note
 
 
-# ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
-# ---------------------------------------------------------------------------
+def assert_flash_forward_matches(out, want, q, k, v, mask, causal, scale,
+                                 what):
+    """The bfloat16 flash forward's ``out`` against two plain versions:
+    ``want``, the row-max one (the one the CPU tests tie to the
+    reference), within one rounding plus
+    ``flash_forward_rounding_slack`` (the kernel takes ``e`` against the
+    running max of its key tiles and rounds it there, so where that max
+    grew after a key's tile the key's weight is rounded at another
+    scale); and the plain version that tiles as the kernel does
+    (``key_tile=KEY_TILE``) within one rounding plus the slack of the
+    score sums' order alone (zero unless a key lies near a bf16
+    rounding boundary).  Returns a note with both readings."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    if not (out.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite output")
+    args = (q, k, v, mask, causal, scale)
+    tol, ratio = _one_rounding(out, want)
+    notes = ["row max: " + _within_slack(
+        out, want, tol, ratio,
+        lambda: fa.flash_forward_rounding_slack(*args), f"{what} (row max)")]
+    tiled, _ = fa.flash_attention_fwd_reference(*args,
+                                                key_tile=fa.KEY_TILE)
+    tol, ratio = _one_rounding(out, tiled)
+    notes.append("tiled: " + _within_slack(
+        out, tiled, tol, ratio,
+        lambda: fa.flash_forward_rounding_slack(*args, tiled=True),
+        f"{what} (tiled)"))
+    return "; ".join(notes)
+
+
+def assert_flash_backward_matches(grads, wants, args, what):
+    """The bfloat16 flash backward's ``(dq, dk, dv)`` (the tensor-core
+    bodies) against the plain versions' within one rounding plus
+    ``flash_backward_rounding_slack`` (the bodies sum ``q . k`` and
+    ``dO . v`` in another order, so ``T(dS)`` and ``T(p)`` may round the
+    other way where they lie near a bf16 rounding boundary, and nowhere
+    else).  Returns a note for the log."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    slack = []
+
+    def slack_of(i):
+        if not slack:
+            slack.extend(fa.flash_backward_rounding_slack(*args))
+        return slack[i]
+    notes = []
+    for i, (name, got, want) in enumerate(zip(("dq", "dk", "dv"), grads,
+                                              wants)):
+        if not got.isfinite().all():
+            raise AssertionError(f"{what} {name}: non-finite output")
+        tol, ratio = _one_rounding(got, want)
+        notes.append(f"{name} " + _within_slack(
+            got, want, tol, ratio, lambda i=i: slack_of(i),
+            f"{what} {name}"))
+    return "; ".join(notes)
+
 
 def paged_case(S, H, D, PL, P, NP, lens, seed):
     import torch
@@ -498,10 +571,12 @@ def _pairs(Sq, Sk, causal):
 
 def phase_flash():
     """The three flash kernels against their plain versions: small ragged
-    and cross-attention shapes, then route B's attention
+    and cross-attention shapes (head widths 16 to 128, both builds of the
+    bf16 backward bodies, rows not on 16 bytes), then route B's attention
     [8, 8, 2048, 2048, 64], causal (decoder self) and key-masked (encoder
-    self, cross), each in f32 and bf16; then route B's bf16 times (the
-    backward kernels' by device time, as the wrapper launches both).
+    self, cross; a batch row with every key off), each in f32 and bf16;
+    then route B's bf16 times (the backward kernels' by device time, as
+    the wrapper launches both).
     The bound counts the products the masks leave (causal: the lower
     triangle) at the bf16 tensor-core peak, and each input read and
     output written once."""
@@ -527,7 +602,9 @@ def phase_flash():
 
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
     small = [((2, 2, 100, 100, 64, 64), True), ((1, 2, 96, 48, 16, 16), False),
-             ((1, 1, 37, 130, 128, 96), False)]
+             ((1, 1, 37, 130, 128, 96), False),
+             ((2, 4, 513, 257, 128, 128), True),
+             ((2, 3, 70, 200, 40, 24), False), ((1, 2, 90, 75, 20, 36), True)]
     big = (ROUTE_B_B, TRAIN_HEADS, ROUTE_B_S, ROUTE_B_S, TRAIN_D, TRAIN_D)
     for shape, causal in small + [(big, True), (big, False)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -547,14 +624,22 @@ def phase_flash():
                     "flash_dkdv": max(max_err(dk, rk), max_err(dv, rv))}
             what = (f"flash {list(shape)} {str(dtype)[6:]} "
                     f"{'causal' if causal else 'key-masked'}")
-            for n, a, b in (("out", out, ro), ("dq", dq, rq), ("dk", dk, rk),
-                            ("dv", dv, rv)):
-                assert_matches(a, b, f"{what} {n}")
+            flips = ""
+            if dtype == torch.bfloat16:
+                flips = " out: " + assert_flash_forward_matches(
+                    out, ro, q, k, v, mask, causal, scale, f"{what} out")
+                flips += "; grads: " + assert_flash_backward_matches(
+                    (dq, dk, dv), (rq, rk, rv), (q, k, v, mask, out, lse, do,
+                                                 causal, scale), what)
+            else:
+                for n, a, b in (("out", out, ro), ("dq", dq, rq),
+                                ("dk", dk, rk), ("dv", dv, rv)):
+                    assert_matches(a, b, f"{what} {n}")
             torch.testing.assert_close(lse, rl, atol=F32_TOL, rtol=1e-6)
             for n, e in errs.items():
                 worst[n] = max(worst[n], e)
             log(f"{what}: " + " ".join(f"{n}={e:.3e}"
-                                      for n, e in errs.items()))
+                                      for n, e in errs.items()) + flips)
             del q, k, v, do, out, lse, dq, dk, dv, ro, rl, rq, rk, rv
             torch.cuda.empty_cache()
 
@@ -773,32 +858,39 @@ def phase_smalls():
 
 
 def phase_sass():
-    """Tensor-core instructions of the forward kernels: ``cuobjdump
-    -sass`` of the built ``smalls_attention.cu`` and ``bshd_attention.cu``
-    libraries, the ``HMMA`` / ``HGMMA`` count of each instantiation of
-    ``smalls_fwd_kernel`` and ``bshd_fwd_kernel``.  Fails if a bfloat16
-    instantiation has none (its products are not on the tensor cores).
-    Returns ``{wrapper name: {instantiation: count}}``."""
+    """Tensor-core instructions of the redesigned kernels: ``cuobjdump
+    -sass`` of the built ``smalls_attention.cu``, ``bshd_attention.cu``
+    and ``flash_attention.cu`` libraries, the ``HMMA`` / ``HGMMA`` count
+    of each instantiation of ``smalls_fwd_kernel``, ``bshd_fwd_kernel``
+    (template arguments R and W), ``flash_dq_kernel`` and
+    ``flash_dkdv_kernel`` (W for the bfloat16 bodies).  Fails if a
+    bfloat16 instantiation has none (its products are not on the tensor
+    cores).  Returns ``{wrapper name: {instantiation: count}}``."""
     import re
     from paddle_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    found = {}
-    for name, source in (("smalls_fwd", "smalls_attention.cu"),
-                         ("bshd_fwd", "bshd_attention.cu")):
+    found, sass = {}, {}
+    for name, source, params in (
+            ("smalls_fwd", "smalls_attention.cu", ("R", "W")),
+            ("bshd_fwd", "bshd_attention.cu", ("R", "W")),
+            ("flash_dq", "flash_attention.cu", ("W",)),
+            ("flash_dkdv", "flash_attention.cu", ("W",))):
         kernel = f"{name}_kernel"
-        sass = subprocess.run(
-            [cuobjdump, "-sass", build.library_path(source)],
-            capture_output=True, text=True, timeout=300, check=True).stdout
+        if source not in sass:
+            sass[source] = subprocess.run(
+                [cuobjdump, "-sass", build.library_path(source)],
+                capture_output=True, text=True, timeout=300,
+                check=True).stdout
         counts = {}
-        for part in sass.split("Function : ")[1:]:
+        for part in sass[source].split("Function : ")[1:]:
             symbol = part.split("\n", 1)[0].strip()
             if kernel not in symbol:
                 continue
             dtype = "bf16" if "__nv_bfloat16" in symbol else "f32"
-            args = re.findall(r"Li(\d+)E", symbol)    # R, and kW for bf16
-            label = f"{dtype} " + " ".join(
-                f"{n}={a}" for n, a in zip(("R", "W"), args))
+            args = re.findall(r"Li(\d+)E", symbol)
+            label = " ".join([dtype] + [f"{n}={a}"
+                                        for n, a in zip(params, args)])
             counts[label] = len(re.findall(r"\bH(?:G)?MMA\b", part))
         if not any(k.startswith("bf16") for k in counts):
             raise AssertionError(f"{kernel}: no bf16 instantiation in the "
@@ -1904,9 +1996,12 @@ def phase_serving(paged=True):
 
 #: what the report line says beside a kernel's own fields: the second
 #: TPU kernel a port stands for (``exp_smalls_attn.py`` runs the same two
-#: bodies as ``attention_ops.py``), and what a redesign of its first port
-#: changed
+#: bodies as ``attention_ops.py``), and what a redesign or a repair of its
+#: first port changed
 KERNEL_NOTES = {
+    "flash_fwd": {"repaired": "bf16 T(p) cast before the product with v"},
+    "flash_dq": {"redesigned": "bf16 on the tensor cores"},
+    "flash_dkdv": {"redesigned": "bf16 on the tensor cores"},
     "smalls_fwd": {"also_replaces": "exp_smalls_attn.py:48",
                    "redesigned": "bf16 forward on the tensor cores"},
     "smalls_bwd": {"also_replaces": "exp_smalls_attn.py:74"},

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Experiment: the single-pass attention kernels of two builds of the port
-on one H100, side by side: the bfloat16 forward's times and whether the
-outputs are the same bits.
+"""Experiment: the attention kernels of two builds of the port on one
+H100, side by side: the single-pass bfloat16 forward's and the flash
+bfloat16 backward's times, and whether the outputs are the same bits.
 
 Run it from the root of each checkout (copy it into an older one), on a
 machine with one NVIDIA H100, then compare:
 
-    (cd OLD && python3 exp_torch_single_pass_fwd.py --out runs/sp/old.pt)
-    python3 exp_torch_single_pass_fwd.py --out runs/sp/new.pt
-    python3 exp_torch_single_pass_fwd.py --compare OLD/runs/sp/old.pt \
-        runs/sp/new.pt
+    (cd OLD && python3 exp_torch_attention_builds.py --out runs/ab/old.pt)
+    python3 exp_torch_attention_builds.py --out runs/ab/new.pt
+    python3 exp_torch_attention_builds.py --compare OLD/runs/ab/old.pt \
+        runs/ab/new.pt
 
-Each run prints one JSON line: the bfloat16 forward's times (CUDA
-events, mean of ``--iters`` back-to-back calls after warm-up) at route
-C's key-masked and causal ``[32, 8, 512, 64]`` and the ``[B,S,H,D]``
-flagship ``[256, 256, 8, 64]`` causal, beside PyTorch's
-``scaled_dot_product_attention`` forward on the same inputs (a yardstick
-the port never calls), and the card's name and power limit.  Compare
-times of one call only, run in turns (old, new, new, old).
+Each run prints one JSON line: the single-pass bfloat16 forward's times
+(CUDA events, mean of ``--iters`` back-to-back calls after warm-up) at
+route C's key-masked and causal ``[32, 8, 512, 64]`` and the
+``[B,S,H,D]`` flagship ``[256, 256, 8, 64]`` causal, beside PyTorch's
+``scaled_dot_product_attention`` forward on the same inputs; the flash
+bfloat16 backward's (the wrapper: delta, dQ and dK/dV) at route B's
+key-masked (an all-ones mask, as the model feeds it) and causal ``[8, 8,
+2048, 2048, 64]``, beside SDPA's backward (one call for dq, dk and dv);
+and the card's name and power limit.  SDPA is a yardstick the port never
+calls.  Compare times of one call only, run in turns (old, new, new,
+old).
 
 With ``--out`` it also saves, from inputs made from one seed at seven
 shapes (those three, a ``[4, 8, 1024, 64]`` causal, a ragged ``[2, 4,
@@ -28,11 +32,21 @@ unit-variance inputs: key-masked, and causal with key 0 off):
 - the float32 and bfloat16 backward's ``dq, dk, dv`` from the same
   inputs (``out`` and the residual of the float32 forward, ``out`` cast
   to bfloat16 for the bfloat16 backward);
-- the bfloat16 forward's outputs (these may differ between builds).
+- the bfloat16 forward's outputs (these may differ between builds);
+
+and of the flash kernels at route B's two shapes (key-masked with a
+batch row whose every key is off, and causal) and a ragged
+cross-attention ``[2, 8, 300, 517, 64]``:
+
+- the float32 forward's ``out`` and residual, and the float32
+  backward's ``dq, dk, dv`` from them;
+- the bfloat16 backward's ``dq, dk, dv`` from the same inputs in
+  bfloat16 and the float32 forward's residual (these may differ between
+  builds).
 
 ``--compare`` prints, for each saved tensor, whether the two runs hold the
 same bits, and the largest difference where not; it exits non-zero if a
-float32 forward or a backward output differs.
+float32 output or a single-pass backward output differs.
 
 It imports neither JAX nor the JAX package and exits non-zero without
 CUDA.
@@ -63,6 +77,13 @@ SHAPES = (
 )
 #: shapes that are timed (the kernel table's rows)
 TIMED = ("route C key-masked", "route C causal", "bshd flagship causal")
+#: flash shapes: (label, B, H, Sq, Sk, D, causal, key mask), the first two
+#: timed
+FLASH_SHAPES = (
+    ("flash route B key-masked", 8, 8, 2048, 2048, 64, False, "masked"),
+    ("flash route B causal", 8, 8, 2048, 2048, 64, True, None),
+    ("flash ragged cross-attention", 2, 8, 300, 517, 64, False, "masked"),
+)
 
 
 def card_line():
@@ -88,23 +109,76 @@ def time_ms(fn, iters, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def make_inputs(layout, B, H, S, D, mask_kind, std, generator):
-    """bf16 q, k, v, dO on the card (``[B,H,S,D]`` or ``[B,S,H,D]``) and
-    a float32 key mask (or None)."""
+def make_inputs(layout, B, H, S, D, mask_kind, std, generator, Sk=None):
+    """bf16 q, k, v, dO on the card (``[B,H,S,D]`` or ``[B,S,H,D]``; k
+    and v of ``Sk`` rows, S by default) and a float32 key mask (or
+    None)."""
     import torch
-    shape = (B, H, S, D) if layout == "bhsd" else (B, S, H, D)
+    Sk = S if Sk is None else Sk
+    shapes = [(B, H, n, D) if layout == "bhsd" else (B, n, H, D)
+              for n in (S, Sk, Sk, S)]
     q, k, v, do = ((torch.randn(shape, generator=generator) * std)
-                   .to(torch.bfloat16).cuda() for _ in range(4))
+                   .to(torch.bfloat16).cuda() for shape in shapes)
     mask = None
     if mask_kind is not None:
-        mask = torch.ones(B, S)
+        mask = torch.ones(B, Sk)
         if mask_kind == "masked":
-            mask = (torch.rand(B, S, generator=generator) > 0.2).float()
+            mask = (torch.rand(B, Sk, generator=generator) > 0.2).float()
             mask[0] = 0.0
         elif mask_kind == "first_key_off":
             mask[:, 0] = 0.0
         mask = mask.cuda()
     return q, k, v, do, mask
+
+
+def sdpa_bwd_ms(q, k, v, do, mask, causal, scale, iters):
+    """SDPA's backward (dq, dk, dv in one call) on [B,H,S,D] inputs."""
+    import torch
+    import torch.nn.functional as F
+    B, _, Sq, _ = q.shape
+    attn_mask = None if mask is None else \
+        (mask > 0.5)[:, None, None, :].expand(B, 1, Sq, k.shape[2])
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=attn_mask,
+                                        is_causal=causal, scale=scale)
+    return time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                               retain_graph=True), iters)
+
+
+def run_flash(saved, times, iters, generator):
+    """The flash kernels' outputs (into ``saved``) and bf16 backward
+    times (into ``times``) at ``FLASH_SHAPES``."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    for label, B, H, Sq, Sk, D, causal, mask_kind in FLASH_SHAPES:
+        q, k, v, do, mask = make_inputs("bhsd", B, H, Sq, D, mask_kind, 0.5,
+                                        generator, Sk=Sk)
+        scale = D ** -0.5
+        if saved is not None:
+            f32 = [x.float() for x in (q, k, v, do)]
+            out32, lse = fa.flash_attention_fwd(*f32[:3], mask, causal,
+                                                scale)
+            saved[f"{label}/f32 fwd out"] = out32
+            saved[f"{label}/f32 fwd lse"] = lse
+            for name, x in zip(("dq", "dk", "dv"), fa.flash_attention_bwd(
+                    *f32[:3], mask, out32, lse, f32[3], causal, scale)):
+                saved[f"{label}/f32 bwd {name}"] = x
+            for name, x in zip(("dq", "dk", "dv"), fa.flash_attention_bwd(
+                    q, k, v, mask, out32.to(torch.bfloat16), lse, do,
+                    causal, scale)):
+                saved[f"{label}/bf16 bwd {name}"] = x
+            del f32
+        if "route B" in label:
+            if mask is not None:
+                mask.fill_(1.0)     # the encoder's all-ones fake_batch mask
+            out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, scale)
+            times[label] = {
+                "bf16_bwd_ms": time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, mask, out, lse, do, causal, scale), iters),
+                "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, mask, causal, scale,
+                                           iters)}
+        del q, k, v, do, mask
+        torch.cuda.empty_cache()
 
 
 def run(out_path, iters):
@@ -154,6 +228,7 @@ def run(out_path, iters):
                         scale=scale), iters)}
         del q, k, v, do
         torch.cuda.empty_cache()
+    run_flash(saved if out_path else None, times, max(iters // 5, 5), g)
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)),
                     exist_ok=True)
@@ -171,7 +246,9 @@ def compare(a_path, b_path):
         diff = 0.0 if same else float(
             (a[key].float() - b[key].float()).abs().max())
         print(f"{key}: {'same bits' if same else f'differs, max {diff:.3e}'}")
-        if not same and "bf16 fwd" not in key:
+        may_differ = "bf16 fwd" in key or (key.startswith("flash")
+                                           and "bf16" in key)
+        if not same and not may_differ:
             bad.append(key)
     print(json.dumps({"compared": len(a), "must_match_differ": bad}))
     return 1 if bad else 0
@@ -186,13 +263,13 @@ def main():
     try:
         import torch
     except ImportError:
-        print("exp_torch_single_pass_fwd: torch is not installed",
+        print("exp_torch_attention_builds: torch is not installed",
               file=sys.stderr)
         return 2
     if args.compare:
         return compare(*args.compare)
     if not torch.cuda.is_available():
-        print("exp_torch_single_pass_fwd: CUDA is not available",
+        print("exp_torch_attention_builds: CUDA is not available",
               file=sys.stderr)
         return 2
     run(args.out, args.iters)

@@ -122,17 +122,6 @@
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // Row 0 of pair bh (= b H + h) and the rows between its row s and s + 1:
 // row s of the pair is first + s * step, in any tensor of the layout.
 template <bool kBshd>
@@ -308,90 +297,6 @@ __host__ __device__ constexpr int tc_threads(int R) {
 __host__ __device__ constexpr int tc_min_blocks(int R, int kW) {
   return R == 1 ? 4 : R == 2 ? (kW == 64 ? 4 : 3) : 1;
 }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; src_bytes 0
-// fills the 16 bytes with zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a . b over a 16 x 8 x 16 tile: bf16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// rows [r0, r0 + rows) of a bf16 matrix (row r at src + r * stride,
-// `width` columns) into a shared tile [rows][ld] of bf16 whose columns
-// [width, pad) are zero, as are the rows past S, by the block's kThr
-// threads.  `vec`: every row starts on 16 bytes and width % 8 == 0, so
-// 16-byte cp.async chunks carry it (the caller waits for its group); else
-// element copies, complete at the next barrier.
-template <int kThr>
-__device__ __forceinline__ void load_tile_bf16(
-    __nv_bfloat16* dst, int ld, const __nv_bfloat16* src, long stride,
-    int r0, int S, int width, int pad, int rows, bool vec) {
-  if (vec) {
-    const int chunks = pad / 8;
-    for (int idx = threadIdx.x; idx < rows * chunks; idx += kThr) {
-      const int r = idx / chunks, c = (idx % chunks) * 8;
-      const bool live = r0 + r < S && c < width;
-      cp_async16(dst + r * ld + c,
-                 live ? src + (long)(r0 + r) * stride + c : src,
-                 live ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * pad; idx += kThr) {
-      const int r = idx / pad, c = idx % pad;
-      dst[r * ld + c] = r0 + r < S && c < width
-                            ? src[(long)(r0 + r) * stride + c]
-                            : __float2bfloat16(0.f);
-    }
-  }
-}
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
 // score row stride of the tensor-core body: the padded keys + 8 floats,
 // so that the 8-byte accesses of a fragment (4 rows x 4 lanes of a half

@@ -12,7 +12,13 @@ the same float32 value, ``rtol = 2**-7`` (one ulp of the value) plus
 ``_assert_matches``); the bfloat16 single-pass forward, whose tensor
 cores sum the scores in another order, also within each element's
 rounding-flip slack of the float32-product plain version and within one
-rounding of the tensor-core-summed one (``_assert_forward_matches``); a
+rounding of the tensor-core-summed one (``_assert_forward_matches``);
+the bfloat16 flash forward within one rounding plus its slack of the
+row-max plain version and of the one that tiles as the kernel does, and
+the bfloat16 flash dQ and dK/dV (tensor cores) within one rounding plus
+the rounding-flip slack of ``T(p)`` and ``T(dS)`` (``_assert_flash_*``;
+the slacks are zero unless a value lies near a bf16 rounding boundary or,
+for the row-max forward, the running max grew after a key's tile); a
 dead paged slot (lens 0) is compared for
 finiteness only, as nothing reads it; the float32 3x3 conv sums 9 * C
 products in another order than its plain version and is held to
@@ -34,9 +40,10 @@ from paddle_tpu_torch.kernels.bias_softmax import (
     BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, bias_softmax, bias_softmax_grad,
     bias_softmax_grad_reference, bias_softmax_reference)
 from paddle_tpu_torch.kernels.flash_attention import (
-    FLASH_DKDV, FLASH_DQ, FLASH_FWD, flash_attention_bwd,
+    FLASH_DKDV, FLASH_DQ, FLASH_FWD, KEY_TILE, flash_attention_bwd,
     flash_attention_bwd_reference, flash_attention_fwd,
-    flash_attention_fwd_reference)
+    flash_attention_fwd_reference, flash_backward_rounding_slack,
+    flash_forward_rounding_slack)
 from paddle_tpu_torch.kernels.paged_decode import (
     PAGED_DECODE, paged_attention, paged_attention_reference)
 from paddle_tpu_torch.kernels.smalls_attention import (
@@ -60,6 +67,12 @@ def _assert_matches(got, want):
         torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
 
 
+def _bf16_tolerance(want):
+    """One bf16 rounding of ``want`` (see the module's docstring)."""
+    w = want.float()
+    return 2.0 ** -8 * float(w.square().mean().sqrt()) + 2.0 ** -7 * w.abs()
+
+
 def _assert_forward_matches(out, want, q, k, v, mask, causal, scale):
     """A single-pass forward's ``out`` [B, H, S, Dv] against ``want``,
     its plain version on the same [B, H, S, D] inputs (views of another
@@ -72,12 +85,46 @@ def _assert_forward_matches(out, want, q, k, v, mask, causal, scale):
         _assert_matches(out, want)
         return
     assert torch.isfinite(out).all()
-    g, w = out.float(), want.float()
-    tol = 2.0 ** -8 * float(w.square().mean().sqrt()) + 2.0 ** -7 * w.abs()
     slack = forward_rounding_slack(q, k, v, mask, causal, scale)
-    assert ((g - w).abs() <= tol + slack).all()
+    err = (out.float() - want.float()).abs()
+    assert (err <= _bf16_tolerance(want) + slack).all()
     _assert_matches(out, smalls_attention_fwd_reference(
         q, k, v, mask, causal, scale, tensor_core=True)[0])
+
+
+def _assert_flash_forward_matches(out, want, q, k, v, mask, causal, scale):
+    """The flash forward's ``out`` against ``want``, its row-max plain
+    version.  float32 within ``TOL``.  bfloat16 (``e`` taken against the
+    running max of 64-key tiles and rounded there) within one rounding
+    plus ``flash_forward_rounding_slack`` of ``want``, and of the plain
+    version that tiles as the kernel does plus the slack of the score
+    sums' order alone."""
+    if out.dtype != torch.bfloat16:
+        _assert_matches(out, want)
+        return
+    assert torch.isfinite(out).all()
+    args = (q, k, v, mask, causal, scale)
+    tiled = flash_attention_fwd_reference(*args, key_tile=KEY_TILE)[0]
+    for ref, slack in (
+            (want, flash_forward_rounding_slack(*args)),
+            (tiled, flash_forward_rounding_slack(*args, tiled=True))):
+        err = (out.float() - ref.float()).abs()
+        assert (err <= _bf16_tolerance(ref) + slack).all()
+
+
+def _assert_flash_backward_matches(grads, wants, args):
+    """dq, dk, dv against their plain versions: float32 within ``TOL``;
+    bfloat16 (the tensor-core bodies) within one rounding plus
+    ``flash_backward_rounding_slack``."""
+    if grads[0].dtype != torch.bfloat16:
+        for a, b in zip(grads, wants):
+            _assert_matches(a, b)
+        return
+    for a, b, slack in zip(grads, wants,
+                           flash_backward_rounding_slack(*args)):
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs()
+        assert (err <= _bf16_tolerance(b) + slack).all()
 
 
 def _paged_case(seed, S=4, H=2, D=8, PL=8, P=3, NP=16, lens=None):
@@ -212,9 +259,15 @@ def test_bias_softmax_grad_kernel_matches_plain_version_on_card(
 @pytest.mark.parametrize("shape,causal", [
     ((2, 2, 40, 40, 16, 16), False), ((2, 2, 100, 100, 64, 64), True),
     ((1, 2, 96, 48, 16, 16), False), ((1, 1, 37, 130, 128, 96), False),
-    ((2, 8, 256, 256, 64, 64), True)])
+    ((2, 8, 256, 256, 64, 64), True), ((2, 4, 513, 257, 128, 128), True),
+    ((2, 3, 70, 200, 40, 24), False), ((1, 2, 90, 75, 20, 36), True),
+    ((8, 8, 2048, 2048, 64, 64), True), ((8, 8, 2048, 2048, 64, 64), False)])
 def test_flash_kernels_match_plain_versions_on_card(cuda_toolchain, dtype,
                                                     shape, causal):
+    """The trio at ragged, cross-attention and route B's shapes, head
+    widths 16 to 128 (both builds of the bf16 backward bodies; rows of
+    20 and 36 bf16 not on 16 bytes: element copies), a padded key row
+    and a batch row with every key masked."""
     B, H, Sq, Sk, D, Dv = shape
     q, k, v, mask, g = _flash_case(Sq, B, H, Sq, Sk, D, Dv)
     dt = getattr(torch, dtype)
@@ -228,14 +281,13 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_toolchain, dtype,
     assert (FLASH_FWD.launches, FLASH_DQ.launches, FLASH_DKDV.launches) == \
         tuple(n + 1 for n in before)
     want = flash_attention_fwd_reference(tq, tk, tv, tm, causal, D ** -0.5)
-    wgrads = flash_attention_bwd_reference(tq, tk, tv, tm, out, lse, tg,
-                                           causal, D ** -0.5)
-    # the kernels and their plain versions share every operation in
-    # float32; only the order of the sums differs
-    _assert_matches(out, want[0])
+    args = (tq, tk, tv, tm, out, lse, tg, causal, D ** -0.5)
+    _assert_flash_forward_matches(out, want[0], tq, tk, tv, tm, causal,
+                                  D ** -0.5)
     torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
-    for a, b in zip(grads, wgrads):
-        _assert_matches(a, b)
+    _assert_flash_backward_matches(grads,
+                                   flash_attention_bwd_reference(*args),
+                                   args)
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ def _port_sources():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "profile_torch_decode.py", "profile_torch_train.py",
         "exp_torch_smalls_attn.py", "exp_torch_resnet_conv.py",
-        "exp_torch_bshd_attn.py", "exp_torch_single_pass_fwd.py")]
+        "exp_torch_bshd_attn.py", "exp_torch_attention_builds.py",
+        "exp_torch_top_k.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

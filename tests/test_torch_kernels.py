@@ -19,6 +19,7 @@ from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.kernels.bias_softmax import (
     BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, BiasSoftmaxFunction, bias_softmax,
     bias_softmax_grad, bias_softmax_grad_reference, bias_softmax_reference)
+from paddle_tpu_torch.kernels import flash_attention as flash
 from paddle_tpu_torch.kernels.flash_attention import (
     FLASH_DKDV, FLASH_DQ, FLASH_FWD, FlashAttentionFunction,
     flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
@@ -238,10 +239,12 @@ def test_bias_softmax_grad_wrapper_runs_plain_version_on_cpu():
 # flash attention
 # ---------------------------------------------------------------------------
 
-#: bfloat16 flash attention against the JAX kernels.  The port's kernels
-#: read bf16 q/k/v/dO and keep p, dS and every sum in float32; the Pallas
-#: kernels round p and dS to bf16 before their products.  That is one
-#: bf16 rounding (2**-8 relative) of values of order 1 in the outputs:
+#: bfloat16 flash attention against the JAX kernels.  Both round p and
+#: dS to bf16 before their products and sum in float32; the plain
+#: forward takes exp(s - m) against the row max where the Pallas kernel
+#: at S = 40 walks 8-key blocks with a running max, and the sums run in
+#: other orders, so outputs may differ by a bf16 rounding of values of
+#: order 1 (the tests below pin where they are equal bit for bit):
 #: ``BF16_FLASH`` (the JAX package's own bf16 flash-backward tolerance,
 #: tests/test_attention.py::TestFlashBackwardKernel).
 BF16_FLASH = dict(rtol=2e-2, atol=3e-2)
@@ -372,3 +375,192 @@ def test_flash_wrappers_run_plain_versions_on_cpu():
         assert torch.equal(a, b)
     assert (FLASH_FWD.launches, FLASH_DQ.launches,
             FLASH_DKDV.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention in bfloat16: the casts of the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _pallas_bf16(S, causal, monkeypatch):
+    """The bf16 case of the issue's measurement (seed 7, B 2, H 2, D 16,
+    a padded key row) through the JAX package's flash kernels in
+    interpret mode (at S = 256 the single-pass pair is switched off, so
+    that the flash kernels run, on one 256-key block): the inputs, the
+    kernel's out and lse, and its dq, dk, dv from them."""
+    monkeypatch.setattr(A, "_SMALLS_MAX_S", 0)
+    q, k, v, mask, g = _flash_case(7, Sq=S, Sk=S, dtype="bfloat16")
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    out, lse = A._pallas_attention(jq, jk, jv, jnp.asarray(mask), causal,
+                                   0.25, interpret=True)
+    grads = A._pallas_attention_bwd(jq, jk, jv, jnp.asarray(mask), out, lse,
+                                    jg, causal, 0.25, interpret=True)
+    inputs = (_bf16(q), _bf16(k), _bf16(v), torch.from_numpy(mask), _bf16(g))
+    return inputs, _bf16(out), torch.from_numpy(np.array(lse)), \
+        [_bf16(x) for x in grads]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [40, 64])
+def test_flash_bf16_plain_backward_equals_pallas_kernels(S, causal,
+                                                         monkeypatch):
+    """Given the Pallas kernel's own out and lse, the bf16 plain dq, dk,
+    dv are the interpret kernels' bits: both round p and dS to bf16 where
+    the reference casts (``attention_ops.py:171``, ``:181``, ``:222``)."""
+    (q, k, v, mask, g), out, lse, want = _pallas_bf16(S, causal, monkeypatch)
+    got = flash_attention_bwd_reference(q, k, v, mask, out, lse, g, causal,
+                                        0.25)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b), name
+
+
+def _one_rounding_apart(a, b):
+    """Whether each pair of bf16 values is equal or one bf16 ulp (of the
+    larger magnitude) apart."""
+    a, b = a.double(), b.double()
+    top = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(top > 0, top, 1.0)))
+                     - 7)
+    return (a - b).abs() <= ulp
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_plain_backward_at_s256_within_one_rounding(causal,
+                                                               monkeypatch):
+    """At S = 256 the two sum their float32 products in other orders: at
+    most 0.1% of the elements differ, each by one bf16 rounding."""
+    (q, k, v, mask, g), out, lse, want = _pallas_bf16(256, causal,
+                                                      monkeypatch)
+    got = flash_attention_bwd_reference(q, k, v, mask, out, lse, g, causal,
+                                        0.25)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert int((a != b).sum()) <= 0.001 * a.numel(), name
+        assert _one_rounding_apart(a, b).all(), name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_plain_forward_equals_pallas_kernel(causal, monkeypatch):
+    """The bf16 plain forward rounds ``exp(s - m)`` to bf16 before ``. v``
+    (``p.astype(v.dtype)``, ``attention_ops.py:122``): at S = 64 (one
+    Pallas key block, so its running max is the row max) out is the
+    kernel's bits; with the kernel's 8-key blocks at S = 40, the tiled
+    plain version's out is."""
+    (q, k, v, mask, _), out, lse, _ = _pallas_bf16(64, causal, monkeypatch)
+    got, glse = flash_attention_fwd_reference(q, k, v, mask, causal, 0.25)
+    assert torch.equal(got, out)
+    # the residual is float32: to its round-off, as for float32 inputs
+    torch.testing.assert_close(glse, lse, rtol=1e-6, atol=TOL)
+    (q, k, v, mask, _), out, _, _ = _pallas_bf16(40, causal, monkeypatch)
+    assert A._flash_blocks(40, 40, interpret=True) == (8, 8)
+    tiled, _ = flash_attention_fwd_reference(q, k, v, mask, causal, 0.25,
+                                             key_tile=8)
+    assert torch.equal(tiled, out)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f32_plain_versions_unchanged(causal):
+    """In float32 every cast is the identity: the plain versions are,
+    bit for bit, the float32 arithmetic they had before the casts."""
+    q, k, v, mask, g = (torch.from_numpy(a)
+                        for a in _flash_case(13, Sq=72, Sk=72))
+    s = flash._scores(q, k, mask, causal, 0.25)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    out, lse = flash_attention_fwd_reference(q, k, v, mask, causal, 0.25)
+    assert torch.equal(out, torch.matmul(e, v) / l)
+    assert torch.equal(lse, torch.cat([m, torch.log(l)], dim=-1))
+    p = torch.exp((s - lse[..., 0:1]) - lse[..., 1:2])
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = p * (dp - (g * out).sum(dim=-1, keepdim=True)) * 0.25
+    want = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+            torch.matmul(p.transpose(-1, -2), g))
+    for a, b in zip(flash_attention_bwd_reference(q, k, v, mask, out, lse, g,
+                                                  causal, 0.25), want):
+        assert torch.equal(a, b)
+
+
+def _bf16_tolerance(want):
+    w = want.float()
+    return 2.0 ** -8 * float(w.square().mean().sqrt()) + 2.0 ** -7 * w.abs()
+
+
+def _bf16_attention_case(seed, B=2, H=4, S=512, D=64, std=0.5):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = ((torch.randn(B, H, S, D, generator=gen) * s).bfloat16()
+                   for s in (std, std, std, 1.0))
+    mask = (torch.rand(B, S, generator=gen) > 0.2).float()
+    mask[0] = 0.0
+    return q, k, v, mask, do
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_slack_covers_the_tiles_and_the_sum_order(causal):
+    """bfloat16, 8 key tiles: the tiled plain forward (the kernel's
+    arithmetic) lies beyond one rounding of the row-max one where its
+    running max grew after a key's tile, and within one rounding plus
+    ``flash_forward_rounding_slack``; the tiled forward with its scores
+    summed in another order (a float64 product, rounded once) within one
+    rounding plus the slack of that order alone."""
+    q, k, v, mask, _ = _bf16_attention_case(31)
+    scale = 64 ** -0.5
+    args = (q, k, v, mask, causal, scale)
+    want = flash_attention_fwd_reference(*args)[0].float()
+    tiled = flash_attention_fwd_reference(*args, key_tile=flash.KEY_TILE)[0]
+    err = (tiled.float() - want).abs()
+    tol = _bf16_tolerance(want)
+    assert (err > tol).any()                  # the case is not vacuous
+    assert (err <= tol + flash.flash_forward_rounding_slack(*args)).all()
+    s64 = flash._masked((q.double() @ k.double().transpose(-1, -2)).float()
+                        * scale, mask, causal)
+    other = flash._attend(s64, v, flash.KEY_TILE)[0].bfloat16().float()
+    slack = flash.flash_forward_rounding_slack(*args, tiled=True)
+    assert (slack > 0).any()
+    tiled = tiled.float()
+    assert ((other - tiled).abs() <= _bf16_tolerance(tiled) + slack).all()
+
+
+def test_flash_forward_slack_vanishes_far_from_rounding_boundaries():
+    """Scores all 0: every weight is exactly 1 against a running max that
+    never grows, so no key can round otherwise and both slacks are 0."""
+    v = torch.randn(1, 2, 200, 32, generator=torch.Generator().manual_seed(
+        32)).bfloat16()
+    q = torch.zeros_like(v)
+    for tiled in (False, True):
+        assert not flash.flash_forward_rounding_slack(
+            q, v, v, None, False, 0.125, tiled=tiled).any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_slack_covers_another_order_of_the_sums(causal):
+    """bfloat16: the plain backward with q . k and dO . v summed in
+    another order (float64 products, rounded once) rounds some ``T(dS)``
+    the other way, only where ``flash_backward_rounding_slack`` allows
+    it, and its dq, dk, dv lie within one rounding plus the slack."""
+    q, k, v, mask, do = _bf16_attention_case(41, S=256)
+    scale = 64 ** -0.5
+    out, lse = flash_attention_fwd_reference(q, k, v, mask, causal, scale)
+    args = (q, k, v, mask, out, lse, do, causal, scale)
+    want = flash_attention_bwd_reference(*args)
+    slack = flash.flash_backward_rounding_slack(*args)
+    s = flash._masked((q.double() @ k.double().transpose(-1, -2)).float()
+                      * scale, mask, causal)
+    p = torch.exp((s - lse[..., 0:1]) - lse[..., 1:2])
+    dp = (do.double() @ v.double().transpose(-1, -2)).float()
+    ds = p * (dp - (do.float() * out.float()).sum(dim=-1, keepdim=True)) \
+        * scale
+    ds_plain = flash._probs_and_dscores(*args)[1]
+    flipped = ds.bfloat16() != ds_plain.bfloat16()
+    assert flipped.any()                      # the case is not vacuous
+    assert (slack[0].amin(dim=-1) > 0)[flipped.any(dim=-1)].all()
+    t = lambda x: x.bfloat16().double()  # noqa: E731
+    other = (t(ds) @ k.double(), t(ds).transpose(-1, -2) @ q.double(),
+             t(p).transpose(-1, -2) @ do.double())
+    for a, b, sl in zip(other, want, slack):
+        b = b.float()
+        assert ((a.bfloat16().float() - b).abs()
+                <= _bf16_tolerance(b) + sl).all()
