@@ -29,8 +29,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    flash dQ and dK/dV (tensor cores) to one rounding plus the flip slack
    of ``T(p)`` and ``T(dS)`` (``assert_flash_backward_matches``); the log
    lines count the elements that needed a slack.  The bfloat16
-   instantiations of the single-pass forward kernels and of the flash dQ
-   and dK/dV kernels must hold tensor-core instructions (``HMMA``) in
+   instantiations of the single-pass forward kernels and of the three
+   flash kernels must hold tensor-core instructions (``HMMA``) in
    ``cuobjdump -sass`` of the built libraries.
 3. Serving: export a seeded ``GenLongConfig`` bundle with the port, load
    ``GenPredictor`` on ``cuda:0`` and serve requests through
@@ -94,8 +94,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
-   repair), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+   repair and its route B device time, ``device_ms``), the card's name
+   and power limit, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports neither JAX nor the JAX package.  Exits non-zero when CUDA is
 unavailable or the port is not beside it.  Writes its bundle and build
@@ -572,11 +573,12 @@ def _pairs(Sq, Sk, causal):
 def phase_flash():
     """The three flash kernels against their plain versions: small ragged
     and cross-attention shapes (head widths 16 to 128, both builds of the
-    bf16 backward bodies, rows not on 16 bytes), then route B's attention
-    [8, 8, 2048, 2048, 64], causal (decoder self) and key-masked (encoder
-    self, cross; a batch row with every key off), each in f32 and bf16;
-    then route B's bf16 times (the backward kernels' by device time, as
-    the wrapper launches both).
+    bf16 tensor-core bodies, rows not on 16 bytes, causal windows fully
+    masked), then route B's attention [8, 8, 2048, 2048, 64], causal
+    (decoder self) and key-masked (encoder self, cross; a batch row with
+    every key off), each in f32 and bf16; then route B's bf16 times (the
+    forward's by CUDA events and by device time, the backward kernels' by
+    device time, as the wrapper launches both).
     The bound counts the products the masks leave (causal: the lower
     triangle) at the bf16 tensor-core peak, and each input read and
     output written once."""
@@ -588,27 +590,46 @@ def phase_flash():
         flash_attention_fwd, flash_attention_fwd_reference)
     g = torch.Generator().manual_seed(SEED + 2)
 
-    def case(B, H, Sq, Sk, D, Dv, dtype, masked):
-        q = (torch.randn(B, H, Sq, D, generator=g) * 0.5).to(dtype).cuda()
-        k = (torch.randn(B, H, Sk, D, generator=g) * 0.5).to(dtype).cuda()
-        v = (torch.randn(B, H, Sk, Dv, generator=g) * 0.5).to(dtype).cuda()
-        do = torch.randn(B, H, Sq, Dv, generator=g).to(dtype).cuda()
+    def case(B, H, Sq, Sk, D, Dv, dtype, masked, first_key_off=False,
+             offset=0):
+        def card(*shape, std=0.5):
+            # contiguous, starting `offset` elements into its storage
+            x = (torch.randn(shape, generator=g) * std).to(dtype).cuda()
+            buf = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
+            buf[offset:] = x.reshape(-1)
+            return buf[offset:].view(shape)
+        q, k = card(B, H, Sq, D), card(B, H, Sk, D)
+        v, do = card(B, H, Sk, Dv), card(B, H, Sq, Dv, std=1.0)
         mask = None
-        if masked:
-            mask = (torch.rand(B, Sk, generator=g) > 0.2).float()
-            mask[0] = 0.0                 # a row with every key masked
+        if masked or first_key_off:
+            mask = torch.ones(B, Sk)
+            if masked:
+                mask = (torch.rand(B, Sk, generator=g) > 0.2).float()
+                mask[0] = 0.0             # a row with every key masked
+            if first_key_off:             # causal windows fully masked
+                mask[:, 0] = 0.0
             mask = mask.cuda()
         return q, k, v, mask, do
 
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
-    small = [((2, 2, 100, 100, 64, 64), True), ((1, 2, 96, 48, 16, 16), False),
-             ((1, 1, 37, 130, 128, 96), False),
-             ((2, 4, 513, 257, 128, 128), True),
-             ((2, 3, 70, 200, 40, 24), False), ((1, 2, 90, 75, 20, 36), True)]
+    # (shape, causal, case options): both builds of the bf16 bodies (head
+    # widths to 64 and to 128), rows of 20, 36 and (offset 1) 40 bf16 not
+    # on 16 bytes, causal windows fully masked (first key off)
+    small = [((2, 2, 100, 100, 64, 64), True, {}),
+             ((1, 2, 96, 48, 16, 16), False, {}),
+             ((1, 1, 37, 130, 128, 96), False, {}),
+             ((2, 4, 513, 257, 128, 128), True, {}),
+             ((2, 3, 70, 200, 40, 24), False, {}),
+             ((1, 2, 90, 75, 20, 36), True, {}),
+             ((2, 2, 200, 200, 64, 64), True, dict(first_key_off=True)),
+             ((2, 2, 130, 77, 40, 40), True, dict(first_key_off=True,
+                                                  offset=1)),
+             ((2, 3, 150, 260, 128, 96), False, dict(offset=1))]
     big = (ROUTE_B_B, TRAIN_HEADS, ROUTE_B_S, ROUTE_B_S, TRAIN_D, TRAIN_D)
-    for shape, causal in small + [(big, True), (big, False)]:
+    for shape, causal, opts in small + [(big, True, {}), (big, False, {})]:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, do = case(*shape, dtype, masked=not causal)
+            q, k, v, mask, do = case(*shape, dtype, masked=not causal,
+                                     **opts)
             scale = shape[4] ** -0.5
             out, lse = flash_attention_fwd(q, k, v, mask, causal, scale)
             dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse, do,
@@ -623,7 +644,8 @@ def phase_flash():
                     "flash_dq": max_err(dq, rq),
                     "flash_dkdv": max(max_err(dk, rk), max_err(dv, rv))}
             what = (f"flash {list(shape)} {str(dtype)[6:]} "
-                    f"{'causal' if causal else 'key-masked'}")
+                    f"{'causal' if causal else 'key-masked'}"
+                    + "".join(f", {n}={x}" for n, x in opts.items()))
             flips = ""
             if dtype == torch.bfloat16:
                 flips = " out: " + assert_flash_forward_matches(
@@ -665,6 +687,11 @@ def phase_flash():
         t_fwd = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal,
                                                     scale), iters=10,
                         warmup=2)
+        # the forward alone on the device: the wrapper's host time is no
+        # longer small beside it
+        dev_fwd = device_ms(lambda: flash_attention_fwd(
+            q, k, v, mask, causal, scale),
+            ("flash_fwd_kernel",))["flash_fwd_kernel"]
         bwd_args = (q, k, v, mask, out, lse, do, causal, scale)
         t_bwd = time_ms(lambda: flash_attention_bwd(*bwd_args), iters=10,
                         warmup=2)
@@ -694,10 +721,15 @@ def phase_flash():
             b, by = bound_ms(nbytes[n], ops[n], BF16_TC_OPS_PER_S)
             rows[(n, label)] = dict(ms=ms, plain_ms=pl, library_ms=lib,
                                     bound_ms=b, bound_by=by)
+            if n == "flash_fwd":
+                rows[(n, label)]["device_ms"] = dev_fwd
             log(f"{n}[route B {label}, bf16 {[B, H, S, S, D]}] "
                 f"kernel_ms={ms:.5f} plain_ms={pl:.5f} library_ms="
                 f"{'none' if lib is None else f'{lib:.5f}'} "
                 f"bound_ms={b:.6f} ({by})")
+        log(f"flash forward[route B {label}] wrapper {t_fwd:.5f} ms by CUDA "
+            f"events, the kernel {dev_fwd:.5f} ms device time "
+            f"(torch.profiler); card {card_line()}")
         log(f"flash backward[route B {label}] wrapper (delta + dq + dkdv) "
             f"{t_bwd:.5f} ms by CUDA events, of which dq {t_dq:.5f} and dkdv "
             f"{t_dkdv:.5f} ms device time (torch.profiler); one PyTorch call "
@@ -862,8 +894,9 @@ def phase_sass():
     -sass`` of the built ``smalls_attention.cu``, ``bshd_attention.cu``
     and ``flash_attention.cu`` libraries, the ``HMMA`` / ``HGMMA`` count
     of each instantiation of ``smalls_fwd_kernel``, ``bshd_fwd_kernel``
-    (template arguments R and W), ``flash_dq_kernel`` and
-    ``flash_dkdv_kernel`` (W for the bfloat16 bodies).  Fails if a
+    (template arguments R and W), ``flash_fwd_kernel``,
+    ``flash_dq_kernel`` and ``flash_dkdv_kernel`` (W for the bfloat16
+    bodies).  Fails if a
     bfloat16 instantiation has none (its products are not on the tensor
     cores).  Returns ``{wrapper name: {instantiation: count}}``."""
     import re
@@ -874,6 +907,7 @@ def phase_sass():
     for name, source, params in (
             ("smalls_fwd", "smalls_attention.cu", ("R", "W")),
             ("bshd_fwd", "bshd_attention.cu", ("R", "W")),
+            ("flash_fwd", "flash_attention.cu", ("W",)),
             ("flash_dq", "flash_attention.cu", ("W",)),
             ("flash_dkdv", "flash_attention.cu", ("W",))):
         kernel = f"{name}_kernel"
@@ -1999,7 +2033,8 @@ def phase_serving(paged=True):
 #: bodies as ``attention_ops.py``), and what a redesign or a repair of its
 #: first port changed
 KERNEL_NOTES = {
-    "flash_fwd": {"repaired": "bf16 T(p) cast before the product with v"},
+    "flash_fwd": {"repaired": "bf16 T(p) cast before the product with v",
+                  "redesigned": "bf16 on the tensor cores"},
     "flash_dq": {"redesigned": "bf16 on the tensor cores"},
     "flash_dkdv": {"redesigned": "bf16 on the tensor cores"},
     "smalls_fwd": {"also_replaces": "exp_smalls_attn.py:48",
@@ -2120,6 +2155,8 @@ def main():
             "max_abs_err": errs[k.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "device_ms" in r:
+            kernels[-1]["device_ms"] = r["device_ms"]
         kernels[-1].update(KERNEL_NOTES.get(k.name, {}))
         if k.name in tensor_core:
             kernels[-1]["sass_mma"] = tensor_core[k.name]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Experiment: the attention kernels of two builds of the port on one
 H100, side by side: the single-pass bfloat16 forward's and the flash
-bfloat16 backward's times, and whether the outputs are the same bits.
+bfloat16 forward's and backward's times, and whether the outputs are the
+same bits.
 
 Run it from the root of each checkout (copy it into an older one), on a
 machine with one NVIDIA H100, then compare:
@@ -16,10 +17,10 @@ Each run prints one JSON line: the single-pass bfloat16 forward's times
 route C's key-masked and causal ``[32, 8, 512, 64]`` and the
 ``[B,S,H,D]`` flagship ``[256, 256, 8, 64]`` causal, beside PyTorch's
 ``scaled_dot_product_attention`` forward on the same inputs; the flash
-bfloat16 backward's (the wrapper: delta, dQ and dK/dV) at route B's
-key-masked (an all-ones mask, as the model feeds it) and causal ``[8, 8,
-2048, 2048, 64]``, beside SDPA's backward (one call for dq, dk and dv);
-and the card's name and power limit.  SDPA is a yardstick the port never
+bfloat16 forward's and backward's (the wrapper: delta, dQ and dK/dV) at
+route B's key-masked (an all-ones mask, as the model feeds it) and
+causal ``[8, 8, 2048, 2048, 64]``, beside SDPA's forward and backward
+(one call for dq, dk and dv); and the card's name and power limit.  SDPA is a yardstick the port never
 calls.  Compare times of one call only, run in turns (old, new, new,
 old).
 
@@ -41,12 +42,15 @@ cross-attention ``[2, 8, 300, 517, 64]``:
 - the float32 forward's ``out`` and residual, and the float32
   backward's ``dq, dk, dv`` from them;
 - the bfloat16 backward's ``dq, dk, dv`` from the same inputs in
-  bfloat16 and the float32 forward's residual (these may differ between
+  bfloat16 and the float32 forward's residual;
+- the bfloat16 forward's ``out`` and residual (these may differ between
   builds).
 
 ``--compare`` prints, for each saved tensor, whether the two runs hold the
-same bits, and the largest difference where not; it exits non-zero if a
-float32 output or a single-pass backward output differs.
+same bits, and the largest difference where not; it exits non-zero if
+any output but the flash bfloat16 forward's differs (the kernel that the
+builds compared here redesign).  ``--flash-only`` times the flash kernels
+alone (no ``--out``): the quick reading for variants of one build.
 
 It imports neither JAX nor the JAX package and exits non-zero without
 CUDA.
@@ -146,9 +150,10 @@ def sdpa_bwd_ms(q, k, v, do, mask, causal, scale, iters):
 
 
 def run_flash(saved, times, iters, generator):
-    """The flash kernels' outputs (into ``saved``) and bf16 backward
-    times (into ``times``) at ``FLASH_SHAPES``."""
+    """The flash kernels' outputs (into ``saved``) and bf16 forward and
+    backward times (into ``times``) at ``FLASH_SHAPES``."""
     import torch
+    import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     for label, B, H, Sq, Sk, D, causal, mask_kind in FLASH_SHAPES:
         q, k, v, do, mask = make_inputs("bhsd", B, H, Sq, D, mask_kind, 0.5,
@@ -167,12 +172,24 @@ def run_flash(saved, times, iters, generator):
                     q, k, v, mask, out32.to(torch.bfloat16), lse, do,
                     causal, scale)):
                 saved[f"{label}/bf16 bwd {name}"] = x
+            out16, lse16 = fa.flash_attention_fwd(q, k, v, mask, causal,
+                                                  scale)
+            saved[f"{label}/bf16 fwd out"] = out16
+            saved[f"{label}/bf16 fwd lse"] = lse16
             del f32
         if "route B" in label:
             if mask is not None:
                 mask.fill_(1.0)     # the encoder's all-ones fake_batch mask
             out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, scale)
+            attn_mask = None if mask is None else \
+                (mask > 0.5)[:, None, None, :].expand(B, 1, Sq, Sk)
             times[label] = {
+                "bf16_fwd_ms": time_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, mask, causal, scale), iters),
+                "sdpa_fwd_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=attn_mask, is_causal=causal,
+                        scale=scale), iters),
                 "bf16_bwd_ms": time_ms(lambda: fa.flash_attention_bwd(
                     q, k, v, mask, out, lse, do, causal, scale), iters),
                 "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, mask, causal, scale,
@@ -181,14 +198,15 @@ def run_flash(saved, times, iters, generator):
         torch.cuda.empty_cache()
 
 
-def run(out_path, iters):
+def run(out_path, iters, flash_only=False):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import bshd_attention as ba
     from paddle_tpu_torch.kernels import smalls_attention as sm
     g = torch.Generator().manual_seed(SEED)
     saved, times = {}, {}
-    for label, layout, B, H, S, D, causal, mask_kind, std in SHAPES:
+    for label, layout, B, H, S, D, causal, mask_kind, std in \
+            ([] if flash_only else SHAPES):
         q, k, v, do, mask = make_inputs(layout, B, H, S, D, mask_kind, std,
                                         g)
         fwd, bwd = ((sm.smalls_attention_fwd, sm.smalls_attention_bwd)
@@ -246,8 +264,7 @@ def compare(a_path, b_path):
         diff = 0.0 if same else float(
             (a[key].float() - b[key].float()).abs().max())
         print(f"{key}: {'same bits' if same else f'differs, max {diff:.3e}'}")
-        may_differ = "bf16 fwd" in key or (key.startswith("flash")
-                                           and "bf16" in key)
+        may_differ = key.startswith("flash") and "bf16 fwd" in key
         if not same and not may_differ:
             bad.append(key)
     print(json.dumps({"compared": len(a), "must_match_differ": bad}))
@@ -259,7 +276,11 @@ def main():
     ap.add_argument("--out", help="save the outputs here (.pt)")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--flash-only", action="store_true",
+                    help="time the flash kernels alone")
     args = ap.parse_args()
+    if args.flash_only and args.out:
+        ap.error("--flash-only times; it saves nothing")
     try:
         import torch
     except ImportError:
@@ -272,7 +293,7 @@ def main():
         print("exp_torch_attention_builds: CUDA is not available",
               file=sys.stderr)
         return 2
-    run(args.out, args.iters)
+    run(args.out, args.iters, args.flash_only)
     return 0
 
 

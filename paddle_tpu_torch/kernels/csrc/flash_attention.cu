@@ -3,7 +3,7 @@
 //
 // Replaces, in paddle_tpu/ops/attention_ops.py (the forward launched by
 // _pallas_attention, the backward pair by _pallas_attention_bwd):
-//   flash_fwd_kernel                          <- _flash_fwd_kernel
+//   flash_fwd_kernel, flash_fwd_kernel_tc     <- _flash_fwd_kernel
 //   flash_dq_kernel, flash_dq_kernel_tc       <- _flash_dq_kernel
 //   flash_dkdv_kernel, flash_dkdv_kernel_tc   <- _flash_dkdv_kernel
 //
@@ -43,9 +43,9 @@
 //               flash_dq_kernel, flash_dkdv_kernel): float32 products,
 //               as in the reference, and bit-stable (TF32 tensor cores
 //               would round the operands to 10 bits);
-//   bfloat16 -> the forward on the same CUDA-core body; dQ and dK/dV on
-//               the tensor cores (flash_dq_kernel_tc, flash_dkdv_kernel_tc,
-//               see "The bfloat16 backward" below).
+//   bfloat16 -> all three on the tensor cores (flash_fwd_kernel_tc, see
+//               "The bfloat16 forward"; flash_dq_kernel_tc and
+//               flash_dkdv_kernel_tc, see "The bfloat16 backward" below).
 //
 // Design of the CUDA-core kernels.  The TPU kernels walk a sequential
 // grid axis, carrying the online-softmax state (m, l, acc) or the dK/dV
@@ -376,22 +376,46 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The bfloat16 backward on the tensor cores.
+// The bfloat16 bodies on the tensor cores.
 //
-// Both kernels keep the split of the reference and of the CUDA-core
+// The three kernels keep the split of the reference and of the CUDA-core
 // kernels (no atomics: every output element is summed by one thread in
 // a fixed order, whatever the launch order), and walk the other side's
 // 64-row tiles in a loop.  A block is 4 warps, each owning 16 rows of
-// the block's 64 (queries in dQ, keys in dK/dV) with the operands of
-// those rows as A fragments in registers for the whole pass.  The
-// streamed tiles stay bf16 in shared memory (rows of the head width
+// the block's 64 (queries in the forward and dQ, keys in dK/dV) with the
+// operands of those rows as A fragments in registers for the whole pass.
+// The streamed tiles stay bf16 in shared memory (rows of the head width
 // rounded up to 16, + 8 bf16 so that the 8 row addresses of an ldmatrix
 // fall in distinct banks), in two slots that cp.async fills with the
 // next tile while the current one is multiplied (16-byte copies where
 // the rows start on 16 bytes, element copies else), with the tile's
-// per-row floats beside them; one barrier a tile.  All five products are
-// mma.sync m16n8k16 with bf16 operands and float32 sums, 16 columns of
-// the streamed tile at a time:
+// per-row floats beside them; one barrier a tile.  Every product is
+// mma.sync m16n8k16 with bf16 operands and float32 sums.  A thread holds
+// rows g and g + 8 of its warp's 16 in the C layout; the 4 lanes t of a
+// quad share a row, so a row's max or sum over a tile reduces over those
+// 4 lanes by shuffles.
+//
+// The bfloat16 forward, flash_fwd_kernel_tc (a block: 64 query rows of
+// one (b, h), q's A fragments in registers), streams the 64-key tiles of
+// k and v with the tile's raw key mask:
+//   S = q . k^T for the tile's 64 keys (k by ldmatrix as B fragments)
+//   lands in eight float32 C fragments, where scale, key bias and the
+//   causal -1e9 are applied.  The online softmax stays in registers:
+//   the tile's row max (over the quad), m_new = max(m, it), alpha =
+//   exp(m - m_new), acc *= alpha on the thread's own elements of the
+//   row, p = exp(s - m_new) with l = l alpha + the row sum of the
+//   unrounded p; T(p) is packed straight from two n8 C fragments into
+//   the A fragment of one k16 step of acc += T(p) . v (v by
+//   ldmatrix.trans).  No shared-memory round trip for p.
+// out = acc / l in bf16, (m, log l) in float32, as the CUDA-core body.
+// The causal tile skip and its all-masked vote are that body's, voted
+// once at the first tile above the diagonal: a row whose max is below
+// -5e8 there gets only causal -1e9 entries from the later tiles, so its
+// max stays below and every later vote would agree.  Causal launches
+// take the query tiles longest-first over all (b, h), so that short
+// rows fill the tail.
+//
+// The bfloat16 backward, 16 columns of the streamed tile at a time:
 //   flash_dq_kernel_tc (a block: 64 query rows of one (b, h)):
 //     S = q . k^T and dP = dO . v^T for 16 keys (k and v by ldmatrix, as
 //     B fragments) land in float32 C fragments; p = exp((s scale + bias -
@@ -404,8 +428,8 @@ __global__ void __launch_bounds__(kThreads)
 //     m, log l and delta beside it in shared memory), then dV += T(p^T) .
 //     dO and dK += T(dS^T) . q from the packed fragments, dO and q by
 //     ldmatrix.trans.
-// Both keep expf as the plain versions take it, the causal tile skip and
-// its all-masked vote (the dK/dV kernel votes once, over every query
+// All three keep expf as the plain versions take it, the causal tile skip
+// and its all-masked vote (the dK/dV kernel votes once, over every query
 // row before its key tile, and walks from query tile 0 if one saw only
 // masked keys: the extra tiles add exact zeros for every other row), and
 // the ragged tails (a key past Sk scores -inf, a query past Sq has p = 0
@@ -420,7 +444,11 @@ constexpr int kTcThreads = 32 * kTcWarps;
 // 65536 / (128 * blocks).  The bodies are paced by latency and want
 // resident warps: on an H100 at D = 64, dQ at 3 blocks (no spill) ran
 // 12% slower than at 4 (a 28-byte spill), dK/dV at 2 and at 4 blocks
-// (spilling) 25% and up to 15% slower than at 3 (PERF.md, PR 7)
+// (spilling) 25% and up to 15% slower than at 3, the forward at 3 and
+// at 5 blocks 19-26% and 12% slower than at 4 (PERF.md §6)
+__host__ __device__ constexpr int fwd_min_blocks(int kW) {
+  return kW == 64 ? 4 : 2;
+}
 __host__ __device__ constexpr int dq_min_blocks(int kW) {
   return kW == 64 ? 4 : 2;
 }
@@ -433,10 +461,215 @@ __host__ __device__ inline int tc_ld(int D, int Dv) {
   return round16(D > Dv ? D : Dv) + 8;
 }
 
-// two slots, each of two bf16 tiles [64][tc_ld] and 3 floats a row
-size_t bwd_smem_tc(int D, int Dv) {
+// two slots, each of two bf16 tiles [64][tc_ld] and up to 3 floats a row
+size_t smem_tc(int D, int Dv) {
   return sizeof(__nv_bfloat16) * 2 * 2 * (size_t)kTile * tc_ld(D, Dv) +
          sizeof(float) * 2 * 3 * kTile;
+}
+
+template <int kW>
+__global__ void __launch_bounds__(kTcThreads, fwd_min_blocks(kW))
+    flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const float* __restrict__ mask,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int H, int Sq, int Sk,
+                        int D, int Dv, float scale, int causal,
+                        int nq_tiles) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int ld = tc_ld(D, Dv);
+  const int dpad = round16(D), vpad = round16(Dv);
+  const int nks = dpad / 16, nvs = vpad / 16;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  float* mring = reinterpret_cast<float*>(ring + 4 * kTile * ld);  // [2][64]
+  auto kslot = [&](int i) { return ring + (i & 1) * 2 * kTile * ld; };
+  auto vslot = [&](int i) { return kslot(i) + kTile * ld; };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row and column pair
+  // causal: the longest query tiles of every (b, h) first
+  const long nbh = gridDim.x / nq_tiles;
+  const long bh = causal ? blockIdx.x % nbh : blockIdx.x / nq_tiles;
+  const int qt = causal ? nq_tiles - 1 - (int)(blockIdx.x / nbh)
+                        : (int)(blockIdx.x % nq_tiles);
+  const int q0 = qt * kTile;
+  const float* kmask = mask ? mask + (bh / H) * Sk : nullptr;
+  const __nv_bfloat16* qb = q + bh * Sq * D;
+  const __nv_bfloat16* kb = k + bh * Sk * D;
+  const __nv_bfloat16* vb = v + bh * Sk * Dv;
+  const bool vec_d = D % 8 == 0 && aligned16(qb) && aligned16(kb);
+  const bool vec_v = Dv % 8 == 0 && aligned16(vb);
+
+  // k, v and the raw key mask of key tile kt into slot kt
+  auto load_kv = [&](int kt) {
+    const int k0 = kt * kTile;
+    load_tile_bf16<kTcThreads>(kslot(kt), ld, kb, D, k0, Sk, D, dpad, kTile,
+                               vec_d);
+    load_tile_bf16<kTcThreads>(vslot(kt), ld, vb, Dv, k0, Sk, Dv, vpad,
+                               kTile, vec_v);
+    if (kmask && threadIdx.x < kTile) {
+      const int c = k0 + threadIdx.x;
+      cp_async_small<4>(mring + (kt & 1) * kTile + threadIdx.x,
+                        c < Sk ? kmask + c : kmask, c < Sk ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // the query tile through slot 1, into registers as A fragments
+  load_tile_bf16<kTcThreads>(kslot(1), ld, qb, D, q0, Sq, D, dpad, kTile,
+                             vec_d);
+  load_kv(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[kW / 16][4];
+  const int frow = (16 * warp + lane % 16) * ld + (lane / 16) * 8;
+#pragma unroll
+  for (int ks = 0; ks < kW / 16; ++ks)
+    if (ks < nks) ldmatrix_x4(qf[ks], kslot(1) + frow + 16 * ks);
+  __syncthreads();  // slot 1 is free
+
+  // B fragments of 16 keys (n) by d: ldmatrix of rows n0 + ..., and of
+  // 16 keys (k) by 16 output columns: ldmatrix.trans
+  const int brow = ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8;
+  const int trow = (((lane / 8) % 2) * 8 + lane % 8) * ld + (lane / 16) * 8;
+  // this thread's rows 16 warp + g + 8 h: running max, sum, accumulators
+  float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
+  float acc[kW / 8][4] = {};
+  const int nk = (Sk + kTile - 1) / kTile;
+  int kend = causal ? min(nk, (q0 + kTile - 1) / kTile + 1) : nk;
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt == kend) {  // above the diagonal: see the causal skip
+      bool need = false;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        need |= q0 + 16 * warp + g + 8 * h < Sq && m[h] < kAllMasked;
+      if (!__syncthreads_or(need)) break;
+      kend = nk;
+      load_kv(kt);  // its slot's last tile, kt - 2, is done with
+    }
+    if (kt > 0) {
+      cp_async_wait<0>();
+      // tile kt is in for every thread, and every thread is done with
+      // tile kt - 1, whose slot takes tile kt + 1 now
+      __syncthreads();
+    }
+    if (kt + 1 < kend) load_kv(kt + 1);
+    const __nv_bfloat16* Kt = kslot(kt);
+    const __nv_bfloat16* Vt = vslot(kt);
+    const float* mk = mring + (kt & 1) * kTile;
+    const int k0 = kt * kTile;
+    // only tiles that reach past the block's first row hold causal -1e9s
+    const bool diag = causal && k0 + kTile - 1 > q0;
+
+    float s[kTile / 8][4] = {};  // n8 tile n: keys 8 n + 2 t, + 1
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+#pragma unroll
+      for (int d = 0; d < kW / 16; ++d) {
+        if (d < nks) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, Kt + 16 * ks * ld + brow + 16 * d);
+          mma_bf16(s[2 * ks], qf[d], bf[0], bf[1]);
+          mma_bf16(s[2 * ks + 1], qf[d], bf[2], bf[3]);
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+      const int cl = 8 * n + 2 * t;  // columns cl, cl + 1 of the tile
+      float bias[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + cl + e;
+        bias[e] = c >= Sk ? -INFINITY
+                          : (kmask ? (1.f - mk[cl + e]) * kNegInf : 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qr = q0 + 16 * warp + g + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[n][2 * h + e] * scale + bias[e];
+          if (diag && k0 + cl + e > qr) x += kNegInf;
+          s[n][2 * h + e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      const float alpha = expf(m[h] - m_new);
+      l[h] *= alpha;
+      m[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < kW / 8; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
+      }
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {  // 16 keys at a time
+      uint32_t a[4];  // T(p) of 16 rows x these 16 keys, an A fragment
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = expf(s[2 * ks + j][2 * h] - m[h]);
+          const float p1 = expf(s[2 * ks + j][2 * h + 1] - m[h]);
+          ps[h] += p0;
+          ps[h] += p1;
+          a[2 * j + h] = pack_bf16(p0, p1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kW / 16; ++n) {
+        if (n < nvs) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, Vt + 16 * ks * ld + trow + 16 * n);
+          mma_bf16(acc[2 * n], a, bf[0], bf[1]);
+          mma_bf16(acc[2 * n + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+      l[h] += ps[h];
+    }
+  }
+
+  const bool vec_out = Dv % 2 == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qr = q0 + 16 * warp + g + 8 * h;
+    if (qr >= Sq) continue;
+    const long row = bh * Sq + qr;
+    __nv_bfloat16* orow = out + row * Dv;
+#pragma unroll
+    for (int n = 0; n < kW / 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      const float o0 = acc[n][2 * h] / l[h], o1 = acc[n][2 * h + 1] / l[h];
+      if (vec_out && c + 1 < Dv) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(o0, o1);
+      } else {
+        if (c < Dv) orow[c] = __float2bfloat16(o0);
+        if (c + 1 < Dv) orow[c + 1] = __float2bfloat16(o1);
+      }
+    }
+    if (t == 0) {
+      lse[row * 2] = m[h];
+      lse[row * 2 + 1] = logf(l[h]);
+    }
+  }
 }
 
 template <int kW>
@@ -833,21 +1066,30 @@ int launch(Kernel kernel, long blocks, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// each kernel by dtype: bfloat16 runs the tensor-core bodies (the build
+// for head widths up to 64 where both fit, else up to 128), float32 the
+// CUDA-core ones
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                void* out, void* lse, int B, int H, int Sq, int Sk, int D,
                int Dv, float scale, int causal, void* stream) {
   if (bad_shape(B, H, Sq, Sk, D, Dv)) return (int)cudaErrorInvalidValue;
   const int nt = (Sq + kTile - 1) / kTile;
-  return launch(flash_fwd_kernel<T>, (long)B * H * nt, kThreads,
-                fwd_smem(D, Dv), stream, (const T*)q, (const T*)k,
-                (const T*)v, (const float*)mask, (T*)out, (float*)lse, H,
-                Sq, Sk, D, Dv, scale, causal, nt);
+  const long blocks = (long)B * H * nt;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch(D <= 64 && Dv <= 64 ? flash_fwd_kernel_tc<64>
+                                      : flash_fwd_kernel_tc<kMaxD>,
+                  blocks, kTcThreads, smem_tc(D, Dv), stream, (const T*)q,
+                  (const T*)k, (const T*)v, (const float*)mask, (T*)out,
+                  (float*)lse, H, Sq, Sk, D, Dv, scale, causal, nt);
+  } else {
+    return launch(flash_fwd_kernel<T>, blocks, kThreads, fwd_smem(D, Dv),
+                  stream, (const T*)q, (const T*)k, (const T*)v,
+                  (const float*)mask, (T*)out, (float*)lse, H, Sq, Sk, D,
+                  Dv, scale, causal, nt);
+  }
 }
 
-// the backward kernels by dtype: bfloat16 runs the tensor-core bodies
-// (the build for head widths up to 64 where both fit, else up to 128),
-// float32 the CUDA-core ones
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* mask,
               const void* dout, const void* lse, const void* delta, void* dq,
@@ -859,7 +1101,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* mask,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch(D <= 64 && Dv <= 64 ? flash_dq_kernel_tc<64>
                                       : flash_dq_kernel_tc<kMaxD>,
-                  blocks, kTcThreads, bwd_smem_tc(D, Dv), stream,
+                  blocks, kTcThreads, smem_tc(D, Dv), stream,
                   (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
                   (const T*)dout, (const float*)lse, (const float*)delta,
                   (T*)dq, H, Sq, Sk, D, Dv, scale, causal, nt);
@@ -884,7 +1126,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch(D <= 64 && Dv <= 64 ? flash_dkdv_kernel_tc<64>
                                       : flash_dkdv_kernel_tc<kMaxD>,
-                  blocks, kTcThreads, bwd_smem_tc(D, Dv), stream,
+                  blocks, kTcThreads, smem_tc(D, Dv), stream,
                   (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
                   (const T*)dout, (const float*)lse, (const float*)delta,
                   (T*)dk, (T*)dv, H, Sq, Sk, D, Dv, scale, causal, nt);

@@ -21,13 +21,14 @@ Casts: the probabilities and ``dS`` are rounded to the operands' type
 before each product, where the reference casts them (``T(p) . v``,
 ``T(p)^T . dO``, ``T(dS)^T . q``, ``T(dS) . k``); every sum is float32,
 and in float32 every cast is the identity.  The bodies by dtype: float32
-runs CUDA-core kernels for all three; bfloat16 runs the forward on the
-same CUDA-core body and dQ and dK/dV on the tensor cores
-(``flash_dq_kernel_tc``, ``flash_dkdv_kernel_tc``: ``mma.sync``, bf16
-operands, float32 sums).  Their sums run in other orders than the plain
-versions', so a bf16 ``T(p)`` or ``T(dS)`` may round the other way near a
-rounding boundary (:func:`flash_backward_rounding_slack`), and the
-forward rounds ``exp(s - m)`` against the running max of its key tiles
+runs CUDA-core kernels for all three; bfloat16 runs all three on the
+tensor cores (``flash_fwd_kernel_tc``, ``flash_dq_kernel_tc``,
+``flash_dkdv_kernel_tc``: ``mma.sync``, bf16 operands, float32 sums).
+Their sums run in other orders than the plain versions', so a bf16
+``T(p)`` or ``T(dS)`` may round the other way near a rounding boundary
+(:func:`flash_backward_rounding_slack`, and ``tiled`` of
+:func:`flash_forward_rounding_slack`), and the forward rounds ``exp(s -
+m)`` against the running max of its key tiles
 (:func:`flash_forward_rounding_slack`; ``key_tile`` of
 :func:`flash_attention_fwd_reference` computes it so).
 """

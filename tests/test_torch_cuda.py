@@ -290,6 +290,82 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_toolchain, dtype,
                                    args)
 
 
+def _placed(x, offset, dtype):
+    """``x`` on the card as a contiguous tensor that starts ``offset``
+    elements into its storage."""
+    t = torch.from_numpy(x).to(dtype).cuda().reshape(-1)
+    buf = torch.empty(t.numel() + offset, dtype=dtype, device=t.device)
+    buf[offset:] = t
+    return buf[offset:].view(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,first_key_off,offset", [
+    ((2, 2, 100, 100, 40, 40), False, False, 0),     # W = 64, D off 16
+    ((2, 2, 100, 100, 40, 40), True, True, 1),       # rows off 16 bytes
+    ((2, 4, 256, 256, 64, 64), True, True, 0),
+    ((2, 3, 77, 300, 64, 64), False, False, 0),      # Sq != Sk, ragged
+    ((1, 2, 300, 77, 64, 64), True, False, 0),
+    ((2, 2, 200, 130, 128, 128), False, False, 0),   # W = 128
+    ((2, 2, 130, 200, 128, 96), True, True, 1),
+    ((2, 2, 70, 70, 20, 36), True, True, 0)])        # element copies
+def test_flash_bf16_forward_tensor_core_body_on_card(
+        cuda_toolchain, shape, causal, first_key_off, offset):
+    """The bfloat16 forward (``flash_fwd_kernel_tc``) at both builds:
+    head widths 20 to 128, Sq != Sk with ragged tails, rows not on 16
+    bytes (element copies), causal with key 0 off (rows whose causal
+    window is fully masked: the all-masked vote walks past the
+    diagonal), a padded key row and a batch row with every key off; out
+    within ``_assert_flash_forward_matches``' two readings, the
+    residual to its float32 round-off."""
+    B, H, Sq, Sk, D, Dv = shape
+    q, k, v, mask, _ = _flash_case(Sq + Sk, B, H, Sq, Sk, D, Dv)
+    if first_key_off:
+        mask[:, 0] = 0.0
+    tq, tk, tv = (_placed(x, offset, torch.bfloat16) for x in (q, k, v))
+    tm = torch.from_numpy(mask).cuda()
+    before = FLASH_FWD.launches
+    out, lse = flash_attention_fwd(tq, tk, tv, tm, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before + 1
+    want = flash_attention_fwd_reference(tq, tk, tv, tm, causal, D ** -0.5)
+    _assert_flash_forward_matches(out, want[0], tq, tk, tv, tm, causal,
+                                  D ** -0.5)
+    torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_forward_bodies_by_dtype_on_card(cuda_toolchain, causal):
+    """float32 runs the CUDA-core forward (``flash_fwd_kernel<float>``)
+    and bfloat16 the tensor-core one (``flash_fwd_kernel_tc``), each once
+    a call; the float32 output is the CUDA-core body's, the same bits
+    on every call and within ``TOL`` of the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, mask, _ = _flash_case(3, 2, 2, 150, 150, 64, 64)
+    tm = torch.from_numpy(mask).cuda()
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv = _cuda(q, k, v, dtype=dtype)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, _ = flash_attention_fwd(tq, tk, tv, tm, causal, 0.125)
+            torch.cuda.synchronize()
+        names[dtype] = [
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "flash_fwd_kernel" in e.name]
+        if dtype == torch.float32:
+            again, _ = flash_attention_fwd(tq, tk, tv, tm, causal, 0.125)
+            assert torch.equal(out, again)
+            _assert_matches(out, flash_attention_fwd_reference(
+                tq, tk, tv, tm, causal, 0.125)[0])
+    assert len(names[torch.float32]) == 1
+    assert "_tc" not in names[torch.float32][0]
+    assert len(names[torch.bfloat16]) == 1
+    assert "flash_fwd_kernel_tc" in names[torch.bfloat16][0]
+
+
 @pytest.mark.cuda
 def test_flash_and_softmax_grad_wrappers_raise_on_bad_arguments(
         cuda_toolchain):
@@ -400,17 +476,7 @@ def test_single_pass_forward_tile_copies_on_card(cuda_toolchain, shape,
     key-masked, a batch row fully masked)."""
     B, H, S, D, Dv = shape
     q, k, v, mask, _ = _flash_case(S + offset, B, H, S, S, D, Dv)
-
-    def placed(x):
-        # a contiguous tensor that starts `offset` elements into its
-        # storage
-        t = torch.from_numpy(x).to(torch.bfloat16).cuda().reshape(-1)
-        buf = torch.empty(t.numel() + offset, dtype=t.dtype,
-                          device=t.device)
-        buf[offset:] = t
-        return buf[offset:].view(x.shape)
-
-    tq, tk, tv = placed(q), placed(k), placed(v)
+    tq, tk, tv = (_placed(x, offset, torch.bfloat16) for x in (q, k, v))
     tm = torch.from_numpy(mask).cuda()
     for causal in (False, True):
         out, lse = smalls_attention_fwd(tq, tk, tv, tm, causal, 0.15)

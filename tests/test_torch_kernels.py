@@ -498,30 +498,73 @@ def _bf16_attention_case(seed, B=2, H=4, S=512, D=64, std=0.5):
     return q, k, v, mask, do
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_forward_slack_covers_the_tiles_and_the_sum_order(causal):
-    """bfloat16, 8 key tiles: the tiled plain forward (the kernel's
+def _k16_scores(q, k):
+    """float32 ``q . k^T`` summed as ``mma.sync.m16n8k16`` sums it in the
+    tensor-core forward: each 16-wide step of the head width adds its 16
+    exact bf16 products to the float32 sum so far, rounded once."""
+    qd, kd = q.double(), k.double().transpose(-1, -2)
+    acc = torch.zeros(*q.shape[:-1], k.shape[-2], dtype=torch.float32)
+    for d0 in range(0, q.shape[-1], 16):
+        acc = (acc.double() + qd[..., d0:d0 + 16] @ kd[..., d0:d0 + 16, :]
+               ).float()
+    return acc
+
+
+def _tiled_weights(s):
+    """bf16 ``T(e)`` of the masked scores ``s`` against the running max
+    of their 64-key tiles, as the kernel rounds them."""
+    run = flash._tile_maxima(s, flash.KEY_TILE)[0]
+    return torch.exp(s - run).bfloat16()
+
+
+@pytest.mark.parametrize("causal,order,shape", [
+    pytest.param(False, "float64", {}, id="False"),
+    pytest.param(True, "float64", {}, id="True"),
+    pytest.param(False, "k16", dict(D=128), id="k16-D128-False"),
+    pytest.param(True, "k16", dict(D=128), id="k16-D128-True"),
+    pytest.param(False, "k16", dict(S=333), id="k16-S333-False"),
+    pytest.param(True, "k16", dict(S=333), id="k16-S333-True")])
+def test_flash_forward_slack_covers_the_tiles_and_the_sum_order(
+        causal, order, shape):
+    """bfloat16, 64-key tiles: the tiled plain forward (the kernel's
     arithmetic) lies beyond one rounding of the row-max one where its
     running max grew after a key's tile, and within one rounding plus
     ``flash_forward_rounding_slack``; the tiled forward with its scores
-    summed in another order (a float64 product, rounded once) within one
-    rounding plus the slack of that order alone."""
-    q, k, v, mask, _ = _bf16_attention_case(31)
-    scale = 64 ** -0.5
+    summed in another order within one rounding plus the slack of that
+    order alone.  The other order is a float64 product rounded once, or
+    (``k16``, at D = 128 and a ragged S) the tensor-core body's: float32
+    partial sums in 16-wide steps of the head width, held like the
+    kernel's output against both plain versions; it rounds a few weights
+    ``T(e)`` the other way, each in a row where the slack is not 0."""
+    q, k, v, mask, _ = _bf16_attention_case(31, **shape)
+    scale = q.shape[-1] ** -0.5
     args = (q, k, v, mask, causal, scale)
     want = flash_attention_fwd_reference(*args)[0].float()
     tiled = flash_attention_fwd_reference(*args, key_tile=flash.KEY_TILE)[0]
     err = (tiled.float() - want).abs()
     tol = _bf16_tolerance(want)
     assert (err > tol).any()                  # the case is not vacuous
-    assert (err <= tol + flash.flash_forward_rounding_slack(*args)).all()
-    s64 = flash._masked((q.double() @ k.double().transpose(-1, -2)).float()
-                        * scale, mask, causal)
-    other = flash._attend(s64, v, flash.KEY_TILE)[0].bfloat16().float()
+    row_slack = flash.flash_forward_rounding_slack(*args)
+    assert (err <= tol + row_slack).all()
+    if order == "float64":
+        s = (q.double() @ k.double().transpose(-1, -2)).float()
+    else:
+        s = _k16_scores(q, k)
+        assert not torch.equal(s, q.float() @ k.float().transpose(-1, -2))
+    s = flash._masked(s * scale, mask, causal)
+    other = flash._attend(s, v, flash.KEY_TILE)[0].bfloat16().float()
     slack = flash.flash_forward_rounding_slack(*args, tiled=True)
     assert (slack > 0).any()
     tiled = tiled.float()
     assert ((other - tiled).abs() <= _bf16_tolerance(tiled) + slack).all()
+    if order == "k16":
+        assert ((other - want).abs() <= tol + row_slack).all()
+        # the weights T(e) this order rounds the other way (a few) lie in
+        # rows where the slack counts a gap
+        plain = flash._scores(q, k, mask, causal, scale)
+        flipped = _tiled_weights(s) != _tiled_weights(plain)
+        assert flipped.any()
+        assert (slack.amin(dim=-1) > 0)[flipped.any(dim=-1)].all()
 
 
 def test_flash_forward_slack_vanishes_far_from_rounding_boundaries():
