@@ -26,12 +26,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rounding of the row-max plain version plus the slack of its tiles'
    running max, and of the plain version that tiles as it does plus the
    rounding-flip slack (``assert_flash_forward_matches``); the bfloat16
-   flash dQ and dK/dV (tensor cores) to one rounding plus the flip slack
-   of ``T(p)`` and ``T(dS)`` (``assert_flash_backward_matches``); the log
-   lines count the elements that needed a slack.  The bfloat16
-   instantiations of the single-pass forward kernels and of the three
-   flash kernels must hold tensor-core instructions (``HMMA``) in
-   ``cuobjdump -sass`` of the built libraries.
+   backward bodies (tensor cores: the flash dQ and dK/dV, the single-pass
+   backward in both layouts) to one rounding plus the flip slack of
+   ``T(p)`` and ``T(dS)`` (``assert_backward_matches``); the log lines
+   count the elements that needed a slack.  The bfloat16 instantiations
+   of the single-pass forward and backward kernels and of the three flash
+   kernels must hold tensor-core instructions (``HMMA``) in ``cuobjdump
+   -sass`` of the built libraries.
 3. Serving: export a seeded ``GenLongConfig`` bundle with the port, load
    ``GenPredictor`` on ``cuda:0`` and serve requests through
    ``GenScheduler`` (continuous batching), once with the paged KV decode
@@ -310,13 +311,20 @@ def assert_flash_forward_matches(out, want, q, k, v, mask, causal, scale,
     return "; ".join(notes)
 
 
-def assert_flash_backward_matches(grads, wants, args, what):
-    """The bfloat16 flash backward's ``(dq, dk, dv)`` (the tensor-core
-    bodies) against the plain versions' within one rounding plus
-    ``flash_backward_rounding_slack`` (the bodies sum ``q . k`` and
-    ``dO . v`` in another order, so ``T(dS)`` and ``T(p)`` may round the
-    other way where they lie near a bf16 rounding boundary, and nowhere
-    else).  Returns a note for the log."""
+def assert_backward_matches(grads, wants, args, what):
+    """A bfloat16 attention backward's ``(dq, dk, dv)`` (the tensor-core
+    bodies: the flash dQ and dK/dV kernels, the single-pass backward)
+    against the plain versions' within one rounding plus
+    ``flash_backward_rounding_slack(*args)`` (the bodies sum ``q . k``
+    and ``dO . v`` in another order, so ``T(dS)`` and ``T(p)`` may round
+    the other way where they lie near a bf16 rounding boundary, and
+    nowhere else).  ``args`` are the backward's ``(q, k, v, mask, out,
+    lse, dout, causal, scale)`` in ``[B, H, S, .]``, and ``grads`` and
+    ``wants`` in the same layout: views of ``[B, S, H, .]`` tensors
+    transposed to it will do.  Returns a note for the log: for each grad
+    the elements beyond one rounding (those that needed the slack), the
+    largest err / tolerance and, where some are beyond, the largest err
+    / (tolerance + slack)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     slack = []
 
@@ -650,7 +658,7 @@ def phase_flash():
             if dtype == torch.bfloat16:
                 flips = " out: " + assert_flash_forward_matches(
                     out, ro, q, k, v, mask, causal, scale, f"{what} out")
-                flips += "; grads: " + assert_flash_backward_matches(
+                flips += "; grads: " + assert_backward_matches(
                     (dq, dk, dv), (rq, rk, rv), (q, k, v, mask, out, lse, do,
                                                  causal, scale), what)
             else:
@@ -744,13 +752,14 @@ def phase_smalls():
     attention [32, 8, 512, 64], key-masked (encoder self, cross; a batch
     row with every key off) and causal (decoder self), and causal with
     the first key off (rows whose causal window is fully masked), each in
-    f32 and bf16 (the bf16 forward on the tensor cores); S = 1024, a
-    ragged S = 200 and head widths 16, 96 and 128 at S = 512.  Then
-    route C's bf16 times beside the plain versions', SDPA's
-    forward and SDPA's backward (one call for dq, dk and dv, as the
-    backward kernel is), and the bound: the products the masks leave at
-    the bf16 tensor-core peak, each input read and output written once
-    (the backward's float32 dQ scratch is neither)."""
+    f32 and bf16 (the bf16 pair on the tensor cores: the forward held by
+    ``assert_forward_matches``, dq, dk, dv by ``assert_backward_matches``;
+    f32 by ``assert_matches``); S = 1024, a ragged S = 200 and head
+    widths 16, 96 and 128 at S = 512.  Then route C's bf16 times beside
+    the plain versions', SDPA's forward and SDPA's backward (one call for
+    dq, dk and dv, as the backward kernel is), and the bound: the
+    products the masks leave at the bf16 tensor-core peak, each input
+    read and output written once."""
     import ctypes
     import torch
     import torch.nn.functional as F
@@ -819,10 +828,15 @@ def phase_smalls():
                     out, ro, q, k, v, mask, causal, scale, f"{what} out")
             else:
                 assert_matches(out, ro, f"{what} out")
-            for n, a, b in (("dq", grads[0], rgrads[0]),
-                            ("dk", grads[1], rgrads[1]),
-                            ("dv", grads[2], rgrads[2])):
-                assert_matches(a, b, f"{what} {n}")
+            if dtype == torch.bfloat16:
+                flips += "; grads: " + assert_backward_matches(
+                    grads, rgrads, (q, k, v, mask, out, lse, do, causal,
+                                    scale), what)
+            else:
+                for n, a, b in (("dq", grads[0], rgrads[0]),
+                                ("dk", grads[1], rgrads[1]),
+                                ("dv", grads[2], rgrads[2])):
+                    assert_matches(a, b, f"{what} {n}")
             torch.testing.assert_close(lse, rl, atol=F32_TOL, rtol=1e-6)
             errs = {"smalls_fwd": max(max_err(out, ro), max_err(lse, rl)),
                     "smalls_bwd": max(max_err(a, b)
@@ -881,8 +895,8 @@ def phase_smalls():
                 f"kernel_ms={ms:.5f} plain_ms={pl:.5f} library_ms={lib:.5f} "
                 f"(SDPA {'forward' if n == 'smalls_fwd' else 'backward'}) "
                 f"bound_ms={b:.6f} ({by})")
-        log(f"smalls backward[route C {label}] wrapper (delta + scratch + "
-            f"kernel) {t_bwd:.5f} ms by CUDA events, of which the kernel "
+        log(f"smalls backward[route C {label}] wrapper (delta + kernel) "
+            f"{t_bwd:.5f} ms by CUDA events, of which the kernel "
             f"{dev:.5f} ms device time (torch.profiler)")
         del q, k, v, do, out, lse, ql, kl, vl, ol
         torch.cuda.empty_cache()
@@ -894,9 +908,9 @@ def phase_sass():
     -sass`` of the built ``smalls_attention.cu``, ``bshd_attention.cu``
     and ``flash_attention.cu`` libraries, the ``HMMA`` / ``HGMMA`` count
     of each instantiation of ``smalls_fwd_kernel``, ``bshd_fwd_kernel``
-    (template arguments R and W), ``flash_fwd_kernel``,
-    ``flash_dq_kernel`` and ``flash_dkdv_kernel`` (W for the bfloat16
-    bodies).  Fails if a
+    (template arguments R and W), ``smalls_bwd_kernel``,
+    ``bshd_bwd_kernel``, ``flash_fwd_kernel``, ``flash_dq_kernel`` and
+    ``flash_dkdv_kernel`` (W for the bfloat16 bodies).  Fails if a
     bfloat16 instantiation has none (its products are not on the tensor
     cores).  Returns ``{wrapper name: {instantiation: count}}``."""
     import re
@@ -907,6 +921,8 @@ def phase_sass():
     for name, source, params in (
             ("smalls_fwd", "smalls_attention.cu", ("R", "W")),
             ("bshd_fwd", "bshd_attention.cu", ("R", "W")),
+            ("smalls_bwd", "smalls_attention.cu", ("W",)),
+            ("bshd_bwd", "bshd_attention.cu", ("W",)),
             ("flash_fwd", "flash_attention.cu", ("W",)),
             ("flash_dq", "flash_attention.cu", ("W",)),
             ("flash_dkdv", "flash_attention.cu", ("W",))):
@@ -944,14 +960,15 @@ def phase_bshd():
     attention of ``exp_torch_bshd_attn.py`` [256, 256, 8, 64] in bf16,
     key-masked (a bf16 mask, as the original passes it, with a batch row
     whose every key is off) and causal with the first key off (rows whose
-    causal window is fully masked); a ragged [4, 200, 8, 64] in float32
-    (a float32 mask), the same two, to ``F32_TOL``.  Then the flagship's
+    causal window is fully masked), held on the head-transposed views as
+    the [B, H, S, D] pair is (``assert_forward_matches``,
+    ``assert_backward_matches``); a ragged [4, 200, 8, 64] in float32 (a
+    float32 mask), the same two, to ``F32_TOL``.  Then the flagship's
     bf16 times as the path runs it (causal, all-ones mask) beside the
     plain versions', SDPA's forward and backward on the transposed views
     (one call each for the same function), and the bound: the products
     the causal mask leaves at the bf16 tensor-core peak, each input read
-    and output written once (the backward's float32 dQ scratch is
-    neither)."""
+    and output written once."""
     import torch
     import torch.nn.functional as F
     import exp_torch_bshd_attn as exp
@@ -996,10 +1013,18 @@ def phase_bshd():
                 *heads, mask, causal, scale, f"{what} out")
         else:
             assert_matches(out, ro, f"{what} out")
-        for n, a, b in (("dq", grads[0], rgrads[0]),
-                        ("dk", grads[1], rgrads[1]),
-                        ("dv", grads[2], rgrads[2])):
-            assert_matches(a, b, f"{what} {n}")
+        if dtype == torch.bfloat16:
+            hq, hk, hv, hout, hres, hdo = (
+                x.transpose(1, 2) for x in (q, k, v, out, res, do))
+            flips += "; grads: " + assert_backward_matches(
+                [x.transpose(1, 2) for x in grads],
+                [x.transpose(1, 2) for x in rgrads],
+                (hq, hk, hv, mask, hout, hres, hdo, causal, scale), what)
+        else:
+            for n, a, b in (("dq", grads[0], rgrads[0]),
+                            ("dk", grads[1], rgrads[1]),
+                            ("dv", grads[2], rgrads[2])):
+                assert_matches(a, b, f"{what} {n}")
         torch.testing.assert_close(res, rr, atol=F32_TOL, rtol=1e-6)
         errs = {"bshd_fwd": max(max_err(out, ro), max_err(res, rr)),
                 "bshd_bwd": max(max_err(a, b)
@@ -1051,7 +1076,7 @@ def phase_bshd():
             f"kernel_ms={ms:.5f} plain_ms={pl:.5f} library_ms={lib:.5f} "
             f"(SDPA {'forward' if n == 'bshd_fwd' else 'backward'}) "
             f"bound_ms={b:.6f} ({by})")
-    log(f"bshd backward wrapper (delta + scratch + kernel) {t_bwd:.5f} ms "
+    log(f"bshd backward wrapper (delta + kernel) {t_bwd:.5f} ms "
         f"by CUDA events, of which the kernel {dev:.5f} ms device time "
         f"(torch.profiler)")
     del q, k, v, do, mask, out, res, heads, leaves, ol
@@ -2039,8 +2064,10 @@ KERNEL_NOTES = {
     "flash_dkdv": {"redesigned": "bf16 on the tensor cores"},
     "smalls_fwd": {"also_replaces": "exp_smalls_attn.py:48",
                    "redesigned": "bf16 forward on the tensor cores"},
-    "smalls_bwd": {"also_replaces": "exp_smalls_attn.py:74"},
+    "smalls_bwd": {"also_replaces": "exp_smalls_attn.py:74",
+                   "redesigned": "bf16 backward on the tensor cores"},
     "bshd_fwd": {"redesigned": "bf16 forward on the tensor cores"},
+    "bshd_bwd": {"redesigned": "bf16 backward on the tensor cores"},
 }
 
 

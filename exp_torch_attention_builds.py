@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Experiment: the attention kernels of two builds of the port on one
-H100, side by side: the single-pass bfloat16 forward's and the flash
-bfloat16 forward's and backward's times, and whether the outputs are the
-same bits.
+H100, side by side: the single-pass and the flash bfloat16 forward's and
+backward's times, and whether the outputs are the same bits.
 
 Run it from the root of each checkout (copy it into an older one), on a
 machine with one NVIDIA H100, then compare:
@@ -12,11 +11,14 @@ machine with one NVIDIA H100, then compare:
     python3 exp_torch_attention_builds.py --compare OLD/runs/ab/old.pt \
         runs/ab/new.pt
 
-Each run prints one JSON line: the single-pass bfloat16 forward's times
-(CUDA events, mean of ``--iters`` back-to-back calls after warm-up) at
+Each run prints one JSON line: the single-pass bfloat16 forward's and
+backward's times (CUDA events, mean of ``--iters`` back-to-back calls
+after warm-up; the backward is the wrapper: delta and the one kernel) at
 route C's key-masked and causal ``[32, 8, 512, 64]`` and the
 ``[B,S,H,D]`` flagship ``[256, 256, 8, 64]`` causal, beside PyTorch's
-``scaled_dot_product_attention`` forward on the same inputs; the flash
+``scaled_dot_product_attention`` forward and backward (one call for dq,
+dk and dv) on the same inputs (the flagship's on the transposed views);
+the flash
 bfloat16 forward's and backward's (the wrapper: delta, dQ and dK/dV) at
 route B's key-masked (an all-ones mask, as the model feeds it) and
 causal ``[8, 8, 2048, 2048, 64]``, beside SDPA's forward and backward
@@ -48,9 +50,12 @@ cross-attention ``[2, 8, 300, 517, 64]``:
 
 ``--compare`` prints, for each saved tensor, whether the two runs hold the
 same bits, and the largest difference where not; it exits non-zero if
-any output but the flash bfloat16 forward's differs (the kernel that the
-builds compared here redesign).  ``--flash-only`` times the flash kernels
-alone (no ``--out``): the quick reading for variants of one build.
+any output but the single-pass bfloat16 backward's ``dq, dk, dv``
+differs (the body that the builds compared here redesign; the flash
+kernels, whose backward bodies it shares, must keep their bits).
+``--flash-only`` and ``--single-pass-only`` time the flash or the
+single-pass kernels alone (no ``--out``): the quick reading for variants
+of one build.
 
 It imports neither JAX nor the JAX package and exits non-zero without
 CUDA.
@@ -198,7 +203,7 @@ def run_flash(saved, times, iters, generator):
         torch.cuda.empty_cache()
 
 
-def run(out_path, iters, flash_only=False):
+def run(out_path, iters, flash_only=False, single_pass_only=False):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import bshd_attention as ba
@@ -231,22 +236,30 @@ def run(out_path, iters, flash_only=False):
             saved[f"{label}/bf16 fwd lse"] = lse16
             del f32
         if label in TIMED:
-            heads = (q, k, v) if layout == "bhsd" else \
-                tuple(x.transpose(1, 2) for x in (q, k, v))
+            heads = (q, k, v, do) if layout == "bhsd" else \
+                tuple(x.transpose(1, 2) for x in (q, k, v, do))
+            sdpa_mask = mask if mask_kind == "masked" else None
             attn_mask = None
-            if mask is not None and mask_kind == "masked":
+            if sdpa_mask is not None:
                 attn_mask = (mask > 0.5)[:, None, None, :].expand(
                     B, 1, S, S)
+            out, lse = fwd(q, k, v, mask, causal, scale)
             times[label] = {
                 "bf16_fwd_ms": time_ms(lambda: fwd(q, k, v, mask, causal,
                                                    scale), iters),
                 "sdpa_fwd_ms": time_ms(
                     lambda: F.scaled_dot_product_attention(
-                        *heads, attn_mask=attn_mask, is_causal=causal,
-                        scale=scale), iters)}
+                        *heads[:3], attn_mask=attn_mask, is_causal=causal,
+                        scale=scale), iters),
+                "bf16_bwd_ms": time_ms(lambda: bwd(
+                    q, k, v, mask, out, lse, do, causal, scale), iters),
+                "sdpa_bwd_ms": sdpa_bwd_ms(*heads, sdpa_mask, causal,
+                                           scale, iters)}
+            del out, lse
         del q, k, v, do
         torch.cuda.empty_cache()
-    run_flash(saved if out_path else None, times, max(iters // 5, 5), g)
+    if not single_pass_only:
+        run_flash(saved if out_path else None, times, max(iters // 5, 5), g)
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)),
                     exist_ok=True)
@@ -264,7 +277,7 @@ def compare(a_path, b_path):
         diff = 0.0 if same else float(
             (a[key].float() - b[key].float()).abs().max())
         print(f"{key}: {'same bits' if same else f'differs, max {diff:.3e}'}")
-        may_differ = key.startswith("flash") and "bf16 fwd" in key
+        may_differ = not key.startswith("flash") and "bf16 bwd" in key
         if not same and not may_differ:
             bad.append(key)
     print(json.dumps({"compared": len(a), "must_match_differ": bad}))
@@ -278,9 +291,14 @@ def main():
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--flash-only", action="store_true",
                     help="time the flash kernels alone")
+    ap.add_argument("--single-pass-only", action="store_true",
+                    help="time the single-pass kernels alone")
     args = ap.parse_args()
-    if args.flash_only and args.out:
-        ap.error("--flash-only times; it saves nothing")
+    if (args.flash_only or args.single_pass_only) and args.out:
+        ap.error("--flash-only and --single-pass-only time; they save "
+                 "nothing")
+    if args.flash_only and args.single_pass_only:
+        ap.error("--flash-only and --single-pass-only exclude each other")
     try:
         import torch
     except ImportError:
@@ -293,7 +311,7 @@ def main():
         print("exp_torch_attention_builds: CUDA is not available",
               file=sys.stderr)
         return 2
-    run(args.out, args.iters, args.flash_only)
+    run(args.out, args.iters, args.flash_only, args.single_pass_only)
     return 0
 
 

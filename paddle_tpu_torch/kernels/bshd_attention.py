@@ -32,6 +32,7 @@ import torch
 from paddle_tpu_torch.kernels.build import CudaKernel
 from paddle_tpu_torch.kernels.flash_attention import MAX_HEAD, NEG_INF
 from paddle_tpu_torch.kernels.smalls_attention import (_KEY_TILE, _MAX_SMEM,
+                                                       _dq_scratch, _ptr,
                                                        smalls_fwd_rows)
 
 __all__ = ["BSHD_FWD", "BSHD_BWD", "bshd_max_s", "bshd_attention_fwd",
@@ -161,10 +162,6 @@ def _check(q, k, v, k_mask, others=()):
     return tag, mask, (B, S, H, D)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def bshd_attention_fwd(q, k, v, k_mask=None, causal=False, scale=1.0):
     """Attention forward; see :func:`bshd_attention_fwd_reference`.  On the
     card: q, k, v contiguous float32 or bfloat16 of one [B, S, H, D]
@@ -193,7 +190,8 @@ def bshd_attention_bwd(q, k, v, k_mask, out, res, dout, causal=False,
     """Attention backward from the forward's ``out`` and ``res``; see
     :func:`bshd_attention_bwd_reference`.  On the card ``dout`` and
     ``out`` must match q's dtype and shape, ``res`` the forward's;
-    launches the one backward kernel, or raises."""
+    launches the one backward kernel (bfloat16: the tensor-core body;
+    float32: the CUDA-core body with a float32 dQ scratch), or raises."""
     if q.device.type == "cpu":
         return bshd_attention_bwd_reference(q, k, v, k_mask, out, res, dout,
                                             causal, scale)
@@ -213,15 +211,13 @@ def bshd_attention_bwd(q, k, v, k_mask, out, res, dout, causal=False,
     dv = torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    # the kernel's dQ sums over the key tiles, float32, a pair's slice
-    # touched by that pair's block only
-    dq_acc = torch.empty((B * H, S, D), dtype=torch.float32, device=q.device)
+    dq_acc = _dq_scratch(q, B * H, S, D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         BSHD_BWD.launch(f"bshd_bwd_{tag}", _BWD_ARGS, q.data_ptr(),
                         k.data_ptr(), v.data_ptr(), _ptr(mask),
                         dout.data_ptr(), res.data_ptr(), delta.data_ptr(),
-                        dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        _ptr(dq_acc), dq.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), *shape, float(scale), int(causal),
                         stream)
     return dq, dk, dv

@@ -17,9 +17,10 @@
 //
 // The TPU kernels take a whole batch row (all S keys of all H heads) per
 // grid step and loop over the heads inside.  Here the grid is the smalls
-// pair's: a forward block per (b, h, tile of query rows), a backward
-// block per (b, h); the bodies (the bfloat16 forward on the tensor
-// cores, the rest on the CUDA cores), their arithmetic, the causal skip
+// pair's: a forward block per (b, h, tile of query rows), a bfloat16
+// backward key and query block per (b, h, 64-row tile), a float32 one per
+// (b, h); the bodies (bfloat16 on the tensor cores, float32 on the CUDA
+// cores), their arithmetic, the causal skip
 // and its care for fully masked rows and what bounds them are
 // single_pass_attention.cuh's, with the [B,S,H,.] row order.
 
@@ -66,6 +67,25 @@ __global__ void __launch_bounds__(kThreads)
                            dv, H, S, D, Dv, scale, causal);
 }
 
+// the bfloat16 backward, on the tensor cores: key and query blocks of 4
+// warps in one grid (no dQ scratch)
+template <int kW>
+__global__ void __launch_bounds__(kTcThreads, dkdv_min_blocks(kW))
+    bshd_bwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ mask,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ res,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int H, int S, int D,
+                       int Dv, float scale, int causal, int nt) {
+  single_pass_bwd_tc<kW, true>(q, k, v, mask, dout, res, delta, dq, dk, dv, H,
+                               S, D, Dv, scale, causal, nt);
+}
+
 struct BshdKernels {
   template <typename T, int R, int kW>
   static fwd_kernel_t<T> fwd() {
@@ -74,9 +94,12 @@ struct BshdKernels {
     else
       return bshd_fwd_kernel_tc<R, kW>;
   }
-  template <typename T>
-  static bwd_kernel_t<T> bwd() {
-    return bshd_bwd_kernel<T>;
+  template <typename T, int kW>
+  static auto bwd() {
+    if constexpr (std::is_same<T, float>::value)
+      return bshd_bwd_kernel<T>;
+    else
+      return bshd_bwd_kernel_tc<kW>;
   }
 };
 
@@ -87,8 +110,9 @@ extern "C" {
 // Each entry launches on `stream` and returns cudaGetLastError() (0 =
 // launched).  Shapes in the layout's order: B, S, H, D.  mask may be NULL
 // (every key attended).  R: the forward's blocks own 16 R query rows (1, 2
-// or 4).  dq_acc is a float32 [B * H, S, D] scratch of the backward; its
-// contents do not matter.
+// or 4).  dq_acc is a float32 [B * H, S, D] scratch of the float32
+// backward (its contents do not matter); the bfloat16 backward takes none
+// (NULL will do).
 #define BSHD_ENTRIES(TAG, T)                                                 \
   int bshd_fwd_##TAG(const void* q, const void* k, const void* v,            \
                      const void* mask, void* out, void* res, int B, int S,   \

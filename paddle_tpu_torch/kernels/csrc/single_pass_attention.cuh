@@ -41,22 +41,23 @@
 // What bounds them on this card.  Operations: 4 S^2 D a (b, h) pair for
 // the forward (two products), 10 S^2 D for the backward (five), about
 // half under the causal mask.  At the S these kernels take (route C's
-// 512, the [B,S,H,D] flagship's 256, D = 64) the bytes bound both: each
-// input read and each output written once takes longer at 3.35 TB/s than
-// the causal products at the bf16 tensor-core peak (PERF.md's kernel
-// table).  Neither bound is near: what a block re-reads (its pair's k and
-// v, from L2, once per tile of query rows) and what it keeps in shared
-// memory (its rows' float32 scores) decide the time.
+// 512, the [B,S,H,D] flagship's 256, D = 64) the bytes bound the forward
+// and the causal backward: each input read and each output written once
+// takes longer at 3.35 TB/s than the products at the bf16 tensor-core
+// peak; route C's key-masked backward is bound by its products (PERF.md's
+// kernel table).  Neither bound is near: latency (a block's chain of tile
+// loads, products and barriers) and what a block re-reads (its pair's
+// other side, from L2) decide the time.
 //
-// The body by dtype (each source's K::fwd<T, R, kW> picks the kernel, and
-// the launchers its threads and shared memory; no body is tried and
-// another taken on failure):
-//   float32  -> the CUDA-core bodies below (single_pass_fwd, and
-//               single_pass_bwd for both dtypes): float32 products, as in
-//               the reference, and bit-stable (TF32 tensor cores would
-//               round the operands to 10 bits);
-//   bfloat16 -> the forward on the tensor cores (single_pass_fwd_tc); the
-//               backward stays on the CUDA-core body.
+// The body by dtype (each source's K::fwd<T, R, kW> and K::bwd<T, kW>
+// pick the kernel, and the launchers its grid, threads and shared memory;
+// no body is tried and another taken on failure):
+//   float32  -> the CUDA-core bodies below (single_pass_fwd,
+//               single_pass_bwd): float32 products, as in the reference,
+//               and bit-stable (TF32 tensor cores would round the
+//               operands to 10 bits);
+//   bfloat16 -> both on the tensor cores (single_pass_fwd_tc,
+//               single_pass_bwd_tc).
 //
 // Design.  The TPU kernels hold a pair's whole [S, S] score tile in VMEM
 // (and the [B,S,H,D] one all H heads of a batch row at once).  A block
@@ -97,8 +98,30 @@
 //   float32 forward (256 threads as 16 x 16): tiles widened to float32
 //     rows of D + 1, both products as fmaf micro-tiles (tile_dot,
 //     tile_mul of attention_tiles.cuh), synchronous tile loads.
-//   backward: one block per pair, so that dK and dV (sums over all
-//     queries) and dQ (a sum over all keys) need no atomics and the
+//   bfloat16 backward (one launch, two block roles, no atomics and no
+//     scratch): the grid holds a key block and a query block for each
+//     (pair, 64-row tile), 2 B H ceil(S / 64) blocks of 4 warps.  A key
+//     block owns 64 keys (16 a warp, k and v A fragments in registers),
+//     streams its pair's query tiles (q, dO, and each row's m, log l and
+//     delta) through two cp.async slots and sums dV += T(p^T) . dO and
+//     dK += T(dS^T) . q; a query block owns 64 query rows, streams the k
+//     and v tiles and sums dQ += T(dS) . k.  These are the flash
+//     backward's tensor-core bodies (dkdv_block_tc, dq_block_tc of
+//     attention_bwd_tc.cuh) with the pair's rows in this layout: each
+//     output element is summed by one thread in a fixed order, so the
+//     result does not depend on the launch order.  The query blocks
+//     recompute S and dP: 14 D operations a (query, key) pair for the
+//     function's 10 D.  The grid runs the key blocks first, then the
+//     query blocks (with the two roles interleaved, a pair's key and
+//     query block of one rank side by side, the kernel ran 25-37% slower
+//     on an H100: PERF.md §6), and under the causal mask each run takes
+//     the longest walks first over all pairs (rank r: the key tile r,
+//     which walks the S / 64 - r query tiles from the diagonal down, and
+//     the query tile S / 64 - 1 - r, which walks as many key tiles), so
+//     that short blocks fill the tail.  One launch keeps the kernel one
+//     counted call.
+//   float32 backward: one block per pair, so that dK and dV (sums over
+//     all queries) and dQ (a sum over all keys) need no atomics and the
 //     result does not depend on the launch order.  Key tiles outside,
 //     query tiles inside: the key tile's dK and dV stay in registers; the
 //     query tile's dQ is summed over the key tiles in a float32 scratch in
@@ -118,20 +141,9 @@
 
 #include <type_traits>
 
-#include "attention_tiles.cuh"
+#include "attention_bwd_tc.cuh"
 
 namespace {
-
-// Row 0 of pair bh (= b H + h) and the rows between its row s and s + 1:
-// row s of the pair is first + s * step, in any tensor of the layout.
-template <bool kBshd>
-struct PairRows {
-  long first, step;
-  __device__ PairRows(long bh, int H, int S)
-      : first(kBshd ? (bh / H) * S * H + bh % H : bh * S),
-        step(kBshd ? H : 1) {}
-  __device__ long operator()(int s) const { return first + s * step; }
-};
 
 // acc[i][jd] += sum_t P[t][row_i] * V[t][tx + 16 jd] over a 64-deep tile:
 // tile_mul with P transposed ([64][kTile + 1], rows = t)
@@ -725,19 +737,44 @@ __device__ __forceinline__ void single_pass_bwd(
   }
 }
 
+// The bfloat16 backward (see the note at the top): of the 2 B H nt
+// blocks (nt = ceil(S / 64)), block j < B H nt is the key block of
+// (pair, rank) j, block B H nt + j its query block.  Without the causal
+// mask a pair's ranks lie together; with it the ranks run over all
+// pairs, longest walks first.
+template <int kW, bool kBshd>
+__device__ __forceinline__ void single_pass_bwd_tc(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+    int S, int D, int Dv, float scale, int causal, int nt) {
+  extern __shared__ __align__(16) unsigned char bwd_tc_smem[];
+  const long nbh = gridDim.x / (2 * nt);
+  const long half = gridDim.x / 2;
+  const bool key_block = blockIdx.x < half;
+  const long j = key_block ? blockIdx.x : blockIdx.x - half;
+  const long bh = causal ? j % nbh : j / nt;
+  const int rank = (int)(causal ? j / nbh : j % nt);
+  if (key_block)
+    dkdv_block_tc<kW, kBshd>(bwd_tc_smem, q, k, v, mask, dout, lse, delta,
+                             dk, dv, H, S, S, D, Dv, scale, causal, bh,
+                             rank);
+  else
+    dq_block_tc<kW, kBshd>(bwd_tc_smem, q, k, v, mask, dout, lse, delta, dq,
+                           H, S, S, D, Dv, scale, causal, bh, nt - 1 - rank);
+}
+
 // ---------------------------------------------------------------------------
-// launchers.  K names a source's kernels: K::fwd<T, R, kW>() and
-// K::bwd<T>() return its __global__ functions, of these types.
+// launchers.  K names a source's kernels: K::fwd<T, R, kW>() (of the type
+// below) and K::bwd<T, kW>() return its __global__ functions.
 // ---------------------------------------------------------------------------
 
 template <typename T>
 using fwd_kernel_t = void (*)(const T*, const T*, const T*, const float*,
                               T*, float*, int, int, int, int, float, int,
                               int);
-template <typename T>
-using bwd_kernel_t = void (*)(const T*, const T*, const T*, const float*,
-                              const T*, const float*, const float*, float*,
-                              T*, T*, T*, int, int, int, int, float, int);
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on sm_90
 
@@ -802,24 +839,55 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    scale, causal, stream);
 }
 
+// the backward of a dtype, kW the bfloat16 body's head-width build (the
+// float32 body has one): float32 a block of 256 threads per pair with the
+// float32 dQ scratch, bfloat16 the key and query blocks of 4 warps
+template <class K, typename T, int kW>
+int launch_bwd_width(const void* q, const void* k, const void* v,
+                     const void* mask, const void* dout, const void* lse,
+                     const void* delta, void* dq_acc, void* dq, void* dk,
+                     void* dv, int B, int H, int S, int D, int Dv,
+                     float scale, int causal, void* stream) {
+  const auto kernel = K::template bwd<T, kW>();
+  const int nt = (S + kTile - 1) / kTile;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  const long blocks = f32 ? (long)B * H : 2L * B * H * nt;
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const size_t smem = f32 ? bwd_smem(D, Dv) : smem_tc(D, Dv);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if constexpr (f32) {
+    kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
+        (const T*)dout, (const float*)lse, (const float*)delta,
+        (float*)dq_acc, (T*)dq, (T*)dk, (T*)dv, H, S, D, Dv, scale, causal);
+  } else {
+    kernel<<<(unsigned)blocks, kTcThreads, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
+        (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq,
+        (T*)dk, (T*)dv, H, S, D, Dv, scale, causal, nt);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dq_acc: the float32 body's [B H, S, D] dQ scratch (its contents do not
+// matter); the bfloat16 body takes none (NULL will do)
 template <class K, typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* mask,
                const void* dout, const void* lse, const void* delta,
                void* dq_acc, void* dq, void* dk, void* dv, int B, int H,
                int S, int D, int Dv, float scale, int causal, void* stream) {
   if (bad_shape(B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
-  const bwd_kernel_t<T> kernel = K::template bwd<T>();
-  const long blocks = (long)B * H;
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem(D, Dv);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
-      (const T*)dout, (const float*)lse, (const float*)delta, (float*)dq_acc,
-      (T*)dq, (T*)dk, (T*)dv, H, S, D, Dv, scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    if (D <= 64 && Dv <= 64)
+      return launch_bwd_width<K, T, 64>(q, k, v, mask, dout, lse, delta,
+                                        dq_acc, dq, dk, dv, B, H, S, D, Dv,
+                                        scale, causal, stream);
+  }
+  return launch_bwd_width<K, T, kMaxD>(q, k, v, mask, dout, lse, delta,
+                                       dq_acc, dq, dk, dv, B, H, S, D, Dv,
+                                       scale, causal, stream);
 }
 
 }  // namespace

@@ -9,8 +9,8 @@
 //
 // q, k [B,H,S,D], v [B,H,S,Dv], out [B,H,S,Dv], lse [B,H,S,2] float32,
 // delta [B,H,S].  What they compute, what bounds them and how they are
-// built (the bfloat16 forward on the tensor cores, the rest on the CUDA
-// cores): single_pass_attention.cuh, whose bodies they run with the
+// built (bfloat16 on the tensor cores, float32 on the CUDA cores):
+// single_pass_attention.cuh, whose bodies they run with the
 // [B,H,S,.] layout (bshd_attention.cu runs the same bodies on [B,S,H,D]).
 
 #include "single_pass_attention.cuh"
@@ -56,6 +56,25 @@ __global__ void __launch_bounds__(kThreads)
                             dv, H, S, D, Dv, scale, causal);
 }
 
+// the bfloat16 backward, on the tensor cores: key and query blocks of 4
+// warps in one grid (no dQ scratch)
+template <int kW>
+__global__ void __launch_bounds__(kTcThreads, dkdv_min_blocks(kW))
+    smalls_bwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const float* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int S, int D,
+                         int Dv, float scale, int causal, int nt) {
+  single_pass_bwd_tc<kW, false>(q, k, v, mask, dout, lse, delta, dq, dk, dv, H,
+                                S, D, Dv, scale, causal, nt);
+}
+
 struct SmallsKernels {
   template <typename T, int R, int kW>
   static fwd_kernel_t<T> fwd() {
@@ -64,9 +83,12 @@ struct SmallsKernels {
     else
       return smalls_fwd_kernel_tc<R, kW>;
   }
-  template <typename T>
-  static bwd_kernel_t<T> bwd() {
-    return smalls_bwd_kernel<T>;
+  template <typename T, int kW>
+  static auto bwd() {
+    if constexpr (std::is_same<T, float>::value)
+      return smalls_bwd_kernel<T>;
+    else
+      return smalls_bwd_kernel_tc<kW>;
   }
 };
 
@@ -77,7 +99,8 @@ extern "C" {
 // Each entry launches on `stream` and returns cudaGetLastError() (0 =
 // launched).  mask may be NULL (every key attended).  R: the forward's
 // blocks own 16 R query rows (1, 2 or 4).  dq_acc is a float32
-// [B * H, S, D] scratch of the backward; its contents do not matter.
+// [B * H, S, D] scratch of the float32 backward (its contents do not
+// matter); the bfloat16 backward takes none (NULL will do).
 #define SMALLS_ENTRIES(TAG, T)                                               \
   int smalls_fwd_##TAG(const void* q, const void* k, const void* v,          \
                        const void* mask, void* out, void* lse, int B, int H, \

@@ -11,9 +11,14 @@ residual ``[B, H, S, 2]``, in one pass over all S keys of a tile of query
 rows (no online softmax), and round the probabilities and ``dS`` to the
 operands' type before each product, where the reference casts them.
 ``delta = rowsum(dO * out)`` is a torch reduction outside the kernel, as
-in the reference (``attention_ops.py:397``).  The bfloat16 forward runs
-on the tensor cores (``mma.sync``), the float32 forward and the backward
-on the CUDA cores (``csrc/single_pass_attention.cuh``).
+in the reference (``attention_ops.py:397``).  The bfloat16 pair runs on
+the tensor cores (``mma.sync``), the float32 pair on the CUDA cores
+(``csrc/single_pass_attention.cuh``).  The bfloat16 backward sums
+``q . k`` and ``dO . v`` in another order than the plain version, so
+``T(p)`` and ``T(dS)`` may round the other way where they lie near a bf16
+rounding boundary: the card checks allow
+``flash_attention.flash_backward_rounding_slack`` for it, the flash
+backward's bound for the same function.
 
 :func:`smalls_ok` is the dispatch rule that the attention op's forward
 and grad lowerings share (the port of ``_smalls_group``): which shapes
@@ -243,12 +248,28 @@ def smalls_attention_fwd(q, k, v, k_mask=None, causal=False, scale=1.0,
     return out, lse
 
 
+def _dq_scratch(q, pairs, S, D):
+    """The float32 backward's dQ scratch ``[pairs, S, D]`` (its CUDA-core
+    body sums a query tile's dQ over the key tiles there, a pair's slice
+    touched by that pair's block only), or None: the bfloat16 body sums
+    each dQ element in one thread's registers and takes no scratch."""
+    if q.dtype != torch.float32:
+        return None
+    return torch.empty((pairs, S, D), dtype=torch.float32, device=q.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def smalls_attention_bwd(q, k, v, k_mask, out, lse, dout, causal=False,
                          scale=1.0):
     """Attention backward from the forward's ``out`` and ``lse``; see
     :func:`smalls_attention_bwd_reference`.  On the card ``dout`` must
     match q's dtype, ``out`` and ``lse`` the forward's; launches the one
-    backward kernel, or raises."""
+    backward kernel (bfloat16: the tensor-core body, whose key and query
+    blocks share one launch; float32: the CUDA-core body with a float32
+    dQ scratch), or raises."""
     if q.device.type == "cpu":
         return smalls_attention_bwd_reference(q, k, v, k_mask, out, lse,
                                               dout, causal, scale)
@@ -268,15 +289,13 @@ def smalls_attention_bwd(q, k, v, k_mask, out, lse, dout, causal=False,
     dv = torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    # the kernel's dQ sums over the key tiles, float32, a pair's slice
-    # touched by that pair's block only
-    dq_acc = torch.empty((B * H, S, D), dtype=torch.float32, device=q.device)
+    dq_acc = _dq_scratch(q, B * H, S, D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         SMALLS_BWD.launch(f"smalls_bwd_{tag}", _BWD_ARGS, q.data_ptr(),
                           k.data_ptr(), v.data_ptr(), mask, dout.data_ptr(),
                           lse.data_ptr(), delta.data_ptr(),
-                          dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          _ptr(dq_acc), dq.data_ptr(), dk.data_ptr(),
                           dv.data_ptr(), *shape, float(scale), int(causal),
                           stream)
     return dq, dk, dv

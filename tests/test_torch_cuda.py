@@ -15,9 +15,11 @@ rounding-flip slack of the float32-product plain version and within one
 rounding of the tensor-core-summed one (``_assert_forward_matches``);
 the bfloat16 flash forward within one rounding plus its slack of the
 row-max plain version and of the one that tiles as the kernel does, and
-the bfloat16 flash dQ and dK/dV (tensor cores) within one rounding plus
-the rounding-flip slack of ``T(p)`` and ``T(dS)`` (``_assert_flash_*``;
-the slacks are zero unless a value lies near a bf16 rounding boundary or,
+the bfloat16 backward bodies (tensor cores: the flash dQ and dK/dV, the
+single-pass backward in both layouts) within one rounding plus the
+rounding-flip slack of ``T(p)`` and ``T(dS)``
+(``_assert_flash_forward_matches``, ``_assert_backward_matches``; the
+slacks are zero unless a value lies near a bf16 rounding boundary or,
 for the row-max forward, the running max grew after a key's tile); a
 dead paged slot (lens 0) is compared for
 finiteness only, as nothing reads it; the float32 3x3 conv sums 9 * C
@@ -112,10 +114,13 @@ def _assert_flash_forward_matches(out, want, q, k, v, mask, causal, scale):
         assert (err <= _bf16_tolerance(ref) + slack).all()
 
 
-def _assert_flash_backward_matches(grads, wants, args):
+def _assert_backward_matches(grads, wants, args):
     """dq, dk, dv against their plain versions: float32 within ``TOL``;
     bfloat16 (the tensor-core bodies) within one rounding plus
-    ``flash_backward_rounding_slack``."""
+    ``flash_backward_rounding_slack(*args)``.  ``args`` are the
+    backward's ``(q, k, v, mask, out, lse, dout, causal, scale)`` in
+    ``[B, H, S, .]``, ``grads`` and ``wants`` in the same layout (views of
+    ``[B, S, H, .]`` tensors transposed to it will do)."""
     if grads[0].dtype != torch.bfloat16:
         for a, b in zip(grads, wants):
             _assert_matches(a, b)
@@ -285,7 +290,7 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_toolchain, dtype,
     _assert_flash_forward_matches(out, want[0], tq, tk, tv, tm, causal,
                                   D ** -0.5)
     torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
-    _assert_flash_backward_matches(grads,
+    _assert_backward_matches(grads,
                                    flash_attention_bwd_reference(*args),
                                    args)
 
@@ -418,8 +423,8 @@ def test_single_pass_kernels_match_plain_versions_on_card(
                                             causal, D ** -0.5)
     _assert_forward_matches(out, want[0], tq, tk, tv, tm, causal, D ** -0.5)
     torch.testing.assert_close(lse, want[1], atol=1e-5, rtol=1e-6)
-    for a, b in zip(grads, wgrads):
-        _assert_matches(a, b)
+    _assert_backward_matches(grads, wgrads, (tq, tk, tv, tm, out, lse, tg,
+                                             causal, D ** -0.5))
 
 
 @pytest.mark.cuda
@@ -568,6 +573,17 @@ def _bshd_case(seed, B, S, H, D, first_key_off=False):
     return q, k, v, mask, g
 
 
+def _assert_bshd_backward_matches(grads, wants, args):
+    """``_assert_backward_matches`` on the head-transposed views of the
+    [B, S, H, D] grads and of the backward's arguments ``(q, k, v, mask,
+    out, res, dout, causal, scale)``."""
+    q, k, v, mask, out, res, dout, causal, scale = args
+    heads = [x.transpose(1, 2) for x in (q, k, v, out, res, dout)]
+    _assert_backward_matches(
+        [x.transpose(1, 2) for x in grads], [x.transpose(1, 2) for x in wants],
+        (*heads[:3], mask, *heads[3:], causal, scale))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mask_dtype", ["float32", "q"])
@@ -601,8 +617,8 @@ def test_bshd_kernels_match_plain_versions_on_card(
     _assert_forward_matches(*(x.transpose(1, 2) for x in (
         out, want[0], tq, tk, tv)), tm, causal, D ** -0.5)
     torch.testing.assert_close(res, want[1], atol=1e-5, rtol=1e-6)
-    for a, b in zip(grads, wgrads):
-        _assert_matches(a, b)
+    _assert_bshd_backward_matches(grads, wgrads, (tq, tk, tv, tm, out, res,
+                                                  tg, causal, D ** -0.5))
 
 
 @pytest.mark.cuda
@@ -645,11 +661,10 @@ def test_bshd_attention_under_torch_autograd_on_card(cuda_toolchain):
     out = bshd_attn(*leaves, tm, True, 0.2)
     got = torch.autograd.grad(out, leaves, tg)
     _, res = BshdAttentionFunction.apply(*leaves, tm, True, 0.2)
-    want = bshd_attention_bwd_reference(
-        *(t.detach() for t in (tq, tk, tv)), tm, out.detach(), res, tg,
-        True, 0.2)
-    for a, b in zip(got, want):
-        _assert_matches(a, b)
+    args = (*(t.detach() for t in (tq, tk, tv)), tm, out.detach(), res, tg,
+            True, 0.2)
+    _assert_bshd_backward_matches(got, bshd_attention_bwd_reference(*args),
+                                  args)
 
 
 @pytest.mark.cuda
@@ -671,6 +686,129 @@ def test_bshd_wrappers_raise_on_bad_arguments(cuda_toolchain):
     long = torch.randn(1, S, 1, 16, device="cuda")
     with pytest.raises(ValueError, match=f"exceeds the {S - 1} keys"):
         bshd_attention_fwd(long, long, long)
+
+
+# ---------------------------------------------------------------------------
+# the single-pass backward by dtype, in both layouts
+# ---------------------------------------------------------------------------
+
+def _single_pass_backward(layout, q, k, v, mask, g, causal, scale):
+    """Forward and backward through the layout's wrappers on ``[B, S, H,
+    .]`` (``bshd``) or ``[B, H, S, .]`` (``bhsd``) tensors on the card:
+    ``(grads, plain grads, the backward's args, its kernel)``."""
+    if layout == "bhsd":
+        out, lse = smalls_attention_fwd(q, k, v, mask, causal, scale)
+        args = (q, k, v, mask, out, lse, g, causal, scale)
+        return (smalls_attention_bwd(*args),
+                smalls_attention_bwd_reference(*args), args, SMALLS_BWD)
+    out, res = bshd_attention_fwd(q, k, v, mask, causal, scale)
+    args = (q, k, v, mask, out, res, g, causal, scale)
+    return (bshd_attention_bwd(*args), bshd_attention_bwd_reference(*args),
+            args, BSHD_BWD)
+
+
+_BF16_BACKWARD_CASES = [
+    # (B, S, H, D, Dv, causal, first_key_off): head widths 16 to 128,
+    # ragged S, rows whose causal window is fully masked
+    (2, 128, 4, 16, 16, True, True), (2, 256, 4, 64, 64, False, False),
+    (1, 300, 2, 96, 96, True, False), (1, 200, 2, 128, 128, False, False),
+    (2, 200, 2, 64, 64, True, True), (2, 512, 8, 64, 64, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,case", [
+    (layout, case) for layout in ("bhsd", "bshd")
+    for case in _BF16_BACKWARD_CASES] + [
+    ("bhsd", (1, 130, 2, 64, 32, False, False)),     # Dv != D
+    ("bhsd", (1, 97, 2, 32, 128, True, True))])
+def test_single_pass_bf16_backward_on_card(cuda_toolchain, layout, case):
+    """The bfloat16 backward (the tensor-core body, one launch) against
+    its plain version within one rounding plus
+    ``flash_backward_rounding_slack``, in both layouts (on the
+    head-transposed views for [B, S, H, D]); a key mask with a batch row
+    fully masked, or key 0 off (causal)."""
+    B, S, H, D, Dv, causal, first_key_off = case
+    rng = np.random.RandomState(S + D)
+    shape = (B, H, S) if layout == "bhsd" else (B, S, H)
+    q, k = (rng.randn(*shape, D).astype("float32") for _ in range(2))
+    v, g = (rng.randn(*shape, Dv).astype("float32") for _ in range(2))
+    mask = (rng.rand(B, S) > 0.1).astype("float32")
+    if first_key_off:
+        mask[:, 0] = 0.0
+    else:
+        mask[-1] = 0.0
+    tq, tk, tv, tg = _cuda(q, k, v, g, dtype=torch.bfloat16)
+    tm = torch.from_numpy(mask).cuda()
+    scale = D ** -0.5
+    kernel = SMALLS_BWD if layout == "bhsd" else BSHD_BWD
+    before = kernel.launches
+    grads, wants, args, _ = _single_pass_backward(layout, tq, tk, tv, tm, tg,
+                                                  causal, scale)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    if layout == "bhsd":
+        _assert_backward_matches(grads, wants, args)
+    else:
+        _assert_bshd_backward_matches(grads, wants, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_single_pass_float32_backward_unchanged_on_card(cuda_toolchain,
+                                                        layout, causal):
+    """The float32 backward stays on the CUDA-core body: within ``TOL``
+    (1e-5) of its plain version at route C's head width, S 512 and a
+    ragged 200, key-masked (a batch row fully masked) and causal with key
+    0 off."""
+    for B, S, H in ((2, 512, 8), (2, 200, 4)):
+        q, k, v, mask, g = _bshd_case(S + causal, B, S, H, 64,
+                                      first_key_off=causal)
+        if layout == "bhsd":
+            q, k, v, g = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                          for x in (q, k, v, g))
+        tq, tk, tv, tg = _cuda(q, k, v, g)
+        tm = torch.from_numpy(mask).cuda()
+        grads, wants, _, _ = _single_pass_backward(layout, tq, tk, tv, tm,
+                                                   tg, causal, 0.125)
+        for a, b in zip(grads, wants):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, b, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_single_pass_bf16_backward_takes_no_scratch_on_card(
+        cuda_toolchain, monkeypatch, layout):
+    """The wrappers pass the backward kernel a float32 dQ scratch in
+    float32 only: a bfloat16 call passes NULL (the tensor-core body sums
+    each dQ element in registers), read from the launch's arguments."""
+    kernel = SMALLS_BWD if layout == "bhsd" else BSHD_BWD
+    seen = []
+    launch = kernel.launch
+
+    def spy(symbol, argtypes, *args):
+        seen.append((symbol, args[7]))     # q k v mask dout lse delta dq_acc
+        return launch(symbol, argtypes, *args)
+
+    monkeypatch.setattr(kernel, "launch", spy)
+    q, k, v, mask, g = _bshd_case(3, 2, 96, 2, 32)
+    if layout == "bhsd":
+        q, k, v, g = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                      for x in (q, k, v, g))
+    tm = torch.from_numpy(mask).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        tq, tk, tv, tg = _cuda(q, k, v, g, dtype=dtype)
+        grads, wants, args, _ = _single_pass_backward(layout, tq, tk, tv, tm,
+                                                      tg, True, 0.2)
+        torch.cuda.synchronize()
+        if layout == "bhsd":
+            _assert_backward_matches(grads, wants, args)
+        else:
+            _assert_bshd_backward_matches(grads, wants, args)
+    (sym16, acc16), (sym32, acc32) = seen
+    assert sym16.endswith("_bf16") and acc16 is None
+    assert sym32.endswith("_f32") and acc32 is not None
 
 
 # ---------------------------------------------------------------------------

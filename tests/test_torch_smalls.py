@@ -11,6 +11,11 @@ Transformer trained through that rule in both packages.
   Inputs come from a numpy seed.
 - In bfloat16 the plain versions round ``p`` and ``dS`` where the Pallas
   kernels cast them, so the two agree to bf16 rounding of the outputs.
+- The rounding-flip slacks that the card checks allow the tensor-core
+  bodies: a bf16 plain forward (backward) whose ``q . k`` (and ``dO .
+  v``) sum in another order lies within one rounding plus
+  ``forward_rounding_slack`` (``flash_backward_rounding_slack``) of the
+  plain version.
 - The dispatch rule: self-attention at S = 512 takes the pair,
   ``Sq != Sk`` and S = 2048 the flash kernels, and the forward and grad
   lowerings of one op always take the same family.
@@ -193,6 +198,64 @@ def test_rounding_flip_slack_covers_another_order_of_the_sums(causal, std):
     w = want.float()
     tol = 2.0 ** -8 * float(w.square().mean().sqrt()) + 2.0 ** -7 * w.abs()
     assert ((other - w).abs() <= tol + slack).all()
+
+
+def _chunked_reversed(a, b):
+    """float32 ``a . b^T`` over the last axis summed in another order than
+    one matmul: 16-wide chunks of it, the last chunk first, as a
+    tensor-core body may take them."""
+    a, b = a.float(), b.float()
+    out = torch.zeros(a.shape[:-1] + b.shape[-2:-1])
+    for c in reversed(range(0, a.shape[-1], 16)):
+        out = out + a[..., c:c + 16] @ b[..., c:c + 16].transpose(-1, -2)
+    return out
+
+
+@pytest.mark.parametrize("S,causal,mask_kind", [
+    (256, True, "first_key_off"), (256, False, "batch_row_off"),
+    (40, True, "batch_row_off")])
+def test_backward_slack_covers_another_order_of_the_sums(S, causal,
+                                                         mask_kind):
+    """bfloat16 operands: a float32 plain backward whose ``q . k`` and
+    ``dO . v`` sum in another order (16-wide chunks of D, last first)
+    rounds some ``T(dS)`` and ``T(p)`` the other way; its dq, dk, dv lie
+    within one bf16 rounding plus ``flash_backward_rounding_slack`` of
+    :func:`smalls_attention_bwd_reference` (the bound the card checks
+    hold the tensor-core backward to).  Causal with key 0 off (rows whose
+    causal window is fully masked), key-masked with a batch row whose
+    every key is off, and a ragged S = 40."""
+    B, H, D = 2, 4, 64
+    gen = torch.Generator().manual_seed(43 + S)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen).bfloat16()
+                   for _ in range(4))
+    mask = (torch.rand(B, S, generator=gen) > 0.2).float()
+    if mask_kind == "first_key_off":
+        mask[:, 0] = 0.0
+    else:
+        mask[0] = 0.0
+    scale = D ** -0.5
+    out, lse = smalls.smalls_attention_fwd_reference(q, k, v, mask, causal,
+                                                     scale)
+    args = (q, k, v, mask, out, lse, do, causal, scale)
+    want = smalls.smalls_attention_bwd_reference(*args)
+    slack = flash.flash_backward_rounding_slack(*args)
+
+    s = flash._masked(_chunked_reversed(q, k) * scale, mask, causal)
+    p = torch.exp((s - lse[..., 0:1]) - lse[..., 1:2])
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (_chunked_reversed(do, v) - delta) * scale
+    ds_plain = flash._probs_and_dscores(*args)[1]
+    flipped = ds.bfloat16() != ds_plain.bfloat16()
+    assert flipped.any()                      # the case is not vacuous
+    # a key row with a flipped T(dS) has slack in every column of its dk
+    assert (slack[1].amin(dim=-1) > 0)[flipped.any(dim=-2)].all()
+    t = lambda x: x.bfloat16().float()  # noqa: E731
+    other = (t(ds) @ k.float(), t(ds).transpose(-1, -2) @ q.float(),
+             t(p).transpose(-1, -2) @ do.float())
+    for a, b, sl in zip(other, want, slack):
+        b = b.float()
+        tol = 2.0 ** -8 * float(b.square().mean().sqrt()) + 2.0 ** -7 * b.abs()
+        assert ((a.bfloat16().float() - b).abs() <= tol + sl).all()
 
 
 def test_rounding_flip_slack_vanishes_far_from_rounding_boundaries():
