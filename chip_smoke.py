@@ -30,9 +30,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward in both layouts) to one rounding plus the flip slack of
    ``T(p)`` and ``T(dS)`` (``assert_backward_matches``); the log lines
    count the elements that needed a slack.  The bfloat16 instantiations
-   of the single-pass forward and backward kernels and of the three flash
-   kernels must hold tensor-core instructions (``HMMA``) in ``cuobjdump
-   -sass`` of the built libraries.
+   of the single-pass forward and backward kernels, of the three flash
+   kernels and of the 3x3 conv must hold tensor-core instructions
+   (``HMMA``) in ``cuobjdump -sass`` of the built libraries, and their
+   float32 instantiations none.
 3. Serving: export a seeded ``GenLongConfig`` bundle with the port, load
    ``GenPredictor`` on ``cuda:0`` and serve requests through
    ``GenScheduler`` (continuous batching), once with the paged KV decode
@@ -72,10 +73,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card and on the CPU from one state: parameters and accumulators agree
    to ``OPTIMIZER_TOL``.
 6. The conv zoo.  ``conv3x3_bn_act`` against its plain version at
-   ResNet-50's four 3x3 shapes (N = 256, bf16, ReLU on and off; one
-   float32 case held to ``kernels.conv3x3.f32_tolerance``), with cuDNN's
-   time beside it.  ResNet-50 (``resnet_train_program`` at full width
-   and depth, 224x224, 1000 classes, B = 256 as ``bench_resnet.py``),
+   ResNet-50's four 3x3 shapes (N = 256, bf16 on the tensor cores, ReLU
+   on and off; one float32 case on the CUDA cores held to
+   ``kernels.conv3x3.f32_tolerance``), with cuDNN's times beside it
+   (``F.conv2d`` with the same epilogue, and alone).  ResNet-50
+   (``resnet_train_program`` at full width and depth, 224x224, 1000
+   classes, B = 256 as ``bench_resnet.py``),
    VGG-16 (32x32x3, 10 classes) and the MNIST convnet train a few steps
    with ``Momentum(0.01, 0.9)`` and bf16 AMP: loss finite and falling, no
    hand-written kernel launched (cuDNN convs), ResNet-50's step time,
@@ -84,8 +87,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    runs on the card in float32: its predictions equal the test clone's,
    and each of its sixteen 3x3 ``conv2d -> batch_norm -> relu`` chains,
    run through ``conv3x3_bn_act`` with the batch norm folded, gives the
-   program's own output (exactly 16 launches, the kernel's path); the
-   same inputs in bf16 against the plain version.  One float32 step of
+   program's own output, and the same inputs in bf16 give the plain
+   version's within one rounding (exactly 32 launches, 16 float32 and 16
+   bf16: the kernel's path).  One float32 step of
    ResNet-50 (B = 2) on the card and on the CPU from one scope: the loss
    to ``CARD_CPU_LOSS_RTOL``, the running batch-norm statistics to
    ``F32_TOL``, the grads (velocities) above every ReLU kink to
@@ -905,14 +909,17 @@ def phase_smalls():
 
 def phase_sass():
     """Tensor-core instructions of the redesigned kernels: ``cuobjdump
-    -sass`` of the built ``smalls_attention.cu``, ``bshd_attention.cu``
-    and ``flash_attention.cu`` libraries, the ``HMMA`` / ``HGMMA`` count
-    of each instantiation of ``smalls_fwd_kernel``, ``bshd_fwd_kernel``
-    (template arguments R and W), ``smalls_bwd_kernel``,
-    ``bshd_bwd_kernel``, ``flash_fwd_kernel``, ``flash_dq_kernel`` and
-    ``flash_dkdv_kernel`` (W for the bfloat16 bodies).  Fails if a
-    bfloat16 instantiation has none (its products are not on the tensor
-    cores).  Returns ``{wrapper name: {instantiation: count}}``."""
+    -sass`` of the built ``smalls_attention.cu``, ``bshd_attention.cu``,
+    ``flash_attention.cu`` and ``conv3x3.cu`` libraries, the ``HMMA`` /
+    ``HGMMA`` count of each instantiation of ``smalls_fwd_kernel``,
+    ``bshd_fwd_kernel`` (template arguments R and W),
+    ``smalls_bwd_kernel``, ``bshd_bwd_kernel``, ``flash_fwd_kernel``,
+    ``flash_dq_kernel`` and ``flash_dkdv_kernel`` (W for the bfloat16
+    bodies) and ``conv3x3_kernel`` (the block tile BM x BN of the
+    bfloat16 body).  Fails if a bfloat16 instantiation has none (its
+    products are not on the tensor cores), or a float32 one has any (the
+    float32 bodies stay on the CUDA cores).  Returns ``{wrapper name:
+    {instantiation: count}}``."""
     import re
     from paddle_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
@@ -925,7 +932,8 @@ def phase_sass():
             ("bshd_bwd", "bshd_attention.cu", ("W",)),
             ("flash_fwd", "flash_attention.cu", ("W",)),
             ("flash_dq", "flash_attention.cu", ("W",)),
-            ("flash_dkdv", "flash_attention.cu", ("W",))):
+            ("flash_dkdv", "flash_attention.cu", ("W",)),
+            ("conv3x3", "conv3x3.cu", ("BM", "BN"))):
         kernel = f"{name}_kernel"
         if source not in sass:
             sass[source] = subprocess.run(
@@ -949,6 +957,10 @@ def phase_sass():
             if label.startswith("bf16") and n == 0:
                 raise AssertionError(f"{kernel} {label}: no HMMA/HGMMA "
                                      f"instruction in its SASS")
+            if label.startswith("f32") and n != 0:
+                raise AssertionError(f"{kernel} {label}: {n} HMMA/HGMMA "
+                                     f"instructions in the float32 body "
+                                     f"(the CUDA cores')")
         found[name] = counts
         log(f"sass {kernel}: HMMA/HGMMA instructions by instantiation "
             f"{counts}")
@@ -1485,12 +1497,14 @@ def assert_conv3x3_f32(got, want, x, w, scale, what):
 
 def phase_conv3x3():
     """``conv3x3_bn_act`` against its plain version at ResNet-50's four
-    3x3 shapes, N = 256, bf16 (what AMP would hand it), ReLU on and off,
-    and once in float32; then each shape's bf16 times beside the plain
-    version's, cuDNN's (``F.conv2d`` in NCHW and in ``channels_last``,
-    the faster, plus the same epilogue; a yardstick) and the bound: the
-    products at the bf16 tensor-core peak, x and out written once, w,
-    scale and bias read once."""
+    3x3 shapes, N = 256, bf16 (what AMP would hand it; the tensor-core
+    body), ReLU on and off, and once in float32 (the CUDA-core body);
+    then each shape's bf16 times beside the plain version's, cuDNN's
+    (``F.conv2d`` in NCHW and in ``channels_last``, the faster, plus the
+    same epilogue; a yardstick), cuDNN's bf16 ``channels_last``
+    ``F.conv2d`` alone (no epilogue: the bare convolution) and the
+    bound: the products at the bf16 tensor-core peak, x and out written
+    once, w, scale and bias read once."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels.conv3x3 import (conv3x3_bn_act,
@@ -1530,14 +1544,21 @@ def phase_conv3x3():
                 * scale[:, None, None] + bias[:, None, None]).to(x.dtype),
                 iters=20, warmup=3)
         library = min(lib.values())
+        xl, wl = (t.contiguous(memory_format=torch.channels_last)
+                  for t in (xn, wn))
+        cudnn = time_ms(lambda: F.conv2d(xl, wl, padding=1), iters=20,
+                        warmup=3)
         log(f"conv3x3[{H}x{H}x{C}->{Co}, N={CONV3X3_N}, bf16] kernel_ms="
             f"{ms:.5f} ({ops / ms / 1e9:.2f} TFLOP/s) plain_ms={plain:.5f} "
             f"library_ms={library:.5f} (cuDNN F.conv2d + epilogue: nchw "
-            f"{lib['nchw']:.5f}, channels_last {lib['channels_last']:.5f}) "
-            f"bound_ms={b:.6f} ({by})")
+            f"{lib['nchw']:.5f}, channels_last {lib['channels_last']:.5f}; "
+            f"{library / ms:.2f} x the kernel's time) cudnn_conv_ms="
+            f"{cudnn:.5f} (F.conv2d channels_last alone, "
+            f"{ops / cudnn / 1e9:.2f} TFLOP/s; {cudnn / ms:.2f} x) "
+            f"bound_ms={b:.6f} ({by}; {100 * b / ms:.1f}% of it)")
         rows[(H, C, Co)] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                                bound_ms=b, bound_by=by)
-        del x, w, xn, wn
+                                bound_ms=b, bound_by=by, cudnn_conv_ms=cudnn)
+        del x, w, xn, wn, xl, wl
         torch.cuda.empty_cache()
     # float32: the products summed in another order than the plain version
     x, w, scale, bias = _conv3x3_case(64, 28, 128, 128, torch.float32, g)
@@ -1663,15 +1684,16 @@ def phase_infer_conv3x3(state):
     sixteen 3x3 ``conv2d -> batch_norm -> relu`` chains of the loaded
     program, the kernel runs on the conv's input from that run (NHWC),
     the filter (HWIO) and the batch norm folded into scale and bias, and
-    must give the program's own ReLU output (``assert_conv3x3_f32``):
-    exactly 16 launches, the counted path.  Then the same inputs in bf16
-    against the plain version (not counted)."""
+    must give the program's own ReLU output (``assert_conv3x3_f32``; the
+    CUDA-core body), and then runs on the same inputs in bf16 (the
+    tensor-core body), against the plain version: exactly 32 launches,
+    16 of each, the counted path."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import ALL_KERNELS
     from paddle_tpu_torch.kernels.conv3x3 import (
-        conv3x3_bn_act, conv3x3_bn_act_reference, fold_batch_norm)
+        CONV3X3, conv3x3_bn_act, conv3x3_bn_act_reference, fold_batch_norm)
     from paddle_tpu_torch.models.resnet import conv3x3_bn_relu_chains
 
     scope, exe = state
@@ -1722,10 +1744,18 @@ def phase_infer_conv3x3(state):
     for kern in ALL_KERNELS:
         kern.launches = 0
     outs = [conv3x3_bn_act(*operands(i)) for i in range(len(chains))]
+    f32_launches = CONV3X3.launches
+    outs_bf16 = []
+    for i in range(len(chains)):
+        x, w, scale, bias = operands(i)
+        outs_bf16.append(conv3x3_bn_act(x.bfloat16(), w.bfloat16(), scale,
+                                        bias))
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
-    if launches != {"conv3x3": 16}:
-        raise AssertionError(f"infer: launches {launches}, want 16 conv3x3")
+    if launches != {"conv3x3": 32} or f32_launches != 16:
+        raise AssertionError(f"infer: launches {launches} ({f32_launches} "
+                             f"float32), want 32 conv3x3: 16 float32 and "
+                             f"16 bf16")
     worst = worst_bf16 = 0.0
     for i, out in enumerate(outs):
         x, w, scale, bias = operands(i)
@@ -1733,19 +1763,20 @@ def phase_infer_conv3x3(state):
         assert_conv3x3_f32(out, ref, x, w, scale,
                            f"infer chain {i} {tuple(x.shape)}")
         worst = max(worst, max_err(out, ref))
-    for i in range(len(chains)):
+    for i, kb in enumerate(outs_bf16):
         x, w, scale, bias = operands(i)
-        xb, wb = x.bfloat16(), w.bfloat16()
-        kb = conv3x3_bn_act(xb, wb, scale, bias)
-        torch.cuda.synchronize()
-        pb = conv3x3_bn_act_reference(xb, wb, scale, bias)
+        pb = conv3x3_bn_act_reference(x.bfloat16(), w.bfloat16(), scale,
+                                      bias)
         assert_matches(kb, pb, f"infer chain {i} bf16")
         worst_bf16 = max(worst_bf16, max_err(kb, pb))
     log(f"infer: ResNet-50 bundle loaded and run on the card (B="
         f"{RESNET_INFER_B}, float32): predictions equal the test clone's "
-        f"(max diff {pred_diff:.3e}); 16 chains through conv3x3 against the "
-        f"program's relu'd batch norm: max_abs_err {worst:.3e}; in bf16 "
-        f"against the plain version {worst_bf16:.3e}; launches {launches}")
+        f"(max diff {pred_diff:.3e}); 16 chains through conv3x3 in float32 "
+        f"(the CUDA-core body) against the program's relu'd batch norm: "
+        f"max_abs_err {worst:.3e}; 16 in bf16 (the tensor-core body) "
+        f"against the plain version {worst_bf16:.3e}; launches {launches} "
+        f"= {f32_launches} float32 + {launches['conv3x3'] - f32_launches} "
+        f"bf16")
     return launches, max(worst, worst_bf16)
 
 
@@ -2068,6 +2099,7 @@ KERNEL_NOTES = {
                    "redesigned": "bf16 backward on the tensor cores"},
     "bshd_fwd": {"redesigned": "bf16 forward on the tensor cores"},
     "bshd_bwd": {"redesigned": "bf16 backward on the tensor cores"},
+    "conv3x3": {"redesigned": "bf16 on the tensor cores"},
 }
 
 
@@ -2182,8 +2214,9 @@ def main():
             "max_abs_err": errs[k.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if "device_ms" in r:
-            kernels[-1]["device_ms"] = r["device_ms"]
+        for extra in ("device_ms", "cudnn_conv_ms"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
         kernels[-1].update(KERNEL_NOTES.get(k.name, {}))
         if k.name in tensor_core:
             kernels[-1]["sass_mma"] = tensor_core[k.name]

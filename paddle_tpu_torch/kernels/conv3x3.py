@@ -8,6 +8,12 @@ the stride-1 convolution with a zero padding of one pixel in float32,
 then ``acc * scale + bias``, an optional ReLU and one rounding to x's
 dtype.  :func:`fold_batch_norm` turns a batch norm's parameters and
 running statistics into that ``scale`` and ``bias``.
+
+On the card the C entry point is picked by dtype: ``conv3x3_bn_act_bf16``
+runs every bfloat16 shape on the tensor cores (``conv3x3_kernel_tc``:
+bf16 products summed in float32 by ``mma.sync``, 16 channels a step),
+``conv3x3_bn_act_f32`` runs float32 on the CUDA cores
+(``conv3x3_kernel``).
 """
 
 from __future__ import annotations
@@ -75,9 +81,11 @@ def f32_tolerance(x, w, scale):
 
 def conv3x3_bn_act(x, w, scale, bias, relu=True):
     """See :func:`conv3x3_bn_act_reference` for the contract.  On the CPU
-    it is the plain version; on the card it launches the CUDA kernel (x
-    and w float32 or bfloat16 of one dtype and contiguous, scale and bias
-    float32 and contiguous) or raises."""
+    it is the plain version; on the card it launches the CUDA kernel of
+    x's dtype (x and w float32 or bfloat16 of one dtype and contiguous,
+    scale and bias float32 and contiguous) or raises.  Tensors that do
+    not start on 16 bytes, or rows whose width is no multiple of 8, take
+    the kernel's element copies."""
     if x.device.type == "cpu":
         return conv3x3_bn_act_reference(x, w, scale, bias, relu)
     if x.device.type != "cuda":

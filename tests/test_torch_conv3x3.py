@@ -7,7 +7,15 @@ on the CPU, where its wrapper runs the plain torch version.
   and bfloat16, and H, W that are no multiple of the CUDA kernel's 8x8
   tile: float32 within ``F32_TOL`` (both sum 9 * C products in float32 in
   different orders), bfloat16 within one rounding of the output
-  (``rtol = 2**-7`` plus ``2**-8`` times the output's RMS).
+  (``rtol = 2**-7`` plus ``2**-8`` times the output's RMS).  Among the
+  cases are the edges the card's tensor-core body guards: rows of x that
+  are no 16-byte pieces (C = 20, C = 3), Co = 72 (no multiple of the
+  channel tile) and N = 3 at 7x7 (147 pixel rows, which span images and
+  end inside one pixel tile).
+- One bf16 rounding covers another order of the sums: the tensor-core
+  body's order (per tap, 16-channel steps summed, then accumulated),
+  emulated in float32, against the plain version at ResNet-50's first
+  width, with the tolerance ``chip_smoke.py`` holds the card to.
 - On an inference program of ResNet-50 (small images), the walk finds
   the sixteen 3x3 ``conv2d -> batch_norm -> relu`` chains, and the kernel
   on each chain's NHWC input, with the batch norm folded, gives the
@@ -41,6 +49,14 @@ CASES = {
     "14x7 f32 relu": ((1, 14, 7, 8, 24), "float32", True),
     "14x14 bf16 relu": ((1, 14, 14, 16, 24), "bfloat16", True),
     "7x7 bf16": ((2, 7, 7, 32, 16), "bfloat16", False),
+    "9x9 C20 f32": ((2, 9, 9, 20, 40), "float32", False),
+    "9x9 C20 bf16 relu": ((2, 9, 9, 20, 40), "bfloat16", True),
+    "7x13 C3 f32 relu": ((2, 7, 13, 3, 8), "float32", True),
+    "7x13 C3 bf16": ((2, 7, 13, 3, 8), "bfloat16", False),
+    "5x6 Co72 f32 relu": ((1, 5, 6, 16, 72), "float32", True),
+    "5x6 Co72 bf16": ((1, 5, 6, 16, 72), "bfloat16", False),
+    "N3 7x7 f32": ((3, 7, 7, 24, 16), "float32", False),
+    "N3 7x7 bf16 relu": ((3, 7, 7, 24, 16), "bfloat16", True),
 }
 
 
@@ -85,6 +101,53 @@ def test_plain_version_matches_the_pallas_kernel(case, monkeypatch):
         torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
     if relu:
         assert float(got.min()) == 0.0
+
+
+def _tensor_core_order(x, w, scale, bias, relu, step=16):
+    """The tensor-core body's sums emulated in float32: tap by tap, each
+    ``step`` channels summed on their own (one ``mma`` k-step), then added
+    to the running float32 sum; the epilogue as the plain version's."""
+    N, H, W, C = x.shape
+    Co = w.shape[3]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = w.float()
+    acc = torch.zeros(N * H * W, Co, dtype=torch.float32)
+    for ky in range(3):
+        for kx in range(3):
+            tap = xp[:, ky:ky + H, kx:kx + W, :].reshape(N * H * W, C)
+            for c in range(0, C, step):
+                acc = acc + tap[:, c:c + step] @ wf[ky, kx, c:c + step]
+    out = acc * scale + bias
+    if relu:
+        out = torch.relu(out)
+    return out.reshape(N, H, W, Co).to(x.dtype)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_one_rounding_covers_the_tensor_core_order(relu):
+    """At C = Co = 64 (ResNet-50's first 3x3 body) the two orders of the
+    K = 576 float32 sums give bf16 outputs within one rounding of each
+    other (``chip_smoke.py``'s ``assert_matches``: ``rtol = 2**-7`` plus
+    ``2**-8`` times the RMS); and the orders do differ somewhere in
+    float32."""
+    rng = np.random.RandomState(5)
+    N, H, C, Co = 3, 8, 64, 64
+    x = torch.from_numpy(rng.randn(N, H, H, C).astype("float32"))
+    w = torch.from_numpy((rng.randn(3, 3, C, Co) * (2.0 / (9 * C)) ** 0.5)
+                         .astype("float32"))
+    scale = torch.from_numpy(rng.rand(Co).astype("float32") + 0.5)
+    bias = torch.from_numpy(rng.randn(Co).astype("float32") * 0.1)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    got = _tensor_core_order(xb, wb, scale, bias, relu)
+    want = conv3x3_bn_act_reference(xb, wb, scale, bias, relu)
+    assert got.dtype == torch.bfloat16
+    rms = float(want.float().square().mean().sqrt())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=2.0 ** -8 * rms, rtol=2.0 ** -7)
+    f32 = _tensor_core_order(xb.float(), wb.float(), scale, bias, relu)
+    plain = conv3x3_bn_act_reference(xb.float(), wb.float(), scale, bias,
+                                     relu)
+    assert not torch.equal(f32, plain)
 
 
 def test_plain_version_is_the_nchw_conv():

@@ -24,7 +24,9 @@ for the row-max forward, the running max grew after a key's tile); a
 dead paged slot (lens 0) is compared for
 finiteness only, as nothing reads it; the float32 3x3 conv sums 9 * C
 products in another order than its plain version and is held to
-``kernels.conv3x3.f32_tolerance``."""
+``kernels.conv3x3.f32_tolerance``; the bfloat16 3x3 conv (tensor cores:
+the products of bf16 values are exact in float32, only the order of the
+sums differs) to one rounding, ``_assert_matches``."""
 
 import numpy as np
 import pytest
@@ -847,6 +849,117 @@ def test_conv3x3_kernel_matches_plain_version_on_card(cuda_toolchain, shape,
     else:
         assert torch.isfinite(got).all()
         assert bool(((got - want).abs() <= f32_tolerance(x, w, scale)).all())
+
+
+def _conv3x3_ragged(seed, N, H, W, C, Co, dtype, offset=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(N, H, W, C).astype("float32")
+    w = (rng.randn(3, 3, C, Co) * (2.0 / (9 * C)) ** 0.5).astype("float32")
+    scale = torch.from_numpy(rng.rand(Co).astype("float32") + 0.5).cuda()
+    bias = torch.from_numpy(rng.randn(Co).astype("float32") * 0.1).cuda()
+    return (_placed(x, offset, dtype), _placed(w, 0, dtype), scale, bias)
+
+
+#: N a pixel size, enough that the N * H * W pixel rows span images and
+#: end inside a block's tile of 128 or 256 rows
+_CONV_HW = {(1, 1): 300, (9, 9): 5, (7, 13): 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", sorted(_CONV_HW), ids=lambda hw: "%dx%d" % hw)
+@pytest.mark.parametrize("Co", [8, 40, 72])
+@pytest.mark.parametrize("C", [3, 20, 24])
+def test_conv3x3_bf16_tensor_core_body_ragged_on_card(cuda_toolchain, C, Co,
+                                                      hw):
+    """The bfloat16 body (``conv3x3_kernel_tc``) at the edges it guards:
+    C = 3 and 20 (x's rows no 16-byte pieces: element copies), 24 (a
+    chunk of 32 channels part zeros), Co = 8 and 40 (the 256 x 64 tile
+    part empty) and 72 (the 128 x 128 tile), 1x1 images (only the centre
+    tap), pixel rows spanning images; ReLU on and off, within one
+    rounding."""
+    H, W = hw
+    x, w, scale, bias = _conv3x3_ragged(C * Co + H, _CONV_HW[hw], H, W, C,
+                                        Co, torch.bfloat16)
+    for relu in (True, False):
+        before = CONV3X3.launches
+        got = conv3x3_bn_act(x, w, scale, bias, relu)
+        torch.cuda.synchronize()
+        assert CONV3X3.launches == before + 1
+        _assert_matches(got, conv3x3_bn_act_reference(x, w, scale, bias,
+                                                      relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(56, 64, 64), (28, 128, 128),
+                                   (14, 256, 256), (7, 512, 512)],
+                         ids=["56x56x64", "28x28x128", "14x14x256",
+                              "7x7x512"])
+def test_conv3x3_bf16_resnet50_shapes_on_card(cuda_toolchain, shape):
+    """ResNet-50's four 3x3 bodies at N = 2, both block tiles (256 x 64
+    for Co = 64, 128 x 128 beyond), ReLU on and off."""
+    H, C, Co = shape
+    x, w, scale, bias = _conv3x3_case(H + C, 2, H, C, Co, torch.bfloat16)
+    for relu in (True, False):
+        got = conv3x3_bn_act(x, w, scale, bias, relu)
+        torch.cuda.synchronize()
+        _assert_matches(got, conv3x3_bn_act_reference(x, w, scale, bias,
+                                                      relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,Co,offset", [(64, 64, 2), (20, 36, 0)])
+def test_conv3x3_bf16_element_copies_on_card(cuda_toolchain, C, Co, offset):
+    """x a view that starts 2 elements (4 bytes) into its storage, and Co
+    = 36 (rows of w and out no 16-byte pieces), run on the kernel's
+    element copies: one launch, within one rounding."""
+    x, w, scale, bias = _conv3x3_ragged(11, 3, 9, 9, C, Co,
+                                        torch.bfloat16, offset=offset)
+    assert x.storage_offset() == offset and x.is_contiguous()
+    before = CONV3X3.launches
+    got = conv3x3_bn_act(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert CONV3X3.launches == before + 1
+    _assert_matches(got, conv3x3_bn_act_reference(x, w, scale, bias))
+
+
+@pytest.mark.cuda
+def test_conv3x3_bodies_by_dtype_on_card(cuda_toolchain):
+    """float32 runs the CUDA-core body (``conv3x3_kernel``), the
+    same bits on every call and within ``f32_tolerance`` of the plain
+    version; bfloat16 the tensor-core one (``conv3x3_kernel_tc``)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, scale, bias = _conv3x3_case(12, 2, 14, 64, 96, dtype)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = conv3x3_bn_act(x, w, scale, bias)
+            torch.cuda.synchronize()
+        names[dtype] = [
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "conv3x3_kernel" in e.name]
+        if dtype == torch.float32:
+            assert torch.equal(got, conv3x3_bn_act(x, w, scale, bias))
+            want = conv3x3_bn_act_reference(x, w, scale, bias)
+            assert bool(((got - want).abs()
+                         <= f32_tolerance(x, w, scale)).all())
+    assert len(names[torch.float32]) == 1
+    assert "_tc" not in names[torch.float32][0]
+    assert len(names[torch.bfloat16]) == 1
+    assert "conv3x3_kernel_tc" in names[torch.bfloat16][0]
+
+
+@pytest.mark.cuda
+def test_conv3x3_entry_points_by_dtype_on_card(cuda_toolchain, monkeypatch):
+    """The wrapper calls ``conv3x3_bn_act_bf16`` for bfloat16 and
+    ``conv3x3_bn_act_f32`` for float32, once a call, and nothing else."""
+    calls = []
+    monkeypatch.setattr(CONV3X3, "launch",
+                        lambda symbol, argtypes, *args: calls.append(symbol))
+    for dtype in (torch.bfloat16, torch.float32):
+        conv3x3_bn_act(*_conv3x3_case(13, 1, 7, 16, 8, dtype))
+    assert calls == ["conv3x3_bn_act_bf16", "conv3x3_bn_act_f32"]
 
 
 @pytest.mark.cuda
