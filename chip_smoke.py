@@ -12,8 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the port from ``paddle_tpu_torch/kernels/csrc`` with ``nvcc`` for
    ``sm_90a`` (one compiler process per source, all at once).
 2. Kernels against their plain torch versions, on the card, at the
-   shapes of the paths that run them (plus one larger shape for the
-   serving kernels), with each kernel's time beside its plain version's,
+   shapes of the paths that run them (plus larger shapes for the
+   serving kernels: paged decode at 32 slots, H 8, D 128 and over a long
+   cache of 4096 rows a slot, with its device time beside each call's;
+   bias softmax on a ragged row and on rows of 2048, naming the body that
+   ran), with each kernel's time beside its plain version's,
    one PyTorch library call's where one computes the same function, and
    the least time the card could take (its bound).  float32 within
    ``atol = rtol = 1e-5`` (the two sum in different orders), bfloat16
@@ -172,10 +175,9 @@ def time_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names, iters=10, warmup=2):
-    """Mean device milliseconds a call of ``fn`` spends in each CUDA kernel
-    whose name holds one of ``names`` (each must launch once a call), by
-    ``torch.profiler`` over ``iters`` calls after ``warmup`` calls."""
+def _device_events(fn, iters, warmup):
+    """``(name, microseconds)`` of every CUDA kernel ``iters`` calls of
+    ``fn`` ran, by ``torch.profiler``, after ``warmup`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -186,19 +188,38 @@ def device_ms(fn, names, iters=10, warmup=2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return [(ev.name, float(ev.time_range.end - ev.time_range.start))
+            for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, names, iters=10, warmup=2):
+    """Mean device milliseconds a call of ``fn`` spends in each CUDA kernel
+    whose name holds one of ``names`` (each must launch once a call), by
+    ``torch.profiler`` over ``iters`` calls after ``warmup`` calls."""
     us = dict.fromkeys(names, 0.0)
     seen = dict.fromkeys(names, 0)
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for name, t in _device_events(fn, iters, warmup):
         for n in names:
-            if n in ev.name:
-                us[n] += float(ev.time_range.end - ev.time_range.start)
+            if n in name:
+                us[n] += t
                 seen[n] += 1
     if any(seen[n] != iters for n in names):
         raise AssertionError(f"profiler saw launches {seen}, want {iters} "
                              f"each")
     return {n: us[n] / iters / 1e3 for n in names}
+
+
+def device_ms_sum(fn, names, iters=10, warmup=2):
+    """Mean device milliseconds a call of ``fn`` spends in every CUDA
+    kernel whose name holds one of ``names`` (launched any number of times
+    a call, at least once), by ``torch.profiler`` over ``iters`` calls."""
+    hits = [t for name, t in _device_events(fn, iters, warmup)
+            if any(n in name for n in names)]
+    if len(hits) < iters:
+        raise AssertionError(f"profiler saw {len(hits)} launches of "
+                             f"{names} in {iters} calls")
+    return sum(hits) / iters / 1e3
 
 
 def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
@@ -412,10 +433,16 @@ def paged_library(args, H, scale):
                                                   scale=scale)
 
 
+#: the long-cache decode case: 8 slots of 4096 rows (256 pages of 16),
+#: H 8, D 128: 268 MB of K/V, where the split over the cache matters
+LONG_CACHE = dict(S=8, H=8, D=128, PL=16, P=256, NP=2048)
+
+
 def phase_paged():
     import torch
     from paddle_tpu_torch.kernels.paged_decode import (
-        paged_attention, paged_attention_reference)
+        ROWS_PER_PART, paged_attention, paged_attention_reference,
+        paged_decode_partitions)
     S, H, D, PL, NP = NUM_SLOTS, 2, 16, PAGE_LEN, 128
     worst = 0.0
     for P in (1, 2, 4, 8, 16):
@@ -427,6 +454,16 @@ def phase_paged():
         log(f"paged_decode S={S} H={H} D={D} PL={PL} NP={NP} P={P} "
             f"lens={lens}: max_abs_err={err:.3e}")
     main_args = args                      # P = 16, the longest bucket
+    # lens on and around the kernel's partition edges, over 64 pages (4
+    # partitions of ROWS_PER_PART rows, merged)
+    R, P = ROWS_PER_PART, 64
+    lens = [min(n, P * PL) for n in
+            (R - 1, R, R + 1, 2 * R, 2 * R + 1, 3 * R, 0, P * PL)]
+    err, _ = check_paged(S, H, D, PL, P, S * P, lens, SEED + 17)
+    worst = max(worst, err)
+    log(f"paged_decode S={S} H={H} D={D} PL={PL} NP={S * P} P={P} "
+        f"lens={lens} (partition edges, R={R}, partitions "
+        f"{paged_decode_partitions(P, PL)[1]}): max_abs_err={err:.3e}")
     err, big = check_paged(32, 8, 128, 16, 16, 512,
                            [int(x) for x in torch.randint(
                                0, 257, (32,), generator=torch.Generator()
@@ -434,19 +471,34 @@ def phase_paged():
     worst = max(worst, err)
     log(f"paged_decode S=32 H=8 D=128 PL=16 NP=512 P=16: "
         f"max_abs_err={err:.3e}")
+    lc = LONG_CACHE
+    err, long_args = check_paged(lc["S"], lc["H"], lc["D"], lc["PL"],
+                                 lc["P"], lc["NP"],
+                                 [lc["P"] * lc["PL"]] * lc["S"], SEED + 256)
+    worst = max(worst, err)
+    log(f"paged_decode long cache {lc}: max_abs_err={err:.3e}")
 
     rows = {}
     for label, a, h, d in (("serving", main_args, H, D),
-                           ("S32_H8_D128", big, 8, 128)):
+                           ("S32_H8_D128", big, 8, 128),
+                           ("long_cache", long_args, lc["H"], lc["D"])):
         scale = float(d) ** -0.5
-        ms = time_ms(lambda: paged_attention(*a, h, scale))
-        plain = time_ms(lambda: paged_attention_reference(*a, h, scale))
+        call = (lambda a=a, h=h, scale=scale:
+                paged_attention(*a, h, scale))
+        ms = time_ms(call)
+        dev = device_ms_sum(call, ("paged_decode_kernel",
+                                   "paged_merge_kernel"))
+        it = dict(iters=20, warmup=3) if label == "long_cache" else {}
+        plain = time_ms(lambda: paged_attention_reference(*a, h, scale),
+                        **it)
         lib = time_ms(paged_library(a, h, scale))
         b, by = paged_bound(a, h)
-        log(f"paged_decode[{label}] kernel_ms={ms:.5f} plain_ms={plain:.5f}"
-            f" library_ms={lib:.5f} bound_ms={b:.6f} ({by})")
-        rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=b, bound_by=by)
+        R, parts = paged_decode_partitions(a[3].shape[1], a[1].shape[1])
+        log(f"paged_decode[{label}] kernel_ms={ms:.5f} device_ms={dev:.5f}"
+            f" plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b:.6f} "
+            f"({by}) rows_per_part={R} partitions={parts}")
+        rows[label] = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                           library_ms=lib, bound_ms=b, bound_by=by)
     return worst, rows
 
 
@@ -472,10 +524,14 @@ def phase_softmax():
     step's ``[8, 2, 1, 256]`` scores with a row bias, and route A's
     scores ``[64, 8, 256, 256]`` with a ``[64, 256]`` row bias (encoder
     self and cross attention) and with the decoder's ``[1, 256, 256]``
-    causal plane, each in bfloat16 (what AMP hands it) and float32."""
+    causal plane, each in bfloat16 (what AMP hands it) and float32; then
+    a ragged bf16 row (Sk 250: the warp body's element loads) and route
+    B's ``[8, 8, 2048, 2048]`` bf16 scores with a causal plane (above the
+    warp body's 1024: the block body).  Each log line names the body
+    that ran (``bias_softmax_body_of``)."""
     import torch
     from paddle_tpu_torch.kernels.bias_softmax import (
-        bias_softmax, bias_softmax_reference)
+        bias_softmax, bias_softmax_body_of, bias_softmax_reference)
     g = torch.Generator().manual_seed(SEED)
     cases = {}
     for T in (8, 16, 32, 64, 128, 256):
@@ -500,6 +556,17 @@ def phase_softmax():
         tag = str(dtype)[6:]
         cases[f"route A {shape} row {tag}"] = (x.to(dtype), row, None)
         cases[f"route A {shape} causal {tag}"] = (x.to(dtype), None, tri)
+    # a ragged row (no 16-byte pieces: the warp body's element loads) and
+    # one above the warp body's 1024 (the block body), in bf16
+    ragged = [ROUTE_A_B, TRAIN_HEADS, 250, 250]
+    cases[f"ragged {ragged} row bfloat16"] = (
+        torch.randn(ragged, generator=g).to(torch.bfloat16).cuda(),
+        row[:, :250].contiguous(), None)
+    SB = ROUTE_B_S
+    long_rows = [ROUTE_B_B, TRAIN_HEADS, SB, SB]
+    cases[f"block {long_rows} causal bfloat16"] = (
+        torch.randn(long_rows, generator=g).to(torch.bfloat16).cuda(), None,
+        torch.triu(torch.full((SB, SB), -1e9), 1).reshape(1, SB, SB).cuda())
     worst = 0.0
     for label, (x, rb, tb) in cases.items():
         got = bias_softmax(x, rb, tb)
@@ -508,13 +575,17 @@ def phase_softmax():
         err = max_err(got, want)
         assert_matches(got, want, f"bias_softmax {label}")
         worst = max(worst, err)
-        log(f"bias_softmax {label}: max_abs_err={err:.3e}")
+        log(f"bias_softmax {label}: max_abs_err={err:.3e} "
+            f"body={bias_softmax_body_of(x, rb, tb)}")
+        del got, want
 
     rows = {}
     for label, key in (
             ("serving", "serving [1,2,256,256] causal float32"),
             ("route A row", f"route A {shape} row bfloat16"),
-            ("route A causal", f"route A {shape} causal bfloat16")):
+            ("route A causal", f"route A {shape} causal bfloat16"),
+            ("ragged", f"ragged {ragged} row bfloat16"),
+            ("block", f"block {long_rows} causal bfloat16")):
         x, rb, tb = cases[key]
         bias = tb if tb is not None else rb
         bias4 = tb[:, None] if tb is not None else rb[:, None, None, :]
@@ -526,11 +597,13 @@ def phase_softmax():
         lib = time_ms(lambda: torch.softmax(x + bias4, dim=-1), **it)
         b, by = bound_ms(2 * _dtype_bytes(x) + _dtype_bytes(bias),
                          6 * x.numel())
+        body = bias_softmax_body_of(x, rb, tb)
         log(f"bias_softmax[{label}, {key}] kernel_ms={ms:.5f} "
             f"plain_ms={plain:.5f} library_ms={lib:.5f} "
-            f"(softmax(x + bias) in x's dtype) bound_ms={b:.6f} ({by})")
+            f"(softmax(x + bias) in x's dtype) bound_ms={b:.6f} ({by}) "
+            f"body={body}")
         rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=b, bound_by=by)
+                           bound_ms=b, bound_by=by, body=body[0])
     return worst, rows
 
 
@@ -2100,6 +2173,10 @@ KERNEL_NOTES = {
     "bshd_fwd": {"redesigned": "bf16 forward on the tensor cores"},
     "bshd_bwd": {"redesigned": "bf16 backward on the tensor cores"},
     "conv3x3": {"redesigned": "bf16 on the tensor cores"},
+    "bias_softmax": {"redesigned": "one warp a row in registers, 16-byte "
+                                   "loads, shuffle reductions (Sk <= 1024)"},
+    "paged_decode": {"redesigned": "split over the cache in partitions, "
+                                   "partials merged by a second kernel"},
 }
 
 
@@ -2214,7 +2291,7 @@ def main():
             "max_abs_err": errs[k.name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        for extra in ("device_ms", "cudnn_conv_ms"):
+        for extra in ("device_ms", "cudnn_conv_ms", "body"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         kernels[-1].update(KERNEL_NOTES.get(k.name, {}))

@@ -7,9 +7,12 @@ of attention scores and its backward ``dx = (dy - sum(dy * y)) * y``
 kernels of ``csrc/bias_softmax.cu`` for tensors on the card and run
 their plain torch versions (``*_reference``) for tensors on the CPU.
 There is no ``Sk % 128`` gate: any row length up to :data:`MAX_ROW` runs
-the kernels.  :class:`BiasSoftmaxFunction` puts the pair under torch
-autograd; the IR's ``softmax_grad`` op calls the backward directly on
-the saved output.
+the kernels.  The forward picks its body by shape alone
+(:func:`bias_softmax_body`): one warp a row in registers up to
+:data:`WARP_MAX_ROW`, with 16-byte loads where the row is made of aligned
+16-byte pieces, else one block a row.  :class:`BiasSoftmaxFunction`
+puts the pair under torch autograd; the IR's ``softmax_grad`` op calls
+the backward directly on the saved output.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from paddle_tpu_torch.kernels.build import CudaKernel
 
-__all__ = ["BIAS_SOFTMAX", "BIAS_SOFTMAX_GRAD", "MAX_ROW", "bias_softmax",
+__all__ = ["BIAS_SOFTMAX", "BIAS_SOFTMAX_GRAD", "MAX_ROW", "WARP_MAX_ROW",
+           "bias_softmax", "bias_softmax_body", "bias_softmax_body_of",
            "bias_softmax_reference", "bias_softmax_grad",
            "bias_softmax_grad_reference", "BiasSoftmaxFunction"]
 
@@ -31,6 +35,9 @@ BIAS_SOFTMAX_GRAD = CudaKernel("bias_softmax_grad", "bias_softmax.cu",
 
 #: longest softmax row the kernel keeps in shared memory
 MAX_ROW = 8192
+#: longest row the forward's warp body keeps in registers (one warp a
+#: row); longer rows take the block body
+WARP_MAX_ROW = 1024
 
 _SYMBOLS = {torch.float32: "bias_softmax_f32",
             torch.bfloat16: "bias_softmax_bf16"}
@@ -51,6 +58,33 @@ def bias_softmax_reference(x, row_bias=None, tri_bias=None):
         tb = tri_bias.float()
         xf = xf + (tb[:, None] if tb.ndim == 3 else tb[None, None])
     return torch.softmax(xf, dim=-1).to(x.dtype)
+
+
+def bias_softmax_body(Sk, dtype, aligned):
+    """``(body, vec, kp)``: the forward body that rows of ``Sk`` values of
+    ``dtype`` take, by the rule of ``pick_body`` in
+    ``csrc/bias_softmax.cu``.  ``"block"`` (one block a row) above
+    :data:`WARP_MAX_ROW`; else one warp a row whose lanes hold ``kp``
+    pieces of ``vec`` values (``kp`` a power of two): ``"warp_vector"``
+    with 16-byte pieces (8 bf16 or 4 float32 values) where the row is
+    made of them and every pointer is ``aligned`` to 16 bytes,
+    ``"warp_element"`` with one value a piece otherwise."""
+    if Sk > WARP_MAX_ROW:
+        return "block", 1, 0
+    piece = 16 // torch.tensor([], dtype=dtype).element_size()
+    vec = piece if aligned and Sk % piece == 0 else 1
+    kp = 1
+    while kp * 32 * vec < Sk:
+        kp *= 2
+    return ("warp_vector" if vec > 1 else "warp_element"), vec, kp
+
+
+def bias_softmax_body_of(x, row_bias=None, tri_bias=None):
+    """:func:`bias_softmax_body` of the card call ``bias_softmax(x,
+    row_bias, tri_bias)`` (its output, a fresh allocation, is aligned)."""
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x, row_bias, tri_bias) if t is not None)
+    return bias_softmax_body(x.shape[-1], x.dtype, aligned)
 
 
 def _bias_arg(bias, B, shape, name, device):

@@ -6,7 +6,10 @@ table-listed KV pages (the port of ``_paged_decode_kernel``,
 ``csrc/paged_decode.cu`` for tensors on the card and runs
 :func:`paged_attention_reference`, the plain torch version, for tensors
 on the CPU.  There is no gate on the head dim or the page length: any
-``D <= 256`` runs the kernel.
+``D <= 256`` runs the kernel.  The kernel splits each slot's rows
+``[0, P * PL)`` into partitions of :data:`ROWS_PER_PART` rows, one block
+each, and merges their partial softmax states in a second kernel when
+there is more than one (:func:`paged_decode_partitions`).
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import torch
 
 from paddle_tpu_torch.kernels.build import CudaKernel
 
-__all__ = ["PAGED_DECODE", "MAX_HEAD_DIM", "paged_attention",
-           "paged_attention_reference"]
+__all__ = ["PAGED_DECODE", "MAX_HEAD_DIM", "ROWS_PER_PART",
+           "paged_attention", "paged_attention_reference",
+           "paged_decode_partitions"]
 
 PAGED_DECODE = CudaKernel("paged_decode", "paged_decode.cu",
                           replaces="paddle_tpu/ops/attention_ops.py:980")
@@ -26,12 +30,35 @@ PAGED_DECODE = CudaKernel("paged_decode", "paged_decode.cu",
 #: largest head dim the kernel keeps in registers (8 values a lane)
 MAX_HEAD_DIM = 256
 
+#: rows of a slot's cache that one block of the kernel takes: 256, the
+#: fastest of 32 … 1024 at the serving shape (one partition, no merge) and
+#: over a long cache (``exp_torch_decode_kernels.py --rows-per-part``)
+ROWS_PER_PART = 256
+#: largest partition the kernel takes (its row indices in shared memory)
+MAX_ROWS_PER_PART = 1024
+
 #: additive mask of the plain version, as in the JAX package
 NEG_INF = -1e9
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _P]
+
+
+def paged_decode_partitions(P, PL, rows_per_part=None):
+    """``(rows_per_part, partitions)``: the kernel cuts the rows ``[0, P *
+    PL)`` of each (slot, head) into ``ceil(P * PL / rows_per_part)``
+    partitions (``rows_per_part`` :data:`ROWS_PER_PART` unless given),
+    from the table's shape alone (the wrapper never reads ``lens``).
+    With one partition the kernel writes ``out`` itself; with more, each
+    writes a partial ``(m, l, acc[D])`` and a merge kernel combines
+    them."""
+    if rows_per_part is None:
+        rows_per_part = ROWS_PER_PART
+    if not 0 < rows_per_part <= MAX_ROWS_PER_PART:
+        raise ValueError(f"paged_attention: rows_per_part must be in [1, "
+                         f"{MAX_ROWS_PER_PART}], got {rows_per_part}")
+    return rows_per_part, -(-(P * PL) // rows_per_part)
 
 
 def paged_attention_reference(q, kc, vc, page_table, lens, n_head, scale):
@@ -102,7 +129,8 @@ def paged_attention(q, kc, vc, page_table, lens, n_head, scale):
     """Decode attention over a paged KV pool; see
     :func:`paged_attention_reference` for the contract.  On the CPU it is
     the plain version; on the card it launches the CUDA kernel (float32
-    q and pools, int32 page table and lens, contiguous) or raises."""
+    q and pools, int32 page table and lens, contiguous) or raises; its
+    partitions are :func:`paged_decode_partitions`'s."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, kc, vc, page_table, lens,
                                          n_head, scale)
@@ -113,14 +141,20 @@ def paged_attention(q, kc, vc, page_table, lens, n_head, scale):
     P = page_table.shape[1]
     NP, PL, _ = kc.shape
     H = int(n_head)
+    D = HD // H
+    R, parts = paged_decode_partitions(P, PL)
     out = torch.empty_like(q)
     if S == 0:
         return out
+    # the partials: m and l of each (slot, head, partition), then acc[D]
+    scratch = (torch.empty(S * H * parts * (D + 2), dtype=torch.float32,
+                           device=q.device) if parts > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         PAGED_DECODE.launch(
             "paged_decode_f32", _ARGTYPES,
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            S, P, NP, PL, H, HD // H, float(scale), stream)
+            None if scratch is None else scratch.data_ptr(),
+            S, P, NP, PL, H, D, R, float(scale), stream)
     return out

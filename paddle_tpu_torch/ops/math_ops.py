@@ -164,13 +164,21 @@ def mean_lower(ctx):
 
 @register_op("sign", infer_shape=infer_shape_unary())
 def sign_lower(ctx):
-    ctx.set_output("Out", torch.sign(ctx.input("X")))
+    # NaN stays NaN, as jnp.sign gives (torch.sign gives 0); no grad
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.where(torch.isnan(x), torch.nan,
+                                      torch.sign(x)))
 
 
 @register_op("clip", infer_shape=infer_shape_unary())
 def clip_lower(ctx):
-    ctx.set_output("Out", torch.clamp(ctx.input("X"), ctx.attr("min"),
-                                      ctx.attr("max")))
+    # minimum(maximum(x, lo), hi) against tensor bounds, as jnp.clip: its
+    # vjp splits the cotangent of a value on a bound in half, where
+    # torch.clamp's passes all of it
+    x = ctx.input("X")
+    lo = torch.tensor(ctx.attr("min"), dtype=x.dtype, device=x.device)
+    hi = torch.tensor(ctx.attr("max"), dtype=x.dtype, device=x.device)
+    ctx.set_output("Out", torch.minimum(torch.maximum(x, lo), hi))
 
 
 @register_op("clip_by_norm", infer_shape=infer_shape_unary())
@@ -241,7 +249,9 @@ def _make_reduce(name, fn):
             axes = tuple(range(x.ndim))
         else:
             axes = tuple(d % x.ndim for d in dim)
-        out = fn(x, axes, keep)
+        # an empty dim reduces nothing (jnp.sum(x, axis=()) is x), where
+        # torch reads dim=() as every axis
+        out = fn(x, axes, keep) if axes else x
         if out.ndim == 0:
             out = out.reshape(1)
         ctx.set_output("Out", out)

@@ -15,7 +15,8 @@ straddling page boundaries, as in ``chip_smoke.py``) through
   kernel and memcpy durations; an upper bound on the busy share, as
   overlapping work is counted twice) and its share of the wall time;
 * the CUDA kernels by total device time, with counts and mean time a
-  launch, the port's two hand-written kernels among them;
+  launch, then the port's two hand-written kernels (paged decode: its
+  split and merge kernels; bias softmax: every forward body) summed;
 
 and, as its last two lines, the card's name and power limit and one
 JSON object with the numbers.  The trace goes to
@@ -135,8 +136,20 @@ def main():
           f"{100 * device_us / 1e6 / pwall:.2f}% of the wall time")
     for name, (n, us) in top[:12]:
         print(f"  {us / 1e3:9.3f} ms  {n:6d} x {us / n:8.2f} us  {name[:90]}")
-    ours = {k: v for k, v in kernels.items()
-            if "paged_decode_kernel" in k or "bias_softmax_kernel" in k}
+    # the hand-written kernels by wrapper: the paged decode (its split
+    # and merge kernels) and the bias-softmax forward (every body)
+    ours = {}
+    for k, (n, us) in kernels.items():
+        name = ("paged_decode" if "paged_decode_kernel" in k
+                or "paged_merge_kernel" in k else "bias_softmax"
+                if "bias_softmax_" in k and "grad" not in k else None)
+        if name:
+            o = ours.setdefault(name, [0, 0.0])
+            o[0] += n
+            o[1] += us
+    for name, (n, us) in ours.items():
+        print(f"  hand-written {name}: {us / 1e3:.3f} ms, {n} kernels, "
+              f"{us / n:.2f} us each")
     summary = {
         "card": card, "tokens_per_s": tokens / wall,
         "decode_step_ms": 1e3 * float(np.mean(step_s)),
@@ -145,10 +158,8 @@ def main():
         "profiled_wall_s": pwall, "device_busy_ms": device_us / 1e3,
         "device_busy_share": device_us / 1e6 / pwall,
         "kernel_launches": sum(n for n, _ in kernels.values()),
-        "hand_written": {("paged_decode" if "paged" in k
-                          else "bias_softmax"): {
-                              "launches": n, "device_ms": us / 1e3,
-                              "us_per_launch": us / n}
+        "hand_written": {k: {"kernels": n, "device_ms": us / 1e3,
+                             "us_per_kernel": us / n}
                          for k, (n, us) in ours.items()},
     }
     if device_us == 0:

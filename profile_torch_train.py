@@ -29,7 +29,8 @@ Momentum(0.01, 0.9)); runs two warm-up steps and then
 * one step under ``torch.profiler`` (CPU and CUDA activities): the
   device's busy time (the sum of CUDA kernel and memcpy durations; an
   upper bound on the busy share, as overlapping work is counted twice),
-  its share of the wall time, and the CUDA kernels by total device time.
+  its share of the wall time, and the CUDA kernels by total device time
+  (the first 12, then every hand-written kernel wherever it ranks).
 
 Prints the card's name and power limit and, as its last line, one JSON
 object with the numbers (also written to
@@ -49,6 +50,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "runs", "profile_torch_train")
 SEED = 20260416
 ROUTES = {"A": (64, 256), "B": (8, 2048), "C": (32, 512)}
+#: name parts of the port's hand-written CUDA kernels
+HAND_WRITTEN = ("bias_softmax_", "flash_", "smalls_", "bshd_", "conv3x3_",
+                "paged_")
 PEAK_BF16 = 989e12
 #: the update ops of the optimizers profiled here
 OPTIMIZER_OPS = ("adam", "momentum")
@@ -247,6 +251,12 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
     for name, (n, us) in top[:12]:
         print(f"    {us / 1e3:9.3f} ms  {n:6d} x {us / n:9.2f} us  "
               f"{name[:80]}")
+    # the hand-written kernels, wherever they rank
+    ours = {k: v for k, v in kernels.items()
+            if any(h in k for h in HAND_WRITTEN)}
+    for name, (n, us) in sorted(ours.items(), key=lambda kv: -kv[1][1]):
+        print(f"    hand-written {us / 1e3:9.3f} ms  {n:6d} x "
+              f"{us / n:9.2f} us  {name[:80]}")
     del scope, exe
     torch.cuda.empty_cache()
     return {
@@ -262,6 +272,9 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
         "device_busy_share": device_us / 1e6 / pwall,
         "top_kernels": [{"name": k, "count": n, "device_ms": us / 1e3}
                         for k, (n, us) in top[:12]],
+        "hand_written_kernels": [{"name": k, "count": n,
+                                  "device_ms": us / 1e3}
+                                 for k, (n, us) in ours.items()],
     }
 
 

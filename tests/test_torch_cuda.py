@@ -28,6 +28,8 @@ products in another order than its plain version and is held to
 the products of bf16 values are exact in float32, only the order of the
 sums differs) to one rounding, ``_assert_matches``."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -41,7 +43,8 @@ from paddle_tpu_torch.kernels.conv3x3 import (
     CONV3X3, conv3x3_bn_act, conv3x3_bn_act_reference, f32_tolerance,
     fold_batch_norm)
 from paddle_tpu_torch.kernels.bias_softmax import (
-    BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, bias_softmax, bias_softmax_grad,
+    BIAS_SOFTMAX, BIAS_SOFTMAX_GRAD, MAX_ROW, bias_softmax,
+    bias_softmax_body, bias_softmax_body_of, bias_softmax_grad,
     bias_softmax_grad_reference, bias_softmax_reference)
 from paddle_tpu_torch.kernels.flash_attention import (
     FLASH_DKDV, FLASH_DQ, FLASH_FWD, KEY_TILE, flash_attention_bwd,
@@ -49,7 +52,8 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_fwd_reference, flash_backward_rounding_slack,
     flash_forward_rounding_slack)
 from paddle_tpu_torch.kernels.paged_decode import (
-    PAGED_DECODE, paged_attention, paged_attention_reference)
+    PAGED_DECODE, ROWS_PER_PART, paged_attention, paged_attention_reference,
+    paged_decode_partitions)
 from paddle_tpu_torch.kernels.smalls_attention import (
     SMALLS_BWD, SMALLS_FWD, SmallsAttentionFunction, forward_rounding_slack,
     smalls_attention_bwd, smalls_attention_bwd_reference,
@@ -219,6 +223,138 @@ def test_bias_softmax_kernel_matches_plain_version_on_card(cuda_toolchain,
         assert BIAS_SOFTMAX.launches == before + 1
         assert got.dtype == x.dtype
         _assert_matches(got, bias_softmax_reference(*args))
+
+
+def _masks(seed, B, Sq, Sk):
+    """A padding row bias whose batch row 0 masks every key, and a
+    causal plane per batch row (the last Sq of Sk keys) with padding."""
+    rng = np.random.RandomState(seed)
+    row = np.where(rng.rand(B, Sk) < 0.3, -1e9, 0.0).astype("float32")
+    row[0] = -1e9
+    tri = np.triu(np.full((Sq, Sk), -1e9, "float32"), 1 + max(Sk - Sq, 0))
+    pad = np.where(rng.rand(B, 1, Sk) < 0.2, -1e9, 0.0).astype("float32")
+    return row, (tri[None] + pad).astype("float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sk", [1, 7, 31, 32, 33, 256, 1000, 1024, 1025,
+                                8192])
+def test_bias_softmax_bodies_on_card(cuda_toolchain, Sk, dtype):
+    """Each forward body (warp rows by 16-byte pieces or by elements, block
+    rows above 1024) against its plain version: a row bias and a causal
+    plane, each per batch row and shared (batch stride 0), and both
+    together.  A batch row whose keys are all masked gives the uniform
+    row.  float32 within ``TOL``, bfloat16 within one rounding
+    (``_assert_matches``)."""
+    B, H, Sq = 2, 2, 5
+    x, _ = _softmax_case(Sk, B=B, H=H, Sq=Sq, Sk=Sk)
+    row, tri = _masks(Sk, B, Sq, Sk)
+    x = torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
+    row, tri = torch.from_numpy(row).cuda(), torch.from_numpy(tri).cuda()
+    body = bias_softmax_body_of(x, row, tri)[0]
+    assert body == ("block" if Sk > 1024 else "warp_vector"
+                    if Sk % (16 // x.element_size()) == 0
+                    else "warp_element")
+    for args in ((x, row, None), (x, row[1:], None), (x, None, tri),
+                 (x, None, tri[:1]), (x, row, tri)):
+        before = BIAS_SOFTMAX.launches
+        got = bias_softmax(*args)
+        assert BIAS_SOFTMAX.launches == before + 1
+        assert got.dtype == x.dtype
+        _assert_matches(got, bias_softmax_reference(*args))
+    got = bias_softmax(x, row, None)[0].float()     # every key masked
+    torch.testing.assert_close(got, torch.full_like(got, 1.0 / Sk),
+                               atol=TOL, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_bias_softmax_body_rule_is_the_kernels_on_card(cuda_toolchain):
+    """``bias_softmax_body`` states the rule of ``pick_body`` in
+    ``csrc/bias_softmax.cu``: the two agree on every row length, dtype
+    and alignment."""
+    fn = build.load_library("bias_softmax.cu").bias_softmax_pick_body
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    vec, kp = ctypes.c_int(), ctypes.c_int()
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        for aligned in (0, 1):
+            for Sk in range(1, MAX_ROW + 1):
+                warp = fn(Sk, size, aligned, ctypes.byref(vec),
+                          ctypes.byref(kp))
+                body, v, k = bias_softmax_body(Sk, dtype, bool(aligned))
+                assert (body != "block") == bool(warp), (Sk, dtype)
+                if warp:
+                    assert (vec.value, kp.value) == (v, k), (Sk, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,x_off,bias_off", [
+    ("bfloat16", 1, 0), ("bfloat16", 3, 0), ("bfloat16", 0, 1),
+    ("float32", 1, 0), ("float32", 2, 0), ("float32", 0, 3)])
+def test_bias_softmax_unaligned_views_on_card(cuda_toolchain, dtype, x_off,
+                                              bias_off):
+    """Scores or biases that start off 16 bytes (contiguous views at an
+    odd offset) take the element body and match the plain version."""
+    x, _ = _softmax_case(9, B=2, H=2, Sq=8, Sk=256)
+    row, tri = _masks(9, 2, 8, 256)
+    xc = _placed(x, x_off, getattr(torch, dtype))
+    rowc = _placed(row, bias_off, torch.float32)
+    tric = _placed(tri, bias_off, torch.float32)
+    for args in ((xc, rowc, None), (xc, None, tric)):
+        assert bias_softmax_body_of(*args)[0] == "warp_element"
+        _assert_matches(bias_softmax(*args), bias_softmax_reference(*args))
+
+
+def _paged_on_card(case, H, D):
+    """Kernel against plain version; the dead slots are the zero row."""
+    case = [t.cuda() for t in _torch(*case)]
+    scale = float(D) ** -0.5
+    before = PAGED_DECODE.launches
+    got = paged_attention(*case, H, scale)
+    assert PAGED_DECODE.launches == before + 1     # one count a call
+    want = paged_attention_reference(*case, H, scale)
+    live = case[4].reshape(-1) > 0
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    torch.testing.assert_close(got[live], want[live], atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [12, 40])
+@pytest.mark.parametrize("D", [16, 24, 64, 128, 256])
+def test_paged_kernel_partitions_on_card(cuda_toolchain, D, P):
+    """lens on and around the partitions' edges, a dead slot, and page
+    ids outside the pool (clamped, as the plain version gathers them),
+    over one partition (12 pages of 16) and three (40 pages, merged)."""
+    PL, H, R = 16, 2, ROWS_PER_PART
+    T = P * PL
+    assert paged_decode_partitions(P, PL)[1] == -(-T // R)
+    lens = [min(x, T) for x in (0, 1, R - 1, R, R + 1, 2 * R, T - 1, T)]
+    case = list(_paged_case(D, S=8, H=H, D=D, PL=PL, P=P, NP=8 * P + 4,
+                            lens=lens))
+    case[3][1, 0], case[3][6, 2], case[3][7, P - 1] = -5, 8 * P + 11, -1
+    _paged_on_card(case, H, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,offset", [(10, 0), (3, 0), (16, 1), (128, 2)])
+def test_paged_kernel_scalar_loads_on_card(cuda_toolchain, D, offset):
+    """A head width that is no multiple of 4, or pools that start off 16
+    bytes, take the scalar loads."""
+    PL, P, H = 8, 10, 3
+    lens = [0, 1, 63, 64, 65, 80]
+    q, kc, vc, pt, ln = _paged_case(D + offset, S=6, H=H, D=D, PL=PL, P=P,
+                                    NP=64, lens=lens)
+    placed = [_placed(a, offset, torch.float32) for a in (q, kc, vc)]
+    scale = float(D) ** -0.5
+    tail = [t.cuda() for t in _torch(pt, ln)]
+    got = paged_attention(*placed, *tail, H, scale)
+    want = paged_attention_reference(*placed, *tail, H, scale)
+    live = tail[1].reshape(-1) > 0
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    torch.testing.assert_close(got[live], want[live], atol=TOL, rtol=TOL)
 
 
 @pytest.mark.cuda

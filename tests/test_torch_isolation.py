@@ -32,7 +32,7 @@ def _port_sources():
         "chip_smoke.py", "profile_torch_decode.py", "profile_torch_train.py",
         "exp_torch_smalls_attn.py", "exp_torch_resnet_conv.py",
         "exp_torch_bshd_attn.py", "exp_torch_attention_builds.py",
-        "exp_torch_top_k.py")]
+        "exp_torch_top_k.py", "exp_torch_decode_kernels.py")]
     for dirpath, _, names in os.walk(PKG_DIR):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

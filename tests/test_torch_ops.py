@@ -53,6 +53,40 @@ def _paged_inputs(rng):
     }
 
 
+_CLIP = {"min": -0.5, "max": 0.5}
+#: values on both clip bounds, where ``jnp.clip``'s vjp splits the
+#: cotangent in half, and one inside and one outside
+_CLIP_AT_BOUNDS = np.array([-0.5, 0.5, 0.0, 1.0], np.float32)
+_CLIP_SPREAD = np.array(
+    [-3.0, -0.5, np.nextafter(np.float32(-0.5), np.float32(0)), -0.25, 0.0,
+     0.25, np.nextafter(np.float32(0.5), np.float32(0)), 0.5,
+     np.nextafter(np.float32(0.5), np.float32(1)), 2.0], np.float32)
+_SIGN_X = np.array([-2.0, -0.0, 0.0, 3.0, np.nan, np.inf, -np.inf],
+                   np.float32)
+
+
+def _empty_dim(keep):
+    return {"dim": [], "keep_dim": keep, "reduce_all": False}
+
+
+def _edge_cases():
+    """Edge inputs that found port faults: ``clip`` on its bounds,
+    ``sign`` of NaN, and ``reduce_*`` over an empty ``dim`` (X
+    unchanged, as ``jnp.sum(x, axis=())``)."""
+    r = np.random.RandomState(11)
+    cases = [("clip_at_bounds", "clip", {"X": _CLIP_AT_BOUNDS}, ["Out"],
+              _CLIP),
+             ("clip_on_inside_outside", "clip", {"X": _CLIP_SPREAD},
+              ["Out"], _CLIP),
+             ("sign_nan_zeros_inf", "sign", {"X": _SIGN_X}, ["Out"], {})]
+    for name in ("sum", "mean", "max", "min", "prod"):
+        for keep in (False, True):
+            cases.append((f"reduce_{name}_empty_dim"
+                          + ("_keep" if keep else ""), f"reduce_{name}",
+                          {"X": _f(r, 3, 4)}, ["Out"], _empty_dim(keep)))
+    return cases
+
+
 def _cases():
     """(id, op type, {slot: array}, output slots, attrs)."""
     r = np.random.RandomState(7)
@@ -167,6 +201,7 @@ def _cases():
         ("paged_attention", "paged_attention", _paged_inputs(r),
          ["Out", "KCacheOut", "VCacheOut"],
          {"n_head": 2, "scale": 8.0 ** -0.5}),
+        *_edge_cases(),
     ]
 
 
@@ -385,6 +420,18 @@ def _grad_cases():
           "V": _f(r, 2, 2, 10, 8, scale=0.5)},
          ["Out", "Lse"], {"causal": True, "scale": 8 ** -0.5,
                           "use_flash": True}),
+        ("clip_at_bounds", "clip", {"X": _CLIP_AT_BOUNDS}, ["Out"], _CLIP),
+        ("clip_on_inside_outside", "clip", {"X": _CLIP_SPREAD}, ["Out"],
+         _CLIP),
+        ("sign_nan_zeros_inf", "sign", {"X": _SIGN_X}, ["Out"], {}),
+        ("reduce_sum_empty_dim", "reduce_sum", {"X": _f(r, 3, 4)}, ["Out"],
+         _empty_dim(False)),
+        ("reduce_sum_empty_dim_keep", "reduce_sum", {"X": _f(r, 3, 4)},
+         ["Out"], _empty_dim(True)),
+        ("reduce_mean_empty_dim", "reduce_mean", {"X": _f(r, 3, 4)},
+         ["Out"], _empty_dim(False)),
+        ("reduce_mean_empty_dim_keep", "reduce_mean", {"X": _f(r, 3, 4)},
+         ["Out"], _empty_dim(True)),
     ]
 
 
@@ -415,9 +462,10 @@ def _grad_program_dict(op_type, inputs, out_slots, attrs):
 def test_grad_matches_reference(case):
     _, op_type, inputs, out_slots, attrs = case
     d = _grad_program_dict(op_type, inputs, out_slots, attrs)
-    # the cotangent has the first output's shape: run the forward once
-    out_shape = _run_torch(_op_dict(op_type, inputs, out_slots, attrs),
-                           inputs)[f"out_{out_slots[0]}"].shape
+    # the cotangent has the first output's shape: run the reference's
+    # forward once
+    out_shape = _run_jax(_op_dict(op_type, inputs, out_slots, attrs),
+                         inputs)[f"out_{out_slots[0]}"].shape
     feed = {f"in_{s}": a for s, a in inputs.items()}
     feed["cot"] = _f(np.random.RandomState(5), *out_shape)
     results = []
@@ -437,3 +485,52 @@ def test_grad_matches_reference(case):
         assert got[name].shape == want[name].shape, name
         np.testing.assert_allclose(got[name], want[name], atol=TOL,
                                    rtol=TOL, err_msg=name)
+
+
+def _clip_grad(pkg, x):
+    """``x@GRAD`` of ``reduce_sum(layers.clip(x, -0.5, 0.5))`` through
+    ``pkg``'s layers and ``append_backward``."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        xv = pkg.layers.data("x", shape=list(x.shape),
+                             append_batch_size=False, stop_gradient=False)
+        loss = pkg.layers.reduce_sum(pkg.layers.clip(xv, -0.5, 0.5))
+        pkg.append_backward(loss)
+    exe = pkg.Executor(pkg.CPUPlace())
+    (g,) = exe.run(main, feed={"x": x}, fetch_list=["x@GRAD"],
+                   scope=pkg.Scope())
+    return np.asarray(g)
+
+
+def test_clip_grad_splits_ties_through_layers():
+    """``layers.clip`` + ``append_backward``: a value on a bound gets half
+    the cotangent in both packages (``jnp.clip`` is ``minimum(maximum(x,
+    lo), hi)``, whose vjp splits a tie)."""
+    want = _clip_grad(fluid, _CLIP_AT_BOUNDS)
+    got = _clip_grad(pt, _CLIP_AT_BOUNDS)
+    np.testing.assert_array_equal(want, [0.5, 0.5, 1.0, 0.0])
+    np.testing.assert_array_equal(got, want)
+
+
+def _l1_decay(pkg, w):
+    """The decay term one ``L1DecayRegularizer(0.1)`` adds to the grad of
+    a parameter holding ``w``."""
+    main = pkg.Program()
+    block = main.global_block()
+    param = block.create_var(name="w", shape=list(w.shape),
+                             dtype="float32", is_data=True)
+    decay = pkg.regularizer.L1DecayRegularizer(0.1)(param, None, block)
+    exe = pkg.Executor(pkg.CPUPlace())
+    (out,) = exe.run(main, feed={"w": w}, fetch_list=[decay],
+                     scope=pkg.Scope())
+    return np.asarray(out)
+
+
+def test_l1_decay_keeps_nan():
+    """A NaN parameter gives a NaN decay term in both packages (``sign``
+    of NaN is NaN), not a zero one."""
+    w = np.array([np.nan, -2.0, 0.0, 3.0], np.float32)
+    want = _l1_decay(fluid, w)
+    got = _l1_decay(pt, w)
+    assert np.isnan(want[0]) and np.isnan(got[0])
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
