@@ -98,7 +98,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``F32_TOL``, the grads (velocities) above every ReLU kink to
    ``CARD_CPU_TOP_GRAD_RTOL`` and all of them against a float64 step on
    the CPU (``CARD_CPU_F64_FACTOR``).
-7. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
+7. Wide & Deep with sparse grads (W&D-Criteo: 13 dense and 26
+   categorical features, embeddings of 32, ReLU layers of 1024, one
+   shared table of 2**23 rows, B = 4096, float32, ``Adam(1e-3)``):
+   ``wide_and_deep_train_program``, ``Adam.minimize`` and
+   ``Executor.run`` on ``cuda:0``, ten steps on one seeded batch whose
+   ids follow a power law: loss finite and falling, no hand-written
+   kernel launched, both tables' grads SelectedRows of B * 26 slots
+   (never a dense ``[vocab, dim]`` tensor), and a steady step's peak
+   allocation above the state under the deep table's 1 GiB.  Printed
+   beside them: step time, examples/s, peak memory, unique rows, the
+   same ids at a table of 2**20 rows and the dense route
+   (``is_sparse=False``).  One float32 step at 65536 rows on the card
+   and on the CPU from one scope: the loss, every parameter's Adam
+   moments (both tables' too) and every parameter element agree
+   (``phase_card_vs_cpu_wide_deep``).
+8. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
@@ -2019,6 +2034,280 @@ def phase_card_vs_cpu_resnet50():
 
 
 # ---------------------------------------------------------------------------
+# Wide & Deep with sparse grads (SelectedRows), W&D-Criteo
+# ---------------------------------------------------------------------------
+
+#: W&D-Criteo (``models.wide_and_deep.CRITEO``): 13 dense and 26
+#: categorical features, embeddings of 32, ReLU layers of 1024, one
+#: shared table of 2**23 rows (1 GiB, 3 GiB with Adam's moments), B =
+#: 4096, float32, ``Adam(1e-3)``; its ids (``fake_batch``) lie below
+#: 2**20, so the same ids also train a table of 2**20 rows (the
+#: sparse-update scaling line)
+WD_LR = 1e-3
+WD_STEPS = 10
+WD_COMPARE_STEPS = 4
+#: the card-vs-CPU step: the same layout and batch at a vocab the CPU
+#: takes in a second
+WD_CARD_CPU_VOCAB = 65536
+
+
+def _wd_program(pt, vocab, sparse=True):
+    """``(main, startup, cost)``: ``wide_and_deep_train_program`` at
+    W&D-Criteo's widths and ``vocab`` rows, ``Adam(WD_LR)``; with
+    ``sparse=False`` both tables take dense grads (``is_sparse`` off on
+    their lookups before the backward is built)."""
+    from paddle_tpu_torch.framework import unique_name_scope
+    from paddle_tpu_torch.models import wide_and_deep as W
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name_scope("wd_"), pt.program_guard(main, startup):
+        cost, _, _ = W.wide_and_deep_train_program(
+            W.CRITEO_BATCH, **dict(W.CRITEO, vocab_size=vocab))
+        for op in main.global_block().ops:
+            if op.type == "lookup_table":
+                op.attrs["is_sparse"] = sparse
+        pt.optimizer.Adam(learning_rate=WD_LR).minimize(cost)
+    return main, startup, cost
+
+
+def _wd_steps(exe, main, cost, scope, feed, steps):
+    """``steps`` runs on one batch: losses, step seconds (host clock; the
+    loss's fetch synchronizes) and each step's peak allocation above
+    what was allocated just before it, in bytes."""
+    import numpy as np
+    import torch
+    losses, step_s, peaks = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        (loss,) = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_s.append(time.perf_counter() - t)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        losses.append(float(np.asarray(loss).reshape(())))
+    return losses, step_s, peaks
+
+
+def _wd_table_grads(pt, main, scope, feed, device):
+    """Run the main block once through ``lower_block`` with an env of its
+    own (one more training step) and return ``{table: its grad as it
+    reaches adam}`` and the names of the non-persistable tensors with a
+    leading dim of the vocab (a dense table grad would be one)."""
+    import torch
+    from paddle_tpu_torch.convert import persistable_names, to_tensor
+    from paddle_tpu_torch.executor import lower_block
+    block = main.global_block()
+    persist = persistable_names(main)
+    env = {n: scope.find_var(n) for n in persist}
+    env.update({k: to_tensor(v, device, block.var(k).dtype)
+                for k, v in feed.items()})
+    with torch.no_grad():
+        lower_block(block, env, {"device": device, "amp": False,
+                                 "rng_seed": SEED})
+    grads = {op.input("Param")[0]: env[op.input("Grad")[0]]
+             for op in block.ops if op.type == "adam"}
+    vocab = block.var("wide_deep_emb").shape[0]
+    dense = [n for n, v in env.items() if n not in persist and
+             isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == vocab]
+    return {t: grads[t] for t in ("wide_deep_emb", "wide_lr_w")}, dense
+
+
+def phase_wide_deep():
+    """W&D-Criteo trains on the card through ``wide_and_deep_train_program``,
+    ``Adam.minimize`` and ``Executor.run``, ``WD_STEPS`` steps on one
+    seeded batch: the loss finite and falling, no hand-written kernel
+    launched (the sparse updates are torch indexing ops), both tables'
+    grads SelectedRows of B * slots slots at height vocab (never a dense
+    ``[vocab, dim]`` tensor), and a steady step's peak allocation above
+    the state under the deep table's bytes (a densified grad or an
+    out-of-place table or moment update would each exceed it).  Printed:
+    steady step ms, examples/s, peak memory, unique rows a step, the
+    same ids' sparse step at a table of 2**20 rows and the dense route
+    (``is_sparse=False``) at 2**23 for comparison."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import wide_and_deep as W
+    from paddle_tpu_torch.selected_rows import SelectedRows
+
+    B, slots, emb = W.CRITEO_BATCH, W.CRITEO["num_slots"], W.CRITEO["emb_dim"]
+    vocab_max = W.CRITEO["vocab_size"]
+
+    exe = pt.Executor()
+    if exe.device != torch.device("cuda", 0):
+        raise AssertionError(f"Executor landed on {exe.device}")
+    feed = W.fake_batch(B, SEED)
+    unique_rows = int(np.unique(feed["slot_ids"]).size)
+    table_bytes = vocab_max * emb * 4
+    out = {"unique_rows": unique_rows, "ids": B * slots}
+
+    def no_launches(where):
+        launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+        if launches:
+            raise AssertionError(f"wide_deep[{where}]: hand-written "
+                                 f"kernels launched: {launches}")
+
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    for name, vocab, sparse, steps in (
+            ("sparse", vocab_max, True, WD_STEPS),
+            ("sparse_2**20", W.FAKE_ID_RANGE, True, WD_COMPARE_STEPS),
+            ("dense", vocab_max, False, WD_COMPARE_STEPS)):
+        main, startup, cost = _wd_program(pt, vocab, sparse)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        torch.cuda.synchronize()
+        state_gib = torch.cuda.memory_allocated() / 2 ** 30
+        losses, step_s, peaks = _wd_steps(exe, main, cost, scope, feed,
+                                          steps)
+        no_launches(name)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"wide_deep[{name}]: losses {losses} not "
+                                 f"finite and falling")
+        steady = float(np.mean(step_s[1:]))
+        peak = max(peaks[1:])
+        out[name] = dict(step_ms=1e3 * steady,
+                         examples_per_s=B / steady,
+                         peak_above_state_gib=peak / 2 ** 30,
+                         state_gib=state_gib, losses=losses)
+        log(f"wide_deep[{name}]: vocab {vocab} B={B} slots={slots} "
+            f"emb={emb} hidden={W.CRITEO['hidden']}: losses "
+            f"{[round(x, 6) for x in losses]}; step ms "
+            f"{[round(1e3 * x, 3) for x in step_s]}; steady {1e3 * steady:.3f}"
+            f" ms = {B / steady:.1f} examples/s; state "
+            f"{state_gib:.3f} GiB; a step's peak above it "
+            f"{[round(x / 2 ** 30, 4) for x in peaks]} GiB")
+        if name == "sparse":
+            if peak >= table_bytes:
+                raise AssertionError(
+                    f"wide_deep: a steady step allocates {peak} bytes above "
+                    f"the state, not under the deep table's {table_bytes}")
+            grads, dense = _wd_table_grads(pt, main, scope, feed,
+                                           exe.device)
+            for table, g in grads.items():
+                if not isinstance(g, SelectedRows) or \
+                        g.rows.numel() != B * slots or \
+                        g.height != vocab_max or \
+                        g.value.device != exe.device:
+                    raise AssertionError(
+                        f"wide_deep: {table}'s grad is {type(g).__name__} "
+                        f"{getattr(g, 'shape', None)}, not SelectedRows of "
+                        f"{B * slots} slots at height {vocab_max}")
+            if dense:
+                raise AssertionError(f"wide_deep: vocab-sized tensors {dense}"
+                                     f" beside the state")
+            log(f"wide_deep: both tables' grads reach adam as SelectedRows "
+                f"of {B * slots} slots at height {vocab_max} "
+                f"({unique_rows} unique rows); the peak above the state "
+                f"{peak / 2 ** 30:.4f} GiB < the deep table's "
+                f"{table_bytes / 2 ** 30:.2f} GiB; peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        del main, startup, scope
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = phase_card_vs_cpu_wide_deep()
+    no_launches("card-vs-cpu")
+    return out
+
+
+def phase_card_vs_cpu_wide_deep():
+    """One float32 W&D-Criteo step at ``WD_CARD_CPU_VOCAB`` rows, from one
+    scope, on the card and on the CPU.  The loss (computed before the
+    update) is held to ``CARD_CPU_LOSS_RTOL``; every parameter's grad,
+    read as its first Adam moment (``(1 - beta1) * grad``), and its second
+    moment to the kink rule of ``phase_card_vs_cpu``
+    (``CARD_CPU_GRAD_RTOL`` of its norm, ``CARD_CPU_KINK_GRAD_RTOL`` when
+    a ReLU input lies on different sides of 0; the second moment twice
+    that: it squares the grad), both tables' included: their duplicate
+    rows sum in another order on the card.  Every parameter element is
+    held to what its grad's difference allows: Adam's first step moves
+    it by ``lr * g / (|g| + eps / sqrt(1 - beta2))``, whose slope is at
+    most ``lr * sqrt(1 - beta2) / eps``, so ``|dp| <= that * |dg|`` (``dg``
+    read from the first moments, plus one rounding of each) plus four
+    float32 roundings of ``|p| + lr``."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    from paddle_tpu_torch.models import wide_and_deep as W
+
+    main, startup, cost = _wd_program(pt, WD_CARD_CPU_VOCAB)
+    cpu_scope = pt.Scope()
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    names = persistable_names(main)
+    card_scope = scope_from_numpy(
+        {n: to_numpy(cpu_scope.find_var(n)) for n in names}, None, main)
+    feed = W.fake_batch(W.CRITEO_BATCH, SEED + 5, WD_CARD_CPU_VOCAB)
+    block = main.global_block()
+    relu_in = [op.input("X")[0] for op in block.ops if op.type == "relu"]
+    t = time.perf_counter()
+    cpu_loss, *cpu_relu = cpu.run(main, feed=feed,
+                                  fetch_list=[cost] + relu_in,
+                                  scope=cpu_scope)
+    cpu_s = time.perf_counter() - t
+    card_loss, *card_relu = pt.Executor().run(
+        main, feed=feed, fetch_list=[cost] + relu_in, scope=card_scope)
+    a, b = float(card_loss.reshape(())), float(cpu_loss.reshape(()))
+    if not abs(a - b) <= CARD_CPU_LOSS_RTOL * abs(b):
+        raise AssertionError(f"card-vs-cpu[wide_deep]: loss {a} vs {b}")
+    kinks = sum(int(((x > 0) != (y > 0)).sum())
+                for x, y in zip(cpu_relu, card_relu))
+    bound = CARD_CPU_KINK_GRAD_RTOL if kinks else CARD_CPU_GRAD_RTOL
+    adam = [op for op in block.ops if op.type == "adam"]
+    if {op.input("Param")[0] for op in adam} != \
+            {p.name for p in block.all_parameters()}:
+        raise AssertionError("card-vs-cpu[wide_deep]: a parameter has no "
+                             "adam op")
+    beta1, beta2 = adam[0].attr("beta1"), adam[0].attr("beta2")
+    slope = WD_LR * np.sqrt(1.0 - beta2) / adam[0].attr("epsilon")
+    eps32 = float(np.finfo(np.float32).eps)
+    rel, p_ratio = {}, {}
+    for op in adam:
+        p = op.input("Param")[0]
+        got, want = ({n: to_numpy(s.find_var(op.input(n)[0])).astype(
+            np.float64) for n in ("Param", "Moment1", "Moment2")}
+            for s in (card_scope, cpu_scope))
+        for slot, factor in (("Moment1", 1.0), ("Moment2", 2.0)):
+            norm = float(np.linalg.norm(want[slot]))
+            if not norm > 0:
+                raise AssertionError(f"card-vs-cpu[wide_deep]: {p} got no "
+                                     f"grad")
+            rel[(p, slot)] = float(np.linalg.norm(
+                got[slot] - want[slot])) / norm / factor
+        # the grads as the first moments hold them, within one rounding
+        # of each moment
+        dg = (np.abs(got["Moment1"] - want["Moment1"])
+              + 2 * eps32 * np.abs(want["Moment1"])) / (1.0 - beta1)
+        allow = slope * dg + 4 * eps32 * (np.abs(want["Param"]) + WD_LR)
+        p_ratio[p] = float((np.abs(got["Param"] - want["Param"])
+                            / allow).max())
+    worst = max(rel, key=rel.get)
+    worst_p = max(p_ratio, key=p_ratio.get)
+    log(f"card-vs-cpu[wide_deep] vocab {WD_CARD_CPU_VOCAB} B={W.CRITEO_BATCH} "
+        f"f32:"
+        f" loss card {a!r} cpu {b!r} (rel {abs(a - b) / abs(b):.2e}); "
+        f"{kinks} of {sum(x.size for x in cpu_relu)} ReLU inputs on "
+        f"different sides of 0; moments |card - cpu| / |cpu| (the second "
+        f"halved) worst {rel[worst]:.3e} ({worst}), tables "
+        + ", ".join(f"{k}={v:.3e}" for k, v in rel.items()
+                    if k[0] in ("wide_deep_emb", "wide_lr_w"))
+        + f"; parameters |dp| / allowed worst {p_ratio[worst_p]:.3e} "
+        f"({worst_p}); cpu step {cpu_s:.2f}s")
+    if rel[worst] > bound:
+        raise AssertionError(f"card-vs-cpu[wide_deep]: {worst} differs by "
+                             f"{rel[worst]} relative (bound {bound}, "
+                             f"{kinks} ReLU inputs straddle 0)")
+    if p_ratio[worst_p] > 1.0:
+        raise AssertionError(f"card-vs-cpu[wide_deep]: parameter {worst_p} "
+                             f"moved {p_ratio[worst_p]} x what its grad's "
+                             f"difference allows")
+    return dict(loss_rel=abs(a - b) / abs(b), moment_rel=rel[worst],
+                param_ratio=p_ratio[worst_p], relu_kinks=kinks)
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serving through the port's entry points
 # ---------------------------------------------------------------------------
 
@@ -2276,6 +2565,7 @@ def main():
     torch.cuda.empty_cache()
     checks = {route: phase_card_vs_cpu(route) for route in ROUTES}
     resnet_check = phase_card_vs_cpu_resnet50()
+    wide_deep = phase_wide_deep()
     optimizers = phase_optimizers()
 
     kernels = []
@@ -2320,6 +2610,15 @@ def main():
     log("card-vs-cpu[resnet50]: " + " ".join(
         f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
         for k, v in resnet_check.items()))
+    for name in ("sparse", "sparse_2**20", "dense"):
+        w = wide_deep[name]
+        log(f"wide_deep[{name}]: step_ms={w['step_ms']:.3f} "
+            f"examples_per_s={w['examples_per_s']:.1f} "
+            f"peak_above_state_gib={w['peak_above_state_gib']:.4f}")
+    log(f"wide_deep: unique_rows={wide_deep['unique_rows']} of "
+        f"{wide_deep['ids']} ids; card-vs-cpu " + " ".join(
+            f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in wide_deep["card_vs_cpu"].items()))
     log(f"optimizers: max abs diff card vs cpu "
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log("bshd attention (forward + backward): " + " ".join(

@@ -44,9 +44,12 @@ def torch_dtype(dtype):
 
 def to_tensor(value, device, dtype=None):
     """``value`` (tensor, numpy array or scalar) as a tensor on ``device``,
-    cast to ``dtype`` (a ``torch.dtype`` or IR name) when given."""
+    cast to ``dtype`` (a ``torch.dtype`` or IR name) when given.  A
+    tensor made from a numpy array never shares its memory: ops update
+    state in place (the sparse optimizer branches), which must not
+    write into the caller's arrays."""
     if isinstance(value, torch.Tensor):
-        t = value
+        t, host = value, None
     else:
         arr = np.asarray(value)
         if arr.dtype.name == "bfloat16":
@@ -58,18 +61,26 @@ def to_tensor(value, device, dtype=None):
             if not arr.flags.writeable:
                 arr = arr.copy()
             t = torch.from_numpy(arr)
+        host = t.data_ptr()
     if dtype is not None:
         dtype = torch_dtype(dtype)
         if t.dtype != dtype:
             t = t.to(dtype)
-    return t.to(device)
+    t = t.to(device)
+    if host is not None and t.numel() and t.data_ptr() == host:
+        t = t.clone()
+    return t
 
 
 def to_numpy(value):
-    """Host numpy copy of a tensor (or array).  bfloat16 comes back as its
-    raw ``uint16`` words (numpy has no bfloat16 of its own)."""
+    """Host numpy copy of a tensor (or array), never a view of a CPU
+    tensor that a later in-place update could change.  bfloat16 comes
+    back as its raw ``uint16`` words (numpy has no bfloat16 of its
+    own)."""
     if isinstance(value, torch.Tensor):
         t = value.detach().cpu().contiguous()
+        if t.data_ptr() == value.data_ptr():
+            t = t.clone()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()

@@ -7,8 +7,9 @@ computation, the port runs eagerly: feeds go to the place's device,
 persistable state is read from the scope, every op's lowering runs in
 program order (forward, grad and optimizer ops alike), and the
 persistable variables the block wrote are stored back in the scope.  Ops
-that update state in place (``paged_attention`` on the KV pool) change
-the scope's own tensor.
+that update state in place (``paged_attention`` on the KV pool, the
+sparse branches of ``sgd``, ``adam`` and ``adagrad`` on a table and its
+moments) change the scope's own tensor.
 
 Mixed precision: when ``Program.amp`` is set (or, if it is None, the
 ``PADDLE_TPU_AMP`` environment flag), float32 tensors read through an

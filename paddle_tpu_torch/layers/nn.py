@@ -11,6 +11,7 @@ from paddle_tpu_torch import framework
 from paddle_tpu_torch.framework import Variable
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch import initializer as init_mod
+from paddle_tpu_torch.embedding import register_table
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
@@ -68,11 +69,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """Embedding lookup (reference ``nn.py`` embedding; the sparse
-    SelectedRows grad path is a scatter-add)."""
+    """Embedding lookup (reference ``nn.py`` embedding); the table is
+    registered with ``embedding.register_table``.  ``is_sparse`` makes
+    its grad a SelectedRows of the looked-up rows."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype, is_bias=False)
+    register_table(w.name, vocab=size[0], dim=size[1])
     tmp = helper.create_tmp_variable(dtype)
     padding_idx = -1 if padding_idx is None else \
         (padding_idx if padding_idx >= 0 else size[0] + padding_idx)

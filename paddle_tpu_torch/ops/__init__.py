@@ -16,4 +16,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     loss_ops,
     metric_ops,
     optimizer_ops,
+    sparse_ops,
 )

@@ -1,14 +1,18 @@
-"""Loss ops (the port's counterpart of ``softmax_with_cross_entropy`` and
-``cross_entropy`` in ``paddle_tpu.ops.loss_ops``; reference
+"""Loss ops (the port's counterpart of ``softmax_with_cross_entropy``,
+``cross_entropy`` and ``sigmoid_cross_entropy_with_logits`` in
+``paddle_tpu.ops.loss_ops``; reference
 ``paddle/fluid/operators/softmax_with_cross_entropy_op.cc``,
-``cross_entropy_op.cc``).  The grad of ``softmax_with_cross_entropy`` is
-the auto-vjp of its lowering; ``cross_entropy`` has its own."""
+``cross_entropy_op.cc``, ``sigmoid_cross_entropy_with_logits_op.cc``).
+The grads of ``softmax_with_cross_entropy`` and
+``sigmoid_cross_entropy_with_logits`` are the auto-vjp of their
+lowerings; ``cross_entropy`` has its own."""
 
 from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.registry import (register_grad_lower, register_op,
+from paddle_tpu_torch.ops.registry import (infer_shape_unary,
+                                           register_grad_lower, register_op,
                                            ShapeInferenceSkip)
 
 
@@ -106,3 +110,17 @@ def cross_entropy_grad_lower(ctx):
         dx = torch.zeros_like(x).scatter_(
             1, idx, -dy * torch.gather(inv, 1, idx))
     ctx.outputs[gx[0]] = dx.to(xe.dtype)
+
+
+@register_op("sigmoid_cross_entropy_with_logits",
+             infer_shape=infer_shape_unary(), no_grad_inputs=("Label",))
+def sigmoid_cross_entropy_with_logits_lower(ctx):
+    """``max(x, 0) - x * z + log(1 + exp(-|x|))``, elementwise (the
+    numerically stable form of the JAX package).  Its auto-vjp is
+    ``sigmoid(x) - z`` everywhere; at ``x = 0`` exactly the JAX package's
+    gives ``-z`` (its ``abs`` takes slope +1 at 0, ROADMAP, faults of
+    the reference)."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    ctx.set_output("Out", torch.maximum(x, zero) - x * label
+                   + torch.log1p(torch.exp(-torch.abs(x))))

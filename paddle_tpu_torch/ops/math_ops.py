@@ -12,6 +12,8 @@ import torch
 from paddle_tpu_torch.ops.registry import (
     register_op, infer_shape_elementwise, infer_shape_unary,
     ShapeInferenceSkip)
+from paddle_tpu_torch.selected_rows import (SelectedRows, is_selected_rows,
+                                            to_dense)
 
 
 # ---------------------------------------------------------------------------
@@ -140,11 +142,22 @@ def scale_lower(ctx):
         ctx.set_output("Out", (x + bias) * scale)
 
 
-@register_op("sum", infer_shape=infer_shape_unary())
+@register_op("sum", infer_shape=infer_shape_unary(),
+             selected_rows_inputs=("X",))
 def sum_lower(ctx):
     """Elementwise sum of every ``X`` (dtypes promote, as in the JAX
-    package: a bf16 and an f32 grad sum to f32)."""
+    package: a bf16 and an f32 grad sum to f32).  SelectedRows inputs
+    (reference ``sum_op.cc``): all sparse concatenate into one
+    SelectedRows (duplicate rows stay, for the consumer to scatter-add or
+    merge); mixed with dense ones, they are densified and added."""
     xs = ctx.inputs("X")
+    if any(is_selected_rows(x) for x in xs):
+        if all(is_selected_rows(x) for x in xs):
+            ctx.set_output("Out", SelectedRows(
+                torch.cat([x.rows for x in xs]),
+                torch.cat([x.value for x in xs]), xs[0].height))
+            return
+        xs = [to_dense(x) for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

@@ -8,9 +8,15 @@ the SAME variable names, so the executor's persistable write-back gives
 in-place update semantics.  As in the JAX package, the adam and adamax
 ops emit Beta1PowOut/Beta2PowOut themselves (the reference appends
 separate ``scale`` ops for them), and every op follows that package's
-arithmetic step by step.  Dense grads only: the SelectedRows branches of
-``sgd``, ``adam`` and ``adagrad`` wait for ``selected_rows.py`` and raise
-until then (:func:`_dense_grad`).
+arithmetic step by step.
+
+``sgd``, ``adam`` and ``adagrad`` also take a SelectedRows grad (a
+sparse embedding's, ``selected_rows.py``; every other op and slot reads
+it densified, ``registry.LowerContext``).  Their sparse branches touch
+only the grad's rows, and update the state IN PLACE (``index_add_`` /
+``index_copy_`` on the tensor bound to the output's name, which is the
+input's): the JAX package's functional ``p.at[rows].set(...)`` would be
+a copy of the whole table each step here, which defeats O(batch·dim).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.ops.registry import register_op
+from paddle_tpu_torch.selected_rows import is_selected_rows
 
 
 def _infer_param_out(op, block):
@@ -44,17 +51,14 @@ def _infer_param_out(op, block):
                 pass
 
 
-def _dense_grad(ctx):
-    """The op's ``Grad`` as a dense tensor.  The reference's ``sgd``,
-    ``adam`` and ``adagrad`` also take a SelectedRows grad (rows + values
-    of a sparse embedding grad); the port has no such type yet."""
-    g = ctx.input("Grad")
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            f"op {ctx.op.type!r}: Grad is a {type(g).__name__}, not a dense "
-            f"tensor; the SelectedRows branch of this update waits for "
-            f"paddle_tpu_torch/selected_rows.py")
-    return g
+def _target(ctx, in_slot, out_slot):
+    """The tensor a sparse branch updates in place for ``out_slot``: the
+    ``in_slot`` input itself when both name one variable (as every
+    optimizer binds them), else a copy of it."""
+    t = ctx.input(in_slot)
+    if ctx.op.output(out_slot)[0] != ctx.op.input(in_slot)[0]:
+        t = t.clone()
+    return t
 
 
 def _lr(ctx, dtype=None):
@@ -63,16 +67,24 @@ def _lr(ctx, dtype=None):
 
 
 @register_op("sgd", infer_shape=_infer_param_out, no_gradient=True,
-             stateful_outputs=("ParamOut",))
+             stateful_outputs=("ParamOut",), selected_rows_inputs=("Grad",))
 def sgd_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    if is_selected_rows(g):
+        # reference sgd_op.h's SelectedRows kernel: scatter-add at the
+        # grad's rows, duplicates included
+        rows, value = g.live()
+        p = _target(ctx, "Param", "ParamOut")
+        ctx.set_output("ParamOut", p.index_add_(
+            0, rows, (-_lr(ctx, p.dtype) * value).to(p.dtype)))
+        return
     ctx.set_output("ParamOut", p - _lr(ctx, p.dtype) * g)
 
 
 @register_op("momentum", infer_shape=_infer_param_out, no_gradient=True,
              stateful_outputs=("ParamOut", "VelocityOut"))
 def momentum_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     v = ctx.input("Velocity")
     mu = ctx.attr("mu")
     lr = _lr(ctx, p.dtype)
@@ -87,12 +99,16 @@ def momentum_lower(ctx):
 
 @register_op("adam", infer_shape=_infer_param_out, no_gradient=True,
              stateful_outputs=("ParamOut", "Moment1Out", "Moment2Out",
-                               "Beta1PowOut", "Beta2PowOut"))
+                               "Beta1PowOut", "Beta2PowOut"),
+             selected_rows_inputs=("Grad",))
 def adam_lower(ctx):
     """Bias-corrected Adam with the JAX package's arithmetic:
     ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``,
-    ``p -= lr_t * m1 / (sqrt(m2) + eps)``."""
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    ``p -= lr_t * m1 / (sqrt(m2) + eps)``.  A SelectedRows grad updates
+    lazily (reference ``adam_op.h`` SparseAdamFunctor): its rows merged,
+    only their moments and parameters change; the beta powers advance
+    once a step all the same."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m1, m2 = ctx.input("Moment1"), ctx.input("Moment2")
     b1p = ctx.input("Beta1Pow").reshape(())
     b2p = ctx.input("Beta2Pow").reshape(())
@@ -103,6 +119,19 @@ def adam_lower(ctx):
     lr_t = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
     ctx.set_output("Beta1PowOut", (b1p * beta1).reshape(1))
     ctx.set_output("Beta2PowOut", (b2p * beta2).reshape(1))
+    if is_selected_rows(g):
+        rows, gv = g.merge_duplicates().live()
+        m1_rows = beta1 * m1[rows] + (1.0 - beta1) * gv
+        m2_rows = beta2 * m2[rows] + (1.0 - beta2) * torch.square(gv)
+        p = _target(ctx, "Param", "ParamOut")
+        p_rows = p[rows] - (lr_t * m1_rows /
+                            (torch.sqrt(m2_rows) + eps)).to(p.dtype)
+        ctx.set_output("ParamOut", p.index_copy_(0, rows, p_rows))
+        ctx.set_output("Moment1Out", _target(
+            ctx, "Moment1", "Moment1Out").index_copy_(0, rows, m1_rows))
+        ctx.set_output("Moment2Out", _target(
+            ctx, "Moment2", "Moment2Out").index_copy_(0, rows, m2_rows))
+        return
     m1n = beta1 * m1 + (1.0 - beta1) * g
     m2n = beta2 * m2 + (1.0 - beta2) * torch.square(g)
     p_new = p - (lr_t * m1n / (torch.sqrt(m2n) + eps)).to(p.dtype)
@@ -115,7 +144,7 @@ def adam_lower(ctx):
              stateful_outputs=("ParamOut", "MomentOut", "InfNormOut",
                                "Beta1PowOut"))
 def adamax_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m = ctx.input("Moment")
     inf_norm = ctx.input("InfNorm")
     b1p = ctx.input("Beta1Pow").reshape(())
@@ -133,11 +162,24 @@ def adamax_lower(ctx):
 
 
 @register_op("adagrad", infer_shape=_infer_param_out, no_gradient=True,
-             stateful_outputs=("ParamOut", "MomentOut"))
+             stateful_outputs=("ParamOut", "MomentOut"),
+             selected_rows_inputs=("Grad",))
 def adagrad_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    """A SelectedRows grad is merged first, then only its rows' moment
+    and parameter change (reference ``adagrad_op.h``'s sparse kernel)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m = ctx.input("Moment")
     eps = ctx.attr("epsilon", 1e-6)
+    if is_selected_rows(g):
+        rows, gv = g.merge_duplicates().live()
+        m_rows = m[rows] + torch.square(gv)
+        p = _target(ctx, "Param", "ParamOut")
+        p_rows = p[rows] - _lr(ctx) * gv / (torch.sqrt(m_rows) + eps)
+        ctx.set_output("MomentOut", _target(
+            ctx, "Moment", "MomentOut").index_copy_(0, rows, m_rows))
+        ctx.set_output("ParamOut",
+                       p.index_copy_(0, rows, p_rows.to(p.dtype)))
+        return
     m_new = m + torch.square(g)
     ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))
     ctx.set_output("MomentOut", m_new)
@@ -146,7 +188,7 @@ def adagrad_lower(ctx):
 @register_op("decayed_adagrad", infer_shape=_infer_param_out,
              no_gradient=True, stateful_outputs=("ParamOut", "MomentOut"))
 def decayed_adagrad_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m = ctx.input("Moment")
     decay = ctx.attr("decay", 0.95)
     eps = ctx.attr("epsilon", 1e-6)
@@ -159,7 +201,7 @@ def decayed_adagrad_lower(ctx):
              stateful_outputs=("ParamOut", "AvgSquaredGradOut",
                                "AvgSquaredUpdateOut"))
 def adadelta_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     asg = ctx.input("AvgSquaredGrad")
     asu = ctx.input("AvgSquaredUpdate")
     rho = ctx.attr("rho", 0.95)
@@ -175,7 +217,7 @@ def adadelta_lower(ctx):
 @register_op("rmsprop", infer_shape=_infer_param_out, no_gradient=True,
              stateful_outputs=("ParamOut", "MomentOut", "MeanSquareOut"))
 def rmsprop_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m = ctx.input("Moment")
     ms = ctx.input("MeanSquare")
     rho = ctx.attr("decay", 0.9)
@@ -192,7 +234,7 @@ def rmsprop_lower(ctx):
              stateful_outputs=("ParamOut", "SquaredAccumOut",
                                "LinearAccumOut"))
 def ftrl_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     sq = ctx.input("SquaredAccumulator")
     lin = ctx.input("LinearAccumulator")
     lr = _lr(ctx)
@@ -220,7 +262,7 @@ def _soft_threshold(prox, lr, l1, l2):
 @register_op("proximal_gd", infer_shape=_infer_param_out, no_gradient=True,
              stateful_outputs=("ParamOut",))
 def proximal_gd_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     lr = _lr(ctx)
     ctx.set_output("ParamOut", _soft_threshold(
         p - lr * g, lr, ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)))
@@ -229,7 +271,7 @@ def proximal_gd_lower(ctx):
 @register_op("proximal_adagrad", infer_shape=_infer_param_out,
              no_gradient=True, stateful_outputs=("ParamOut", "MomentOut"))
 def proximal_adagrad_lower(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), ctx.input("Grad")
     m_new = ctx.input("Moment") + torch.square(g)
     lr_t = _lr(ctx) / torch.sqrt(m_new)
     ctx.set_output("ParamOut", _soft_threshold(

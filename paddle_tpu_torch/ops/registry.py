@@ -22,6 +22,8 @@ import collections
 
 import torch
 
+from paddle_tpu_torch.selected_rows import SelectedRows
+
 __all__ = [
     "OpDef", "register_op", "register_grad_lower",
     "lookup", "all_ops",
@@ -45,10 +47,15 @@ class OpDef:
     def __init__(self, type, lower=None, infer_shape=None, grad_maker=None,
                  grad_lower=None, no_grad_inputs=(), stop_gradient_outputs=(),
                  uses_rng=False, stateful_outputs=(), amp_cast=(),
-                 amp_upcast=(), host=False):
+                 amp_upcast=(), host=False, selected_rows_inputs=()):
         self.type = type
         self.lower = lower
         self.infer_shape = infer_shape
+        # input slots whose lowering takes a SelectedRows value (the
+        # sparse-grad path, ``selected_rows.py``); every other slot reads
+        # one densified, as the reference's data-transform layer converts
+        # inputs a kernel cannot take (``data_transform.cc``)
+        self.selected_rows_inputs = frozenset(selected_rows_inputs)
         # mixed precision: when the program runs with amp enabled, float32
         # tensors read through the listed input slots are cast to bfloat16
         # (amp_cast — matrix products) or forced to float32 (amp_upcast —
@@ -77,7 +84,7 @@ class OpDef:
 def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                 no_grad_inputs=(), stop_gradient_outputs=(), uses_rng=False,
                 no_gradient=False, stateful_outputs=(), amp_cast=(),
-                amp_upcast=()):
+                amp_upcast=(), selected_rows_inputs=()):
     """Decorator: register ``fn(ctx)`` as the lowering for op ``type``."""
 
     def deco(fn):
@@ -86,7 +93,8 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                       no_grad_inputs=no_grad_inputs,
                       stop_gradient_outputs=stop_gradient_outputs,
                       uses_rng=uses_rng, stateful_outputs=stateful_outputs,
-                      amp_cast=amp_cast, amp_upcast=amp_upcast)
+                      amp_cast=amp_cast, amp_upcast=amp_upcast,
+                      selected_rows_inputs=selected_rows_inputs)
         opdef.has_grad = not no_gradient
         _REGISTRY[type] = opdef
         return fn
@@ -173,11 +181,14 @@ class LowerContext:
     # -- inputs ------------------------------------------------------------
     def _amp_cast(self, slot, value):
         """bf16-downcast / f32-upcast per the op's AMP slot lists (active
-        only when the executor enabled mixed precision for this run)."""
-        if value is None or not self.aux.get("amp"):
-            return value
+        only when the executor enabled mixed precision for this run);
+        first densifies a SelectedRows read through a slot whose lowering
+        does not declare it."""
         opdef = lookup(self.op.type)
-        if opdef is None:
+        if isinstance(value, SelectedRows) and (
+                opdef is None or slot not in opdef.selected_rows_inputs):
+            value = value.to_dense()
+        if value is None or not self.aux.get("amp") or opdef is None:
             return value
         if slot in opdef.amp_cast and value.dtype == torch.float32:
             return value.to(torch.bfloat16)

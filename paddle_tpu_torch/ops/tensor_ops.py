@@ -11,6 +11,7 @@ import torch
 from paddle_tpu_torch.convert import to_tensor, torch_dtype
 from paddle_tpu_torch.ops.registry import (
     auto_vjp_grad_lower, infer_shape_unary, register_grad_lower, register_op)
+from paddle_tpu_torch.selected_rows import SelectedRows
 
 
 # ---------------------------------------------------------------------------
@@ -261,15 +262,25 @@ def lookup_table_lower(ctx):
 
 @register_grad_lower("lookup_table")
 def lookup_table_grad_lower(ctx):
-    """Dense grad of ``W``: the auto-vjp of the gather, a scatter-add into
-    a ``[vocab, dim]`` zero tensor.  ``is_sparse`` (a SelectedRows grad)
-    waits for the sparse subsystem."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table is_sparse=True needs SelectedRows grads, which "
-            "paddle_tpu_torch does not have yet; build the embedding with "
-            "is_sparse=False")
-    auto_vjp_grad_lower("lookup_table")(ctx)
+    """Grad of ``W``.  Dense: the auto-vjp of the gather, a scatter-add
+    into a ``[vocab, dim]`` zero tensor.  ``is_sparse``: a SelectedRows
+    (reference ``lookup_table_op.cc``'s SelectedRows branch) whose rows
+    are the flattened ids, one slot each, and whose values are
+    ``Out@GRAD`` as ``[N, dim]`` (zero at ``padding_idx``): O(batch·dim),
+    no vocab-sized tensor."""
+    if not ctx.attr("is_sparse", False):
+        auto_vjp_grad_lower("lookup_table")(ctx)
+        return
+    gname = ctx.op.output("W@GRAD")
+    if not gname or not gname[0]:
+        return
+    w = ctx.input("W")
+    rows = ctx.input("Ids").reshape(-1).long()
+    vals = ctx.input("Out@GRAD").reshape(-1, w.shape[-1])
+    padding_idx = ctx.attr("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        vals = vals * (rows != padding_idx).unsqueeze(1).to(vals.dtype)
+    ctx.outputs[gname[0]] = SelectedRows(rows, vals, w.shape[0])
 
 
 # ---------------------------------------------------------------------------

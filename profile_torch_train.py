@@ -4,6 +4,7 @@
     python3 profile_torch_train.py [--model transformer] [--routes A B C]
                                    [--steps N]
     python3 profile_torch_train.py --model resnet [--batch 256] [--steps N]
+    python3 profile_torch_train.py --model wide_deep [--steps N]
 
 Builds the port's kernels and then, for the Transformer-base step, each
 route of ``chip_smoke.py``'s training phase (A: composed attention,
@@ -11,13 +12,16 @@ S = 256, B = 64; B: flash attention, S = 2048, B = 8; C: single-pass
 attention, S = 512, B = 32; full width and depth, bf16 AMP, Adam lr 1e-4,
 dropout 0.1) or, with ``--model resnet``, the ResNet-50 step of
 ``bench_resnet.py`` (224x224, 1000 classes, B = 256, bf16 AMP,
-Momentum(0.01, 0.9)); runs two warm-up steps and then
+Momentum(0.01, 0.9)) or, with ``--model wide_deep``, the Wide & Deep
+step of ``chip_smoke.py`` (W&D-Criteo: 26 sparse slots into one table
+of 2**23 rows with sparse grads, embeddings of 32, ReLU layers of 1024,
+B = 4096, float32, Adam lr 1e-3); runs two warm-up steps and then
 
 * ``--steps`` steps timed on the host clock (each ends in the loss's
   device-to-host copy): ms a step and target tokens/s (images/s for
   ResNet-50, with its MFU: 3 x the conv and fc FLOPs of one forward from
   the IR, over the 989 TFLOP/s bf16 dense peak, ``bench_resnet.py``'s
-  convention);
+  convention; examples/s for Wide & Deep);
 * one step with a CUDA synchronize around every op, timed on the host
   clock, grouped by op type and by phase (forward, backward, optimizer).
   Synchronizing serializes host and device, so these times add up to
@@ -87,6 +91,17 @@ def build_resnet(pt, B):
     return main, startup, cost, feed
 
 
+def build_wide_deep(pt):
+    from paddle_tpu_torch.models import wide_and_deep as W
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        cost, _, _ = W.wide_and_deep_train_program(W.CRITEO_BATCH,
+                                                   **W.CRITEO)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(cost)
+    return main, startup, cost, W.fake_batch(W.CRITEO_BATCH, SEED)
+
+
 def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
     """One step with a synchronize around every op; returns the op times
     by (phase, type), the auto-vjp recompute times by forward type, and
@@ -145,8 +160,8 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
         if not op.type.endswith("_grad"):
             continue
         fwd_def = registry.lookup(op.type[:-len("_grad")])
-        if fwd_def is None or fwd_def.grad_lower is not None and \
-                op.type != "lookup_table_grad":
+        if fwd_def is None or fwd_def.grad_lower is not None and (
+                op.type != "lookup_table_grad" or op.attr("is_sparse")):
             continue                      # an explicit grad lowering
         outs = [n for s, ns in op.inputs.items() if s + "@GRAD" in op.inputs
                 for n in ns if n in producer]
@@ -183,6 +198,15 @@ def profile_resnet(B, steps, pt, registry, torch):
           f"and fc a forward over {PEAK_BF16 / 1e12:.0f} TFLOP/s); peak "
           f"memory {out['peak_gib']:.2f} GiB")
     out.update(B=B, fwd_gflops=fwd_flops / 1e9, mfu=mfu)
+    return out
+
+
+def profile_wide_deep(steps, pt, registry, torch):
+    main, startup, cost, feed = build_wide_deep(pt)
+    B = feed["label"].shape[0]
+    out = profile_step(f"wide_deep: B={B}", main, startup, cost, feed,
+                       steps, B, "examples", pt, registry, torch)
+    out.update(B=B)
     return out
 
 
@@ -281,7 +305,7 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="transformer",
-                    choices=("transformer", "resnet"))
+                    choices=("transformer", "resnet", "wide_deep"))
     ap.add_argument("--routes", nargs="+", default=sorted(ROUTES),
                     choices=sorted(ROUTES))
     ap.add_argument("--batch", type=int, default=256,
@@ -312,6 +336,9 @@ def main():
     if args.model == "resnet":
         summary["resnet50"] = profile_resnet(args.batch, args.steps, pt,
                                              registry, torch)
+    elif args.model == "wide_deep":
+        summary["wide_deep"] = profile_wide_deep(args.steps, pt, registry,
+                                                 torch)
     else:
         for route in args.routes:
             summary[route] = profile_route(route, args.steps, pt, registry,

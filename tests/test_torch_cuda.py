@@ -1163,3 +1163,125 @@ def test_conv3x3_chains_of_a_resnet50_inference_program_on_card(
         tol = f32_tolerance(x, w, scale) + TOL * want.abs()
         assert bool(((out - want).abs() <= tol).all()), i
     assert CONV3X3.launches == before + 16
+
+
+# ---------------------------------------------------------------------------
+# sparse grads (SelectedRows): torch indexing ops, no hand-written kernel
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip(f"needs an NVIDIA GPU: torch.cuda.is_available()=False, "
+                    f"torch {torch.__version__} (CUDA {torch.version.cuda})")
+
+
+def _sparse_grad(height, dim, merged):
+    """A SelectedRows grad on the CPU with duplicate rows (a hot row seven
+    times) or, ``merged``, the same merged: tail slots of row ``height``,
+    which a consumer must drop (on the card an index of ``height`` would
+    be a device-side assert)."""
+    from paddle_tpu_torch.selected_rows import SelectedRows
+    g = torch.Generator().manual_seed(21)
+    rows = torch.tensor([3, 0, 3, 7, 3, 9, 3, 0, 3, 3, 3])
+    sr = SelectedRows(rows, torch.randn(len(rows), dim, generator=g), height)
+    return sr.merge_duplicates() if merged else sr
+
+
+def _on(sr, device):
+    from paddle_tpu_torch.selected_rows import SelectedRows
+    return SelectedRows(sr.rows.to(device), sr.value.to(device), sr.height)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merged", [False, True])
+def test_merge_duplicates_on_card(cuda_card, merged):
+    sr = _sparse_grad(12, 5, merged)
+    want = sr.merge_duplicates()
+    got = _on(sr, "cuda").merge_duplicates()
+    torch.cuda.synchronize()
+    assert torch.equal(got.rows.cpu(), want.rows)
+    torch.testing.assert_close(got.value.cpu(), want.value, atol=TOL,
+                               rtol=TOL)
+    torch.testing.assert_close(_on(sr, "cuda").to_dense().cpu(),
+                               sr.to_dense(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("op_type", ["sgd", "adam", "adagrad"])
+def test_sparse_updates_on_card(cuda_card, op_type, merged):
+    """The sparse branches of the update ops on the card against the CPU,
+    tail rows included (dropped, no device assert), in place on the
+    card's tensors."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import registry
+    H, D = 12, 5
+    g = torch.Generator().manual_seed(22)
+    state = {"p": torch.randn(H, D, generator=g),
+             "lr": torch.tensor([0.05])}
+    ins, outs = {"Param": ["p"], "Grad": ["g"], "LearningRate": ["lr"]}, \
+        {"ParamOut": ["p"]}
+    if op_type == "adagrad":
+        state["m"] = torch.rand(H, D, generator=g)
+        ins["Moment"], outs["MomentOut"] = ["m"], ["m"]
+    if op_type == "adam":
+        state.update(m1=torch.randn(H, D, generator=g) * 0.1,
+                     m2=torch.rand(H, D, generator=g) * 0.01,
+                     b1=torch.tensor([0.9 ** 2]),
+                     b2=torch.tensor([0.999 ** 2]))
+        ins.update(Moment1=["m1"], Moment2=["m2"], Beta1Pow=["b1"],
+                   Beta2Pow=["b2"])
+        outs.update(Moment1Out=["m1"], Moment2Out=["m2"],
+                    Beta1PowOut=["b1"], Beta2PowOut=["b2"])
+    sr = _sparse_grad(H, D, merged)
+    results = []
+    for device in ("cpu", "cuda"):
+        block = pt.Program().global_block()
+        env = {n: t.to(device).clone() for n, t in state.items()}
+        env["g"] = _on(sr, device)
+        held = {n: env[n] for n in ("p", "m", "m1", "m2") if n in env}
+        op = pt.Operator(block, op_type, ins, outs, {})
+        registry.run_lowering(op, env, block,
+                              aux={"device": torch.device(device)})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for n, t in held.items():
+            assert env[n] is t, n
+        results.append({n: env[n].cpu() for n in state})
+    for n in state:
+        torch.testing.assert_close(results[1][n], results[0][n], atol=TOL,
+                                   rtol=TOL, msg=n)
+
+
+@pytest.mark.cuda
+def test_wide_and_deep_step_on_card(cuda_card):
+    """One ``wide_and_deep_train_program(8)`` Adam step on the card and on
+    the CPU from one scope: the loss and every persistable variable."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    from paddle_tpu_torch.models import wide_and_deep
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup):
+        cost, _, _ = wide_and_deep.wide_and_deep_train_program(8)
+        pt.optimizer.Adam(learning_rate=0.01).minimize(cost)
+    cpu, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    names = persistable_names(main)
+    card_scope = scope_from_numpy(
+        {n: to_numpy(cpu_scope.find_var(n)) for n in names}, None, main)
+    rng = np.random.RandomState(6)
+    feed = {"slot_ids": rng.randint(0, 12, (8, 4, 1)).astype("int64"),
+            "dense": rng.rand(8, 8).astype("float32"),
+            "label": rng.randint(0, 2, (8, 1)).astype("int64")}
+    (a,) = cpu.run(main, feed=feed, fetch_list=[cost], scope=cpu_scope)
+    (b,) = pt.Executor().run(main, feed=feed, fetch_list=[cost],
+                             scope=card_scope)
+    np.testing.assert_allclose(b, a, rtol=TOL, atol=TOL)
+    for n in names:
+        assert card_scope.find_var(n).device.type == "cuda", n
+        np.testing.assert_allclose(to_numpy(card_scope.find_var(n)),
+                                   to_numpy(cpu_scope.find_var(n)),
+                                   rtol=TOL, atol=TOL, err_msg=n)

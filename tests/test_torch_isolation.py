@@ -46,7 +46,8 @@ def test_every_port_module_imports_with_jax_blocked():
                 "ops.logic_ops", "layers.learning_rate_scheduler",
                 "kernels.conv3x3", "ops.metric_ops", "models.resnet",
                 "models.vgg", "models.mnist", "analysis.flops",
-                "kernels.bshd_attention"):
+                "kernels.bshd_attention", "selected_rows", "ops.sparse_ops",
+                "embedding", "embedding.tables", "models.wide_and_deep"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

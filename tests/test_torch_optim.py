@@ -292,25 +292,6 @@ def test_model_average_matches_reference():
                                       before[n])
 
 
-def test_update_ops_refuse_a_grad_that_is_not_dense():
-    """The SelectedRows branches of ``sgd``, ``adam`` and ``adagrad`` are
-    not ported: a grad that is no tensor raises, naming the module they
-    wait for."""
-    for op_type in ("sgd", "adam", "adagrad"):
-        opdef = registry.lookup(op_type)
-
-        class Rows:                          # stands in for SelectedRows
-            pass
-        main = pt.Program()
-        block = main.global_block()
-        op = pt.Operator(block, op_type, {"Param": ["p"], "Grad": ["g"]},
-                         {"ParamOut": ["p"]}, {})
-        ctx = registry.LowerContext(op, {"p": torch.zeros(2), "g": Rows()},
-                                    block)
-        with pytest.raises(NotImplementedError, match="selected_rows.py"):
-            opdef.lower(ctx)
-
-
 # ---------------------------------------------------------------------------
 # gaussian_random
 # ---------------------------------------------------------------------------
