@@ -113,7 +113,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and on the CPU from one scope: the loss, every parameter's Adam
    moments (both tables' too) and every parameter element agree
    (``phase_card_vs_cpu_wide_deep``).
-8. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
+8. LoD sequences, LSTM-IMDB-H512 (``models.stacked_lstm.BENCHMARK_LSTM``:
+   the reference's stacked dynamic LSTM benchmark, dictionary 30000,
+   embeddings and 2 peephole LSTM layers of 512, 64 sequences of 2 ...
+   100 words, float32, ``Adam(1e-3)``): ``stacked_lstm_net``,
+   ``Adam.minimize`` and ``Executor.run`` on ``cuda:0`` fed ``(words,
+   lod)``, 20 steps on one seeded batch (loss finite and falling), then
+   10 steps each on a fresh batch with new lengths (every loss finite),
+   no hand-written kernel launched; each ``lstm``'s ``Hidden`` carries
+   the feed's LoD and the pooled features are ``[64, 1024]``.  Printed:
+   step time, sequences/s, rows a step, peak memory.  One float32 step
+   at emb and hidden 32 (8 sequences of 2 ... 12 words) on the card and
+   on the CPU from one scope: the loss, every parameter's Adam moments
+   and every parameter element agree
+   (``phase_card_vs_cpu_stacked_lstm``).  Then the sentiment book's two
+   nets (``tests/test_book_understand_sentiment.py``: the convolution
+   net over ``nets.sequence_conv_pool``, the 3-layer stacked LSTM) at
+   its widths train a few Adam steps each: loss finite and falling, no
+   hand-written kernel.
+9. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
@@ -2051,6 +2069,14 @@ WD_COMPARE_STEPS = 4
 WD_CARD_CPU_VOCAB = 65536
 
 
+def _no_launches(where):
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    if launches:
+        raise AssertionError(f"{where}: hand-written kernels launched: "
+                             f"{launches}")
+
+
 def _wd_program(pt, vocab, sparse=True):
     """``(main, startup, cost)``: ``wide_and_deep_train_program`` at
     W&D-Criteo's widths and ``vocab`` rows, ``Adam(WD_LR)``; with
@@ -2070,7 +2096,7 @@ def _wd_program(pt, vocab, sparse=True):
     return main, startup, cost
 
 
-def _wd_steps(exe, main, cost, scope, feed, steps):
+def _timed_steps(exe, main, cost, scope, feed, steps):
     """``steps`` runs on one batch: losses, step seconds (host clock; the
     loss's fetch synchronizes) and each step's peak allocation above
     what was allocated just before it, in bytes."""
@@ -2143,12 +2169,6 @@ def phase_wide_deep():
     table_bytes = vocab_max * emb * 4
     out = {"unique_rows": unique_rows, "ids": B * slots}
 
-    def no_launches(where):
-        launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
-        if launches:
-            raise AssertionError(f"wide_deep[{where}]: hand-written "
-                                 f"kernels launched: {launches}")
-
     for kern in ALL_KERNELS:
         kern.launches = 0
     for name, vocab, sparse, steps in (
@@ -2160,9 +2180,9 @@ def phase_wide_deep():
         exe.run(startup, scope=scope)
         torch.cuda.synchronize()
         state_gib = torch.cuda.memory_allocated() / 2 ** 30
-        losses, step_s, peaks = _wd_steps(exe, main, cost, scope, feed,
+        losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
                                           steps)
-        no_launches(name)
+        _no_launches(f"wide_deep[{name}]")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"wide_deep[{name}]: losses {losses} not "
                                  f"finite and falling")
@@ -2207,8 +2227,41 @@ def phase_wide_deep():
         del main, startup, scope
         torch.cuda.empty_cache()
     out["card_vs_cpu"] = phase_card_vs_cpu_wide_deep()
-    no_launches("card-vs-cpu")
+    _no_launches("wide_deep[card-vs-cpu]")
     return out
+
+
+def _adam_first_step_errors(tag, adam, card_scope, cpu_scope, lr):
+    """After one Adam step from one state on the card and on the CPU:
+    ``|card - cpu| / |cpu|`` (2-norms) of each parameter's two moments,
+    the second halved (it squares the grad), by ``(param, slot)``; and
+    each parameter's worst element ``|dp|`` over what its grad's
+    difference allows (see ``phase_card_vs_cpu_wide_deep``), by param."""
+    import numpy as np
+    from paddle_tpu_torch.convert import to_numpy
+    beta1, beta2 = adam[0].attr("beta1"), adam[0].attr("beta2")
+    slope = lr * np.sqrt(1.0 - beta2) / adam[0].attr("epsilon")
+    eps32 = float(np.finfo(np.float32).eps)
+    rel, p_ratio = {}, {}
+    for op in adam:
+        p = op.input("Param")[0]
+        got, want = ({n: to_numpy(s.find_var(op.input(n)[0])).astype(
+            np.float64) for n in ("Param", "Moment1", "Moment2")}
+            for s in (card_scope, cpu_scope))
+        for slot, factor in (("Moment1", 1.0), ("Moment2", 2.0)):
+            norm = float(np.linalg.norm(want[slot]))
+            if not norm > 0:
+                raise AssertionError(f"card-vs-cpu[{tag}]: {p} got no grad")
+            rel[(p, slot)] = float(np.linalg.norm(
+                got[slot] - want[slot])) / norm / factor
+        # the grads as the first moments hold them, within one rounding
+        # of each moment
+        dg = (np.abs(got["Moment1"] - want["Moment1"])
+              + 2 * eps32 * np.abs(want["Moment1"])) / (1.0 - beta1)
+        allow = slope * dg + 4 * eps32 * (np.abs(want["Param"]) + lr)
+        p_ratio[p] = float((np.abs(got["Param"] - want["Param"])
+                            / allow).max())
+    return rel, p_ratio
 
 
 def phase_card_vs_cpu_wide_deep():
@@ -2226,7 +2279,6 @@ def phase_card_vs_cpu_wide_deep():
     most ``lr * sqrt(1 - beta2) / eps``, so ``|dp| <= that * |dg|`` (``dg``
     read from the first moments, plus one rounding of each) plus four
     float32 roundings of ``|p| + lr``."""
-    import numpy as np
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.convert import (persistable_names,
                                           scope_from_numpy, to_numpy)
@@ -2260,29 +2312,8 @@ def phase_card_vs_cpu_wide_deep():
             {p.name for p in block.all_parameters()}:
         raise AssertionError("card-vs-cpu[wide_deep]: a parameter has no "
                              "adam op")
-    beta1, beta2 = adam[0].attr("beta1"), adam[0].attr("beta2")
-    slope = WD_LR * np.sqrt(1.0 - beta2) / adam[0].attr("epsilon")
-    eps32 = float(np.finfo(np.float32).eps)
-    rel, p_ratio = {}, {}
-    for op in adam:
-        p = op.input("Param")[0]
-        got, want = ({n: to_numpy(s.find_var(op.input(n)[0])).astype(
-            np.float64) for n in ("Param", "Moment1", "Moment2")}
-            for s in (card_scope, cpu_scope))
-        for slot, factor in (("Moment1", 1.0), ("Moment2", 2.0)):
-            norm = float(np.linalg.norm(want[slot]))
-            if not norm > 0:
-                raise AssertionError(f"card-vs-cpu[wide_deep]: {p} got no "
-                                     f"grad")
-            rel[(p, slot)] = float(np.linalg.norm(
-                got[slot] - want[slot])) / norm / factor
-        # the grads as the first moments hold them, within one rounding
-        # of each moment
-        dg = (np.abs(got["Moment1"] - want["Moment1"])
-              + 2 * eps32 * np.abs(want["Moment1"])) / (1.0 - beta1)
-        allow = slope * dg + 4 * eps32 * (np.abs(want["Param"]) + WD_LR)
-        p_ratio[p] = float((np.abs(got["Param"] - want["Param"])
-                            / allow).max())
+    rel, p_ratio = _adam_first_step_errors("wide_deep", adam, card_scope,
+                                           cpu_scope, WD_LR)
     worst = max(rel, key=rel.get)
     worst_p = max(p_ratio, key=p_ratio.get)
     log(f"card-vs-cpu[wide_deep] vocab {WD_CARD_CPU_VOCAB} B={W.CRITEO_BATCH} "
@@ -2305,6 +2336,292 @@ def phase_card_vs_cpu_wide_deep():
                              f"difference allows")
     return dict(loss_rel=abs(a - b) / abs(b), moment_rel=rel[worst],
                 param_ratio=p_ratio[worst_p], relu_kinks=kinks)
+
+
+# ---------------------------------------------------------------------------
+# LoD sequences: the stacked dynamic LSTM (LSTM-IMDB-H512) and the
+# sentiment book's two nets
+# ---------------------------------------------------------------------------
+
+#: LSTM-IMDB-H512 (``models.stacked_lstm.BENCHMARK_LSTM``): the
+#: reference's stacked dynamic LSTM benchmark (IMDB sentiment, 2 LSTM
+#: layers with peepholes, dictionary 30000, sequences of 2 ... 100 words,
+#: 64 a batch) at a hidden width of 512, float32, ``Adam(1e-3)``
+LSTM_STEPS = 20
+LSTM_RAGGED_STEPS = 10
+#: the card-vs-CPU step: the same net at a width the CPU takes in a second
+LSTM_CARD_CPU = dict(dict_size=1000, emb_dim=32, hidden_dim=32, batch=8,
+                     max_len=12)
+#: ``tests/test_book_understand_sentiment.py``'s nets at its widths: its
+#: vocabulary's size, embeddings and hidden of 32, 16 sequences of 24
+#: words a batch, ``Adam(2e-3)``
+BOOK = dict(dict_dim=5147, emb=32, hid=32, clip_len=24, batch=16, lr=2e-3)
+BOOK_STEPS = 8
+
+
+def _lstm_program(pt, cfg):
+    """``(main, startup, cost)``: ``stacked_lstm_net`` at ``cfg``'s widths
+    and ``Adam(cfg["lr"])``."""
+    from paddle_tpu_torch.framework import unique_name_scope
+    from paddle_tpu_torch.models import stacked_lstm as TS
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name_scope("lstm_"), pt.program_guard(main, startup):
+        cost, _, _ = TS.stacked_lstm_net(
+            cfg["dict_size"], cfg["emb_dim"], cfg["hidden_dim"],
+            cfg["n_layers"], cfg["class_num"])
+        pt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(cost)
+    return main, startup, cost
+
+
+def _lstm_lods(pt, main, scope, feed, device):
+    """Run the main block once through ``lower_block`` with an env of its
+    own (one more training step) and return each ``lstm``'s ``Hidden``
+    LoD and the pooled features (the ``concat`` of the last and the max
+    steps)."""
+    import torch
+    from paddle_tpu_torch.convert import persistable_names, to_tensor
+    from paddle_tpu_torch.executor import lower_block
+    block = main.global_block()
+    env = {n: scope.find_var(n) for n in persistable_names(main)}
+    words, lod = feed["words"]
+    env["words"] = to_tensor(words, device, "int64")
+    env["label"] = to_tensor(feed["label"], device, "int64")
+    aux = {"device": device, "amp": False, "rng_seed": SEED,
+           "lod": {"words": lod}}
+    with torch.no_grad():
+        lower_block(block, env, aux)
+    hidden = [aux["lod"].get(op.output("Hidden")[0])
+              for op in block.ops if op.type == "lstm"]
+    concat = next(op for op in block.ops if op.type == "concat")
+    return hidden, env[concat.output("Out")[0]]
+
+
+def phase_stacked_lstm():
+    """LSTM-IMDB-H512 trains on the card through ``stacked_lstm_net``,
+    ``Adam.minimize`` and ``Executor.run`` fed ``(words, lod)``:
+    ``LSTM_STEPS`` steps on one seeded batch (loss finite and falling),
+    then ``LSTM_RAGGED_STEPS`` steps each on a fresh batch with new
+    lengths (every loss finite, the scope holding each step's LoD), no
+    hand-written kernel launched (the LSTM and sequence ops are torch
+    ops).  After them one more step through ``lower_block``: each
+    ``lstm``'s ``Hidden`` carries the feed's LoD and the pooled features
+    are ``[B, 2 * hidden]`` on the card.  Printed: the steady step's ms
+    and sequences/s (steps 2 ... of the fixed batch), the rows a step,
+    the peak allocation, and the card-vs-CPU step
+    (``phase_card_vs_cpu_stacked_lstm``)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import stacked_lstm as TS
+
+    cfg = TS.BENCHMARK_LSTM
+    B, L, V, H = (cfg["batch"], cfg["max_len"], cfg["dict_size"],
+                  cfg["hidden_dim"])
+    exe = pt.Executor()
+    if exe.device != torch.device("cuda", 0):
+        raise AssertionError(f"Executor landed on {exe.device}")
+    main, startup, cost = _lstm_program(pt, cfg)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    feed = TS.fake_batch(B, L, V, seed=SEED)
+    rows = int(feed["words"][0].shape[0])
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
+                                         LSTM_STEPS)
+    _no_launches("stacked_lstm")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"stacked_lstm: losses {losses} not finite and "
+                             f"falling")
+    steady = float(np.mean(step_s[1:]))
+    ragged_losses, ragged_s, lods = [], [], set()
+    for i in range(LSTM_RAGGED_STEPS):
+        f = TS.fake_batch(B, L, V, seed=SEED + 1 + i)
+        lods.add(tuple(f["words"][1][0]))
+        t = time.perf_counter()
+        (loss,) = exe.run(main, feed=f, fetch_list=[cost], scope=scope)
+        ragged_s.append(time.perf_counter() - t)
+        ragged_losses.append(float(np.asarray(loss).reshape(())))
+        if scope.find_lod("words") != f["words"][1]:
+            raise AssertionError(f"stacked_lstm: ragged step {i}: the scope "
+                                 f"holds LoD {scope.find_lod('words')}")
+    _no_launches("stacked_lstm ragged steps")
+    if not all(np.isfinite(ragged_losses)) or \
+            len(lods) != LSTM_RAGGED_STEPS:
+        raise AssertionError(f"stacked_lstm: ragged losses {ragged_losses} "
+                             f"over {len(lods)} distinct LoDs")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hidden, feat = _lstm_lods(pt, main, scope, feed, exe.device)
+    _no_launches("stacked_lstm lower_block step")
+    if len(hidden) != cfg["n_layers"] or \
+            any(h != feed["words"][1] for h in hidden):
+        raise AssertionError(f"stacked_lstm: lstm Hidden LoDs {hidden}")
+    if tuple(feat.shape) != (B, 2 * H) or feat.device != exe.device:
+        raise AssertionError(f"stacked_lstm: pooled features "
+                             f"{tuple(feat.shape)} on {feat.device}")
+    log(f"stacked_lstm[LSTM-IMDB-H512]: dict {V} emb {cfg['emb_dim']} "
+        f"hidden {H} x {cfg['n_layers']} layers (peepholes) B={B} lengths "
+        f"2..{L} ({rows} rows, T {max(np.diff(feed['words'][1][0]))}): "
+        f"losses {[round(x, 6) for x in losses]}; step ms "
+        f"{[round(1e3 * x, 3) for x in step_s]}; steady {1e3 * steady:.3f} "
+        f"ms = {B / steady:.2f} sequences/s = {rows / steady:.1f} rows/s; "
+        f"state {state_gib:.3f} GiB, peak allocated {peak_gib:.3f} GiB, a "
+        f"step's peak above the state "
+        f"{[round(x / 2 ** 30, 4) for x in peaks]} GiB")
+    log(f"stacked_lstm: {LSTM_RAGGED_STEPS} ragged steps, each a new LoD: "
+        f"losses {[round(x, 6) for x in ragged_losses]}, step ms "
+        f"{[round(1e3 * x, 3) for x in ragged_s]}; every lstm's Hidden "
+        f"carries the feed's LoD, pooled features {tuple(feat.shape)} on "
+        f"{feat.device}")
+    out = dict(step_ms=1e3 * steady, sequences_per_s=B / steady,
+               rows_per_step=rows, peak_gib=peak_gib, state_gib=state_gib,
+               losses=losses, ragged_step_ms=1e3 * float(np.mean(ragged_s)))
+    del main, startup, scope
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = phase_card_vs_cpu_stacked_lstm()
+    _no_launches("stacked_lstm card-vs-cpu")
+    return out
+
+
+def phase_card_vs_cpu_stacked_lstm():
+    """One float32 Adam step of ``stacked_lstm_net`` at ``LSTM_CARD_CPU``
+    (emb and hidden 32, 8 sequences of 2 ... 12 words), from one scope, on
+    the card and on the CPU.  The loss is held to ``CARD_CPU_LOSS_RTOL``,
+    every parameter's moments to ``CARD_CPU_GRAD_RTOL`` (summation order
+    alone: tanh and sigmoid have no kink; a max pool whose two largest
+    rows lie within rounding would move a grad, which this seed's batch
+    has not), every parameter element to what its grad's difference
+    allows (``_adam_first_step_errors``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    from paddle_tpu_torch.models import stacked_lstm as TS
+
+    cfg = dict(TS.BENCHMARK_LSTM, **LSTM_CARD_CPU)
+    main, startup, cost = _lstm_program(pt, cfg)
+    cpu_scope = pt.Scope()
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    card_scope = scope_from_numpy(
+        {n: to_numpy(cpu_scope.find_var(n))
+         for n in persistable_names(main)}, None, main)
+    feed = TS.fake_batch(cfg["batch"], cfg["max_len"], cfg["dict_size"],
+                         seed=SEED + 7)
+    (cpu_loss,) = cpu.run(main, feed=feed, fetch_list=[cost],
+                          scope=cpu_scope)
+    (card_loss,) = pt.Executor().run(main, feed=feed, fetch_list=[cost],
+                                     scope=card_scope)
+    a, b = float(card_loss.reshape(())), float(cpu_loss.reshape(()))
+    block = main.global_block()
+    adam = [op for op in block.ops if op.type == "adam"]
+    if {op.input("Param")[0] for op in adam} != \
+            {p.name for p in block.all_parameters()}:
+        raise AssertionError("card-vs-cpu[stacked_lstm]: a parameter has "
+                             "no adam op")
+    rel, p_ratio = _adam_first_step_errors("stacked_lstm", adam, card_scope,
+                                           cpu_scope, cfg["lr"])
+    worst = max(rel, key=rel.get)
+    worst_p = max(p_ratio, key=p_ratio.get)
+    log(f"card-vs-cpu[stacked_lstm] emb/hidden {cfg['hidden_dim']} "
+        f"B={cfg['batch']} lengths 2..{cfg['max_len']} f32: loss card {a!r} "
+        f"cpu {b!r} (rel {abs(a - b) / abs(b):.2e}, bound "
+        f"{CARD_CPU_LOSS_RTOL}); moments |card - cpu| / |cpu| (the second "
+        f"halved) worst {rel[worst]:.3e} ({worst}, bound "
+        f"{CARD_CPU_GRAD_RTOL}); parameters |dp| / allowed worst "
+        f"{p_ratio[worst_p]:.3e} ({worst_p}, bound 1)")
+    if not abs(a - b) <= CARD_CPU_LOSS_RTOL * abs(b):
+        raise AssertionError(f"card-vs-cpu[stacked_lstm]: loss {a} vs {b}")
+    if rel[worst] > CARD_CPU_GRAD_RTOL:
+        raise AssertionError(f"card-vs-cpu[stacked_lstm]: {worst} differs "
+                             f"by {rel[worst]} relative")
+    if p_ratio[worst_p] > 1.0:
+        raise AssertionError(f"card-vs-cpu[stacked_lstm]: parameter "
+                             f"{worst_p} moved {p_ratio[worst_p]} x what its "
+                             f"grad's difference allows")
+    return dict(loss_rel=abs(a - b) / abs(b), moment_rel=rel[worst],
+                param_ratio=p_ratio[worst_p])
+
+
+def _book_net(pt, name):
+    """``tests/test_book_understand_sentiment.py``'s ``_convolution_net``
+    (``name`` "conv") or ``_stacked_lstm_net`` ("stacked_lstm": 3 layers,
+    ``is_reverse`` on the even ones, no peepholes) in the port, at
+    ``BOOK``'s widths; returns the mean cost."""
+    layers = pt.layers
+    data = layers.data(name="words", shape=[-1, 1], dtype="int64",
+                       append_batch_size=False, lod_level=1)
+    label = layers.data(name="label", shape=[-1, 1], dtype="int64",
+                        append_batch_size=False)
+    emb = layers.embedding(input=data, size=[BOOK["dict_dim"], BOOK["emb"]])
+    hid = BOOK["hid"]
+    if name == "conv":
+        feats = [pt.nets.sequence_conv_pool(
+            input=emb, num_filters=hid, filter_size=k, act="tanh",
+            pool_type="sqrt") for k in (3, 4)]
+    else:
+        fc1 = layers.fc(input=emb, size=hid * 4)
+        lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid * 4,
+                                       use_peepholes=False)
+        inputs = [fc1, lstm1]
+        for i in range(2, 4):
+            fc = layers.fc(input=inputs, size=hid * 4)
+            lstm, _ = layers.dynamic_lstm(input=fc, size=hid * 4,
+                                          is_reverse=(i % 2) == 0,
+                                          use_peepholes=False)
+            inputs = [fc, lstm]
+        feats = [layers.sequence_pool(input=v, pool_type="max")
+                 for v in inputs]
+    prediction = layers.fc(input=feats, size=2, act="softmax")
+    return layers.mean(layers.cross_entropy(input=prediction, label=label))
+
+
+def phase_sequence_nets():
+    """The sentiment book's two nets train ``BOOK_STEPS`` Adam steps each
+    on the card on one seeded batch of fixed-length sequences (as the
+    book clips them): the convolution net (``nets.sequence_conv_pool``:
+    ``sequence_conv`` and the ``sqrt`` pool) and the 3-layer stacked
+    LSTM (``is_reverse`` on even layers, ``fc`` over a list, ``max``
+    pools).  Loss finite and falling, no hand-written kernel launched."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+
+    B, T, V = BOOK["batch"], BOOK["clip_len"], BOOK["dict_dim"]
+    rng = np.random.RandomState(SEED)
+    feed = {"words": (rng.randint(0, V, (B * T, 1)).astype("int64"),
+                      [list(range(0, B * T + 1, T))]),
+            "label": rng.randint(0, 2, (B, 1)).astype("int64")}
+    out = {}
+    for name in ("conv", "stacked_lstm"):
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            cost = _book_net(pt, name)
+            pt.optimizer.Adam(learning_rate=BOOK["lr"]).minimize(cost)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        for kern in ALL_KERNELS:
+            kern.launches = 0
+        losses, step_s, _ = _timed_steps(exe, main, cost, scope, feed,
+                                         BOOK_STEPS)
+        _no_launches(f"sequence_nets[{name}]")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"sequence_nets[{name}]: losses {losses} "
+                                 f"not finite and falling")
+        out[name] = dict(step_ms=1e3 * float(np.mean(step_s[1:])),
+                         losses=losses)
+        log(f"sequence_nets[{name}]: B={B} T={T} dict {V} emb/hid "
+            f"{BOOK['hid']}: losses {[round(x, 6) for x in losses]}; "
+            f"steady step {out[name]['step_ms']:.3f} ms")
+        del main, startup, scope
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2566,6 +2883,8 @@ def main():
     checks = {route: phase_card_vs_cpu(route) for route in ROUTES}
     resnet_check = phase_card_vs_cpu_resnet50()
     wide_deep = phase_wide_deep()
+    stacked_lstm = phase_stacked_lstm()
+    sequence_nets = phase_sequence_nets()
     optimizers = phase_optimizers()
 
     kernels = []
@@ -2619,6 +2938,15 @@ def main():
         f"{wide_deep['ids']} ids; card-vs-cpu " + " ".join(
             f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
             for k, v in wide_deep["card_vs_cpu"].items()))
+    log(f"stacked_lstm[LSTM-IMDB-H512]: step_ms="
+        f"{stacked_lstm['step_ms']:.3f} sequences_per_s="
+        f"{stacked_lstm['sequences_per_s']:.2f} rows_per_step="
+        f"{stacked_lstm['rows_per_step']} peak_gib="
+        f"{stacked_lstm['peak_gib']:.3f} ragged_step_ms="
+        f"{stacked_lstm['ragged_step_ms']:.3f}; card-vs-cpu " + " ".join(
+            f"{k}={v:.3e}" for k, v in stacked_lstm["card_vs_cpu"].items()))
+    log("sequence_nets: " + " ".join(
+        f"{n}_step_ms={v['step_ms']:.3f}" for n, v in sequence_nets.items()))
     log(f"optimizers: max abs diff card vs cpu "
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log("bshd attention (forward + backward): " + " ".join(

@@ -16,6 +16,15 @@ Mixed precision: when ``Program.amp`` is set (or, if it is None, the
 op's ``amp_cast`` slots are cast to bfloat16 and those read through its
 ``amp_upcast`` slots to float32; parameters stay float32 in the scope.
 
+Ragged feeds: ``run`` takes a ``(value, lod)`` pair for a LoD variable
+and keeps the LoD in the scope (``Scope.set_lod``); a dense feed clears
+a stale one.  Each run seeds ``aux["lod"]`` with the feeds' LoDs, and
+after every op an output whose leading dim equals the first LoD-carrying
+input's row count inherits that LoD unless the op set one
+(:func:`_share_lod`).  The JAX package's bucketed mode
+(``program.lod_buckets`` / ``PADDLE_TPU_LOD_BUCKETS``, per-step LoD
+windows in ``run_steps``) is not ported and raises.
+
 Randomness: random init ops draw from one host generator per run, seeded
 from the program's ``random_seed``, so the same program initializes the
 same values on every device.  Random ops of a step (``dropout``) draw
@@ -33,6 +42,7 @@ import torch
 from paddle_tpu_torch import framework
 from paddle_tpu_torch.convert import to_numpy, to_tensor
 from paddle_tpu_torch.framework import Program, default_main_program
+from paddle_tpu_torch.lod import validate_lod
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.place import default_place
 from paddle_tpu_torch.scope import global_scope
@@ -53,7 +63,50 @@ def lower_block(block, env, aux):
         ctx = registry.LowerContext(op, env, block, aux=aux, op_index=i)
         opdef.lower(ctx)
         env.update(ctx.outputs)
+        _share_lod(op, ctx.outputs, env, aux)
     return env
+
+
+def _share_lod(op, outputs, env, aux):
+    """Default LoD propagation (reference: kernels call ``ShareLoD(X,
+    Out)`` unless they change the row structure): an output whose leading
+    dim equals the first LoD-carrying input's row count inherits that
+    input's LoD, unless the lowering set one.  By row count alone, as the
+    JAX package decides it: a dense output with N rows is labelled too."""
+    lod_map = aux.get("lod")
+    if not lod_map or not outputs:
+        return
+    src = rows = None
+    for n in op.input_arg_names:
+        v = env.get(n) if n in lod_map and n in env else None
+        if v is not None and getattr(v, "ndim", 0) > 0:
+            src, rows = lod_map[n], v.shape[0]
+            break
+    if src is None:
+        return
+    for n, v in outputs.items():
+        if n not in lod_map and getattr(v, "ndim", 0) > 0 and \
+                v.shape[0] == rows:
+            lod_map[n] = src
+
+
+#: ROADMAP's item for the bucketed LoD mode
+_BUCKETS_ITEM = ("the bucketed LoD mode (DynLoD, bucket_ragged_feed, "
+                 "run_steps LoD windows) is not ported yet: ROADMAP queue 1 "
+                 "item 5, 'Bucketed LoD'")
+
+
+def _lod_buckets_enabled(program):
+    """The JAX package's switch for its bucketed LoD mode: the program's
+    ``lod_buckets``, else ``PADDLE_TPU_LOD_BUCKETS``."""
+    if getattr(program, "lod_buckets", None) is not None:
+        return bool(program.lod_buckets)
+    return _env_flag("PADDLE_TPU_LOD_BUCKETS")
+
+
+def _is_lod_pair(value):
+    return isinstance(value, tuple) and len(value) == 2 and \
+        isinstance(value[1], (list, tuple))
 
 
 def _env_flag(name, default="0"):
@@ -105,18 +158,32 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         """Run ``program``'s global block once.  ``feed``: name -> array
-        or tensor; ``fetch_list``: Variables or names.  Returns the
-        fetched values as numpy arrays (``return_numpy``) or tensors on
-        the place's device."""
+        or tensor, or ``(value, lod)`` for a ragged variable (``lod``: a
+        list of levels of row splits, the last ending at the value's row
+        count); ``fetch_list``: Variables or names.  Returns the fetched
+        values as numpy arrays (``return_numpy``) or tensors on the
+        place's device."""
         program, scope, fetch_names = self._prepare(program, scope,
                                                     fetch_list)
         block = program.global_block()
         feeds = {}
         for name, value in (feed or {}).items():
             var = block.vars.get(name)
+            lod = None
+            if _is_lod_pair(value):
+                value, lod = value
             _enforce_feed(name, value, var)
+            if lod is not None:
+                if len(lod) == 1 and _lod_buckets_enabled(program):
+                    raise NotImplementedError(
+                        f"feed {name!r}: {_BUCKETS_ITEM}")
+                rows = value.shape[0] if hasattr(value, "shape") \
+                    else np.shape(value)[0]
+                lod = validate_lod(name, lod, rows)
             feeds[name] = to_tensor(value, self.device,
                                     getattr(var, "dtype", None))
+            # a dense feed clears a stale LoD of an earlier ragged one
+            scope.set_lod(name, lod)
         fetches = self._step(program, scope, feeds, fetch_names)
         if return_numpy:
             return [to_numpy(v) for v in fetches]
@@ -136,6 +203,12 @@ class Executor:
         steps = int(steps)
         const_feed, per_step = {}, {}
         for name, value in (feed or {}).items():
+            if _is_lod_pair(value) or (isinstance(value, list) and value and
+                                       all(map(_is_lod_pair, value))):
+                raise NotImplementedError(
+                    f"run_steps feed {name!r} is ragged: {_BUCKETS_ITEM}; "
+                    f"run it step by step with Executor.run")
+            scope.set_lod(name, None)
             var = block.vars.get(name)
             t = to_tensor(value, self.device, getattr(var, "dtype", None))
             want = tuple(var.shape) if var is not None and \
@@ -183,7 +256,12 @@ class Executor:
                # per-op device generators of the step's random ops
                "rng_seed": seed * 1000003 + self._run_counter,
                "amp": _amp_enabled(program),
-               "scope": scope}
+               "scope": scope,
+               # the feeds' LoDs; ops add theirs (set_output_lod) and
+               # _share_lod passes them on
+               "lod": {n: [list(level) for level in lod]
+                       for n in feeds
+                       for lod in (scope.find_lod(n),) if lod is not None}}
         with torch.no_grad():
             lower_block(block, env, aux)
 

@@ -1,10 +1,12 @@
 """Model programs of the port: the generative LM (:mod:`gen_lm`,
 :mod:`gen_lm_long`), the Transformer (:mod:`transformer`), the conv
-zoo (:mod:`resnet`, :mod:`vgg`, :mod:`mnist`) and the Wide & Deep CTR
-model (:mod:`wide_and_deep`)."""
+zoo (:mod:`resnet`, :mod:`vgg`, :mod:`mnist`), the Wide & Deep CTR
+model (:mod:`wide_and_deep`) and the stacked dynamic-LSTM sentiment
+classifier (:mod:`stacked_lstm`)."""
 
 from paddle_tpu_torch.models import (gen_lm, gen_lm_long, mnist, resnet,
-                                     transformer, vgg, wide_and_deep)
+                                     stacked_lstm, transformer, vgg,
+                                     wide_and_deep)
 
-__all__ = ["gen_lm", "gen_lm_long", "mnist", "resnet", "transformer", "vgg",
-           "wide_and_deep"]
+__all__ = ["gen_lm", "gen_lm_long", "mnist", "resnet", "stacked_lstm",
+           "transformer", "vgg", "wide_and_deep"]

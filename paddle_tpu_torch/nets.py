@@ -1,9 +1,8 @@
 """Composite networks (the port of ``paddle_tpu.nets``; reference
 ``python/paddle/fluid/nets.py``: ``simple_img_conv_pool``,
 ``img_conv_group``, ``sequence_conv_pool``, ``glu``,
-``scaled_dot_product_attention``).  All five build the JAX package's IR;
-all but ``sequence_conv_pool`` also run (it needs ``layers.sequence``,
-which is not ported)."""
+``scaled_dot_product_attention``).  All five build the JAX package's IR
+and run."""
 
 from __future__ import annotations
 
@@ -62,17 +61,10 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max"):
-    try:
-        from paddle_tpu_torch.layers import sequence as seq_layers
-    except ImportError:
-        raise NotImplementedError(
-            "sequence_conv_pool needs paddle_tpu_torch/layers/sequence.py "
-            "(sequence_conv, sequence_pool), which is not ported yet") \
-            from None
-    conv_out = seq_layers.sequence_conv(input=input, num_filters=num_filters,
-                                        filter_size=filter_size,
-                                        param_attr=param_attr, act=act)
-    return seq_layers.sequence_pool(input=conv_out, pool_type=pool_type)
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

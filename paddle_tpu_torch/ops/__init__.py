@@ -17,4 +17,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     metric_ops,
     optimizer_ops,
     sparse_ops,
+    rnn_ops,
+    sequence_ops,
 )

@@ -71,8 +71,8 @@ class OpDef:
         self.no_grad_inputs = frozenset(no_grad_inputs)  # slot names
         self.stop_gradient_outputs = frozenset(stop_gradient_outputs)
         self.uses_rng = uses_rng
-        # runs on the host (readers, printing): no port op does yet; the
-        # flag is kept for ``analysis.opmeta``
+        # reads its inputs' values on the host (the sequence ops whose
+        # output rows depend on the data): ``analysis.opmeta`` reads it
         self.host = host
         # outputs that alias an input across steps (ParamOut of the
         # optimizer ops): the structural verifier accepts them as in-place
@@ -84,7 +84,7 @@ class OpDef:
 def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                 no_grad_inputs=(), stop_gradient_outputs=(), uses_rng=False,
                 no_gradient=False, stateful_outputs=(), amp_cast=(),
-                amp_upcast=(), selected_rows_inputs=()):
+                amp_upcast=(), selected_rows_inputs=(), host=False):
     """Decorator: register ``fn(ctx)`` as the lowering for op ``type``."""
 
     def deco(fn):
@@ -94,7 +94,7 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                       stop_gradient_outputs=stop_gradient_outputs,
                       uses_rng=uses_rng, stateful_outputs=stateful_outputs,
                       amp_cast=amp_cast, amp_upcast=amp_upcast,
-                      selected_rows_inputs=selected_rows_inputs)
+                      host=host, selected_rows_inputs=selected_rows_inputs)
         opdef.has_grad = not no_gradient
         _REGISTRY[type] = opdef
         return fn
@@ -161,8 +161,10 @@ class LowerContext:
     ``env`` maps variable name -> torch tensor.  ``aux`` carries
     executor-level services: ``device`` (the run's ``torch.device``),
     ``generator`` (the run's host ``torch.Generator`` for random init
-    ops), ``amp`` (mixed precision on) and ``rng_seed`` (the run's seed
-    for the per-op device generators of :meth:`generator`).
+    ops), ``amp`` (mixed precision on), ``rng_seed`` (the run's seed
+    for the per-op device generators of :meth:`generator`) and ``lod``
+    (variable name -> LoD, the ragged row splits as host lists: the feeds'
+    and what the ops so far set or shared).
     ``op_index`` is the op's position in its block.
     """
 
@@ -220,6 +222,21 @@ class LowerContext:
     def set_outputs(self, slot, values):
         for n, v in zip(self.op.output(slot), values):
             self.outputs[n] = v
+
+    # -- LoD (ragged row splits, host metadata of the run) ------------------
+    def input_lod(self, slot):
+        names = self.op.input(slot)
+        if not names:
+            return None
+        return self.aux.get("lod", {}).get(names[0])
+
+    def var_lod(self, name):
+        return self.aux.get("lod", {}).get(name)
+
+    def set_output_lod(self, slot, lod):
+        names = self.op.output(slot)
+        if names:
+            self.aux.setdefault("lod", {})[names[0]] = lod
 
     # -- rng ---------------------------------------------------------------
     def generator(self):
@@ -348,9 +365,12 @@ def auto_vjp_grad_lower(fwd_type):
         fop = Operator(ctx.block, fwd_type, {}, {}, dict(op.attrs))
         fop.inputs = {s: list(op.inputs[s]) for s in fwd_in_slots}
         fop.outputs = {s: list(op.inputs.get(s, [])) for s in fwd_out_slots}
-        # only outputs the forward actually produced take part in the vjp
+        # only outputs the forward actually produced take part in the vjp,
+        # and of those only the differentiable ones (an integer output,
+        # such as sequence_pool's MaxIndex, has no cotangent)
         out_names = [n for slot in fwd_out_slots
-                     for n in fop.outputs[slot] if n in ctx.env]
+                     for n in fop.outputs[slot]
+                     if n in ctx.env and not _is_integer(ctx.env[n])]
 
         def fwd_fn(*primals):
             # the primals over the backward-time env, without copying it
@@ -387,6 +407,11 @@ def auto_vjp_grad_lower(fwd_type):
                     ctx.outputs[gname] = g
 
     return lower
+
+
+def _is_integer(value):
+    return isinstance(value, torch.Tensor) and not (
+        value.is_floating_point() or value.is_complex())
 
 
 def _match_cotangent_dtype(cot, out_val):

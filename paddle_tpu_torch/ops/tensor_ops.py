@@ -152,8 +152,13 @@ def _infer_reshape(op, block):
 @register_op("reshape", infer_shape=_infer_reshape)
 def reshape_lower(ctx):
     x = ctx.input("X")
-    ctx.set_output("Out", x.reshape(_resolve_reshape(ctx.attr("shape"),
-                                                     tuple(x.shape))))
+    out = x.reshape(_resolve_reshape(ctx.attr("shape"), tuple(x.shape)))
+    ctx.set_output("Out", out)
+    # rows kept => the ragged metadata survives (the reference keeps LoD
+    # through reshape when dim 0 is untouched)
+    lod = ctx.input_lod("X")
+    if lod is not None and out.ndim >= 1 and out.shape[0] == x.shape[0]:
+        ctx.set_output_lod("Out", lod)
 
 
 def _infer_transpose(op, block):

@@ -3,7 +3,9 @@
 Values are torch tensors on the executing place's device (host numpy
 arrays are accepted and moved by the Executor).  Only block boundaries
 touch the scope: feeds, fetches and persistable state; intermediates
-live in the Executor's per-run environment.
+live in the Executor's per-run environment.  A ragged feed's LoD (row
+splits, host metadata) is kept beside its value (``set_lod`` /
+``find_lod``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import contextlib
 class Scope:
     def __init__(self, parent=None):
         self._vars = {}
+        self._lod = {}
         self.parent = parent
         self.kids = []
 
@@ -54,12 +57,35 @@ class Scope:
     def erase(self, names):
         for n in names:
             self._vars.pop(n, None)
+            self._lod.pop(n, None)
 
     def local_var_names(self):
         return list(self._vars)
 
     def items(self):
         return list(self._vars.items())
+
+    # -- LoD metadata ------------------------------------------------------
+    def set_lod(self, name, lod):
+        """Store ``name``'s LoD here; ``None`` clears it here and in every
+        parent scope (a dense feed drops a stale ragged one)."""
+        if lod is None:
+            s = self
+            while s is not None:
+                s._lod.pop(name, None)
+                s = s.parent
+        else:
+            self._lod[name] = lod
+
+    def find_lod(self, name):
+        """``name``'s LoD from this scope or the nearest parent, else
+        None."""
+        s = self
+        while s is not None:
+            if name in s._lod:
+                return s._lod[name]
+            s = s.parent
+        return None
 
 
 _global_scope = Scope()

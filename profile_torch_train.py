@@ -5,6 +5,7 @@
                                    [--steps N]
     python3 profile_torch_train.py --model resnet [--batch 256] [--steps N]
     python3 profile_torch_train.py --model wide_deep [--steps N]
+    python3 profile_torch_train.py --model stacked_lstm [--steps N]
 
 Builds the port's kernels and then, for the Transformer-base step, each
 route of ``chip_smoke.py``'s training phase (A: composed attention,
@@ -15,13 +16,17 @@ dropout 0.1) or, with ``--model resnet``, the ResNet-50 step of
 Momentum(0.01, 0.9)) or, with ``--model wide_deep``, the Wide & Deep
 step of ``chip_smoke.py`` (W&D-Criteo: 26 sparse slots into one table
 of 2**23 rows with sparse grads, embeddings of 32, ReLU layers of 1024,
-B = 4096, float32, Adam lr 1e-3); runs two warm-up steps and then
+B = 4096, float32, Adam lr 1e-3) or, with ``--model stacked_lstm``, the
+stacked dynamic LSTM of ``chip_smoke.py`` (LSTM-IMDB-H512: dictionary
+30000, embeddings and 2 peephole LSTM layers of 512, 64 sequences of
+2 … 100 words fed as ``(words, lod)``, float32, Adam lr 1e-3); runs two
+warm-up steps and then
 
 * ``--steps`` steps timed on the host clock (each ends in the loss's
   device-to-host copy): ms a step and target tokens/s (images/s for
   ResNet-50, with its MFU: 3 x the conv and fc FLOPs of one forward from
   the IR, over the 989 TFLOP/s bf16 dense peak, ``bench_resnet.py``'s
-  convention; examples/s for Wide & Deep);
+  convention; examples/s for Wide & Deep, sequences/s for the LSTM);
 * one step with a CUDA synchronize around every op, timed on the host
   clock, grouped by op type and by phase (forward, backward, optimizer).
   Synchronizing serializes host and device, so these times add up to
@@ -100,6 +105,20 @@ def build_wide_deep(pt):
                                                    **W.CRITEO)
         pt.optimizer.Adam(learning_rate=1e-3).minimize(cost)
     return main, startup, cost, W.fake_batch(W.CRITEO_BATCH, SEED)
+
+
+def build_stacked_lstm(pt):
+    from paddle_tpu_torch.models import stacked_lstm as TS
+    cfg = TS.BENCHMARK_LSTM
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        cost, _, _ = TS.stacked_lstm_net(
+            cfg["dict_size"], cfg["emb_dim"], cfg["hidden_dim"],
+            cfg["n_layers"], cfg["class_num"])
+        pt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(cost)
+    return main, startup, cost, TS.fake_batch(cfg["batch"], cfg["max_len"],
+                                              cfg["dict_size"], seed=SEED)
 
 
 def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
@@ -210,6 +229,17 @@ def profile_wide_deep(steps, pt, registry, torch):
     return out
 
 
+def profile_stacked_lstm(steps, pt, registry, torch):
+    main, startup, cost, feed = build_stacked_lstm(pt)
+    B = feed["label"].shape[0]
+    rows = feed["words"][0].shape[0]
+    out = profile_step(f"stacked_lstm: B={B} rows={rows}", main, startup,
+                       cost, feed, steps, B, "sequences", pt, registry,
+                       torch)
+    out.update(B=B, rows=int(rows))
+    return out
+
+
 def profile_step(label, main, startup, cost, feed, steps, units, unit,
                  pt, registry, torch):
     """Warm-up, timed steps, a synchronized per-op step and a profiled
@@ -305,7 +335,8 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="transformer",
-                    choices=("transformer", "resnet", "wide_deep"))
+                    choices=("transformer", "resnet", "wide_deep",
+                             "stacked_lstm"))
     ap.add_argument("--routes", nargs="+", default=sorted(ROUTES),
                     choices=sorted(ROUTES))
     ap.add_argument("--batch", type=int, default=256,
@@ -339,6 +370,9 @@ def main():
     elif args.model == "wide_deep":
         summary["wide_deep"] = profile_wide_deep(args.steps, pt, registry,
                                                  torch)
+    elif args.model == "stacked_lstm":
+        summary["stacked_lstm"] = profile_stacked_lstm(args.steps, pt,
+                                                       registry, torch)
     else:
         for route in args.routes:
             summary[route] = profile_route(route, args.steps, pt, registry,

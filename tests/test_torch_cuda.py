@@ -1285,3 +1285,82 @@ def test_wide_and_deep_step_on_card(cuda_card):
         np.testing.assert_allclose(to_numpy(card_scope.find_var(n)),
                                    to_numpy(cpu_scope.find_var(n)),
                                    rtol=TOL, atol=TOL, err_msg=n)
+
+
+def _lstm_grad_program(peepholes, reverse):
+    """``dynamic_lstm`` over a ragged x, ``loss = sum(h * w)``, and its
+    backward: the fetches are h and the grads of x and both
+    parameters."""
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 4
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[-1, 64], append_batch_size=False,
+                           lod_level=1, stop_gradient=False)
+        w = pt.layers.data("w", shape=[-1, 16], append_batch_size=False)
+        h, _ = pt.layers.dynamic_lstm(x, 64, use_peepholes=peepholes,
+                                      is_reverse=reverse)
+        loss = pt.layers.reduce_sum(pt.layers.elementwise_mul(h, w))
+        pt.append_backward(loss)
+    params = [p.name for p in main.global_block().all_parameters()]
+    return main, startup, [h.name, "x@GRAD"] + [p + "@GRAD"
+                                                for p in params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peepholes,reverse", [(True, False), (False, True)])
+def test_lstm_and_its_grad_on_card_match_cpu(cuda_card, peepholes, reverse):
+    """An ``lstm`` op and its auto-vjp grad (the recompute under
+    ``torch.func.vjp``) on the card equal the CPU's on the same ragged
+    batch (an empty sequence among them), from one scope."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    main, startup, fetch = _lstm_grad_program(peepholes, reverse)
+    cpu, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    card_scope = scope_from_numpy(
+        {n: to_numpy(cpu_scope.find_var(n))
+         for n in persistable_names(main)}, None, main)
+    rng = np.random.RandomState(7)
+    lod = [[0, 9, 9, 12, 30]]
+    feed = {"x": (rng.randn(30, 64).astype("float32") * 0.5, lod),
+            "w": rng.randn(30, 16).astype("float32")}
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    got = pt.Executor().run(main, feed=feed, fetch_list=fetch,
+                            scope=card_scope)
+    for name, g, w in zip(fetch, got, want):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_max_pool_of_an_empty_sequence_on_card(cuda_card):
+    """A zero-length sequence through MAX pooling on the card: -inf, a
+    MaxIndex of ``iinfo(int32).max`` and no grad, as on the CPU (no
+    out-of-range index reaches the device)."""
+    import paddle_tpu_torch as pt
+    results = []
+    for place in (pt.CPUPlace(), None):
+        main = pt.Program()
+        with pt.program_guard(main, pt.Program()):
+            x = pt.layers.data("x", shape=[-1, 3], append_batch_size=False,
+                               lod_level=1, stop_gradient=False)
+            out = pt.layers.sequence_pool(x, "max")
+            last = pt.layers.sequence_last_step(x)
+            first = pt.layers.sequence_first_step(x)
+            loss = pt.layers.reduce_sum(pt.layers.elementwise_add(
+                pt.layers.elementwise_add(last, first),
+                pt.layers.scale(out, 0.0)))
+            pt.append_backward(loss)
+        max_index = next(op for op in main.global_block().ops
+                         if op.type == "sequence_pool").output("MaxIndex")[0]
+        x = np.random.RandomState(3).randn(7, 3).astype("float32")
+        results.append(pt.Executor(place).run(
+            main, feed={"x": (x, [[0, 0, 3, 7, 7]])},
+            fetch_list=[out, max_index, last, first, "x@GRAD"],
+            scope=pt.Scope()))
+    want, got = results
+    assert np.all(got[0][[0, 3]] == -np.inf)
+    assert np.all(got[1][[0, 3]] == 2 ** 31 - 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

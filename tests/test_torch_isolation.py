@@ -47,7 +47,9 @@ def test_every_port_module_imports_with_jax_blocked():
                 "kernels.conv3x3", "ops.metric_ops", "models.resnet",
                 "models.vgg", "models.mnist", "analysis.flops",
                 "kernels.bshd_attention", "selected_rows", "ops.sparse_ops",
-                "embedding", "embedding.tables", "models.wide_and_deep"):
+                "embedding", "embedding.tables", "models.wide_and_deep",
+                "lod", "ops.rnn_ops", "ops.sequence_ops", "layers.sequence",
+                "models.stacked_lstm"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

@@ -7,7 +7,8 @@ inputs, with the IR traps of the gen LM as cases:
 ``elementwise_*``'s ``axis`` broadcast, ``mul``'s flattening,
 ``matmul``'s ``transpose_Y`` / ``alpha`` / batched broadcast,
 ``scale``'s ``bias_after_scale`` and ``layer_norm``'s
-``begin_norm_axis`` / ``epsilon``.
+``begin_norm_axis`` / ``epsilon``; and every activation at its kinks,
+where JAX's grads and torch's defaults differ.
 
 Tolerance: float32 ``atol = rtol = 1e-5`` (torch and XLA sum in
 different orders); integer and data-movement outputs are exact."""
@@ -84,6 +85,69 @@ def _edge_cases():
             cases.append((f"reduce_{name}_empty_dim"
                           + ("_keep" if keep else ""), f"reduce_{name}",
                           {"X": _f(r, 3, 4)}, ["Out"], _empty_dim(keep)))
+    return cases
+
+
+#: each activation's kinks with values on both sides: the grads there
+#: follow JAX (``abs`` slope +1 at 0, a clip bound splits the cotangent
+#: in half, a ``where`` gives it to the branch it picked)
+_KINKS = {
+    "abs": ([-1.5, -0.0, 0.0, 0.25], {}),
+    "relu6": ([-1.0, 0.0, 3.0, 6.0, 7.0], {"threshold": 6.0}),
+    "brelu": ([-2.0, -1.0, 0.5, 2.0, 3.0], {"t_min": -1.0, "t_max": 2.0}),
+    "hard_shrink": ([-0.6, -0.5, 0.0, 0.5, 0.7], {"threshold": 0.5}),
+    "softshrink": ([-0.6, -0.5, 0.0, 0.5, 0.7], {"lambda": 0.5}),
+    "thresholded_relu": ([0.0, 0.5, 1.0, 1.5], {"threshold": 1.0}),
+    # a slope of 1/4 puts the kinks at +-2 exactly (with 0.2 the kink's
+    # value depends on whether the product and sum are fused)
+    "hard_sigmoid": ([-3.0, -2.0, 0.0, 2.0, 3.0],
+                     {"slope": 0.25, "offset": 0.5}),
+    "leaky_relu": ([-1.0, -0.0, 0.0, 1.0], {"alpha": 0.1}),
+    "elu": ([-1.0, 0.0, 1.0], {"alpha": 0.7}),
+    "soft_relu": ([-41.0, -40.0, 0.0, 40.0, 41.0], {"threshold": 40.0}),
+    "softsign": ([-2.0, 0.0, 3.0], {}),
+    "round": ([-1.5, -0.5, 0.5, 1.5, 2.4], {}),
+}
+
+
+def _activation_cases():
+    """The activations: seeded values with each op's kinks appended
+    (``_KINKS``); ``prelu`` in its three modes and ``maxout`` with tied
+    groups (its max splits the grad among them, as ``jnp.max``)."""
+    r = np.random.RandomState(23)
+    plain = {"logsigmoid": {}, "tanh": {}, "tanh_shrink": {},
+             "reciprocal": {}, "log": {}, "square": {}, "softplus": {},
+             "sin": {}, "cos": {}, "stanh": {"scale_a": 0.5,
+                                             "scale_b": 1.5},
+             "swish": {"beta": 1.5}}
+    cases = []
+    for name, attrs in plain.items():
+        x = _f(r, 3, 5)
+        if name in ("reciprocal", "log"):
+            x = np.abs(x) + 0.25
+        cases.append((name, name, {"X": x}, ["Out"], attrs))
+    for name, (kinks, attrs) in _KINKS.items():
+        x = np.concatenate([_f(r, 6) * 2, np.array(kinks, np.float32)])
+        cases.append((f"{name}_kinks", name, {"X": x}, ["Out"], attrs))
+    x = np.concatenate([_f(r, 6), np.array([-1.0, 0.0, 1.0], np.float32)])
+    cases += [
+        ("gelu_tanh", "gelu", {"X": x}, ["Out"], {"approximate": True}),
+        ("gelu_erf", "gelu", {"X": x}, ["Out"], {"approximate": False}),
+        ("prelu_all_kinks", "prelu",
+         {"X": np.array([[-1.0, 0.0, 2.0], [-0.0, -3.0, 0.5]], np.float32),
+          "Alpha": np.array([0.25], np.float32)}, ["Out"], {"mode": "all"}),
+        ("prelu_channel", "prelu",
+         {"X": _f(r, 2, 3, 2, 2), "Alpha": _f(r, 3) * 0.1}, ["Out"],
+         {"mode": "channel"}),
+        ("prelu_element", "prelu",
+         {"X": _f(r, 2, 3, 2), "Alpha": _f(r, 3, 2) * 0.1}, ["Out"],
+         {"mode": "element"}),
+        ("maxout_ties", "maxout",
+         {"X": np.repeat(_f(r, 2, 3, 2, 2), 2, axis=1)}, ["Out"],
+         {"groups": 2}),
+        ("maxout", "maxout", {"X": _f(r, 2, 6, 3, 3)}, ["Out"],
+         {"groups": 3}),
+    ]
     return cases
 
 
@@ -202,6 +266,7 @@ def _cases():
          ["Out", "KCacheOut", "VCacheOut"],
          {"n_head": 2, "scale": 8.0 ** -0.5}),
         *_edge_cases(),
+        *_activation_cases(),
     ]
 
 
@@ -432,6 +497,7 @@ def _grad_cases():
          ["Out"], _empty_dim(False)),
         ("reduce_mean_empty_dim_keep", "reduce_mean", {"X": _f(r, 3, 4)},
          ["Out"], _empty_dim(True)),
+        *_activation_cases(),
     ]
 
 

@@ -420,8 +420,17 @@ def test_nets_validation_and_helpers_that_wait():
             pt.nets.scaled_dot_product_attention(q, k, k)
         with pytest.raises(ValueError, match="divisible"):
             pt.nets.scaled_dot_product_attention(q, q, q, num_heads=5)
-        with pytest.raises(NotImplementedError, match="sequence.py"):
-            pt.nets.sequence_conv_pool(q, 4, 3)
+    # sequence_conv_pool no longer waits for layers.sequence: it builds
+    # the reference's IR (tests/test_torch_stacked_lstm.py trains it)
+    progs = []
+    for pkg, names in PKGS:
+        main, startup = pkg.Program(), pkg.Program()
+        with names("sc_"), pkg.program_guard(main, startup):
+            x = pkg.layers.data(name="x", shape=[-1, 16], dtype="float32",
+                                append_batch_size=False, lod_level=1)
+            pkg.nets.sequence_conv_pool(x, 4, 3)
+        progs.append((_strip(main.to_dict()), _strip(startup.to_dict())))
+    assert progs[0] == progs[1]
 
 
 def test_nets_conv_helpers_build_reference_ir():
