@@ -25,6 +25,14 @@ input's row count inherits that LoD unless the op set one
 (``program.lod_buckets`` / ``PADDLE_TPU_LOD_BUCKETS``, per-step LoD
 windows in ``run_steps``) is not ported and raises.
 
+Control flow: ``aux["lower_block"]`` is :func:`lower_block`, which the
+lowerings of ``while``, ``conditional_block`` and ``recurrent`` run
+their sub-blocks through, over the run's own ``aux`` (its LoD map and
+index tables).  After each run ``Executor.last_run`` holds the run's
+``while`` trips and host reads (``aux["while_trips"]``,
+``aux["host_reads"]``: the loop conditions and array indices read on
+the host, each a device sync on the card).
+
 Randomness: random init ops draw from one host generator per run, seeded
 from the program's ``random_seed``, so the same program initializes the
 same values on every device.  Random ops of a step (``dropout``) draw
@@ -154,6 +162,8 @@ class Executor:
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
         self._run_counter = 0
+        #: ``{"while_trips": n, "host_reads": n}`` of the last run
+        self.last_run = {}
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -257,6 +267,7 @@ class Executor:
                "rng_seed": seed * 1000003 + self._run_counter,
                "amp": _amp_enabled(program),
                "scope": scope,
+               "lower_block": lower_block,
                # the feeds' LoDs; ops add theirs (set_output_lod) and
                # _share_lod passes them on
                "lod": {n: [list(level) for level in lod]
@@ -264,6 +275,8 @@ class Executor:
                        for lod in (scope.find_lod(n),) if lod is not None}}
         with torch.no_grad():
             lower_block(block, env, aux)
+        self.last_run = {k: aux.get(k, 0)
+                         for k in ("while_trips", "host_reads")}
 
         # persistable variables the block wrote go back to the scope
         for op in block.ops:

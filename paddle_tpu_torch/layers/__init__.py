@@ -6,6 +6,8 @@ from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.ops import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.control_flow import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import control_flow  # noqa: F401
 from paddle_tpu_torch.layers.sequence import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import sequence  # noqa: F401
 from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401

@@ -19,4 +19,7 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     sparse_ops,
     rnn_ops,
     sequence_ops,
+    control_flow_ops,
+    io_ops,
+    beam_search_ops,
 )

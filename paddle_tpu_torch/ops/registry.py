@@ -14,6 +14,19 @@ the forward lowering, re-run eagerly on the backward-time values (the
 JAX package leaves that recompute to XLA's CSE; here it is paid).  Ops
 with randomness, integer semantics, saved residuals or a hand-written
 backward kernel register an explicit grad lowering instead.
+
+Control flow: an op with a ``sub_block`` attr runs its body through
+``aux["lower_block"]``.  A ``while`` overwrites its loop carries in the
+env, so it leaves its pre-loop values in ``aux["env_snapshots"]`` (keyed
+by ``id(sub_block)``, as the JAX package keys them) and its grad re-runs
+the loop from there.  Tensor arrays (``control_flow_ops.TensorArray``)
+are pytrees: they cross ``torch.func.vjp`` as primals, outputs and
+cotangents, and a cotangent array is matched to its output step by step
+(a step it lacks is zero).
+
+Host reads: a loop condition or an array index is read on the host
+with :func:`host_scalar`, one device sync each on the card, counted in
+``aux["host_reads"]``.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ __all__ = [
     "resolve_lowering", "LowerContext", "run_lowering",
     "ShapeInferenceSkip", "infer_shape_unary", "infer_shape_elementwise",
     "default_grad_maker", "auto_vjp_grad_lower", "GRAD_SUFFIX",
+    "host_scalar",
 ]
 
 GRAD_SUFFIX = "@GRAD"
@@ -152,6 +166,20 @@ def infer_shape_elementwise(op, block):
 
 
 # ---------------------------------------------------------------------------
+# host reads of the run (loop conditions, array indices)
+# ---------------------------------------------------------------------------
+
+def host_scalar(aux, tensor):
+    """The value of a one-element tensor on the host: a device sync on
+    the card, counted in ``aux["host_reads"]``."""
+    if tensor.numel() != 1:
+        raise ValueError(f"expected a one-element tensor, got shape "
+                         f"{tuple(tensor.shape)}")
+    aux["host_reads"] = aux.get("host_reads", 0) + 1
+    return tensor.reshape(()).item()
+
+
+# ---------------------------------------------------------------------------
 # Lowering context
 # ---------------------------------------------------------------------------
 
@@ -237,6 +265,12 @@ class LowerContext:
         names = self.op.output(slot)
         if names:
             self.aux.setdefault("lod", {})[names[0]] = lod
+
+    # -- host reads --------------------------------------------------------
+    def host_scalar(self, slot):
+        """The (first) ``slot`` input's value on the host
+        (:func:`host_scalar`)."""
+        return host_scalar(self.aux, self.input(slot))
 
     # -- rng ---------------------------------------------------------------
     def generator(self):
@@ -327,7 +361,10 @@ def auto_vjp_grad_lower(fwd_type):
     lowerings that consult the env by name keep working.  The
     executor runs under ``torch.no_grad()``; ``torch.func.vjp`` ignores
     that outer mode, so the recompute is differentiated all the same.
-    Missing output grads get zero cotangents.
+    Missing output grads get zero cotangents.  An op that carries a
+    ``sub_block`` re-runs from the values its forward left in
+    ``aux["env_snapshots"]`` (a ``while``'s pre-loop carries), over the
+    backward-time env for every other name.
     """
     fwd_def = _REGISTRY[fwd_type]
 
@@ -353,13 +390,20 @@ def auto_vjp_grad_lower(fwd_type):
                         and s not in fwd_out_slots]
         wanted_set = {(s, i) for s, i, _ in wanted}
 
+        base_env = ctx.env
+        sub = op.attrs.get("sub_block")
+        snap = None if sub is None else \
+            ctx.aux.get("env_snapshots", {}).get(id(sub))
+        if snap is not None:
+            base_env = collections.ChainMap(snap, ctx.env)
+
         diff_args = []      # (slot, idx, name) of differentiable args
         primal_vals = []
         for slot in fwd_in_slots:
             for i, n in enumerate(op.input(slot)):
                 if (slot, i) in wanted_set:
                     diff_args.append((slot, i, n))
-                    primal_vals.append(ctx.env[n])
+                    primal_vals.append(base_env[n])
 
         from paddle_tpu_torch.framework import Operator
         fop = Operator(ctx.block, fwd_type, {}, {}, dict(op.attrs))
@@ -375,7 +419,7 @@ def auto_vjp_grad_lower(fwd_type):
         def fwd_fn(*primals):
             # the primals over the backward-time env, without copying it
             env = collections.ChainMap(
-                {n: v for (_, _, n), v in zip(diff_args, primals)}, ctx.env)
+                {n: v for (_, _, n), v in zip(diff_args, primals)}, base_env)
             fctx = LowerContext(fop, env, ctx.block, aux=ctx.aux,
                                 op_index=ctx.op_index)
             fwd_def.lower(fctx)
@@ -398,7 +442,7 @@ def auto_vjp_grad_lower(fwd_type):
             if g and g in ctx.env:
                 cots.append(_match_cotangent_dtype(ctx.env[g], o))
             else:
-                cots.append(torch.zeros_like(o))
+                cots.append(_zeros_like(o))
         grads = vjp_fn(tuple(cots))
 
         for (slot, i, n), g in zip(diff_args, grads):
@@ -410,14 +454,36 @@ def auto_vjp_grad_lower(fwd_type):
 
 
 def _is_integer(value):
+    """No cotangent: an integer or bool tensor, or a tensor array without
+    a floating step."""
+    if _is_array(value):
+        return not any(s.is_floating_point() for s in value.steps)
     return isinstance(value, torch.Tensor) and not (
         value.is_floating_point() or value.is_complex())
+
+
+def _is_array(value):
+    return hasattr(value, "steps") and hasattr(value, "capacity")
+
+
+def _zeros_like(value):
+    if _is_array(value):
+        return value.like([torch.zeros_like(s) for s in value.steps])
+    return torch.zeros_like(value)
 
 
 def _match_cotangent_dtype(cot, out_val):
     """Cast a floating cotangent to the forward output's dtype — under
     mixed precision an op's output may be bf16 while the incoming grad
-    is f32 (or the reverse)."""
+    is f32 (or the reverse).  A tensor array's cotangent is matched step
+    by step: a step it lacks (the forward output has more) is zero, a
+    step past the output's is dropped."""
+    if _is_array(out_val):
+        steps = [_match_cotangent_dtype(cot.steps[i], o)
+                 if _is_array(cot) and i < len(cot.steps)
+                 else torch.zeros_like(o)
+                 for i, o in enumerate(out_val.steps)]
+        return out_val.like(steps)
     if cot.dtype != out_val.dtype and cot.is_floating_point() and \
             out_val.is_floating_point():
         return cot.to(out_val.dtype)

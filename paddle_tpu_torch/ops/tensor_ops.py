@@ -1,7 +1,8 @@
 """Creation / shape / gather ops (the port's counterpart of
 ``paddle_tpu.ops.tensor_ops``; reference ``paddle/fluid/operators/
-{fill_constant,assign_value,uniform_random,gaussian_random,cast,reshape,
-transpose,concat,split,lookup_table}_op``)."""
+{fill_constant,fill_constant_batch_size_like,assign_value,uniform_random,
+gaussian_random,cast,reshape,transpose,concat,split,lookup_table,expand,
+gather,top_k}_op``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,31 @@ def fill_constant_lower(ctx):
         tuple(ctx.attr("shape")), ctx.attr("value", 0.0),
         dtype=torch_dtype(ctx.attr("dtype", "float32")),
         device=ctx.device))
+
+
+def _infer_fill_batch_like(op, block):
+    x = block.var(op.input("Input")[0])
+    shape = list(op.attr("shape"))
+    in_idx = op.attr("input_dim_idx", 0)
+    out_idx = op.attr("output_dim_idx", 0)
+    if x.shape is not None:
+        shape[out_idx] = x.shape[in_idx]
+    out = block.var(op.output("Out")[0])
+    out.shape = tuple(shape)
+    out.dtype = op.attr("dtype", "float32")
+
+
+@register_op("fill_constant_batch_size_like",
+             infer_shape=_infer_fill_batch_like, no_gradient=True)
+def fill_constant_batch_size_like_lower(ctx):
+    """``fill_constant`` whose ``output_dim_idx`` dim is Input's
+    ``input_dim_idx`` dim (a memory's batch: ``DynamicRNN.memory``)."""
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ctx.input("Input").shape[ctx.attr("input_dim_idx", 0)]
+    ctx.set_output("Out", torch.full(
+        tuple(shape), ctx.attr("value", 0.0),
+        dtype=torch_dtype(ctx.attr("dtype", "float32")), device=ctx.device))
 
 
 @register_op("assign", infer_shape=infer_shape_unary())
@@ -286,6 +312,43 @@ def lookup_table_grad_lower(ctx):
     if padding_idx is not None and padding_idx >= 0:
         vals = vals * (rows != padding_idx).unsqueeze(1).to(vals.dtype)
     ctx.outputs[gname[0]] = SelectedRows(rows, vals, w.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# expand / gather
+# ---------------------------------------------------------------------------
+
+def _infer_expand(op, block):
+    x = block.var(op.input("X")[0])
+    times = op.attr("expand_times")
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        out.shape = tuple(d * t if d != -1 else -1
+                          for d, t in zip(x.shape, times))
+    out.dtype = x.dtype
+
+
+@register_op("expand", infer_shape=_infer_expand)
+def expand_lower(ctx):
+    """X tiled ``expand_times`` along each axis (``jnp.tile``)."""
+    ctx.set_output("Out", ctx.input("X").repeat(
+        *ctx.attr("expand_times")))
+
+
+def _infer_gather(op, block):
+    x = block.var(op.input("X")[0])
+    ids = block.var(op.input("Index")[0])
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None and ids.shape is not None:
+        out.shape = (ids.shape[0],) + tuple(x.shape[1:])
+    out.dtype = x.dtype
+
+
+@register_op("gather", infer_shape=_infer_gather, no_grad_inputs=("Index",))
+def gather_lower(ctx):
+    """The rows of X at ``Index`` (flattened)."""
+    ctx.set_output("Out", ctx.input("X").index_select(
+        0, ctx.input("Index").reshape(-1).long()))
 
 
 # ---------------------------------------------------------------------------

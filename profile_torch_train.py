@@ -6,6 +6,7 @@
     python3 profile_torch_train.py --model resnet [--batch 256] [--steps N]
     python3 profile_torch_train.py --model wide_deep [--steps N]
     python3 profile_torch_train.py --model stacked_lstm [--steps N]
+    python3 profile_torch_train.py --model seq2seq [--steps N]
 
 Builds the port's kernels and then, for the Transformer-base step, each
 route of ``chip_smoke.py``'s training phase (A: composed attention,
@@ -19,8 +20,14 @@ of 2**23 rows with sparse grads, embeddings of 32, ReLU layers of 1024,
 B = 4096, float32, Adam lr 1e-3) or, with ``--model stacked_lstm``, the
 stacked dynamic LSTM of ``chip_smoke.py`` (LSTM-IMDB-H512: dictionary
 30000, embeddings and 2 peephole LSTM layers of 512, 64 sequences of
-2 … 100 words fed as ``(words, lod)``, float32, Adam lr 1e-3); runs two
-warm-up steps and then
+2 … 100 words fed as ``(words, lod)``, float32, Adam lr 1e-3) or, with
+``--model seq2seq``, the attention seq2seq of ``chip_smoke.py``
+(Seq2Seq-NMT-512, ``bench_seq2seq.py``'s widths: dictionaries of 30000,
+embeddings, bi-LSTM encoder and decoder of 512, 16 sentence pairs of
+2 … 50 tokens, float32, Adam lr 1e-3; the decoder is one ``while`` op
+and its grad one ``while_grad``, each timed whole, and the run's
+``while`` trips and device reads of a loop condition or index are
+printed); runs two warm-up steps and then
 
 * ``--steps`` steps timed on the host clock (each ends in the loss's
   device-to-host copy): ms a step and target tokens/s (images/s for
@@ -121,6 +128,21 @@ def build_stacked_lstm(pt):
                                               cfg["dict_size"], seed=SEED)
 
 
+def build_seq2seq(pt):
+    from paddle_tpu_torch.models import seq2seq as S
+    cfg = S.SEQ2SEQ_NMT_512
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        cost, _ = S.seq_to_seq_net(
+            cfg["src_dict_size"], cfg["trg_dict_size"], cfg["emb_dim"],
+            cfg["encoder_size"], cfg["decoder_size"])
+        pt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(cost)
+    return main, startup, cost, S.fake_batch(
+        cfg["batch"], cfg["src_max"], cfg["trg_max"], cfg["src_dict_size"],
+        cfg["trg_dict_size"], seed=SEED)
+
+
 def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
     """One step with a synchronize around every op; returns the op times
     by (phase, type), the auto-vjp recompute times by forward type, and
@@ -129,10 +151,10 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
     ops = block.ops
     seed_at = next(i for i, op in enumerate(ops) if op.type == "fill_constant"
                    and op.output("Out")[0] == cost.name + "@GRAD")
-    producer = {}
+    producers = collections.defaultdict(list)
     for i, op in enumerate(ops[:seed_at]):
         for n in op.output_arg_names:
-            producer[n] = i
+            producers[n].append(i)
     times = collections.defaultdict(float)
     counts = collections.Counter()
     seen = {}
@@ -182,11 +204,18 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
         if fwd_def is None or fwd_def.grad_lower is not None and (
                 op.type != "lookup_table_grad" or op.attr("is_sparse")):
             continue                      # an explicit grad lowering
+        fwd_type = op.type[:-len("_grad")]
         outs = [n for s, ns in op.inputs.items() if s + "@GRAD" in op.inputs
-                for n in ns if n in producer]
-        i = producer[outs[0]]
-        ctx = registry.LowerContext(ops[i], dict(env), block, aux=aux,
-                                    op_index=i)
+                for n in ns if n in producers]
+        # the last op of the forward's type that wrote it (a while also
+        # lists the arrays its body writes)
+        i = max(j for j in producers[outs[0]] if ops[j].type == fwd_type)
+        # a while re-runs from its pre-loop values (the grad's snapshot)
+        snap = aux.get("env_snapshots", {}).get(
+            id(op.attrs.get("sub_block")))
+        ctx = registry.LowerContext(
+            ops[i], collections.ChainMap(dict(snap or {}), dict(env)), block,
+            aux=aux, op_index=i)
         with torch.no_grad():
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -240,6 +269,17 @@ def profile_stacked_lstm(steps, pt, registry, torch):
     return out
 
 
+def profile_seq2seq(steps, pt, registry, torch):
+    main, startup, cost, feed = build_seq2seq(pt)
+    B = len(feed["trg_word"][1][0]) - 1
+    tokens = int(feed["trg_word"][0].shape[0])
+    out = profile_step(f"seq2seq: B={B} target tokens={tokens}", main,
+                       startup, cost, feed, steps, tokens, "target_tokens",
+                       pt, registry, torch)
+    out.update(B=B, target_tokens=tokens)
+    return out
+
+
 def profile_step(label, main, startup, cost, feed, steps, units, unit,
                  pt, registry, torch):
     """Warm-up, timed steps, a synchronized per-op step and a profiled
@@ -283,6 +323,7 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
 
     step = float(np.mean(step_s))
+    loop = dict(exe.last_run)
     phases = collections.defaultdict(float)
     for (phase, _), s in times.items():
         phases[phase] += s
@@ -290,6 +331,10 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
           f"{units / step:.1f} {unit}/s")
     print(f"  synchronized per-op step {1e3 * sync_wall:.2f} ms: "
           + ", ".join(f"{p} {1e3 * s:.2f} ms" for p, s in phases.items()))
+    if loop.get("while_trips"):
+        print(f"  while trips a step {loop['while_trips']} (the forward's and "
+              f"while_grad's re-run), device reads of a loop condition or "
+              f"index {loop['host_reads']}")
     for (phase, typ), s in sorted(times.items(), key=lambda kv: -kv[1])[:16]:
         print(f"    {1e3 * s:9.3f} ms  {counts[(phase, typ)]:4d} x  "
               f"{phase:9s} {typ}")
@@ -315,7 +360,7 @@ def profile_step(label, main, startup, cost, feed, steps, units, unit,
     torch.cuda.empty_cache()
     return {
         "step_ms": 1e3 * step, f"{unit}_per_s": units / step,
-        "peak_gib": peak,
+        "peak_gib": peak, "loop": loop,
         "sync_step_ms": 1e3 * sync_wall,
         "sync_phase_ms": {p: 1e3 * s for p, s in phases.items()},
         "sync_op_ms": {f"{p}:{t}": 1e3 * s for (p, t), s in times.items()},
@@ -336,7 +381,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="transformer",
                     choices=("transformer", "resnet", "wide_deep",
-                             "stacked_lstm"))
+                             "stacked_lstm", "seq2seq"))
     ap.add_argument("--routes", nargs="+", default=sorted(ROUTES),
                     choices=sorted(ROUTES))
     ap.add_argument("--batch", type=int, default=256,
@@ -373,6 +418,8 @@ def main():
     elif args.model == "stacked_lstm":
         summary["stacked_lstm"] = profile_stacked_lstm(args.steps, pt,
                                                        registry, torch)
+    elif args.model == "seq2seq":
+        summary["seq2seq"] = profile_seq2seq(args.steps, pt, registry, torch)
     else:
         for route in args.routes:
             summary[route] = profile_route(route, args.steps, pt, registry,

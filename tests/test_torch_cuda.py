@@ -1364,3 +1364,79 @@ def test_max_pool_of_an_empty_sequence_on_card(cuda_card):
     assert np.all(got[1][[0, 3]] == 2 ** 31 - 1)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _drnn_program(pt):
+    """A DynamicRNN over a ragged batch (an ``fc`` of the step and the
+    memory, tanh) and its grads through ``while_grad``."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        layers = pt.layers
+        x = layers.data("x", shape=[-1, 8], append_batch_size=False,
+                        lod_level=1, stop_gradient=False)
+        drnn = layers.DynamicRNN()
+        with drnn.block():
+            word = drnn.step_input(x)
+            prev = drnn.memory(shape=[16], value=0.0)
+            h = layers.fc(input=[word, prev], size=16, act="tanh")
+            drnn.update_memory(prev, h)
+            drnn.output(h)
+        out = drnn()
+        loss = layers.reduce_sum(layers.sequence_last_step(out))
+        pt.append_backward(loss)
+    params = [p.name for p in main.global_block().all_parameters()]
+    return main, startup, [out.name, "x@GRAD"] + [p + "@GRAD"
+                                                  for p in params]
+
+
+@pytest.mark.cuda
+def test_dynamic_rnn_and_while_grad_on_card_match_cpu(cuda_card):
+    """A ``while`` over a DynamicRNN's steps and its ``while_grad`` (the
+    loop re-run under ``torch.func.vjp`` from its pre-loop values) on the
+    card equal the CPU's from one scope; 7 trips and 7 re-run, each with
+    5 device reads (2 array reads, 2 writes, the condition)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+    main, startup, fetch = _drnn_program(pt)
+    cpu, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    card_scope = scope_from_numpy(
+        {n: to_numpy(cpu_scope.find_var(n))
+         for n in persistable_names(main)}, None, main)
+    rng = np.random.RandomState(5)
+    lod = [[0, 4, 5, 12, 14]]
+    feed = {"x": (rng.randn(14, 8).astype("float32"), lod)}
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    card = pt.Executor()
+    got = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    for name, g, w in zip(fetch, got, want):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=name)
+    assert card.last_run == {"while_trips": 14, "host_reads": 10 * 7 + 4}
+
+
+@pytest.mark.cuda
+def test_beam_search_ties_on_card(cuda_card):
+    """``beam_search`` on the card breaks exact -1e9 ties by flat index,
+    as on the CPU (and ``lax.top_k``)."""
+    import paddle_tpu_torch as pt
+    arrays = {"p_i": np.array([[0, 7, 0], [1, 1, 1]], "int64"),
+              "p_s": np.array([[-0.5, -1e9, -2.0], [0.0, -1e9, -1e9]],
+                              "float32"),
+              "c_i": np.arange(12, dtype="int64").reshape(2, 3, 2) + 10,
+              "c_s": np.array([[[-1e9] * 2] * 3,
+                               [[-0.1, -0.3], [-1e9, -1e9], [-1e9, -1e9]]],
+                              "float32")}
+    results = []
+    for place in (pt.CPUPlace(), None):
+        main = pt.Program()
+        with pt.program_guard(main, pt.Program()):
+            ins = [pt.layers.data(n, shape=list(a.shape), dtype=str(a.dtype),
+                                  append_batch_size=False)
+                   for n, a in arrays.items()]
+            outs = pt.layers.beam_search(*ins, 3, 0)
+        results.append(pt.Executor(place).run(main, feed=arrays,
+                                              fetch_list=list(outs)))
+    for w, g in zip(*results):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(results[1][2], [[0, 2, 0], [0, 0, 1]])

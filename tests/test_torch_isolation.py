@@ -49,7 +49,9 @@ def test_every_port_module_imports_with_jax_blocked():
                 "kernels.bshd_attention", "selected_rows", "ops.sparse_ops",
                 "embedding", "embedding.tables", "models.wide_and_deep",
                 "lod", "ops.rnn_ops", "ops.sequence_ops", "layers.sequence",
-                "models.stacked_lstm"):
+                "models.stacked_lstm", "ops.control_flow_ops",
+                "ops.io_ops", "ops.beam_search_ops", "layers.control_flow",
+                "models.seq2seq"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

@@ -267,6 +267,30 @@ def _cases():
          {"n_head": 2, "scale": 8.0 ** -0.5}),
         *_edge_cases(),
         *_activation_cases(),
+        *_logic_cases(r),
+    ]
+
+
+def _logic_cases(r):
+    """The logical ops, the emptiness / finiteness checks, and the
+    ``gather`` / ``expand`` of a beam decode."""
+    a, b = r.rand(3, 4) < 0.5, r.rand(3, 4) < 0.5
+    inf = _f(r, 3, 4)
+    inf[1, 2] = np.inf
+    return [
+        ("logical_and", "logical_and", {"X": a, "Y": b}, ["Out"], {}),
+        ("logical_or", "logical_or", {"X": a, "Y": b}, ["Out"], {}),
+        ("logical_xor", "logical_xor", {"X": a, "Y": b}, ["Out"], {}),
+        ("logical_not", "logical_not", {"X": a}, ["Out"], {}),
+        ("is_empty", "is_empty", {"X": _f(r, 3, 4)}, ["Out"], {}),
+        ("is_empty_zero_rows", "is_empty", {"X": _f(r, 0, 4)}, ["Out"], {}),
+        ("isfinite", "isfinite", {"X": _f(r, 3, 4)}, ["Out"], {}),
+        ("isfinite_inf", "isfinite", {"X": inf}, ["Out"], {}),
+        ("gather", "gather", {"X": _f(r, 6, 4),
+                              "Index": np.array([4, 0, 4, 2], np.int64)},
+         ["Out"], {}),
+        ("expand", "expand", {"X": _f(r, 2, 1, 3)}, ["Out"],
+         {"expand_times": [1, 4, 2]}),
     ]
 
 
@@ -497,6 +521,11 @@ def _grad_cases():
          ["Out"], _empty_dim(False)),
         ("reduce_mean_empty_dim_keep", "reduce_mean", {"X": _f(r, 3, 4)},
          ["Out"], _empty_dim(True)),
+        ("gather_repeated_rows", "gather",
+         {"X": _f(r, 6, 4), "Index": np.array([4, 0, 4, 2], np.int64)},
+         ["Out"], {}),
+        ("expand", "expand", {"X": _f(r, 2, 1, 3)}, ["Out"],
+         {"expand_times": [1, 4, 2]}),
         *_activation_cases(),
     ]
 
