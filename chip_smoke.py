@@ -46,6 +46,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must never crash, every greedy stream must be token-identical to the
    port's own cache-free re-prefill, and the kernels' launch counts over
    the run must equal what the run's prefills and decode steps imply.
+   Then the serving front over HTTP on ``127.0.0.1``: the paged bundle
+   from ``InferenceServer(warmup=True, async_load=True)``, whose
+   ``/readyz`` turns 200 only once the warmup report lists every prompt
+   and page bucket and after which no kernel is built; the ten prompts
+   as concurrent streamed ``ServingClient.generate`` calls,
+   token-identical to the in-process streams, with the two kernels
+   launched ``prefills x n_layer`` and ``decode_steps x n_layer`` times
+   in every round and the peak allocation flat over ``HTTP_ROUNDS``
+   rounds, each followed by a round of the same prompts on the server's
+   scheduler in process (the median, least and most tokens/s, TTFT and
+   inter-token gaps of each kind printed); two servers and one client
+   over both, whose stream resumes on the other server token-identically
+   after its owner aborts or drains mid-stream; ``/predict`` through the
+   ``MicroBatcher`` at ``bench_serving.py``'s width (feature 32, twelve
+   ``fc`` 2048 + ReLU, ``fc`` 4; 8 closed-loop clients), every reply
+   equal to a local ``Predictor.run`` to ``PREDICT_TOL``, batches of more
+   than one request, no hand-written kernel; and ``python -m
+   paddle_tpu_torch serve --warmup`` in a subprocess, ``generate``
+   printing the first prompt's stream, ``stats``, every wait bounded by
+   ``HTTP_WAIT_S``.
 4. Training, route A (composed attention, the bias-softmax kernels),
    route B (streaming attention, the flash kernels) and route C
    (single-pass attention, the ``smalls`` pair): the Transformer-base
@@ -165,6 +185,7 @@ logs under ``runs/chip_smoke/``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2102,9 +2123,13 @@ WD_COMPARE_STEPS = 4
 WD_CARD_CPU_VOCAB = 65536
 
 
-def _no_launches(where):
+def _launch_counts():
     from paddle_tpu_torch.kernels import ALL_KERNELS
-    launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+    return {k.name: k.launches for k in ALL_KERNELS if k.launches}
+
+
+def _no_launches(where):
+    launches = _launch_counts()
     if launches:
         raise AssertionError(f"{where}: hand-written kernels launched: "
                              f"{launches}")
@@ -3186,7 +3211,551 @@ def phase_serving(paged=True):
         f"{hp.max_len})")
     torch.cuda.synchronize()
     return launches, dict(tokens_per_s=tokens / wall,
-                          decode_step_ms=1e3 * float(np.mean(step_s)))
+                          decode_step_ms=1e3 * float(np.mean(step_s)),
+                          bundle=bundle, prompts=prompts, streams=outs)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serving front over HTTP (InferenceServer, ServingClient,
+# the MicroBatcher and the command line), on the card
+# ---------------------------------------------------------------------------
+
+#: every wait on a server (ready, a stream, a subprocess) is bounded
+HTTP_WAIT_S = 300
+#: ``bench_serving.py:28``'s model: feature 32, 12 ``fc`` 2048 + ReLU,
+#: ``fc`` 4 (46.2 M parameters), float32; 8 closed-loop clients of one
+#: row a request
+PREDICT_FEATURE, PREDICT_HIDDEN, PREDICT_DEPTH = 32, 2048, 12
+PREDICT_CLIENTS, PREDICT_REQUESTS = 8, 64
+PREDICT_TOL = 1e-5
+#: rounds of the ten streams over HTTP, each followed by a round of the
+#: same prompts on the server's scheduler in process
+HTTP_ROUNDS = 5
+#: the resume drills slow each decode step by this much (the port's
+#: ``gen.decode.stall`` failpoint) so a stream is still live when its
+#: owner drains or aborts
+RESUME_STALL_S = 0.02
+
+
+def _http_status(addr, path):
+    """Status of one GET (no retries; 599 when nothing answers)."""
+    import http.client
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        resp.read()
+        return resp.status
+    except OSError:
+        return 599
+    finally:
+        conn.close()
+
+
+def _wait_ready(addr, server=None, proc=None):
+    """Poll ``/readyz`` until it answers 200; returns the statuses seen
+    in order.  Fails on a load error, a dead subprocess or the bound."""
+    seen = []
+    deadline = time.monotonic() + HTTP_WAIT_S
+    while True:
+        st = _http_status(addr, "/readyz")
+        if not seen or seen[-1] != st:
+            seen.append(st)
+        if st == 200:
+            return seen
+        if server is not None and server.load_error is not None:
+            raise AssertionError(f"{addr}: load failed: "
+                                 f"{server.load_error!r}")
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{addr}: server exited with "
+                                 f"{proc.returncode}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{addr}: not ready in {HTTP_WAIT_S}s "
+                                 f"(statuses {seen})")
+        time.sleep(0.01)
+
+
+def _scheduler_events(sched, prompt):
+    """One in-process stream of ``sched`` as ``ServingClient.generate``
+    events: ``{"token": id}`` then one ``{"done": True, ...}``."""
+    st = sched.submit(prompt, max_new_tokens=MAX_NEW_TOKENS)
+    deadline = time.monotonic() + HTTP_WAIT_S
+    while True:
+        ev = st.next_event(timeout=max(0.0, deadline - time.monotonic()))
+        if ev is None:
+            raise AssertionError("an in-process stream timed out")
+        kind, value = ev
+        if kind == "token":
+            yield {"token": value}
+        elif kind == "done":
+            yield {"done": True, "finish_reason": value}
+            return
+        else:
+            raise value
+
+
+def _concurrent_streams(open_stream, prompts):
+    """Every prompt as its own stream (``open_stream(prompt)`` yields the
+    stream's events), one thread each, all started together.  Returns
+    the wall seconds and per prompt ``(start, token arrival times,
+    tokens, tail event)``."""
+    import threading
+    results = [None] * len(prompts)
+
+    def run(i):
+        try:
+            t, times, toks, tail = time.perf_counter(), [], [], None
+            for ev in open_stream(prompts[i]):
+                if "token" in ev:
+                    times.append(time.perf_counter())
+                    toks.append(ev["token"])
+                elif ev.get("done"):
+                    tail = ev
+            results[i] = (t, times, toks, tail)
+        except Exception as e:          # reported by the caller
+            results[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(1.0, t0 + HTTP_WAIT_S - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    bad = [r for r in results if not isinstance(r, tuple)]
+    if bad or any(th.is_alive() for th in threads):
+        raise AssertionError(f"streams failed or hung: {bad}")
+    return wall, results
+
+
+def _stream_metrics(wall, results):
+    """tokens/s, TTFT and inter-token gap percentiles (ms) of one round
+    of ``_concurrent_streams``."""
+    import numpy as np
+    ttft = np.asarray([times[0] - t for t, times, _, _ in results])
+    gaps = np.concatenate([np.diff(times) for _, times, _, _ in results])
+    tokens = sum(len(toks) for _, _, toks, _ in results)
+    return dict(tokens_per_s=tokens / wall,
+                ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+                ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+                ttft_over_500ms=int(np.sum(ttft > 0.5)),
+                gap_p50_ms=1e3 * float(np.percentile(gaps, 50)),
+                gap_p99_ms=1e3 * float(np.percentile(gaps, 99)),
+                gaps_over_30ms=int(np.sum(gaps > 0.030)))
+
+
+def _spread(rounds):
+    """Per metric of a list of ``_stream_metrics`` dicts: the median,
+    the least and the most value over the rounds."""
+    import numpy as np
+    return {k: dict(median=float(np.median([r[k] for r in rounds])),
+                    min=float(min(r[k] for r in rounds)),
+                    max=float(max(r[k] for r in rounds)))
+            for k in rounds[0]}
+
+
+def _warmup_key(bucket):
+    """``prefill[b]`` / ``decode[P]`` of one warmup report entry: its
+    prompt bucket or its page bucket."""
+    sig = bucket["signature"]
+    if bucket["program"] == "prefill":
+        return f"prefill[{sig['gen_ids'][1]}]"
+    return f"decode[{sig['gen_page_table'][1]}]"
+
+
+def phase_http_generate(serving):
+    """``InferenceServer(bundle, warmup=True, async_load=True)`` on
+    ``cuda:0`` over the paged GenLongConfig bundle of ``phase_serving``:
+    ``/readyz`` turns 200 only once the warmup report lists every prompt
+    bucket and every page bucket, nothing is built afterwards, the ten
+    prompts as concurrent streamed ``ServingClient.generate`` calls give
+    the in-process streams token for token, the two kernels launch
+    ``prefills x n_layer`` and ``decode_steps x n_layer`` times, and
+    later rounds of the same requests do not raise the peak allocation.
+
+    ``HTTP_ROUNDS`` rounds over HTTP alternate with as many rounds of the
+    same prompts submitted to the server's own scheduler in process (the
+    yardstick); each kind reports the median, least and most value of
+    every metric over its rounds.  The first HTTP round's launches are
+    the path's count."""
+    import torch
+    from paddle_tpu_torch.kernels import ALL_KERNELS, build
+    from paddle_tpu_torch.models.gen_lm_long import GenLongConfig
+    from paddle_tpu_torch.profiler import runtime_metrics
+    from paddle_tpu_torch.serving import InferenceServer, ServingClient
+
+    prompts, want = serving["prompts"], serving["streams"]
+    n_layer = int(GenLongConfig().n_layer)
+    t0 = time.perf_counter()
+    srv = InferenceServer(serving["bundle"], host="127.0.0.1", port=0,
+                          warmup=True, async_load=True)
+    srv.start_background()
+    try:
+        addr = f"127.0.0.1:{srv.addr[1]}"
+        readyz = _wait_ready(addr, server=srv)
+        ready_s = time.perf_counter() - t0
+        builds_at_ready = dict(build.counts)
+        client = ServingClient(addr, timeout=120)
+        stats = client.stats()["server"]
+        pred = srv.gen_predictor
+        if pred.device.type != "cuda" or not pred.paged:
+            raise AssertionError(f"http: predictor on {pred.device}, "
+                                 f"paged={pred.paged}")
+        report = stats["warmup"] or []
+        got_pre = sorted(b["signature"]["gen_ids"][1] for b in report
+                         if b["program"] == "prefill")
+        got_dec = sorted(b["signature"]["gen_page_table"][1]
+                         for b in report if b["program"] == "decode")
+        want_pre = [b for b in pred.prompt_buckets if b <= pred.max_len]
+        want_dec = [b for b in pred.page_buckets
+                    if b <= pred.pages_per_slot]
+        if got_pre != want_pre or got_dec != want_dec or \
+                readyz[-1] != 200 or any(st not in (503, 200)
+                                         for st in readyz):
+            raise AssertionError(
+                f"http: /readyz {readyz} with warmup prefill buckets "
+                f"{got_pre} (want {want_pre}), decode page buckets "
+                f"{got_dec} (want {want_dec})")
+        warmup = {_warmup_key(b): (b["seconds"], b["cache"])
+                  for b in report}
+        log(f"http_generate: /readyz {readyz} after {ready_s:.3f}s; "
+            f"warmup (s, cache) {warmup}; kernel builds "
+            f"{builds_at_ready}")
+
+        kinds = {"http": lambda p: client.generate(
+                     p, max_new_tokens=MAX_NEW_TOKENS),
+                 # the server's own scheduler, without HTTP
+                 "in_process": lambda p: _scheduler_events(srv._gen, p)}
+        rounds = {kind: [] for kind in kinds}
+        for r in range(HTTP_ROUNDS):
+            for kind, open_stream in kinds.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                runtime_metrics.reset()
+                for kern in ALL_KERNELS:
+                    kern.launches = 0
+                pre0, dec0 = pred.prefills, pred.decode_steps
+                wall, results = _concurrent_streams(open_stream, prompts)
+                launches = _launch_counts()
+                prefills = pred.prefills - pre0
+                steps = pred.decode_steps - dec0
+                torch.cuda.synchronize()
+                for i, (_, _, toks, tail) in enumerate(results):
+                    if toks != want[i] or not tail or \
+                            tail.get("finish_reason") != "length":
+                        raise AssertionError(
+                            f"{kind} round {r}: prompt of "
+                            f"{len(prompts[i])} gave {toks} ({tail}), "
+                            f"in-process {want[i]}")
+                expect = {"bias_softmax": n_layer * prefills,
+                          "paged_decode": n_layer * steps}
+                if launches != expect or prefills != len(prompts):
+                    raise AssertionError(
+                        f"{kind} round {r}: launches {launches} != "
+                        f"{expect} (prefills {prefills}, decode steps "
+                        f"{steps})")
+                step_s = runtime_metrics.snapshot()["series"].get(
+                    "gen.decode_step_seconds", {})
+                rounds[kind].append(dict(
+                    _stream_metrics(wall, results),
+                    decode_step_ms=1e3 * float(step_s.get("mean") or 0.0),
+                    prefills=prefills, decode_steps=steps,
+                    launches=launches,
+                    peak=torch.cuda.max_memory_allocated(),
+                    allocated=torch.cuda.memory_allocated()))
+        if dict(build.counts) != builds_at_ready:
+            raise AssertionError(f"http: kernels built after /readyz: "
+                                 f"{builds_at_ready} -> {build.counts}")
+        http = rounds["http"]
+        for later in http[1:]:
+            if later["allocated"] != http[0]["allocated"] or \
+                    later["peak"] - http[0]["peak"] > 2 ** 18:
+                raise AssertionError(
+                    f"http: memory grew over later rounds: peaks "
+                    f"{[h['peak'] for h in http]}, allocated "
+                    f"{[h['allocated'] for h in http]}")
+    finally:
+        srv.shutdown()
+
+    out = dict(ready_s=ready_s, warmup=warmup, rounds=HTTP_ROUNDS,
+               peak_mib=[h["peak"] / 2 ** 20 for h in http])
+    for kind, rnds in rounds.items():
+        out[kind] = _spread([{k: v for k, v in rnd.items()
+                              if k not in ("launches", "peak",
+                                           "allocated")}
+                             for rnd in rnds])
+    out["http_over_in_process_tokens_per_s"] = [
+        h["tokens_per_s"] / i["tokens_per_s"]
+        for h, i in zip(http, rounds["in_process"])]
+    log(f"http_generate: {len(prompts)} concurrent streams token-identical "
+        f"to the in-process ones in {HTTP_ROUNDS} rounds over HTTP and "
+        f"{HTTP_ROUNDS} in process; first round's launches "
+        f"{http[0]['launches']} ({http[0]['prefills']} prefills, "
+        f"{http[0]['decode_steps']} decode steps); peak MiB "
+        f"{out['peak_mib']}")
+    return http[0]["launches"], out
+
+
+def phase_http_resume(serving):
+    """Two ``InferenceServer``s over the bundle on the one card and one
+    ``ServingClient`` over both: the owner of a stream aborts its streams
+    (a retryable error tail) and then, on a second stream, drains with
+    ``deadline_s=0`` (a migrate tail); each time the client resumes on
+    the other server and the finished stream equals the uninterrupted
+    one."""
+    from paddle_tpu_torch.fault import chaos
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.profiler import runtime_metrics
+    from paddle_tpu_torch.serving import InferenceServer, ServingClient
+
+    prompts, want = serving["prompts"], serving["streams"]
+    servers = [InferenceServer(serving["bundle"], host="127.0.0.1",
+                               port=0, warmup=True) for _ in range(2)]
+    for srv in servers:
+        srv.start_background()
+    addrs = [f"127.0.0.1:{srv.addr[1]}" for srv in servers]
+    preds = [srv.gen_predictor for srv in servers]
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    pre0 = sum(p.prefills for p in preds)
+    dec0 = sum(p.decode_steps for p in preds)
+    drills = {}
+    chaos.inject("gen.decode.stall", delay=RESUME_STALL_S)
+    try:
+        for kill, i in (("abort", 0), ("drain", 1)):
+            client = ServingClient(addrs, timeout=120)
+            resumes = runtime_metrics.counter("gen.session.resumes")
+            events, killed = [], None
+            t0 = time.perf_counter()
+            for ev in client.generate(prompts[i],
+                                      max_new_tokens=MAX_NEW_TOKENS):
+                events.append(ev)
+                if killed is None and \
+                        sum("token" in e for e in events) == 4:
+                    live = [k for k, s in enumerate(servers)
+                            if s._gen.active_slots]
+                    if len(live) != 1:
+                        raise AssertionError(f"{kill} drill: live slots "
+                                             f"on servers {live}")
+                    killed = live[0]
+                    owner = servers[killed]
+                    if kill == "abort":
+                        owner.abort_streams()
+                    elif len(owner.drain_sessions(deadline_s=0)) != 1:
+                        raise AssertionError("drain migrated no stream")
+                if time.perf_counter() - t0 > HTTP_WAIT_S:
+                    raise AssertionError(f"{kill} drill hung")
+            toks = [e["token"] for e in events if "token" in e]
+            idxs = [e["index"] for e in events if "token" in e]
+            resumed = runtime_metrics.counter("gen.session.resumes") - \
+                resumes
+            if toks != want[i] or idxs != list(range(MAX_NEW_TOKENS)) or \
+                    resumed != 1 or killed is None or \
+                    events[-1].get("finish_reason") != "length":
+                raise AssertionError(
+                    f"{kill} drill: tokens {toks} (want {want[i]}), "
+                    f"indices {idxs}, resumes {resumed}, tail "
+                    f"{events[-1]}")
+            drills[kill] = dict(owner=addrs[killed],
+                                seconds=time.perf_counter() - t0)
+    finally:
+        chaos.clear("gen.decode.stall")
+        for srv in servers:
+            srv.shutdown()
+    launches = _launch_counts()
+    prefills = sum(p.prefills for p in preds) - pre0
+    steps = sum(p.decode_steps for p in preds) - dec0
+    from paddle_tpu_torch.models.gen_lm_long import GenLongConfig
+    n_layer = int(GenLongConfig().n_layer)
+    expect = {"bias_softmax": n_layer * prefills,
+              "paged_decode": n_layer * steps}
+    if launches != expect:
+        raise AssertionError(f"http_resume: launches {launches} != "
+                             f"{expect}")
+    log(f"http_resume: abort and drain drills resumed on the other "
+        f"server, token-identical ({drills}); launches {launches}")
+    return launches, drills
+
+
+def _predict_bundle(dirname):
+    """``bench_serving.py``'s MLP, exported by the port from ``SEED``."""
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[PREDICT_FEATURE], dtype="float32")
+        h = x
+        for _ in range(PREDICT_DEPTH):
+            h = pt.layers.fc(h, PREDICT_HIDDEN, act="relu")
+        y = pt.layers.fc(h, 4)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe = pt.Executor()
+        exe.run(startup)
+        pt.io.save_inference_model(dirname, ["x"], [y], exe, main)
+    return dirname
+
+
+def _closed_loop(addr, clients, requests):
+    """``clients`` threads, each ``requests`` one-row ``/predict`` calls
+    on its own keep-alive connection.  Returns the wall seconds and every
+    ``(row, output)`` pair."""
+    import http.client
+    import threading
+
+    import numpy as np
+    host, port = addr.rsplit(":", 1)
+    pairs = [None] * clients
+
+    def run(c):
+        rng = np.random.RandomState(SEED + c)
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        got = []
+        try:
+            for _ in range(requests):
+                row = rng.randn(1, PREDICT_FEATURE).astype(np.float32)
+                conn.request("POST", "/predict", json.dumps(
+                    {"feeds": {"x": row.tolist()}}).encode(),
+                    {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                if resp.status != 200:
+                    raise AssertionError(f"/predict {resp.status}: {body}")
+                got.append((row, np.asarray(body["outputs"][0],
+                                            np.float32)))
+            pairs[c] = got
+        except Exception as e:      # reported by the caller
+            pairs[c] = e
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=run, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(1.0, t0 + HTTP_WAIT_S - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    bad = [p for p in pairs if not isinstance(p, list)]
+    if bad or any(th.is_alive() for th in threads):
+        raise AssertionError(f"/predict clients failed or hung: {bad}")
+    return wall, [pr for p in pairs for pr in p]
+
+
+def phase_http_predict():
+    """``/predict`` through the ``MicroBatcher`` at ``bench_serving.py``'s
+    width on the card (float32, TF32 off): every reply equals a local
+    ``Predictor.run`` of its row, batches hold more than one request, no
+    hand-written kernel runs; rows/s batched and serialized."""
+    import numpy as np
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.profiler import runtime_metrics
+    from paddle_tpu_torch.serving import InferenceServer, Predictor
+
+    bundle = _predict_bundle(os.path.join(OUT_DIR, "predict_mlp"))
+    local = Predictor(bundle)
+    out = {}
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    for mode, batching in (("batched", True), ("serialized", False)):
+        runtime_metrics.reset()
+        srv = InferenceServer(bundle, host="127.0.0.1", port=0,
+                              warmup=True, batching=batching,
+                              max_batch_size=32)
+        srv.start_background()
+        try:
+            addr = f"127.0.0.1:{srv.addr[1]}"
+            _wait_ready(addr, server=srv)
+            wall, pairs = _closed_loop(addr, PREDICT_CLIENTS,
+                                       PREDICT_REQUESTS)
+            occ = runtime_metrics.snapshot()["histograms"].get(
+                "serving.batch_occupancy", {})
+        finally:
+            srv.shutdown()
+        err = 0.0
+        for row, got in pairs:
+            (ref,) = local.run({"x": row})
+            np.testing.assert_allclose(got, ref, rtol=PREDICT_TOL,
+                                       atol=PREDICT_TOL,
+                                       err_msg=f"/predict {mode}")
+            err = max(err, float(np.max(np.abs(got - ref))))
+        out[mode] = dict(rows_per_s=len(pairs) / wall, max_abs_err=err)
+        if batching:
+            n = sum(occ.values())
+            mean = sum(int(k) * v for k, v in occ.items()) / max(n, 1)
+            if mean <= 1.0:
+                raise AssertionError(f"/predict batch occupancy {occ}")
+            out[mode]["occupancy"] = dict(occ, mean=mean)
+    _no_launches("http_predict")
+    log(f"http_predict: {PREDICT_CLIENTS} clients x {PREDICT_REQUESTS} "
+        f"rows, replies equal Predictor.run (max abs err "
+        f"{max(o['max_abs_err'] for o in out.values()):.3e}); "
+        f"rows/s batched {out['batched']['rows_per_s']:.1f} "
+        f"(occupancy {out['batched']['occupancy']}), serialized "
+        f"{out['serialized']['rows_per_s']:.1f}")
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_cli(serving):
+    """``python -m paddle_tpu_torch serve --model <bundle> --warmup`` in a
+    subprocess, then ``generate`` against it (the first prompt's
+    in-process stream) and ``stats``; the server is terminated and every
+    wait bounded."""
+    port = _free_port()
+    addr = f"127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch"]
+    log_path = os.path.join(OUT_DIR, "cli_serve.log")
+    with open(log_path, "w") as server_log:
+        proc = subprocess.Popen(
+            cmd + ["serve", "--model", serving["bundle"], "--warmup",
+                   "--port", str(port)], cwd=ROOT, env=env,
+            stdout=server_log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        _wait_ready(addr, proc=proc)
+        ready_s = time.perf_counter() - t0
+        gen = subprocess.run(
+            cmd + ["generate", "--addr", addr, "--prompt",
+                   " ".join(map(str, serving["prompts"][0])), "--max-new",
+                   str(MAX_NEW_TOKENS)], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=HTTP_WAIT_S)
+        toks = [int(line) for line in gen.stdout.split()
+                if line.lstrip("-").isdigit()]
+        if gen.returncode != 0 or toks != serving["streams"][0]:
+            raise AssertionError(f"cli generate (exit {gen.returncode}): "
+                                 f"{gen.stdout!r} {gen.stderr!r}")
+        stats = subprocess.run(
+            cmd + ["stats", "--addr", addr], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=HTTP_WAIT_S)
+        if stats.returncode != 0 or "gen.tokens" not in stats.stdout:
+            raise AssertionError(f"cli stats (exit {stats.returncode}): "
+                                 f"{stats.stdout!r} {stats.stderr!r}")
+        warm = [line for line in stats.stdout.splitlines()
+                if line.startswith("server:")]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    cache = sorted(set(re.findall(r"'cache': '([a-z-]+)'",
+                                  warm[0] if warm else "")))
+    log(f"cli: serve ready in {ready_s:.2f}s (warmup cache {cache}), "
+        f"generate printed the in-process stream, stats ok, server "
+        f"exited {proc.returncode}")
+    return dict(ready_s=ready_s, warmup_cache=cache)
 
 
 # ---------------------------------------------------------------------------
@@ -3291,6 +3860,10 @@ def main():
 
     by_path = {}
     by_path["serving"], serving = phase_serving()
+    by_path["http_generate"], http_gen = phase_http_generate(serving)
+    by_path["http_resume"], http_resume = phase_http_resume(serving)
+    http_predict = phase_http_predict()
+    cli = phase_cli(serving)
     by_path["dense_decode"], dense = phase_serving(paged=False)
     train = {}
     for route in ROUTES:
@@ -3342,6 +3915,20 @@ def main():
                                  f"path")
     log(f"serving: tokens_per_s={serving['tokens_per_s']:.1f} "
         f"decode_step_ms={serving['decode_step_ms']:.3f}")
+    for kind in ("http", "in_process"):
+        log(f"http_generate[{kind}, median min max of "
+            f"{http_gen['rounds']} rounds]: " + " ".join(
+                f"{k}={v['median']:.3f},{v['min']:.3f},{v['max']:.3f}"
+                for k, v in http_gen[kind].items()))
+    log("http_generate: " + " ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in http_gen.items() if k not in ("http", "in_process")))
+    log(f"http_resume: {http_resume}")
+    log("http_predict: " + " ".join(
+        f"{m}_rows_per_s={v['rows_per_s']:.1f}"
+        for m, v in http_predict.items()) +
+        f" occupancy={http_predict['batched']['occupancy']}")
+    log(f"cli: {cli}")
     log(f"dense decode: tokens_per_s={dense['tokens_per_s']:.1f} "
         f"decode_step_ms={dense['decode_step_ms']:.3f}")
     for route, t in train.items():

@@ -19,6 +19,13 @@ DIAGNOSTIC_CODES = {
     "PTA002": ("error", "variable read before it is written"),
     "PTA003": ("error", "missing feed/fetch target"),
     "PTA004": ("error", "persistable variable re-defined inside a step"),
+    # the generation bundle's cross-program checks
+    # (analysis/distributed.check_gen_bundle)
+    "PTA018": ("warning",
+               "recompile hazard: feed can escape its declared "
+               "row-bucket edges"),
+    "PTA019": ("error",
+               "gen bundle prefill/decode signature drift"),
 }
 
 
@@ -26,10 +33,10 @@ class Diagnostic:
     """One verifier finding, formatted rustc-style by :meth:`format`."""
 
     __slots__ = ("code", "severity", "message", "block_idx", "op_index",
-                 "op_type", "var", "site")
+                 "op_type", "var", "site", "program")
 
     def __init__(self, code, message, block_idx=None, op_index=None,
-                 op_type=None, var=None, site=None):
+                 op_type=None, var=None, site=None, program=None):
         if code not in DIAGNOSTIC_CODES:
             raise ValueError(f"unknown diagnostic code {code!r}")
         self.code = code
@@ -40,6 +47,7 @@ class Diagnostic:
         self.op_type = op_type
         self.var = var
         self.site = site  # (filename, lineno) construction site or None
+        self.program = program  # member label in a multi-program lint
 
     @property
     def title(self):
@@ -47,6 +55,8 @@ class Diagnostic:
 
     def location(self):
         parts = []
+        if self.program is not None:
+            parts.append(f"program `{self.program}`")
         if self.block_idx is not None:
             parts.append(f"block {self.block_idx}")
         if self.op_index is not None:

@@ -43,6 +43,7 @@ executor's run counter and the op's position.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -240,6 +241,88 @@ class Executor:
         if return_numpy:
             return [to_numpy(v) for v in stacked]
         return stacked
+
+    def warmup(self, program=None, feed_shapes=None, fetch_list=None,
+               scope=None, allow_state_updates=False):
+        """Run ``program`` once per declared feed signature on zero feeds
+        before real traffic arrives, so the first real request pays no
+        kernel build (the counterpart of the JAX package's AOT warmup).
+
+        ``feed_shapes``: a dict ``name -> concrete shape`` (one
+        signature) or a list of them (one per serving bucket); dtypes come
+        from the program's variables.  Every kernel a signature reaches is
+        built (``nvcc``) or loaded from the build directory here.
+
+        Warmup EXECUTES the program, so a program that writes persistable
+        state is refused unless ``allow_state_updates`` opts in: ``True``
+        allows every state write, an iterable of names exactly those (the
+        generation decode step declares its KV-cache tensors; zero feeds
+        write nothing into them).
+
+        Returns a :class:`paddle_tpu_torch.obs.perf.WarmupReport`: the
+        number of kernel sources compiled, with one ``buckets`` entry per
+        signature — its seconds, its compiles and its ``cache``: ``"cold"``
+        (a source was compiled by ``nvcc`` for it), ``"persistent-hit"``
+        (a library was loaded from the build directory) or ``"warm"``
+        (nothing new)."""
+        from paddle_tpu_torch import profiler as _profiler
+        from paddle_tpu_torch.io import synth_feed_value
+        from paddle_tpu_torch.kernels import build
+        from paddle_tpu_torch.obs.perf import WarmupReport
+
+        program = program if program is not None else default_main_program()
+        specs = feed_shapes if isinstance(feed_shapes, (list, tuple)) \
+            else [feed_shapes or {}]
+        block = program.global_block()
+        if allow_state_updates is not True:
+            allowed = set(allow_state_updates or ())
+            written = [n for op in block.ops if op.type not in _SKIP_OPS
+                       for n in op.output_arg_names
+                       if n not in allowed and n in block.vars and
+                       block.vars[n].persistable]
+            if written:
+                raise ValueError(
+                    f"warmup would EXECUTE this program, mutating "
+                    f"persistable state ({sorted(set(written))[:3]}...) "
+                    f"with zero-filled feeds — warm an inference program "
+                    f"instead, or pass allow_state_updates=True if the "
+                    f"state writes are intended")
+        before = build.counts["compiled"]
+        buckets = []
+        with _profiler.record_latency("executor.warmup_seconds"):
+            for spec in specs:
+                feed = {}
+                for name, shape in spec.items():
+                    if shape is None or any(
+                            d is None or int(d) < 0 for d in shape):
+                        raise ValueError(
+                            f"warmup feed {name!r} needs a concrete "
+                            f"shape, got {shape}")
+                    var = block.vars.get(name)
+                    dtype = (var.dtype if var is not None
+                             and var.dtype is not None else "float32")
+                    feed[name] = synth_feed_value(shape, dtype)
+                built0, loaded0 = build.counts["compiled"], \
+                    build.counts["loaded"]
+                t0 = time.perf_counter()
+                self.run(program=program, feed=feed, fetch_list=fetch_list,
+                         scope=scope, return_numpy=False)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                fresh = build.counts["compiled"] - built0
+                hit = build.counts["loaded"] - loaded0
+                buckets.append({
+                    "signature": {n: list(map(int, s))
+                                  for n, s in spec.items()},
+                    "compiles": fresh,
+                    "seconds": time.perf_counter() - t0,
+                    "cache": ("cold" if fresh else
+                              "persistent-hit" if hit else "warm"),
+                })
+        compiled = build.counts["compiled"] - before
+        _profiler.runtime_metrics.inc("warmup.signatures", len(specs))
+        _profiler.runtime_metrics.inc("warmup.compiles", compiled)
+        return WarmupReport(compiled, buckets)
 
     # ------------------------------------------------------------------
     def _prepare(self, program, scope, fetch_list):

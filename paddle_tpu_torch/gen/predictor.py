@@ -17,6 +17,16 @@ page_len, H*D]`` pages addressed through a host-side per-slot page
 table.  The predictor owns the page allocator (:meth:`alloc_slot_pages` /
 :meth:`free_slot_pages`, driven by the scheduler's admit/evict) and
 slices the page-table feed to a declared ``page_buckets`` edge each step.
+
+:meth:`warmup` runs every prompt bucket and the decode step at every
+declared page bucket (or the one dense signature) once on zero feeds
+through ``Executor.warmup``, so every kernel of the path is built and
+loaded before a server reports ready.  The bundle is checked against its
+meta at load (``analysis.check_gen_bundle``).
+
+The cost-model planners of the JAX package (``prefill_cost``,
+``plan_prompt_buckets``, ``plan_page_buckets``) need its static cost
+model, which is not ported yet: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,14 +40,22 @@ import torch
 
 from paddle_tpu_torch.convert import to_numpy, to_tensor
 from paddle_tpu_torch.executor import Executor
+from paddle_tpu_torch.fault import chaos
 from paddle_tpu_torch.io import load_inference_model
 from paddle_tpu_torch.lod import pad_to_bucket, row_bucket
+from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.place import default_place
+from paddle_tpu_torch.profiler import runtime_metrics
 from paddle_tpu_torch.scope import Scope, scope_guard
 
 __all__ = ["GenPredictor", "is_gen_bundle", "META_FILENAME"]
 
 META_FILENAME = "gen_meta.json"
+
+#: ROADMAP's item for the static cost model the planners need
+_COST_ITEM = ("needs the static cost model (analysis/cost.py on "
+              "analysis/typecheck.py), not ported yet: ROADMAP queue 1 "
+              "item 5")
 
 
 def is_gen_bundle(model_dir):
@@ -86,6 +104,14 @@ class GenPredictor:
             (self._dec_prog, self._dec_feeds,
              self._dec_fetch) = load_inference_model(
                 os.path.join(model_dir, "decode"), self._exe)
+        # load-time contract check: a bundle whose prefill/decode pair
+        # drifted from its meta fails here, before a server reports ready
+        from paddle_tpu_torch.analysis import (AnalysisResult,
+                                               check_gen_bundle)
+        AnalysisResult(check_gen_bundle(
+            (self._pre_prog, self._pre_feeds, self._pre_fetch),
+            (self._dec_prog, self._dec_feeds, self._dec_fetch),
+            self.meta)).raise_on_errors(where="gen.GenPredictor")
         self.device = self._exe.device
         # per-bucket constant prefill feeds (causal bias template)
         self._tri = {}
@@ -119,6 +145,21 @@ class GenPredictor:
         return {"gen_ids": ids, "gen_pos": pos, "gen_mask": mask,
                 "gen_attn_bias": bias.astype(np.float32), "gen_last": last}
 
+    def prefill_cost(self, prompt_len):
+        """Static FLOPs of prefilling ``prompt_len`` tokens (the JAX
+        package's admission weight); raises ``NotImplementedError``."""
+        raise NotImplementedError(f"GenPredictor.prefill_cost {_COST_ITEM}")
+
+    def plan_prompt_buckets(self, observed_lengths, max_edges=4):
+        """Cost-optimal prompt buckets; raises ``NotImplementedError``."""
+        raise NotImplementedError(
+            f"GenPredictor.plan_prompt_buckets {_COST_ITEM}")
+
+    def plan_page_buckets(self, observed_lengths, max_edges=4):
+        """Cost-optimal page buckets; raises ``NotImplementedError``."""
+        raise NotImplementedError(
+            f"GenPredictor.plan_page_buckets {_COST_ITEM}")
+
     def can_resume(self, total_len):
         """True when a stream of ``total_len`` tokens (prompt + tokens
         already emitted) still fits a prefill bucket."""
@@ -139,9 +180,10 @@ class GenPredictor:
         feed = self._prefill_feed(prompt, self._bucket(len(prompt)))
         with self._lock:
             with scope_guard(self._scope):
-                outs = self._exe.run(self._pre_prog, feed=feed,
-                                     fetch_list=self._pre_fetch,
-                                     return_numpy=False)
+                with _span("gen.prefill", tokens=len(prompt)):
+                    outs = self._exe.run(self._pre_prog, feed=feed,
+                                         fetch_list=self._pre_fetch,
+                                         return_numpy=False)
             self.prefills += 1
         return to_numpy(outs[0])[0], outs[1:]
 
@@ -262,6 +304,10 @@ class GenPredictor:
         ``[S]``: prefix rows INCLUDING the current token (0 = free slot);
         the page-table feed is sliced to the smallest declared page
         bucket covering ``max(lens)``.  Returns logits ``[S, V]`` numpy.
+
+        The ``gen.decode.stall`` failpoint fires inside the lock: a
+        ``delay`` models per-iteration device time serialized per
+        replica, an ``error`` a device fault in the decode step.
         """
         S = self.num_slots
         feed = {
@@ -277,9 +323,11 @@ class GenPredictor:
             feed["gen_pos_onehot"] = np.asarray(pos_onehot, np.float32)
             feed["gen_attn_mask"] = np.asarray(attn_mask, np.float32)
         with self._lock:
+            chaos.fire("gen.decode.stall", slots=S)
             with scope_guard(self._scope):
-                (logits,) = self._exe.run(self._dec_prog, feed=feed,
-                                          fetch_list=self._dec_fetch)
+                with _span("gen.decode_step"):
+                    (logits,) = self._exe.run(self._dec_prog, feed=feed,
+                                              fetch_list=self._dec_fetch)
             self.decode_steps += 1
         return logits
 
@@ -293,6 +341,61 @@ class GenPredictor:
             need = int(-(-int(lens[live, 0].max()) // self.page_len))
         P = min(row_bucket(max(need, 1), edges=self.page_buckets),
                 self.pages_per_slot)
+        touched = int(np.sum(-(-lens[live, 0] // self.page_len)))
+        runtime_metrics.observe("gen.paged.pages_touched", float(touched))
+        if touched:
+            occupancy = (100.0 * float(lens[live, 0].sum()) /
+                         (touched * self.page_len))
+            runtime_metrics.bucket("gen.paged.page_occupancy",
+                                   int(occupancy))
         with self._lock:
             table = np.ascontiguousarray(self._page_table[:, :P])
         return {"gen_page_table": table, "gen_lens": lens}
+
+    # -- warmup ------------------------------------------------------------
+    def warmup(self):
+        """Run every prompt bucket's prefill and the decode step (one
+        signature per declared page bucket, or the one dense signature)
+        once on zero feeds, building and loading every kernel they reach,
+        so the first real ``/generate`` pays no build.  The KV pool keeps
+        its bytes, as under the JAX package's compile-only warmup: zero
+        ``lens`` write nothing into the paged pool, and the dense pool's
+        tensors are put back after the step (its add-write of a zero
+        one-hot would turn a ``-0.0`` into ``+0.0``).  Returns a
+        :class:`~paddle_tpu_torch.obs.perf.WarmupReport` whose buckets are
+        tagged ``program: prefill|decode``."""
+        from paddle_tpu_torch.obs.perf import WarmupReport
+        sigs = []
+        for b in self.prompt_buckets:
+            if b > self.max_len:
+                continue
+            sigs.append({"gen_ids": (1, b), "gen_pos": (1, b),
+                         "gen_mask": (1, b), "gen_attn_bias": (1, 1, b, b),
+                         "gen_last": (1, b)})
+        S, L = self.num_slots, self.max_len
+        if self.paged:
+            dec_sigs = [{"gen_token": (S, 1), "gen_pos": (S, 1),
+                         "gen_page_table": (S, int(P)),
+                         "gen_lens": (S, 1)}
+                        for P in self.page_buckets
+                        if P <= self.pages_per_slot]
+        else:
+            dec_sigs = [{"gen_token": (S, 1), "gen_pos": (S, 1),
+                         "gen_pos_onehot": (S, L),
+                         "gen_attn_mask": (S, L)}]
+        with self._lock:
+            with scope_guard(self._scope):
+                pre = self._exe.warmup(
+                    self._pre_prog, sigs, fetch_list=self._pre_fetch,
+                    scope=self._scope)
+                # the decode step writes its cache tensors: declare
+                # exactly those as intended state updates, and put the
+                # pool's own tensors back (the step writes new ones)
+                pool = [self._scope.find_var(n) for n in self.cache_vars]
+                dec = self._exe.warmup(
+                    self._dec_prog, dec_sigs,
+                    fetch_list=self._dec_fetch, scope=self._scope,
+                    allow_state_updates=self.cache_vars)
+                for n, t in zip(self.cache_vars, pool):
+                    self._scope.set_var(n, t)
+        return WarmupReport.merge(pre, dec, labels=("prefill", "decode"))

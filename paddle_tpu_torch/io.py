@@ -16,6 +16,8 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
+
 from paddle_tpu_torch.framework import (Program, Variable,
                                         default_main_program)
 from paddle_tpu_torch.ops.persist_ops import read_record_names
@@ -23,7 +25,8 @@ from paddle_tpu_torch.scope import global_scope
 
 __all__ = [
     "save_vars", "save_persistables", "load_vars", "load_persistables",
-    "save_inference_model", "load_inference_model",
+    "save_inference_model", "load_inference_model", "synth_feed_value",
+    "infer_feed_specs",
 ]
 
 
@@ -137,6 +140,39 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     save_persistables(executor, dirname, inference_program,
                       params_filename or "__params__")
     return fetch_var_names
+
+
+def synth_feed_value(shape, dtype):
+    """Zero-filled feed array for a declared signature (what
+    ``Executor.warmup`` runs a signature on); bfloat16 feeds synthesize as
+    float32 zeros, which the executor casts to the variable's dtype."""
+    shape = tuple(int(d) for d in shape)
+    if str(dtype) == "bfloat16":
+        return np.zeros(shape, np.float32)
+    return np.zeros(shape, np.dtype(str(dtype)))
+
+
+def infer_feed_specs(program, feed_names):
+    """Declared feed signatures of an inference program: ``name ->
+    {"shape": tuple (None for dynamic dims), "dtype": str, "lod_level":
+    int}`` — what a server needs to synthesize warmup batches
+    (``serving.Predictor.warmup``) without seeing a real request."""
+    block = program.global_block()
+    specs = {}
+    for name in feed_names:
+        var = block.vars.get(name)
+        if var is None:
+            specs[name] = {"shape": None, "dtype": "float32",
+                           "lod_level": 0}
+            continue
+        shape = None
+        if var.shape is not None:
+            shape = tuple(None if d is None or int(d) < 0 else int(d)
+                          for d in var.shape)
+        specs[name] = {"shape": shape,
+                       "dtype": var.dtype or "float32",
+                       "lod_level": getattr(var, "lod_level", 0) or 0}
+    return specs
 
 
 def load_inference_model(dirname, executor, model_filename=None,

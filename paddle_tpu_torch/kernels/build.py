@@ -20,7 +20,8 @@ import subprocess
 import threading
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "CudaKernel",
-           "find_nvcc", "build_all", "library_path", "load_library"]
+           "find_nvcc", "build_all", "library_path", "load_library",
+           "counts"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -33,6 +34,18 @@ SOURCES = ("paged_decode.cu", "bias_softmax.cu", "flash_attention.cu",
 
 _lock = threading.Lock()
 _libs = {}
+_count_lock = threading.Lock()
+#: this process's kernel builds: ``compiled`` counts sources ``nvcc``
+#: compiled, ``loaded`` libraries loaded that were already in the build
+#: directory (``Executor.warmup`` reports each signature's provenance
+#: from them; ``chip_smoke.py`` checks that a server builds nothing
+#: after it is ready)
+counts = {"compiled": 0, "loaded": 0}
+
+
+def _count(key):
+    with _count_lock:
+        counts[key] += 1
 
 
 def find_nvcc():
@@ -87,6 +100,7 @@ def build_all(sources=SOURCES):
             failed.append(f"--- nvcc {s} (exit {proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, out)
+        _count("compiled")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -98,7 +112,9 @@ def load_library(source):
         lib = _libs.get(source)
         if lib is None:
             path = library_path(source)
-            if not os.path.isfile(path):
+            if os.path.isfile(path):
+                _count("loaded")
+            else:
                 build_all((source,))
             lib = ctypes.CDLL(path)
             _libs[source] = lib
@@ -117,6 +133,8 @@ class CudaKernel:
         self.replaces = replaces
         self.launches = 0
         self._entries = {}
+        # wrappers launch from server, batcher and scheduler threads
+        self._count_lock = threading.Lock()
 
     def _entry(self, symbol, argtypes):
         hit = self._entries.get(symbol)
@@ -141,4 +159,5 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name}: CUDA launch of {symbol} failed: "
                 f"{err(code).decode()} (error {code})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

@@ -465,4 +465,9 @@ def export_gen_model(dirname, hp: GenConfig = None, num_slots=8,
         })
     with open(os.path.join(dirname, META_FILENAME), "w") as f:
         json.dump(meta, f, indent=2)
+    # post-export contract: the prefill/decode pair must satisfy the
+    # constant-signature contract against the meta (a drifted bundle
+    # fails here, not at the first /generate); PTA018 hazards are logged
+    from paddle_tpu_torch.analysis import verify_gen_bundle
+    verify_gen_bundle(dirname, where="gen_lm.export_gen_model")
     return dirname

@@ -51,7 +51,10 @@ def test_every_port_module_imports_with_jax_blocked():
                 "lod", "ops.rnn_ops", "ops.sequence_ops", "layers.sequence",
                 "models.stacked_lstm", "ops.control_flow_ops",
                 "ops.io_ops", "ops.beam_search_ops", "layers.control_flow",
-                "models.seq2seq"):
+                "models.seq2seq", "serving", "cli", "profiler",
+                "obs.trace", "obs.flight", "obs.prom", "obs.slo",
+                "obs.perf", "fault.chaos", "fault.retry", "fleet.sessions",
+                "analysis.distributed"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
@@ -99,3 +102,55 @@ def test_gen_predictor_without_a_place_raises_when_cuda_is_absent(
                                 num_slots=2)
     # the CPU is used only when asked for
     assert GenPredictor(d, place=CPUPlace()).device.type == "cpu"
+
+
+def _mlp_bundle(d):
+    main, startup = paddle_tpu_torch.Program(), paddle_tpu_torch.Program()
+    with paddle_tpu_torch.program_guard(main, startup):
+        x = paddle_tpu_torch.layers.data("x", shape=[4], dtype="float32")
+        y = paddle_tpu_torch.layers.fc(x, 2)
+    exe = paddle_tpu_torch.Executor(CPUPlace())
+    scope = paddle_tpu_torch.Scope()
+    with paddle_tpu_torch.scope_guard(scope):
+        exe.run(startup)
+        paddle_tpu_torch.io.save_inference_model(d, ["x"], [y], exe, main)
+    return d
+
+
+def test_serving_entry_points_without_a_place_raise_when_cuda_is_absent(
+        tmp_path, monkeypatch):
+    from paddle_tpu_torch import cli, serving
+    mlp = _mlp_bundle(str(tmp_path / "mlp"))
+    gen = str(tmp_path / "gen")
+    gen_lm.export_gen_model(gen, gen_lm.GenConfig(), num_slots=2,
+                            place=CPUPlace())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for d in (mlp, gen):
+        for make in (lambda: serving.InferenceServer(d),
+                     lambda: serving.InferenceServer(d, async_load=True),
+                     lambda: serving.serve(d, port=0),
+                     lambda: cli.main(["serve", "--model", d, "--port",
+                                       "0", "--warmup"])):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serving.Predictor(mlp)
+    # the CPU is used only when asked for
+    assert serving.Predictor(mlp, place=CPUPlace()).device.type == "cpu"
+    srv = serving.InferenceServer(gen, place=CPUPlace())
+    srv.start_background()
+    try:
+        assert srv.ready and srv.gen_predictor.device.type == "cpu"
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--master", "127.0.0.1:1"], "item 8"),
+    (["--compile-cache", "/nonexistent"], "no XLA compilation cache"),
+])
+def test_cli_serve_options_the_port_lacks_raise(tmp_path, argv, match):
+    from paddle_tpu_torch import cli
+    d = _mlp_bundle(str(tmp_path / "mlp"))
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(["serve", "--model", d, "--place", "cpu"] + argv)
