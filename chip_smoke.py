@@ -170,7 +170,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and hidden 512, 16 sources, beam 4, 50 steps: well-formed
    hypotheses, ms a decode; and at the test's width on the card and on
    the CPU: the same sentences and scores (``phase_beam_decode``).
-10. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
+10. Static analysis and the executor's switches.  Route A of phase 4
+   from one startup state, unoptimized and under ``PADDLE_TPU_OPT=1
+   PADDLE_TPU_VERIFY=1`` (the verify-sandwiched pass pipeline of
+   ``analysis/opt`` and the structural verifier before the first run):
+   the losses agree step by step to ``TRAIN_OPT_LOSS_RTOL`` (bit for bit
+   where no float constant was folded), no pass is aborted, and both
+   runs launch exactly the bias-softmax pair 18 times a step; printed:
+   the op counts, each pass's stats, the optimize and verify seconds,
+   the steady step both ways and ``cost.estimate``'s FLOPs as a share
+   of the card's bf16 dense peak.  Route A with ``check_nan_inf`` gives
+   the unchecked losses (its step time beside the plain one); on the
+   card ``log(-1)`` under the mode raises naming its variable, ``gather``
+   and ``lookup_table`` at index -1 and ``n`` give the last row and NaN
+   rows and the process's next run works, and the saturating ``cast``
+   equals the CPU's.  The paged serving bundle under
+   ``InferenceServer(gen_prefill_budget=...)`` (the longest prompt's
+   static prefill cost): the ten concurrent streams token-identical to
+   the unbudgeted ones in ``HTTP_ROUNDS`` rounds, the kernels launched
+   ``prefills x n_layer`` and ``decode_steps x n_layer`` times, the cut
+   admission passes and TTFT beside the unbudgeted rounds', and the cost
+   model's prompt and page buckets for the ten lengths.
+11. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
@@ -183,6 +204,7 @@ unavailable or the port is not beside it.  Writes its bundle and build
 logs under ``runs/chip_smoke/``.
 """
 
+import gc
 import json
 import os
 import re
@@ -250,17 +272,25 @@ def time_ms(fn, iters=200, warmup=20):
 
 def _device_events(fn, iters, warmup):
     """``(name, microseconds)`` of every CUDA kernel ``iters`` calls of
-    ``fn`` ran, by ``torch.profiler``, after ``warmup`` calls."""
+    ``fn`` ran, by ``torch.profiler``, after ``warmup`` calls.  The
+    profile's first step, one more call, is the profiler's own warm-up and
+    its events are dropped: a capture that counts from the moment tracing
+    is switched on has come back short of a launch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     return [(ev.name, float(ev.time_range.end - ev.time_range.start))
             for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
@@ -3431,6 +3461,10 @@ def phase_http_generate(serving):
         rounds = {kind: [] for kind in kinds}
         for r in range(HTTP_ROUNDS):
             for kind, open_stream in kinds.items():
+                # cyclic garbage (an earlier phase's tensors held by a
+                # reference cycle) is freed here, not mid-rounds, so the
+                # rounds' allocations compare
+                gc.collect()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 runtime_metrics.reset()
@@ -3759,6 +3793,484 @@ def phase_cli(serving):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: static analysis, the optimization pipeline and the switches of
+# the executor (PADDLE_TPU_OPT, PADDLE_TPU_VERIFY, check_nan_inf) on the
+# card, and the serving front with a prefill budget
+# ---------------------------------------------------------------------------
+
+#: optimized and unoptimized route A losses agree step by step to this
+#: (relative): the passes keep every op that runs and its RNG slot, but a
+#: constant folded on the host in numpy may round apart from the card
+TRAIN_OPT_LOSS_RTOL = 1e-6
+#: steps a run of the check_nan_inf comparison (the first is warm-up)
+NAN_CHECK_STEPS = 3
+#: pairs of steps, unchecked then checked on one executor, whose medians
+#: give the check's overhead (a route A step's host time moves by tens
+#: of ms from one step to the next)
+NAN_CHECK_TIMED_PAIRS = 8
+
+
+def _scope_copy(pt, scope):
+    """A new Scope holding a copy of every tensor of ``scope``."""
+    import torch
+    out = pt.Scope()
+    for name, value in scope.items():
+        out.set_var(name, value.clone() if isinstance(value, torch.Tensor)
+                    else value)
+    return out
+
+
+def _train_run(pt, main, cost, scope, feed, steps):
+    """``steps`` steps of ``main`` on a fresh ``Executor`` (so its run
+    counter, and so its dropout masks, start where another run's do);
+    returns the executor, the float32 losses and each step's seconds."""
+    import numpy as np
+    exe = pt.Executor()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        (loss,) = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_s.append(time.perf_counter() - t)   # the fetch synchronizes
+        losses.append(np.float32(np.asarray(loss).reshape(())))
+    return exe, losses, step_s
+
+
+def _loss_rel(a, b):
+    import numpy as np
+    return [float(abs(np.float64(x) - np.float64(y)) /
+                  max(abs(np.float64(x)), 1e-30)) for x, y in zip(a, b)]
+
+
+def phase_train_opt(route):
+    """Transformer-base route ``route`` (dropout 0.1, bf16 AMP, Adam)
+    from one startup state, ``TRAIN_STEPS`` steps unoptimized and
+    ``TRAIN_STEPS`` under ``PADDLE_TPU_OPT=1 PADDLE_TPU_VERIFY=1`` (set
+    here, restored after), each on a fresh executor: the losses agree
+    step by step to ``TRAIN_OPT_LOSS_RTOL``, no pass is aborted, and each
+    run launches exactly its route's kernels 18 times a step and nothing
+    else.  Prints the op counts, every pass's stats, the optimize and
+    verify seconds, the steady step both ways and the static FLOPs'
+    share of the card's bf16 dense peak.  Returns the optimized run's
+    launches and, for ``phase_check_nan_inf``, the program and its
+    state."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import cost as _cost
+    from paddle_tpu_torch.analysis.opt import optimize_program
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import transformer as T
+
+    B, S, kernels = ROUTES[route]
+    hp = T.ModelHyperParams()          # Transformer-base, dropout 0.1
+    hp.max_length = max(hp.max_length, S)
+    main, startup, cost = _transformer_program(pt, T, hp, B, S, amp=True)
+    feed = T.fake_batch(B, S, S, hp, seed=SEED)
+    feeds, fetches = tuple(feed), (cost.name,)
+    t = time.perf_counter()
+    analysis.verify_program(main, feed_names=feeds, fetch_names=fetches)
+    verify_s = time.perf_counter() - t
+    t = time.perf_counter()
+    optimized, report = optimize_program(main, feed_names=feeds,
+                                         fetch_names=fetches)
+    opt_s = time.perf_counter() - t
+    if report.aborted_passes:
+        raise AssertionError(f"train_opt[{route}]: passes aborted "
+                             f"{report.aborted_passes}:\n{report.format()}")
+    flops = _cost.estimate(main).total_flops
+    types = [op.type for op in optimized.global_block().ops]
+    # a softmax and its grad an attention: 3 a layer (encoder self,
+    # decoder self, cross), 18 at Transformer-base's 6 + 6
+    per_step = 3 * int(hp.n_layer)
+    if types.count("softmax") != per_step or \
+            types.count("softmax_grad") != per_step:
+        raise AssertionError(f"train_opt[{route}]: the optimized program "
+                             f"lost a softmax or its grad")
+    log(f"train_opt[{route}]: ops {report.ops_before} -> "
+        f"{report.ops_after}; optimize {opt_s:.3f}s, verify "
+        f"{verify_s:.4f}s; static FLOPs a step {flops:,}")
+    for p in report.passes:
+        log(f"  pass {p['pass']}: {p['status']} ops {p['ops_before']} -> "
+            f"{p['ops_after']} {p['stats']}")
+    log(f"  aborted passes: {report.aborted_passes}")
+
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    want = {k: TRAIN_STEPS * per_step for k in kernels}
+    runs = {}
+    saved = {k: os.environ.get(k) for k in ("PADDLE_TPU_OPT",
+                                            "PADDLE_TPU_VERIFY")}
+    try:
+        for mode in ("plain", "opt"):
+            for k in saved:
+                if mode == "opt":
+                    os.environ[k] = "1"
+                else:
+                    os.environ.pop(k, None)
+            scope = _scope_copy(pt, scope0)
+            torch.cuda.synchronize()
+            for kern in ALL_KERNELS:
+                kern.launches = 0
+            exe, losses, step_s = _train_run(pt, main, cost, scope, feed,
+                                             TRAIN_STEPS)
+            launches = _launch_counts()
+            if launches != want:
+                raise AssertionError(f"train_opt[{route}] {mode}: launches "
+                                     f"{launches} != {want}")
+            if mode == "opt":
+                ran = [p for k, p in exe._opt_cache.items()
+                       if k[0] == id(main)]
+                if len(ran) != 1 or len(ran[0].global_block().ops) != \
+                        report.ops_after or not exe._verified:
+                    raise AssertionError(
+                        f"train_opt[{route}]: the executor did not run the "
+                        f"optimized, verified program")
+            runs[mode] = dict(losses=losses, step_s=step_s,
+                              launches=launches)
+            del scope, exe
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    plain, opt = runs["plain"], runs["opt"]
+    rel = _loss_rel(plain["losses"], opt["losses"])
+    if not all(np.isfinite(plain["losses"])) or \
+            max(rel) > TRAIN_OPT_LOSS_RTOL:
+        raise AssertionError(f"train_opt[{route}]: losses {plain['losses']} "
+                             f"and optimized {opt['losses']} (rel {rel})")
+    identical = [bool(a == b) for a, b in zip(plain["losses"],
+                                              opt["losses"])]
+    out = dict(ops_before=report.ops_before, ops_after=report.ops_after,
+               passes={p["pass"]: p["stats"] for p in report.passes},
+               aborted=report.aborted_passes, optimize_s=opt_s,
+               verify_s=verify_s, flops=flops, loss_rel_max=max(rel),
+               bit_identical=all(identical))
+    for mode, r in runs.items():
+        steady = float(np.mean(r["step_s"][1:]))
+        out[f"{mode}_step_ms"] = 1e3 * steady
+        out[f"{mode}_flops_share"] = flops / steady / BF16_TC_OPS_PER_S
+    log(f"train_opt[{route}]: losses {[float(x) for x in plain['losses']]}"
+        f" and optimized {[float(x) for x in opt['losses']]}: rel max "
+        f"{max(rel):.3e}, bit-identical {identical}; steady step "
+        f"{out['plain_step_ms']:.2f} ms unoptimized, {out['opt_step_ms']:.2f}"
+        f" ms optimized; static FLOPs share of "
+        f"{BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s bf16: "
+        f"{100 * out['plain_flops_share']:.3f}% / "
+        f"{100 * out['opt_flops_share']:.3f}%; launches {opt['launches']}")
+    torch.cuda.empty_cache()
+    state = dict(main=main, cost=cost, feed=feed, scope=scope0,
+                 kernels=kernels, per_step=per_step)
+    return opt["launches"], out, state
+
+
+def _tiny_program(pt, vars_, ops):
+    return pt.Program.from_dict(
+        {"blocks": [{"idx": 0, "parent_idx": -1, "vars": vars_,
+                     "ops": ops}]})
+
+
+#: float -> int casts the saturating ``cast`` must give alike on the card
+#: and the CPU (and as the JAX package's XLA convert does)
+SATURATING_CASTS = {
+    "int32": [float("nan"), float("inf"), -float("inf"), 2.5e9, -2.5e9,
+              7.9],
+    "uint8": [-1.0, 300.0, 254.7, float("nan")],
+}
+
+
+def phase_check_nan_inf(state):
+    """``check_nan_inf`` and the repaired index and cast ops on the card:
+    a route A run with the mode on gives the unchecked run's losses (its
+    steady step beside the plain one, and the medians of steps that
+    alternate the two on one executor); ``log(x)`` at x = -1 raises naming
+    the variable; ``gather`` / ``lookup_table`` at index -1 and at ``n``
+    give the last row and NaN rows with no device-side assert, and the
+    next ``Executor.run`` in this process still works; a saturating
+    ``cast`` equals the CPU's."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+
+    main, cost, feed = state["main"], state["cost"], state["feed"]
+    want = {k: NAN_CHECK_STEPS * state["per_step"]
+            for k in state["kernels"]}
+    runs = {}
+    for mode in ("plain", "check"):
+        main.check_nan_inf = mode == "check"
+        scope = _scope_copy(pt, state["scope"])
+        torch.cuda.synchronize()
+        for kern in ALL_KERNELS:
+            kern.launches = 0
+        _, losses, step_s = _train_run(pt, main, cost, scope, feed,
+                                       NAN_CHECK_STEPS)
+        launches = _launch_counts()
+        if launches != want:
+            raise AssertionError(f"check_nan_inf {mode}: launches "
+                                 f"{launches} != {want}")
+        runs[mode] = dict(losses=losses, step_ms=1e3 * float(
+            np.mean(step_s[1:])), launches=launches)
+        del scope
+    main.check_nan_inf = None
+    rel = _loss_rel(runs["plain"]["losses"], runs["check"]["losses"])
+    if max(rel) > TRAIN_OPT_LOSS_RTOL:
+        raise AssertionError(f"check_nan_inf: losses "
+                             f"{runs['plain']['losses']} != "
+                             f"{runs['check']['losses']}")
+    scope = _scope_copy(pt, state["scope"])
+    timed = {"plain": [], "check": []}
+    exe = pt.Executor()
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    for _ in range(NAN_CHECK_TIMED_PAIRS):
+        for mode in ("plain", "check"):
+            main.check_nan_inf = mode == "check"
+            t = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            timed[mode].append(1e3 * (time.perf_counter() - t))
+    main.check_nan_inf = None
+    want = {k: 2 * NAN_CHECK_TIMED_PAIRS * state["per_step"]
+            for k in state["kernels"]}
+    if _launch_counts() != want:
+        raise AssertionError(f"check_nan_inf timed steps: launches "
+                             f"{_launch_counts()} != {want}")
+    del scope
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+
+    exe = pt.Executor()
+    prog = _tiny_program(pt, [
+        {"name": "x", "shape": [3], "dtype": "float32", "is_data": True},
+        {"name": "log_0.tmp_0", "shape": [3], "dtype": "float32"}],
+        [{"type": "log", "inputs": {"X": ["x"]},
+          "outputs": {"Out": ["log_0.tmp_0"]}, "attrs": {}}])
+    prog.check_nan_inf = True
+    try:
+        exe.run(prog, feed={"x": np.array([-1.0, 1.0, 2.0], np.float32)},
+                fetch_list=["log_0.tmp_0"], scope=pt.Scope())
+        raise AssertionError("check_nan_inf: log(-1) did not raise")
+    except RuntimeError as e:
+        if "'log_0.tmp_0' contains NaN/Inf" not in str(e):
+            raise
+        raised = str(e)
+
+    rows = np.arange(12, dtype=np.float32).reshape(4, 3) + 1.0
+    idx_prog = _tiny_program(pt, [
+        {"name": "x", "shape": [4, 3], "dtype": "float32", "is_data": True},
+        {"name": "i", "shape": [2], "dtype": "int64", "is_data": True},
+        {"name": "ids", "shape": [2, 1], "dtype": "int64",
+         "is_data": True},
+        {"name": "g", "shape": [2, 3], "dtype": "float32"},
+        {"name": "e", "shape": [2, 3], "dtype": "float32"}],
+        [{"type": "gather", "inputs": {"X": ["x"], "Index": ["i"]},
+          "outputs": {"Out": ["g"]}, "attrs": {}},
+         {"type": "lookup_table", "inputs": {"W": ["x"], "Ids": ["ids"]},
+          "outputs": {"Out": ["e"]}, "attrs": {"padding_idx": -1}}])
+    bad = {"x": rows, "i": np.array([-1, 4], np.int64),
+           "ids": np.array([[-1], [4]], np.int64)}
+    g, e = exe.run(idx_prog, feed=bad, fetch_list=["g", "e"],
+                   scope=pt.Scope())
+    torch.cuda.synchronize()
+    for name, got in (("gather", g), ("lookup_table", e)):
+        if not np.array_equal(got[0], rows[-1]) or \
+                not np.isnan(got[1]).all():
+            raise AssertionError(f"{name} at [-1, 4] gave {got}")
+    good = {"x": rows, "i": np.array([0, 2], np.int64),
+            "ids": np.array([[3], [1]], np.int64)}
+    g, e = exe.run(idx_prog, feed=good, fetch_list=["g", "e"],
+                   scope=pt.Scope())
+    if not (np.array_equal(g, rows[[0, 2]]) and
+            np.array_equal(e, rows[[3, 1]])):
+        raise AssertionError("the run after the out-of-range one failed")
+
+    casts = {}
+    for dtype, values in SATURATING_CASTS.items():
+        x = np.asarray(values, np.float32)
+        cprog = _tiny_program(pt, [
+            {"name": "x", "shape": [len(values)], "dtype": "float32",
+             "is_data": True},
+            {"name": "y", "shape": [len(values)], "dtype": dtype}],
+            [{"type": "cast", "inputs": {"X": ["x"]},
+              "outputs": {"Out": ["y"]},
+              "attrs": {"in_dtype": "float32", "out_dtype": dtype}}])
+        (card,) = exe.run(cprog, feed={"x": x}, fetch_list=["y"],
+                          scope=pt.Scope())
+        (cpu,) = pt.Executor(pt.CPUPlace()).run(
+            cprog, feed={"x": x}, fetch_list=["y"], scope=pt.Scope())
+        if not np.array_equal(card, cpu) or card.dtype != cpu.dtype:
+            raise AssertionError(f"cast to {dtype}: card {card} != cpu "
+                                 f"{cpu}")
+        casts[dtype] = card.tolist()
+    _no_launches("check_nan_inf (small programs)")
+    out = dict(plain_step_ms=runs["plain"]["step_ms"],
+               check_step_ms=runs["check"]["step_ms"],
+               loss_rel_max=max(rel), casts=casts)
+    for mode, ms in timed.items():
+        out[f"{mode}_step_ms_timed"] = _spread([{"ms": m} for m in ms])["ms"]
+    spread = {mode: "{median:.2f} [{min:.2f}, {max:.2f}]".format(
+        **out[f"{mode}_step_ms_timed"]) for mode in timed}
+    log(f"check_nan_inf: route A losses {[float(x) for x in runs['check']['losses']]}"
+        f" with the check, rel {max(rel):.3e} from the unchecked run; "
+        f"steady step {out['check_step_ms']:.2f} ms checked, "
+        f"{out['plain_step_ms']:.2f} ms unchecked; alternating steps, "
+        f"median [least, most] of {NAN_CHECK_TIMED_PAIRS} each: checked "
+        f"{spread['check']} ms, unchecked {spread['plain']} ms; log(-1) "
+        f"raised "
+        f"{raised!r}; gather / lookup_table at [-1, 4] gave the last row "
+        f"and NaN rows and the next run worked; casts {casts} as on the "
+        f"CPU")
+    state["scope"] = None
+    torch.cuda.empty_cache()
+    return runs["check"]["launches"], out
+
+
+def _budget_trace(pred, trace):
+    """Record the scheduler's calls into ``pred``: prefills (``P``),
+    decode steps (``D``) and the budget's cost queries (``C``).  Returns
+    a function that puts the methods back."""
+    saved = {n: getattr(pred, n) for n in ("prefill", "decode_step",
+                                           "prefill_cost")}
+
+    def wrap(name, tag):
+        fn = saved[name]
+
+        def traced(*a, **kw):
+            trace.append(tag)
+            return fn(*a, **kw)
+        return traced
+
+    pred.prefill = wrap("prefill", "P")
+    pred.decode_step = wrap("decode_step", "D")
+    pred.prefill_cost = wrap("prefill_cost", "C")
+    return lambda: [setattr(pred, n, f) for n, f in saved.items()]
+
+
+def _budget_cuts(trace):
+    """Admission passes the budget cut: a cost query that admitted
+    nothing (the next call is a decode step, or nothing)."""
+    return sum(1 for i, tag in enumerate(trace)
+               if tag == "C" and (i + 1 == len(trace) or
+                                  trace[i + 1] == "D"))
+
+
+def phase_serving_budget(serving, http_gen):
+    """``InferenceServer(gen_prefill_budget=...)`` over the paged
+    GenLongConfig bundle of ``phase_serving``, the budget the static
+    prefill cost of the longest prompt (so that it binds): the ten
+    prompts as concurrent streamed ``/generate`` calls in
+    ``HTTP_ROUNDS`` rounds, each stream token-identical to the
+    unbudgeted in-process one, exactly ``prefills x n_layer`` bias
+    softmax and ``decode_steps x n_layer`` paged decode launches in every
+    round, every admission observed (``gen.admission_cost``).  Prints the
+    cut admission passes and TTFT beside the unbudgeted HTTP rounds', and
+    the cost model's prompt and page buckets for the ten lengths."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.gen import GenPredictor
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models.gen_lm_long import GenLongConfig
+    from paddle_tpu_torch.profiler import runtime_metrics
+    from paddle_tpu_torch.serving import InferenceServer, ServingClient
+
+    prompts, want = serving["prompts"], serving["streams"]
+    n_layer = int(GenLongConfig().n_layer)
+    lengths = [len(p) for p in prompts]
+    planner = GenPredictor(serving["bundle"])
+    budget = planner.prefill_cost(max(lengths))
+    costs = [planner.prefill_cost(n) for n in lengths]
+    plans = dict(prompt_buckets=planner.plan_prompt_buckets(lengths),
+                 page_buckets=planner.plan_page_buckets(lengths),
+                 bundle_prompt_buckets=planner.prompt_buckets,
+                 bundle_page_buckets=planner.page_buckets)
+    del planner
+    log(f"serving_budget: prefill costs {costs} for prompts of {lengths}; "
+        f"budget {budget}; cost-optimal buckets {plans}")
+    srv = InferenceServer(serving["bundle"], host="127.0.0.1", port=0,
+                          warmup=True, async_load=True,
+                          gen_prefill_budget=budget)
+    srv.start_background()
+    rounds = []
+    try:
+        addr = f"127.0.0.1:{srv.addr[1]}"
+        _wait_ready(addr, server=srv)
+        if srv._gen.prefill_budget != budget:
+            raise AssertionError("serving_budget: the scheduler has budget "
+                                 f"{srv._gen.prefill_budget}")
+        client = ServingClient(addr, timeout=120)
+        pred = srv.gen_predictor
+        for r in range(HTTP_ROUNDS):
+            trace = []
+            restore = _budget_trace(pred, trace)
+            torch.cuda.synchronize()
+            runtime_metrics.reset()
+            for kern in ALL_KERNELS:
+                kern.launches = 0
+            pre0, dec0 = pred.prefills, pred.decode_steps
+            try:
+                wall, results = _concurrent_streams(
+                    lambda p: client.generate(
+                        p, max_new_tokens=MAX_NEW_TOKENS), prompts)
+            finally:
+                restore()
+            launches = _launch_counts()
+            prefills = pred.prefills - pre0
+            steps = pred.decode_steps - dec0
+            for i, (_, _, toks, tail) in enumerate(results):
+                if toks != want[i] or not tail or \
+                        tail.get("finish_reason") != "length":
+                    raise AssertionError(
+                        f"serving_budget round {r}: prompt of "
+                        f"{len(prompts[i])} gave {toks} ({tail}), "
+                        f"unbudgeted in process {want[i]}")
+            expect = {"bias_softmax": n_layer * prefills,
+                      "paged_decode": n_layer * steps}
+            observed = runtime_metrics.snapshot()["series"].get(
+                "gen.admission_cost", {}).get("count", 0)
+            if launches != expect or prefills != len(prompts) or \
+                    observed != len(prompts):
+                raise AssertionError(
+                    f"serving_budget round {r}: launches {launches} != "
+                    f"{expect} (prefills {prefills}, decode steps {steps},"
+                    f" admission costs observed {observed})")
+            rounds.append(dict(_stream_metrics(wall, results),
+                               cut_passes=_budget_cuts(trace),
+                               decode_steps=steps, launches=launches,
+                               observed=observed))
+    finally:
+        srv.shutdown()
+    spread = _spread([{k: v for k, v in r.items() if k != "launches"}
+                      for r in rounds])
+    plain = http_gen["http"]
+    if not any(r["cut_passes"] for r in rounds):
+        raise AssertionError("serving_budget: the budget never cut an "
+                             "admission pass")
+    log(f"serving_budget: {len(prompts)} concurrent streams "
+        f"token-identical to the unbudgeted in-process ones in "
+        f"{HTTP_ROUNDS} rounds; admission costs observed "
+        f"{[r['observed'] for r in rounds]}; passes cut "
+        f"{[r['cut_passes'] for r in rounds]}; first round's launches "
+        f"{rounds[0]['launches']}")
+    log("serving_budget: TTFT ms (median, least, most) p50 " + ",".join(
+        f"{spread['ttft_p50_ms'][k]:.3f}" for k in ("median", "min", "max"))
+        + " p99 " + ",".join(f"{spread['ttft_p99_ms'][k]:.3f}"
+                             for k in ("median", "min", "max"))
+        + "; unbudgeted HTTP p50 " + ",".join(
+            f"{plain['ttft_p50_ms'][k]:.3f}" for k in ("median", "min",
+                                                       "max"))
+        + " p99 " + ",".join(f"{plain['ttft_p99_ms'][k]:.3f}"
+                             for k in ("median", "min", "max"))
+        + f"; tokens/s median {spread['tokens_per_s']['median']:.1f} "
+        f"(unbudgeted {plain['tokens_per_s']['median']:.1f})")
+    return rounds[0]["launches"], dict(budget=budget, costs=costs,
+                                       plans=plans, rounds=spread)
+
+
+# ---------------------------------------------------------------------------
 
 #: what the report line says beside a kernel's own fields: the second
 #: TPU kernel a port stands for (``exp_smalls_attn.py`` runs the same two
@@ -3864,10 +4376,15 @@ def main():
     by_path["http_resume"], http_resume = phase_http_resume(serving)
     http_predict = phase_http_predict()
     cli = phase_cli(serving)
+    by_path["serving_budget"], serving_budget = phase_serving_budget(
+        serving, http_gen)
     by_path["dense_decode"], dense = phase_serving(paged=False)
     train = {}
     for route in ROUTES:
         by_path[f"train_{route}"], train[route] = phase_train(route)
+    by_path["train_opt_A"], train_opt, opt_state = phase_train_opt("A")
+    by_path["check_nan_inf"], nan_check = phase_check_nan_inf(opt_state)
+    del opt_state
     by_path["gen_lm_train"] = phase_gen_lm_train()
     by_path["bshd_attention"], bshd_path = phase_bshd_path()
     for name, e in (("bshd_fwd", "fwd_plain"), ("bshd_bwd", "bwd_plain")):
@@ -3929,6 +4446,9 @@ def main():
         for m, v in http_predict.items()) +
         f" occupancy={http_predict['batched']['occupancy']}")
     log(f"cli: {cli}")
+    log("serving_budget: " + json.dumps(serving_budget))
+    log("train_opt[A]: " + json.dumps(train_opt))
+    log("check_nan_inf: " + json.dumps(nan_check))
     log(f"dense decode: tokens_per_s={dense['tokens_per_s']:.1f} "
         f"decode_step_ms={dense['decode_step_ms']:.3f}")
     for route, t in train.items():

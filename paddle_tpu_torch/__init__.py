@@ -19,7 +19,7 @@ from paddle_tpu_torch import ops  # registers the op lowerings
 from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.backward import append_backward, calc_gradient
 from paddle_tpu_torch import initializer
-from paddle_tpu_torch.param_attr import ParamAttr
+from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr
 from paddle_tpu_torch import layers
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.optimizer import (

@@ -1,34 +1,45 @@
-"""Verifier entry points (the structural half of
-``paddle_tpu.analysis.analyzer``): ``verify_program`` runs the
-structural pass and raises on error findings; ``verify_transpiled`` is
-the same with a ``where=`` tag, called by every program rewriter
-(``backward.append_backward``) so a rewrite that emits an ill-formed
-program fails AT THE REWRITE, with the pass named."""
+"""Analyzer entry points (the port's copy of
+``paddle_tpu.analysis.analyzer``): compose the passes, gate the
+executor hook, verify transpiler output.
+
+Three call sites, three shapes:
+
+* ``lint_program`` — everything (structure + types + graph lints), for
+  ``python -m paddle_tpu_torch lint`` and the model-zoo gate.  Returns
+  an :class:`AnalysisResult`; never raises.
+* ``verify_program`` — the structural pass only; raises
+  :class:`ProgramVerificationError` on error-severity findings.  This
+  is what ``PADDLE_TPU_VERIFY=1`` runs in ``Executor.run`` before a
+  program's first run (memoized per program version — a cached step
+  pays one set lookup).
+* ``verify_transpiled`` — ``verify_program`` with a ``where=`` tag,
+  called by every program rewriter (``backward.append_backward``) so a
+  rewrite that emits an ill-formed program fails AT THE REWRITE with
+  the pass named.
+
+``check_pipeline_carriers`` checks what the pipeline transpiler
+produces and comes with it (ROADMAP queue 1 item 7).
+"""
 
 from __future__ import annotations
 
-from paddle_tpu_torch.analysis import structural
+from paddle_tpu_torch.analysis import lints, structural, typecheck
 from paddle_tpu_torch.analysis.diagnostics import (ProgramVerificationError,
                                                    format_diagnostics)
 
-__all__ = ["AnalysisResult", "lint_program", "verify_program",
-           "verify_transpiled"]
-
-_ORDER = {"error": 0, "warning": 1}
-
-
-def _sorted(diags):
-    return sorted(diags, key=lambda d: (
-        _ORDER[d.severity], d.code,
-        d.op_index if d.op_index is not None else -1))
+__all__ = ["AnalysisResult", "analyze_program", "lint_program",
+           "verify_program", "verify_transpiled"]
 
 
 class AnalysisResult:
-    """Findings of one analyzer run over a program (or, for a generation
-    bundle, over the prefill/decode pair)."""
+    """Findings of one analyzer run over a program."""
 
-    def __init__(self, diagnostics):
+    def __init__(self, diagnostics, uncovered_op_types=()):
         self.diagnostics = list(diagnostics)
+        #: the warn-list: op types with no registered inference rule —
+        #: shapes/dtypes were not propagated through them (coverage gap,
+        #: not a defect)
+        self.uncovered_op_types = sorted(uncovered_op_types)
 
     @property
     def errors(self):
@@ -51,28 +62,47 @@ class AnalysisResult:
 
     def __repr__(self):
         return (f"AnalysisResult(errors={len(self.errors)}, "
-                f"warnings={len(self.warnings)})")
+                f"warnings={len(self.warnings)}, "
+                f"uncovered={len(self.uncovered_op_types)})")
+
+
+def analyze_program(program, feed_names=None, fetch_names=None,
+                    passes=("structure", "types", "lints")):
+    """Run the selected passes; returns an :class:`AnalysisResult`."""
+    diags = []
+    uncovered = set()
+    if "structure" in passes:
+        diags.extend(structural.check_structure(
+            program, feed_names=feed_names, fetch_names=fetch_names))
+    if "types" in passes:
+        tdiags, uncovered = typecheck.check_types(program)
+        diags.extend(tdiags)
+    if "lints" in passes:
+        diags.extend(lints.check_graph(program, feed_names=feed_names,
+                                       fetch_names=fetch_names))
+    order = {"error": 0, "warning": 1}
+    diags.sort(key=lambda d: (order[d.severity], d.code,
+                              d.op_index if d.op_index is not None else -1))
+    return AnalysisResult(diags, uncovered)
 
 
 def lint_program(program, feed_names=None, fetch_names=None):
-    """The structural pass as an :class:`AnalysisResult` (the JAX
-    package's lint also runs its type and graph passes, which are not
-    ported yet)."""
-    return AnalysisResult(_sorted(structural.check_structure(
-        program, feed_names=feed_names, fetch_names=fetch_names)))
+    """All passes — what ``paddle_tpu lint`` and the zoo gate run."""
+    return analyze_program(program, feed_names=feed_names,
+                           fetch_names=fetch_names)
 
 
 def verify_program(program, feed_names=None, fetch_names=None,
                    where="verify_program"):
-    """Structural verification; raises :class:`ProgramVerificationError`
-    on errors and returns the (possibly empty) diagnostics otherwise."""
-    diags = lint_program(program, feed_names, fetch_names).diagnostics
-    if any(d.severity == "error" for d in diags):
-        raise ProgramVerificationError(diags, where=where)
-    return diags
+    """Structural verification; raises ProgramVerificationError on
+    errors.  Returns the AnalysisResult when clean."""
+    result = analyze_program(program, feed_names=feed_names,
+                             fetch_names=fetch_names,
+                             passes=("structure",))
+    return result.raise_on_errors(where=where)
 
 
 def verify_transpiled(program, where):
-    """Post-rewrite contract check: a pass that emits a structurally
-    broken program must fail HERE, naming itself."""
+    """Post-rewrite contract check for transpilers: a pass that emits a
+    structurally broken program must fail HERE, naming itself."""
     return verify_program(program, where=where)

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port (the serving part of
-``paddle_tpu.cli``).
+"""Command-line entry points of the port (the serving and static-analysis
+parts of ``paddle_tpu.cli``).
 
 Usage: ``python -m paddle_tpu_torch <command> ...``
 
@@ -12,11 +12,20 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
                                      serving replica (/stats); --local
                                      for this process; --prom for
                                      Prometheus text
+  lint     MODEL_DIR | --zoo NAME    static analysis of a program IR
+                                     (PTA*** diagnostics; --json,
+                                     --strict, --dot OUT, --verbose)
+  opt      MODEL_DIR | --zoo NAME    the optimization pass pipeline,
+                                     offline: per-pass stats (--json,
+                                     --passes a,b)
 
 ``serve --master`` (fleet enrollment) and ``--compile-cache`` (the JAX
 package's persistent XLA cache) raise: the fleet is not ported yet, and
 the port's kernels always build into the build directory beside their
-sources.
+sources.  ``lint --pair`` and ``lint --pipeline`` raise until the
+multi-device transpilers are ported (ROADMAP queue 1 item 7), and
+``selfcheck`` raises until the planes it checks are (it follows item
+10).
 """
 
 from __future__ import annotations
@@ -141,6 +150,214 @@ def _cmd_stats(args):
     return 0
 
 
+#: ROADMAP's item for the multi-program lint modes
+_TRANSPILERS_ITEM = ("needs the multi-device transpilers "
+                     "(distribute_transpiler, pipeline_transpiler) and "
+                     "the rest of analysis/distributed.py, not ported "
+                     "yet: ROADMAP queue 1 item 7")
+
+
+def _zoo_targets(args, cmd):
+    """``(label, program, feeds, fetches)`` of ``--zoo NAME|all``: each
+    model's main program and its startup; None after printing why."""
+    from paddle_tpu_torch.models import ZOO_MODELS, build_train_program
+    names = ZOO_MODELS if args.zoo == "all" else [args.zoo]
+    targets = []
+    for name in names:
+        try:
+            main, startup, feeds, fetches = build_train_program(
+                name, backward=not args.no_backward)
+        except ValueError as e:
+            print(f"{cmd}: {e}", file=sys.stderr)
+            return None
+        targets.append((name, main, feeds, fetches))
+        targets.append((f"{name}/startup", startup, None, None))
+    return targets
+
+
+def _saved_target(target, cmd):
+    """``[(label, program, feeds, fetches)]`` of a saved model dir or a
+    ``__model__`` json file; None after printing why."""
+    from paddle_tpu_torch.analysis.distributed import load_saved_program
+    try:
+        program, feeds, fetches = load_saved_program(target)
+    except (OSError, ValueError, KeyError) as e:
+        print(f"{cmd}: cannot load a program from {target!r}: {e}",
+              file=sys.stderr)
+        return None
+    return [(target, program, feeds, fetches)]
+
+
+def _cmd_lint(args):
+    """Static analysis over a Program IR (``paddle_tpu_torch.analysis``):
+    lint a saved inference model (its ``__model__`` program; no params or
+    executor needed — the analysis is static), a generation bundle
+    (prefill + decode + the cross-program signature checks) or a
+    model-zoo program built forward+backward.  Prints rustc-style
+    diagnostics with stable ``PTA***`` codes; exit 0 = clean, 1 =
+    findings (errors always; warnings only under --strict), 2 = bad
+    target."""
+    import os
+
+    from paddle_tpu_torch import analysis
+
+    if args.pair:
+        raise NotImplementedError(f"lint --pair {_TRANSPILERS_ITEM}")
+    if args.pipeline:
+        raise NotImplementedError(f"lint --pipeline {_TRANSPILERS_ITEM}")
+    if args.target and os.path.isdir(args.target) and \
+            os.path.isfile(os.path.join(args.target, "gen_meta.json")):
+        try:
+            results = analysis.lint_gen_bundle(args.target)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"lint: cannot load the gen bundle at "
+                  f"{args.target!r}: {e}", file=sys.stderr)
+            return 2
+        if args.dot:
+            print("lint: --dot renders exactly one main program "
+                  "(not a gen-bundle family)", file=sys.stderr)
+            return 2
+        return _report_lint(results, args)
+
+    if args.zoo:
+        targets = _zoo_targets(args, "lint")
+    elif args.target:
+        targets = _saved_target(args.target, "lint")
+    else:
+        print("lint: need a MODEL_DIR or --zoo NAME|all", file=sys.stderr)
+        return 2
+    if targets is None:
+        return 2
+
+    # --feed/--fetch override the MAIN programs only: the auto-added
+    # */startup companions have neither feeds nor the main's fetch vars
+    if args.feed:
+        feed_override = [s for s in args.feed.split(",") if s]
+        targets = [(lbl, p,
+                    fd if lbl.endswith("/startup") else feed_override, ft)
+                   for lbl, p, fd, ft in targets]
+    if args.fetch:
+        fetch_override = [s for s in args.fetch.split(",") if s]
+        targets = [(lbl, p, fd,
+                    ft if lbl.endswith("/startup") else fetch_override)
+                   for lbl, p, fd, ft in targets]
+
+    if args.dot:
+        mains = [(lbl, p) for lbl, p, _, _ in targets
+                 if not lbl.endswith("/startup")]
+        if len(mains) != 1:
+            print(f"lint: --dot renders exactly one main program, got "
+                  f"{len(mains)} (use one MODEL_DIR or --zoo NAME, not "
+                  f"--zoo all)", file=sys.stderr)
+            return 2
+        from paddle_tpu_torch.analysis.visualize import program_dot
+        program_dot(mains[0][1], path=args.dot)
+        print(f"wrote {args.dot} ({mains[0][0]})")
+
+    results = [(label, analysis.lint_program(
+        program, feed_names=feeds, fetch_names=fetches))
+        for label, program, feeds, fetches in targets]
+    return _report_lint(results, args)
+
+
+def _report_lint(results, args):
+    """Print (or JSON-dump) a list of ``(label, AnalysisResult)`` and map
+    findings to the exit code."""
+    import json as _json
+
+    n_err = sum(len(r.errors) for _, r in results)
+    n_warn = sum(len(r.warnings) for _, r in results)
+    uncovered = set()
+    for _, r in results:
+        uncovered.update(r.uncovered_op_types)
+    if args.json:
+        reports = [{
+            "target": label,
+            "diagnostics": [d.to_dict() for d in r.diagnostics],
+            "uncovered_op_types": r.uncovered_op_types}
+            for label, r in results]
+        print(_json.dumps({"targets": reports, "errors": n_err,
+                           "warnings": n_warn}, indent=2))
+    else:
+        for label, r in results:
+            for d in r.diagnostics:
+                print(f"[{label}] {d.format()}")
+        print(f"lint: {len(results)} program(s): {n_err} error(s), "
+              f"{n_warn} warning(s)")
+        if uncovered and args.verbose:
+            print(f"  warn-list ({len(uncovered)} op type(s) without an "
+                  f"inference rule — shapes/dtypes not propagated "
+                  f"through them): {', '.join(sorted(uncovered))}")
+    return 1 if n_err or (args.strict and n_warn) else 0
+
+
+def _cmd_opt(args):
+    """Offline run of the ``analysis/opt`` pass pipeline: optimize a
+    saved model (or zoo programs) and print the per-pass diff/stats
+    report — what ``PADDLE_TPU_OPT=1`` does to this program inside the
+    executor, inspectable without running anything.  Exit 0 on a clean
+    run, 1 when any pass was sandwich-aborted, 2 on a bad target."""
+    import json as _json
+
+    from paddle_tpu_torch.analysis.opt import optimize_program
+
+    if args.zoo:
+        targets = _zoo_targets(args, "opt")
+    elif args.target:
+        targets = _saved_target(args.target, "opt")
+    else:
+        print("opt: need a MODEL_DIR or --zoo NAME|all", file=sys.stderr)
+        return 2
+    if targets is None:
+        return 2
+    passes = [s for s in args.passes.split(",") if s] \
+        if args.passes else None
+
+    aborted = 0
+    reports = []
+    for label, program, feeds, fetches in targets:
+        try:
+            optimized, report = optimize_program(
+                program, feed_names=feeds, fetch_names=fetches,
+                passes=passes)
+        except ValueError as e:
+            print(f"opt: {e}", file=sys.stderr)
+            return 2
+        aborted += len(report.aborted_passes)
+        plan = getattr(optimized, "_donation_plan", None)
+        interpret = bool(getattr(optimized, "_opt_interpret", False))
+        if args.json:
+            body = report.to_dict()
+            body["target"] = label
+            body["donation_plan"] = plan.to_dict() if plan else None
+            body["interpret"] = interpret
+            reports.append(body)
+            continue
+        print(f"== {label}")
+        print(report.format())
+        if report.flops_before is not None:
+            print(f"  cost: {report.flops_before:,} -> "
+                  f"{report.flops_after:,} static FLOPs")
+        if interpret:
+            print("  amortization gate: run-once initializer — "
+                  "marked to interpret")
+        if plan is not None:
+            print("  " + plan.report().splitlines()[0])
+    if args.json:
+        print(_json.dumps({"targets": reports}, indent=2))
+    return 1 if aborted else 0
+
+
+def _cmd_selfcheck(args):
+    """The JAX package's one-pass gate over every static check; most of
+    its sections check planes the port does not have yet."""
+    raise NotImplementedError(
+        "selfcheck: 8 of its 17 sections check code the port does not "
+        "have yet (the transpilers, sharded embeddings, the fleet "
+        "controller, checkpoint manifests, compile_zoo_step, the ledger "
+        "and bench history); it follows ROADMAP queue 1 item 10")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch",
                                      description=__doc__)
@@ -231,6 +448,67 @@ def main(argv=None):
                    help="Prometheus text exposition format (the /metrics "
                         "body) instead of the snapshot table")
     p.set_defaults(fn=_cmd_stats)
+
+    p = sub.add_parser("lint", help="static-analyze a program IR "
+                                    "(PTA*** diagnostics)")
+    p.add_argument("target", nargs="?", default=None,
+                   help="save_inference_model dir (or a __model__ json "
+                        "file) to lint; a dir with gen_meta.json lints "
+                        "the whole generation bundle (prefill + decode "
+                        "+ cross-program signature checks)")
+    p.add_argument("--pair", nargs=2, metavar=("TRAINER", "PSERVER"),
+                   default=None,
+                   help="a transpiled trainer/pserver pair; not ported "
+                        "yet (raises)")
+    p.add_argument("--pipeline", type=int, default=None, metavar="N",
+                   help="pipeline-split lint; not ported yet (raises)")
+    p.add_argument("--zoo", default=None,
+                   help="lint a built-in model's forward+backward "
+                        "program instead (mnist|resnet|vgg|transformer|"
+                        "seq2seq|stacked_lstm|gen_lm|gen_lm_long|"
+                        "wide_and_deep|all)")
+    p.add_argument("--no-backward", action="store_true",
+                   help="with --zoo: lint the forward program only")
+    p.add_argument("--feed", default=None,
+                   help="comma-separated feed names (default: the "
+                        "model's declared feeds)")
+    p.add_argument("--fetch", default=None,
+                   help="comma-separated fetch names (default: the "
+                        "model's declared fetch targets)")
+    p.add_argument("--strict", action="store_true",
+                   help="exit 1 on warnings too, not just errors")
+    p.add_argument("--dot", default=None, metavar="OUT",
+                   help="also write the (single) main program as a "
+                        "GraphViz .dot graph here")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable diagnostics")
+    p.add_argument("--verbose", action="store_true",
+                   help="also print the warn-list of op types without "
+                        "an inference rule")
+    p.set_defaults(fn=_cmd_lint)
+
+    p = sub.add_parser("opt", help="run the Program-IR optimization "
+                                   "pipeline offline and print the "
+                                   "per-pass diff/stats report")
+    p.add_argument("target", nargs="?", default=None,
+                   help="save_inference_model dir (or a __model__ json "
+                        "file) to optimize")
+    p.add_argument("--zoo", default=None,
+                   help="optimize a built-in model's forward+backward "
+                        "program instead (mnist|...|all)")
+    p.add_argument("--no-backward", action="store_true",
+                   help="with --zoo: the forward program only")
+    p.add_argument("--passes", default=None,
+                   help="comma-separated pass subset (default: the "
+                        "full pipeline)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report")
+    p.set_defaults(fn=_cmd_opt)
+
+    p = sub.add_parser("selfcheck", help="every static gate in one pass; "
+                                         "not ported yet (raises)")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=_cmd_selfcheck)
 
     args = parser.parse_args(argv)
     return args.fn(args)

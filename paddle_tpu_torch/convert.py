@@ -24,8 +24,8 @@ from paddle_tpu_torch.framework import convert_np_dtype
 from paddle_tpu_torch.place import torch_device
 from paddle_tpu_torch.scope import Scope
 
-__all__ = ["torch_dtype", "to_tensor", "to_numpy", "persistable_names",
-           "scope_from_numpy"]
+__all__ = ["torch_dtype", "to_tensor", "to_numpy", "fetch_numpy",
+           "persistable_names", "scope_from_numpy"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -85,6 +85,17 @@ def to_numpy(value):
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
     return np.asarray(value)
+
+
+def fetch_numpy(value):
+    """A fetched value on the host, as the user reads it: like
+    :func:`to_numpy`, but bfloat16 is widened to float32 (exact), since
+    numpy has no bfloat16 of its own.  This is where the port's fetches
+    differ in dtype from the JAX package's, which hands out ml_dtypes
+    bfloat16 arrays; the persist format keeps the raw words."""
+    if isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16:
+        value = value.float()
+    return to_numpy(value)
 
 
 def persistable_names(program):

@@ -37,11 +37,32 @@ Randomness: random init ops draw from one host generator per run, seeded
 from the program's ``random_seed``, so the same program initializes the
 same values on every device.  Random ops of a step (``dropout``) draw
 from generators on the run's device, seeded from the program's seed, the
-executor's run counter and the op's position.
+executor's run counter and the op's slot on the run's RNG counter
+(``aux["rng_counter"]``).  The counter advances by
+``op.attrs.get("__rng_slots__", 1)`` for every op but feed and fetch, in
+sub-blocks too, and an op's slot is the counter after it advanced; the
+counter starts at -1, so an op of an unoptimized block without feed or
+fetch ops has its position as its slot.  An optimization pass that
+removes or fuses ops charges their slots to the next surviving op, so
+every random op keeps the slot, and so the mask, it has in the
+unoptimized program.
+
+Environment switches, as in the JAX package: ``PADDLE_TPU_VERIFY=1``
+runs the structural verifier before a program's first run
+(:meth:`Executor._maybe_verify`), ``PADDLE_TPU_OPT=1`` runs the
+verify-sandwiched pass pipeline of :mod:`paddle_tpu_torch.analysis.opt`
+on a clone (:meth:`Executor._maybe_optimize`), and
+``PADDLE_TPU_CHECK_NAN_INF=1`` (or ``Program.check_nan_inf``) raises
+naming the first fetch or state variable that is not finite.
+
+Fetches come back as numpy arrays; a bfloat16 value is widened to
+float32 (:func:`~paddle_tpu_torch.convert.fetch_numpy`), where the JAX
+package returns an ml_dtypes bfloat16 array.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 
@@ -49,14 +70,16 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import framework
-from paddle_tpu_torch.convert import to_numpy, to_tensor
+from paddle_tpu_torch.convert import fetch_numpy, to_tensor
 from paddle_tpu_torch.framework import Program, default_main_program
 from paddle_tpu_torch.lod import validate_lod
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.place import default_place
 from paddle_tpu_torch.scope import global_scope
 
-__all__ = ["Executor", "lower_block"]
+__all__ = ["Executor", "lower_block", "fetch_var"]
+
+logger = logging.getLogger(__name__)
 
 # feed/fetch ops are rewritten by the executor (feeds arrive in the env)
 _SKIP_OPS = frozenset({"feed", "fetch"})
@@ -64,12 +87,17 @@ _SKIP_OPS = frozenset({"feed", "fetch"})
 
 def lower_block(block, env, aux):
     """Run every op of ``block`` in order against ``env`` (name ->
-    tensor), merging each op's outputs into it."""
-    for i, op in enumerate(block.ops):
+    tensor), merging each op's outputs into it.  Each op takes the next
+    ``__rng_slots__`` (default 1) slots of ``aux["rng_counter"]``; the
+    last of them keys its random draws."""
+    for op in block.ops:
         if op.type in _SKIP_OPS:
             continue
         opdef = registry.resolve_lowering(op.type)
-        ctx = registry.LowerContext(op, env, block, aux=aux, op_index=i)
+        aux["rng_counter"] = aux.get("rng_counter", -1) + \
+            op.attrs.get("__rng_slots__", 1)
+        ctx = registry.LowerContext(op, env, block, aux=aux,
+                                    op_index=aux["rng_counter"])
         opdef.lower(ctx)
         env.update(ctx.outputs)
         _share_lod(op, ctx.outputs, env, aux)
@@ -124,6 +152,49 @@ def _env_flag(name, default="0"):
         not in ("0", "", "false", "off", "no")
 
 
+def _check_nan_inf_enabled(program):
+    """check_nan_inf mode (reference ``FLAGS_check_nan_inf``): the
+    per-program ``check_nan_inf`` wins; ``PADDLE_TPU_CHECK_NAN_INF`` is
+    the default."""
+    if getattr(program, "check_nan_inf", None) is not None:
+        return bool(program.check_nan_inf)
+    return _env_flag("PADDLE_TPU_CHECK_NAN_INF")
+
+
+def _check_nan_inf(fetch_names, fetches, new_state):
+    """Raise naming the first fetched value, then the first state
+    variable, that holds a NaN or an inf.  The check is one multi-tensor
+    launch per dtype (the AMP unscale check at a scale of 1, which leaves
+    every value as it was) and one device read for the step; only a step
+    that fails looks at the tensors one by one, to name the variable."""
+    named = [("fetch", n, v) for n, v in zip(fetch_names, fetches)]
+    named += [("state", n, v) for n, v in new_state.items()]
+    named = [(kind, n, v) for kind, n, v in named
+             if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    if not named:
+        return
+    groups = {}
+    for _, _, v in named:
+        groups.setdefault((v.device, v.dtype), []).append(v)
+    found = {}
+    with torch.no_grad():
+        for (device, _), group in groups.items():
+            if device not in found:
+                found[device] = torch.zeros(1, device=device)
+            torch._amp_foreach_non_finite_check_and_unscale_(
+                group, found[device], torch.ones(1, device=device))
+    if not any(f.item() for f in found.values()):
+        return
+    for kind, name, v in named:
+        if bool(torch.isfinite(v).all()):
+            continue
+        if kind == "fetch":
+            raise RuntimeError(f"Operator output {name!r} contains "
+                               f"NaN/Inf (check_nan_inf mode)")
+        raise RuntimeError(f"Variable {name!r} contains NaN/Inf after "
+                           f"the step (check_nan_inf mode)")
+
+
 def _amp_enabled(program):
     """Mixed precision: a per-program ``Program.amp`` wins; the
     ``PADDLE_TPU_AMP`` flag is the default."""
@@ -165,6 +236,10 @@ class Executor:
         self._run_counter = 0
         #: ``{"while_trips": n, "host_reads": n}`` of the last run
         self.last_run = {}
+        # PADDLE_TPU_VERIFY: (id, version) of the programs verified
+        self._verified = set()
+        # PADDLE_TPU_OPT: (id, version, feeds, fetches) -> optimized clone
+        self._opt_cache = {}
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -175,7 +250,7 @@ class Executor:
         values as numpy arrays (``return_numpy``) or tensors on the
         place's device."""
         program, scope, fetch_names = self._prepare(program, scope,
-                                                    fetch_list)
+                                                    fetch_list, feed)
         block = program.global_block()
         feeds = {}
         for name, value in (feed or {}).items():
@@ -197,7 +272,7 @@ class Executor:
             scope.set_lod(name, lod)
         fetches = self._step(program, scope, feeds, fetch_names)
         if return_numpy:
-            return [to_numpy(v) for v in fetches]
+            return [fetch_numpy(v) for v in fetches]
         return fetches
 
     def run_steps(self, program=None, feed=None, fetch_list=None, steps=1,
@@ -209,7 +284,7 @@ class Executor:
         leading dim of length ``steps``), sliced per step.  Fetches come
         back stacked ``[steps, ...]``."""
         program, scope, fetch_names = self._prepare(program, scope,
-                                                    fetch_list)
+                                                    fetch_list, feed)
         block = program.global_block()
         steps = int(steps)
         const_feed, per_step = {}, {}
@@ -239,7 +314,7 @@ class Executor:
         stacked = [torch.stack([o[j] for o in outs])
                    for j in range(len(fetch_names))]
         if return_numpy:
-            return [to_numpy(v) for v in stacked]
+            return [fetch_numpy(v) for v in stacked]
         return stacked
 
     def warmup(self, program=None, feed_shapes=None, fetch_list=None,
@@ -325,14 +400,77 @@ class Executor:
         return WarmupReport(compiled, buckets)
 
     # ------------------------------------------------------------------
-    def _prepare(self, program, scope, fetch_list):
+    def _prepare(self, program, scope, fetch_list, feed=None):
+        """The program to run (optimized under ``PADDLE_TPU_OPT``, after
+        verification under ``PADDLE_TPU_VERIFY``), the scope and the
+        fetch names."""
         program = program if program is not None else default_main_program()
         if not isinstance(program, Program):
             raise TypeError("executor requires a Program")
         scope = scope if scope is not None else global_scope()
         fetch_names = [f.name if isinstance(f, framework.Variable) else f
                        for f in (fetch_list or [])]
+        if _env_flag("PADDLE_TPU_VERIFY"):
+            self._maybe_verify(program, feed or {}, fetch_names)
+        program = self._maybe_optimize(program, feed or {}, fetch_names)
         return program, scope, fetch_names
+
+    def _maybe_optimize(self, program, feed, fetch_names):
+        """``PADDLE_TPU_OPT=1``: run the pass pipeline of
+        :mod:`paddle_tpu_torch.analysis.opt` over a clone of ``program``
+        once per ``(program, version, feeds, fetches)``; later runs pay
+        one dict lookup, and mutating the program (``bump_version``)
+        re-optimizes.  The input program is never mutated, and every
+        pass is verify-sandwiched (a pass that introduces a diagnostic
+        is reverted)."""
+        if not _env_flag("PADDLE_TPU_OPT"):
+            return program
+        if getattr(program, "_opt_report", None) is not None:
+            return program  # already an optimized clone
+        key = (id(program), program._version, tuple(sorted(feed or ())),
+               tuple(fetch_names))
+        cached = self._opt_cache.get(key)
+        if cached is not None:
+            return cached
+        from paddle_tpu_torch.analysis.opt import optimize_program
+        optimized, report = optimize_program(
+            program, feed_names=tuple(feed or ()),
+            fetch_names=tuple(fetch_names))
+        logger.debug("PADDLE_TPU_OPT: %r", report)
+        if len(self._opt_cache) > 256:  # id()-reuse bound, not a cache
+            self._opt_cache.clear()
+        self._opt_cache[key] = optimized
+        return optimized
+
+    def _maybe_verify(self, program, feed, fetch_names):
+        """``PADDLE_TPU_VERIFY=1``: run the structural verifier before a
+        program's first run, so an ill-formed program fails naming its
+        variables and ops before any op runs.  Memoized per ``(program,
+        version)``: ``bump_version`` re-verifies."""
+        key = (id(program), program._version)
+        if key in self._verified:
+            return
+        from paddle_tpu_torch import analysis
+        analysis.verify_program(program, feed_names=tuple(feed),
+                                fetch_names=tuple(fetch_names),
+                                where="executor.run")
+        if len(self._verified) > 4096:  # id() reuse bound, not a cache
+            self._verified.clear()
+        self._verified.add(key)
+
+    @staticmethod
+    def fetch_missing_check(fetch_names, env):
+        """Raise naming the first fetch target ``env`` does not hold."""
+        for n in fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch target {n!r} was not produced by the "
+                               f"program and is not in the scope")
+        return fetch_names
+
+    def close(self):
+        """Drop the memoized optimized programs and verifications."""
+        self._opt_cache.clear()
+        self._verified.clear()
 
     def _step(self, program, scope, feeds, fetch_names):
         """One run of the global block on ``feeds`` (tensors on the
@@ -348,6 +486,7 @@ class Executor:
                "generator": torch.Generator().manual_seed(seed),
                # per-op device generators of the step's random ops
                "rng_seed": seed * 1000003 + self._run_counter,
+               "rng_counter": -1,
                "amp": _amp_enabled(program),
                "scope": scope,
                "lower_block": lower_block,
@@ -362,12 +501,33 @@ class Executor:
                          for k in ("while_trips", "host_reads")}
 
         # persistable variables the block wrote go back to the scope
+        new_state = {}
         for op in block.ops:
             for n in op.output_arg_names:
                 var = block.vars.get(n)
                 if var is not None and var.persistable and n in env:
-                    scope.set_var(n, env[n])
-        return [env[n] for n in fetch_names]
+                    new_state[n] = env[n]
+        # a fetch the block did not write is read from the scope
+        fetches = [env[n] for n in self.fetch_missing_check(
+            fetch_names, {n for n in fetch_names
+                          if n in env or scope.find_var(n) is not None})]
+        if _check_nan_inf_enabled(program):
+            # before the write-back: a failing step leaves the scope as
+            # it was (in-place updates of a pool or a table excepted)
+            _check_nan_inf(fetch_names, fetches, new_state)
+        for n, v in new_state.items():
+            scope.set_var(n, v)
+        return fetches
+
+
+def fetch_var(name, scope=None, return_numpy=True):
+    """The value of ``name`` in ``scope`` (default: the global scope),
+    as a numpy array (bfloat16 widened to float32) or as it is held."""
+    scope = scope or global_scope()
+    v = scope.find_var(name)
+    if v is None:
+        raise KeyError(f"variable {name!r} not found in scope")
+    return fetch_numpy(v) if return_numpy else v
 
 
 def _enforce_feed(name, value, var):

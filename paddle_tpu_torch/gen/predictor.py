@@ -52,11 +52,6 @@ __all__ = ["GenPredictor", "is_gen_bundle", "META_FILENAME"]
 
 META_FILENAME = "gen_meta.json"
 
-#: ROADMAP's item for the static cost model the planners need
-_COST_ITEM = ("needs the static cost model (analysis/cost.py on "
-              "analysis/typecheck.py), not ported yet: ROADMAP queue 1 "
-              "item 5")
-
 
 def is_gen_bundle(model_dir):
     """True when ``model_dir`` is a generation bundle (prefill + decode
@@ -112,6 +107,14 @@ class GenPredictor:
             (self._pre_prog, self._pre_feeds, self._pre_fetch),
             (self._dec_prog, self._dec_feeds, self._dec_fetch),
             self.meta)).raise_on_errors(where="gen.GenPredictor")
+        if self.paged:
+            dec_block = self._dec_prog.global_block()
+            self._hd = int(dec_block.var(self.cache_vars[0]).shape[-1])
+        # static prefill cost per (bucket[, pages]) and the cost model's
+        # fits, built lazily; consumed by GenScheduler's admission budget
+        self._prefill_cost = {}
+        self._length_cost_fn = None
+        self._page_cost_fn = None
         self.device = self._exe.device
         # per-bucket constant prefill feeds (causal bias template)
         self._tri = {}
@@ -145,20 +148,95 @@ class GenPredictor:
         return {"gen_ids": ids, "gen_pos": pos, "gen_mask": mask,
                 "gen_attn_bias": bias.astype(np.float32), "gen_last": last}
 
+    def _cost_fn(self):
+        """``flops(prompt_bucket)`` from the static cost model over the
+        bundle's own prefill program (``cost.row_cost_fn``).  Takes the
+        predictor lock: the fit probes the prefill program by rewriting
+        its feed var's length dim for a moment, which must never
+        interleave with another fit or a run."""
+        with self._lock:
+            if self._length_cost_fn is None:
+                from paddle_tpu_torch.analysis import cost as _cost
+                probe = (self.prompt_buckets[0],
+                         max(self.prompt_buckets[-1],
+                             self.prompt_buckets[0] + 1))
+                self._length_cost_fn = _cost.row_cost_fn(
+                    self._pre_prog, batch_var=self._pre_feeds[0],
+                    dim=1, probe_rows=probe)
+            return self._length_cost_fn
+
+    def _page_write_cost(self, prompt_len):
+        """Flop-equivalent of seeding a paged slot: every allocated
+        prompt page is written whole (k + v, per layer) — the page
+        dimension admission budgets must see on top of the prefill
+        forward."""
+        pages = -(-max(int(prompt_len), 1) // self.page_len)
+        return (2.0 * float(self.meta.get("n_layer", 1)) *
+                pages * self.page_len * self._hd)
+
     def prefill_cost(self, prompt_len):
-        """Static FLOPs of prefilling ``prompt_len`` tokens (the JAX
-        package's admission weight); raises ``NotImplementedError``."""
-        raise NotImplementedError(f"GenPredictor.prefill_cost {_COST_ITEM}")
+        """Static FLOPs of prefilling a prompt of ``prompt_len`` tokens,
+        priced at its padded bucket (what the device runs); a paged
+        bundle adds the slot's page-seeding writes, so the memo key
+        grows a page dimension.  The :class:`GenScheduler` weighs
+        admissions with this.  Cheap after the first call per (bucket,
+        pages); the fit is warmed by the scheduler's constructor."""
+        prompt_len = int(prompt_len)
+        bucket = self._bucket(prompt_len)
+        if self.paged:
+            pages = -(-max(prompt_len, 1) // self.page_len)
+            key = (bucket, pages)
+        else:
+            key = bucket
+        hit = self._prefill_cost.get(key)
+        if hit is None:
+            hit = float(self._cost_fn()(bucket))
+            if self.paged:
+                hit += self._page_write_cost(prompt_len)
+            self._prefill_cost[key] = hit
+        return hit
 
     def plan_prompt_buckets(self, observed_lengths, max_edges=4):
-        """Cost-optimal prompt buckets; raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            f"GenPredictor.plan_prompt_buckets {_COST_ITEM}")
+        """Cost-optimal prompt buckets for an observed length
+        distribution: ``lod.select_bucket_edges`` weighted by the
+        prefill program's static FLOPs per bucket (plus, for paged
+        bundles, the candidate length's page-seeding writes).  Returns a
+        sorted edge list (capped at the bundle's ``max_len``) to bake
+        into the next export's ``gen_meta.json``."""
+        from paddle_tpu_torch.lod import select_bucket_edges
+        lengths = [min(max(int(n), 1), self.max_len)
+                   for n in observed_lengths]
+        cost_of = self._cost_fn()
+        if self.paged:
+            base = cost_of
+
+            def cost_of(n):
+                return float(base(n)) + self._page_write_cost(n)
+        return select_bucket_edges(lengths, max_edges=max_edges,
+                                   cost_of=cost_of)
 
     def plan_page_buckets(self, observed_lengths, max_edges=4):
-        """Cost-optimal page buckets; raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            f"GenPredictor.plan_page_buckets {_COST_ITEM}")
+        """Cost-optimal page-count bucket edges for an observed
+        prefix-length distribution: ``lod.select_bucket_edges`` over
+        live page counts, priced by the decode program's static cost as
+        a function of the page-table width (``cost.row_cost_fn`` probing
+        that dim — the ``paged_attention`` cost rule makes it carry the
+        pages actually read).  Returns a sorted edge list to bake into
+        the next export's ``page_buckets``."""
+        if not self.paged:
+            raise ValueError("plan_page_buckets needs a paged bundle")
+        from paddle_tpu_torch.lod import select_bucket_edges
+        counts = [min(max(-(-int(n) // self.page_len), 1),
+                      self.pages_per_slot) for n in observed_lengths]
+        with self._lock:
+            if self._page_cost_fn is None:
+                from paddle_tpu_torch.analysis import cost as _cost
+                self._page_cost_fn = _cost.row_cost_fn(
+                    self._dec_prog, batch_var="gen_page_table", dim=1,
+                    probe_rows=(1, max(self.pages_per_slot, 2)))
+            fn = self._page_cost_fn
+        return select_bucket_edges(counts, max_edges=max_edges,
+                                   cost_of=fn)
 
     def can_resume(self, total_len):
         """True when a stream of ``total_len`` tokens (prompt + tokens

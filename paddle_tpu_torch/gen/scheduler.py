@@ -165,13 +165,26 @@ class GenScheduler:
             raise ValueError(
                 f"admission must be 'continuous' or 'batch', "
                 f"got {admission!r}")
-        # cost-weighted admission needs the static cost model
-        # (analysis/cost.py), which is not ported yet
-        if prefill_budget is not None:
-            raise NotImplementedError(
-                "GenScheduler(prefill_budget=...) needs the static cost "
-                "model (analysis/cost.py on analysis/typecheck.py), not "
-                "ported yet: ROADMAP queue 1 item 5")
+        # admission weighting (analysis/cost): cap the static prefill
+        # FLOPs admitted between two decode iterations at
+        # ``prefill_budget`` (None = unbounded).  Prefills interleave
+        # with decode on ONE device, so an unbounded admission burst
+        # stalls every live stream's next token; the budget bounds that
+        # stall by compute actually admitted (weighted by
+        # GenPredictor.prefill_cost — the real program's cost at the
+        # prompt's padded bucket).  At least one request is always
+        # admitted per pass, so the queue drains even when one prefill
+        # exceeds the budget.  CONTINUOUS admission only: batch mode
+        # refills the pool as one unit by definition — a budget cut
+        # mid-refill would strand the unfilled slots for the whole batch.
+        self.prefill_budget = None if prefill_budget is None \
+            or admission != "continuous" else float(prefill_budget)
+        if self.prefill_budget is not None and \
+                hasattr(predictor, "prefill_cost"):
+            # warm the cost model's fit HERE (it walks the prefill
+            # program twice) so no _admit pass pays it while holding
+            # the scheduler lock
+            predictor.prefill_cost(1)
         # SLO watchdog (obs.slo): evaluated from the scheduler loop so
         # TTFT/tokens-per-sec objectives are judged by the thread that
         # produces them.  Default arms from PADDLE_TPU_SLO; unarmed the
@@ -499,6 +512,8 @@ class GenScheduler:
         call, so one batch admission loads every free slot rather than
         degrading to serial batch-of-1)."""
         refill = None
+        spent = 0.0
+        admitted_n = 0
         while True:
             with self._cv:
                 if not self._queue or not self._free:
@@ -514,15 +529,32 @@ class GenScheduler:
                     # (allocation happens once, at admission), so decode
                     # growth never fails mid-request; otherwise the
                     # head-of-line request waits for an eviction to
-                    # return pages — backpressure, not an error
+                    # return pages — backpressure, like the FLOPs
+                    # budget below, not an error
                     head = self._queue[0]
                     need = self.predictor.pages_needed(
                         len(head.prompt), head.max_new_tokens)
                     if need > self.predictor.free_pages:
                         return
+                if self.prefill_budget is not None and admitted_n:
+                    # cost-weighted admission: stop once this pass has
+                    # admitted its budget of static prefill FLOPs (the
+                    # first admission is always free so the queue
+                    # drains); the rest of the queue waits one decode
+                    # iteration instead of stalling every live stream
+                    cost = self.predictor.prefill_cost(
+                        len(self._queue[0].prompt))
+                    if spent + cost > self.prefill_budget:
+                        return
                 stream = self._queue.pop(0)
                 slot_idx = self._free.pop(0)
                 self._admitting += 1
+            if self.prefill_budget is not None:
+                cost = self.predictor.prefill_cost(len(stream.prompt))
+                spent += cost
+                _profiler.runtime_metrics.observe("gen.admission_cost",
+                                                  cost)
+            admitted_n += 1
             admitted = False
             try:
                 admitted = self._prefill_into(slot_idx, stream)

@@ -22,4 +22,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     control_flow_ops,
     io_ops,
     beam_search_ops,
+    fused_ops,
 )

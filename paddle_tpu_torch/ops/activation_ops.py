@@ -92,7 +92,9 @@ def relu6_lower(ctx):
 
 @register_op("pow", infer_shape=infer_shape_unary())
 def pow_lower(ctx):
-    ctx.set_output("Out", torch.pow(ctx.input("X"), ctx.attr("factor", 1.0)))
+    from paddle_tpu_torch.ops.math_ops import power
+    ctx.set_output("Out", power(ctx.input("X"), float(ctx.attr("factor",
+                                                               1.0))))
 
 
 @register_op("stanh", infer_shape=infer_shape_unary())

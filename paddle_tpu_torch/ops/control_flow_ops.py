@@ -16,7 +16,8 @@ The port runs eagerly, so control flow is Python control flow:
   largest capacity of an array the body reads, bounds the trips; a loop
   still true after them raises ``RuntimeError``.  Its grad is the
   auto-vjp of this lowering, re-run from the pre-loop values the forward
-  leaves in ``aux["env_snapshots"]``.
+  leaves in ``aux["env_snapshots"]``, and from the RNG counter its
+  forward started at, so a dropout in the body draws the forward's masks.
 * A tensor array is a Python list of step tensors and a capacity
   (:class:`TensorArray`, a pytree): a write copies the list, not the
   steps.  A write or read past the capacity raises (the JAX package
@@ -42,7 +43,8 @@ import torch.utils._pytree as _pytree
 
 from paddle_tpu_torch.lod import tables
 from paddle_tpu_torch.ops.registry import (
-    ShapeInferenceSkip, host_scalar, infer_shape_unary, register_op)
+    ShapeInferenceSkip, host_scalar, infer_shape_unary, register_op,
+    remember_rng_start)
 
 __all__ = ["TensorArray", "RankTable", "DEFAULT_ARRAY_CAPACITY"]
 
@@ -252,6 +254,7 @@ def while_lower(ctx):
     # at backward time the env holds the final carries (the condition
     # false): the grad op re-runs the loop from these pre-loop values
     ctx.aux.setdefault("env_snapshots", {}).setdefault(id(sub_block), pre)
+    remember_rng_start(ctx.aux, sub_block)
 
     env = collections.ChainMap(dict(pre), ctx.env)
     bound = ctx.attr("max_iters", None)
@@ -505,6 +508,7 @@ def recurrent_lower(ctx):
     T = next(iter(xs.values())).shape[1]
     carry = [ctx.env[m["init"]] for m in memories]
     outs = {sn: [] for sn in step_outputs}
+    remember_rng_start(ctx.aux, sub_block)
     for t in range(T):
         env = collections.ChainMap({}, ctx.env)
         for m, c in zip(memories, carry):

@@ -5,7 +5,7 @@ ported (ROADMAP queue 1 item 6)."""
 
 from __future__ import annotations
 
-from paddle_tpu_torch.convert import to_numpy
+from paddle_tpu_torch.convert import fetch_numpy
 from paddle_tpu_torch.ops.registry import (
     infer_shape_unary, register_grad_lower, register_op)
 
@@ -16,7 +16,7 @@ def print_lower(ctx):
     ``print_phase`` is forward or both, in either case; Out is In."""
     x = ctx.input("In")
     if str(ctx.attr("print_phase", "BOTH")).upper() in ("FORWARD", "BOTH"):
-        print(ctx.attr("message", ""), to_numpy(x.detach()))
+        print(ctx.attr("message", ""), fetch_numpy(x.detach()))
     ctx.set_output("Out", x)
 
 

@@ -124,7 +124,52 @@ _make_elementwise("mul", torch.mul)
 _make_elementwise("div", torch.div)
 _make_elementwise("max", torch.maximum)
 _make_elementwise("min", torch.minimum)
-_make_elementwise("pow", torch.pow)
+class _Power(torch.autograd.Function):
+    """``x ** y`` with the JAX package's grads at the poles, where
+    torch's own differ: dX is ``y * x ** (y - 1)`` everywhere (NaN at
+    x = y = 0, +inf at x = -0.0 for y = 0.5), and dY is ``log(x) * out``
+    with log taken at 1 where x is 0.  ``y`` is a tensor or a float."""
+
+    @staticmethod
+    def forward(x, y):
+        return torch.pow(x, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y = inputs
+        ctx.y_is_tensor = isinstance(y, torch.Tensor)
+        if ctx.y_is_tensor:
+            ctx.save_for_backward(x, y, output)
+        else:
+            ctx.save_for_backward(x, output)
+            ctx.y = y
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.y_is_tensor:
+            x, _ = ctx.saved_tensors
+            e = ctx.y - 1
+            if e < 0 and not (float(e).is_integer() and e % 2):
+                # IEEE pow(-0.0, e) is +inf here; torch's pow by a
+                # scalar (an rsqrt at -0.5) gives -inf
+                x = torch.where(x == 0, x.abs(), x)
+            return g * ctx.y * torch.pow(x, e), None
+        x, y, out = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g * y * torch.pow(x, y - 1)).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            log_x = torch.log(torch.where(x == 0, torch.ones_like(x), x))
+            gy = (g * log_x * out).sum_to_size(y.shape)
+        return gx, gy
+
+
+def power(x, y):
+    """``x ** y`` (``torch.pow``) with the grads of :class:`_Power`."""
+    return _Power.apply(x, y)
+
+
+_make_elementwise("pow", power)
 
 
 # ---------------------------------------------------------------------------

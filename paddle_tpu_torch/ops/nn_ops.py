@@ -104,7 +104,7 @@ def _dropout_grad_maker(op, block, no_grad_set):
 def dropout_lower(ctx):
     """Keep each element with probability ``1 - dropout_prob``.  The keep
     draw comes from a generator on the run's device, seeded from the
-    run's seed and this op's position (``LowerContext.generator``), or
+    run's seed and this op's RNG slot (``LowerContext.generator``), or
     from the op's own ``seed`` attr under ``fix_seed``; the grad
     multiplies by the saved ``Mask``."""
     x = ctx.input("X")

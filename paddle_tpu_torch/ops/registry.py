@@ -193,7 +193,9 @@ class LowerContext:
     for the per-op device generators of :meth:`generator`) and ``lod``
     (variable name -> LoD, the ragged row splits as host lists: the feeds'
     and what the ops so far set or shared).
-    ``op_index`` is the op's position in its block.
+    ``op_index`` is the op's slot on the run's RNG counter
+    (``aux["rng_counter"]``, advanced by ``executor.lower_block``), which
+    keys :meth:`generator`.
     """
 
     def __init__(self, op, env, block, aux=None, op_index=0):
@@ -275,7 +277,7 @@ class LowerContext:
     # -- rng ---------------------------------------------------------------
     def generator(self):
         """A ``torch.Generator`` on the run's device, seeded from the run's
-        seed and this op's position: each random op of a step draws its
+        seed and this op's RNG slot: each random op of a step draws its
         own reproducible stream, on the device that uses it."""
         seed = self.aux.get("rng_seed")
         if seed is None:
@@ -352,6 +354,14 @@ def default_grad_maker(op, block, no_grad_set):
 # auto-vjp lowering for <type>_grad ops
 # ---------------------------------------------------------------------------
 
+def remember_rng_start(aux, sub_block):
+    """Keep the RNG counter at which the step's first run of
+    ``sub_block`` starts (``aux["rng_starts"]``), for the auto-vjp re-run
+    of its carrier op (a ``while`` or ``recurrent``) to start there."""
+    aux.setdefault("rng_starts", {}).setdefault(
+        id(sub_block), aux.get("rng_counter", -1))
+
+
 def auto_vjp_grad_lower(fwd_type):
     """Generic lowering for a grad op: ``torch.func.vjp`` of the forward
     lowering.
@@ -364,7 +374,10 @@ def auto_vjp_grad_lower(fwd_type):
     Missing output grads get zero cotangents.  An op that carries a
     ``sub_block`` re-runs from the values its forward left in
     ``aux["env_snapshots"]`` (a ``while``'s pre-loop carries), over the
-    backward-time env for every other name.
+    backward-time env for every other name, and from the RNG counter its
+    forward started at (``aux["rng_starts"]``, :func:`remember_rng_start`),
+    so that every random op of the body draws the mask of the forward it
+    differentiates; the outer counter is put back afterwards.
     """
     fwd_def = _REGISTRY[fwd_type]
 
@@ -396,6 +409,8 @@ def auto_vjp_grad_lower(fwd_type):
             ctx.aux.get("env_snapshots", {}).get(id(sub))
         if snap is not None:
             base_env = collections.ChainMap(snap, ctx.env)
+        rng_start = None if sub is None else \
+            ctx.aux.get("rng_starts", {}).get(id(sub))
 
         diff_args = []      # (slot, idx, name) of differentiable args
         primal_vals = []
@@ -422,7 +437,13 @@ def auto_vjp_grad_lower(fwd_type):
                 {n: v for (_, _, n), v in zip(diff_args, primals)}, base_env)
             fctx = LowerContext(fop, env, ctx.block, aux=ctx.aux,
                                 op_index=ctx.op_index)
-            fwd_def.lower(fctx)
+            outer = ctx.aux.get("rng_counter", -1)
+            if rng_start is not None:
+                ctx.aux["rng_counter"] = rng_start
+            try:
+                fwd_def.lower(fctx)
+            finally:
+                ctx.aux["rng_counter"] = outer
             return tuple(fctx.outputs.get(n, env.get(n))
                          for n in out_names)
 

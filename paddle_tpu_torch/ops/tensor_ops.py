@@ -143,10 +143,31 @@ def _cast_grad_maker(op, block, no_grad_set):
     return [desc], {x: g_x}
 
 
+def saturating_cast(x, dtype):
+    """``x.to(dtype)``, saturating where a float goes to an integer type
+    as XLA's convert does: NaN gives 0, and a value at or past either end
+    of the target's range gives that end (``.to()`` alone is undefined
+    there, and the CPU and the card disagree)."""
+    if not x.is_floating_point() or dtype.is_floating_point or \
+            dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    # compared in x's own dtype: float(info.max) rounds up to the next
+    # representable value, which is past the range and saturates
+    high, low = x >= float(info.max), x <= float(info.min)
+    out = torch.where(high | low | torch.isnan(x),
+                      torch.zeros((), dtype=x.dtype, device=x.device),
+                      x).to(dtype)
+    out = torch.where(high, torch.full((), info.max, dtype=dtype,
+                                       device=x.device), out)
+    return torch.where(low, torch.full((), info.min, dtype=dtype,
+                                       device=x.device), out)
+
+
 @register_op("cast", infer_shape=_infer_cast, grad_maker=_cast_grad_maker)
 def cast_lower(ctx):
-    ctx.set_output("Out", ctx.input("X").to(
-        torch_dtype(ctx.attr("out_dtype", "float32"))))
+    ctx.set_output("Out", saturating_cast(
+        ctx.input("X"), torch_dtype(ctx.attr("out_dtype", "float32"))))
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +305,7 @@ def lookup_table_lower(ctx):
     if ids.ndim and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     ids = ids.long()
-    out = w[ids]
+    out = take_rows(w, ids)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
@@ -311,6 +332,12 @@ def lookup_table_grad_lower(ctx):
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         vals = vals * (rows != padding_idx).unsqueeze(1).to(vals.dtype)
+    # an id out of range gave a NaN row and takes no part in the grad:
+    # its slot gets row ``height`` and value 0, the slot every sparse
+    # update drops (``SelectedRows.live``); -1 is the last row
+    rows, valid = _wrap_rows(rows, w.shape[0])
+    vals = torch.where(valid.unsqueeze(1), vals, torch.zeros_like(vals))
+    rows = torch.where(valid, rows, torch.full_like(rows, w.shape[0]))
     ctx.outputs[gname[0]] = SelectedRows(rows, vals, w.shape[0])
 
 
@@ -344,11 +371,46 @@ def _infer_gather(op, block):
     out.dtype = x.dtype
 
 
+def _wrap_rows(idx, n):
+    """``(idx, valid)``: negative indices wrapped once (``-1`` is the
+    last row) and where each lies in ``[0, n)`` after that."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx, (idx >= 0) & (idx < n)
+
+
+def _fill_value(dtype):
+    """``jnp.take``'s fill for an index out of range: NaN for floats, the
+    most negative value of a signed integer type, the largest of an
+    unsigned one, True for bool."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def take_rows(x, idx):
+    """``x``'s rows at ``idx`` (any shape), as ``jnp.take(x, idx,
+    axis=0)`` gives them: a negative index counts from the end, and an
+    index still out of range gives a row of :func:`_fill_value`.  The
+    index is clamped before the read, so nothing reads past the end (an
+    out-of-range read is a device-side assert on the card) and no value
+    goes to the host; the grad of a filled row is dropped."""
+    n = x.shape[0]
+    idx, valid = _wrap_rows(idx.long(), n)
+    rows = x.index_select(0, idx.clamp(0, max(n - 1, 0)).reshape(-1))
+    rows = rows.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+    valid = valid.reshape(tuple(idx.shape) + (1,) * (x.ndim - 1))
+    return torch.where(valid, rows, torch.full(
+        (), _fill_value(x.dtype), dtype=x.dtype, device=x.device))
+
+
 @register_op("gather", infer_shape=_infer_gather, no_grad_inputs=("Index",))
 def gather_lower(ctx):
-    """The rows of X at ``Index`` (flattened)."""
-    ctx.set_output("Out", ctx.input("X").index_select(
-        0, ctx.input("Index").reshape(-1).long()))
+    """The rows of X at ``Index`` (flattened), by :func:`take_rows`."""
+    ctx.set_output("Out", take_rows(ctx.input("X"),
+                                    ctx.input("Index").reshape(-1)))
 
 
 # ---------------------------------------------------------------------------

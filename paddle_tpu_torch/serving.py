@@ -579,8 +579,10 @@ class InferenceServer:
     with streamed (chunked) token responses over the same keep-alive
     connection.  ``warmup=True`` then runs BOTH signature families
     (every prefill bucket + the decode step at every page bucket) before
-    ``/readyz`` flips.  ``gen_admission``/``gen_queue_size`` configure
-    the :class:`paddle_tpu_torch.gen.GenScheduler`.
+    ``/readyz`` flips.  ``gen_admission``/``gen_queue_size``/
+    ``gen_prefill_budget`` configure the
+    :class:`paddle_tpu_torch.gen.GenScheduler` (the budget caps the
+    static prefill FLOPs admitted between two decode iterations).
 
     ``place``: where the model runs (default ``cuda:0``); without CUDA
     and without ``CPUPlace()`` the constructor raises.
@@ -591,7 +593,7 @@ class InferenceServer:
                  batching=False, max_batch_size=8, max_batch_delay=0.005,
                  batch_queue_size=128, warmup=False,
                  warmup_batch_sizes=None, gen_admission="continuous",
-                 gen_queue_size=64, place=None):
+                 gen_queue_size=64, gen_prefill_budget=None, place=None):
         from http.server import BaseHTTPRequestHandler
 
         from paddle_tpu_torch.fault import chaos
@@ -608,7 +610,8 @@ class InferenceServer:
         self._gen = None          # GenScheduler for generation bundles
         self.gen_predictor = None
         self._gen_conf = {"admission": str(gen_admission),
-                          "queue_size": int(gen_queue_size)}
+                          "queue_size": int(gen_queue_size),
+                          "prefill_budget": gen_prefill_budget}
         self._ready = threading.Event()
         self._load_done = threading.Event()  # set on success OR failure
         self._load_error = None
@@ -652,7 +655,9 @@ class InferenceServer:
                     server._gen = GenScheduler(
                         gen_predictor,
                         queue_size=server._gen_conf["queue_size"],
-                        admission=server._gen_conf["admission"])
+                        admission=server._gen_conf["admission"],
+                        prefill_budget=server._gen_conf[
+                            "prefill_budget"])
                     server._ready.set()
                     return
                 predictor = Predictor(model_dir, place=server.place)
@@ -1743,10 +1748,11 @@ def serve(model_dir, host="127.0.0.1", port=8866, async_load=False,
           max_inflight=32, request_timeout=None, batching=False,
           max_batch_size=8, max_batch_delay=0.005, batch_queue_size=128,
           warmup=False, warmup_batch_sizes=None,
-          gen_admission="continuous", gen_queue_size=64, place=None):
+          gen_admission="continuous", gen_queue_size=64,
+          gen_prefill_budget=None, place=None):
     """Serve ``model_dir`` on ``host:port`` until the process ends (the
-    ``paddle_tpu_torch serve`` entry point); ``place`` as for
-    :class:`InferenceServer`."""
+    ``paddle_tpu_torch serve`` entry point); ``place`` and
+    ``gen_prefill_budget`` as for :class:`InferenceServer`."""
     server = InferenceServer(model_dir, host, port, async_load=async_load,
                              max_inflight=max_inflight,
                              request_timeout=request_timeout,
@@ -1757,7 +1763,9 @@ def serve(model_dir, host="127.0.0.1", port=8866, async_load=False,
                              warmup=warmup,
                              warmup_batch_sizes=warmup_batch_sizes,
                              gen_admission=gen_admission,
-                             gen_queue_size=gen_queue_size, place=place)
+                             gen_queue_size=gen_queue_size,
+                             gen_prefill_budget=gen_prefill_budget,
+                             place=place)
     print(f"serving {model_dir} on {server.addr[0]}:{server.addr[1]}",
           flush=True)
     server.serve_forever()

@@ -155,6 +155,9 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
     for i, op in enumerate(ops[:seed_at]):
         for n in op.output_arg_names:
             producers[n].append(i)
+    # the phase of an op is read from its position in the block (its
+    # ``op_index`` is its slot on the run's RNG counter)
+    position = {id(op): i for i, op in enumerate(ops)}
     times = collections.defaultdict(float)
     counts = collections.Counter()
     seen = {}
@@ -178,7 +181,7 @@ def per_op_step(pt, registry, torch, exe, main, scope, feed, cost):
             finally:
                 depth[0] -= 1
             torch.cuda.synchronize()
-            i = ctx.op_index
+            i = position[id(ctx.op)]
             phase = ("forward" if i < seed_at else
                      "optimizer" if ctx.op.type in OPTIMIZER_OPS
                      else "backward")

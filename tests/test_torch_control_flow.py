@@ -307,6 +307,65 @@ def test_while_grad_program_matches_reference():
         [n + "@GRAD" for n in floats]
 
 
+def _drnn_dropout(layers, data):
+    drnn = layers.DynamicRNN()
+    with drnn.block():
+        word = drnn.step_input(data)
+        prev = drnn.memory(shape=[data.shape[1]], value=0.0)
+        s = layers.sums(input=[layers.dropout(word, dropout_prob=0.5), prev])
+        drnn.update_memory(prev, s)
+        drnn.output(s)
+    return layers.sequence_last_step(drnn())
+
+
+def _static_rnn_dropout(layers, data):
+    rnn = layers.StaticRNN()
+    with rnn.step():
+        xt = rnn.step_input(data)
+        mem = rnn.memory(shape=[data.shape[2]], batch_ref=data,
+                         init_value=0.0)
+        s = layers.sums(input=[mem, layers.dropout(xt, dropout_prob=0.5)])
+        rnn.update_memory(mem, s)
+        rnn.step_output(s)
+    return rnn()
+
+
+@pytest.mark.parametrize("loop", ["dynamic_rnn", "static_rnn"])
+def test_dropout_in_a_loop_body_grad_sees_the_forward_masks(loop):
+    """The grad of a loop re-runs its body (auto-vjp of ``while`` /
+    ``recurrent``); a dropout there must draw the masks the forward drew,
+    although the run's RNG counter has moved on to the grad op by then.
+    The loss is linear in the fed ``x`` (the masks fixed), so it equals
+    ``<x@GRAD, x>`` only when the grad differentiates the forward that
+    ran."""
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with torch_names("cfd_"), pt.program_guard(main, startup):
+        if loop == "dynamic_rnn":
+            x = layers.data(name="x", shape=[9, 16], append_batch_size=False,
+                            lod_level=1)
+            feed = {"x": (_f(5, 9, 16), [[0, 3, 5, 9]])}
+        else:
+            x = layers.data(name="x", shape=[3, 4, 16],
+                            append_batch_size=False)
+            feed = {"x": _f(5, 3, 4, 16)}
+        x.stop_gradient = False
+        loss = layers.reduce_sum(
+            (_drnn_dropout if loop == "dynamic_rnn"
+             else _static_rnn_dropout)(layers, x))
+        pt.append_backward(loss)
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    lv, gx = exe.run(main, feed=feed, fetch_list=[loss, "x@GRAD"],
+                     scope=scope)
+    xv = feed["x"][0] if loop == "dynamic_rnn" else feed["x"]
+    # the dropout is live: some entries of x reach the loss, some do not
+    assert (gx == 0).any() and (gx != 0).any()
+    np.testing.assert_allclose(float(lv.reshape(())),
+                               float((gx * xv).sum()), rtol=1e-5)
+
+
 def test_reorder_lod_tensor_by_rank_ragged():
     def net(pkg):
         layers = pkg.layers

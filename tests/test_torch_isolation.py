@@ -54,7 +54,11 @@ def test_every_port_module_imports_with_jax_blocked():
                 "models.seq2seq", "serving", "cli", "profiler",
                 "obs.trace", "obs.flight", "obs.prom", "obs.slo",
                 "obs.perf", "fault.chaos", "fault.retry", "fleet.sessions",
-                "analysis.distributed"):
+                "analysis.distributed", "analysis.typecheck",
+                "analysis.cost", "analysis.lints", "analysis.visualize",
+                "analysis.opt", "analysis.opt.passes",
+                "analysis.opt.pipeline", "memory_optimization_transpiler",
+                "ops.fused_ops"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
@@ -154,3 +158,14 @@ def test_cli_serve_options_the_port_lacks_raise(tmp_path, argv, match):
     d = _mlp_bundle(str(tmp_path / "mlp"))
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["serve", "--model", d, "--place", "cpu"] + argv)
+
+
+def test_weight_norm_param_attr_is_exported_at_the_top():
+    """``paddle_tpu_torch.WeightNormParamAttr``, as
+    ``paddle_tpu.WeightNormParamAttr``."""
+    from paddle_tpu_torch.param_attr import WeightNormParamAttr
+    assert paddle_tpu_torch.WeightNormParamAttr is WeightNormParamAttr
+    attr = paddle_tpu_torch.WeightNormParamAttr(dim=0, name="w")
+    assert isinstance(attr, paddle_tpu_torch.ParamAttr)
+    assert attr.dim == 0 and attr.name == "w"
+

@@ -478,14 +478,30 @@ def test_admission_policies_give_the_reference_streams(bundles,
     assert streams["torch"] == streams["jax"]
 
 
-def test_cost_planners_raise_naming_the_item(port_predictors):
+def test_cost_planners_raise_naming_the_item(bundles, port_predictors):
+    """The planners of the static cost model are ported; what they still
+    refuse they refuse as the reference does, naming what is missing: the
+    page planner needs a paged bundle."""
+    for pred in (port_predictors["dense"], JaxPredictor(bundles["dense"])):
+        with pytest.raises(ValueError,
+                           match="plan_page_buckets needs a paged bundle"):
+            pred.plan_page_buckets([3, 9])
+
+
+def test_cost_planners_match_the_reference(bundles, port_predictors):
+    """The planners give the reference's numbers (the full comparison is
+    ``tests/test_torch_gen_planners.py``), and the scheduler takes a
+    prefill budget."""
     pred = port_predictors["paged"]
-    for call in (lambda: pred.prefill_cost(8),
-                 lambda: pred.plan_prompt_buckets([3, 9]),
-                 lambda: pred.plan_page_buckets([3, 9]),
-                 lambda: GenScheduler(pred, prefill_budget=1e6)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    ref = JaxPredictor(bundles["paged"])
+    assert pred.prefill_cost(8) == ref.prefill_cost(8)
+    assert pred.plan_prompt_buckets([3, 9]) == ref.plan_prompt_buckets([3, 9])
+    assert pred.plan_page_buckets([3, 9]) == ref.plan_page_buckets([3, 9])
+    sched = GenScheduler(pred, prefill_budget=1e6)
+    try:
+        assert sched.prefill_budget == 1e6
+    finally:
+        sched.close()
 
 
 def test_stream_migrated_is_exported():
