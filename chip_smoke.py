@@ -191,7 +191,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``prefills x n_layer`` and ``decode_steps x n_layer`` times, the cut
    admission passes and TTFT beside the unbudgeted rounds', and the cost
    model's prompt and page buckets for the ten lengths.
-11. Report: a ``{"kernels": [...]}`` line (every kernel's fields; the
+11. CUDA graphs.  Every phase above runs through the executor's
+   default path, where a block the capture rule allows runs as one CUDA
+   graph per signature (its first run eager, its second captured and
+   replayed); each path that should run as graphs must have replayed one
+   (the Transformer routes, the gen-LM prefill and decode, the
+   ``/predict`` MLP, MNIST, VGG-16, ResNet-50 training and inference),
+   and W&D-Criteo (sparse), LSTM-IMDB-H512 and Seq2Seq-NMT-512 none.
+   The exact launch counts hold: a replay adds the launches its capture
+   tallied.  ``phase_graph_train``: routes A, B and C from one startup
+   state, ``TRAIN_STEPS`` steps graphed and eagerly (a clone with
+   ``_opt_interpret``): losses bit-identical (or within two eager runs'
+   spread), parameters' max difference, steady step both ways, capture
+   seconds, graph nodes, peak allocated and reserved GiB.
+   ``phase_graph_serving``: the ten prompts through a graphed and an
+   eager predictor, streams token-identical, no capture after warmup,
+   prefill and decode-step medians; ``phase_http_generate`` also checks
+   that every bucket is a captured graph at ``/readyz`` and that no
+   round captures.
+12. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+   captures, replays, capture seconds, nodes, pool growth), a
+   ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
@@ -1348,6 +1368,14 @@ ROUTES = {"A": (ROUTE_A_B, ROUTE_A_S, ("bias_softmax", "bias_softmax_grad")),
           "C": (ROUTE_C_B, ROUTE_C_S, ("smalls_fwd", "smalls_bwd"))}
 
 
+def _steady(step_s, graphed):
+    """Steady seconds a step: the median of a graph's replays (the steps
+    after its eager first and its captured second), else of the eager
+    steps after the first."""
+    import numpy as np
+    return float(np.median(step_s[2:] if graphed else step_s[1:]))
+
+
 def _transformer_program(pt, T, hp, B, S, amp):
     main, startup = pt.Program(), pt.Program()
     main.random_seed = startup.random_seed = SEED
@@ -1402,11 +1430,17 @@ def phase_train(route):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train[{route}]: losses {losses} not finite "
                              f"and falling")
-    steady = float(np.mean(step_s[1:]))
+    steady = _steady(step_s, True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = B * S
+    # the first step eager, the second captured and replayed, the rest
+    # replays
+    if _graphs(f"train_{route}", exe, True) != TRAIN_STEPS - 1:
+        raise AssertionError(f"train[{route}]: graph replays "
+                             f"{exe.graph_stats()}")
     log(f"train[{route}]: losses {[round(x, 5) for x in losses]}; step s "
-        f"{[round(x, 4) for x in step_s]}; steady {1e3 * steady:.2f} ms a "
+        f"{[round(x, 4) for x in step_s]}; steady (the replays' median) "
+        f"{1e3 * steady:.2f} ms a "
         f"step = {tokens / steady:.1f} tokens/s ({tokens} target tokens a "
         f"step); peak memory {peak:.2f} GiB; launches {launches}")
     del scope, exe
@@ -1641,6 +1675,7 @@ def phase_gen_lm_train():
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"gen_lm train: losses {losses} not finite "
                              f"and falling")
+    _graphs("gen_lm_train", exe, True)
     log(f"gen_lm train: B={GEN_TRAIN_B} T={GEN_TRAIN_T} feeds {feeds} "
         f"losses {[round(x, 5) for x in losses]}; launches {launches}")
     return launches
@@ -1848,11 +1883,13 @@ def phase_train_conv(model):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train[{model}]: losses {losses} not finite "
                              f"and falling")
-    steady = float(np.mean(step_s[1:]))
+    steady = _steady(step_s, True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     mfu = 3 * fwd_flops / steady / BF16_TC_OPS_PER_S
+    _graphs(f"{model}_train", exe, True)
     log(f"train[{model}]: B={B} losses {[round(x, 5) for x in losses]}; "
-        f"step s {[round(x, 4) for x in step_s]}; steady {1e3 * steady:.2f}"
+        f"step s {[round(x, 4) for x in step_s]}; steady (the replays' "
+        f"median) {1e3 * steady:.2f}"
         f" ms a step = {B / steady:.1f} images/s; MFU {100 * mfu:.2f}% "
         f"(3 x {fwd_flops / 1e9:.1f} GFLOP of conv and fc a forward over "
         f"{BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} "
@@ -1908,8 +1945,17 @@ def phase_infer_conv3x3(state):
     names = [fetch[0].name]
     for conv, _, relu in chains:
         names += [conv.input("Input")[0], relu.output("Out")[0]]
-    got = exe.run(loaded, feed=feed, fetch_list=names, scope=infer_scope,
-                  return_numpy=False)
+    # three runs on an executor of its own: eager, captured and replayed,
+    # replayed; the graph's outputs are the eager run's, bit for bit
+    iexe = pt.Executor()
+    runs = [iexe.run(loaded, feed=feed, fetch_list=names, scope=infer_scope,
+                     return_numpy=False) for _ in range(3)]
+    got = runs[-1]
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], got)):
+        raise AssertionError("infer: the graph's outputs differ from the "
+                             "eager run's")
+    _graphs("resnet50_infer", iexe, True)
+    del runs, iexe
     (want,) = exe.run(test, feed=test_feed, fetch_list=[predict],
                       scope=scope)
     pred = got[0].cpu().numpy()
@@ -2165,6 +2211,29 @@ def _no_launches(where):
                              f"{launches}")
 
 
+#: every CUDA graph of the paths' executors (``Executor.graph_stats``), by
+#: path: the ``{"graphs": [...]}`` line
+GRAPHS = []
+
+
+def _graphs(path, exe, expect):
+    """Record ``exe``'s CUDA graphs under ``path`` and return their
+    replays.  ``expect=True``: the path must have run as a graph (a
+    replay); False: it must have none (the capture rule keeps its blocks
+    eager); None: either."""
+    stats = exe.graph_stats()
+    GRAPHS.extend({"path": path, **{k: s[k] for k in (
+        "signature", "captures", "replays", "seconds", "nodes",
+        "pool_gib")}} for s in stats)
+    replays = sum(s["replays"] for s in stats)
+    if expect is True and not replays:
+        raise AssertionError(f"{path}: no CUDA graph replayed ({stats})")
+    if expect is False and stats:
+        raise AssertionError(f"{path}: {len(stats)} CUDA graphs, but the "
+                             f"capture rule keeps the path eager")
+    return replays
+
+
 def _wd_program(pt, vocab, sparse=True):
     """``(main, startup, cost)``: ``wide_and_deep_train_program`` at
     W&D-Criteo's widths and ``vocab`` rows, ``Adam(WD_LR)``; with
@@ -2271,10 +2340,15 @@ def phase_wide_deep():
         losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
                                           steps)
         _no_launches(f"wide_deep[{name}]")
+        # SelectedRows grads keep the sparse routes eager; the dense
+        # route runs as a CUDA graph
+        if exe._last_compiled.interpret != sparse:
+            raise AssertionError(f"wide_deep[{name}]: capture rule gave "
+                                 f"interpret={exe._last_compiled.interpret}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"wide_deep[{name}]: losses {losses} not "
                                  f"finite and falling")
-        steady = float(np.mean(step_s[1:]))
+        steady = _steady(step_s, not sparse)
         peak = max(peaks[1:])
         out[name] = dict(step_ms=1e3 * steady,
                          examples_per_s=B / steady,
@@ -2314,6 +2388,9 @@ def phase_wide_deep():
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
         del main, startup, scope
         torch.cuda.empty_cache()
+    _graphs("wide_deep", exe, None)
+    del exe
+    torch.cuda.empty_cache()
     out["card_vs_cpu"] = phase_card_vs_cpu_wide_deep()
     _no_launches("wide_deep[card-vs-cpu]")
     return out
@@ -2523,6 +2600,7 @@ def phase_stacked_lstm():
     losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
                                          LSTM_STEPS)
     _no_launches("stacked_lstm")
+    _graphs("stacked_lstm", exe, False)    # LoD tables: eager
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"stacked_lstm: losses {losses} not finite and "
                              f"falling")
@@ -2792,6 +2870,7 @@ def phase_seq2seq():
     losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
                                          S2S_WARMUP + S2S_STEPS)
     loop = dict(exe.last_run)
+    _graphs("seq2seq", exe, False)    # host reads, LoD tables: eager
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"seq2seq: losses {losses} not finite and "
                              f"lower at the end")
@@ -3235,6 +3314,7 @@ def phase_serving(paged=True):
                     f"{tag}: prompt of {len(prompt)} diverges from the "
                     f"cache-free re-prefill at token {i}: {tok} != {ref}")
             seq.append(tok)
+    _graphs(tag, pred._exe, True)
     log(f"{tag}: all {len(prompts)} streams token-identical to the "
         f"cache-free re-prefill (max total length "
         f"{max(len(p) for p in prompts) + MAX_NEW_TOKENS} of "
@@ -3450,9 +3530,18 @@ def phase_http_generate(serving):
                 f"{got_dec} (want {want_dec})")
         warmup = {_warmup_key(b): (b["seconds"], b["cache"])
                   for b in report}
+        # every prompt and page bucket is a captured CUDA graph by now
+        graphs = pred._exe.graph_stats()
+        captured = sum(1 for g in graphs if g["captures"])
+        captures_at_ready = sum(g["captures"] for g in graphs)
+        if captured != len(want_pre) + len(want_dec):
+            raise AssertionError(
+                f"http: {captured} signatures captured at /readyz, want "
+                f"{len(want_pre)} prefill + {len(want_dec)} decode")
         log(f"http_generate: /readyz {readyz} after {ready_s:.3f}s; "
             f"warmup (s, cache) {warmup}; kernel builds "
-            f"{builds_at_ready}")
+            f"{builds_at_ready}; {captured} graphs captured "
+            f"({sum(g['seconds'] for g in graphs):.3f} s)")
 
         kinds = {"http": lambda p: client.generate(
                      p, max_new_tokens=MAX_NEW_TOKENS),
@@ -3476,6 +3565,9 @@ def phase_http_generate(serving):
                 prefills = pred.prefills - pre0
                 steps = pred.decode_steps - dec0
                 torch.cuda.synchronize()
+                if runtime_metrics.counter("compile.events"):
+                    raise AssertionError(f"{kind} round {r}: a CUDA graph "
+                                         f"was captured after /readyz")
                 for i, (_, _, toks, tail) in enumerate(results):
                     if toks != want[i] or not tail or \
                             tail.get("finish_reason") != "length":
@@ -3502,6 +3594,11 @@ def phase_http_generate(serving):
         if dict(build.counts) != builds_at_ready:
             raise AssertionError(f"http: kernels built after /readyz: "
                                  f"{builds_at_ready} -> {build.counts}")
+        if sum(g["captures"] for g in pred._exe.graph_stats()) != \
+                captures_at_ready:
+            raise AssertionError("http: CUDA graphs captured after "
+                                 "/readyz")
+        _graphs("http_generate", pred._exe, True)
         http = rounds["http"]
         for later in http[1:]:
             if later["allocated"] != http[0]["allocated"] or \
@@ -3514,7 +3611,8 @@ def phase_http_generate(serving):
         srv.shutdown()
 
     out = dict(ready_s=ready_s, warmup=warmup, rounds=HTTP_ROUNDS,
-               peak_mib=[h["peak"] / 2 ** 20 for h in http])
+               peak_mib=[h["peak"] / 2 ** 20 for h in http],
+               graphs_at_ready=captured)
     for kind, rnds in rounds.items():
         out[kind] = _spread([{k: v for k, v in rnd.items()
                               if k not in ("launches", "peak",
@@ -3707,6 +3805,7 @@ def phase_http_predict():
                                        PREDICT_REQUESTS)
             occ = runtime_metrics.snapshot()["histograms"].get(
                 "serving.batch_occupancy", {})
+            _graphs(f"http_predict_{mode}", srv.predictor._exe, True)
         finally:
             srv.shutdown()
         err = 0.0
@@ -3926,6 +4025,7 @@ def phase_train_opt(route):
                     raise AssertionError(
                         f"train_opt[{route}]: the executor did not run the "
                         f"optimized, verified program")
+            _graphs(f"train_opt_{route}_{mode}", exe, True)
             runs[mode] = dict(losses=losses, step_s=step_s,
                               launches=launches)
             del scope, exe
@@ -3949,7 +4049,7 @@ def phase_train_opt(route):
                verify_s=verify_s, flops=flops, loss_rel_max=max(rel),
                bit_identical=all(identical))
     for mode, r in runs.items():
-        steady = float(np.mean(r["step_s"][1:]))
+        steady = _steady(r["step_s"], True)
         out[f"{mode}_step_ms"] = 1e3 * steady
         out[f"{mode}_flops_share"] = flops / steady / BF16_TC_OPS_PER_S
     log(f"train_opt[{route}]: losses {[float(x) for x in plain['losses']]}"
@@ -4012,7 +4112,7 @@ def phase_check_nan_inf(state):
             raise AssertionError(f"check_nan_inf {mode}: launches "
                                  f"{launches} != {want}")
         runs[mode] = dict(losses=losses, step_ms=1e3 * float(
-            np.mean(step_s[1:])), launches=launches)
+            _steady(step_s, True)), launches=launches)
         del scope
     main.check_nan_inf = None
     rel = _loss_rel(runs["plain"]["losses"], runs["check"]["losses"])
@@ -4276,6 +4376,247 @@ def phase_serving_budget(serving, http_gen):
 #: TPU kernel a port stands for (``exp_smalls_attn.py`` runs the same two
 #: bodies as ``attention_ops.py``), and what a redesign or a repair of its
 #: first port changed
+# ---------------------------------------------------------------------------
+# phase 11: the executor's CUDA graphs against its eager step
+# ---------------------------------------------------------------------------
+
+def _params(pt, main, scope):
+    return {p.name: scope.find_var(p.name).float().clone()
+            for p in main.global_block().all_parameters()}
+
+
+#: a substring of the names of each route's kernels, for counting them in
+#: a profile of a graph replay
+ROUTE_KERNEL_NAMES = {"A": "bias_softmax", "B": "flash_", "C": "smalls_"}
+
+
+def phase_graph_train(route):
+    """Route ``route`` from one startup state on two fresh executors,
+    ``TRAIN_STEPS`` steps each at dropout 0.1: the default path (the first
+    step eager, the second captured into a CUDA graph and replayed, the
+    rest replays) and the eager baseline (a clone of the program with
+    ``_opt_interpret`` set, the attribute the optimization pipeline
+    sets).  The losses must be bit-identical, or, where two eager runs
+    differ, within their spread; both launch exactly the route's kernels
+    18 times a step.  Reports the parameters' max |diff| after the steps,
+    the steady step (median of the replays; of the eager steps after the
+    first), the capture seconds and graph nodes, and each run's peak
+    allocated and reserved GiB."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import transformer as T
+
+    B, S, kernels = ROUTES[route]
+    hp = T.ModelHyperParams()          # Transformer-base, dropout 0.1
+    hp.max_length = max(hp.max_length, S)
+    main, startup, cost = _transformer_program(pt, T, hp, B, S, amp=True)
+    eager = clone_program(main)
+    eager._opt_interpret = True
+    feed = T.fake_batch(B, S, S, hp, seed=SEED)
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    want = {k: 18 * TRAIN_STEPS for k in kernels}
+    runs = {}
+    # two eager runs: the spread the graph is held to where it is not
+    # bit-identical, and the parameters' own run-to-run spread
+    for mode, program in (("graph", main), ("eager", eager),
+                          ("eager2", eager)):
+        scope = _scope_copy(pt, scope0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in ALL_KERNELS:
+            kern.launches = 0
+        exe, losses, step_s = _train_run(pt, program, cost, scope, feed,
+                                         TRAIN_STEPS)
+        launches = _launch_counts()
+        if launches != want:
+            raise AssertionError(f"graph_train[{route}] {mode}: launches "
+                                 f"{launches} != {want}")
+        stats = exe.graph_stats()
+        replays = _graphs(f"graph_train_{route}_{mode}", exe,
+                          mode == "graph")
+        if mode == "graph" and replays != TRAIN_STEPS - 1:
+            raise AssertionError(f"graph_train[{route}]: replays {stats}")
+        steady = step_s[2:] if mode == "graph" else step_s[1:]
+        params = _params(pt, main, scope)
+        profiled = {}
+        if mode == "graph":
+            # one more replay under torch.profiler: do the graph's kernel
+            # nodes show, and how long is the device busy in a replay
+            events = _device_events(lambda: exe.run(
+                program, feed=feed, fetch_list=[cost], scope=scope), 1, 0)
+            profiled = dict(
+                device_events=len(events),
+                route_kernel_events=sum(
+                    1 for n, _ in events if ROUTE_KERNEL_NAMES[route] in n),
+                device_busy_ms=sum(t for _, t in events) / 1e3)
+        runs[mode] = dict(
+            losses=losses, launches=launches, params=params,
+            profiled=profiled,
+            step_ms=1e3 * float(np.median(steady)),
+            first_ms=1e3 * step_s[0], second_ms=1e3 * step_s[1],
+            peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+            capture_s=sum(s["seconds"] for s in stats),
+            nodes=[s["nodes"] for s in stats],
+            pool_gib=sum(s["pool_gib"] for s in stats))
+        del exe, scope
+    graph, base = runs["graph"], runs["eager"]
+    rel = _loss_rel(base["losses"], graph["losses"])
+    identical = graph["losses"] == base["losses"]
+    spread = max(_loss_rel(base["losses"], runs["eager2"]["losses"]))
+    if not identical and (not spread or max(rel) > spread):
+        raise AssertionError(
+            f"graph_train[{route}]: graphed losses {graph['losses']} "
+            f"against eager {base['losses']} (rel {rel}), two eager "
+            f"runs {spread}")
+    if not all(np.isfinite(graph["losses"])) or \
+            not graph["losses"][-1] < graph["losses"][0]:
+        raise AssertionError(f"graph_train[{route}]: losses "
+                             f"{graph['losses']}")
+
+    def dmax(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in b)
+    dparam = dmax(graph["params"], base["params"])
+    dparam_eager = dmax(runs["eager2"]["params"], base["params"])
+    out = dict(losses=[float(x) for x in graph["losses"]],
+               bit_identical=identical, loss_rel_max=max(rel),
+               eager_spread=spread, param_max_abs_diff=dparam,
+               eager_param_max_abs_diff=dparam_eager)
+    for mode in ("graph", "eager"):
+        r = runs[mode]
+        out[mode] = {k: r[k] for k in (
+            "step_ms", "first_ms", "second_ms", "peak_allocated_gib",
+            "peak_reserved_gib", "launches")}
+    out["graph"].update(capture_s=graph["capture_s"], nodes=graph["nodes"],
+                        pool_gib=graph["pool_gib"], **graph["profiled"])
+    if not graph["profiled"]["route_kernel_events"]:
+        log(f"graph_train[{route}]: torch.profiler shows none of the "
+            f"route's kernels inside a replay (the profile has "
+            f"{graph['profiled']['device_events']} device events)")
+    log(f"graph_train[{route}]: losses {out['losses']} graphed, "
+        f"bit-identical to eager: {identical} (rel max {max(rel):.3e}, "
+        f"two eager runs {spread:.3e}); params max |diff| {dparam:.3e} "
+        f"(two eager runs {dparam_eager:.3e}); steady step "
+        f"{graph['step_ms']:.2f} ms graphed (median of "
+        f"{TRAIN_STEPS - 2} replays) vs {base['step_ms']:.2f} ms eager; "
+        f"first / second step {graph['first_ms']:.1f} / "
+        f"{graph['second_ms']:.1f} ms (eager / capture + replay), capture "
+        f"{graph['capture_s']:.3f} s, {graph['nodes']} nodes, a profiled "
+        f"replay: {graph['profiled']['device_events']} device events "
+        f"({graph['profiled']['route_kernel_events']} of the route's), "
+        f"device busy {graph['profiled']['device_busy_ms']:.2f} ms; pool "
+        f"{graph['pool_gib']:.2f} GiB; peak allocated / reserved "
+        f"{graph['peak_allocated_gib']:.2f} / "
+        f"{graph['peak_reserved_gib']:.2f} GiB graphed, "
+        f"{base['peak_allocated_gib']:.2f} / "
+        f"{base['peak_reserved_gib']:.2f} GiB eager; launches "
+        f"{graph['launches']} both")
+    del runs, scope0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return graph["launches"], out
+
+
+def _collect(streams, tag):
+    """Every token of each stream (a failed or timed-out stream fails the
+    run)."""
+    deadline = time.monotonic() + HTTP_WAIT_S
+    outs = []
+    for st in streams:
+        toks = []
+        while True:
+            ev = st.next_event(timeout=max(0.0, deadline - time.monotonic()))
+            if ev is None:
+                raise AssertionError(f"{tag}: a stream timed out")
+            kind, value = ev
+            if kind == "token":
+                toks.append(value)
+            elif kind == "done":
+                break
+            else:
+                raise AssertionError(f"{tag}: stream failed: {value!r}")
+        outs.append(toks)
+    return outs
+
+
+def phase_graph_serving(serving):
+    """The ten prompts of ``phase_serving`` through ``GenScheduler`` on two
+    predictors of the paged bundle, each warmed up first: the default
+    path (every prompt bucket's prefill and every page bucket's decode a
+    CUDA graph, captured by ``warmup``) and the eager baseline (both
+    programs with ``_opt_interpret`` set).  The greedy streams must be
+    token-identical to each other and to ``phase_serving``'s; the graphed
+    predictor captures nothing after its warmup (``compile.events``) and
+    the eager one nothing at all.  Reports the prefill and decode-step
+    medians both ways."""
+    import numpy as np
+    from paddle_tpu_torch.gen import GenPredictor, GenScheduler
+    from paddle_tpu_torch.profiler import runtime_metrics
+
+    prompts, want = serving["prompts"], serving["streams"]
+    out = {}
+    for mode in ("graph", "eager"):
+        pred = GenPredictor(serving["bundle"])
+        if mode == "eager":
+            pred._pre_prog._opt_interpret = True
+            pred._dec_prog._opt_interpret = True
+        t0 = time.perf_counter()
+        pred.warmup()
+        warmup_s = time.perf_counter() - t0
+        times = {"prefill": [], "decode_step": []}
+        for name, samples in times.items():
+            fn = getattr(pred, name)
+
+            def timed(*a, _fn=fn, _samples=samples, **kw):
+                t = time.perf_counter()
+                result = _fn(*a, **kw)
+                _samples.append(time.perf_counter() - t)
+                return result
+            setattr(pred, name, timed)
+        sched = GenScheduler(pred, queue_size=64)
+        events0 = runtime_metrics.counter("compile.events")
+        try:
+            got = _collect([sched.submit(p, max_new_tokens=MAX_NEW_TOKENS)
+                            for p in prompts], f"graph_serving[{mode}]")
+        finally:
+            sched.close()
+        if got != want:
+            raise AssertionError(f"graph_serving[{mode}]: streams differ "
+                                 f"from phase_serving's")
+        if runtime_metrics.counter("compile.events") != events0:
+            raise AssertionError(f"graph_serving[{mode}]: a capture after "
+                                 f"warmup")
+        graphs = pred._exe.graph_stats()
+        buckets = len([b for b in pred.prompt_buckets if b <= pred.max_len]
+                      ) + len([b for b in pred.page_buckets
+                               if b <= pred.pages_per_slot])
+        if mode == "graph" and \
+                sum(1 for g in graphs if g["captures"]) != buckets:
+            raise AssertionError(f"graph_serving: {len(graphs)} graphs for "
+                                 f"{buckets} buckets")
+        _graphs(f"graph_serving_{mode}", pred._exe, mode == "graph")
+        out[mode] = dict(
+            prefill_ms=1e3 * float(np.median(times["prefill"])),
+            decode_step_ms=1e3 * float(np.median(times["decode_step"])),
+            prefills=len(times["prefill"]),
+            decode_steps=len(times["decode_step"]), warmup_s=warmup_s,
+            graphs=len(graphs))
+        del sched, pred
+    log("graph_serving: the ten streams token-identical graphed and eager "
+        "(and to phase_serving's); no capture after warmup; " + " ".join(
+            f"{mode}: prefill {o['prefill_ms']:.3f} ms, decode step "
+            f"{o['decode_step_ms']:.3f} ms (medians of {o['prefills']} / "
+            f"{o['decode_steps']}), warmup {o['warmup_s']:.2f} s, "
+            f"{o['graphs']} graphs;" for mode, o in out.items()))
+    return out
+
+
 KERNEL_NOTES = {
     "flash_fwd": {"repaired": "bf16 T(p) cast before the product with v",
                   "redesigned": "bf16 on the tensor cores"},
@@ -4379,9 +4720,13 @@ def main():
     by_path["serving_budget"], serving_budget = phase_serving_budget(
         serving, http_gen)
     by_path["dense_decode"], dense = phase_serving(paged=False)
-    train = {}
+    graph_serving = phase_graph_serving(serving)
+    train, graph_train = {}, {}
     for route in ROUTES:
         by_path[f"train_{route}"], train[route] = phase_train(route)
+    for route in ROUTES:
+        by_path[f"graph_train_{route}"], graph_train[route] = \
+            phase_graph_train(route)
     by_path["train_opt_A"], train_opt, opt_state = phase_train_opt("A")
     by_path["check_nan_inf"], nan_check = phase_check_nan_inf(opt_state)
     del opt_state
@@ -4498,6 +4843,11 @@ def main():
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
+    for route, g in graph_train.items():
+        log(f"graph_train[{route}]: " + json.dumps(g))
+    log("graph_serving: " + json.dumps(graph_serving))
+    log("graphed paths: " + json.dumps(sorted({g["path"] for g in GRAPHS})))
+    log(json.dumps({"graphs": GRAPHS}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

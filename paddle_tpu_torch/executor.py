@@ -1,15 +1,43 @@
-"""Executor: runs a Program block op by op on torch tensors (the port's
-counterpart of ``paddle_tpu.executor``; reference
+"""Executor: runs a Program block on torch tensors, on the card as one
+CUDA graph per signature (the port's counterpart of
+``paddle_tpu.executor``; reference
 ``paddle/fluid/framework/executor.cc:334``).
 
 Where the JAX package traces a whole block into one compiled XLA
-computation, the port runs eagerly: feeds go to the place's device,
-persistable state is read from the scope, every op's lowering runs in
-program order (forward, grad and optimizer ops alike), and the
-persistable variables the block wrote are stored back in the scope.  Ops
-that update state in place (``paged_attention`` on the KV pool, the
-sparse branches of ``sgd``, ``adam`` and ``adagrad`` on a table and its
-moments) change the scope's own tensor.
+computation, the port prepares the block's step once per signature and
+runs it as a CUDA graph:
+
+  1. ``_signature`` (the reference's, ``paddle_tpu/executor.py:1087``):
+     program id and version, block, AMP, scope id, op profiling, the
+     feeds' names, dtypes and shapes, their frozen LoDs and the fetch
+     names (and ``check_nan_inf``, which moves the write-back out of the
+     graph).  The reference's numerics probing and ``_release_memory``
+     are not ported (ROADMAP items 9 and 7) and are not in the key.
+  2. ``_get_compiled`` looks the signature up in an LRU cache of
+     ``jit_cache_capacity()`` entries (``PADDLE_TPU_JIT_CACHE_SIZE``,
+     default 64), counting ``jit_cache.hits`` / ``.misses`` /
+     ``.evictions`` as the JAX package does; a miss runs ``_prepare``:
+     the reads / writes walk (into sub-blocks, ``_external_reads``) that
+     partitions the state into read-only, in-out and write-only names,
+     the capture rule, and the step function.
+  3. On the card a block that may be captured runs as
+     :class:`~paddle_tpu_torch.step_graph.StepGraph`: its first run
+     eagerly, its second captured and replayed, every later one a
+     replay (state written back into the scope's own tensors as the
+     graph's last nodes).  On the CPU, and for a block the rule keeps
+     eager, ``fn`` is the eager step: every op's lowering runs in program
+     order and the written persistables are stored back in the scope.
+
+The capture rule (``_prepare``): a block runs eagerly, with the
+reference's host-op cliff warning once per (program, block), when it or
+a sub-block holds an op the reference marks ``host`` or the port marks
+``eager_only`` (``registry.eager_only``: its lowering reads the device
+on the host, copies host data to the device, draws from the run's host
+generator or makes a ``SelectedRows``); and without the warning when op
+profiling is on (``profiler.enable_op_profiling``) or the optimization
+pipeline set ``program._opt_interpret``.  Ops that update state in place
+(``paged_attention`` on the KV pool, the sparse branches of ``sgd``,
+``adam`` and ``adagrad``) change the scope's own tensor.
 
 Mixed precision: when ``Program.amp`` is set (or, if it is None, the
 ``PADDLE_TPU_AMP`` environment flag), float32 tensors read through an
@@ -31,21 +59,22 @@ their sub-blocks through, over the run's own ``aux`` (its LoD map and
 index tables).  After each run ``Executor.last_run`` holds the run's
 ``while`` trips and host reads (``aux["while_trips"]``,
 ``aux["host_reads"]``: the loop conditions and array indices read on
-the host, each a device sync on the card).
+the host, each a device sync on the card); a graph replay reads none.
 
 Randomness: random init ops draw from one host generator per run, seeded
 from the program's ``random_seed``, so the same program initializes the
 same values on every device.  Random ops of a step (``dropout``) draw
 from generators on the run's device, seeded from the program's seed, the
 executor's run counter and the op's slot on the run's RNG counter
-(``aux["rng_counter"]``).  The counter advances by
-``op.attrs.get("__rng_slots__", 1)`` for every op but feed and fetch, in
-sub-blocks too, and an op's slot is the counter after it advanced; the
-counter starts at -1, so an op of an unoptimized block without feed or
-fetch ops has its position as its slot.  An optimization pass that
-removes or fuses ops charges their slots to the next surviving op, so
-every random op keeps the slot, and so the mask, it has in the
-unoptimized program.
+(``aux["rng_counter"]``); a graph reseeds its generators with the same
+values before each replay, so its masks are the eager step's.  The
+counter advances by ``op.attrs.get("__rng_slots__", 1)`` for every op
+but feed and fetch, in sub-blocks too, and an op's slot is the counter
+after it advanced; the counter starts at -1, so an op of an unoptimized
+block without feed or fetch ops has its position as its slot.  An
+optimization pass that removes or fuses ops charges their slots to the
+next surviving op, so every random op keeps the slot, and so the mask,
+it has in the unoptimized program.
 
 Environment switches, as in the JAX package: ``PADDLE_TPU_VERIFY=1``
 runs the structural verifier before a program's first run
@@ -53,31 +82,38 @@ runs the structural verifier before a program's first run
 verify-sandwiched pass pipeline of :mod:`paddle_tpu_torch.analysis.opt`
 on a clone (:meth:`Executor._maybe_optimize`), and
 ``PADDLE_TPU_CHECK_NAN_INF=1`` (or ``Program.check_nan_inf``) raises
-naming the first fetch or state variable that is not finite.
+naming the first fetch or state variable that is not finite, after the
+step and before its write-back.
 
 Fetches come back as numpy arrays; a bfloat16 value is widened to
 float32 (:func:`~paddle_tpu_torch.convert.fetch_numpy`), where the JAX
-package returns an ml_dtypes bfloat16 array.
+package returns an ml_dtypes bfloat16 array.  With ``return_numpy=False``
+they are tensors the caller owns (a graph's outputs are cloned).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import framework
+from paddle_tpu_torch import profiler as _profiler
 from paddle_tpu_torch.convert import fetch_numpy, to_tensor
 from paddle_tpu_torch.framework import Program, default_main_program
 from paddle_tpu_torch.lod import validate_lod
+from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.place import default_place
 from paddle_tpu_torch.scope import global_scope
+from paddle_tpu_torch.step_graph import GeneratorTable, StepGraph
 
-__all__ = ["Executor", "lower_block", "fetch_var"]
+__all__ = ["Executor", "lower_block", "fetch_var", "jit_cache_capacity"]
 
 logger = logging.getLogger(__name__)
 
@@ -89,8 +125,12 @@ def lower_block(block, env, aux):
     """Run every op of ``block`` in order against ``env`` (name ->
     tensor), merging each op's outputs into it.  Each op takes the next
     ``__rng_slots__`` (default 1) slots of ``aux["rng_counter"]``; the
-    last of them keys its random draws."""
-    for op in block.ops:
+    last of them keys its random draws.  While op profiling is on
+    (``aux["profile"]``) each op is timed (``profiler.record_op``); under
+    a CUDA graph capture (``aux["capturing"]``) a lowering that fails
+    raises naming its op."""
+    profiling = aux.get("profile")
+    for i, op in enumerate(block.ops):
         if op.type in _SKIP_OPS:
             continue
         opdef = registry.resolve_lowering(op.type)
@@ -98,7 +138,20 @@ def lower_block(block, env, aux):
             op.attrs.get("__rng_slots__", 1)
         ctx = registry.LowerContext(op, env, block, aux=aux,
                                     op_index=aux["rng_counter"])
-        opdef.lower(ctx)
+        try:
+            if profiling:
+                with _profiler.record_op(op.type, ctx):
+                    opdef.lower(ctx)
+            else:
+                opdef.lower(ctx)
+        except Exception as e:
+            if aux.get("capturing") and not getattr(e, "_graph_op", False):
+                err = RuntimeError(
+                    f"CUDA graph capture failed lowering op {op.type!r} "
+                    f"(#{i} of block {block.idx}): {e}")
+                err._graph_op = True
+                raise err from e
+            raise
         env.update(ctx.outputs)
         _share_lod(op, ctx.outputs, env, aux)
     return env
@@ -205,12 +258,14 @@ def _amp_enabled(program):
 
 class _StateEnv(dict):
     """Run environment that reads a missing name from the scope (moving a
-    host array there to the device, once) — the persistable state."""
+    host array there to the device, once) — the persistable state.
+    ``loaded`` keeps what was read, the values a CUDA graph captures."""
 
     def __init__(self, scope, device):
         super().__init__()
         self.scope = scope
         self.device = device
+        self.loaded = {}
 
     def __missing__(self, name):
         v = self.scope.find_var(name)
@@ -221,8 +276,74 @@ class _StateEnv(dict):
         if not isinstance(v, torch.Tensor) or v.device != self.device:
             v = to_tensor(v, self.device)
             self.scope.set_var(name, v)
-        self[name] = v
+        self[name] = self.loaded[name] = v
         return v
+
+
+def jit_cache_capacity():
+    """Executor-level step-cache LRU capacity: PADDLE_TPU_JIT_CACHE_SIZE
+    (default 64; values < 1 clamp to 1), as in the JAX package."""
+    raw = os.environ.get("PADDLE_TPU_JIT_CACHE_SIZE", "").strip()
+    try:
+        return max(1, int(raw)) if raw else 64
+    except ValueError:
+        logger.warning("bad PADDLE_TPU_JIT_CACHE_SIZE=%r; using 64", raw)
+        return 64
+
+
+class _CompiledBlock:
+    """A prepared block for one feed/fetch signature (the reference's
+    holder of its jitted step): ``_prepare``'s partitions and capture
+    decision, and ``fn(feeds, rng_seed, check)``, which runs one step and
+    returns ``(fetches, stats, owned)``: the eager step
+    (:class:`_EagerStep`) or, on the card, a
+    :class:`~paddle_tpu_torch.step_graph.StepGraph`."""
+
+    def __init__(self, fn, parts, fetch_names):
+        self.fn = fn
+        self.fetch_names = fetch_names
+        self.feed_names = parts["feed_names"]
+        self.ro_names = parts["ro_names"]
+        self.inout_names = parts["inout_names"]
+        self.create_state = parts["create_state"]
+        self.param_names = parts["param_names"]
+        self.interpret = parts["interpret"]
+
+
+class _EagerStep:
+    """``fn`` of an eager block: the prepared step, then the check and
+    the write-back of the written state to the scope."""
+
+    def __init__(self, step, scope):
+        self.step = step
+        self.scope = scope
+
+    def __call__(self, feeds, rng_seed, check):
+        fetches, new_state, _, stats = self.step(
+            feeds, rng_seed, GeneratorTable(rng_seed), False)
+        if check is not None:
+            # before the write-back: a failing step leaves the scope as
+            # it was (in-place updates of a pool or a table excepted)
+            check(fetches, new_state)
+        for n, v in new_state.items():
+            self.scope.set_var(n, v)
+        return fetches, stats, True
+
+
+class _GraphShared:
+    """The graph pool and capture stream shared by one executor's graphs,
+    made at the first capture (a holder the graphs keep, so that they
+    hold no reference to the executor)."""
+
+    def __init__(self, device):
+        self.device = device
+        self._value = None
+
+    def __call__(self):
+        if self._value is None:
+            self._value = (torch.cuda.graph_pool_handle(),
+                           torch.cuda.Stream(self.device))
+        return self._value
 
 
 class Executor:
@@ -233,6 +354,8 @@ class Executor:
     def __init__(self, place=None):
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
+        self._cache = {}
+        self._cache_capacity = jit_cache_capacity()
         self._run_counter = 0
         #: ``{"while_trips": n, "host_reads": n}`` of the last run
         self.last_run = {}
@@ -240,50 +363,108 @@ class Executor:
         self._verified = set()
         # PADDLE_TPU_OPT: (id, version, feeds, fetches) -> optimized clone
         self._opt_cache = {}
+        # one graph pool and capture stream for every graph of this
+        # executor; replays and captures serialized by this lock
+        self._graph_shared = _GraphShared(self.device)
+        self._lock = threading.RLock()
+        self._last_compiled = None
 
+    # ------------------------------------------------------------------
+    def _cache_insert(self, sig, value):
+        """LRU insert bounded by PADDLE_TPU_JIT_CACHE_SIZE; evictions are
+        counted (``jit_cache.evictions``) — a serving process churning
+        through more signatures than the cache holds is re-preparing
+        (and re-capturing), and the counter is how you see it."""
+        while len(self._cache) >= self._cache_capacity:
+            self._cache.pop(next(iter(self._cache)))
+            _profiler.runtime_metrics.inc("jit_cache.evictions")
+        self._cache[sig] = value
+
+    # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, use_program_cache=True):
         """Run ``program``'s global block once.  ``feed``: name -> array
         or tensor, or ``(value, lod)`` for a ragged variable (``lod``: a
         list of levels of row splits, the last ending at the value's row
         count); ``fetch_list``: Variables or names.  Returns the fetched
         values as numpy arrays (``return_numpy``) or tensors on the
-        place's device."""
-        program, scope, fetch_names = self._prepare(program, scope,
+        place's device that the caller owns.  ``use_program_cache`` is
+        accepted for API parity: the step cache is always on."""
+        program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list, feed)
         block = program.global_block()
-        feeds = {}
-        for name, value in (feed or {}).items():
-            var = block.vars.get(name)
-            lod = None
-            if _is_lod_pair(value):
-                value, lod = value
-            _enforce_feed(name, value, var)
-            if lod is not None:
-                if len(lod) == 1 and _lod_buckets_enabled(program):
-                    raise NotImplementedError(
-                        f"feed {name!r}: {_BUCKETS_ITEM}")
-                rows = value.shape[0] if hasattr(value, "shape") \
-                    else np.shape(value)[0]
-                lod = validate_lod(name, lod, rows)
-            feeds[name] = to_tensor(value, self.device,
-                                    getattr(var, "dtype", None))
-            # a dense feed clears a stale LoD of an earlier ragged one
-            scope.set_lod(name, lod)
-        fetches = self._step(program, scope, feeds, fetch_names)
-        if return_numpy:
-            return [fetch_numpy(v) for v in fetches]
-        return fetches
+        with _span("executor.run"):
+            return self._run_traced(program, block, feed or {},
+                                    fetch_names, scope, return_numpy)
+
+    def _run_traced(self, program, block, feed, fetch_names, scope,
+                    return_numpy):
+        """Body of :meth:`run`, phase-annotated as the JAX package's:
+        ``executor.feed`` (host -> device), ``executor.dispatch`` (the
+        cache lookup and the step or graph replay), ``executor.fetch``
+        (the fetches' conversion)."""
+        with _span("executor.feed"):
+            feeds = {}
+            for name, value in feed.items():
+                var = block.vars.get(name)
+                lod = None
+                if _is_lod_pair(value):
+                    value, lod = value
+                _enforce_feed(name, value, var)
+                if lod is not None:
+                    if len(lod) == 1 and _lod_buckets_enabled(program):
+                        raise NotImplementedError(
+                            f"feed {name!r}: {_BUCKETS_ITEM}")
+                    rows = value.shape[0] if hasattr(value, "shape") \
+                        else np.shape(value)[0]
+                    lod = validate_lod(name, lod, rows)
+                feeds[name] = to_tensor(value, self.device,
+                                        getattr(var, "dtype", None))
+                # a dense feed clears a stale LoD of an earlier ragged one
+                scope.set_lod(name, lod)
+        with self._lock:
+            with _span("executor.dispatch") as dsp:
+                compiled = self._get_compiled(program, block, feeds,
+                                              tuple(fetch_names), scope)
+                t0 = time.perf_counter()
+                fetches, owned = self._dispatch(compiled, program, feeds)
+                dt = time.perf_counter() - t0
+                dsp.set(fetches=len(fetch_names), graphed=not owned)
+            _profiler.runtime_metrics.observe("executor.step_seconds", dt)
+            with _span("executor.fetch"):
+                if return_numpy:
+                    return [fetch_numpy(v) for v in fetches]
+                return fetches if owned else [v.clone() for v in fetches]
+
+    def _dispatch(self, compiled, program, feeds):
+        """One step of ``compiled`` on ``feeds``: ``(fetches, owned)``."""
+        self._run_counter += 1
+        rng_seed = int(program.random_seed or 0) * 1000003 + \
+            self._run_counter
+        check = None
+        if _check_nan_inf_enabled(program):
+            names = compiled.fetch_names
+
+            def check(fetches, new_state):
+                _check_nan_inf(names, fetches, new_state)
+        self._last_compiled = compiled
+        fetches, stats, owned = compiled.fn(feeds, rng_seed, check)
+        self.last_run = {k: stats.get(k, 0)
+                         for k in ("while_trips", "host_reads")}
+        return fetches, owned
 
     def run_steps(self, program=None, feed=None, fetch_list=None, steps=1,
                   scope=None, return_numpy=True):
         """Run ``steps`` iterations of ``program`` (reference
-        ``paddle_tpu.executor.Executor.run_steps``; here an eager loop on
-        the device).  A ``feed`` value is either one batch, reused every
+        ``paddle_tpu.executor.Executor.run_steps``, a ``lax.scan`` there):
+        each step runs the one-step entry of its signature, a graph replay
+        on the card, its per-step feeds copied into the graph's feed
+        buffers.  A ``feed`` value is either one batch, reused every
         step, or stacked ``[steps, ...]`` batches (exactly one extra
         leading dim of length ``steps``), sliced per step.  Fetches come
-        back stacked ``[steps, ...]``."""
-        program, scope, fetch_names = self._prepare(program, scope,
+        back stacked ``[steps, ...]``.  The entry is the one ``run``
+        uses for the same feeds (the reference keys its scan apart)."""
+        program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list, feed)
         block = program.global_block()
         steps = int(steps)
@@ -306,11 +487,18 @@ class Executor:
             else:
                 _enforce_feed(name, t, var)
                 const_feed[name] = t            # one batch, reused
+        sample = dict(const_feed)
+        sample.update({n: t[0] for n, t in per_step.items()})
         outs = []
-        for i in range(steps):
-            feeds = dict(const_feed)
-            feeds.update({n: t[i] for n, t in per_step.items()})
-            outs.append(self._step(program, scope, feeds, fetch_names))
+        with self._lock:
+            compiled = self._get_compiled(program, block, sample,
+                                          tuple(fetch_names), scope)
+            for i in range(steps):
+                feeds = dict(const_feed)
+                feeds.update({n: t[i] for n, t in per_step.items()})
+                fetches, owned = self._dispatch(compiled, program, feeds)
+                outs.append(fetches if owned
+                            else [v.clone() for v in fetches])
         stacked = [torch.stack([o[j] for o in outs])
                    for j in range(len(fetch_names))]
         if return_numpy:
@@ -319,9 +507,12 @@ class Executor:
 
     def warmup(self, program=None, feed_shapes=None, fetch_list=None,
                scope=None, allow_state_updates=False):
-        """Run ``program`` once per declared feed signature on zero feeds
+        """Run ``program`` for each declared feed signature on zero feeds
         before real traffic arrives, so the first real request pays no
-        kernel build (the counterpart of the JAX package's AOT warmup).
+        kernel build and, on the card, no capture: a signature that runs
+        as a CUDA graph runs twice (its eager first run, then its
+        capture), so the first real request replays it (the counterpart
+        of the JAX package's AOT warmup).
 
         ``feed_shapes``: a dict ``name -> concrete shape`` (one
         signature) or a list of them (one per serving bucket); dtypes come
@@ -340,7 +531,6 @@ class Executor:
         (a source was compiled by ``nvcc`` for it), ``"persistent-hit"``
         (a library was loaded from the build directory) or ``"warm"``
         (nothing new)."""
-        from paddle_tpu_torch import profiler as _profiler
         from paddle_tpu_torch.io import synth_feed_value
         from paddle_tpu_torch.kernels import build
         from paddle_tpu_torch.obs.perf import WarmupReport
@@ -382,6 +572,11 @@ class Executor:
                 t0 = time.perf_counter()
                 self.run(program=program, feed=feed, fetch_list=fetch_list,
                          scope=scope, return_numpy=False)
+                fn = self._last_compiled.fn
+                if isinstance(fn, StepGraph) and fn.graph is None:
+                    self.run(program=program, feed=feed,
+                             fetch_list=fetch_list, scope=scope,
+                             return_numpy=False)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 fresh = build.counts["compiled"] - built0
@@ -399,8 +594,16 @@ class Executor:
         _profiler.runtime_metrics.inc("warmup.compiles", compiled)
         return WarmupReport(compiled, buckets)
 
+    def graph_stats(self):
+        """One entry per cached signature that runs as a CUDA graph
+        (``StepGraph.stats``): label, captures, replays, capture seconds,
+        nodes, pool growth."""
+        with self._lock:
+            entries = list(self._cache.values())
+        return [c.fn.stats() for c in entries if isinstance(c.fn, StepGraph)]
+
     # ------------------------------------------------------------------
-    def _prepare(self, program, scope, fetch_list, feed=None):
+    def _resolve(self, program, scope, fetch_list, feed=None):
         """The program to run (optimized under ``PADDLE_TPU_OPT``, after
         verification under ``PADDLE_TPU_VERIFY``), the scope and the
         fetch names."""
@@ -458,6 +661,166 @@ class Executor:
             self._verified.clear()
         self._verified.add(key)
 
+    # ------------------------------------------------------------------
+    def _signature(self, program, block, feeds, fetch_names, scope):
+        """Cheap cache key — no per-op work, safe to compute every step.
+        The reference's components (``paddle_tpu/executor.py:1087``) but
+        numerics probing and ``_release_memory`` (not ported: ROADMAP
+        items 9 and 7), and ``check_nan_inf`` after them (it moves a
+        graph's write-back after the check).  A distinct LoD is a
+        distinct entry: the LoD is host metadata of the step."""
+        feed_lods = tuple(sorted(
+            (n, _freeze_lod(scope.find_lod(n))) for n in feeds
+            if scope.find_lod(n) is not None))
+        return (id(program), program._version, block.idx,
+                _amp_enabled(program),
+                id(scope),  # the step binds the scope
+                _profiler.op_profiling_enabled(),  # forces the eager step
+                tuple(sorted((n, str(a.dtype), tuple(a.shape))
+                             for n, a in feeds.items())),
+                feed_lods,
+                tuple(fetch_names),
+                _check_nan_inf_enabled(program))
+
+    def _prepare(self, program, block, feeds, fetch_names, scope):
+        """Classify the block's variables and build the step function
+        (reference ``paddle_tpu/executor.py:1111``).
+
+        Returns a dict with the cache signature, the ``step`` callable,
+        the state-name partitions (``ro_names``, ``inout_names``,
+        ``create_state``), ``param_names`` and ``interpret`` (the capture
+        rule: True keeps the block eager).  O(#ops): callers hit the
+        signature cache first."""
+        sig = self._signature(program, block, feeds, fetch_names, scope)
+        feed_names = tuple(sorted(feeds))
+
+        # classify non-feed external inputs (state) and written persistables
+        produced = set(feed_names)
+        reads, writes = [], []
+        for op in block.ops:
+            if op.type in _SKIP_OPS:
+                continue
+            for n in op.input_arg_names:
+                if n and n not in produced:
+                    reads.append(n)
+            for n in op.output_arg_names:
+                if n:
+                    produced.add(n)
+                    writes.append(n)
+        # sub-block reads of outer vars: any var a sub-block of an op of
+        # this block reads that neither it nor this block produced
+        for op in block.ops:
+            for a in op.attrs.values():
+                if isinstance(a, framework.Block):
+                    reads.extend(_external_reads(a, produced))
+
+        state_names, seen = [], set()
+        for n in reads:
+            if n not in seen and n not in feed_names:
+                seen.add(n)
+                state_names.append(n)
+        written_state = []
+        for n in writes:
+            var = _safe_var(block, n)
+            if var is not None and var.persistable and \
+                    n not in written_state:
+                written_state.append(n)
+        # fetched vars never produced in this block (a parameter) are
+        # state reads too
+        for n in fetch_names:
+            if n not in produced and n not in state_names and \
+                    n not in feed_names:
+                state_names.append(n)
+        inout_names = tuple(n for n in state_names if n in written_state)
+        ro_names = tuple(n for n in state_names if n not in written_state)
+        # persistables written but never read still need write-back
+        create_state = tuple(n for n in written_state
+                             if n not in inout_names)
+        param_names = tuple(
+            n for n in inout_names + create_state
+            if isinstance(_safe_var(block, n), framework.Parameter))
+
+        host = _has_host_ops(block)
+        # no warning for a run-once initializer (no feeds, no fetches:
+        # a startup program), whose only run is eager anyway
+        if host and (feeds or fetch_names) and \
+                not getattr(program, "expect_host_ops", False):
+            _warn_host_op_cliff(program, block)
+        profiling = _profiler.op_profiling_enabled()
+        interpret = host or profiling or \
+            bool(getattr(program, "_opt_interpret", False))
+
+        lod_map = {n: [list(level) for level in lod]
+                   for n in feeds for lod in (scope.find_lod(n),)
+                   if lod is not None}
+        amp = _amp_enabled(program)
+        seed = int(program.random_seed or 0)
+        device = self.device
+        write_names = inout_names + create_state
+        fetch_check = Executor.fetch_missing_check
+        # the block's constants on the device (assign_value), made once
+        constants = {}
+
+        def step(feeds, rng_seed, generators, capturing):
+            env = _StateEnv(scope, device)
+            env.update(feeds)
+            aux = {"device": device,
+                   # random init ops: one host generator per run
+                   "generator": torch.Generator().manual_seed(seed),
+                   # device generators of the step's random ops
+                   "rng_seed": rng_seed, "generators": generators,
+                   "rng_counter": -1, "amp": amp, "scope": scope,
+                   "lower_block": lower_block, "profile": profiling,
+                   "capturing": capturing, "constants": constants,
+                   # the feeds' LoDs; ops add theirs (set_output_lod) and
+                   # _share_lod passes them on
+                   "lod": {n: [list(level) for level in lod]
+                           for n, lod in lod_map.items()}}
+            with torch.no_grad():
+                lower_block(block, env, aux)
+            # a fetch the block did not write is read from the scope
+            fetches = [env[n] for n in fetch_check(
+                fetch_names, {n for n in fetch_names
+                              if n in env or scope.find_var(n) is not None})]
+            new_state = {n: env[n] for n in write_names if n in env}
+            stats = {k: aux.get(k, 0) for k in ("while_trips", "host_reads")}
+            return fetches, new_state, env.loaded, stats
+
+        return {"sig": sig, "step": step, "feed_names": feed_names,
+                "ro_names": ro_names, "inout_names": inout_names,
+                "create_state": create_state, "interpret": interpret,
+                "param_names": param_names}
+
+    def _get_compiled(self, program, block, feeds, fetch_names, scope):
+        """The cached entry of this run's signature (an LRU hit bumps it,
+        ``jit_cache.hits``), else a prepared one (``jit_cache.misses``,
+        ``executor.prepare_seconds``): on the card a
+        :class:`~paddle_tpu_torch.step_graph.StepGraph` unless the capture
+        rule keeps the block eager."""
+        sig = self._signature(program, block, feeds, fetch_names, scope)
+        hit = self._cache.get(sig)
+        if hit is not None:
+            self._cache[sig] = self._cache.pop(sig)  # LRU bump
+            _profiler.runtime_metrics.inc("jit_cache.hits")
+            return hit
+        _profiler.runtime_metrics.inc("jit_cache.misses")
+        with _profiler.record_latency("executor.prepare_seconds"):
+            parts = self._prepare(program, block, feeds, fetch_names, scope)
+        if parts["interpret"] or self.device.type != "cuda":
+            fn = _EagerStep(parts["step"], scope)
+        else:
+            label = ",".join(f"{n}{list(feeds[n].shape)}"
+                             for n in parts["feed_names"]) or "no feeds"
+            fn = StepGraph(parts["step"], scope, self.device,
+                           parts["ro_names"] + parts["inout_names"] +
+                           parts["create_state"],
+                           self._graph_shared,
+                           label=f"{label} -> {len(fetch_names)} fetches",
+                           writeback_in_graph=not sig[-1])
+        compiled = _CompiledBlock(fn, parts, tuple(fetch_names))
+        self._cache_insert(sig, compiled)
+        return compiled
+
     @staticmethod
     def fetch_missing_check(fetch_names, env):
         """Raise naming the first fetch target ``env`` does not hold."""
@@ -468,56 +831,100 @@ class Executor:
         return fetch_names
 
     def close(self):
-        """Drop the memoized optimized programs and verifications."""
-        self._opt_cache.clear()
-        self._verified.clear()
+        """Drop the step cache (and with it every CUDA graph and, once
+        they are gone, their pool), the memoized optimized programs and
+        the verifications."""
+        with self._lock:
+            self._cache.clear()
+            self._last_compiled = None
+            self._graph_shared = _GraphShared(self.device)
+            self._opt_cache.clear()
+            self._verified.clear()
 
-    def _step(self, program, scope, feeds, fetch_names):
-        """One run of the global block on ``feeds`` (tensors on the
-        device); writes the persistable outputs back to ``scope`` and
-        returns the fetched tensors."""
-        block = program.global_block()
-        env = _StateEnv(scope, self.device)
-        env.update(feeds)
-        self._run_counter += 1
-        seed = int(program.random_seed or 0)
-        aux = {"device": self.device,
-               # random init ops: one host generator per run
-               "generator": torch.Generator().manual_seed(seed),
-               # per-op device generators of the step's random ops
-               "rng_seed": seed * 1000003 + self._run_counter,
-               "rng_counter": -1,
-               "amp": _amp_enabled(program),
-               "scope": scope,
-               "lower_block": lower_block,
-               # the feeds' LoDs; ops add theirs (set_output_lod) and
-               # _share_lod passes them on
-               "lod": {n: [list(level) for level in lod]
-                       for n in feeds
-                       for lod in (scope.find_lod(n),) if lod is not None}}
-        with torch.no_grad():
-            lower_block(block, env, aux)
-        self.last_run = {k: aux.get(k, 0)
-                         for k in ("while_trips", "host_reads")}
 
-        # persistable variables the block wrote go back to the scope
-        new_state = {}
-        for op in block.ops:
-            for n in op.output_arg_names:
-                var = block.vars.get(n)
-                if var is not None and var.persistable and n in env:
-                    new_state[n] = env[n]
-        # a fetch the block did not write is read from the scope
-        fetches = [env[n] for n in self.fetch_missing_check(
-            fetch_names, {n for n in fetch_names
-                          if n in env or scope.find_var(n) is not None})]
-        if _check_nan_inf_enabled(program):
-            # before the write-back: a failing step leaves the scope as
-            # it was (in-place updates of a pool or a table excepted)
-            _check_nan_inf(fetch_names, fetches, new_state)
-        for n, v in new_state.items():
-            scope.set_var(n, v)
-        return fetches
+def _safe_var(block, name):
+    try:
+        return block.var(name)
+    except (KeyError, ValueError):
+        return None
+
+
+_WARNED_HOST_OP_BLOCKS = set()
+
+
+def _warn_host_op_cliff(program, block):
+    """One host op anywhere switches the WHOLE block to op-by-op eager
+    execution — warn once per (program, block) naming the culprits, in
+    sub-blocks too, so a user adding e.g. ``edit_distance`` to a
+    training graph learns why the step got slow (the reference's
+    warning; the culprits are :func:`_host_ops`)."""
+    key = (id(program), block.idx)
+    if key in _WARNED_HOST_OP_BLOCKS:
+        return
+    _WARNED_HOST_OP_BLOCKS.add(key)
+    culprits = _host_ops(block)
+    warnings.warn(
+        f"block {block.idx} contains host op(s) "
+        f"{sorted(set(culprits))} — the whole block runs op-by-op eager "
+        f"instead of one CUDA graph; keep host ops (metrics/decoding) in "
+        f"a separate program to keep training graphed",
+        skip_file_prefixes=(os.path.dirname(os.path.abspath(__file__)),))
+
+
+def _has_host_ops(block):
+    """The capture rule's op test (the reference's, ``:1457``, widened by
+    the port's ``eager_only``): an op of ``block`` or of a sub-block
+    keeps it out of a CUDA graph."""
+    return bool(_host_ops(block))
+
+
+def _host_ops(block):
+    """The types of the ops of ``block`` and its sub-blocks that keep it
+    out of a CUDA graph: ``host`` (the reference's flag) or
+    ``eager_only`` (the port's, :func:`registry.eager_only`)."""
+    out = []
+    for op in block.ops:
+        opdef = registry.lookup(op.type)
+        if (opdef is not None and opdef.host) or registry.eager_only(op):
+            out.append(op.type)
+        for a in op.attrs.values():
+            if isinstance(a, framework.Block):
+                out.extend(_host_ops(a))
+    return out
+
+
+def _freeze_lod(lod):
+    """Nested row-splits list -> hashable tuple (cache key component)."""
+    if lod is None:
+        return None
+    return tuple(tuple(int(x) for x in level) for level in lod)
+
+
+def _external_reads(block, produced_outer):
+    """Names read inside ``block`` (recursively) that neither the block nor
+    the outer trace produces — they must come from scope state."""
+    produced = set(produced_outer)
+    ext = []
+    for op in block.ops:
+        for n in op.input_arg_names:
+            if n and n not in produced and not block.has_var_local(n):
+                ext.append(n)
+        for n in op.output_arg_names:
+            produced.add(n)
+        for a in op.attrs.values():
+            if isinstance(a, framework.Block):
+                ext.extend(_external_reads(a, produced))
+    return ext
+
+
+def _persistable_names(program):
+    """Every persistable variable name of ``program``, over all blocks."""
+    names = set()
+    for blk in program.blocks:
+        for v in blk.vars.values():
+            if getattr(v, "persistable", False):
+                names.add(v.name)
+    return names
 
 
 def fetch_var(name, scope=None, return_numpy=True):

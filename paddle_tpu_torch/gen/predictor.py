@@ -18,11 +18,18 @@ table.  The predictor owns the page allocator (:meth:`alloc_slot_pages` /
 :meth:`free_slot_pages`, driven by the scheduler's admit/evict) and
 slices the page-table feed to a declared ``page_buckets`` edge each step.
 
+On the card each program runs as CUDA graphs of the executor
+(``step_graph.py``): the prefill one graph per prompt bucket, the paged
+decode one per page bucket (the table feed is sliced to a bucket, so a
+bucket is a signature), the dense decode its one signature.
 :meth:`warmup` runs every prompt bucket and the decode step at every
-declared page bucket (or the one dense signature) once on zero feeds
-through ``Executor.warmup``, so every kernel of the path is built and
-loaded before a server reports ready.  The bundle is checked against its
-meta at load (``analysis.check_gen_bundle``).
+declared page bucket (or the one dense signature) on zero feeds through
+``Executor.warmup``, so every kernel of the path is built and loaded and
+every graph captured before a server reports ready: the first real
+request replays.  A prefill's K/V tensors are the caller's (the
+executor clones a graph's outputs), so :meth:`write_slot` may read them
+after the lock is released.  The bundle is checked against its meta at
+load (``analysis.check_gen_bundle``).
 
 The cost-model planners of the JAX package (``prefill_cost``,
 ``plan_prompt_buckets``, ``plan_page_buckets``) need its static cost
@@ -434,12 +441,15 @@ class GenPredictor:
     def warmup(self):
         """Run every prompt bucket's prefill and the decode step (one
         signature per declared page bucket, or the one dense signature)
-        once on zero feeds, building and loading every kernel they reach,
-        so the first real ``/generate`` pays no build.  The KV pool keeps
-        its bytes, as under the JAX package's compile-only warmup: zero
-        ``lens`` write nothing into the paged pool, and the dense pool's
-        tensors are put back after the step (its add-write of a zero
-        one-hot would turn a ``-0.0`` into ``+0.0``).  Returns a
+        on zero feeds, building and loading every kernel they reach and,
+        on the card, capturing each signature's CUDA graph
+        (``Executor.warmup``), so the first real ``/generate`` pays no
+        build and no capture.  The KV pool keeps its bytes, as under the
+        JAX package's compile-only warmup: zero ``lens`` write nothing
+        into the paged pool, and the dense pool's tensors are put back
+        after the steps (its add-write of a zero one-hot would turn a
+        ``-0.0`` into ``+0.0``; the next decode step copies them into its
+        graph's buffers).  Returns a
         :class:`~paddle_tpu_torch.obs.perf.WarmupReport` whose buckets are
         tagged ``program: prefill|decode``."""
         from paddle_tpu_torch.obs.perf import WarmupReport

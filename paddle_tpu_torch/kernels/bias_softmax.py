@@ -71,7 +71,7 @@ def bias_softmax_body(Sk, dtype, aligned):
     ``"warp_element"`` with one value a piece otherwise."""
     if Sk > WARP_MAX_ROW:
         return "block", 1, 0
-    piece = 16 // torch.tensor([], dtype=dtype).element_size()
+    piece = 16 // dtype.itemsize
     vec = piece if aligned and Sk % piece == 0 else 1
     kp = 1
     while kp * 32 * vec < Sk:

@@ -12,6 +12,8 @@ import: the first CUDA launch of a kernel builds (or finds) its library.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +23,7 @@ import threading
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "CudaKernel",
            "find_nvcc", "build_all", "library_path", "load_library",
-           "counts"]
+           "counts", "capture_launches"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -46,6 +48,26 @@ counts = {"compiled": 0, "loaded": 0}
 def _count(key):
     with _count_lock:
         counts[key] += 1
+
+
+# launches made while this thread captures a CUDA graph: tallied for the
+# graph (which adds them to ``launches`` at each replay), not counted
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Collect this thread's kernel launches into a ``Counter`` (kernel
+    -> launches) instead of their ``launches``: a launch under a CUDA
+    graph capture runs only when the graph replays
+    (``step_graph.StepGraph`` adds the tally at each replay)."""
+    tally = collections.Counter()
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
 
 
 def find_nvcc():
@@ -123,8 +145,9 @@ def load_library(source):
 
 class CudaKernel:
     """One hand-written kernel: its source, its C entry point and how many
-    times a wrapper launched it (``launches``, a plain count that
-    ``chip_smoke.py`` reads to prove the main path went through it)."""
+    times it ran (``launches``, a plain count that ``chip_smoke.py`` reads
+    to prove the main path went through it: a wrapper's launch, or a
+    replay of a CUDA graph that captured one, :func:`capture_launches`)."""
 
     def __init__(self, name, source, replaces):
         self.name = name
@@ -152,12 +175,22 @@ class CudaKernel:
     def launch(self, symbol, argtypes, *args):
         """Call C entry ``symbol`` (which launches the kernel and returns
         ``cudaGetLastError()``); raise if the launch was refused, else
-        count it."""
+        count it (into the capture's tally while this thread captures a
+        CUDA graph)."""
         fn, err = self._entry(symbol, argtypes)
         code = fn(*args)
         if code != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA launch of {symbol} failed: "
                 f"{err(code).decode()} (error {code})")
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self] += 1
+        else:
+            self.add_launches(1)
+
+    def add_launches(self, n):
+        """Count ``n`` runs of the kernel (a graph replay adds its
+        captured tally)."""
         with self._count_lock:
-            self.launches += 1
+            self.launches += n

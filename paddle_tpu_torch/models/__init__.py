@@ -4,8 +4,7 @@ zoo (:mod:`resnet`, :mod:`vgg`, :mod:`mnist`), the Wide & Deep CTR
 model (:mod:`wide_and_deep`), the stacked dynamic-LSTM sentiment
 classifier (:mod:`stacked_lstm`) and the attention seq2seq NMT model
 (:mod:`seq2seq`), with the zoo's small smoke-test programs
-(:func:`build_train_program`).  ``compile_zoo_step`` waits for the
-captured step (ROADMAP queue 1 item 5b)."""
+(:func:`build_train_program`) and :func:`compile_zoo_step`."""
 
 from paddle_tpu_torch.models import (gen_lm, gen_lm_long, mnist, resnet,
                                      seq2seq, stacked_lstm, transformer, vgg,
@@ -13,7 +12,8 @@ from paddle_tpu_torch.models import (gen_lm, gen_lm_long, mnist, resnet,
 
 __all__ = ["gen_lm", "gen_lm_long", "mnist", "resnet", "seq2seq",
            "stacked_lstm", "transformer", "vgg", "wide_and_deep",
-           "ZOO_MODELS", "build_train_program", "synth_feed"]
+           "ZOO_MODELS", "build_train_program", "synth_feed",
+           "compile_zoo_step"]
 
 #: zoo model names accepted by :func:`build_train_program` (and by
 #: ``python -m paddle_tpu_torch lint --zoo``; the port's analysis and
@@ -113,3 +113,22 @@ def synth_feed(main_program, feed_names=None, batch=2):
                       for d in (var.shape or (batch,)))
         feed[name] = synth_feed_value(shape, var.dtype or "float32")
     return feed
+
+
+def compile_zoo_step(name, batch=2, place=None):
+    """Build one zoo model, run its startup and ONE synthetic train step
+    in a fresh scope on a fresh executor (``place``: default
+    ``cuda:0``): the JAX package's recipe for a real compile without a
+    dataset.  On the card that step is the signature's eager first run
+    (it builds and loads every kernel the step reaches); a second step
+    of the same executor would capture it.  Returns the scope."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, feeds, fetches = build_train_program(name)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        exe.run(main, feed=synth_feed(main, feeds, batch=batch),
+                fetch_list=fetches, scope=scope)
+    return scope

@@ -45,8 +45,9 @@ class _Abs(torch.autograd.Function):
 
 def _clip(x, lo, hi):
     """``jnp.clip(x, lo, hi)`` with its tie-splitting vjp."""
-    lo = torch.tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    # bounds filled on the device (no host copy: graph-safe)
+    lo = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi = torch.full((), hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo), hi)
 
 

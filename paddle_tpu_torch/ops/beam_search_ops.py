@@ -15,6 +15,9 @@ identical first beams do not fill the top K.
 ``cross_entropy_over_beam`` and its grad are host ops, as in the JAX
 package: they read their inputs with ``tolist()`` and compute in numpy
 (see the JAX package's module for the padding contract of ``Ids``).
+
+``beam_search`` and ``beam_search_decode`` read their inputs on the host
+(``eager_only``).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def _infer_beam_search(op, block):
 
 
 @register_op("beam_search", infer_shape=_infer_beam_search,
-             no_gradient=True)
+             no_gradient=True,
+             eager_only=True)
 def beam_search_lower(ctx):
     """One pruning step.  ``pre_ids`` / ``pre_scores`` ``[B, K]``,
     ``ids`` / ``scores`` ``[B, K, C]`` (candidate ids and ACCUMULATED
@@ -83,7 +87,8 @@ def _infer_bs_decode(op, block):
 
 
 @register_op("beam_search_decode", infer_shape=_infer_bs_decode,
-             no_gradient=True)
+             no_gradient=True,
+             eager_only=True)
 def beam_search_decode_lower(ctx):
     """Backtrack the parent pointers of the ``Ids`` / ``ParentIdx`` step
     arrays (``T`` steps of ``[B, K]``; ``T`` = the ``max_len`` attr, else

@@ -31,6 +31,10 @@ The port runs eagerly, so control flow is Python control flow:
   ``merge_lod_tensor`` hand both branches the full batch and the merge
   picks rows by the mask; ``recurrent`` (StaticRNN) is a Python loop over
   time.
+
+Every op here but ``recurrent`` (a fixed number of steps, nothing read
+on the host) is ``eager_only``: it reads the device on the host or
+copies host tables to it, so its block runs outside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -145,7 +149,8 @@ def _infer_skip(op, block):
 # ---------------------------------------------------------------------------
 
 @register_op("write_to_array", infer_shape=infer_shape_unary("X"),
-             no_grad_inputs=("I",))
+             no_grad_inputs=("I",),
+             eager_only=True)
 def write_to_array_lower(ctx):
     out_name = ctx.op.output("Out")[0]
     arr = ctx.env.get(out_name)
@@ -157,7 +162,8 @@ def write_to_array_lower(ctx):
 
 
 @register_op("read_from_array", infer_shape=infer_shape_unary("X"),
-             no_grad_inputs=("I",))
+             no_grad_inputs=("I",),
+             eager_only=True)
 def read_from_array_lower(ctx):
     arr = ctx.input("X")
     if not isinstance(arr, TensorArray):
@@ -165,7 +171,8 @@ def read_from_array_lower(ctx):
     ctx.set_output("Out", arr.read(int(ctx.host_scalar("I"))))
 
 
-@register_op("lod_array_length", infer_shape=_infer_skip, no_gradient=True)
+@register_op("lod_array_length", infer_shape=_infer_skip, no_gradient=True,
+             eager_only=True)
 def lod_array_length_lower(ctx):
     n = ctx.input("X").length
     ctx.set_output("Out", torch.tensor([n], dtype=torch.int64,
@@ -236,7 +243,8 @@ def _truth(aux, value):
     return bool(value.all())
 
 
-@register_op("while", infer_shape=_infer_skip, no_grad_inputs=("Condition",))
+@register_op("while", infer_shape=_infer_skip, no_grad_inputs=("Condition",),
+             eager_only=True)
 def while_lower(ctx):
     """Run the sub-block while the condition holds (see the module
     docstring); the carries go to ``ctx.outputs``."""
@@ -280,7 +288,8 @@ def while_lower(ctx):
 # conditional_block  (conditional_block_op.cc)
 # ---------------------------------------------------------------------------
 
-@register_op("conditional_block", infer_shape=_infer_skip, no_gradient=True)
+@register_op("conditional_block", infer_shape=_infer_skip, no_gradient=True,
+             eager_only=True)
 def conditional_block_lower(ctx):
     """Run the branch when every element of every condition holds (read
     on the host); else keep each output's old value, or zeros of the
@@ -304,7 +313,8 @@ def conditional_block_lower(ctx):
 # split / merge_lod_tensor  (IfElse batch routing, split_lod_tensor_op.cc)
 # ---------------------------------------------------------------------------
 
-@register_op("split_lod_tensor", infer_shape=_infer_skip, no_gradient=True)
+@register_op("split_lod_tensor", infer_shape=_infer_skip, no_gradient=True,
+             eager_only=True)
 def split_lod_tensor_lower(ctx):
     """Both branches see the whole batch (the merge picks the rows)."""
     x = ctx.input("X")
@@ -313,7 +323,8 @@ def split_lod_tensor_lower(ctx):
 
 
 @register_op("merge_lod_tensor", infer_shape=infer_shape_unary("InTrue"),
-             no_grad_inputs=("Mask",))
+             no_grad_inputs=("Mask",),
+             eager_only=True)
 def merge_lod_tensor_lower(ctx):
     in_true = ctx.input("InTrue")
     mask = ctx.input("Mask").reshape((-1,) + (1,) * (in_true.ndim - 1))
@@ -357,7 +368,8 @@ def _table_tensor(ctx, kind, table, build):
     return t
 
 
-@register_op("lod_rank_table", infer_shape=_infer_skip, no_gradient=True)
+@register_op("lod_rank_table", infer_shape=_infer_skip, no_gradient=True,
+             eager_only=True)
 def lod_rank_table_lower(ctx):
     lod = ctx.input_lod("X")
     level = ctx.attr("level", 0)
@@ -373,7 +385,8 @@ def lod_rank_table_lower(ctx):
         sorted(enumerate(lengths), key=lambda p: -p[1]))
 
 
-@register_op("max_sequence_len", infer_shape=_infer_skip, no_gradient=True)
+@register_op("max_sequence_len", infer_shape=_infer_skip, no_gradient=True,
+             eager_only=True)
 def max_sequence_len_lower(ctx):
     n = max(ctx.input("RankTable").lengths)
     ctx.set_output("Out", torch.tensor([n], dtype=torch.int64,
@@ -381,7 +394,8 @@ def max_sequence_len_lower(ctx):
 
 
 @register_op("lod_tensor_to_array", infer_shape=infer_shape_unary("X"),
-             no_grad_inputs=("RankTable",))
+             no_grad_inputs=("RankTable",),
+             eager_only=True)
 def lod_tensor_to_array_lower(ctx):
     """Ragged ``[sum(T_i), ...]`` and a rank table -> a TensorArray of
     ``T`` time steps, each ``[B, ...]`` over the whole sorted batch, zero
@@ -418,7 +432,8 @@ def lod_tensor_to_array_lower(ctx):
 
 
 @register_op("array_to_lod_tensor", infer_shape=infer_shape_unary("X"),
-             no_grad_inputs=("RankTable",))
+             no_grad_inputs=("RankTable",),
+             eager_only=True)
 def array_to_lod_tensor_lower(ctx):
     """Inverse of ``lod_tensor_to_array``: the steps' rows back to ragged
     ``[sum(T_i), ...]`` in the original sequence order, with that LoD."""
@@ -443,7 +458,8 @@ def array_to_lod_tensor_lower(ctx):
 
 
 @register_op("shrink_rnn_memory", infer_shape=infer_shape_unary("X"),
-             no_grad_inputs=("RankTable", "I"))
+             no_grad_inputs=("RankTable", "I"),
+             eager_only=True)
 def shrink_rnn_memory_lower(ctx):
     """The reference shrinks the memory to the still-live prefix of the
     sorted batch; here the rows of finished sequences are zeroed."""
@@ -458,7 +474,8 @@ def shrink_rnn_memory_lower(ctx):
 
 @register_op("reorder_lod_tensor_by_rank",
              infer_shape=infer_shape_unary("X"),
-             no_grad_inputs=("RankTable",))
+             no_grad_inputs=("RankTable",),
+             eager_only=True)
 def reorder_lod_tensor_by_rank_lower(ctx):
     x = ctx.input("X")
     table = ctx.input("RankTable")

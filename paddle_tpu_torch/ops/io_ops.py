@@ -10,7 +10,8 @@ from paddle_tpu_torch.ops.registry import (
     infer_shape_unary, register_grad_lower, register_op)
 
 
-@register_op("print", infer_shape=infer_shape_unary("In", "Out"))
+@register_op("print", infer_shape=infer_shape_unary("In", "Out"),
+             eager_only=True)
 def print_lower(ctx):
     """Print ``message`` and the value (a device read) when
     ``print_phase`` is forward or both, in either case; Out is In."""

@@ -46,8 +46,8 @@ def increment_lower(ctx):
 
 @register_op("is_empty", no_gradient=True)
 def is_empty_lower(ctx):
-    ctx.set_output("Out", torch.tensor(ctx.input("X").numel() == 0,
-                                       device=ctx.device))
+    ctx.set_output("Out", torch.full((), ctx.input("X").numel() == 0,
+                                     device=ctx.device))
 
 
 @register_op("isfinite", no_gradient=True)

@@ -234,8 +234,8 @@ def clip_lower(ctx):
     # vjp splits the cotangent of a value on a bound in half, where
     # torch.clamp's passes all of it
     x = ctx.input("X")
-    lo = torch.tensor(ctx.attr("min"), dtype=x.dtype, device=x.device)
-    hi = torch.tensor(ctx.attr("max"), dtype=x.dtype, device=x.device)
+    lo = torch.full((), ctx.attr("min"), dtype=x.dtype, device=x.device)
+    hi = torch.full((), ctx.attr("max"), dtype=x.dtype, device=x.device)
     ctx.set_output("Out", torch.minimum(torch.maximum(x, lo), hi))
 
 

@@ -25,8 +25,8 @@ def accuracy_lower(ctx):
     indices = ctx.input("Indices")
     label = ctx.input("Label").reshape(-1, 1)
     correct = (indices == label).any(dim=1).sum().to(torch.int64)
-    total = torch.tensor(indices.shape[0], dtype=torch.int64,
-                         device=indices.device)
+    total = torch.full((), indices.shape[0], dtype=torch.int64,
+                       device=indices.device)
     ctx.set_output("Accuracy", (correct.float() / total).reshape(1))
     ctx.set_output("Correct", correct.reshape(1))
     ctx.set_output("Total", total.reshape(1))

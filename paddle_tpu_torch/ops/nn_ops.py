@@ -105,7 +105,7 @@ def dropout_lower(ctx):
     """Keep each element with probability ``1 - dropout_prob``.  The keep
     draw comes from a generator on the run's device, seeded from the
     run's seed and this op's RNG slot (``LowerContext.generator``), or
-    from the op's own ``seed`` attr under ``fix_seed``; the grad
+    seeded with the op's own ``seed`` attr under ``fix_seed``; the grad
     multiplies by the saved ``Mask``."""
     x = ctx.input("X")
     p = ctx.attr("dropout_prob", 0.5)
@@ -115,11 +115,8 @@ def dropout_lower(ctx):
         ctx.set_output("Out", out)
         ctx.set_output("Mask", torch.ones_like(x))
         return
-    if ctx.attr("fix_seed", False):
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(int(ctx.attr("seed", 0)))
-    else:
-        gen = ctx.generator()
+    gen = ctx.generator(int(ctx.attr("seed", 0))
+                        if ctx.attr("fix_seed", False) else None)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     mask = keep.to(x.dtype)
     if impl == "upscale_in_train":

@@ -90,7 +90,8 @@ def read_record_names(path):
     return names
 
 
-@register_op("save_combine", no_gradient=True)
+@register_op("save_combine", no_gradient=True,
+             eager_only=True)
 def save_combine_lower(ctx):
     """All X inputs, in slot order, into one file."""
     path = ctx.attr("file_path")
@@ -105,7 +106,8 @@ def save_combine_lower(ctx):
             write_tensor(f, ctx.env[name], name=name)
 
 
-@register_op("load_combine", no_gradient=True)
+@register_op("load_combine", no_gradient=True,
+             eager_only=True)
 def load_combine_lower(ctx):
     """One file -> all Out outputs, in slot order, on the run's device."""
     with open(ctx.attr("file_path"), "rb") as f:

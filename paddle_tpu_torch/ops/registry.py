@@ -27,6 +27,15 @@ cotangents, and a cotangent array is matched to its output step by step
 Host reads: a loop condition or an array index is read on the host
 with :func:`host_scalar`, one device sync each on the card, counted in
 ``aux["host_reads"]``.
+
+CUDA graphs: the executor captures a block's step as one graph unless an
+op of it (or of a sub-block) is marked ``host`` (the JAX package's flag)
+or ``eager_only`` (the port's: its lowering reads the device on the
+host, copies host data to the device, draws from the run's host
+generator or makes a ``SelectedRows``, whose ``live()`` masks by value).
+A grad op takes its forward's marks.  Random ops draw from
+:meth:`LowerContext.generator`, which the executor can hand one
+generator per draw that a graph keeps and reseeds before each replay.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ __all__ = [
     "resolve_lowering", "LowerContext", "run_lowering",
     "ShapeInferenceSkip", "infer_shape_unary", "infer_shape_elementwise",
     "default_grad_maker", "auto_vjp_grad_lower", "GRAD_SUFFIX",
-    "host_scalar",
+    "host_scalar", "slot_seed", "eager_only",
 ]
 
 GRAD_SUFFIX = "@GRAD"
@@ -61,7 +70,8 @@ class OpDef:
     def __init__(self, type, lower=None, infer_shape=None, grad_maker=None,
                  grad_lower=None, no_grad_inputs=(), stop_gradient_outputs=(),
                  uses_rng=False, stateful_outputs=(), amp_cast=(),
-                 amp_upcast=(), host=False, selected_rows_inputs=()):
+                 amp_upcast=(), host=False, selected_rows_inputs=(),
+                 eager_only=False):
         self.type = type
         self.lower = lower
         self.infer_shape = infer_shape
@@ -88,6 +98,9 @@ class OpDef:
         # reads its inputs' values on the host (the sequence ops whose
         # output rows depend on the data): ``analysis.opmeta`` reads it
         self.host = host
+        # the port's reasons to keep a block out of a CUDA graph
+        # (:func:`eager_only`): True, or a predicate of the op
+        self.eager_only = eager_only
         # outputs that alias an input across steps (ParamOut of the
         # optimizer ops): the structural verifier accepts them as in-place
         # state updates
@@ -98,8 +111,11 @@ class OpDef:
 def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                 no_grad_inputs=(), stop_gradient_outputs=(), uses_rng=False,
                 no_gradient=False, stateful_outputs=(), amp_cast=(),
-                amp_upcast=(), selected_rows_inputs=(), host=False):
-    """Decorator: register ``fn(ctx)`` as the lowering for op ``type``."""
+                amp_upcast=(), selected_rows_inputs=(), host=False,
+                eager_only=False):
+    """Decorator: register ``fn(ctx)`` as the lowering for op ``type``.
+    ``eager_only``: True, or ``fn(op) -> bool``, where the lowering does
+    host work a CUDA graph would refuse or freeze (:func:`eager_only`)."""
 
     def deco(fn):
         opdef = OpDef(type, lower=fn, infer_shape=infer_shape,
@@ -108,7 +124,8 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                       stop_gradient_outputs=stop_gradient_outputs,
                       uses_rng=uses_rng, stateful_outputs=stateful_outputs,
                       amp_cast=amp_cast, amp_upcast=amp_upcast,
-                      host=host, selected_rows_inputs=selected_rows_inputs)
+                      host=host, selected_rows_inputs=selected_rows_inputs,
+                      eager_only=eager_only)
         opdef.has_grad = not no_gradient
         _REGISTRY[type] = opdef
         return fn
@@ -128,6 +145,24 @@ def register_grad_lower(fwd_type):
 
 def lookup(type):
     return _REGISTRY.get(type)
+
+
+def eager_only(op):
+    """True when ``op``'s lowering does host work that a CUDA graph
+    would refuse or freeze, by the port's marks (``OpDef.eager_only``;
+    a ``<type>_grad`` op takes its forward's).  The JAX package's
+    ``host`` flag is read separately (``executor._has_host_ops``)."""
+    types = [op.type]
+    if op.type.endswith("_grad"):
+        types.append(op.type[:-len("_grad")])
+    for t in types:
+        opdef = _REGISTRY.get(t)
+        flag = opdef.eager_only if opdef is not None else False
+        if callable(flag):
+            flag = flag(op)
+        if flag:
+            return True
+    return False
 
 
 def all_ops():
@@ -177,6 +212,12 @@ def host_scalar(aux, tensor):
                          f"{tuple(tensor.shape)}")
     aux["host_reads"] = aux.get("host_reads", 0) + 1
     return tensor.reshape(()).item()
+
+
+def slot_seed(rng_seed, op_index):
+    """The seed of the device generator of RNG slot ``op_index`` in a run
+    seeded ``rng_seed`` (:meth:`LowerContext.generator`)."""
+    return (int(rng_seed) * 1000003 + int(op_index)) % (2 ** 63 - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -275,18 +316,29 @@ class LowerContext:
         return host_scalar(self.aux, self.input(slot))
 
     # -- rng ---------------------------------------------------------------
-    def generator(self):
-        """A ``torch.Generator`` on the run's device, seeded from the run's
-        seed and this op's RNG slot: each random op of a step draws its
-        own reproducible stream, on the device that uses it."""
-        seed = self.aux.get("rng_seed")
+    def generator(self, seed=None):
+        """A ``torch.Generator`` on the run's device at offset 0, seeded
+        from the run's seed and this op's RNG slot (:func:`slot_seed`),
+        or with ``seed`` (an op's ``fix_seed``): each random op of a step
+        draws its own reproducible stream, on the device that uses it.
+        The run's ``aux["generators"]`` (the executor's) hands it out:
+        under a CUDA graph capture, a generator the graph keeps and
+        reseeds with the same value before each replay."""
         if seed is None:
-            raise RuntimeError(
-                f"op {self.op.type} needs random numbers but the run "
-                f"provided no seed")
+            base = self.aux.get("rng_seed")
+            if base is None:
+                raise RuntimeError(
+                    f"op {self.op.type} needs random numbers but the run "
+                    f"provided no seed")
+            key = ("slot", int(self.op_index))
+        else:
+            key = ("fixed", int(seed))
+        table = self.aux.get("generators")
+        if table is not None:
+            return table.generator(self.device, key)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed((int(seed) * 1000003 + self.op_index)
-                        % (2 ** 63 - 1))
+        gen.manual_seed(key[1] if key[0] == "fixed"
+                        else slot_seed(base, key[1]))
         return gen
 
 

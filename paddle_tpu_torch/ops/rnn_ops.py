@@ -19,6 +19,9 @@ Gate layouts follow the reference: ``lstm`` Weight ``[H, 4H]`` in gate
 order (c, i, f, o), Bias ``[1, 4H]`` plus the peepholes ``w_ic``,
 ``w_fc``, ``w_oc`` at ``[4H:5H]``, ``[5H:6H]``, ``[6H:7H]``; ``gru``
 Weight ``[H, 3H] = [W_u | W_r | W_c]``.
+
+``lstm``, ``lstmp`` and ``gru`` are ``eager_only`` (their pad tables
+are copied from the host LoD each run); the cells are not.
 """
 
 from __future__ import annotations
@@ -156,7 +159,8 @@ def _lstm_steps(ctx, xp, pad, recur, H, r0, c0, proj=None):
 # lstm (layer: dynamic_lstm)
 # ---------------------------------------------------------------------------
 
-@register_op("lstm", infer_shape=_infer_rnn)
+@register_op("lstm", infer_shape=_infer_rnn,
+             eager_only=True)
 def lstm_lower(ctx):
     x, lod, pad = _ragged_input(ctx)    # [N, 4H], pre-projected
     weight = ctx.input("Weight")        # [H, 4H]
@@ -173,7 +177,8 @@ def lstm_lower(ctx):
 # lstmp (layer: dynamic_lstmp): the recurrence runs over r = act(h P)
 # ---------------------------------------------------------------------------
 
-@register_op("lstmp", infer_shape=_infer_lstmp)
+@register_op("lstmp", infer_shape=_infer_lstmp,
+             eager_only=True)
 def lstmp_lower(ctx):
     x, lod, pad = _ragged_input(ctx)    # [N, 4H], pre-projected
     weight = ctx.input("Weight")        # [P, 4H], over r
@@ -190,7 +195,8 @@ def lstmp_lower(ctx):
 # gru (layer: dynamic_gru)
 # ---------------------------------------------------------------------------
 
-@register_op("gru", infer_shape=_infer_rnn)
+@register_op("gru", infer_shape=_infer_rnn,
+             eager_only=True)
 def gru_lower(ctx):
     x, lod, pad = _ragged_input(ctx)    # [N, 3H]
     weight = ctx.input("Weight")        # [H, 3H] = [W_u | W_r | W_c]

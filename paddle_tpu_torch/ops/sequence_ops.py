@@ -15,6 +15,9 @@ rows or LoD depend on them: the ``host`` ops ``sequence_slice`` (Offset,
 Length), ``sequence_erase`` (the tokens of X) and ``sub_nested_seq``
 (SelectedIndices), as in the JAX package, and ``lod_reset`` when Y is a
 tensor of splits (which the JAX package can read only outside jit).
+
+Every op here is ``eager_only``: its index tables are copied from the
+host LoD each run, which a CUDA graph cannot replay.
 """
 
 from __future__ import annotations
@@ -107,7 +110,8 @@ def _segment_reduce(x, seg, num, reduce, empty):
 # sequence_pool (sum/average/max/min/last/first/sqrt)
 # ---------------------------------------------------------------------------
 
-@register_op("sequence_pool", infer_shape=_infer_ragged)
+@register_op("sequence_pool", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_pool_lower(ctx):
     x = ctx.input("X")                      # [N, D]
     lod = _require_lod(ctx)
@@ -148,7 +152,8 @@ def sequence_pool_lower(ctx):
 # sequence_softmax
 # ---------------------------------------------------------------------------
 
-@register_op("sequence_softmax", infer_shape=_infer_ragged)
+@register_op("sequence_softmax", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_softmax_lower(ctx):
     x = ctx.input("X")          # [N] or [N, 1]
     lod = _require_lod(ctx)
@@ -183,7 +188,8 @@ def _expand_index(x_lod, y_lod, ref_level, n_rows):
     return gather_index(idx, n_rows), [new_splits]
 
 
-@register_op("sequence_expand", infer_shape=_infer_ragged)
+@register_op("sequence_expand", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_expand_lower(ctx):
     x = ctx.input("X")
     x_lod = ctx.input_lod("X")
@@ -225,7 +231,8 @@ def _concat_index(lods, rows):
     return np.asarray(order, np.int64), [new_splits]
 
 
-@register_op("sequence_concat", infer_shape=_infer_ragged)
+@register_op("sequence_concat", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_concat_lower(ctx):
     xs = ctx.inputs("X")
     lods = [ctx.var_lod(n) for n in ctx.op.input("X")]
@@ -242,7 +249,8 @@ def sequence_concat_lower(ctx):
     ctx.set_output_lod("Out", _copy(out_lod))
 
 
-@register_op("sequence_reverse", infer_shape=_infer_ragged)
+@register_op("sequence_reverse", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_reverse_lower(ctx):
     """Reverse rows within each sequence (reference
     ``sequence_reverse_op.h``); the LoD is unchanged."""
@@ -269,7 +277,8 @@ def _infer_seq_reshape(op, block):
     out.lod_level = x.lod_level
 
 
-@register_op("sequence_reshape", infer_shape=_infer_seq_reshape)
+@register_op("sequence_reshape", infer_shape=_infer_seq_reshape,
+             eager_only=True)
 def sequence_reshape_lower(ctx):
     x = ctx.input("X")
     lod = _require_lod(ctx)
@@ -291,7 +300,8 @@ def _host(t):
 
 
 @register_op("sequence_slice", infer_shape=_infer_ragged,
-             no_gradient=True, host=True)
+             no_gradient=True, host=True,
+             eager_only=True)
 def sequence_slice_lower(ctx):
     x = ctx.input("X")
     lod = _require_lod(ctx)
@@ -309,7 +319,8 @@ def sequence_slice_lower(ctx):
 
 
 @register_op("sequence_erase", infer_shape=_infer_ragged,
-             no_gradient=True, host=True)
+             no_gradient=True, host=True,
+             eager_only=True)
 def sequence_erase_lower(ctx):
     """Remove the ``tokens`` ids from each sequence (the output's rows
     depend on X's values: read on the host)."""
@@ -330,7 +341,8 @@ def sequence_erase_lower(ctx):
     ctx.set_output_lod("Out", [new_splits])
 
 
-@register_op("lod_reset", infer_shape=_infer_ragged)
+@register_op("lod_reset", infer_shape=_infer_ragged,
+             eager_only=True)
 def lod_reset_lower(ctx):
     x = ctx.input("X")
     target = ctx.attr("target_lod", None)
@@ -367,7 +379,8 @@ def _context_windows(ctx, x, lod, ctx_len, ctx_start):
     return padded[gather].reshape(n, -1)
 
 
-@register_op("sequence_conv", infer_shape=_infer_seq_conv)
+@register_op("sequence_conv", infer_shape=_infer_seq_conv,
+             eager_only=True)
 def sequence_conv_lower(ctx):
     """Each row's ``[contextLength, D]`` window, flattened, times the
     filter ``[contextLength * D, F]`` (no trainable boundary padding:
@@ -391,7 +404,8 @@ def _infer_seq_context(op, block):
     out.lod_level = x.lod_level
 
 
-@register_op("sequence_context", infer_shape=_infer_seq_context)
+@register_op("sequence_context", infer_shape=_infer_seq_context,
+             eager_only=True)
 def sequence_context_lower(ctx):
     """The context windows without weights (the legacy DSL's
     ``context_projection``)."""
@@ -403,14 +417,16 @@ def sequence_context_lower(ctx):
     ctx.set_output_lod("Out", _copy(lod))
 
 
-@register_op("sequence_first_step", infer_shape=_infer_ragged)
+@register_op("sequence_first_step", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_first_step_lower(ctx):
     x = ctx.input("X")
     ctx.set_output("Out", take_rows(x, *segment_tables(
         ctx.aux, _require_lod(ctx), x.device).first))
 
 
-@register_op("sequence_last_step", infer_shape=_infer_ragged)
+@register_op("sequence_last_step", infer_shape=_infer_ragged,
+             eager_only=True)
 def sequence_last_step_lower(ctx):
     x = ctx.input("X")
     ctx.set_output("Out", take_rows(x, *segment_tables(
@@ -442,7 +458,8 @@ def _infer_im2sequence(op, block):
     out.lod_level = 1
 
 
-@register_op("im2sequence", infer_shape=_infer_im2sequence)
+@register_op("im2sequence", infer_shape=_infer_im2sequence,
+             eager_only=True)
 def im2sequence_lower(ctx):
     x = ctx.input("X")                   # [N, C, H, W]
     k = list(ctx.attr("kernels"))
@@ -471,7 +488,8 @@ def _infer_row_conv(op, block):
     out.lod_level = x.lod_level
 
 
-@register_op("row_conv", infer_shape=_infer_row_conv)
+@register_op("row_conv", infer_shape=_infer_row_conv,
+             eager_only=True)
 def row_conv_lower(ctx):
     x = ctx.input("X")                   # [N, D] ragged
     filt = ctx.input("Filter")           # [future_context, D]
@@ -500,7 +518,8 @@ def _infer_kmax(op, block):
     out.dtype = "int64"
 
 
-@register_op("kmax_seq_score", infer_shape=_infer_kmax)
+@register_op("kmax_seq_score", infer_shape=_infer_kmax,
+             eager_only=True)
 def kmax_seq_score_lower(ctx):
     """Per-sequence top-k of ``[N, 1]`` scores: the winners' indexes
     inside their sequence, highest first, ties lowest index first (as
@@ -521,7 +540,8 @@ def kmax_seq_score_lower(ctx):
 
 
 @register_op("sub_nested_seq", infer_shape=_infer_ragged,
-             no_grad_inputs=("SelectedIndices",), host=True)
+             no_grad_inputs=("SelectedIndices",), host=True,
+             eager_only=True)
 def sub_nested_seq_lower(ctx):
     """Keep the sub-sequences of a 2-level sequence that
     ``SelectedIndices`` ``[B, k]`` names (within-outer-sequence ids, -1 =

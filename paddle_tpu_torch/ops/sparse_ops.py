@@ -66,7 +66,9 @@ def _nce_forward(x, w, bias, sample_labels, num_true, num_total_classes,
 
 @register_op("nce", infer_shape=_infer_nce, uses_rng=True,
              no_grad_inputs=("Label", "SampleWeight"),
-             stop_gradient_outputs=("SampleLogits", "SampleLabels"))
+             stop_gradient_outputs=("SampleLogits", "SampleLabels"),
+             # custom negatives are copied from the op's attrs each step
+             eager_only=lambda op: bool(op.attr("custom_neg_classes")))
 def nce_lower(ctx):
     """Negatives are ``custom_neg_classes`` (exactly ``num_neg_samples``
     of them) or uniform draws from the op's device generator
@@ -143,7 +145,7 @@ def split_ids_lower(ctx):
 
 
 @register_op("merge_selected_rows", no_gradient=True,
-             selected_rows_inputs=("X",))
+             selected_rows_inputs=("X",), eager_only=True)
 def merge_selected_rows_lower(ctx):
     """Duplicate rows summed (:meth:`SelectedRows.merge_duplicates`); a
     dense input passes through, being merged already."""
@@ -153,7 +155,7 @@ def merge_selected_rows_lower(ctx):
 
 
 @register_op("get_tensor_from_selected_rows", no_gradient=True,
-             selected_rows_inputs=("X",))
+             selected_rows_inputs=("X",), eager_only=True)
 def get_tensor_from_selected_rows_lower(ctx):
     """The ``[height, dim]`` tensor of a SelectedRows."""
     x = ctx.input("X")
@@ -161,7 +163,7 @@ def get_tensor_from_selected_rows_lower(ctx):
 
 
 @register_op("split_selected_rows", no_gradient=True,
-             selected_rows_inputs=("X",))
+             selected_rows_inputs=("X",), eager_only=True)
 def split_selected_rows_lower(ctx):
     """Rows split into ``height_sections`` (reference
     ``split_selected_rows_op.cc``): each output a SelectedRows with the

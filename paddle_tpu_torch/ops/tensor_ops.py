@@ -73,14 +73,22 @@ def _infer_assign_value(op, block):
 @register_op("assign_value", infer_shape=_infer_assign_value,
              no_gradient=True)
 def assign_value_lower(ctx):
-    dtype = ctx.attr("dtype", "float32")
-    if dtype in ("float32", "float64", "bfloat16", "float16"):
-        values = ctx.attr("fp32_values")
-        host = np.asarray(values, np.float32)
-    else:
-        host = np.asarray(ctx.attr("int32_values"), np.int32)
-    host = host.reshape(tuple(ctx.attr("shape")))
-    ctx.set_output("Out", to_tensor(host, ctx.device, dtype))
+    """The op's constant on the device, copied from its attrs once per
+    prepared step (``aux["constants"]``, the executor's, keyed by the
+    op), so a CUDA graph reads it as it reads state."""
+    constants = ctx.aux.get("constants")
+    out = None if constants is None else constants.get(id(ctx.op))
+    if out is None:
+        dtype = ctx.attr("dtype", "float32")
+        if dtype in ("float32", "float64", "bfloat16", "float16"):
+            host = np.asarray(ctx.attr("fp32_values"), np.float32)
+        else:
+            host = np.asarray(ctx.attr("int32_values"), np.int32)
+        host = host.reshape(tuple(ctx.attr("shape")))
+        out = to_tensor(host, ctx.device, dtype)
+        if constants is not None:
+            constants[id(ctx.op)] = out
+    ctx.set_output("Out", out)
 
 
 def _host_generator(ctx):
@@ -92,8 +100,9 @@ def _host_generator(ctx):
         else ctx.aux["generator"]
 
 
+# eager_only: drawn on the host (the run's generator), then copied over
 @register_op("uniform_random", infer_shape=_infer_fill_constant,
-             no_gradient=True, uses_rng=True)
+             no_gradient=True, uses_rng=True, eager_only=True)
 def uniform_random_lower(ctx):
     """``U[min, max)`` in float32, cast to ``dtype`` (see
     :func:`_host_generator`)."""
@@ -106,7 +115,7 @@ def uniform_random_lower(ctx):
 
 
 @register_op("gaussian_random", infer_shape=_infer_fill_constant,
-             no_gradient=True, uses_rng=True)
+             no_gradient=True, uses_rng=True, eager_only=True)
 def gaussian_random_lower(ctx):
     """``N(mean, std**2)`` in float32, cast to ``dtype``; seeded as
     ``uniform_random`` is (see :func:`_host_generator`)."""
@@ -295,8 +304,14 @@ def _infer_lookup_table(op, block):
     out.lod_level = ids.lod_level
 
 
+def _sparse_grad(op):
+    """A sparse ``lookup_table_grad`` makes a SelectedRows (graph-unsafe:
+    the sparse updates mask its slots by value)."""
+    return op.type.endswith("_grad") and bool(op.attr("is_sparse", False))
+
+
 @register_op("lookup_table", infer_shape=_infer_lookup_table,
-             no_grad_inputs=("Ids",))
+             no_grad_inputs=("Ids",), eager_only=_sparse_grad)
 def lookup_table_lower(ctx):
     """Rows of ``W`` at ``Ids``; a trailing 1 of the ids is squeezed
     (``[S, 1]`` decode ids give ``[S, d]``), and rows at ``padding_idx``

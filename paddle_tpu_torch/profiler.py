@@ -1,11 +1,16 @@
-"""Runtime metrics (the part of ``paddle_tpu.profiler`` the serving
-front needs): one process-wide registry of counters, gauges, bounded
-latency reservoirs and small-value histograms, served by the inference
-server's ``/stats`` and ``/metrics`` and by ``paddle_tpu_torch stats``.
+"""Runtime metrics and the op-level table (the parts of
+``paddle_tpu.profiler`` the port has): one process-wide registry of
+counters, gauges, bounded latency reservoirs and small-value histograms,
+served by the inference server's ``/stats`` and ``/metrics`` and by
+``paddle_tpu_torch stats``; and the per-op-type timing table of
+:func:`op_profiler` (reference ``platform/profiler.h``), which forces the
+executor's op-by-op eager step.
 
-The JAX package's trace bridge (``jax.profiler``, XLA compile listeners,
-device-second measurement) has no counterpart here yet; the port's
-device timing will sit on ``torch.profiler``.
+CUDA graph captures are recorded as the JAX package's compile listeners
+record compiles: ``compile.backend_seconds`` and ``compile.events``.  The
+JAX package's trace bridge (``jax.profiler``, device-second measurement)
+has no counterpart here yet; the port's device timing will sit on
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -15,7 +20,95 @@ import contextlib
 import threading
 import time
 
-__all__ = ["RuntimeMetrics", "runtime_metrics", "record_latency"]
+__all__ = ["RuntimeMetrics", "runtime_metrics", "record_latency",
+           "reset_profiler", "op_profiling_enabled", "enable_op_profiling",
+           "disable_op_profiling", "record_op", "op_profile_table",
+           "op_profiler"]
+
+# ---------------------------------------------------------------------------
+# op-level aggregation table (reference EnableProfiler/DisableProfiler,
+# ``platform/profiler.h:110-115``: sorted per-op-type event tables).
+#
+# A CUDA graph replays the whole step at once, so op-level timing runs
+# the block in the executor's op-by-op eager step with a device sync per
+# op, the overhead FLAGS_benchmark adds on the reference.
+# ---------------------------------------------------------------------------
+
+_op_profiling = False
+_op_events = {}
+
+
+def reset_profiler():
+    """Clear the collected op-level events (reference ``profiler.py``
+    reset_profiler)."""
+    global _op_events
+    _op_events = {}
+
+
+def op_profiling_enabled():
+    return _op_profiling
+
+
+def enable_op_profiling():
+    """Start collecting per-op timings; forces the eager step (it enters
+    the executor's signature, so a graphed block is looked up anew)."""
+    global _op_profiling, _op_events
+    _op_profiling = True
+    _op_events = {}
+
+
+def disable_op_profiling():
+    global _op_profiling
+    _op_profiling = False
+
+
+@contextlib.contextmanager
+def record_op(op_type, ctx=None):
+    """Time the body as one call of ``op_type``; with the lowering's
+    ``ctx``, synchronize the device of its outputs first, so the interval
+    covers device work (the reference's implicit wait)."""
+    t0 = time.perf_counter()
+    yield
+    if ctx is not None:
+        devices = {v.device for v in ctx.outputs.values()
+                   if hasattr(v, "device") and v.device.type == "cuda"}
+        if devices:
+            import torch
+            for d in devices:
+                torch.cuda.synchronize(d)
+    dt = time.perf_counter() - t0
+    ev = _op_events.setdefault(op_type, [0, 0.0, 0.0])
+    ev[0] += 1
+    ev[1] += dt
+    ev[2] = max(ev[2], dt)
+
+
+def op_profile_table(sorted_key="total"):
+    """Sorted per-op aggregation table as a string (reference
+    ``profiler.h`` PrintProfiler: Event/Calls/Total/Min/Max/Ave)."""
+    keys = {"total": 1, "calls": 0, "max": 2,
+            "ave": lambda item: item[1][1] / max(item[1][0], 1)}
+    k = keys.get(sorted_key or "total", 1)
+    rows = sorted(_op_events.items(),
+                  key=(k if callable(k) else (lambda item, i=k: item[1][i])),
+                  reverse=True)
+    lines = [f"{'Event':<28}{'Calls':>8}{'Total(ms)':>12}"
+             f"{'Ave(ms)':>12}{'Max(ms)':>12}"]
+    for op_type, (calls, total, mx) in rows:
+        lines.append(f"{op_type:<28}{calls:>8}{total * 1e3:>12.3f}"
+                     f"{total / max(calls, 1) * 1e3:>12.3f}{mx * 1e3:>12.3f}")
+    return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def op_profiler(sorted_key="total"):
+    """Context manager: profile per-op and print the table on exit."""
+    enable_op_profiling()
+    try:
+        yield
+    finally:
+        disable_op_profiling()
+        print(op_profile_table(sorted_key))
 
 # ---------------------------------------------------------------------------
 # runtime metrics surface: counters, latency percentiles and small-value

@@ -1440,3 +1440,124 @@ def test_beam_search_ties_on_card(cuda_card):
     for w, g in zip(*results):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(results[1][2], [[0, 2, 0], [0, 0, 1]])
+
+
+# ---------------------------------------------------------------------------
+# the executor's CUDA graphs (``paddle_tpu_torch/step_graph.py``): a graphed
+# step equals the eager one bit for bit (dropout live), replays count their
+# kernels' launches, fetches outlive the next replay, and a state tensor
+# replaced between steps is picked up
+# ---------------------------------------------------------------------------
+
+def _dropout_mlp():
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name="gx", shape=[32])
+        y = pt.layers.data(name="gy", shape=[1])
+        h = pt.layers.fc(x, size=64, act="relu")
+        h = pt.layers.dropout(h, dropout_prob=0.3)
+        h = pt.layers.dropout(h, dropout_prob=0.2, seed=5)    # fix_seed
+        cost = pt.layers.mean(pt.layers.square_error_cost(
+            pt.layers.fc(h, 1), y))
+        pt.optimizer.Adam(1e-2).minimize(cost)
+    return main, startup, cost
+
+
+@pytest.mark.cuda
+def test_graph_step_equals_eager_bit_for_bit_on_card(cuda_card):
+    import paddle_tpu_torch as pt
+    main, startup, cost = _dropout_mlp()
+    eager = pt.Program.from_dict(main.to_dict())
+    eager._opt_interpret = True          # the eager baseline
+    rng = np.random.RandomState(0)
+    feed = {"gx": rng.randn(16, 32).astype("float32"),
+            "gy": rng.randn(16, 1).astype("float32")}
+    runs = []
+    for program in (main, eager):
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        losses = [exe.run(program, feed=feed, fetch_list=[cost.name],
+                          scope=scope)[0] for _ in range(5)]
+        params = {p.name: scope.find_var(p.name).cpu().numpy()
+                  for p in main.global_block().all_parameters()}
+        runs.append((losses, params, exe.graph_stats()))
+    (graph_losses, graph_params, stats), (losses, params, eager_stats) = runs
+    assert [(s["captures"], s["replays"], s["random_streams"])
+            for s in stats] == [(1, 4, 2)]
+    assert eager_stats == []
+    for got, want in zip(graph_losses, losses):
+        np.testing.assert_array_equal(got, want)
+    for n, want in params.items():
+        np.testing.assert_array_equal(graph_params[n], want, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_kernel_launches_on_card(cuda_toolchain):
+    import paddle_tpu_torch as pt
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name="sx", shape=[2, 16, 16])
+        b = pt.layers.data(name="sb", shape=[1, 1, 16])
+        out = pt.layers.softmax(x, bias=b)
+    exe, scope = pt.Executor(), pt.Scope()
+    rng = np.random.RandomState(1)
+    BIAS_SOFTMAX.launches = 0
+    for i in range(4):
+        feed = {"sx": rng.randn(3, 2, 16, 16).astype("float32"),
+                "sb": np.where(rng.rand(1, 1, 1, 16) < 0.2, -1e9,
+                               0.0).astype("float32")}
+        (got,) = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+        want = torch.softmax(torch.from_numpy(feed["sx"] + feed["sb"]), -1)
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
+    assert BIAS_SOFTMAX.launches == 4       # eager, then 3 replays
+    (stats,) = exe.graph_stats()
+    assert (stats["captures"], stats["replays"]) == (1, 3)
+    assert stats["launches"] == {"bias_softmax": 1}
+
+
+def _fc_program(pt, size=3):
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name="fx", shape=[4])
+        out = pt.layers.fc(x, size=size, bias_attr=False)
+    return main, startup, out, main.global_block().all_parameters()[0].name
+
+
+@pytest.mark.cuda
+def test_graph_fetches_survive_the_next_replay_on_card(cuda_card):
+    import paddle_tpu_torch as pt
+    main, startup, out, w = _fc_program(pt)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    weight = scope.find_var(w).cpu().numpy()
+    feeds = [np.full((2, 4), float(i), np.float32) for i in range(4)]
+    kept = [exe.run(main, feed={"fx": f}, fetch_list=[out, "fx"],
+                    scope=scope, return_numpy=False) for f in feeds]
+    assert exe.graph_stats()[0]["replays"] == 3
+    for f, (y, x) in zip(feeds, kept):
+        np.testing.assert_array_equal(x.cpu().numpy(), f)
+        np.testing.assert_allclose(y.cpu().numpy(), f @ weight, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_graph_picks_up_a_replaced_state_tensor_on_card(cuda_card):
+    import paddle_tpu_torch as pt
+    main, startup, out, w = _fc_program(pt)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    x = np.arange(8, dtype=np.float32).reshape(2, 4)
+    for _ in range(2):                      # eager, then captured
+        exe.run(main, feed={"fx": x}, fetch_list=[out], scope=scope)
+    buffer = scope.find_var(w)
+    for new in (torch.full((4, 3), 0.5, device="cuda"),
+                np.arange(12, dtype=np.float32).reshape(4, 3)):
+        scope.set_var(w, new)
+        (got,) = exe.run(main, feed={"fx": x}, fetch_list=[out],
+                         scope=scope)
+        want = x @ (new.cpu().numpy() if torch.is_tensor(new) else new)
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        assert scope.find_var(w) is buffer  # the scope points back
+    (stats,) = exe.graph_stats()
+    assert (stats["captures"], stats["replays"]) == (1, 3)
