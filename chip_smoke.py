@@ -150,7 +150,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    nets (``tests/test_book_understand_sentiment.py``: the convolution
    net over ``nets.sequence_conv_pool``, the 3-layer stacked LSTM) at
    its widths train a few Adam steps each: loss finite and falling, no
-   hand-written kernel.
+   hand-written kernel.  Then LSTM-IMDB-H512 in the bucketed LoD mode
+   (``main.lod_buckets``; ``phase_stacked_lstm_buckets``):
+   ``bench_lstm.py``'s windows of 16 fresh batches, each window one
+   ``run_steps`` padded to one (rows, length) bucket with the splits fed
+   as ``words@lod0``, the last window the first again; from one state
+   as CUDA graphs and eagerly (``_opt_interpret``, twice): the fresh
+   windows' losses within ``BUCKET_LOSS_RTOL`` step by step (the
+   repeated window's beside two eager runs'), step-cache misses no more
+   than the
+   bucket pairs the windows reach, every loss finite and the repeated
+   window's mean lower; one bucketed step against the static-LoD step
+   on the same state and batch within ``BUCKET_LOSS_RTOL``.  Printed: ms
+   a batch graphed and eager, capture seconds, graph nodes, peak GiB.
 9. Control flow, Seq2Seq-NMT-512 (``models.seq2seq.SEQ2SEQ_NMT_512``:
    ``bench_seq2seq.py``'s widths, dictionaries of 30000, embeddings,
    bi-LSTM encoder and decoder of 512, 16 sentence pairs of 2 ... 50
@@ -165,6 +177,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    width 32 (dictionaries of 100, 4 pairs) on the card and on the CPU
    from one scope: the loss to relative 1e-5, every parameter within
    what Adam's first step allows (``phase_card_vs_cpu_seq2seq``).  Then
+   Seq2Seq-NMT-512 in the bucketed LoD mode (``phase_seq2seq_buckets``):
+   2 windows of 8 fresh batches through ``run_steps`` against per-batch
+   bucketed ``run``s from one state (losses within
+   ``BUCKET_LOSS_RTOL``, finite, the last window's mean lower, misses
+   bounded by the bucket pairs, eager: its ``while`` reads the host);
+   printed: ms a batch, target tokens/s, trips and host reads.  Then
    the beam decode of ``tests/test_beam_search.py``'s ``_build_decode``
    (transcribed here with ``pt.layers``) at dictionary 30000, embedding
    and hidden 512, 16 sources, beam 4, 50 steps: well-formed
@@ -196,8 +214,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    graph per signature (its first run eager, its second captured and
    replayed); each path that should run as graphs must have replayed one
    (the Transformer routes, the gen-LM prefill and decode, the
-   ``/predict`` MLP, MNIST, VGG-16, ResNet-50 training and inference),
-   and W&D-Criteo (sparse), LSTM-IMDB-H512 and Seq2Seq-NMT-512 none.
+   ``/predict`` MLP, MNIST, VGG-16, ResNet-50 training and inference,
+   the bucketed LSTM-IMDB-H512), and W&D-Criteo (sparse), the static-LoD
+   LSTM-IMDB-H512 and Seq2Seq-NMT-512 (static and bucketed) none.
    The exact launch counts hold: a replay adds the launches its capture
    tallied.  ``phase_graph_train``: routes A, B and C from one startup
    state, ``TRAIN_STEPS`` steps graphed and eagerly (a clone with
@@ -2713,6 +2732,198 @@ def phase_card_vs_cpu_stacked_lstm():
                 param_ratio=p_ratio[worst_p])
 
 
+#: the bucketed LoD mode at LSTM-IMDB-H512: ``bench_lstm.py``'s windows
+#: of ``WINDOW`` fresh batches, each one ``run_steps``; the last window
+#: repeats the first, whose loss must then be lower
+LSTM_WINDOW = 16
+LSTM_WINDOWS = 2
+#: a float32 loss of two runs whose only difference is the order of
+#: float atomic adds (the embedding's grad) or of a matrix product over
+#: another row count (the bucketed rows): relative, per step
+BUCKET_LOSS_RTOL = 1e-5
+
+
+def _lstm_windows(cfg):
+    """``LSTM_WINDOWS`` windows of ``LSTM_WINDOW`` fresh ``fake_batch``es,
+    and the first once more: ``[(feed of run_steps, batches)]``."""
+    import numpy as np
+    from paddle_tpu_torch.models import stacked_lstm as TS
+    windows = [[TS.fake_batch(cfg["batch"], cfg["max_len"],
+                              cfg["dict_size"], seed=SEED + 100 * w + i)
+                for i in range(LSTM_WINDOW)] for w in range(LSTM_WINDOWS)]
+    windows.append(windows[0])
+    return [({"words": [b["words"] for b in w],
+              "label": np.stack([b["label"] for b in w])}, w)
+            for w in windows]
+
+
+def _bucket_pairs(batches, name):
+    """The ``(n_bucket, t_bucket)`` of ``name`` a window pads to."""
+    import numpy as np
+    from paddle_tpu_torch.lod import next_bucket
+    rows = max(b[name][0].shape[0] for b in batches)
+    maxlen = max(int(np.diff(b[name][1][0]).max()) for b in batches)
+    return next_bucket(rows), next_bucket(maxlen)
+
+
+def _window_run(pt, program, cost, scope, windows):
+    """Every window through one ``run_steps`` on a fresh executor: the
+    executor, the float32 losses, each window's seconds (host clock; the
+    stacked fetch synchronizes) and the step cache's misses."""
+    import numpy as np
+    from paddle_tpu_torch.profiler import runtime_metrics
+    exe = pt.Executor()
+    misses0 = runtime_metrics.counter("jit_cache.misses")
+    losses, window_s = [], []
+    for feed, batches in windows:
+        t = time.perf_counter()
+        (out,) = exe.run_steps(program, feed=feed, fetch_list=[cost],
+                               steps=len(batches), scope=scope)
+        window_s.append(time.perf_counter() - t)
+        losses += [np.float32(x) for x in np.asarray(out).reshape(-1)]
+    return exe, losses, window_s, \
+        runtime_metrics.counter("jit_cache.misses") - misses0
+
+
+def phase_stacked_lstm_buckets():
+    """LSTM-IMDB-H512 in the bucketed LoD mode (``main.lod_buckets``):
+    ``bench_lstm.py``'s path, windows of ``LSTM_WINDOW`` fresh batches,
+    each window one ``run_steps`` (every batch padded to the window's
+    row and length buckets, the splits fed as ``words@lod0``), the last
+    window the first one again.  From one startup state, three runs: the
+    default path, where the step is a CUDA graph (first step eager,
+    second captured, then replays), and the eager step (a clone with
+    ``_opt_interpret``) twice; the graphed losses of the fresh windows
+    within ``BUCKET_LOSS_RTOL`` of the eager ones, step by step (the
+    repeated window's differences printed beside two eager runs'); the
+    step cache missed no more often than the windows reach distinct
+    bucket pairs; every loss finite and the repeated window's mean below
+    its first pass's.  Then one bucketed
+    step against one static-LoD step on the same state and batch: the
+    losses within ``BUCKET_LOSS_RTOL``.  No hand-written kernel.
+    Printed: ms a batch graphed and eager (windows after the first),
+    capture seconds, graph nodes, peak allocated GiB."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import stacked_lstm as TS
+
+    cfg = TS.BENCHMARK_LSTM
+    main, startup, cost = _lstm_program(pt, cfg)
+    main.lod_buckets = True
+    eager = clone_program(main)
+    eager.lod_buckets = True
+    eager._opt_interpret = True
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    windows = _lstm_windows(cfg)
+    pairs = {_bucket_pairs(w, "words") for _, w in windows}
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    runs = {}
+
+    def one(mode):
+        program = main if mode == "graph" else eager
+        scope = _scope_copy(pt, scope0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        exe, losses, window_s, misses = _window_run(pt, program, cost,
+                                                    scope, windows)
+        stats = exe.graph_stats()
+        runs[mode] = dict(
+            losses=losses, misses=misses,
+            ms_per_batch=1e3 * float(np.mean(window_s[1:])) / LSTM_WINDOW,
+            first_window_s=window_s[0],
+            peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            capture_s=sum(s["seconds"] for s in stats),
+            nodes=[s["nodes"] for s in stats])
+        _graphs(f"stacked_lstm_buckets_{mode}", exe, mode == "graph")
+        if misses > len(pairs):
+            raise AssertionError(
+                f"stacked_lstm_buckets[{mode}]: {misses} cache misses for "
+                f"the bucket pairs {sorted(pairs)}")
+        del exe, scope
+
+    one("graph")
+    one("eager")
+    one("eager2")
+    _no_launches("stacked_lstm_buckets")
+    graph, base = runs["graph"], runs["eager"]
+    identical = graph["losses"] == base["losses"]
+    # a step with float atomic adds is not deterministic, and the
+    # repeated window, where the loss falls steeply, amplifies run-to-run
+    # differences (two eager runs parted there by 7% on an H100 while the
+    # embedding's grad still summed by atomic adds).  So the graph is
+    # held to the eager step over the fresh windows, and to a falling
+    # loss over the repeated one; all steps' differences are printed
+    rel = _loss_rel(base["losses"], graph["losses"])
+    spread = max(_loss_rel(base["losses"], runs["eager2"]["losses"]))
+    fresh = LSTM_WINDOWS * LSTM_WINDOW
+    rel_fresh = max(rel[:fresh])
+    if rel_fresh > BUCKET_LOSS_RTOL:
+        raise AssertionError(
+            f"stacked_lstm_buckets: graphed losses {graph['losses']} "
+            f"against eager {base['losses']} (rel {rel_fresh} over the "
+            f"first {fresh} steps, bound {BUCKET_LOSS_RTOL})")
+    rel = max(rel)
+    losses = graph["losses"]
+    first = float(np.mean(losses[:LSTM_WINDOW]))
+    again = float(np.mean(losses[-LSTM_WINDOW:]))
+    if not all(np.isfinite(losses)) or not again < first:
+        raise AssertionError(f"stacked_lstm_buckets: losses {losses}: the "
+                             f"repeated window's mean {again} against its "
+                             f"first pass's {first}")
+    # one bucketed and one static-LoD step from one state on one batch
+    static = clone_program(main)
+    static.lod_buckets = False
+    feed = windows[0][1][0]
+    step = {}
+    for name, program in (("bucketed", main), ("static", static)):
+        (loss,) = pt.Executor().run(program, feed=feed, fetch_list=[cost],
+                                    scope=_scope_copy(pt, scope0))
+        step[name] = float(np.asarray(loss).reshape(()))
+    step_rel = abs(step["bucketed"] - step["static"]) / abs(step["static"])
+    if not step_rel <= BUCKET_LOSS_RTOL:
+        raise AssertionError(f"stacked_lstm_buckets: bucketed step loss "
+                             f"{step['bucketed']!r} against static "
+                             f"{step['static']!r}")
+    _no_launches("stacked_lstm_buckets static step")
+    log(f"stacked_lstm_buckets[LSTM-IMDB-H512]: {LSTM_WINDOWS} + 1 windows "
+        f"of {LSTM_WINDOW} batches (the last the first again), buckets "
+        f"(rows, length) {sorted(pairs)}; losses graphed "
+        f"{[float(x) for x in losses]}; "
+        f"bit-identical to eager: {identical} (rel max {rel_fresh:.3e} over "
+        f"the fresh windows, bound {BUCKET_LOSS_RTOL}; {rel:.3e} over all, "
+        f"two eager runs {spread:.3e}); repeated window mean {again:.6f} "
+        f"against "
+        f"{first:.6f}; ms a batch graphed {graph['ms_per_batch']:.3f} vs "
+        f"eager {base['ms_per_batch']:.3f} (first window "
+        f"{graph['first_window_s']:.2f} / {base['first_window_s']:.2f} s); "
+        f"capture {graph['capture_s']:.3f} "
+        f"s, nodes {graph['nodes']}; cache misses {graph['misses']} / "
+        f"{base['misses']}; peak allocated {graph['peak_allocated_gib']:.3f} "
+        f"/ {base['peak_allocated_gib']:.3f} GiB; one step bucketed "
+        f"{step['bucketed']!r} vs static {step['static']!r} (rel "
+        f"{step_rel:.3e}, bound {BUCKET_LOSS_RTOL})")
+    out = {"bit_identical": identical, "loss_rel_fresh": rel_fresh,
+           "loss_rel_max": rel, "eager_spread": spread,
+           "static_step_rel": step_rel,
+           "buckets": sorted(pairs), "losses": [float(x) for x in losses]}
+    for mode in ("graph", "eager"):
+        r = runs[mode]
+        out[mode] = {k: r[k] for k in ("ms_per_batch", "first_window_s",
+                                       "peak_allocated_gib", "capture_s",
+                                       "nodes", "misses")}
+    del runs, scope0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _book_net(pt, name):
     """``tests/test_book_understand_sentiment.py``'s ``_convolution_net``
     (``name`` "conv") or ``_stacked_lstm_net`` ("stacked_lstm": 3 layers,
@@ -2974,6 +3185,108 @@ def phase_card_vs_cpu_seq2seq():
                              f"difference allows")
     return dict(loss_rel=abs(a - b) / abs(b), moment_rel=rel[worst],
                 param_ratio=p_ratio[worst_p])
+
+
+#: the bucketed LoD mode at Seq2Seq-NMT-512: ``bench_seq2seq.py``'s
+#: windows of 8 fresh batches, each one ``run_steps``
+S2S_WINDOW = 8
+S2S_WINDOWS = 2
+
+
+def phase_seq2seq_buckets():
+    """Seq2Seq-NMT-512 in the bucketed LoD mode: ``S2S_WINDOWS`` windows
+    of ``S2S_WINDOW`` fresh batches (``bench_seq2seq.py``'s path), each
+    one ``run_steps`` (the three LoD feeds padded to the window's
+    buckets), against per-batch bucketed ``run``s of the same batches
+    from the same state: the losses within ``BUCKET_LOSS_RTOL`` (the
+    embedding grads' atomic adds), every loss finite, the last window's
+    mean below the first's, the step cache missed no more often than
+    the windows reach distinct bucket pairs, no CUDA graph (the
+    ``while`` reads its condition on the host) and no hand-written
+    kernel.  Printed: ms a batch both ways on the last window's batches
+    (the first window pays the model's first steps in the process),
+    target tokens/s, the ``while`` trips and host reads of the last
+    step."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import seq2seq as S
+    from paddle_tpu_torch.profiler import runtime_metrics
+
+    cfg = S.SEQ2SEQ_NMT_512
+    main, startup, cost = _s2s_program(pt, cfg)
+    main.lod_buckets = True
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    batches = [[_s2s_batch(cfg, SEED + 50 * w + i)
+                for i in range(S2S_WINDOW)] for w in range(S2S_WINDOWS)]
+    windows = [({k: [b[k] for b in w]
+                 for k in ("src_word", "trg_word", "label")}, w)
+               for w in batches]
+    pairs = {(_bucket_pairs(w, "src_word"), _bucket_pairs(w, "trg_word"))
+             for w in batches}
+    exe_w, window_losses, window_s, misses = _window_run(
+        pt, main, cost, _scope_copy(pt, scope0), windows)
+    loop = dict(exe_w.last_run)
+    _graphs("seq2seq_buckets_window", exe_w, False)
+    if misses > len(pairs):
+        raise AssertionError(f"seq2seq_buckets: {misses} cache misses for "
+                             f"the bucket pairs {sorted(pairs)}")
+    exe_r = pt.Executor()
+    scope = _scope_copy(pt, scope0)
+    run_losses, run_s = [], []
+    misses0 = runtime_metrics.counter("jit_cache.misses")
+    for w in batches:
+        for b in w:
+            t = time.perf_counter()
+            (loss,) = exe_r.run(main, feed=b, fetch_list=[cost],
+                                scope=scope)
+            run_s.append(time.perf_counter() - t)
+            run_losses.append(np.float32(np.asarray(loss).reshape(())))
+    run_misses = runtime_metrics.counter("jit_cache.misses") - misses0
+    _graphs("seq2seq_buckets_runs", exe_r, False)
+    _no_launches("seq2seq_buckets")
+    rel = max(_loss_rel(run_losses, window_losses))
+    identical = run_losses == window_losses
+    if rel > BUCKET_LOSS_RTOL:
+        raise AssertionError(f"seq2seq_buckets: window losses "
+                             f"{window_losses} against per-batch runs "
+                             f"{run_losses}")
+    first = float(np.mean(window_losses[:S2S_WINDOW]))
+    last = float(np.mean(window_losses[-S2S_WINDOW:]))
+    if not all(np.isfinite(window_losses)) or not last < first:
+        raise AssertionError(f"seq2seq_buckets: losses {window_losses}")
+    trg_last = batches[-1][-1]["trg_word"][1][0]
+    T = int(np.diff(trg_last).max())
+    if loop["while_trips"] != 2 * T:
+        raise AssertionError(f"seq2seq_buckets: {loop} for {T} target "
+                             f"steps")
+    # timed on the last window's batches: the first window also pays the
+    # process's first steps of this model
+    window_ms = 1e3 * window_s[-1] / S2S_WINDOW
+    run_ms = 1e3 * float(np.mean(run_s[-S2S_WINDOW:]))
+    last_tokens = sum(int(b["trg_word"][0].shape[0]) for b in batches[-1])
+    log(f"seq2seq_buckets[Seq2Seq-NMT-512]: {S2S_WINDOWS} windows of "
+        f"{S2S_WINDOW} batches, buckets (src, trg) {sorted(pairs)}: window "
+        f"losses {[float(x) for x in window_losses]}; per-batch runs "
+        f"bit-identical: {identical} (rel max {rel:.3e}, bound "
+        f"{BUCKET_LOSS_RTOL}); cache misses {misses} windows / {run_misses} "
+        f"runs; the last window's batches: ms a batch {window_ms:.3f} in "
+        f"its window, {run_ms:.3f} per-batch runs = "
+        f"{last_tokens / (S2S_WINDOW * window_ms / 1e3):.1f} target "
+        f"tokens/s; last "
+        f"step: while trips {loop['while_trips']}, host reads "
+        f"{loop['host_reads']} (T {T})")
+    out = dict(window_ms_per_batch=window_ms, run_ms_per_batch=run_ms,
+               target_tokens_per_s=last_tokens / (S2S_WINDOW * window_ms /
+                                                  1e3),
+               while_trips=loop["while_trips"],
+               host_reads=loop["host_reads"], bit_identical=identical,
+               loss_rel_max=rel, misses=misses, buckets=sorted(pairs))
+    del exe_w, exe_r, scope, scope0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_decode(pt, dict_size, emb, hid, batch, beam, steps):
@@ -4747,8 +5060,10 @@ def main():
     resnet_check = phase_card_vs_cpu_resnet50()
     wide_deep = phase_wide_deep()
     stacked_lstm = phase_stacked_lstm()
+    lstm_buckets = phase_stacked_lstm_buckets()
     sequence_nets = phase_sequence_nets()
     seq2seq = phase_seq2seq()
+    s2s_buckets = phase_seq2seq_buckets()
     beam_decode = phase_beam_decode()
     optimizers = phase_optimizers()
 
@@ -4827,6 +5142,7 @@ def main():
         f"{stacked_lstm['peak_gib']:.3f} ragged_step_ms="
         f"{stacked_lstm['ragged_step_ms']:.3f}; card-vs-cpu " + " ".join(
             f"{k}={v:.3e}" for k, v in stacked_lstm["card_vs_cpu"].items()))
+    log("stacked_lstm_buckets: " + json.dumps(lstm_buckets))
     log("sequence_nets: " + " ".join(
         f"{n}_step_ms={v['step_ms']:.3f}" for n, v in sequence_nets.items()))
     log(f"seq2seq[Seq2Seq-NMT-512]: step_ms={seq2seq['step_ms']:.3f} "
@@ -4836,6 +5152,7 @@ def main():
         f"{seq2seq['peak_above_state_gib']:.4f} ragged_step_ms="
         f"{seq2seq['ragged_step_ms']:.3f}; card-vs-cpu " + " ".join(
             f"{k}={v:.3e}" for k, v in seq2seq["card_vs_cpu"].items()))
+    log("seq2seq_buckets: " + json.dumps(s2s_buckets))
     log(f"beam_decode: decode_ms={beam_decode['decode_ms']:.3f} "
         f"card_cpu_gap={beam_decode['card_cpu_gap']:.3e} "
         f"card_cpu_score_rel={beam_decode['card_cpu_score_rel']:.2e}")

@@ -49,9 +49,21 @@ and keeps the LoD in the scope (``Scope.set_lod``); a dense feed clears
 a stale one.  Each run seeds ``aux["lod"]`` with the feeds' LoDs, and
 after every op an output whose leading dim equals the first LoD-carrying
 input's row count inherits that LoD unless the op set one
-(:func:`_share_lod`).  The JAX package's bucketed mode
-(``program.lod_buckets`` / ``PADDLE_TPU_LOD_BUCKETS``, per-step LoD
-windows in ``run_steps``) is not ported and raises.
+(:func:`_share_lod`).
+
+The bucketed LoD mode (``program.lod_buckets`` or
+``PADDLE_TPU_LOD_BUCKETS``, the JAX package's, ``paddle_tpu/lod.py``):
+``run`` pads a single-level ragged feed's rows to a bucket and feeds its
+row splits as ``<name>@lod0`` (int32 ``[B + 1]``), keeping the meta
+``("dyn", B, T_bucket)`` in the scope; the signature holds the meta, so
+one bucket is one cache entry and one graph, and the run's LoD map a
+:class:`~paddle_tpu_torch.lod.DynLoD`, whose tables the lowerings build
+on the device.  ``run_steps`` takes a list of ``steps`` ``(value, lod)``
+batches for such a feed and pads the window to one bucket, the splits
+stacked ``[steps, B + 1]`` and sliced per step like a stacked dense
+feed.  Under the switch the capture rule lets an op marked
+``eager_dyn_ok`` into a graph (``_host_ops(block, dyn=True)``) unless a
+feed keeps a static LoD (a multi-level one).
 
 Control flow: ``aux["lower_block"]`` is :func:`lower_block`, which the
 lowerings of ``while``, ``conditional_block`` and ``recurrent`` run
@@ -106,7 +118,8 @@ from paddle_tpu_torch import framework
 from paddle_tpu_torch import profiler as _profiler
 from paddle_tpu_torch.convert import fetch_numpy, to_tensor
 from paddle_tpu_torch.framework import Program, default_main_program
-from paddle_tpu_torch.lod import validate_lod
+from paddle_tpu_torch.lod import (SPLITS_SUFFIX, DynLoD, bucket_ragged_feed,
+                                  next_bucket, validate_lod)
 from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.place import default_place
@@ -162,7 +175,9 @@ def _share_lod(op, outputs, env, aux):
     Out)`` unless they change the row structure): an output whose leading
     dim equals the first LoD-carrying input's row count inherits that
     input's LoD, unless the lowering set one.  By row count alone, as the
-    JAX package decides it: a dense output with N rows is labelled too."""
+    JAX package decides it: a dense output with N rows is labelled too
+    (for a :class:`~paddle_tpu_torch.lod.DynLoD`, the padded row
+    count)."""
     lod_map = aux.get("lod")
     if not lod_map or not outputs:
         return
@@ -180,12 +195,6 @@ def _share_lod(op, outputs, env, aux):
             lod_map[n] = src
 
 
-#: ROADMAP's item for the bucketed LoD mode
-_BUCKETS_ITEM = ("the bucketed LoD mode (DynLoD, bucket_ragged_feed, "
-                 "run_steps LoD windows) is not ported yet: ROADMAP queue 1 "
-                 "item 5, 'Bucketed LoD'")
-
-
 def _lod_buckets_enabled(program):
     """The JAX package's switch for its bucketed LoD mode: the program's
     ``lod_buckets``, else ``PADDLE_TPU_LOD_BUCKETS``."""
@@ -197,6 +206,17 @@ def _lod_buckets_enabled(program):
 def _is_lod_pair(value):
     return isinstance(value, tuple) and len(value) == 2 and \
         isinstance(value[1], (list, tuple))
+
+
+def _host_array(value):
+    """A ragged feed's value as a numpy array (to pad it to its bucket)."""
+    return fetch_numpy(value) if isinstance(value, torch.Tensor) \
+        else np.asarray(value)
+
+
+def _is_dyn_meta(lod):
+    """A scope LoD slot holding the bucketed mode's meta ("dyn", B, T)."""
+    return isinstance(lod, tuple) and len(lod) == 3 and lod[0] == "dyn"
 
 
 def _env_flag(name, default="0"):
@@ -411,10 +431,20 @@ class Executor:
                 if _is_lod_pair(value):
                     value, lod = value
                 _enforce_feed(name, value, var)
+                if lod is not None and len(lod) == 1 and \
+                        _lod_buckets_enabled(program):
+                    # bucketed: rows padded to a bucket, the splits fed as
+                    # data, the meta (not the splits) in the scope
+                    value, splits, meta = bucket_ragged_feed(
+                        name, _host_array(value), lod)
+                    validate_lod(name, lod, int(splits[-1]))
+                    feeds[name] = to_tensor(value, self.device,
+                                            getattr(var, "dtype", None))
+                    feeds[name + SPLITS_SUFFIX] = to_tensor(
+                        splits, self.device, "int32")
+                    scope.set_lod(name, meta)
+                    continue
                 if lod is not None:
-                    if len(lod) == 1 and _lod_buckets_enabled(program):
-                        raise NotImplementedError(
-                            f"feed {name!r}: {_BUCKETS_ITEM}")
                     rows = value.shape[0] if hasattr(value, "shape") \
                         else np.shape(value)[0]
                     lod = validate_lod(name, lod, rows)
@@ -470,11 +500,17 @@ class Executor:
         steps = int(steps)
         const_feed, per_step = {}, {}
         for name, value in (feed or {}).items():
-            if _is_lod_pair(value) or (isinstance(value, list) and value and
-                                       all(map(_is_lod_pair, value))):
-                raise NotImplementedError(
-                    f"run_steps feed {name!r} is ragged: {_BUCKETS_ITEM}; "
-                    f"run it step by step with Executor.run")
+            if isinstance(value, list) and value and \
+                    all(map(_is_lod_pair, value)):
+                per_step.update(self._ragged_window(
+                    program, block, scope, name, value, steps))
+                continue
+            if _is_lod_pair(value):
+                raise ValueError(
+                    f"run_steps does not support a single LoD feed (got "
+                    f"one for {name!r}); pass a LIST of per-step "
+                    f"(value, lod) batches under program.lod_buckets, "
+                    f"or bucket/pad ragged batches and use run()")
             scope.set_lod(name, None)
             var = block.vars.get(name)
             t = to_tensor(value, self.device, getattr(var, "dtype", None))
@@ -504,6 +540,51 @@ class Executor:
         if return_numpy:
             return [fetch_numpy(v) for v in stacked]
         return stacked
+
+    def _ragged_window(self, program, block, scope, name, value, steps):
+        """A window of ``steps`` ragged ``(value, lod)`` batches of feed
+        ``name`` under the bucketed mode (the JAX package's, ``paddle_tpu/
+        executor.py:730-790``): every batch padded to one ``(n_bucket,
+        t_bucket)``, the values stacked ``[steps, n_bucket, ...]`` and
+        the splits ``[steps, B + 1]``; the meta goes into the scope.
+        Returns the two stacked feeds."""
+        if not _lod_buckets_enabled(program):
+            raise ValueError(
+                f"run_steps got per-step LoD feeds for {name!r}; "
+                f"enable bucketed mode (program.lod_buckets = "
+                f"True) so the window shares one executable")
+        if len(value) != steps:
+            raise ValueError(
+                f"run_steps: {name!r} has {len(value)} ragged "
+                f"batches for {steps} steps")
+        var = block.vars.get(name)
+        arrays = [_host_array(v) for v, _ in value]
+        rows = [a.shape[0] for a in arrays]
+        mls, n_seqs = [], set()
+        for _, lod in value:
+            sp = np.asarray(lod[-1], np.int64)
+            lens = sp[1:] - sp[:-1]
+            mls.append(int(lens.max()) if len(lens) else 0)
+            n_seqs.add(len(sp) - 1)
+        if len(n_seqs) != 1:
+            raise ValueError(
+                f"run_steps: {name!r} batches disagree on "
+                f"sequence count {sorted(n_seqs)}")
+        nb = next_bucket(max(max(rows), 1))
+        tb = next_bucket(max(max(mls), 1))
+        padded, splits, meta = [], [], None
+        for a, (_, lod) in zip(arrays, value):
+            _enforce_feed(name, a, var)
+            p, sp, meta = bucket_ragged_feed(name, a, lod, n_bucket=nb,
+                                             t_bucket=tb)
+            validate_lod(name, lod, int(sp[-1]))
+            padded.append(p)
+            splits.append(sp)
+        scope.set_lod(name, meta)
+        return {name: to_tensor(np.stack(padded), self.device,
+                                getattr(var, "dtype", None)),
+                name + SPLITS_SUFFIX: to_tensor(np.stack(splits),
+                                                self.device, "int32")}
 
     def warmup(self, program=None, feed_shapes=None, fetch_list=None,
                scope=None, allow_state_updates=False):
@@ -668,7 +749,8 @@ class Executor:
         numerics probing and ``_release_memory`` (not ported: ROADMAP
         items 9 and 7), and ``check_nan_inf`` after them (it moves a
         graph's write-back after the check).  A distinct LoD is a
-        distinct entry: the LoD is host metadata of the step."""
+        distinct entry: the LoD is host metadata of the step; a bucketed
+        feed's is its meta ``("dyn", B, T_bucket)``, its splits a feed."""
         feed_lods = tuple(sorted(
             (n, _freeze_lod(scope.find_lod(n))) for n in feeds
             if scope.find_lod(n) is not None))
@@ -740,19 +822,31 @@ class Executor:
             n for n in inout_names + create_state
             if isinstance(_safe_var(block, n), framework.Parameter))
 
-        host = _has_host_ops(block)
+        feed_lods = {n: lod for n in feeds
+                     for lod in (scope.find_lod(n),) if lod is not None}
+        buckets = _lod_buckets_enabled(program)
+        # under the switch an eager_dyn_ok op keeps no block eager, unless
+        # a feed keeps a static LoD, whose tables are host-made
+        dyn = buckets and all(map(_is_dyn_meta, feed_lods.values()))
+        host = _has_host_ops(block, dyn)
         # no warning for a run-once initializer (no feeds, no fetches:
         # a startup program), whose only run is eager anyway
         if host and (feeds or fetch_names) and \
                 not getattr(program, "expect_host_ops", False):
-            _warn_host_op_cliff(program, block)
+            _warn_host_op_cliff(program, block, dyn)
         profiling = _profiler.op_profiling_enabled()
-        interpret = host or profiling or \
-            bool(getattr(program, "_opt_interpret", False))
+        opt_interpret = bool(getattr(program, "_opt_interpret", False))
+        interpret = host or profiling or opt_interpret
+        # under the switch, the JAX package would trace this block (its
+        # rule: no ``host`` op but the dynamic-LoD ones): a static LoD is
+        # a constant of the step (``lod.tables``), and sequence_slice /
+        # sequence_erase take their bucketed branch over it
+        traced = buckets and not (profiling or opt_interpret or any(
+            _ref_host(op, buckets) for op in _walk_ops(block)))
 
-        lod_map = {n: [list(level) for level in lod]
-                   for n in feeds for lod in (scope.find_lod(n),)
-                   if lod is not None}
+        lod_map = {n: DynLoD(n + SPLITS_SUFFIX, lod[1], lod[2])
+                   if _is_dyn_meta(lod) else [list(level) for level in lod]
+                   for n, lod in feed_lods.items()}
         amp = _amp_enabled(program)
         seed = int(program.random_seed or 0)
         device = self.device
@@ -772,9 +866,11 @@ class Executor:
                    "rng_counter": -1, "amp": amp, "scope": scope,
                    "lower_block": lower_block, "profile": profiling,
                    "capturing": capturing, "constants": constants,
+                   "traced": traced,
                    # the feeds' LoDs; ops add theirs (set_output_lod) and
                    # _share_lod passes them on
-                   "lod": {n: [list(level) for level in lod]
+                   "lod": {n: lod if isinstance(lod, DynLoD)
+                           else [list(level) for level in lod]
                            for n, lod in lod_map.items()}}
             with torch.no_grad():
                 lower_block(block, env, aux)
@@ -852,7 +948,7 @@ def _safe_var(block, name):
 _WARNED_HOST_OP_BLOCKS = set()
 
 
-def _warn_host_op_cliff(program, block):
+def _warn_host_op_cliff(program, block, dyn=False):
     """One host op anywhere switches the WHOLE block to op-by-op eager
     execution — warn once per (program, block) naming the culprits, in
     sub-blocks too, so a user adding e.g. ``edit_distance`` to a
@@ -862,7 +958,7 @@ def _warn_host_op_cliff(program, block):
     if key in _WARNED_HOST_OP_BLOCKS:
         return
     _WARNED_HOST_OP_BLOCKS.add(key)
-    culprits = _host_ops(block)
+    culprits = _host_ops(block, dyn)
     warnings.warn(
         f"block {block.idx} contains host op(s) "
         f"{sorted(set(culprits))} — the whole block runs op-by-op eager "
@@ -871,32 +967,49 @@ def _warn_host_op_cliff(program, block):
         skip_file_prefixes=(os.path.dirname(os.path.abspath(__file__)),))
 
 
-def _has_host_ops(block):
+def _has_host_ops(block, dyn=False):
     """The capture rule's op test (the reference's, ``:1457``, widened by
     the port's ``eager_only``): an op of ``block`` or of a sub-block
     keeps it out of a CUDA graph."""
-    return bool(_host_ops(block))
+    return bool(_host_ops(block, dyn))
 
 
-def _host_ops(block):
-    """The types of the ops of ``block`` and its sub-blocks that keep it
-    out of a CUDA graph: ``host`` (the reference's flag) or
-    ``eager_only`` (the port's, :func:`registry.eager_only`)."""
-    out = []
+def _walk_ops(block):
+    """The ops of ``block`` and of its sub-blocks, depth first."""
     for op in block.ops:
-        opdef = registry.lookup(op.type)
-        if (opdef is not None and opdef.host) or registry.eager_only(op):
-            out.append(op.type)
+        yield op
         for a in op.attrs.values():
             if isinstance(a, framework.Block):
-                out.extend(_host_ops(a))
-    return out
+                yield from _walk_ops(a)
+
+
+def _ref_host(op, dyn):
+    """The reference's ``host`` flag, lifted for an ``eager_dyn_ok`` op
+    under the bucketed mode (its ``host_dyn_ok``)."""
+    opdef = registry.lookup(op.type)
+    return opdef is not None and opdef.host and \
+        not (dyn and opdef.eager_dyn_ok)
+
+
+def _host_ops(block, dyn=False):
+    """The types of the ops of ``block`` and its sub-blocks that keep it
+    out of a CUDA graph: ``host`` (the reference's flag) or
+    ``eager_only`` (the port's, :func:`registry.eager_only`); with
+    ``dyn`` (the bucketed LoD mode, the reference's ``dyn`` argument,
+    ``paddle_tpu/executor.py:1457``) not the ops marked
+    ``eager_dyn_ok``."""
+    return [op.type for op in _walk_ops(block)
+            if _ref_host(op, dyn) or registry.eager_only(op, dyn)]
 
 
 def _freeze_lod(lod):
-    """Nested row-splits list -> hashable tuple (cache key component)."""
+    """Nested row-splits list -> hashable tuple (cache key component); a
+    bucketed meta ("dyn", B, T_bucket) is one already: the splits stay
+    out of the key."""
     if lod is None:
         return None
+    if _is_dyn_meta(lod):
+        return lod
     return tuple(tuple(int(x) for x in level) for level in lod)
 
 

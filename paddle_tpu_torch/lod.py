@@ -12,9 +12,21 @@ every later op of the step reuse it, and no lowering reads a device
 tensor back to the host to learn a size.
 
 Length buckets: prompts are padded up to a bucket edge, and a bundle
-declares the edges it serves.  The bucketed dynamic-LoD mode of the JAX
-package (``DynLoD``, ``bucket_ragged_feed``) is not ported: the port's
-executor raises on it.
+declares the edges it serves.
+
+Bucketed dynamic LoD (the port of ``paddle_tpu/lod.py:146-206``;
+``program.lod_buckets = True`` or ``PADDLE_TPU_LOD_BUCKETS=1``): a
+single-level ragged feed's rows are zero-padded up to a power-of-two
+bucket and its row splits are fed beside it as data, ``<name>@lod0``
+(int32 ``[B + 1]``), so a step's signature holds the meta ``("dyn", B,
+T_bucket)`` and not the splits: one bucket is one cache entry and, on
+the card, one CUDA graph.  The run's LoD map holds a :class:`DynLoD` for
+such a variable, and the sequence, RNN and control-flow lowerings build
+their index tables from the splits tensor with torch ops on the device
+(:func:`dyn_segment_tables`, :func:`dyn_pad_tables`): no ``.item()``, no
+host copy.  A table is cached for the run under :meth:`DynLoD.key` and
+the splits tensor it was built from (:func:`dyn_tables`): never under
+the split values, so a graph replays it on the next step's splits.
 """
 
 from __future__ import annotations
@@ -25,7 +37,14 @@ import torch
 __all__ = ["next_bucket", "row_bucket", "bucket_edges",
            "select_bucket_edges", "pad_to_bucket", "validate_lod",
            "freeze", "tables", "SegmentTables", "PadTables",
-           "segment_tables", "pad_tables", "gather_index", "take_rows"]
+           "segment_tables", "pad_tables", "gather_index", "take_rows",
+           "SPLITS_SUFFIX", "DynLoD", "is_dyn", "bucket_ragged_feed",
+           "dyn_tables", "DynSegmentTables", "DynPadTables",
+           "dyn_segment_tables", "dyn_pad_tables", "device_gather_index",
+           "segment_sum", "segment_reduce"]
+
+#: the name of a bucketed variable's row-splits tensor: ``<name>@lod0``
+SPLITS_SUFFIX = "@lod0"
 
 _MIN_BUCKET = 8
 
@@ -163,9 +182,18 @@ def freeze(lod):
 def tables(aux, kind, lod, device, build, *params):
     """The ``kind`` table of ``lod`` (and ``params``) on ``device``:
     ``build()`` once per run, then the cached one (``aux["lod_tables"]``;
-    ``aux`` is the run's, so a new step with a new LoD builds afresh)."""
-    cache = aux.setdefault("lod_tables", {})
+    ``aux`` is the run's, so a new step with a new LoD builds afresh).
+    In a block the JAX package would trace (``aux["traced"]``: a bucketed
+    block of device-only lowerings), a static LoD is a constant of the
+    prepared step, as it is a trace-time constant there: its tables are
+    kept with the step's constants (``aux["constants"]``), so a CUDA
+    graph's capture reads the tensors its eager first run made."""
     key = (kind, freeze(lod), str(device)) + params
+    cache = aux.get("constants") if aux.get("traced") else None
+    if cache is None:
+        cache = aux.setdefault("lod_tables", {})
+    else:
+        key = ("lod_table",) + key
     t = cache.get(key)
     if t is None:
         t = cache[key] = build()
@@ -240,6 +268,9 @@ class PadTables:
       padded rows;
     * ``live`` ``[T, B, 1]`` bool: step t is inside sequence b."""
 
+    #: no padding rows: every flat row has a slot
+    pad_row = False
+
     def __init__(self, lod, is_reverse, device):
         splits = np.asarray(lod[-1], np.int64)
         lens = np.diff(splits)
@@ -265,3 +296,191 @@ def pad_tables(aux, lod, device, is_reverse=False):
     return tables(aux, "pad", lod, device,
                   lambda: PadTables(lod, bool(is_reverse), device),
                   bool(is_reverse))
+
+
+# ---------------------------------------------------------------------------
+# bucketed dynamic LoD: the splits as device data
+# ---------------------------------------------------------------------------
+
+class DynLoD:
+    """A variable's LoD in the bucketed mode: its row splits live in the
+    run's env under ``splits_name`` (int32 ``[num_seqs + 1]``; the last
+    split is the real row count, rows past it are zero padding), with
+    the static sequence count and bound on a sequence's length (the
+    JAX package's ``DynLoD``)."""
+
+    def __init__(self, splits_name, num_seqs, maxlen_bucket):
+        self.splits_name = splits_name
+        self.num_seqs = int(num_seqs)            # static (batch size)
+        self.maxlen_bucket = int(maxlen_bucket)  # static T bound
+
+    def splits(self, env):
+        return env[self.splits_name]
+
+    def key(self):
+        return ("dyn", self.splits_name, self.num_seqs, self.maxlen_bucket)
+
+    def __repr__(self):
+        return (f"DynLoD({self.splits_name}, B={self.num_seqs}, "
+                f"T<={self.maxlen_bucket})")
+
+    # ops without a dynamic branch read a LoD as a nested list
+    # (len/index/iterate): fail those with the recipe, not a TypeError
+    def _unsupported(self):
+        raise NotImplementedError(
+            "this sequence op does not support bucketed dynamic LoD "
+            "(PADDLE_TPU_LOD_BUCKETS / program.lod_buckets) yet — run it "
+            "with exact static LoD, or keep it out of the bucketed "
+            "program")
+
+    def __len__(self):
+        self._unsupported()
+
+    def __getitem__(self, i):
+        self._unsupported()
+
+    def __iter__(self):
+        self._unsupported()
+
+
+def is_dyn(lod):
+    """``lod`` is a bucketed LoD (a :class:`DynLoD`, or a static one
+    presented through its interface: ``splits`` and ``num_seqs``)."""
+    return isinstance(lod, DynLoD) or hasattr(lod, "num_seqs")
+
+
+def bucket_ragged_feed(name, value, lod, n_bucket=None, t_bucket=None):
+    """``(value [N, ...], single-level lod)`` -> ``(value zero-padded to
+    [N_b, ...], splits int32 [B + 1], meta ("dyn", B, T_b))``, the
+    buckets ``next_bucket`` of the rows and of the longest sequence
+    unless ``n_bucket`` / ``t_bucket`` force them (``run_steps`` pads a
+    window to one signature)."""
+    splits = np.asarray(lod[-1], dtype=np.int64)
+    n = int(splits[-1])
+    if value.shape[0] != n:
+        raise ValueError(
+            f"feed {name!r}: lod rows {n} != value rows {value.shape[0]}")
+    lengths = splits[1:] - splits[:-1]
+    maxlen = int(lengths.max()) if len(lengths) else 0
+    if n_bucket is None:
+        n_bucket = next_bucket(max(n, 1))
+    if t_bucket is None:
+        t_bucket = next_bucket(max(maxlen, 1))
+    padded = np.zeros((n_bucket,) + value.shape[1:], dtype=value.dtype)
+    padded[:n] = value
+    meta = ("dyn", len(splits) - 1, t_bucket)
+    return padded, splits.astype(np.int32), meta
+
+
+def dyn_tables(aux, kind, lod, env, build, *params):
+    """The ``kind`` table of the bucketed ``lod`` (and ``params``):
+    ``build(splits)`` from the splits tensor once per run, cached under
+    ``lod.key()`` with that tensor (``aux["lod_tables"]``), rebuilt when
+    the env holds another (a loop body's output, a new step)."""
+    splits = lod.splits(env)
+    cache = aux.setdefault("lod_tables", {})
+    key = (kind,) + (lod.key() if isinstance(lod, DynLoD)
+                     else ("const", id(lod))) + (str(splits.device),) + \
+        params
+    hit = cache.get(key)
+    if hit is not None and hit[0] is splits:
+        return hit[1]
+    t = build(splits.long())
+    cache[key] = (splits, t)
+    return t
+
+
+def device_gather_index(idx, n):
+    """:func:`gather_index` on a device tensor: ``(indices, clamped)``, a
+    negative index counted from the end, then clamped into ``[0, n)``."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    clamped = (idx < 0) | (idx >= n)
+    return idx.clamp(0, max(n - 1, 0)), clamped
+
+
+def segment_sum(x, seg, num):
+    """``jax.ops.segment_sum`` over ``num`` segments, a ``seg`` of
+    ``num`` or more dropped: the sum runs over ``num + 1`` rows (every
+    index in range on the card) and the last is cut."""
+    seg = seg.clamp(max=num)
+    out = x.new_zeros((num + 1,) + tuple(x.shape[1:])).index_add(0, seg, x)
+    return out[:num]
+
+
+def segment_reduce(x, seg, num, reduce, empty):
+    """``jax.ops.segment_max`` / ``segment_min`` (``reduce`` "amax" /
+    "amin"): ``empty`` in a segment without rows, a ``seg`` of ``num``
+    dropped as :func:`segment_sum` drops it."""
+    seg = seg.clamp(max=num)
+    init = torch.full((num + 1,) + tuple(x.shape[1:]), empty,
+                      dtype=x.dtype, device=x.device)
+    idx = seg.view((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+    return init.scatter_reduce(0, idx, x, reduce, include_self=True)[:num]
+
+
+class DynSegmentTables:
+    """The bucketed counterpart of :class:`SegmentTables` over ``n``
+    padded rows (the JAX package's ``_segment_tables`` dynamic branch):
+    ``seg`` ``[N]`` (a padding row's is ``num``, which the segment ops
+    drop), ``valid`` ``[N]`` (a real row), ``lengths`` ``[B]``,
+    ``first`` / ``last`` (each sequence's first and last row as
+    :func:`take_rows` takes them) and the static ``num``."""
+
+    def __init__(self, splits, num, n):
+        rows = torch.arange(n, device=splits.device)
+        self.num = int(num)
+        self.lengths = splits[1:] - splits[:-1]
+        self.valid = rows < splits[-1]
+        seg = torch.searchsorted(splits[1:].contiguous(), rows, right=True)
+        self.seg = torch.where(self.valid, seg, self.num)
+        self.first = device_gather_index(splits[:-1], n)
+        self.last = device_gather_index(splits[1:] - 1, n)
+
+
+def dyn_segment_tables(aux, lod, env, n):
+    """:class:`DynSegmentTables` of the bucketed ``lod`` over ``n`` rows,
+    cached for the run (:func:`dyn_tables`)."""
+    return dyn_tables(aux, "segments", lod, env,
+                      lambda sp: DynSegmentTables(sp, lod.num_seqs, n), n)
+
+
+class DynPadTables:
+    """The bucketed counterpart of :class:`PadTables` (the JAX package's
+    ``_lod_pad_tables`` dynamic branch, time-major): ``T`` is the
+    length bucket, ``N`` the padded row count.  ``gather`` ``[T, B]``
+    reads row N (a zero row appended below the flat rows) past a
+    sequence's end; ``scatter`` ``[N]`` takes each flat row to its slot
+    ``t * B + b``, a padding row to slot ``T * B`` (a zero row appended
+    below the steps: padding rows come back as zeros)."""
+
+    pad_row = True
+
+    def __init__(self, splits, num, cap, n, is_reverse):
+        dev = splits.device
+        B, T = int(num), max(int(cap), 1)
+        lens = splits[1:] - splits[:-1]
+        t = torch.arange(T, device=dev)[:, None]              # [T, 1]
+        live = t < lens[None, :]                              # [T, B]
+        off = (lens[None, :] - 1 - t) if is_reverse else t
+        gather = torch.where(live, splits[:-1][None, :] + off, n)
+        gather = gather.clamp(0, n)
+        slots = t * B + torch.arange(B, device=dev)[None, :]
+        # into N + 1 entries, the dead steps' index N among them, and the
+        # last cut: the JAX package's .at[].set drops an index N
+        scatter = torch.full((n + 1,), T * B, dtype=torch.long, device=dev)
+        scatter.scatter_(0, torch.where(live, gather, n).reshape(-1),
+                         slots.expand(T, B).reshape(-1))
+        self.B, self.T, self.N = B, T, n
+        self.gather = gather
+        self.scatter = scatter[:n]
+        self.live = live[:, :, None]
+
+
+def dyn_pad_tables(aux, lod, env, n, is_reverse=False):
+    """:class:`DynPadTables` of the bucketed ``lod`` over ``n`` rows,
+    cached for the run."""
+    return dyn_tables(aux, "pad", lod, env,
+                      lambda sp: DynPadTables(sp, lod.num_seqs,
+                                              lod.maxlen_bucket, n,
+                                              bool(is_reverse)),
+                      n, bool(is_reverse))

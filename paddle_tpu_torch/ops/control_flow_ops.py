@@ -35,6 +35,17 @@ The port runs eagerly, so control flow is Python control flow:
 Every op here but ``recurrent`` (a fixed number of steps, nothing read
 on the host) is ``eager_only``: it reads the device on the host or
 copies host tables to it, so its block runs outside a CUDA graph.
+
+Bucketed LoD (``lod.DynLoD``): ``lod_rank_table`` makes a
+:class:`DynRankTable` (the JAX package's, ``paddle_tpu/ops/
+control_flow_ops.py:463``): the original order, the whole batch, the
+splits on the device; ``max_sequence_len``, ``lod_tensor_to_array``
+(an array of ``T_bucket`` steps), ``array_to_lod_tensor`` (the padded
+rows back, the same splits), ``shrink_rnn_memory`` (a mask by the
+runtime lengths) and ``reorder_lod_tensor_by_rank`` (the identity) read
+it with torch ops, and are ``eager_dyn_ok``.  ``while`` still reads its
+condition on the host each trip, so a bucketed DynamicRNN's block stays
+eager.
 """
 
 from __future__ import annotations
@@ -45,12 +56,13 @@ import numpy as np
 import torch
 import torch.utils._pytree as _pytree
 
-from paddle_tpu_torch.lod import tables
+from paddle_tpu_torch.lod import SPLITS_SUFFIX, DynLoD, is_dyn, tables
 from paddle_tpu_torch.ops.registry import (
     ShapeInferenceSkip, host_scalar, infer_shape_unary, register_op,
     remember_rng_start)
 
-__all__ = ["TensorArray", "RankTable", "DEFAULT_ARRAY_CAPACITY"]
+__all__ = ["TensorArray", "RankTable", "DynRankTable",
+           "DEFAULT_ARRAY_CAPACITY"]
 
 DEFAULT_ARRAY_CAPACITY = 128
 
@@ -356,6 +368,25 @@ class RankTable:
         return tuple(self.items)
 
 
+class DynRankTable:
+    """A rank table over runtime lengths (the bucketed LoD mode): a
+    device sort is neither possible without a sync nor needed, since
+    every step keeps the whole batch and masks by length, so the table
+    keeps the ORIGINAL order and carries the splits (int64 ``[B + 1]``
+    on the device), the sequence count, the length bucket ``cap`` and
+    the padded rows ``n_rows`` of its input."""
+
+    def __init__(self, splits, num_seqs, cap, n_rows):
+        self.splits = splits
+        self.num_seqs = int(num_seqs)
+        self.cap = int(cap)
+        self.n_rows = int(n_rows)
+
+    @property
+    def lengths_arr(self):
+        return self.splits[1:] - self.splits[:-1]
+
+
 def _table_tensor(ctx, kind, table, build):
     """The ``kind`` index tensor of ``table`` on the run's device:
     ``build()`` (numpy) once per run, as ``lod.tables`` caches LoD
@@ -369,10 +400,20 @@ def _table_tensor(ctx, kind, table, build):
 
 
 @register_op("lod_rank_table", infer_shape=_infer_skip, no_gradient=True,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def lod_rank_table_lower(ctx):
     lod = ctx.input_lod("X")
     level = ctx.attr("level", 0)
+    if is_dyn(lod):
+        if level != 0:
+            raise NotImplementedError(
+                "lod_rank_table over a non-zero lod level is not "
+                "supported in bucketed dynamic-LoD mode — the bucketed "
+                "feed carries a single (deepest) level of row splits")
+        ctx.outputs[ctx.op.output("Out")[0]] = DynRankTable(
+            lod.splits(ctx.env).long(), lod.num_seqs, lod.maxlen_bucket,
+            ctx.input("X").shape[0])
+        return
     if lod is None:
         # dense [B, T, ...]: every row has length T
         x = ctx.input("X")
@@ -386,22 +427,38 @@ def lod_rank_table_lower(ctx):
 
 
 @register_op("max_sequence_len", infer_shape=_infer_skip, no_gradient=True,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def max_sequence_len_lower(ctx):
-    n = max(ctx.input("RankTable").lengths)
+    table = ctx.input("RankTable")
+    if isinstance(table, DynRankTable):
+        ctx.set_output("Out", table.lengths_arr.max().reshape(1))
+        return
+    n = max(table.lengths)
     ctx.set_output("Out", torch.tensor([n], dtype=torch.int64,
                                        device=ctx.device))
 
 
 @register_op("lod_tensor_to_array", infer_shape=infer_shape_unary("X"),
              no_grad_inputs=("RankTable",),
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def lod_tensor_to_array_lower(ctx):
     """Ragged ``[sum(T_i), ...]`` and a rank table -> a TensorArray of
     ``T`` time steps, each ``[B, ...]`` over the whole sorted batch, zero
-    rows past a sequence's end; its capacity is ``T``."""
+    rows past a sequence's end; its capacity is ``T``.  From a
+    :class:`DynRankTable`: ``T`` is the length bucket, the batch in its
+    original order, one gather ``[T, B]`` from the splits."""
     x = ctx.input("X")
     table = ctx.input("RankTable")
+    if isinstance(table, DynRankTable):
+        ts = torch.arange(table.cap, device=x.device)[:, None]
+        idx = (table.splits[:-1][None, :] + ts).clamp(0, x.shape[0] - 1)
+        live = (ts < table.lengths_arr[None, :]).to(x.dtype)
+        data = x.index_select(0, idx.reshape(-1)).reshape(
+            tuple(idx.shape) + tuple(x.shape[1:]))
+        data = data * live.reshape(tuple(live.shape) + (1,) * (x.ndim - 1))
+        ctx.outputs[ctx.op.output("Out")[0]] = TensorArray(
+            list(data.unbind(0)), table.cap)
+        return
     lod = ctx.input_lod("X")
     lengths, indices = table.lengths, table.indices
     T, B = (max(lengths) if lengths else 0), len(lengths)
@@ -433,12 +490,31 @@ def lod_tensor_to_array_lower(ctx):
 
 @register_op("array_to_lod_tensor", infer_shape=infer_shape_unary("X"),
              no_grad_inputs=("RankTable",),
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def array_to_lod_tensor_lower(ctx):
     """Inverse of ``lod_tensor_to_array``: the steps' rows back to ragged
-    ``[sum(T_i), ...]`` in the original sequence order, with that LoD."""
+    ``[sum(T_i), ...]`` in the original sequence order, with that LoD.
+    From a :class:`DynRankTable`: the table's padded rows, zeros past the
+    last split, with the table's splits as ``<Out>@lod0``."""
     arr = ctx.input("X")
     table = ctx.input("RankTable")
+    if isinstance(table, DynRankTable):
+        data = torch.stack(arr.steps)                 # [L, B, ...]
+        L, B = data.shape[0], data.shape[1]
+        splits = table.splits
+        r = torch.arange(table.n_rows, device=data.device)
+        seg = torch.searchsorted(splits[1:].contiguous(), r, right=True)
+        seg = seg.clamp(0, table.num_seqs - 1)
+        t = (r - splits[seg]).clamp(0, L - 1)
+        rows = data.reshape((L * B,) + tuple(data.shape[2:])).index_select(
+            0, t * B + seg)
+        valid = (r < splits[-1]).view((-1,) + (1,) * (rows.ndim - 1))
+        ctx.set_output("Out", torch.where(valid, rows,
+                                          torch.zeros_like(rows)))
+        name = ctx.op.output("Out")[0] + SPLITS_SUFFIX
+        ctx.outputs[name] = splits.to(torch.int32)
+        ctx.set_output_lod("Out", DynLoD(name, table.num_seqs, table.cap))
+        return
     lengths, indices = table.lengths, table.indices
     B, T = len(indices), max(lengths)
     order = sorted(range(B), key=lambda b: indices[b])
@@ -459,14 +535,17 @@ def array_to_lod_tensor_lower(ctx):
 
 @register_op("shrink_rnn_memory", infer_shape=infer_shape_unary("X"),
              no_grad_inputs=("RankTable", "I"),
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def shrink_rnn_memory_lower(ctx):
     """The reference shrinks the memory to the still-live prefix of the
     sorted batch; here the rows of finished sequences are zeroed."""
     x = ctx.input("X")
     table = ctx.input("RankTable")
-    lengths = _table_tensor(ctx, "rank_lengths", table,
-                            lambda: np.asarray(table.lengths, np.int64))
+    if isinstance(table, DynRankTable):
+        lengths = table.lengths_arr
+    else:
+        lengths = _table_tensor(ctx, "rank_lengths", table,
+                                lambda: np.asarray(table.lengths, np.int64))
     live = lengths > ctx.input("I").reshape(())
     ctx.set_output("Out", x * live.to(x.dtype).reshape(
         (x.shape[0],) + (1,) * (x.ndim - 1)))
@@ -475,10 +554,14 @@ def shrink_rnn_memory_lower(ctx):
 @register_op("reorder_lod_tensor_by_rank",
              infer_shape=infer_shape_unary("X"),
              no_grad_inputs=("RankTable",),
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def reorder_lod_tensor_by_rank_lower(ctx):
     x = ctx.input("X")
     table = ctx.input("RankTable")
+    if isinstance(table, DynRankTable):
+        # a dynamic table keeps the original order: the identity
+        ctx.set_output("Out", x)
+        return
     lod = ctx.input_lod("X")
     if lod is None:
         # dense [B, ...]: one row per sequence

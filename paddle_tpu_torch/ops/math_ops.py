@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paddle_tpu_torch.lod import is_dyn
 from paddle_tpu_torch.ops.registry import (
     register_op, infer_shape_elementwise, infer_shape_unary,
     ShapeInferenceSkip)
@@ -217,7 +218,20 @@ def _infer_mean(op, block):
 
 @register_op("mean", infer_shape=_infer_mean)
 def mean_lower(ctx):
-    ctx.set_output("Out", ctx.input("X").mean().reshape(1))
+    x = ctx.input("X")
+    lod = ctx.input_lod("X")
+    if is_dyn(lod):
+        # bucketed rows: the mean of the real rows only (rows past the
+        # last split are padding); the count stays on the device
+        n_real = lod.splits(ctx.env)[-1]
+        rows = torch.arange(x.shape[0], device=x.device)
+        mask = (rows < n_real).to(x.dtype).reshape(
+            (-1,) + (1,) * (x.ndim - 1))
+        per_row = int(np.prod(x.shape[1:])) if x.ndim > 1 else 1
+        count = (n_real.to(x.dtype) * per_row).clamp(min=1)
+        ctx.set_output("Out", ((x * mask).sum() / count).reshape(1))
+        return
+    ctx.set_output("Out", x.mean().reshape(1))
 
 
 @register_op("sign", infer_shape=infer_shape_unary())

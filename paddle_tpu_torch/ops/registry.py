@@ -33,7 +33,11 @@ op of it (or of a sub-block) is marked ``host`` (the JAX package's flag)
 or ``eager_only`` (the port's: its lowering reads the device on the
 host, copies host data to the device, draws from the run's host
 generator or makes a ``SelectedRows``, whose ``live()`` masks by value).
-A grad op takes its forward's marks.  Random ops draw from
+A grad op takes its forward's marks.  In the bucketed LoD mode
+(``lod.DynLoD``) an op marked ``eager_dyn_ok`` (the JAX package's
+``host_dyn_ok``, widened to the port's ``eager_only``) builds its tables
+from the splits tensor on the device and keeps no block eager.  Random
+ops draw from
 :meth:`LowerContext.generator`, which the executor can hand one
 generator per draw that a graph keeps and reseeds before each replay.
 """
@@ -71,7 +75,7 @@ class OpDef:
                  grad_lower=None, no_grad_inputs=(), stop_gradient_outputs=(),
                  uses_rng=False, stateful_outputs=(), amp_cast=(),
                  amp_upcast=(), host=False, selected_rows_inputs=(),
-                 eager_only=False):
+                 eager_only=False, eager_dyn_ok=False):
         self.type = type
         self.lower = lower
         self.infer_shape = infer_shape
@@ -101,6 +105,10 @@ class OpDef:
         # the port's reasons to keep a block out of a CUDA graph
         # (:func:`eager_only`): True, or a predicate of the op
         self.eager_only = eager_only
+        # its bucketed-LoD branch is device-only: under the switch neither
+        # ``host`` nor ``eager_only`` keeps its block eager (the JAX
+        # package's ``host_dyn_ok``, ``paddle_tpu/ops/registry.py:81``)
+        self.eager_dyn_ok = eager_dyn_ok
         # outputs that alias an input across steps (ParamOut of the
         # optimizer ops): the structural verifier accepts them as in-place
         # state updates
@@ -112,10 +120,11 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                 no_grad_inputs=(), stop_gradient_outputs=(), uses_rng=False,
                 no_gradient=False, stateful_outputs=(), amp_cast=(),
                 amp_upcast=(), selected_rows_inputs=(), host=False,
-                eager_only=False):
+                eager_only=False, eager_dyn_ok=False):
     """Decorator: register ``fn(ctx)`` as the lowering for op ``type``.
     ``eager_only``: True, or ``fn(op) -> bool``, where the lowering does
-    host work a CUDA graph would refuse or freeze (:func:`eager_only`)."""
+    host work a CUDA graph would refuse or freeze (:func:`eager_only`);
+    ``eager_dyn_ok``: its bucketed-LoD branch does none."""
 
     def deco(fn):
         opdef = OpDef(type, lower=fn, infer_shape=infer_shape,
@@ -125,7 +134,7 @@ def register_op(type, *, infer_shape=None, grad_maker=None, grad_lower=None,
                       uses_rng=uses_rng, stateful_outputs=stateful_outputs,
                       amp_cast=amp_cast, amp_upcast=amp_upcast,
                       host=host, selected_rows_inputs=selected_rows_inputs,
-                      eager_only=eager_only)
+                      eager_only=eager_only, eager_dyn_ok=eager_dyn_ok)
         opdef.has_grad = not no_gradient
         _REGISTRY[type] = opdef
         return fn
@@ -147,16 +156,20 @@ def lookup(type):
     return _REGISTRY.get(type)
 
 
-def eager_only(op):
+def eager_only(op, dyn=False):
     """True when ``op``'s lowering does host work that a CUDA graph
     would refuse or freeze, by the port's marks (``OpDef.eager_only``;
-    a ``<type>_grad`` op takes its forward's).  The JAX package's
-    ``host`` flag is read separately (``executor._has_host_ops``)."""
+    a ``<type>_grad`` op takes its forward's); with ``dyn`` (the
+    bucketed LoD mode) an ``eager_dyn_ok`` op does none.  The JAX
+    package's ``host`` flag is read separately
+    (``executor._has_host_ops``)."""
     types = [op.type]
     if op.type.endswith("_grad"):
         types.append(op.type[:-len("_grad")])
     for t in types:
         opdef = _REGISTRY.get(t)
+        if opdef is not None and dyn and opdef.eager_dyn_ok:
+            continue
         flag = opdef.eager_only if opdef is not None else False
         if callable(flag):
             flag = flag(op)

@@ -21,14 +21,19 @@ order (c, i, f, o), Bias ``[1, 4H]`` plus the peepholes ``w_ic``,
 Weight ``[H, 3H] = [W_u | W_r | W_c]``.
 
 ``lstm``, ``lstmp`` and ``gru`` are ``eager_only`` (their pad tables
-are copied from the host LoD each run); the cells are not.
+are copied from the host LoD each run); the cells are not.  Under the
+bucketed LoD mode (``lod.DynLoD``) the pad tables are built from the
+splits tensor on the device (``lod.dyn_pad_tables``, the JAX package's
+``_lod_pad_tables`` dynamic branch): the loop runs ``T = `` the length
+bucket steps, masked by the runtime lengths, and the padding rows
+scatter back as zeros; these three ops are then ``eager_dyn_ok``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.lod import pad_tables
+from paddle_tpu_torch.lod import dyn_pad_tables, is_dyn, pad_tables
 from paddle_tpu_torch.ops.registry import register_op, ShapeInferenceSkip
 
 _ACTS = {
@@ -90,8 +95,11 @@ def _ragged_input(ctx):
     lod = ctx.input_lod("Input")
     if lod is None:
         raise ValueError(f"{ctx.op.type} op requires LoD on Input")
-    pad = pad_tables(ctx.aux, lod, x.device, ctx.attr("is_reverse", False))
-    return x, lod, pad
+    reverse = ctx.attr("is_reverse", False)
+    if is_dyn(lod):
+        return x, lod, dyn_pad_tables(ctx.aux, lod, ctx.env, x.shape[0],
+                                      reverse)
+    return x, lod, pad_tables(ctx.aux, lod, x.device, reverse)
 
 
 def _to_padded(x, pad):
@@ -105,14 +113,17 @@ def _to_padded(x, pad):
 
 def _to_flat(steps, pad):
     """The states of every step, ``[T, B, H]`` as a list of ``[B, H]``,
-    back to the flat rows ``[N, H]``."""
+    back to the flat rows ``[N, H]`` (bucketed: a zero row appended, the
+    padding rows' slot)."""
     ys = torch.stack(steps)
-    return ys.reshape((pad.T * pad.B,) + tuple(ys.shape[2:])).index_select(
-        0, pad.scatter)
+    ys = ys.reshape((pad.T * pad.B,) + tuple(ys.shape[2:]))
+    if pad.pad_row:
+        ys = torch.cat([ys, ys.new_zeros((1,) + tuple(ys.shape[1:]))])
+    return ys.index_select(0, pad.scatter)
 
 
 def _set_ragged_outputs(ctx, lod, pad, **steps):
-    out_lod = [list(level) for level in lod]
+    out_lod = lod if is_dyn(lod) else [list(level) for level in lod]
     for slot, states in steps.items():
         ctx.set_output(slot, _to_flat(states, pad))
         ctx.set_output_lod(slot, out_lod)
@@ -160,7 +171,7 @@ def _lstm_steps(ctx, xp, pad, recur, H, r0, c0, proj=None):
 # ---------------------------------------------------------------------------
 
 @register_op("lstm", infer_shape=_infer_rnn,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def lstm_lower(ctx):
     x, lod, pad = _ragged_input(ctx)    # [N, 4H], pre-projected
     weight = ctx.input("Weight")        # [H, 4H]
@@ -178,7 +189,7 @@ def lstm_lower(ctx):
 # ---------------------------------------------------------------------------
 
 @register_op("lstmp", infer_shape=_infer_lstmp,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def lstmp_lower(ctx):
     x, lod, pad = _ragged_input(ctx)    # [N, 4H], pre-projected
     weight = ctx.input("Weight")        # [P, 4H], over r
@@ -196,7 +207,7 @@ def lstmp_lower(ctx):
 # ---------------------------------------------------------------------------
 
 @register_op("gru", infer_shape=_infer_rnn,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def gru_lower(ctx):
     x, lod, pad = _ragged_input(ctx)    # [N, 3H]
     weight = ctx.input("Weight")        # [H, 3H] = [W_u | W_r | W_c]

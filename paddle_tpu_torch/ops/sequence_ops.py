@@ -1,5 +1,5 @@
-"""Sequence (LoD) ops (the port of ``paddle_tpu.ops.sequence_ops``'s
-static-LoD branches; reference ``paddle/fluid/operators/sequence_*_op.cc``,
+"""Sequence (LoD) ops (the port of ``paddle_tpu.ops.sequence_ops``;
+reference ``paddle/fluid/operators/sequence_*_op.cc``,
 ``operators/math/sequence*``).
 
 A LoD is host metadata of the run (``aux["lod"]``), so every lowering
@@ -18,6 +18,22 @@ tensor of splits (which the JAX package can read only outside jit).
 
 Every op here is ``eager_only``: its index tables are copied from the
 host LoD each run, which a CUDA graph cannot replay.
+
+Bucketed LoD (``lod.DynLoD``, the JAX package's dynamic branches,
+``paddle_tpu/ops/sequence_ops.py:83-600``): the input's rows are padded
+to a bucket and its splits are a device tensor of the run's env, so
+``sequence_pool`` (and the first / last step), ``sequence_softmax``,
+``sequence_expand``, ``sequence_concat``, ``sequence_reshape``,
+``sequence_slice``, ``sequence_erase``, ``lod_reset``, ``sequence_conv``
+and ``sequence_context`` build their tables there with torch ops
+(``lod.dyn_segment_tables``; padding rows in segment ``B``, which the
+segment sums drop) and keep the padded row count; an op that changes
+the row structure writes its output's splits as ``<Out>@lod0`` and sets
+a ``DynLoD`` on it.  Those ops are ``eager_dyn_ok``: under the switch
+they keep no block out of a CUDA graph.  ``sequence_reverse``,
+``row_conv``, ``kmax_seq_score`` and ``sub_nested_seq`` have no such
+branch and raise ``DynLoD``'s ``NotImplementedError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -26,8 +42,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.lod import (freeze, gather_index, segment_tables,
-                                  tables, take_rows)
+from paddle_tpu_torch.lod import (SPLITS_SUFFIX, DynLoD, dyn_segment_tables,
+                                  dyn_tables, freeze, gather_index, is_dyn,
+                                  segment_reduce, segment_sum,
+                                  segment_tables, tables, take_rows)
 from paddle_tpu_torch.ops.registry import register_op, ShapeInferenceSkip
 
 #: MaxIndex of an empty sequence: the JAX package's ``segment_min`` over
@@ -88,55 +106,96 @@ def _index_and_lod(ctx, kind, lod, device, build, *params):
     return tables(ctx.aux, kind, lod, device, make, *params)
 
 
-def _bcast(seg, x):
-    """``seg`` ``[N]`` as an index broadcast over x's trailing dims."""
-    return seg.view((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
-
-
-def _segment_sum(x, seg, num):
-    return x.new_zeros((num,) + tuple(x.shape[1:])).index_add(0, seg, x)
-
-
-def _segment_reduce(x, seg, num, reduce, empty):
-    """``jax.ops.segment_max`` / ``segment_min``: ``empty`` in a segment
-    with no rows; the grad of a max (min) splits among tied rows."""
-    init = torch.full((num,) + tuple(x.shape[1:]), empty, dtype=x.dtype,
-                      device=x.device)
-    return init.scatter_reduce(0, _bcast(seg, x), x, reduce,
-                               include_self=True)
-
-
 # ---------------------------------------------------------------------------
 # sequence_pool (sum/average/max/min/last/first/sqrt)
 # ---------------------------------------------------------------------------
 
+def _const_splits(ctx, level, device):
+    """A static LoD level as an int32 splits tensor on ``device``, made
+    once per prepared step (``aux["constants"]``) where there is one: a
+    CUDA graph's capture reads the one its eager run made."""
+    key = ("const_splits", tuple(int(v) for v in level), str(device))
+    constants = ctx.aux.get("constants")
+    t = None if constants is None else constants.get(key)
+    if t is None:
+        t = torch.as_tensor(np.asarray(level, np.int32), device=device)
+        if constants is not None:
+            constants[key] = t
+    return t
+
+
+class _ConstSplits:
+    """A static LoD level presented through ``DynLoD``'s interface (the
+    JAX package's ``_ConstSplits``): ``sequence_slice`` and
+    ``sequence_erase`` take their bucketed branch over it in a block the
+    JAX package traces, where a static LoD is a constant."""
+
+    def __init__(self, ctx, level, device):
+        self._splits = _const_splits(ctx, level, device)
+        self.num_seqs = len(level) - 1
+        lengths = np.diff(np.asarray(level, np.int64))
+        self.maxlen_bucket = int(lengths.max()) if len(lengths) else 0
+
+    def splits(self, env):
+        return self._splits
+
+
+def _splits_of(ctx, lod, device):
+    """``(splits int64 [B + 1], B, length bound)`` of a bucketed LoD, or of
+    a static one's last level (a constant)."""
+    if is_dyn(lod):
+        return lod.splits(ctx.env).long(), lod.num_seqs, lod.maxlen_bucket
+    level = lod[0]
+    lens = np.diff(np.asarray(level, np.int64))
+    return (_const_splits(ctx, level, device).long(), len(level) - 1,
+            int(lens.max()) if len(lens) else 0)
+
+
+def _dyn_out(ctx, slot, out, splits, num, cap):
+    """Set ``slot`` to ``out`` with new bucketed splits: ``<Out>@lod0``
+    in the env, a ``DynLoD`` on the output."""
+    name = ctx.op.output(slot)[0] + SPLITS_SUFFIX
+    ctx.outputs[name] = splits.to(torch.int32)
+    ctx.set_output(slot, out)
+    ctx.set_output_lod(slot, DynLoD(name, num, cap))
+
+
+def _zeros_where_not(valid, x):
+    """``x`` with the rows where ``valid`` ``[N]`` is False zeroed."""
+    return torch.where(valid.view((-1,) + (1,) * (x.ndim - 1)), x,
+                       torch.zeros_like(x))
+
+
 @register_op("sequence_pool", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_pool_lower(ctx):
     x = ctx.input("X")                      # [N, D]
     lod = _require_lod(ctx)
     pooltype = ctx.attr("pooltype", "AVERAGE").upper()
-    st = segment_tables(ctx.aux, lod, x.device)
+    st = _step_tables(ctx, x, lod)
     denom_shape = (-1,) + (1,) * (x.ndim - 1)
     if pooltype == "SUM":
-        out = _segment_sum(x, st.seg, st.num)
+        out = segment_sum(x, st.seg, st.num)
     elif pooltype in ("AVERAGE", "MEAN"):
-        out = _segment_sum(x, st.seg, st.num) / st.lengths.clamp(
+        out = segment_sum(x, st.seg, st.num) / st.lengths.clamp(
             min=1).to(x.dtype).reshape(denom_shape)
     elif pooltype == "SQRT":
-        out = _segment_sum(x, st.seg, st.num) / torch.sqrt(
+        out = segment_sum(x, st.seg, st.num) / torch.sqrt(
             st.lengths.clamp(min=1).to(x.dtype)).reshape(denom_shape)
     elif pooltype == "MAX":
-        out = _segment_reduce(x, st.seg, st.num, "amax", -float("inf"))
+        out = segment_reduce(x, st.seg, st.num, "amax", -float("inf"))
         # MaxIndex: per (sequence, feature) the first row holding the max,
-        # as the reference's MaxSeqPoolFunctor stores it
+        # as the reference's MaxSeqPoolFunctor stores it (a padding row,
+        # in segment B, holds none)
         n = x.shape[0]
         rows = torch.arange(n, device=x.device).view(denom_shape)
-        cand = torch.where(x == out[st.seg], rows, n)
-        ctx.set_output("MaxIndex", _segment_reduce(
-            cand, st.seg, st.num, "amin", _EMPTY_MAX_INDEX))
+        is_max = (x == out[st.seg.clamp(max=st.num - 1)]) & \
+            (st.seg < st.num).view(denom_shape)
+        ctx.set_output("MaxIndex", segment_reduce(
+            torch.where(is_max, rows, n), st.seg, st.num, "amin",
+            _EMPTY_MAX_INDEX))
     elif pooltype == "MIN":
-        out = _segment_reduce(x, st.seg, st.num, "amin", float("inf"))
+        out = segment_reduce(x, st.seg, st.num, "amin", float("inf"))
     elif pooltype == "LAST":
         out = take_rows(x, *st.last)
     elif pooltype == "FIRST":
@@ -144,7 +203,7 @@ def sequence_pool_lower(ctx):
     else:
         raise NotImplementedError(f"sequence_pool type {pooltype}")
     ctx.set_output("Out", out)
-    if len(lod) > 1:
+    if not is_dyn(lod) and len(lod) > 1:
         ctx.set_output_lod("Out", _copy(lod[:-1]))
 
 
@@ -153,15 +212,28 @@ def sequence_pool_lower(ctx):
 # ---------------------------------------------------------------------------
 
 @register_op("sequence_softmax", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_softmax_lower(ctx):
     x = ctx.input("X")          # [N] or [N, 1]
     lod = _require_lod(ctx)
     flat = x.reshape(-1)
+    if is_dyn(lod):
+        st = dyn_segment_tables(ctx.aux, lod, ctx.env, flat.shape[0])
+        safe = st.seg.clamp(max=st.num - 1)
+        mx = segment_reduce(flat, st.seg, st.num, "amax", -float("inf"))
+        # a padding row's exponent is 0 before the exp: no inf there,
+        # and so no NaN in the grad
+        z = torch.where(st.valid, flat - mx[safe], torch.zeros_like(flat))
+        e = torch.where(st.valid, torch.exp(z), torch.zeros_like(flat))
+        denom = segment_sum(e, st.seg, st.num)
+        out = e / torch.clamp(denom[safe], min=1e-30)
+        ctx.set_output("Out", out.reshape(x.shape))
+        ctx.set_output_lod("Out", lod)
+        return
     st = segment_tables(ctx.aux, lod, x.device)
-    mx = _segment_reduce(flat, st.seg, st.num, "amax", -float("inf"))
+    mx = segment_reduce(flat, st.seg, st.num, "amax", -float("inf"))
     e = torch.exp(flat - mx[st.seg])
-    denom = _segment_sum(e, st.seg, st.num)
+    denom = segment_sum(e, st.seg, st.num)
     out = e / torch.clamp(denom[st.seg], min=1e-30)
     ctx.set_output("Out", out.reshape(x.shape))
     ctx.set_output_lod("Out", _copy(lod))
@@ -188,12 +260,53 @@ def _expand_index(x_lod, y_lod, ref_level, n_rows):
     return gather_index(idx, n_rows), [new_splits]
 
 
+def _dyn_expand(ctx, x, x_lod, y_lod):
+    """``sequence_expand`` with a bucketed Y: a dense X's row b broadcast
+    over Y's sequence b (zeros on padding rows), or a ragged X's
+    sequence b repeated by Y's length b into ``B * rep_cap`` sequence
+    slots, slot (b, k) empty when k is past the repeat count, the real
+    rows contiguous in the reference's order."""
+    if x_lod is None:
+        n = ctx.input("Y").shape[0]
+        st = dyn_segment_tables(ctx.aux, y_lod, ctx.env, n)
+        rows = x.index_select(0, st.seg.clamp(max=st.num - 1))
+        ctx.set_output("Out", _zeros_where_not(st.valid, rows))
+        ctx.set_output_lod("Out", y_lod)
+        return
+    x_splits, bx, x_cap = _splits_of(ctx, x_lod, x.device)
+    y_splits = y_lod.splits(ctx.env).long()
+    rep_cap = y_lod.maxlen_bucket
+    if y_lod.num_seqs != bx:
+        raise ValueError(
+            f"sequence_expand: X has {bx} sequences but Y has "
+            f"{y_lod.num_seqs}")
+    dev = x.device
+    len_x = x_splits[1:] - x_splits[:-1]
+    rep = y_splits[1:] - y_splits[:-1]
+    n_slots = bx * rep_cap
+    slot = torch.arange(n_slots, device=dev)
+    slot_i, slot_k = slot // rep_cap, slot % rep_cap
+    slot_len = torch.where(slot_k < rep[slot_i], len_x[slot_i], 0)
+    out_splits = torch.cat([slot_len.new_zeros(1), slot_len.cumsum(0)])
+    n_out = int(x.shape[0]) * rep_cap
+    r = torch.arange(n_out, device=dev)
+    seg = torch.searchsorted(out_splits[1:].contiguous(), r, right=True)
+    seg = seg.clamp(0, max(n_slots - 1, 0))
+    t = r - out_splits[seg]
+    src = (x_splits[seg // rep_cap] + t).clamp(0, x.shape[0] - 1)
+    out = _zeros_where_not(r < out_splits[-1], x.index_select(0, src))
+    _dyn_out(ctx, "Out", out, out_splits, n_slots, x_cap)
+
+
 @register_op("sequence_expand", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_expand_lower(ctx):
     x = ctx.input("X")
     x_lod = ctx.input_lod("X")
     y_lod = _require_lod(ctx, "Y")
+    if is_dyn(y_lod):
+        _dyn_expand(ctx, x, x_lod, y_lod)
+        return
     ref_level = ctx.attr("ref_level", -1)
     if ref_level == -1:
         ref_level = len(y_lod) - 1
@@ -231,14 +344,51 @@ def _concat_index(lods, rows):
     return np.asarray(order, np.int64), [new_splits]
 
 
+def _dyn_concat(ctx, xs, lods, allx):
+    """``sequence_concat`` where an input is bucketed: out sequence i is
+    every input's sequence i in turn, gathered by a table built from the
+    splits (the inputs' padded rows stacked; padding rows last)."""
+    dev = allx.device
+    num = next(l for l in lods if is_dyn(l)).num_seqs
+    n_out = int(allx.shape[0])
+    offsets = np.cumsum([0] + [int(x.shape[0]) for x in xs])
+    splits_k = [_splits_of(ctx, l, dev)[0] for l in lods]
+    lengths_k = [sp[1:] - sp[:-1] for sp in splits_k]
+    out_lengths = sum(lengths_k)
+    out_splits = torch.cat([out_lengths.new_zeros(1), out_lengths.cumsum(0)])
+    r = torch.arange(n_out, device=dev)
+    seg = torch.searchsorted(out_splits[1:].contiguous(), r, right=True)
+    segc = seg.clamp(0, num - 1)
+    pos = r - out_splits[segc]
+    src = torch.zeros_like(r)
+    found = torch.zeros_like(r, dtype=torch.bool)
+    acc = torch.zeros_like(r)
+    for k in range(len(xs)):
+        lk = lengths_k[k][segc]
+        in_k = (pos >= acc) & (pos < acc + lk)
+        src_k = int(offsets[k]) + splits_k[k][segc] + (pos - acc)
+        src = torch.where(in_k & ~found, src_k, src)
+        found = found | in_k
+        acc = acc + lk
+    gathered = allx.index_select(0, src.clamp(0, n_out - 1))
+    # each input's length bound: a bucketed one's bucket, a static one's
+    # longest sequence (the bound of a loop downstream)
+    cap = sum(_splits_of(ctx, l, dev)[2] for l in lods)
+    _dyn_out(ctx, "Out", _zeros_where_not(r < out_splits[-1], gathered),
+             out_splits, num, cap)
+
+
 @register_op("sequence_concat", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_concat_lower(ctx):
     xs = ctx.inputs("X")
     lods = [ctx.var_lod(n) for n in ctx.op.input("X")]
     allx = torch.cat(xs, dim=0)
     if any(l is None for l in lods):
         ctx.set_output("Out", allx)
+        return
+    if any(is_dyn(l) for l in lods):
+        _dyn_concat(ctx, xs, lods, allx)
         return
     rows = tuple(int(x.shape[0]) for x in xs)
     order, out_lod = _index_and_lod(
@@ -278,11 +428,19 @@ def _infer_seq_reshape(op, block):
 
 
 @register_op("sequence_reshape", infer_shape=_infer_seq_reshape,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_reshape_lower(ctx):
     x = ctx.input("X")
     lod = _require_lod(ctx)
     new_dim = ctx.attr("new_dim")
+    if is_dyn(lod):
+        # the splits scale by the static ratio; padding rows stay last
+        num, den = x.shape[1], new_dim
+        splits = torch.div(lod.splits(ctx.env).long() * num, den,
+                           rounding_mode="floor")
+        _dyn_out(ctx, "Out", x.reshape(-1, new_dim), splits, lod.num_seqs,
+                 lod.maxlen_bucket * num // den)
+        return
     ratio = x.shape[1] / new_dim
     ctx.set_output("Out", x.reshape(-1, new_dim))
     ctx.set_output_lod("Out", [[int(s * ratio) for s in lod[0]]])
@@ -299,12 +457,37 @@ def _host(t):
     return np.asarray(t.tolist())
 
 
+def _traced_static(ctx, lod):
+    """A static LoD in a block the JAX package traces: a host op's
+    bucketed branch runs over it as constant splits."""
+    if not is_dyn(lod) and ctx.aux.get("traced"):
+        return _ConstSplits(ctx, lod[len(lod) - 1], ctx.device)
+    return lod
+
+
 @register_op("sequence_slice", infer_shape=_infer_ragged,
              no_gradient=True, host=True,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_slice_lower(ctx):
     x = ctx.input("X")
-    lod = _require_lod(ctx)
+    lod = _traced_static(ctx, _require_lod(ctx))
+    if is_dyn(lod):
+        # the output stays padded to the input's rows; the rows move by
+        # a gather built from the splits, Offset and Length
+        offset = ctx.input("Offset").reshape(-1).long()
+        length = ctx.input("Length").reshape(-1).long()
+        splits = lod.splits(ctx.env).long()
+        n = x.shape[0]
+        out_splits = torch.cat([length.new_zeros(1), length.cumsum(0)])
+        r = torch.arange(n, device=x.device)
+        seg = torch.searchsorted(out_splits[1:].contiguous(), r,
+                                 right=True)
+        segc = seg.clamp(0, lod.num_seqs - 1)
+        src = splits[segc] + offset[segc] + (r - out_splits[segc])
+        gathered = x.index_select(0, src.clamp(0, n - 1))
+        _dyn_out(ctx, "Out", _zeros_where_not(r < out_splits[-1], gathered),
+                 out_splits, lod.num_seqs, lod.maxlen_bucket)
+        return
     offset = _host(ctx.input("Offset")).reshape(-1)
     length = _host(ctx.input("Length")).reshape(-1)
     splits = np.asarray(lod[0], np.int64)
@@ -320,13 +503,31 @@ def sequence_slice_lower(ctx):
 
 @register_op("sequence_erase", infer_shape=_infer_ragged,
              no_gradient=True, host=True,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_erase_lower(ctx):
     """Remove the ``tokens`` ids from each sequence (the output's rows
-    depend on X's values: read on the host)."""
+    depend on X's values: read on the host; bucketed, the kept rows move
+    forward by a stable sort and the padded row count stays)."""
     x = ctx.input("X")
     tokens = set(ctx.attr("tokens", []))
-    lod = _require_lod(ctx)
+    lod = _traced_static(ctx, _require_lod(ctx))
+    if is_dyn(lod):
+        n = x.shape[0]
+        st = dyn_segment_tables(ctx.aux, lod, ctx.env, n)
+        vals = x.reshape(n, -1)[:, 0]
+        keep = st.valid
+        for t in sorted(tokens):
+            keep = keep & (vals != t)
+        # kept rows first in their order; dropped and padding rows last
+        order = torch.sort((~keep).int(), stable=True).indices
+        kept = keep.sum()
+        gathered = x.index_select(0, order)
+        per_seq = segment_sum(keep.long(), st.seg, st.num)
+        out_splits = torch.cat([per_seq.new_zeros(1), per_seq.cumsum(0)])
+        _dyn_out(ctx, "Out", _zeros_where_not(
+            torch.arange(n, device=x.device) < kept, gathered),
+            out_splits, st.num, lod.maxlen_bucket)
+        return
     vals = _host(x).reshape(-1)
     splits = np.asarray(lod[0], np.int64)
     keep, new_splits = [], [0]
@@ -342,9 +543,32 @@ def sequence_erase_lower(ctx):
 
 
 @register_op("lod_reset", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def lod_reset_lower(ctx):
     x = ctx.input("X")
+    x_lod = ctx.var_lod(ctx.op.input("X")[0])
+    y_lod = ctx.input_lod("Y") if ctx.op.input("Y") else None
+    if is_dyn(x_lod) or is_dyn(y_lod):
+        # bucketed: the rows stay, only the splits move
+        ctx.set_output("Out", x)
+        if is_dyn(y_lod):
+            ctx.set_output_lod("Out", y_lod)    # Y's splits, shared
+            return
+        target = ctx.attr("target_lod", None)
+        if y_lod is not None:                  # Y carries a static LoD
+            splits = _const_splits(ctx, y_lod[0], x.device)
+        elif ctx.op.input("Y"):                # Y holds the splits
+            splits = ctx.input("Y").reshape(-1)
+        elif target is not None:
+            splits = _const_splits(ctx, target, x.device)
+        else:
+            raise ValueError("lod_reset needs target_lod or Y")
+        name = ctx.op.output("Out")[0] + SPLITS_SUFFIX
+        ctx.outputs[name] = splits.to(torch.int32)
+        ctx.set_output_lod("Out", DynLoD(
+            name, splits.shape[0] - 1,
+            x_lod.maxlen_bucket if is_dyn(x_lod) else x.shape[0]))
+        return
     target = ctx.attr("target_lod", None)
     if ctx.op.input("Y"):
         y_lod = ctx.input_lod("Y")
@@ -368,19 +592,39 @@ def _window_index(lod, n, ctx_len, ctx_start):
     return np.where((src >= lo) & (src < hi), src, n)
 
 
+def _dyn_window_index(splits, num, n, ctx_len, ctx_start):
+    """:func:`_window_index` from a bucketed LoD's splits: a window slot
+    is live where its row lies in the same (real) sequence."""
+    dev = splits.device
+    rows = torch.arange(n, device=dev)
+    seg = torch.searchsorted(splits[1:].contiguous(), rows, right=True)
+    seg = torch.where(rows < splits[-1], seg, num)
+    src = rows[:, None] + ctx_start + torch.arange(ctx_len, device=dev)
+    src_c = src.clamp(0, n - 1)
+    live = (src >= 0) & (src < n) & (seg[src_c] == seg[:, None]) & \
+        (seg[:, None] < num)
+    return torch.where(live, src_c, n)
+
+
 def _context_windows(ctx, x, lod, ctx_len, ctx_start):
     """``[N, ctx_len * D]``: the window around each row, zeros past its
     sequence's ends (reference ``operators/math/context_project.h``)."""
     n = x.shape[0]
-    gather = _index(ctx, "window", lod, x.device,
-                    lambda: _window_index(lod, n, ctx_len, ctx_start),
-                    ctx_len, ctx_start)
+    if is_dyn(lod):
+        gather = dyn_tables(
+            ctx.aux, "window", lod, ctx.env,
+            lambda sp: _dyn_window_index(sp, lod.num_seqs, n, ctx_len,
+                                         ctx_start), n, ctx_len, ctx_start)
+    else:
+        gather = _index(ctx, "window", lod, x.device,
+                        lambda: _window_index(lod, n, ctx_len, ctx_start),
+                        ctx_len, ctx_start)
     padded = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
     return padded[gather].reshape(n, -1)
 
 
 @register_op("sequence_conv", infer_shape=_infer_seq_conv,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_conv_lower(ctx):
     """Each row's ``[contextLength, D]`` window, flattened, times the
     filter ``[contextLength * D, F]`` (no trainable boundary padding:
@@ -391,7 +635,7 @@ def sequence_conv_lower(ctx):
     ctx_start = ctx.attr("contextStart", -((ctx_len - 1) // 2))
     flat = _context_windows(ctx, x, lod, ctx_len, ctx_start)
     ctx.set_output("Out", flat @ ctx.input("Filter"))
-    ctx.set_output_lod("Out", _copy(lod))
+    ctx.set_output_lod("Out", lod if is_dyn(lod) else _copy(lod))
 
 
 def _infer_seq_context(op, block):
@@ -405,7 +649,7 @@ def _infer_seq_context(op, block):
 
 
 @register_op("sequence_context", infer_shape=_infer_seq_context,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_context_lower(ctx):
     """The context windows without weights (the legacy DSL's
     ``context_projection``)."""
@@ -414,23 +658,31 @@ def sequence_context_lower(ctx):
     ctx_len = ctx.attr("contextLength")
     ctx_start = ctx.attr("contextStart", -((ctx_len - 1) // 2))
     ctx.set_output("Out", _context_windows(ctx, x, lod, ctx_len, ctx_start))
-    ctx.set_output_lod("Out", _copy(lod))
+    ctx.set_output_lod("Out", lod if is_dyn(lod) else _copy(lod))
+
+
+def _step_tables(ctx, x, lod=None):
+    """The segment tables of X's LoD: from the splits on the device for
+    a bucketed one (padding rows in segment B), else the host-made
+    ones."""
+    lod = _require_lod(ctx) if lod is None else lod
+    if is_dyn(lod):
+        return dyn_segment_tables(ctx.aux, lod, ctx.env, x.shape[0])
+    return segment_tables(ctx.aux, lod, x.device)
 
 
 @register_op("sequence_first_step", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_first_step_lower(ctx):
     x = ctx.input("X")
-    ctx.set_output("Out", take_rows(x, *segment_tables(
-        ctx.aux, _require_lod(ctx), x.device).first))
+    ctx.set_output("Out", take_rows(x, *_step_tables(ctx, x).first))
 
 
 @register_op("sequence_last_step", infer_shape=_infer_ragged,
-             eager_only=True)
+             eager_only=True, eager_dyn_ok=True)
 def sequence_last_step_lower(ctx):
     x = ctx.input("X")
-    ctx.set_output("Out", take_rows(x, *segment_tables(
-        ctx.aux, _require_lod(ctx), x.device).last))
+    ctx.set_output("Out", take_rows(x, *_step_tables(ctx, x).last))
 
 
 # ---------------------------------------------------------------------------

@@ -411,10 +411,16 @@ def take_rows(x, idx):
     index still out of range gives a row of :func:`_fill_value`.  The
     index is clamped before the read, so nothing reads past the end (an
     out-of-range read is a device-side assert on the card) and no value
-    goes to the host; the grad of a filled row is dropped."""
+    goes to the host; the grad of a filled row is dropped.  The read is
+    ``F.embedding``'s, not ``index_select``'s: on the card its grad sums
+    a row's duplicate indices in a fixed order, where ``index_select``'s
+    is an atomic ``index_add`` (a dense embedding grad that moved from
+    one run to the next)."""
     n = x.shape[0]
     idx, valid = _wrap_rows(idx.long(), n)
-    rows = x.index_select(0, idx.clamp(0, max(n - 1, 0)).reshape(-1))
+    rows = torch.nn.functional.embedding(
+        idx.clamp(0, max(n - 1, 0)).reshape(-1),
+        x.reshape(n, int(np.prod(x.shape[1:], dtype=np.int64))))
     rows = rows.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
     valid = valid.reshape(tuple(idx.shape) + (1,) * (x.ndim - 1))
     return torch.where(valid, rows, torch.full(

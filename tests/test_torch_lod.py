@@ -3,8 +3,8 @@ CPU: ``Scope.set_lod`` / ``find_lod``, ``(value, lod)`` feeds (checked
 against the value's rows), a dense feed clearing a stale LoD, the
 executor's row-count rule that passes an input's LoD to an output with
 as many rows (``_share_lod``, B == N included), ``reshape`` keeping the
-LoD when rows are kept, ``select_bucket_edges``, and the bucketed mode,
-which the port does not run and refuses.
+LoD when rows are kept, ``select_bucket_edges``, and the bucketed mode's
+switches and misuses (its runs: ``test_torch_lod_buckets.py``).
 
 Tolerance: float32 ``atol = rtol = 1e-5``."""
 
@@ -199,22 +199,58 @@ def test_select_bucket_edges_matches_the_reference(counts, max_edges):
         jax_lod.select_bucket_edges(counts, max_edges, cost)
 
 
-def test_bucketed_mode_raises(monkeypatch):
-    """The JAX package's bucketed LoD mode is not ported: a ragged feed to
-    a program that asks for it, and per-step LoD windows in
-    ``run_steps``, raise instead of quietly running the exact LoD."""
-    main, out = _pool_program(pt)
-    feed = {"x": (_f(6, 9, 2), LOD)}
+def test_bucketed_mode_runs_and_refuses_misuse(monkeypatch):
+    """The bucketed LoD mode runs under both switches (the program's
+    ``lod_buckets`` and ``PADDLE_TPU_LOD_BUCKETS``) as the JAX package
+    runs it, the scope holding the meta; its misuses raise the JAX
+    package's errors word for word, and an op without a dynamic branch
+    (``sequence_reverse``) raises DynLoD's recipe."""
+    x = _f(6, 9, 2)
+    feed = {"x": (x, LOD)}
+    want = [x[:3].sum(0), x[3:5].sum(0), x[5:].sum(0)]
+    for switch in ("program", "env"):
+        got = []
+        for pkg in (fluid, pt):
+            main, out = _pool_program(pkg)
+            if switch == "program":
+                main.lod_buckets = True
+            else:
+                monkeypatch.setenv("PADDLE_TPU_LOD_BUCKETS", "1")
+            scope = pkg.Scope()
+            got.append(_run(pkg, main, feed, [out], scope)[0])
+            assert scope.find_lod("x") == ("dyn", 3, 8)
+            monkeypatch.delenv("PADDLE_TPU_LOD_BUCKETS", raising=False)
+        np.testing.assert_allclose(got[1], got[0], atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(got[1], want, atol=TOL, rtol=TOL)
+
+    def errors(pkg, main, out, value, steps=2):
+        try:
+            pkg.Executor(pkg.CPUPlace()).run_steps(
+                main, feed={"x": value}, fetch_list=[out], steps=steps,
+                scope=pkg.Scope())
+        except ValueError as e:
+            return str(e)
+        raise AssertionError("no ValueError")
+
+    other = (_f(7, 4, 2), [[0, 4]])
+    cases = [(False, [feed["x"], feed["x"]], 2, "per-step LoD feeds"),
+             (True, [feed["x"], other], 2, "disagree on sequence count"),
+             (True, feed["x"], 2, "single LoD feed"),
+             (True, [feed["x"], feed["x"]], 3, "ragged batches for 3")]
+    for buckets, value, steps, what in cases:
+        texts = []
+        for pkg in (fluid, pt):
+            main, out = _pool_program(pkg)
+            main.lod_buckets = buckets
+            texts.append(errors(pkg, main, out, value, steps))
+        assert texts[1] == texts[0] and what in texts[1], texts
+
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        xv = pt.layers.data("x", shape=[-1, 2], append_batch_size=False,
+                            lod_level=1)
+        out = pt.layers.sequence_reverse(xv)
     main.lod_buckets = True
-    with pytest.raises(NotImplementedError, match="Bucketed LoD"):
+    with pytest.raises(NotImplementedError,
+                       match="does not support bucketed dynamic LoD"):
         _run(pt, main, feed, [out])
-    main.lod_buckets = None
-    monkeypatch.setenv("PADDLE_TPU_LOD_BUCKETS", "1")
-    with pytest.raises(NotImplementedError, match="Bucketed LoD"):
-        _run(pt, main, feed, [out])
-    monkeypatch.delenv("PADDLE_TPU_LOD_BUCKETS")
-    exe = pt.Executor(pt.CPUPlace())
-    for value in (feed["x"], [feed["x"], feed["x"]]):
-        with pytest.raises(NotImplementedError, match="Bucketed LoD"):
-            exe.run_steps(main, feed={"x": value}, fetch_list=[out],
-                          steps=2, scope=pt.Scope())
