@@ -125,11 +125,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``Executor.run`` on ``cuda:0``, ten steps on one seeded batch whose
    ids follow a power law: loss finite and falling, no hand-written
    kernel launched, both tables' grads SelectedRows of B * 26 slots
-   (never a dense ``[vocab, dim]`` tensor), and a steady step's peak
-   allocation above the state under the deep table's 1 GiB.  Printed
-   beside them: step time, examples/s, peak memory, unique rows, the
-   same ids at a table of 2**20 rows and the dense route
-   (``is_sparse=False``).  One float32 step at 65536 rows on the card
+   (never a dense ``[vocab, dim]`` tensor; their dead slots kept, the
+   static slot count), the step a CUDA graph, and a steady step's peak
+   allocation above the state under the deep table's 1 GiB; the same
+   ten steps eagerly (``_opt_interpret``) from the same state: the
+   losses and every parameter equal, or within ``WD_GRAPH_ATOL``.
+   Printed beside them: step time graphed and eager, examples/s, peak
+   memory, unique rows, the same ids at a table of 2**20 rows and the
+   dense route (``is_sparse=False``).  One float32 step at 65536 rows on the card
    and on the CPU from one scope: the loss, every parameter's Adam
    moments (both tables' too) and every parameter element agree
    (``phase_card_vs_cpu_wide_deep``).
@@ -169,25 +172,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens, float32, ``Adam(1e-3)``): ``seq_to_seq_net``,
    ``Adam.minimize`` and ``Executor.run`` on ``cuda:0``; the decoder is
    one ``while`` over a sub-block (tensor arrays, a rank table) and its
-   grad one ``while_grad``.  2 warm-up and 8 timed steps on one batch
+   grad one ``while_grad``: T masked trips each (T the longest target),
+   nothing read on the host.  2 warm-up and 8 timed steps on one batch
    (loss finite, lower after them than at the first step), then 4 steps
-   each on a new batch and LoD; no hand-written kernel launched.
+   each on a new batch and LoD; no hand-written kernel launched; the
+   block stays eager (the static LoD's tables).
    Printed: ms a step, target tokens/s, the ``while`` trips and device
    reads a step, the peak above the state.  One float32 Adam step at
    width 32 (dictionaries of 100, 4 pairs) on the card and on the CPU
    from one scope: the loss to relative 1e-5, every parameter within
    what Adam's first step allows (``phase_card_vs_cpu_seq2seq``).  Then
    Seq2Seq-NMT-512 in the bucketed LoD mode (``phase_seq2seq_buckets``):
-   2 windows of 8 fresh batches through ``run_steps`` against per-batch
-   bucketed ``run``s from one state (losses within
-   ``BUCKET_LOSS_RTOL``, finite, the last window's mean lower, misses
-   bounded by the bucket pairs, eager: its ``while`` reads the host);
-   printed: ms a batch, target tokens/s, trips and host reads.  Then
-   the beam decode of ``tests/test_beam_search.py``'s ``_build_decode``
-   (transcribed here with ``pt.layers``) at dictionary 30000, embedding
-   and hidden 512, 16 sources, beam 4, 50 steps: well-formed
-   hypotheses, ms a decode; and at the test's width on the card and on
-   the CPU: the same sentences and scores (``phase_beam_decode``).
+   2 windows of 8 fresh batches, each one ``run_steps``, and the first
+   again, from one state as CUDA graphs (the ``while`` a bounded loop of
+   T_bucket masked trips, the arrays device buffers) and eagerly
+   (``_opt_interpret``): the losses equal or within ``BUCKET_LOSS_RTOL``
+   (the sequence ops' segment sums add by float atomics), finite, the
+   repeated window's mean lower, no host read, ``while`` trips twice the
+   target length bucket, misses and graphs bounded by the bucket pairs;
+   the first window's batches once more as per-batch bucketed ``run``s
+   (each in its own buckets), their losses within ``BUCKET_LOSS_RTOL``
+   of the windows'; printed: ms a batch both ways, target tokens/s,
+   capture seconds, graph nodes, peak GiB.  Then the beam decode of
+   ``tests/test_beam_search.py``'s ``_build_decode`` (transcribed here
+   with ``pt.layers``) at dictionary 30000, embedding and hidden 512, 16
+   sources, beam 4, 50 steps: with a static LoD (eager), and fed
+   bucketed as a CUDA graph and eagerly: well-formed hypotheses, the
+   same sentences and scores graphed and eager, ms a decode each way;
+   and at the test's width the CPU's static decode against the card's
+   static, bucketed graphed and bucketed eager decodes: the same
+   sentences and scores (``phase_beam_decode``).
 10. Static analysis and the executor's switches.  Route A of phase 4
    from one startup state, unoptimized and under ``PADDLE_TPU_OPT=1
    PADDLE_TPU_VERIFY=1`` (the verify-sandwiched pass pipeline of
@@ -2213,6 +2227,10 @@ def phase_card_vs_cpu_resnet50():
 WD_LR = 1e-3
 WD_STEPS = 10
 WD_COMPARE_STEPS = 4
+#: graphed against eager W&D steps from one state: the largest parameter
+#: difference allowed after ``WD_STEPS`` steps where they are not equal
+#: (an Adam step moves a parameter by about the learning rate, 1e-3)
+WD_GRAPH_ATOL = 1e-6
 #: the card-vs-CPU step: the same layout and batch at a vocab the CPU
 #: takes in a second
 WD_CARD_CPU_VOCAB = 65536
@@ -2323,13 +2341,20 @@ def phase_wide_deep():
     grads SelectedRows of B * slots slots at height vocab (never a dense
     ``[vocab, dim]`` tensor), and a steady step's peak allocation above
     the state under the deep table's bytes (a densified grad or an
-    out-of-place table or moment update would each exceed it).  Printed:
-    steady step ms, examples/s, peak memory, unique rows a step, the
-    same ids' sparse step at a table of 2**20 rows and the dense route
-    (``is_sparse=False``) at 2**23 for comparison."""
+    out-of-place table or moment update would each exceed it).  Every
+    route's step is a CUDA graph (the SelectedRows keep their static
+    slot count); the sparse route's ``WD_STEPS`` steps run again eagerly
+    (a clone with ``_opt_interpret``) from the same startup state: the
+    losses and every persistable equal, or within ``WD_GRAPH_ATOL``.
+    Printed: steady step ms graphed and eager, examples/s, peak memory,
+    unique rows a step, the same ids' sparse step at a table of 2**20
+    rows and the dense route (``is_sparse=False``) at 2**23 for
+    comparison."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
+    from paddle_tpu_torch.convert import persistable_names
     from paddle_tpu_torch.kernels import ALL_KERNELS
     from paddle_tpu_torch.models import wide_and_deep as W
     from paddle_tpu_torch.selected_rows import SelectedRows
@@ -2356,18 +2381,19 @@ def phase_wide_deep():
         exe.run(startup, scope=scope)
         torch.cuda.synchronize()
         state_gib = torch.cuda.memory_allocated() / 2 ** 30
+        scope0 = _scope_copy(pt, scope) if name == "sparse" else None
         losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
                                           steps)
         _no_launches(f"wide_deep[{name}]")
-        # SelectedRows grads keep the sparse routes eager; the dense
-        # route runs as a CUDA graph
-        if exe._last_compiled.interpret != sparse:
-            raise AssertionError(f"wide_deep[{name}]: capture rule gave "
-                                 f"interpret={exe._last_compiled.interpret}")
+        # every route runs as a CUDA graph: the SelectedRows keep their
+        # static slot count and nothing is read on the host
+        if exe._last_compiled.interpret:
+            raise AssertionError(f"wide_deep[{name}]: the capture rule kept "
+                                 f"the step eager")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"wide_deep[{name}]: losses {losses} not "
                                  f"finite and falling")
-        steady = _steady(step_s, not sparse)
+        steady = _steady(step_s, True)
         peak = max(peaks[1:])
         out[name] = dict(step_ms=1e3 * steady,
                          examples_per_s=B / steady,
@@ -2385,6 +2411,11 @@ def phase_wide_deep():
                 raise AssertionError(
                     f"wide_deep: a steady step allocates {peak} bytes above "
                     f"the state, not under the deep table's {table_bytes}")
+            # before _wd_table_grads, which takes one more step
+            out["eager"] = _wd_graph_vs_eager(
+                pt, main, cost, scope, scope0, feed, losses, steady,
+                clone_program, persistable_names)
+            del scope0
             grads, dense = _wd_table_grads(pt, main, scope, feed,
                                            exe.device)
             for table, g in grads.items():
@@ -2407,12 +2438,54 @@ def phase_wide_deep():
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
         del main, startup, scope
         torch.cuda.empty_cache()
-    _graphs("wide_deep", exe, None)
+    _graphs("wide_deep", exe, True)
     del exe
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = phase_card_vs_cpu_wide_deep()
     _no_launches("wide_deep[card-vs-cpu]")
     return out
+
+
+def _wd_graph_vs_eager(pt, main, cost, scope, scope0, feed, losses, steady,
+                       clone_program, persistable_names):
+    """The sparse W&D-Criteo route's ``WD_STEPS`` steps again, eagerly (a
+    clone of ``main`` with ``_opt_interpret``), from ``scope0``, the
+    startup state the graphed run in ``scope`` began from: the losses and
+    every persistable equal, or within ``WD_GRAPH_ATOL``.  Returns the
+    eager steady ms, whether all is bit-identical and the largest
+    difference."""
+    import numpy as np
+    import torch
+    eager = clone_program(main)
+    eager._opt_interpret = True
+    exe = pt.Executor()
+    e_losses, e_step_s, _ = _timed_steps(exe, eager, cost, scope0, feed,
+                                         len(losses))
+    if not exe._last_compiled.interpret or exe.graph_stats():
+        raise AssertionError("wide_deep[eager]: the clone ran as a graph")
+    worst, worst_name, identical = 0.0, None, e_losses == losses
+    for n in sorted(persistable_names(main)):
+        a, b = scope.find_var(n), scope0.find_var(n)
+        if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+            continue
+        identical = identical and bool(torch.equal(a, b))
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        if d > worst:
+            worst, worst_name = d, n
+    loss_d = max(abs(x - y) for x, y in zip(losses, e_losses))
+    e_steady = _steady(e_step_s, False)
+    log(f"wide_deep[graph vs eager]: {len(losses)} steps from one state: "
+        f"bit-identical {identical}; losses graphed {losses} eager "
+        f"{e_losses} (max |d| {loss_d:.3e}); largest persistable "
+        f"|graph - eager| {worst:.3e} ({worst_name}, bound "
+        f"{WD_GRAPH_ATOL}); steady step ms graphed {1e3 * steady:.3f} vs "
+        f"eager {1e3 * e_steady:.3f}")
+    if not identical and (worst > WD_GRAPH_ATOL or loss_d > WD_GRAPH_ATOL):
+        raise AssertionError(f"wide_deep: graphed and eager steps part by "
+                             f"{worst} ({worst_name}), losses by {loss_d}")
+    del exe, eager
+    return dict(step_ms=1e3 * e_steady, bit_identical=identical,
+                max_abs_diff=worst, losses=e_losses)
 
 
 def _adam_first_step_errors(tag, adam, card_scope, cpu_scope, lr):
@@ -3054,10 +3127,11 @@ def phase_seq2seq():
     Printed: the timed steps' ms (host clock, each ending in the loss's
     copy), target tokens/s (the batch's target rows over the step time,
     ``bench_seq2seq.py``'s unit), the ``while`` trips a step (the
-    forward's and ``while_grad``'s re-run), the device reads a step
-    (each loop condition and array index, a sync each, and the loss's
-    copy), the peak allocation above the state, the ragged steps' ms;
-    then the card-vs-CPU step (``phase_card_vs_cpu_seq2seq``)."""
+    forward's and ``while_grad``'s re-run, each T masked trips for the
+    longest target T), the device reads a step (no loop condition or
+    array index: the fault word and the loss's copy), the peak
+    allocation above the state, the ragged steps' ms; then the
+    card-vs-CPU step (``phase_card_vs_cpu_seq2seq``)."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
@@ -3081,14 +3155,13 @@ def phase_seq2seq():
     losses, step_s, peaks = _timed_steps(exe, main, cost, scope, feed,
                                          S2S_WARMUP + S2S_STEPS)
     loop = dict(exe.last_run)
-    _graphs("seq2seq", exe, False)    # host reads, LoD tables: eager
+    _graphs("seq2seq", exe, False)    # the static LoD's tables: eager
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"seq2seq: losses {losses} not finite and "
                              f"lower at the end")
-    # T trips and T in while_grad's re-run, 5 host reads a trip (2 array
-    # reads, 2 writes, the condition), each loop's last condition, the
-    # boot memory's write and its grad
-    if loop != {"while_trips": 2 * T, "host_reads": 10 * T + 4}:
+    # T masked trips (the step array holds T) and T in while_grad's
+    # re-run; the conditions and indices stay on the device
+    if loop != {"while_trips": 2 * T, "host_reads": 0}:
         raise AssertionError(f"seq2seq: {loop} for {T} target steps")
     timed = step_s[S2S_WARMUP:]
     steady = float(np.mean(timed))
@@ -3105,7 +3178,7 @@ def phase_seq2seq():
     if not all(np.isfinite(ragged_losses)):
         raise AssertionError(f"seq2seq: ragged losses {ragged_losses}")
     _no_launches("seq2seq")
-    reads = loop["host_reads"] + 1          # and the loss's copy
+    reads = loop["host_reads"] + 2   # the fault word and the loss's copy
     peak_above = max(peaks[S2S_WARMUP:]) / 2 ** 30
     log(f"seq2seq[Seq2Seq-NMT-512]: dict {cfg['src_dict_size']} emb/enc/dec "
         f"{cfg['emb_dim']} B={cfg['batch']} lengths 2..{cfg['trg_max']} "
@@ -3114,7 +3187,8 @@ def phase_seq2seq():
         f"{[round(1e3 * x, 3) for x in step_s]}; timed {1e3 * steady:.3f} ms "
         f"= {tokens / steady:.1f} target tokens/s; while trips a step "
         f"{loop['while_trips']}; device reads a step {reads} "
-        f"({loop['host_reads']} loop conditions and array indices); state "
+        f"(the fault word, the loss; {loop['host_reads']} loop conditions "
+        f"and array indices); state "
         f"{state_gib:.3f} GiB, a step's peak above it "
         f"{[round(x / 2 ** 30, 4) for x in peaks]} GiB")
     log(f"seq2seq: {S2S_RAGGED_STEPS} ragged steps, each a new LoD: losses "
@@ -3197,93 +3271,145 @@ def phase_seq2seq_buckets():
     """Seq2Seq-NMT-512 in the bucketed LoD mode: ``S2S_WINDOWS`` windows
     of ``S2S_WINDOW`` fresh batches (``bench_seq2seq.py``'s path), each
     one ``run_steps`` (the three LoD feeds padded to the window's
-    buckets), against per-batch bucketed ``run``s of the same batches
-    from the same state: the losses within ``BUCKET_LOSS_RTOL`` (the
-    embedding grads' atomic adds), every loss finite, the last window's
-    mean below the first's, the step cache missed no more often than
-    the windows reach distinct bucket pairs, no CUDA graph (the
-    ``while`` reads its condition on the host) and no hand-written
-    kernel.  Printed: ms a batch both ways on the last window's batches
-    (the first window pays the model's first steps in the process),
-    target tokens/s, the ``while`` trips and host reads of the last
-    step."""
+    buckets), then the first window again, from one startup state
+    twice: the default path, where each
+    bucket pair's step is a CUDA graph (its ``while`` a bounded loop of
+    T_bucket masked trips, its tensor arrays device buffers; the first
+    step eager, the second captured, then replays), and the eager step (a
+    clone with ``_opt_interpret``).  The graphed losses equal the eager
+    ones step by step or lie within ``BUCKET_LOSS_RTOL`` (the sequence
+    ops' segment sums, ``lod.segment_sum``, add rows by float atomics),
+    every loss finite, the repeated window's mean below its first
+    pass's; no host read; the last step's ``while`` trips twice the
+    repeated window's target length bucket (the loop and its grad's
+    re-run); the step cache missed and the graphs number no more than
+    the bucket pairs; the first window's batches once more as per-batch
+    bucketed ``run``s of the eager step (each batch in its own buckets)
+    from the same state, their losses within ``BUCKET_LOSS_RTOL`` of the
+    window's; no hand-written kernel.  Printed: ms a batch both
+    ways over the repeated window (graphed: replays only; a fresh
+    bucket pair's window also pays an eager step and the capture),
+    target tokens/s, capture seconds, graph nodes, peak allocated
+    GiB."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
+    from paddle_tpu_torch.kernels import ALL_KERNELS
     from paddle_tpu_torch.models import seq2seq as S
-    from paddle_tpu_torch.profiler import runtime_metrics
 
     cfg = S.SEQ2SEQ_NMT_512
     main, startup, cost = _s2s_program(pt, cfg)
     main.lod_buckets = True
+    eager = clone_program(main)
+    eager.lod_buckets = True
+    eager._opt_interpret = True
     scope0 = pt.Scope()
     pt.Executor().run(startup, scope=scope0)
     batches = [[_s2s_batch(cfg, SEED + 50 * w + i)
                 for i in range(S2S_WINDOW)] for w in range(S2S_WINDOWS)]
+    batches.append(batches[0])
     windows = [({k: [b[k] for b in w]
                  for k in ("src_word", "trg_word", "label")}, w)
                for w in batches]
     pairs = {(_bucket_pairs(w, "src_word"), _bucket_pairs(w, "trg_word"))
              for w in batches}
-    exe_w, window_losses, window_s, misses = _window_run(
-        pt, main, cost, _scope_copy(pt, scope0), windows)
-    loop = dict(exe_w.last_run)
-    _graphs("seq2seq_buckets_window", exe_w, False)
-    if misses > len(pairs):
-        raise AssertionError(f"seq2seq_buckets: {misses} cache misses for "
-                             f"the bucket pairs {sorted(pairs)}")
-    exe_r = pt.Executor()
+    t_bucket = _bucket_pairs(batches[-1], "trg_word")[1]
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    runs = {}
+    for mode, program in (("graph", main), ("eager", eager)):
+        scope = _scope_copy(pt, scope0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        exe, losses, window_s, misses = _window_run(pt, program, cost,
+                                                    scope, windows)
+        stats = exe.graph_stats()
+        runs[mode] = dict(
+            losses=losses, misses=misses, graphs=len(stats),
+            ms_per_batch=1e3 * window_s[-1] / S2S_WINDOW,
+            first_window_s=window_s[0],
+            peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            capture_s=sum(g["seconds"] for g in stats),
+            nodes=[g["nodes"] for g in stats], loop=dict(exe.last_run))
+        _graphs(f"seq2seq_buckets_{mode}", exe, mode == "graph")
+        if misses > len(pairs) or len(stats) > len(pairs):
+            raise AssertionError(
+                f"seq2seq_buckets[{mode}]: {misses} cache misses and "
+                f"{len(stats)} graphs for the bucket pairs {sorted(pairs)}")
+        if runs[mode]["loop"] != {"while_trips": 2 * t_bucket,
+                                  "host_reads": 0}:
+            raise AssertionError(
+                f"seq2seq_buckets[{mode}]: {runs[mode]['loop']} for the "
+                f"target length bucket {t_bucket}")
+        del exe, scope
+    # the first window's batches as per-batch bucketed runs (each in its
+    # own buckets), eager, from the same state: a fault in the slicing
+    # of the ragged windows that the graphed and eager windows share
+    exe = pt.Executor()
     scope = _scope_copy(pt, scope0)
-    run_losses, run_s = [], []
-    misses0 = runtime_metrics.counter("jit_cache.misses")
-    for w in batches:
-        for b in w:
-            t = time.perf_counter()
-            (loss,) = exe_r.run(main, feed=b, fetch_list=[cost],
-                                scope=scope)
-            run_s.append(time.perf_counter() - t)
-            run_losses.append(np.float32(np.asarray(loss).reshape(())))
-    run_misses = runtime_metrics.counter("jit_cache.misses") - misses0
-    _graphs("seq2seq_buckets_runs", exe_r, False)
+    run_losses = []
+    for b in batches[0]:
+        (loss,) = exe.run(eager, feed=b, fetch_list=[cost], scope=scope)
+        run_losses.append(np.float32(np.asarray(loss).reshape(())))
+    _graphs("seq2seq_buckets_runs", exe, False)
+    del exe, scope
     _no_launches("seq2seq_buckets")
-    rel = max(_loss_rel(run_losses, window_losses))
-    identical = run_losses == window_losses
+    graph, base = runs["graph"], runs["eager"]
+    run_rel = max(_loss_rel(run_losses, base["losses"][:S2S_WINDOW]))
+    if run_rel > BUCKET_LOSS_RTOL:
+        raise AssertionError(f"seq2seq_buckets: per-batch runs "
+                             f"{run_losses} against the first window "
+                             f"{base['losses'][:S2S_WINDOW]} (rel "
+                             f"{run_rel}, bound {BUCKET_LOSS_RTOL})")
+    identical = graph["losses"] == base["losses"]
+    rel = max(_loss_rel(base["losses"], graph["losses"]))
     if rel > BUCKET_LOSS_RTOL:
-        raise AssertionError(f"seq2seq_buckets: window losses "
-                             f"{window_losses} against per-batch runs "
-                             f"{run_losses}")
-    first = float(np.mean(window_losses[:S2S_WINDOW]))
-    last = float(np.mean(window_losses[-S2S_WINDOW:]))
-    if not all(np.isfinite(window_losses)) or not last < first:
-        raise AssertionError(f"seq2seq_buckets: losses {window_losses}")
-    trg_last = batches[-1][-1]["trg_word"][1][0]
-    T = int(np.diff(trg_last).max())
-    if loop["while_trips"] != 2 * T:
-        raise AssertionError(f"seq2seq_buckets: {loop} for {T} target "
-                             f"steps")
-    # timed on the last window's batches: the first window also pays the
-    # process's first steps of this model
-    window_ms = 1e3 * window_s[-1] / S2S_WINDOW
-    run_ms = 1e3 * float(np.mean(run_s[-S2S_WINDOW:]))
+        raise AssertionError(f"seq2seq_buckets: graphed losses "
+                             f"{graph['losses']} against eager "
+                             f"{base['losses']} (rel {rel}, bound "
+                             f"{BUCKET_LOSS_RTOL})")
+    losses = graph["losses"]
+    first = float(np.mean(losses[:S2S_WINDOW]))
+    again = float(np.mean(losses[-S2S_WINDOW:]))
+    if not all(np.isfinite(losses)) or not again < first:
+        raise AssertionError(f"seq2seq_buckets: losses {losses}: the "
+                             f"repeated window's mean {again} against its "
+                             f"first pass's {first}")
     last_tokens = sum(int(b["trg_word"][0].shape[0]) for b in batches[-1])
-    log(f"seq2seq_buckets[Seq2Seq-NMT-512]: {S2S_WINDOWS} windows of "
-        f"{S2S_WINDOW} batches, buckets (src, trg) {sorted(pairs)}: window "
-        f"losses {[float(x) for x in window_losses]}; per-batch runs "
-        f"bit-identical: {identical} (rel max {rel:.3e}, bound "
-        f"{BUCKET_LOSS_RTOL}); cache misses {misses} windows / {run_misses} "
-        f"runs; the last window's batches: ms a batch {window_ms:.3f} in "
-        f"its window, {run_ms:.3f} per-batch runs = "
-        f"{last_tokens / (S2S_WINDOW * window_ms / 1e3):.1f} target "
-        f"tokens/s; last "
-        f"step: while trips {loop['while_trips']}, host reads "
-        f"{loop['host_reads']} (T {T})")
-    out = dict(window_ms_per_batch=window_ms, run_ms_per_batch=run_ms,
-               target_tokens_per_s=last_tokens / (S2S_WINDOW * window_ms /
-                                                  1e3),
-               while_trips=loop["while_trips"],
-               host_reads=loop["host_reads"], bit_identical=identical,
-               loss_rel_max=rel, misses=misses, buckets=sorted(pairs))
-    del exe_w, exe_r, scope, scope0
+    for r in runs.values():
+        r["target_tokens_per_s"] = last_tokens / (S2S_WINDOW *
+                                                  r["ms_per_batch"] / 1e3)
+    log(f"seq2seq_buckets[Seq2Seq-NMT-512]: {S2S_WINDOWS} + 1 windows of "
+        f"{S2S_WINDOW} batches (the last the first again), buckets (src, "
+        f"trg) {sorted(pairs)}: losses graphed {[float(x) for x in losses]};"
+        f" bit-identical to eager: {identical} (rel max {rel:.3e}, bound "
+        f"{BUCKET_LOSS_RTOL}); repeated window mean {again:.6f} against "
+        f"{first:.6f}; the first window's batches as per-batch runs: rel "
+        f"max {run_rel:.3e}; the repeated window: ms a batch graphed "
+        f"{graph['ms_per_batch']:.3f} vs eager {base['ms_per_batch']:.3f} "
+        f"= {graph['target_tokens_per_s']:.1f} vs "
+        f"{base['target_tokens_per_s']:.1f} target tokens/s (first window "
+        f"{graph['first_window_s']:.2f} / {base['first_window_s']:.2f} s); "
+        f"capture {graph['capture_s']:.3f} s, nodes {graph['nodes']}; cache "
+        f"misses {graph['misses']} / {base['misses']}; peak allocated "
+        f"{graph['peak_allocated_gib']:.3f} / "
+        f"{base['peak_allocated_gib']:.3f} GiB; last step: while trips "
+        f"{graph['loop']['while_trips']}, host reads "
+        f"{graph['loop']['host_reads']} (T_bucket {t_bucket})")
+    out = {"bit_identical": identical, "loss_rel_max": rel,
+           "runs_loss_rel_max": run_rel,
+           "buckets": sorted(pairs), "t_bucket": t_bucket,
+           "losses": [float(x) for x in losses]}
+    for mode in ("graph", "eager"):
+        r = runs[mode]
+        out[mode] = {k: r[k] for k in (
+            "ms_per_batch", "target_tokens_per_s", "first_window_s",
+            "peak_allocated_gib", "capture_s", "nodes", "misses", "graphs",
+            "loop")}
+    del runs, scope0
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3411,45 +3537,104 @@ def _check_hypotheses(ids, scores, cfg, what):
     return int(ended[:, :, -1].sum())
 
 
+def _decode_runs(pt, main, sent, scores, feed, scope_state, runs):
+    """The decode ``runs`` times on a fresh card executor from
+    ``scope_state`` (a scope, or numpy arrays for one): the last run's
+    ``(ids, scores)``, each run's seconds (host clock; the fetch
+    synchronizes) and the executor."""
+    import torch
+    from paddle_tpu_torch.convert import scope_from_numpy
+    scope = scope_state if not isinstance(scope_state, dict) else \
+        scope_from_numpy(scope_state, None, main)
+    exe = pt.Executor()
+    seconds, got = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = exe.run(main, feed=feed, fetch_list=[sent, scores],
+                      scope=scope)
+        seconds.append(time.perf_counter() - t)
+    return got, seconds, exe
+
+
 def phase_beam_decode():
-    """The port's transcription of ``_build_decode`` (``build_decode``):
-    at ``DECODE_FULL`` from a startup-initialised scope on the card, the
-    hypotheses well formed and the ms a decode; then at ``DECODE_TEST``
-    on the CPU and on the card from one scope (the output layer's
-    weights scaled until the CPU's least gap between the k-th and
-    (k+1)-th candidate exceeds ``DECODE_MARGIN`` at every step): the
-    same ``SentenceIds``, ``SentenceScores`` to relative 1e-5.  No
+    """The port's transcription of ``_build_decode`` (``build_decode``)
+    two ways: with a static LoD on its source (the GRU encoder copies its
+    tables from the host, so the decode stays eager), and with the source
+    fed bucketed (``lod_buckets``: the encoder builds its tables on the
+    device), so that the whole decode (50 unrolled steps of
+    ``beam_search``, the step arrays as device buffers and
+    ``beam_search_decode``'s gathers) is one CUDA graph.  At
+    ``DECODE_FULL`` from a startup-initialised scope on the card: 3
+    static decodes (eager, no graph), 4 bucketed decodes graphed (eager,
+    captured, two replays) and 3 bucketed eager (a clone with
+    ``_opt_interpret``): well-formed hypotheses every way, the same
+    sentences and scores bucketed graphed and eager, ms a decode each
+    way.  Then at ``DECODE_TEST`` from one scope (the output layer's
+    weights scaled until the CPU's static decode has a least gap between
+    the k-th and (k+1)-th candidate above ``DECODE_MARGIN`` at every
+    step), the static decode on the CPU against the card's static,
+    bucketed graphed and bucketed eager decodes: the same
+    ``SentenceIds``, ``SentenceScores`` to relative 1e-5.  No
     hand-written kernel launched."""
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
     from paddle_tpu_torch.convert import (persistable_names,
                                           scope_from_numpy, to_numpy)
     from paddle_tpu_torch.kernels import ALL_KERNELS
 
     for kern in ALL_KERNELS:
         kern.launches = 0
+
+    def programs(cfg):
+        main, startup, sent, scores = _decode_program(pt, cfg)
+        static = clone_program(main)
+        main.lod_buckets = True
+        eager = clone_program(main)
+        eager.lod_buckets = True
+        eager._opt_interpret = True
+        return {"static": static, "graph": main, "eager": eager}, \
+            startup, sent, scores
+
     cfg = DECODE_FULL
-    main, startup, sent, scores = _decode_program(pt, cfg)
-    exe, scope = pt.Executor(), pt.Scope()
-    exe.run(startup, scope=scope)
+    progs, startup, sent, scores = programs(cfg)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    state = {n: to_numpy(scope.find_var(n))
+             for n in persistable_names(progs["graph"])}
+    del scope
     src = _s2s_batch(dict(src_dict_size=cfg["dict_size"],
                           trg_dict_size=cfg["dict_size"],
                           batch=cfg["batch"], src_max=50, trg_max=2),
                      SEED)["src_word"]
-    decode_s = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ids, sc = exe.run(main, feed={"src": src}, fetch_list=[sent, scores],
-                          scope=scope)
-        decode_s.append(time.perf_counter() - t)
-    ended = _check_hypotheses(ids, sc, cfg, "beam_decode[full]")
-    ms = 1e3 * float(np.mean(decode_s[1:]))
-    del main, startup, scope
+    feed = {"src": src}
+    full = {}
+    for mode, runs in (("static", 3), ("graph", 4), ("eager", 3)):
+        (ids, sc), seconds, exe = _decode_runs(
+            pt, progs[mode], sent, scores, feed, state, runs)
+        _graphs(f"beam_decode_{mode}", exe, mode == "graph")
+        ended = _check_hypotheses(ids, sc, cfg, f"beam_decode[full {mode}]")
+        full[mode] = dict(ids=ids, scores=sc, seconds=seconds, ended=ended,
+                          stats=exe.graph_stats(),
+                          reads=exe.last_run["host_reads"])
+        del exe
+    graph, base = full["graph"], full["eager"]
+    if graph["reads"] or not np.array_equal(graph["ids"], base["ids"]) or \
+            not np.array_equal(graph["scores"], base["scores"]):
+        raise AssertionError(
+            f"beam_decode[full]: graphed sentences {graph['ids'][0]} scores "
+            f"{graph['scores'][0]} against eager {base['ids'][0]} "
+            f"{base['scores'][0]} ({graph['reads']} host reads)")
+    (stats,) = graph["stats"]
+    ms = {mode: 1e3 * float(np.mean(r["seconds"][-2:]))
+          for mode, r in full.items()}
+    static_same = bool(np.array_equal(full["static"]["ids"], graph["ids"]))
+    del progs, startup, state
 
     cfg = DECODE_TEST
-    main, startup, sent, scores = _decode_program(pt, cfg)
+    progs, startup, sent, scores = programs(cfg)
     cpu, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
     cpu.run(startup, scope=cpu_scope)
     rng = np.random.RandomState(SEED)
@@ -3457,15 +3642,17 @@ def phase_beam_decode():
         cfg["batch"] * DECODE_SRC_LEN, 1)).astype("int64"),
         [list(range(0, cfg["batch"] * DECODE_SRC_LEN + 1,
                     DECODE_SRC_LEN))])}
-    probs, searches = _decode_probes(main)
+    static = progs["static"]
+    probs, searches = _decode_probes(static)
     fetch = [sent.name, scores.name] + probs + sum(searches, [])
     n = len(probs)
     state = {v: to_numpy(cpu_scope.find_var(v))
-             for v in persistable_names(main)}
+             for v in persistable_names(static)}
     w0, factor = state["dec_out_w"], 1.0
     for factor in (1.0, 4.0, 8.0, 16.0, 32.0):
-        cpu_scope.set_var("dec_out_w", torch.as_tensor(w0 * np.float32(factor)))
-        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        cpu_scope.set_var("dec_out_w",
+                          torch.as_tensor(w0 * np.float32(factor)))
+        want = cpu.run(static, feed=feed, fetch_list=fetch, scope=cpu_scope)
         gap = beam_margins(want[2:2 + n], [want[2 + n + 4 * i:6 + n + 4 * i]
                                            for i in range(len(searches))],
                            cfg["beam"])
@@ -3475,28 +3662,47 @@ def phase_beam_decode():
         raise AssertionError(f"beam_decode: the CPU decode's least candidate "
                              f"gap is {gap} at every output scale")
     state["dec_out_w"] = w0 * np.float32(factor)
-    card_scope = scope_from_numpy(state, None, main)
-    got = pt.Executor().run(main, feed=feed, fetch_list=fetch[:2],
-                            scope=card_scope)
-    _check_hypotheses(got[0], got[1], cfg, "beam_decode[test]")
-    if not np.array_equal(got[0], want[0]):
-        raise AssertionError(f"beam_decode: card sentences {got[0][0]} vs "
-                             f"cpu {want[0][0]}")
-    rel = float(np.max(np.abs(got[1] - want[1]) / np.abs(want[1])))
-    if not rel <= 1e-5:
-        raise AssertionError(f"beam_decode: scores differ by {rel} relative")
+    rel = {}
+    for mode, runs in (("static", 1), ("graph", 3), ("eager", 1)):
+        program = progs[mode]
+        got, _, exe = _decode_runs(pt, program, sent, scores, feed,
+                                   scope_from_numpy(state, None, program),
+                                   runs)
+        _graphs(f"beam_decode_test_{mode}", exe, mode == "graph")
+        _check_hypotheses(got[0], got[1], cfg, f"beam_decode[test {mode}]")
+        if not np.array_equal(got[0], want[0]):
+            raise AssertionError(f"beam_decode[{mode}]: card sentences "
+                                 f"{got[0][0]} vs cpu {want[0][0]}")
+        rel[mode] = float(np.max(np.abs(got[1] - want[1]) /
+                                 np.abs(want[1])))
+        if not rel[mode] <= 1e-5:
+            raise AssertionError(f"beam_decode[{mode}]: scores differ by "
+                                 f"{rel[mode]} relative")
     _no_launches("beam_decode")
     log(f"beam_decode[full]: dict {DECODE_FULL['dict_size']} emb/hid "
         f"{DECODE_FULL['emb']} B={DECODE_FULL['batch']} beam "
         f"{DECODE_FULL['beam']} {DECODE_FULL['steps']} steps: decode ms "
-        f"{[round(1e3 * x, 3) for x in decode_s]} (mean of the last 3 "
-        f"{ms:.3f}); {ended} beams ended; well formed")
+        f"static (eager) "
+        f"{[round(1e3 * x, 3) for x in full['static']['seconds']]}, "
+        f"bucketed graphed "
+        f"{[round(1e3 * x, 3) for x in graph['seconds']]} (capture "
+        f"{stats['seconds']:.3f} s, {stats['nodes']} nodes), bucketed "
+        f"eager {[round(1e3 * x, 3) for x in base['seconds']]}; the last "
+        f"two's means {ms['static']:.3f} / {ms['graph']:.3f} / "
+        f"{ms['eager']:.3f}; beams ended {full['static']['ended']} / "
+        f"{graph['ended']} / {base['ended']}; well formed, graphed equal "
+        f"to eager; static sentences equal to bucketed: {static_same}")
     log(f"beam_decode[card-vs-cpu] dict {cfg['dict_size']} beam "
         f"{cfg['beam']} {cfg['steps']} steps: output weights x{factor}, CPU "
-        f"least candidate gap {gap:.3e} (bound {DECODE_MARGIN}); sentences "
-        f"equal, scores rel {rel:.2e} (bound 1e-5)")
-    return dict(decode_ms=ms, beams_ended=ended, card_cpu_gap=gap,
-                card_cpu_score_rel=rel, output_scale=factor)
+        f"static least candidate gap {gap:.3e} (bound {DECODE_MARGIN}); "
+        f"sentences equal on the card static, bucketed graphed and eager, "
+        f"scores rel {rel['static']:.2e} / {rel['graph']:.2e} / "
+        f"{rel['eager']:.2e} (bound 1e-5)")
+    return dict(decode_ms=ms["graph"], eager_decode_ms=ms["eager"],
+                static_decode_ms=ms["static"], capture_s=stats["seconds"],
+                nodes=stats["nodes"], beams_ended=graph["ended"],
+                static_equal_bucketed=static_same, card_cpu_gap=gap,
+                card_cpu_score_rel=max(rel.values()), output_scale=factor)
 
 
 # ---------------------------------------------------------------------------
@@ -5154,6 +5360,8 @@ def main():
             f"{k}={v:.3e}" for k, v in seq2seq["card_vs_cpu"].items()))
     log("seq2seq_buckets: " + json.dumps(s2s_buckets))
     log(f"beam_decode: decode_ms={beam_decode['decode_ms']:.3f} "
+        f"eager_decode_ms={beam_decode['eager_decode_ms']:.3f} "
+        f"static_decode_ms={beam_decode['static_decode_ms']:.3f} "
         f"card_cpu_gap={beam_decode['card_cpu_gap']:.3e} "
         f"card_cpu_score_rel={beam_decode['card_cpu_score_rel']:.2e}")
     log(f"optimizers: max abs diff card vs cpu "

@@ -32,10 +32,11 @@ The capture rule (``_prepare``): a block runs eagerly, with the
 reference's host-op cliff warning once per (program, block), when it or
 a sub-block holds an op the reference marks ``host`` or the port marks
 ``eager_only`` (``registry.eager_only``: its lowering reads the device
-on the host, copies host data to the device, draws from the run's host
-generator or makes a ``SelectedRows``); and without the warning when op
-profiling is on (``profiler.enable_op_profiling``) or the optimization
-pipeline set ``program._opt_interpret``.  Ops that update state in place
+on the host, copies host data to the device or draws from the run's host
+generator: an unbounded ``while``, a static LoD's tables, random init);
+and without the warning when op profiling is on
+(``profiler.enable_op_profiling``) or the optimization pipeline set
+``program._opt_interpret``.  Ops that update state in place
 (``paged_attention`` on the KV pool, the sparse branches of ``sgd``,
 ``adam`` and ``adagrad``) change the scope's own tensor.
 
@@ -70,8 +71,19 @@ lowerings of ``while``, ``conditional_block`` and ``recurrent`` run
 their sub-blocks through, over the run's own ``aux`` (its LoD map and
 index tables).  After each run ``Executor.last_run`` holds the run's
 ``while`` trips and host reads (``aux["while_trips"]``,
-``aux["host_reads"]``: the loop conditions and array indices read on
-the host, each a device sync on the card); a graph replay reads none.
+``aux["host_reads"]``: the conditions of unbounded loops, each a device
+sync on the card); a graph replay reports its capture's trips and no
+host read.
+
+Device faults: an array index outside the capacity or a bounded loop
+still true after its bound sets a bit of the step's fault word
+(``registry.record_fault``); ``run`` reads the word once after the step
+(``run_steps`` once after the window, ORed over its steps) and raises
+the op's ``IndexError`` / ``RuntimeError``.  An eager step raises before
+its state is written back, as ``check_nan_inf`` does; a CUDA graph
+writes its state back as its last nodes, so when a replayed step raises,
+that step's state (and, in ``run_steps``, the window's) has already
+been written.
 
 Randomness: random init ops draw from one host generator per run, seeded
 from the program's ``random_seed``, so the same program initializes the
@@ -341,6 +353,7 @@ class _EagerStep:
     def __call__(self, feeds, rng_seed, check):
         fetches, new_state, _, stats = self.step(
             feeds, rng_seed, GeneratorTable(rng_seed), False)
+        registry.raise_fault(stats["fault"], stats["fault_sites"])
         if check is not None:
             # before the write-back: a failing step leaves the scope as
             # it was (in-place updates of a pool or a table excepted)
@@ -457,17 +470,22 @@ class Executor:
                 compiled = self._get_compiled(program, block, feeds,
                                               tuple(fetch_names), scope)
                 t0 = time.perf_counter()
-                fetches, owned = self._dispatch(compiled, program, feeds)
+                fetches, owned, fault = self._dispatch(compiled, program,
+                                                       feeds)
                 dt = time.perf_counter() - t0
                 dsp.set(fetches=len(fetch_names), graphed=not owned)
             _profiler.runtime_metrics.observe("executor.step_seconds", dt)
             with _span("executor.fetch"):
+                if fault is not None:
+                    registry.raise_fault(*fault)
                 if return_numpy:
                     return [fetch_numpy(v) for v in fetches]
                 return fetches if owned else [v.clone() for v in fetches]
 
     def _dispatch(self, compiled, program, feeds):
-        """One step of ``compiled`` on ``feeds``: ``(fetches, owned)``."""
+        """One step of ``compiled`` on ``feeds``: ``(fetches, owned,
+        fault)``; ``fault`` is a replayed graph's ``(word, sites)``, for
+        the caller to read (an eager step raised already), else None."""
         self._run_counter += 1
         rng_seed = int(program.random_seed or 0) * 1000003 + \
             self._run_counter
@@ -481,7 +499,10 @@ class Executor:
         fetches, stats, owned = compiled.fn(feeds, rng_seed, check)
         self.last_run = {k: stats.get(k, 0)
                          for k in ("while_trips", "host_reads")}
-        return fetches, owned
+        fault = None
+        if not owned and stats.get("fault") is not None:
+            fault = (stats["fault"], stats["fault_sites"])
+        return fetches, owned, fault
 
     def run_steps(self, program=None, feed=None, fetch_list=None, steps=1,
                   scope=None, return_numpy=True):
@@ -525,16 +546,23 @@ class Executor:
                 const_feed[name] = t            # one batch, reused
         sample = dict(const_feed)
         sample.update({n: t[0] for n, t in per_step.items()})
-        outs = []
+        outs, word, sites = [], None, None
         with self._lock:
             compiled = self._get_compiled(program, block, sample,
                                           tuple(fetch_names), scope)
             for i in range(steps):
                 feeds = dict(const_feed)
                 feeds.update({n: t[i] for n, t in per_step.items()})
-                fetches, owned = self._dispatch(compiled, program, feeds)
+                fetches, owned, fault = self._dispatch(compiled, program,
+                                                       feeds)
                 outs.append(fetches if owned
                             else [v.clone() for v in fetches])
+                if fault is not None:
+                    # a graph output: ORed out before the next replay
+                    word = fault[0].clone() if word is None \
+                        else word | fault[0]
+                    sites = fault[1]
+        registry.raise_fault(word, sites)
         stacked = [torch.stack([o[j] for o in outs])
                    for j in range(len(fetch_names))]
         if return_numpy:
@@ -880,6 +908,7 @@ class Executor:
                               if n in env or scope.find_var(n) is not None})]
             new_state = {n: env[n] for n in write_names if n in env}
             stats = {k: aux.get(k, 0) for k in ("while_trips", "host_reads")}
+            stats["fault"], stats["fault_sites"] = registry.fault_word(aux)
             return fetches, new_state, env.loaded, stats
 
         return {"sig": sig, "step": step, "feed_names": feed_names,

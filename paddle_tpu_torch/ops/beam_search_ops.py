@@ -8,7 +8,8 @@ layout for the whole decode: ``beam_search`` keeps a finished beam (last
 id == end_id) as one ``(end_id, pre_score)`` candidate and picks the top
 K over the flattened ``beam * cand`` axis, with an explicit
 ``parent_idx``; ``beam_search_decode`` follows the parent pointers back
-through the step arrays (a Python loop over the steps).  Seed
+through the first ``T`` steps of the step arrays' buffers, ``T`` gathers
+on the device (the JAX package's ``lax.scan``).  Seed
 ``pre_scores`` with 0 for beam 0 and -1e9 for the others, so that K
 identical first beams do not fill the top K.
 
@@ -16,8 +17,9 @@ identical first beams do not fill the top K.
 package: they read their inputs with ``tolist()`` and compute in numpy
 (see the JAX package's module for the padding contract of ``Ids``).
 
-``beam_search`` and ``beam_search_decode`` read their inputs on the host
-(``eager_only``).
+``beam_search`` reads nothing on the host; ``beam_search_decode`` reads
+the arrays' length there (``eager_only``) only when it has no
+``max_len``, where the JAX package needs a concrete length too.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.ops.control_flow_ops import TensorArray
-from paddle_tpu_torch.ops.registry import ShapeInferenceSkip, register_op
+from paddle_tpu_torch.ops.registry import (ShapeInferenceSkip, host_scalar,
+                                           register_op)
 
 NEG_INF = -1e9
 
@@ -47,8 +50,7 @@ def _infer_beam_search(op, block):
 
 
 @register_op("beam_search", infer_shape=_infer_beam_search,
-             no_gradient=True,
-             eager_only=True)
+             no_gradient=True)
 def beam_search_lower(ctx):
     """One pruning step.  ``pre_ids`` / ``pre_scores`` ``[B, K]``,
     ``ids`` / ``scores`` ``[B, K, C]`` (candidate ids and ACCUMULATED
@@ -88,25 +90,32 @@ def _infer_bs_decode(op, block):
 
 @register_op("beam_search_decode", infer_shape=_infer_bs_decode,
              no_gradient=True,
-             eager_only=True)
+             eager_only=lambda op: op.attr("max_len", None) is None)
 def beam_search_decode_lower(ctx):
     """Backtrack the parent pointers of the ``Ids`` / ``ParentIdx`` step
-    arrays (``T`` steps of ``[B, K]``; ``T`` = the ``max_len`` attr, else
-    the arrays' length) into ``SentenceIds`` ``[B, K, T]`` and pass
-    ``Scores`` ``[B, K]`` on as ``SentenceScores``.  The beams come in
-    the last step's order (best first); a finished beam repeats end_id."""
+    arrays (their buffers' first ``T`` steps of ``[B, K]``; ``T`` = the
+    ``max_len`` attr, else the arrays' length, read on the host) into
+    ``SentenceIds`` ``[B, K, T]`` and pass ``Scores`` ``[B, K]`` on as
+    ``SentenceScores``.  The beams come in the last step's order (best
+    first); a finished beam repeats end_id."""
     ids_arr = ctx.input("Ids")
     par_arr = ctx.input("ParentIdx")
-    if not isinstance(ids_arr, TensorArray):
-        raise TypeError("beam_search_decode Ids must be a TensorArray")
+    if not isinstance(ids_arr, TensorArray) or ids_arr.data is None:
+        raise TypeError("beam_search_decode Ids must be a written "
+                        "TensorArray")
     T = ctx.attr("max_len", None)
-    T = ids_arr.length if T is None else int(T)
-    B, K = ids_arr.steps[0].shape
-    ptr = torch.arange(K, device=ids_arr.steps[0].device).repeat(B, 1)
+    T = int(host_scalar(ctx.aux, ids_arr.length)) if T is None else int(T)
+    if T > ids_arr.capacity:
+        raise ValueError(f"beam_search_decode: max_len {T} exceeds the "
+                         f"step arrays' capacity {ids_arr.capacity}")
+    ids = ids_arr.data[:T].to(torch.int64)          # [T, B, K]
+    parents = par_arr.data[:T].to(torch.int64)
+    B, K = ids.shape[1], ids.shape[2]
+    ptr = torch.arange(K, device=ids.device).repeat(B, 1)
     toks = []
     for t in range(T - 1, -1, -1):
-        toks.append(ids_arr.read(t).to(torch.int64).gather(1, ptr))
-        ptr = par_arr.read(t).to(torch.int64).gather(1, ptr)
+        toks.append(ids[t].gather(1, ptr))
+        ptr = parents[t].gather(1, ptr)
     ctx.set_output("SentenceIds", torch.stack(toks[::-1], -1))
     ctx.set_output("SentenceScores", ctx.input("Scores").to(torch.float32))
 

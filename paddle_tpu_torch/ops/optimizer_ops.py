@@ -17,6 +17,10 @@ only the grad's rows, and update the state IN PLACE (``index_add_`` /
 ``index_copy_`` on the tensor bound to the output's name, which is the
 input's): the JAX package's functional ``p.at[rows].set(...)`` would be
 a copy of the whole table each step here, which defeats O(batch·dim).
+Every slot of the grad takes part, its static count kept: a dead slot
+adds a zero at a clamped row (``sgd``) or rewrites a live slot's row with
+that slot's own new value (``adam``, ``adagrad``), so nothing is read on
+the host and a step may be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.ops.registry import register_op
-from paddle_tpu_torch.selected_rows import is_selected_rows
+from paddle_tpu_torch.selected_rows import (gate_dead_slots,
+                                            is_selected_rows,
+                                            redirect_dead_slots)
 
 
 def _infer_param_out(op, block):
@@ -73,7 +79,7 @@ def sgd_lower(ctx):
     if is_selected_rows(g):
         # reference sgd_op.h's SelectedRows kernel: scatter-add at the
         # grad's rows, duplicates included
-        rows, value = g.live()
+        rows, value = g.clamped()
         p = _target(ctx, "Param", "ParamOut")
         ctx.set_output("ParamOut", p.index_add_(
             0, rows, (-_lr(ctx, p.dtype) * value).to(p.dtype)))
@@ -120,17 +126,24 @@ def adam_lower(ctx):
     ctx.set_output("Beta1PowOut", (b1p * beta1).reshape(1))
     ctx.set_output("Beta2PowOut", (b2p * beta2).reshape(1))
     if is_selected_rows(g):
-        rows, gv = g.merge_duplicates().live()
-        m1_rows = beta1 * m1[rows] + (1.0 - beta1) * gv
-        m2_rows = beta2 * m2[rows] + (1.0 - beta2) * torch.square(gv)
+        g = g.merge_duplicates()
+        live, rows, first = redirect_dead_slots(g.rows, g.height)
+        gv = g.value
+        m1_old, m2_old = m1.index_select(0, rows), m2.index_select(0, rows)
+        m1_rows = beta1 * m1_old + (1.0 - beta1) * gv
+        m2_rows = beta2 * m2_old + (1.0 - beta2) * torch.square(gv)
         p = _target(ctx, "Param", "ParamOut")
-        p_rows = p[rows] - (lr_t * m1_rows /
-                            (torch.sqrt(m2_rows) + eps)).to(p.dtype)
-        ctx.set_output("ParamOut", p.index_copy_(0, rows, p_rows))
+        p_old = p.index_select(0, rows)
+        p_rows = p_old - (lr_t * m1_rows /
+                          (torch.sqrt(m2_rows) + eps)).to(p.dtype)
+        ctx.set_output("ParamOut", p.index_copy_(
+            0, rows, gate_dead_slots(live, first, p_rows, p_old)))
         ctx.set_output("Moment1Out", _target(
-            ctx, "Moment1", "Moment1Out").index_copy_(0, rows, m1_rows))
+            ctx, "Moment1", "Moment1Out").index_copy_(
+                0, rows, gate_dead_slots(live, first, m1_rows, m1_old)))
         ctx.set_output("Moment2Out", _target(
-            ctx, "Moment2", "Moment2Out").index_copy_(0, rows, m2_rows))
+            ctx, "Moment2", "Moment2Out").index_copy_(
+                0, rows, gate_dead_slots(live, first, m2_rows, m2_old)))
         return
     m1n = beta1 * m1 + (1.0 - beta1) * g
     m2n = beta2 * m2 + (1.0 - beta2) * torch.square(g)
@@ -171,14 +184,20 @@ def adagrad_lower(ctx):
     m = ctx.input("Moment")
     eps = ctx.attr("epsilon", 1e-6)
     if is_selected_rows(g):
-        rows, gv = g.merge_duplicates().live()
-        m_rows = m[rows] + torch.square(gv)
+        g = g.merge_duplicates()
+        live, rows, first = redirect_dead_slots(g.rows, g.height)
+        gv = g.value
+        m_old = m.index_select(0, rows)
+        m_rows = m_old + torch.square(gv)
         p = _target(ctx, "Param", "ParamOut")
-        p_rows = p[rows] - _lr(ctx) * gv / (torch.sqrt(m_rows) + eps)
+        p_old = p.index_select(0, rows)
+        p_rows = (p_old - _lr(ctx) * gv /
+                  (torch.sqrt(m_rows) + eps)).to(p.dtype)
         ctx.set_output("MomentOut", _target(
-            ctx, "Moment", "MomentOut").index_copy_(0, rows, m_rows))
-        ctx.set_output("ParamOut",
-                       p.index_copy_(0, rows, p_rows.to(p.dtype)))
+            ctx, "Moment", "MomentOut").index_copy_(
+                0, rows, gate_dead_slots(live, first, m_rows, m_old)))
+        ctx.set_output("ParamOut", p.index_copy_(
+            0, rows, gate_dead_slots(live, first, p_rows, p_old)))
         return
     m_new = m + torch.square(g)
     ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))

@@ -19,22 +19,28 @@ Control flow: an op with a ``sub_block`` attr runs its body through
 ``aux["lower_block"]``.  A ``while`` overwrites its loop carries in the
 env, so it leaves its pre-loop values in ``aux["env_snapshots"]`` (keyed
 by ``id(sub_block)``, as the JAX package keys them) and its grad re-runs
-the loop from there.  Tensor arrays (``control_flow_ops.TensorArray``)
-are pytrees: they cross ``torch.func.vjp`` as primals, outputs and
-cotangents, and a cotangent array is matched to its output step by step
-(a step it lacks is zero).
+the loop from there.  A tensor array (``control_flow_ops.TensorArray``)
+crosses ``torch.func.vjp`` as its buffer: the auto-vjp hands the buffer
+in as the primal and takes it out of an output, and a cotangent array is
+matched to its output's buffer (a missing one is zero).
 
-Host reads: a loop condition or an array index is read on the host
-with :func:`host_scalar`, one device sync each on the card, counted in
-``aux["host_reads"]``.
+Device faults: an error the JAX package cannot raise under ``jit`` (an
+array index outside the capacity, a bounded loop still true after its
+bound) is not read on the host where it happens: the op records a flag
+(:func:`record_fault`), or an array access its index and gate
+(:func:`record_range_fault`, compared only at the fold, so a loop trip
+pays no op for it), :func:`fault_word` folds the step's records into
+one int64 word, and the executor reads the word once after the step and
+raises (:func:`raise_fault`).  Only an unbounded ``while`` reads its
+condition on the host, with :func:`host_scalar` (a device sync each on
+the card, counted in ``aux["host_reads"]``).
 
 CUDA graphs: the executor captures a block's step as one graph unless an
 op of it (or of a sub-block) is marked ``host`` (the JAX package's flag)
 or ``eager_only`` (the port's: its lowering reads the device on the
-host, copies host data to the device, draws from the run's host
-generator or makes a ``SelectedRows``, whose ``live()`` masks by value).
-A grad op takes its forward's marks.  In the bucketed LoD mode
-(``lod.DynLoD``) an op marked ``eager_dyn_ok`` (the JAX package's
+host, copies host data to the device or draws from the run's host
+generator).  A grad op takes its forward's marks.  In the bucketed LoD
+mode (``lod.DynLoD``) an op marked ``eager_dyn_ok`` (the JAX package's
 ``host_dyn_ok``, widened to the port's ``eager_only``) builds its tables
 from the splits tensor on the device and keeps no block eager.  Random
 ops draw from
@@ -56,7 +62,8 @@ __all__ = [
     "resolve_lowering", "LowerContext", "run_lowering",
     "ShapeInferenceSkip", "infer_shape_unary", "infer_shape_elementwise",
     "default_grad_maker", "auto_vjp_grad_lower", "GRAD_SUFFIX",
-    "host_scalar", "slot_seed", "eager_only",
+    "host_scalar", "slot_seed", "eager_only", "record_fault",
+    "record_range_fault", "fault_word", "raise_fault",
 ]
 
 GRAD_SUFFIX = "@GRAD"
@@ -225,6 +232,77 @@ def host_scalar(aux, tensor):
                          f"{tuple(tensor.shape)}")
     aux["host_reads"] = aux.get("host_reads", 0) + 1
     return tensor.reshape(()).item()
+
+
+def record_fault(aux, exc_type, message, bad):
+    """Record that the fault ``(exc_type, message)`` happened where the
+    bool tensor ``bad`` holds (and the enclosing loop's or branch's
+    ``aux["loop_keep"]`` too): the flag joins the site's list in
+    ``aux["fault_flags"]``, which :func:`fault_word` folds into the
+    step's word once, after the step.  Nothing is written in place, so a
+    site may lie under ``torch.func.vjp``."""
+    keep = aux.get("loop_keep")
+    if keep is not None:
+        bad = bad & keep
+    aux.setdefault("fault_flags", {}).setdefault(
+        (exc_type, message), []).append(bad.reshape(()))
+
+
+def record_range_fault(aux, exc_type, message, index, size):
+    """Record that the fault ``(exc_type, message)`` happened if the
+    integer tensor ``index`` lies outside ``[0, size)`` where the
+    enclosing ``aux["loop_keep"]`` holds.  Only the index and the keep
+    are kept: :func:`fault_word` compares all of a site's indices at
+    once, after the step."""
+    aux.setdefault("fault_flags", {}).setdefault(
+        (exc_type, message), []).append((index, aux.get("loop_keep"), size))
+
+
+def _site_hits(records):
+    """Whether any of a site's records holds: its flags stacked, its
+    range records compared in one op a (size, gated) group."""
+    flags = [r for r in records if isinstance(r, torch.Tensor)]
+    hits = [torch.stack(flags).any()] if flags else []
+    groups = collections.defaultdict(list)
+    for r in records:
+        if not isinstance(r, torch.Tensor):
+            index, keep, size = r
+            groups[size, keep is not None].append((index, keep))
+    for (size, gated), group in groups.items():
+        index = torch.cat([i.reshape(-1) for i, _ in group])
+        bad = (index < 0) | (index >= size)
+        if gated:
+            bad = bad & torch.stack([k.reshape(()) for _, k in group])
+        hits.append(bad.any())
+    return hits[0] if len(hits) == 1 else torch.stack(hits).any()
+
+
+def fault_word(aux):
+    """``(word, sites)``: the run's device fault word (int64, bit k set
+    where a record of the k-th fault site held; bits past 62 share the
+    last) and ``{(exc_type, message): bit}``; ``(None, {})`` when the run
+    recorded no fault site."""
+    word, sites = None, {}
+    for k, (site, records) in enumerate(aux.get("fault_flags", {}).items()):
+        bit = sites[site] = 1 << min(k, 62)
+        hit = _site_hits(records).to(torch.int64) * bit
+        word = hit if word is None else word | hit
+    return word, sites
+
+
+def raise_fault(word, sites):
+    """Read the fault word (one device read) and raise the error of the
+    first site, in the order the step recorded them, whose bit is set;
+    nothing when the word is zero or absent."""
+    if word is None:
+        return
+    value = int(word.item())
+    if not value:
+        return
+    for (exc_type, message), bit in sites.items():
+        if value & bit:
+            raise exc_type(message)
+    raise RuntimeError(f"device fault word {value:#x} names no fault site")
 
 
 def slot_seed(rng_seed, op_index):
@@ -479,11 +557,17 @@ def auto_vjp_grad_lower(fwd_type):
 
         diff_args = []      # (slot, idx, name) of differentiable args
         primal_vals = []
+        arrays = {}         # name -> the array whose buffer is the primal
         for slot in fwd_in_slots:
             for i, n in enumerate(op.input(slot)):
                 if (slot, i) in wanted_set:
+                    v = base_env[n]
+                    if _is_array(v):
+                        if _is_integer(v):
+                            continue
+                        arrays[n], v = v, v.data
                     diff_args.append((slot, i, n))
-                    primal_vals.append(base_env[n])
+                    primal_vals.append(v)
 
         from paddle_tpu_torch.framework import Operator
         fop = Operator(ctx.block, fwd_type, {}, {}, dict(op.attrs))
@@ -499,7 +583,8 @@ def auto_vjp_grad_lower(fwd_type):
         def fwd_fn(*primals):
             # the primals over the backward-time env, without copying it
             env = collections.ChainMap(
-                {n: v for (_, _, n), v in zip(diff_args, primals)}, base_env)
+                {n: arrays[n].with_data(v) if n in arrays else v
+                 for (_, _, n), v in zip(diff_args, primals)}, base_env)
             fctx = LowerContext(fop, env, ctx.block, aux=ctx.aux,
                                 op_index=ctx.op_index)
             outer = ctx.aux.get("rng_counter", -1)
@@ -509,7 +594,7 @@ def auto_vjp_grad_lower(fwd_type):
                 fwd_def.lower(fctx)
             finally:
                 ctx.aux["rng_counter"] = outer
-            return tuple(fctx.outputs.get(n, env.get(n))
+            return tuple(_primal_of(fctx.outputs.get(n, env.get(n)))
                          for n in out_names)
 
         outs, vjp_fn = torch.func.vjp(fwd_fn, *primal_vals)
@@ -528,10 +613,12 @@ def auto_vjp_grad_lower(fwd_type):
             if g and g in ctx.env:
                 cots.append(_match_cotangent_dtype(ctx.env[g], o))
             else:
-                cots.append(_zeros_like(o))
+                cots.append(torch.zeros_like(o))
         grads = vjp_fn(tuple(cots))
 
         for (slot, i, n), g in zip(diff_args, grads):
+            if n in arrays:
+                g = arrays[n].with_data(g)
             for ws, wi, gname in wanted:
                 if ws == slot and wi == i:
                     ctx.outputs[gname] = g
@@ -540,36 +627,41 @@ def auto_vjp_grad_lower(fwd_type):
 
 
 def _is_integer(value):
-    """No cotangent: an integer or bool tensor, or a tensor array without
-    a floating step."""
+    """No cotangent: an integer or bool tensor, or a tensor array whose
+    buffer is not floating (or not made yet)."""
     if _is_array(value):
-        return not any(s.is_floating_point() for s in value.steps)
+        value = value.data
+        return value is None or not value.is_floating_point()
     return isinstance(value, torch.Tensor) and not (
         value.is_floating_point() or value.is_complex())
 
 
 def _is_array(value):
-    return hasattr(value, "steps") and hasattr(value, "capacity")
+    return hasattr(value, "with_data") and hasattr(value, "capacity")
 
 
-def _zeros_like(value):
-    if _is_array(value):
-        return value.like([torch.zeros_like(s) for s in value.steps])
-    return torch.zeros_like(value)
+def _primal_of(value):
+    """What ``torch.func.vjp`` sees of an output: a tensor array's
+    buffer (its length, an integer, takes no part)."""
+    return value.data if _is_array(value) else value
 
 
 def _match_cotangent_dtype(cot, out_val):
     """Cast a floating cotangent to the forward output's dtype — under
     mixed precision an op's output may be bf16 while the incoming grad
-    is f32 (or the reverse).  A tensor array's cotangent is matched step
-    by step: a step it lacks (the forward output has more) is zero, a
-    step past the output's is dropped."""
-    if _is_array(out_val):
-        steps = [_match_cotangent_dtype(cot.steps[i], o)
-                 if _is_array(cot) and i < len(cot.steps)
-                 else torch.zeros_like(o)
-                 for i, o in enumerate(out_val.steps)]
-        return out_val.like(steps)
+    is f32 (or the reverse).  A tensor array's cotangent is its buffer
+    (zeros when it has none), cut or padded with zero steps to the
+    output buffer's capacity."""
+    if _is_array(cot):
+        cot = cot.data
+        if cot is None:
+            return torch.zeros_like(out_val)
+        n, cap = cot.shape[0], out_val.shape[0]
+        if n > cap:
+            cot = cot[:cap]
+        elif n < cap:
+            cot = torch.cat([cot, cot.new_zeros((cap - n,) +
+                                                tuple(cot.shape[1:]))])
     if cot.dtype != out_val.dtype and cot.is_floating_point() and \
             out_val.is_floating_point():
         return cot.to(out_val.dtype)

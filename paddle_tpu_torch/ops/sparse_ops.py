@@ -6,8 +6,9 @@
 Shapes stay those of the JAX package, which keeps every output at the
 input's length: ``split_ids`` pads a shard's ids with -1, and
 ``split_selected_rows`` gives each section all N slots, with row = the
-section's height outside it (slots that :meth:`SelectedRows.live`
-drops).
+section's height outside it (dead slots, which every consumer makes
+harmless, ``selected_rows.py``).  Nothing here reads the device on the
+host, so a block with these ops may be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ def split_ids_lower(ctx):
 
 
 @register_op("merge_selected_rows", no_gradient=True,
-             selected_rows_inputs=("X",), eager_only=True)
+             selected_rows_inputs=("X",))
 def merge_selected_rows_lower(ctx):
     """Duplicate rows summed (:meth:`SelectedRows.merge_duplicates`); a
     dense input passes through, being merged already."""
@@ -155,7 +156,7 @@ def merge_selected_rows_lower(ctx):
 
 
 @register_op("get_tensor_from_selected_rows", no_gradient=True,
-             selected_rows_inputs=("X",), eager_only=True)
+             selected_rows_inputs=("X",))
 def get_tensor_from_selected_rows_lower(ctx):
     """The ``[height, dim]`` tensor of a SelectedRows."""
     x = ctx.input("X")
@@ -163,7 +164,7 @@ def get_tensor_from_selected_rows_lower(ctx):
 
 
 @register_op("split_selected_rows", no_gradient=True,
-             selected_rows_inputs=("X",), eager_only=True)
+             selected_rows_inputs=("X",))
 def split_selected_rows_lower(ctx):
     """Rows split into ``height_sections`` (reference
     ``split_selected_rows_op.cc``): each output a SelectedRows with the

@@ -304,14 +304,8 @@ def _infer_lookup_table(op, block):
     out.lod_level = ids.lod_level
 
 
-def _sparse_grad(op):
-    """A sparse ``lookup_table_grad`` makes a SelectedRows (graph-unsafe:
-    the sparse updates mask its slots by value)."""
-    return op.type.endswith("_grad") and bool(op.attr("is_sparse", False))
-
-
 @register_op("lookup_table", infer_shape=_infer_lookup_table,
-             no_grad_inputs=("Ids",), eager_only=_sparse_grad)
+             no_grad_inputs=("Ids",))
 def lookup_table_lower(ctx):
     """Rows of ``W`` at ``Ids``; a trailing 1 of the ids is squeezed
     (``[S, 1]`` decode ids give ``[S, d]``), and rows at ``padding_idx``
@@ -348,8 +342,9 @@ def lookup_table_grad_lower(ctx):
     if padding_idx is not None and padding_idx >= 0:
         vals = vals * (rows != padding_idx).unsqueeze(1).to(vals.dtype)
     # an id out of range gave a NaN row and takes no part in the grad:
-    # its slot gets row ``height`` and value 0, the slot every sparse
-    # update drops (``SelectedRows.live``); -1 is the last row
+    # its slot gets row ``height`` and value 0, a dead slot that every
+    # sparse update makes harmless (``selected_rows.py``); -1 is the
+    # last row
     rows, valid = _wrap_rows(rows, w.shape[0])
     vals = torch.where(valid.unsqueeze(1), vals, torch.zeros_like(vals))
     rows = torch.where(valid, rows, torch.full_like(rows, w.shape[0]))

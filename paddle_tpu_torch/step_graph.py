@@ -40,7 +40,10 @@ once, never pays a capture.
 * **Failures.**  A capture runs in ``capture_error_mode="thread_local"``
   (server threads touch the card meanwhile); a lowering that fails under
   it raises naming the op (``executor.lower_block``).  Nothing retries
-  eagerly.
+  eagerly.  The step's device fault word (``registry.record_fault``) is
+  a graph output like the fetches: the eager first run raises on it
+  before its write-back, a replay hands it to the executor with its
+  capture's stats (trips, no host read), to read after the replay.
 
 Each capture is observed as ``compile.backend_seconds`` with
 ``compile.events``, the names of the JAX package's compile listeners.
@@ -56,7 +59,7 @@ import torch
 from paddle_tpu_torch import profiler as _profiler
 from paddle_tpu_torch.convert import to_tensor
 from paddle_tpu_torch.kernels import build
-from paddle_tpu_torch.ops.registry import slot_seed
+from paddle_tpu_torch.ops.registry import raise_fault, slot_seed
 
 __all__ = ["GeneratorTable", "StepGraph", "graph_node_count"]
 
@@ -162,12 +165,14 @@ class StepGraph:
         self._new_state = {}
         self._copies = []
         self._tally = {}
+        self._stats = {}
 
     # ------------------------------------------------------------------
     def __call__(self, feeds, rng_seed, check):
         """One step: ``(fetches, stats, owned)``.  ``owned`` is False
-        when the fetches are the graph's outputs, valid until the next
-        replay of any graph of the pool (clone or convert them first)."""
+        when the fetches (and the stats' fault word) are the graph's
+        outputs, valid until the next replay of any graph of the pool
+        (clone or convert them first)."""
         if self.graph is None:
             self._runs += 1
             if self._runs == 1:
@@ -175,7 +180,7 @@ class StepGraph:
             self._capture(feeds, rng_seed)
         else:
             self._sync_state()
-        return self._replay(feeds, rng_seed, check), {}, False
+        return self._replay(feeds, rng_seed, check), self._stats, False
 
     def _eager(self, feeds, rng_seed, check):
         """The signature's first run: a real eager step, recording its
@@ -184,6 +189,7 @@ class StepGraph:
         fetches, new_state, _, stats = self.step(feeds, rng_seed, table,
                                                  False)
         self._gen_keys = tuple(table.keys)
+        raise_fault(stats["fault"], stats["fault_sites"])
         if check is not None:
             check(fetches, new_state)
         for n, v in new_state.items():
@@ -232,7 +238,7 @@ class StepGraph:
             graph.capture_begin(pool=pool,
                                 capture_error_mode="thread_local")
             try:
-                fetches, new_state, state_in, _ = self.step(
+                fetches, new_state, state_in, stats = self.step(
                     self._feeds, rng_seed, table, True)
                 if len(table.keys) != len(self._gen_keys):
                     raise RuntimeError(
@@ -254,6 +260,7 @@ class StepGraph:
         dt = time.perf_counter() - t0
         self.graph = graph
         self._tally = dict(tally)
+        self._stats = dict(stats, host_reads=0)
         self.captures += 1
         self.capture_seconds += dt
         self.pool_gib = (torch.cuda.memory_reserved(self.device)

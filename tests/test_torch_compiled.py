@@ -5,9 +5,8 @@ warning, the op-level profiling table and ``compile_zoo_step``, on the
 same programs (built by the JAX package and carried over with
 ``to_dict`` / ``from_dict``) and the same run sequences.  Then the
 capture rule: one step of every zoo model and the generation prefill and
-decode, with every host read, host-to-device copy, host-generator draw,
-data-dependent shape and ``SelectedRows.live`` recorded under the op
-being lowered; each such op must keep its block eager, and the blocks
+decode, with every host read, host-to-device copy, host-generator draw
+and data-dependent shape recorded under the op being lowered; each such op must keep its block eager, and the blocks
 the port runs as CUDA graphs on the card must have none.  (The graphs
 themselves run only on the card: ``tests/test_torch_cuda.py -k graph``.)
 """
@@ -32,7 +31,6 @@ from paddle_tpu_torch import executor, profiler
 from paddle_tpu_torch.models import build_train_program as port_build
 from paddle_tpu_torch.models import compile_zoo_step, gen_lm, synth_feed
 from paddle_tpu_torch.ops import registry, tensor_ops
-from paddle_tpu_torch.selected_rows import SelectedRows
 
 CPU = pt.CPUPlace()
 
@@ -429,8 +427,8 @@ class _Audit(TorchDispatchMode):
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """Patch the host reads, the host generator and SelectedRows.live to
-    record the op being lowered (every lowering tracked through
+    """Patch the host reads and the host generator to record the op
+    being lowered (every lowering tracked through
     ``registry.resolve_lowering``), beside the aten audit."""
     events = []
     resolve = registry.resolve_lowering
@@ -453,15 +451,8 @@ def recorded(monkeypatch):
         note("host generator")
         return host_generator(ctx)
 
-    live = SelectedRows.live
-
-    def patched_live(self):
-        note("SelectedRows.live")
-        return live(self)
-
     monkeypatch.setattr(registry, "host_scalar", patched_host_scalar)
     monkeypatch.setattr(tensor_ops, "_host_generator", patched_host_generator)
-    monkeypatch.setattr(SelectedRows, "live", patched_live)
     import paddle_tpu_torch.ops.control_flow_ops as cf
     monkeypatch.setattr(cf, "host_scalar", patched_host_scalar)
     return events
@@ -469,10 +460,12 @@ def recorded(monkeypatch):
 
 #: the zoo models whose train step runs as a CUDA graph on the card (with
 #: the gen-LM prefill and decode and the ``/predict`` MLP); the others
-#: stay eager: SelectedRows (W&D), LoD tables and host reads (the LSTM,
-#: the seq2seq)
-GRAPHED = {"mnist", "resnet", "vgg", "transformer", "gen_lm", "gen_lm_long"}
-EAGER = {"seq2seq", "stacked_lstm", "wide_and_deep"}
+#: stay eager: a static LoD's tables are copied from the host (the LSTM,
+#: the seq2seq; both graph under the buckets,
+#: ``tests/test_torch_lod_buckets.py``)
+GRAPHED = {"mnist", "resnet", "vgg", "transformer", "gen_lm", "gen_lm_long",
+           "wide_and_deep"}
+EAGER = {"seq2seq", "stacked_lstm"}
 
 
 def _ragged(main, feeds, rng):

@@ -104,8 +104,8 @@ def test_array_read_write():
     (total, n), exe = _run_both(net, [{"x": xv}])
     np.testing.assert_allclose(total, xv * 3.0, rtol=1e-6)
     assert int(n[0]) == 2
-    # each write and read reads its index on the host
-    assert exe.last_run == {"while_trips": 0, "host_reads": 4}
+    # the indices stay on the device: nothing is read on the host
+    assert exe.last_run == {"while_trips": 0, "host_reads": 0}
 
 
 def _while_sum(pkg):
@@ -142,8 +142,10 @@ def test_while_sum():
     (out, i), exe = _run_both(_while_sum, [feed])
     np.testing.assert_allclose(out, sum(feed.values()), rtol=1e-6)
     assert int(i[0]) == 3
-    # 4 writes before the loop, 3 indices a trip, 4 conditions, 1 read
-    assert exe.last_run == {"while_trips": 3, "host_reads": 18}
+    # the body reads data_array (capacity 128) and writes only
+    # mem_array: 128 masked trips, the 3 live ones and 125 frozen, and
+    # nothing read on the host
+    assert exe.last_run == {"while_trips": 128, "host_reads": 0}
 
 
 def test_static_rnn_accumulate():
@@ -228,8 +230,8 @@ def test_switch_scalar():
     feeds = [{"step": np.asarray([v], "float32")} for v in (0.5, 5.0)]
     (lr,), exe = _run_both(net, feeds)
     assert float(lr.reshape(())) == 2.0
-    # each case reads its condition on the host
-    assert exe.last_run["host_reads"] == 2
+    # each case runs and its outputs are selected on the device
+    assert exe.last_run["host_reads"] == 0
 
 
 SENT = (np.arange(18).reshape(9, 2).astype("float32") / 10.0,
@@ -287,10 +289,9 @@ def test_drnn_train_grad():
     got, exe = _run_both(_drnn_train, [{"sent": SENT}])
     for g in got[1:]:
         assert np.abs(g).sum() > 0
-    # 4 forward trips and 4 more in the grad's re-run; 5 host reads a trip
-    # (2 array reads, 2 writes, the condition), each loop's last
-    # condition, the memory's first read and write before the loop
-    assert exe.last_run == {"while_trips": 8, "host_reads": 10 * 4 + 4}
+    # 4 forward trips (the step array's capacity, the longest sequence)
+    # and 4 more in the grad's re-run, nothing read on the host
+    assert exe.last_run == {"while_trips": 8, "host_reads": 0}
 
 
 def test_while_grad_program_matches_reference():
@@ -421,8 +422,9 @@ def test_nested_loops_with_slack_bounds():
     neither loop's bound check fires."""
     (out,), exe = _run_both(_nested, [{}])
     assert float(out.reshape(())) == 24.0
-    # the conditions: 4 of the outer loop, 3 of each inner one
-    assert exe.last_run == {"while_trips": 9, "host_reads": 13}
+    # max_iters trips of each loop: 7 outer, each running 7 inner ones
+    # (3 x 2 of them live), nothing read on the host
+    assert exe.last_run == {"while_trips": 7 + 7 * 7, "host_reads": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -536,27 +538,37 @@ def test_print_passes_its_input_on(capsys):
 
 
 def test_tensor_array_steps_sum_and_vjp():
-    """The port's array alone: a write past the length fills zeros, a
-    read of an unwritten step is zeros, ``sum`` adds arrays step by step
-    (a missing step is zero), and an array crosses ``torch.func.vjp`` as
-    a primal and as a cotangent matched to its output by the auto-vjp's
-    rule (a step it lacks is zero)."""
+    """The port's array alone: a write past the length leaves zero steps
+    between, a read of an unwritten step is zeros, a write turned off by
+    its gate changes neither row nor length, ``sum`` adds the buffers (a
+    shorter one padded with zero steps), and an array crosses
+    ``torch.func.vjp`` as its buffer, a cotangent array matched to its
+    output's buffer by the auto-vjp's rule (zero steps past it)."""
     import torch
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.ops.control_flow_ops import TensorArray
+    aux = {}
     x = torch.arange(3.0)
-    a = TensorArray(capacity=4).write(2, x)
-    assert a.length == 3 and torch.equal(a.read(0), torch.zeros(3))
-    assert torch.equal(a.read(3), torch.zeros(3))
-    s = a + TensorArray([x], 4)
-    assert [t.tolist() for t in s.steps] == [[0, 1, 2], [0, 0, 0], [0, 1, 2]]
+    a = TensorArray(capacity=4).write(torch.tensor([2]), x, aux)
+    assert int(a.length) == 3 and torch.equal(a.read(torch.tensor(0), aux),
+                                              torch.zeros(3))
+    assert torch.equal(a.read(torch.tensor([3]), aux), torch.zeros(3))
+    off = a.write(torch.tensor(0), x + 1, aux, keep=torch.tensor(False))
+    assert torch.equal(off.data, a.data) and int(off.length) == 3
+    assert int(registry.fault_word(aux)[0]) == 0
+    b = TensorArray(capacity=1).write(torch.tensor(0), x, aux)
+    s = a + b
+    assert s.capacity == 4 and int(s.length) == 3
+    assert s.data.tolist() == [[0, 1, 2], [0, 0, 0], [0, 1, 2], [0, 0, 0]]
 
-    def f(arr, w):
-        return arr.like([t * w for t in arr.steps])
+    def f(buf, w):
+        return buf * w
 
-    out, vjp = torch.func.vjp(f, TensorArray([x, 2 * x], 4), torch.ones(3))
-    cot = registry._match_cotangent_dtype(TensorArray([torch.ones(3)], 4),
-                                          out)
-    g_arr, g_w = vjp(cot)
-    assert [t.tolist() for t in g_arr.steps] == [[1, 1, 1], [0, 0, 0]]
-    assert g_w.tolist() == [0, 1, 2]
+    out, vjp = torch.func.vjp(f, a.data, torch.ones(3))
+    cot = registry._match_cotangent_dtype(
+        TensorArray(capacity=2).write(torch.tensor(0), torch.ones(3), aux),
+        out)
+    g_buf, g_w = vjp(cot)
+    assert g_buf.tolist() == [[1, 1, 1]] + [[0, 0, 0]] * 3
+    assert g_w.tolist() == [0, 0, 0]
+    assert a.with_data(g_buf).capacity == 4

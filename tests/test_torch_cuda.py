@@ -1393,8 +1393,8 @@ def _drnn_program(pt):
 def test_dynamic_rnn_and_while_grad_on_card_match_cpu(cuda_card):
     """A ``while`` over a DynamicRNN's steps and its ``while_grad`` (the
     loop re-run under ``torch.func.vjp`` from its pre-loop values) on the
-    card equal the CPU's from one scope; 7 trips and 7 re-run, each with
-    5 device reads (2 array reads, 2 writes, the condition)."""
+    card equal the CPU's from one scope; 7 masked trips (the step
+    array's capacity) and 7 re-run, nothing read on the host."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.convert import (persistable_names,
                                           scope_from_numpy, to_numpy)
@@ -1412,7 +1412,7 @@ def test_dynamic_rnn_and_while_grad_on_card_match_cpu(cuda_card):
     got = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
     for name, g, w in zip(fetch, got, want):
         np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=name)
-    assert card.last_run == {"while_trips": 14, "host_reads": 10 * 7 + 4}
+    assert card.last_run == {"while_trips": 14, "host_reads": 0}
 
 
 @pytest.mark.cuda
@@ -1561,3 +1561,108 @@ def test_graph_picks_up_a_replaced_state_tensor_on_card(cuda_card):
         assert scope.find_var(w) is buffer  # the scope points back
     (stats,) = exe.graph_stats()
     assert (stats["captures"], stats["replays"]) == (1, 3)
+
+
+# ---------------------------------------------------------------------------
+# the static-shape paths as graphs: the bucketed seq2seq (bounded ``while``
+# and device tensor arrays) and W&D (static-slot SelectedRows), graphed
+# against eager from one state; a device fault raised after a replay
+# ---------------------------------------------------------------------------
+
+def _static_shape_program(pt, name):
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup):
+        if name == "seq2seq":
+            from paddle_tpu_torch.models import seq2seq as S
+            cost, _ = S.seq_to_seq_net(40, 40, 16, 16, 16)
+            # seeds of one bucket pair ((32, 8) on both sides)
+            feeds = [S.fake_batch(4, 8, 8, 40, 40, seed=s)
+                     for s in (0, 1, 6, 7, 0)]
+            main.lod_buckets = True
+        else:
+            from paddle_tpu_torch.models import wide_and_deep as W
+            cost, _, _ = W.wide_and_deep_train_program(64, vocab_size=512)
+            feeds = [W.fake_batch(64, seed=s, vocab_size=512, num_slots=4,
+                                  dense_dim=8) for s in range(5)]
+        pt.optimizer.Adam(1e-2).minimize(cost)
+    return main, startup, cost, feeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["seq2seq", "wide_and_deep"])
+def test_graph_static_shape_paths_equal_eager_on_card(cuda_card, name):
+    """Five steps graphed (eager, captured, three replays) and eager from
+    one startup state: losses and parameters within ``TOL`` (the
+    bucketed seq2seq's segment sums add rows by atomics), one graph, no
+    host read, and the seq2seq's trips twice its length bucket."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
+    main, startup, cost, feeds = _static_shape_program(pt, name)
+    eager = clone_program(main)
+    eager.lod_buckets = getattr(main, "lod_buckets", None)
+    eager._opt_interpret = True
+    runs = []
+    for program in (main, eager):
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        losses = [exe.run(program, feed=f, fetch_list=[cost.name],
+                          scope=scope)[0] for f in feeds]
+        params = {p.name: scope.find_var(p.name).cpu().numpy()
+                  for p in main.global_block().all_parameters()}
+        runs.append((losses, params, exe.graph_stats(), exe.last_run))
+    (g_losses, g_params, stats, g_run), (losses, params, _, e_run) = runs
+    assert [(s["captures"], s["replays"]) for s in stats] == [(1, 4)]
+    assert g_run["host_reads"] == e_run["host_reads"] == 0
+    if name == "seq2seq":
+        assert g_run["while_trips"] == e_run["while_trips"] == 2 * 8
+    np.testing.assert_allclose(np.ravel(g_losses), np.ravel(losses),
+                               rtol=TOL, atol=TOL)
+    for n, want in params.items():
+        np.testing.assert_allclose(g_params[n], want, rtol=TOL, atol=TOL,
+                                   err_msg=n)
+
+
+@pytest.mark.cuda
+def test_graph_device_faults_raise_after_the_replay_on_card(cuda_card):
+    """An array index past the capacity and a bounded loop still true
+    after its bound, met only on a replay: each raises its error after
+    the step (the graph's state is written by then)."""
+    import paddle_tpu_torch as pt
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data(name="fx", shape=[3], append_batch_size=False)
+        at = layers.data(name="fat", shape=[1], dtype="int64",
+                         append_batch_size=False)
+        n = layers.data(name="fn", shape=[1], dtype="int64",
+                        append_batch_size=False)
+        arr = layers.array_write(x, at, capacity=4)
+        i = layers.zeros(shape=[1], dtype="int64")
+        cond = layers.less_than(x=i, y=n)
+        w = layers.While(cond=cond)
+        with w.block():
+            layers.increment(x=i, in_place=True)
+            layers.less_than(x=i, y=n, cond=cond)
+        out = layers.elementwise_add(layers.array_read(arr, at),
+                                     layers.cast(i, "float32"), axis=0)
+    for op in main.global_block().ops:
+        if op.type == "while":
+            op.attrs["max_iters"] = 3
+    exe, scope = pt.Executor(), pt.Scope()
+    xv = np.arange(3, dtype="float32")
+
+    def run(at_v, n_v):
+        return exe.run(main, feed={"fx": xv, "fat": np.int64([at_v]),
+                                   "fn": np.int64([n_v])},
+                       fetch_list=[out], scope=scope)[0]
+
+    for _ in range(2):                       # eager, then captured
+        np.testing.assert_array_equal(run(1, 2), xv + 2)
+    with pytest.raises(IndexError, match="capacity of 4"):
+        run(4, 2)
+    with pytest.raises(RuntimeError, match="static trip bound of 3"):
+        run(1, 5)
+    np.testing.assert_array_equal(run(3, 3), xv + 3)
+    (stats,) = exe.graph_stats()
+    assert (stats["captures"], stats["replays"]) == (1, 4)

@@ -38,7 +38,7 @@ from paddle_tpu_torch import profiler as tprofiler
 from paddle_tpu_torch.convert import persistable_names, scope_from_numpy
 from paddle_tpu_torch.convert import to_numpy
 from paddle_tpu_torch.framework import unique_name_scope as torch_names
-from paddle_tpu_torch.lod import DynLoD
+from paddle_tpu_torch.lod import DynLoD, next_bucket
 from paddle_tpu_torch.models import seq2seq as TS
 from paddle_tpu_torch.models import stacked_lstm as TL
 from test_torch_compiled import _Audit, recorded  # noqa: F401
@@ -436,9 +436,14 @@ class TestStreamingDecodeUnderBuckets:
             np.testing.assert_allclose(s[0], j[0], rtol=TOL, atol=TOL,
                                        err_msg=f"step {step}")
         pair.assert_state()
-        # the loop and the re-run of its grad, each the longest target
-        trips = 2 * int(np.diff(feed["trg"][1][0]).max())
-        assert pair.texe.last_run["while_trips"] == trips
+        # the loop and the re-run of its grad, each as many masked trips
+        # as the step array holds: the length bucket of the longest
+        # target under the buckets, the longest target static
+        longest = int(np.diff(feed["trg"][1][0]).max())
+        assert pair.texe.last_run == {
+            "while_trips": 2 * next_bucket(longest), "host_reads": 0}
+        assert pair.sexe.last_run == {"while_trips": 2 * longest,
+                                      "host_reads": 0}
 
     def test_decoder_100_distinct_lods_bounded_cache(self):
         """Two independent ragged feeds: the entries are bounded by their
@@ -740,13 +745,18 @@ def _port_program(net):
 
 
 def test_capture_rule_bucketed_lstm_graphs_and_seq2seq_stays_eager():
+    """Under the buckets both blocks may be captured: the LSTM's, and the
+    seq2seq's, whose ``while`` is bounded by its step array (it reads
+    nothing on the host); with a static LoD both stay eager."""
     lstm, _, _ = _port_program(
         lambda: TL.stacked_lstm_net(50, emb_dim=8, hidden_dim=8)[0])
     s2s, _, _ = _port_program(lambda: TS.seq_to_seq_net(20, 20, 8, 8, 8)[0])
     block = lstm.global_block()
     assert texecutor._host_ops(block, dyn=True) == []
     assert "lstm" in texecutor._host_ops(block)
-    assert "while" in texecutor._host_ops(s2s.global_block(), dyn=True)
+    assert texecutor._host_ops(s2s.global_block(), dyn=True) == []
+    static = texecutor._host_ops(s2s.global_block())
+    assert "lstm" in static and "while" not in static
 
 
 def test_second_bucketed_lstm_step_does_no_host_work(recorded):  # noqa: F811

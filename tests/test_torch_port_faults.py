@@ -221,9 +221,13 @@ def test_sparse_lookup_table_grad_drops_out_of_range_rows():
                                  aux={"device": torch.device("cpu")})
     sr = outs["in_W@GRAD"]
     assert sr.rows.tolist() == [3, 4]
-    live_rows, _ = sr.live()
-    assert live_rows.tolist() == [3]
     np.testing.assert_array_equal(sr.value.numpy(), [[1, 1, 1], [0, 0, 0]])
+    # the dead slot adds a zero at a clamped row: only row 3 moves
+    rows, value = sr.clamped()
+    assert rows.tolist() == [3, 3]
+    np.testing.assert_array_equal(value.numpy(), [[1, 1, 1], [0, 0, 0]])
+    np.testing.assert_array_equal(sr.to_dense().numpy(),
+                                  [[0, 0, 0]] * 3 + [[1, 1, 1]])
 
 
 # ---------------------------------------------------------------------------

@@ -171,9 +171,11 @@ def test_to_dense_accumulates_duplicates_and_drops_tail_rows():
                       torch.tensor([[1.0], [2.0], [3.0], [5.0], [6.0]]), 4)
     np.testing.assert_array_equal(to_numpy(sr.to_dense()),
                                   [[2.0], [0.0], [4.0], [0.0]])
-    rows, value = sr.live()
-    np.testing.assert_array_equal(to_numpy(rows), [2, 0, 2])
-    np.testing.assert_array_equal(to_numpy(value), [[1.0], [2.0], [3.0]])
+    # the slot count stays: the tail slots add a zero at a clamped row
+    rows, value = sr.clamped()
+    np.testing.assert_array_equal(to_numpy(rows), [2, 0, 2, 3, 3])
+    np.testing.assert_array_equal(to_numpy(value),
+                                  [[1.0], [2.0], [3.0], [0.0], [0.0]])
 
 
 def test_astype_and_shape():
