@@ -242,7 +242,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prefill and decode-step medians; ``phase_http_generate`` also checks
    that every bucket is a captured graph at ``/readyz`` and that no
    round captures.
-12. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+12. Input pipeline and checkpoints.  ``phase_reader_train``: route A fed
+   as bench.py's recordio mode feeds it (16 ``T.fake_batch`` batches in
+   a raw recordio file, ``open_recordio_file`` -> ``double_buffer`` ->
+   ``read_file``), two ``run_steps(16)`` windows graphed: the native
+   codec, losses bit-identical to the memory-fed windows of the same
+   batches from one startup state, 18 + 18 bias-softmax launches a step,
+   one cache miss; ms a step both ways.  ``phase_checkpoint_resume``:
+   route A at dropout 0 in a trainer process that saves, receives
+   SIGTERM under ``GracefulShutdown`` after step 4 and commits, and a
+   second that ``restore_latest()``s and runs steps 5 to 8: every
+   persistable bit-identical to a run that never stopped; ``save_async``
+   then a step: the checkpoint equals the snapshot; a blocking save's
+   device peak under a quarter of the state (it clones nothing); the
+   state's GiB and save, verify and restore seconds (``--ckpt-trainer``
+   runs a trainer).
+13. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
@@ -1666,6 +1681,442 @@ def phase_optimizers():
             f"abs diff card vs cpu {err:.3e} after {OPTIMIZER_STEPS} steps; "
             f"card losses {[round(l[1], 6) for l in losses]}")
     return worst
+
+
+#: ``phase_reader_train``: steps a ``run_steps`` window, and the five
+#: feeds of ``T.fake_batch`` in the order of ``transformer(input_vars=)``
+READER_STEPS = 16
+READER_KEYS = ("src_word", "trg_word", "src_mask", "lbl_word", "lbl_weight")
+READER_DTYPES = ["int32", "int32", "float32", "int32", "float32"]
+
+
+def _take_launches():
+    """The launch counts, set back to 0."""
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    launches = _launch_counts()
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+    return launches
+
+
+def _reader_program(pt, T, hp, B, S, path=None):
+    """Route A's program, named alike every time it is built: with
+    ``path``, fed by bench.py's recordio pipeline (``open_recordio_file``
+    -> ``double_buffer`` -> ``read_file``), else by ``layers.data``."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.framework.unique_name_scope("rt_"), \
+            pt.program_guard(main, startup):
+        inputs = None
+        if path is not None:
+            reader = pt.layers.open_recordio_file(
+                filename=path, shapes=[(B, S)] * 5, lod_levels=[0] * 5,
+                dtypes=READER_DTYPES, pass_num=10 ** 6)
+            reader = pt.layers.double_buffer(reader,
+                                             capacity=READER_STEPS + 2)
+            inputs = pt.layers.read_file(reader)
+        cost, _ = T.transformer(B, S, S, hp, input_vars=inputs)
+        pt.optimizer.Adam(learning_rate=1e-4).minimize(cost)
+    main.amp = True
+    return main, startup, cost
+
+
+def _reader_windows(pt, exe, main, cost, scope, feed):
+    """Two ``run_steps(READER_STEPS)`` windows: the losses (float32, both
+    windows) and the second window's seconds (replays only)."""
+    import numpy as np
+    import torch
+    losses, seconds = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (out,) = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                               steps=READER_STEPS, scope=scope)
+        seconds.append(time.perf_counter() - t)   # the fetch synchronizes
+        losses.append(np.asarray(out, np.float32).reshape(-1))
+    return np.concatenate(losses), seconds[1]
+
+
+def phase_reader_train():
+    """Route A (Transformer-base, S 256, B 64, bf16 AMP, Adam, dropout
+    0.1) fed as bench.py's ``PADDLE_TPU_BENCH_INPUT=recordio`` feeds it:
+    ``READER_STEPS`` distinct ``T.fake_batch`` batches written raw
+    (``compressor=0``) by ``convert_reader_to_recordio_file``, read by
+    ``open_recordio_file(pass_num=10**6)`` -> ``double_buffer(capacity
+    READER_STEPS + 2)`` -> ``read_file``, two ``run_steps(READER_STEPS)``
+    windows on the default (graphed) path.  Held to: the native codec;
+    the same program as the memory-fed one but the reader ops; losses
+    bit-identical to a memory-fed ``run_steps`` of the same batches
+    stacked (bench.py's default mode) from the same startup state and a
+    fresh executor each; 18 + 18 bias-softmax launches a step both ways;
+    one ``jit_cache`` miss for both reader-fed windows, one graph.
+    Prints ms a step both ways (the second window, replays only)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import native, profiler
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.reader_ops import READER_OPS
+    from paddle_tpu_torch.recordio_writer import \
+        convert_reader_to_recordio_file
+
+    B, S, kernels = ROUTES["A"]
+    hp = T.ModelHyperParams()          # Transformer-base, dropout 0.1
+    hp.max_length = max(hp.max_length, S)
+    batches = [T.fake_batch(B, S, S, hp, seed=SEED % 2 ** 31 + s)
+               for s in range(READER_STEPS)]
+    path = os.path.join(OUT_DIR, "reader_train.recordio")
+    t = time.perf_counter()
+    n = convert_reader_to_recordio_file(
+        path, lambda: (tuple(b[k] for k in READER_KEYS) for b in batches),
+        compressor=0)
+    write_s = time.perf_counter() - t
+    codec = native.codec()
+    if codec != "native" or n != READER_STEPS:
+        raise AssertionError(f"reader_train: codec {codec!r}, {n} records")
+    reader_main, _, reader_cost = _reader_program(pt, T, hp, B, S, path)
+    main, startup, cost = _reader_program(pt, T, hp, B, S)
+    fed = [op.type for op in reader_main.global_block().ops
+           if op.type not in READER_OPS]
+    if fed != [op.type for op in main.global_block().ops]:
+        raise AssertionError("reader_train: the reader-fed program is not "
+                             "the memory-fed one but its reader ops")
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    stacked = {k: np.stack([b[k] for b in batches]) for k in READER_KEYS}
+    want = {k: 18 * 2 * READER_STEPS for k in kernels}
+    runs = {}
+    for mode, program, c, feed in (("reader", reader_main, reader_cost,
+                                    None),
+                                   ("memory", main, cost, stacked)):
+        _no_launches(f"reader_train[{mode}]")
+        scope = _scope_copy(pt, scope0)
+        exe = pt.Executor()
+        misses = profiler.runtime_metrics.counter("jit_cache.misses")
+        losses, window_s = _reader_windows(pt, exe, program, c, scope,
+                                           feed)
+        misses = profiler.runtime_metrics.counter("jit_cache.misses") - \
+            misses
+        launches = _take_launches()
+        if launches != want:
+            raise AssertionError(f"reader_train[{mode}]: launches "
+                                 f"{launches} != {want}")
+        replays = _graphs(f"reader_train_{mode}", exe, True)
+        if misses != 1 or replays != 2 * READER_STEPS - 1:
+            raise AssertionError(f"reader_train[{mode}]: {misses} cache "
+                                 f"misses, graphs {exe.graph_stats()}")
+        runs[mode] = dict(losses=losses, launches=launches,
+                          step_ms=1e3 * window_s / READER_STEPS)
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    got, ref = runs["reader"]["losses"], runs["memory"]["losses"]
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"reader_train: reader-fed losses {got} "
+                             f"against memory-fed {ref}")
+    if not np.all(np.isfinite(got)) or not got[-1] < got[0]:
+        raise AssertionError(f"reader_train: losses {got}")
+    os.remove(path)
+    out = dict(reader_step_ms=runs["reader"]["step_ms"],
+               memory_step_ms=runs["memory"]["step_ms"],
+               record_write_s=write_s, codec=codec, bit_identical=True,
+               losses=[float(x) for x in got], card=card_line())
+    log(f"reader_train[A]: reader-fed {out['reader_step_ms']:.3f} ms a step "
+        f"against memory-fed {out['memory_step_ms']:.3f} (second window of "
+        f"{READER_STEPS}, replays); losses bit-identical over "
+        f"{2 * READER_STEPS} steps; one cache miss a run; codec {codec}; "
+        f"{READER_STEPS} records written in {write_s:.3f} s; card "
+        f"{out['card']}")
+    del scope0
+    return runs["reader"]["launches"], runs["memory"]["launches"], out
+
+
+#: ``phase_checkpoint_resume``: the trainer is stopped after ``CKPT_K``
+#: of ``2 * CKPT_K`` steps
+CKPT_K = 4
+CKPT_CHILD_TIMEOUT_S = 300
+
+
+def _ckpt_program(pt, T):
+    """Route A at dropout 0, named alike in every process."""
+    B, S, _ = ROUTES["A"]
+    hp = T.ModelHyperParams()
+    hp.max_length = max(hp.max_length, S)
+    hp.dropout = 0.0
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.framework.unique_name_scope("ck_"), \
+            pt.program_guard(main, startup):
+        cost, _ = T.transformer(B, S, S, hp)
+        pt.optimizer.Adam(learning_rate=1e-4).minimize(cost)
+    main.amp = True
+    return main, startup, cost, hp
+
+
+def _ckpt_feed(T, hp, step):
+    B, S, _ = ROUTES["A"]
+    return T.fake_batch(B, S, S, hp, seed=SEED % 2 ** 31 + 100 + step)
+
+
+def _tensor_state(scope):
+    """``name -> host array`` of every tensor of ``scope``."""
+    import torch
+    from paddle_tpu_torch.convert import to_numpy
+    return {n: to_numpy(v) for n, v in scope.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def ckpt_trainer(argv):
+    """Child mode of ``phase_checkpoint_resume`` (``chip_smoke.py
+    --ckpt-trainer first|second DIR OUT``).  ``first``: route A at
+    dropout 0 from its startup, a ``CheckpointManager.save`` after step
+    ``CKPT_K - 1``, then, after step ``CKPT_K``, a ready file and a wait
+    for SIGTERM under ``GracefulShutdown``; the loop stops and commits a
+    final checkpoint.  ``second``: ``restore_latest()`` into a fresh
+    scope and executor, the remaining steps, a checkpoint of the end
+    state.  Each writes a JSON report to OUT."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import CheckpointManager, GracefulShutdown
+    from paddle_tpu_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    role, dirname, out = argv
+    main, startup, cost, hp = _ckpt_program(pt, T)
+    exe, scope = pt.Executor(), pt.Scope()
+    mgr = CheckpointManager(dirname, keep=3, executor=exe,
+                            main_program=main, scope=scope)
+    report = {"role": role}
+
+    def step(s):
+        exe.run(main, feed=_ckpt_feed(T, hp, s), fetch_list=[cost],
+                scope=scope)
+
+    if role == "first":
+        exe.run(startup, scope=scope)
+        done = 0
+        with GracefulShutdown() as stop:
+            for s in range(1, 2 * CKPT_K + 1):
+                if stop.should_stop():
+                    break
+                step(s)
+                done = s
+                if s == CKPT_K - 1:
+                    t = time.perf_counter()
+                    mgr.save(s)
+                    report["save_s"] = time.perf_counter() - t
+                if s == CKPT_K:
+                    torch.cuda.synchronize()
+                    with open(out + ".ready", "w") as f:
+                        f.write(str(s))
+                    stop.wait(CKPT_CHILD_TIMEOUT_S)
+            t = time.perf_counter()
+            mgr.save(done)
+            report["final_save_s"] = time.perf_counter() - t
+        report.update(done=done, signal=stop.received)
+    else:
+        t = time.perf_counter()
+        report["restored"] = mgr.restore_latest()
+        report["restore_s"] = time.perf_counter() - t
+        for s in range(report["restored"] + 1, 2 * CKPT_K + 1):
+            step(s)
+        mgr.save(2 * CKPT_K)
+        report["done"] = 2 * CKPT_K
+    report["launches"] = _launch_counts()
+    report["graph_replays"] = sum(g["replays"] for g in exe.graph_stats())
+    with open(out, "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _ckpt_child(role, dirname, out, sigterm_when_ready=False):
+    """Run ``ckpt_trainer`` in a child process; returns its report.  The
+    child is killed if it outlives ``CKPT_CHILD_TIMEOUT_S``."""
+    import signal
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--ckpt-trainer", role, dirname, out],
+                            cwd=ROOT)
+    try:
+        deadline = time.monotonic() + CKPT_CHILD_TIMEOUT_S
+        if sigterm_when_ready:
+            while not os.path.exists(out + ".ready"):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"checkpoint_resume[{role}]: the trainer exited "
+                        f"({proc.returncode}) or timed out before its "
+                        f"ready file")
+                time.sleep(0.2)
+            proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"checkpoint_resume[{role}]: the trainer "
+                             f"exited {rc}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def phase_checkpoint_resume():
+    """Route A at dropout 0 stopped and resumed across processes: trainer
+    1 runs ``CKPT_K`` steps (a ``CheckpointManager.save`` after step
+    ``CKPT_K - 1``), receives SIGTERM under ``GracefulShutdown``, commits
+    a final checkpoint and exits 0; trainer 2 restores it with
+    ``restore_latest()`` into a fresh scope and executor and runs the
+    remaining ``CKPT_K`` steps.  Its parameters and Adam moments (every
+    persistable) must equal, bit for bit, a run in this process that
+    never stopped.  Then ``save_async`` of that state, one more step
+    (which writes the state in place), and the written checkpoint must
+    equal the state as snapshotted.  A blocking save clones nothing on
+    the card: its device peak above the state must stay under a quarter
+    of the state (the async snapshot's clone is printed beside it).
+    Prints the state's GiB and the save, verify and restore seconds.
+    Dropout is 0: both packages key
+    their dropout masks on the executor's run counter, which no
+    checkpoint holds."""
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import CheckpointManager, shard_ckpt
+    from paddle_tpu_torch.fault.checkpoint import verify_checkpoint
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.obs import trace
+
+    _, _, kernels = ROUTES["A"]
+    root = os.path.join(OUT_DIR, "checkpoint_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ckdir = os.path.join(root, "ckpt")
+    _no_launches("checkpoint_resume")
+    first = _ckpt_child("first", ckdir, os.path.join(root, "first.json"),
+                        sigterm_when_ready=True)
+    second = _ckpt_child("second", ckdir, os.path.join(root, "second.json"))
+    if (first["done"], first["signal"], second["restored"]) != \
+            (CKPT_K, 15, CKPT_K):
+        raise AssertionError(f"checkpoint_resume: trainers {first} "
+                             f"{second}")
+    for r in (first, second):
+        if r["launches"] != {k: 18 * CKPT_K for k in kernels}:
+            raise AssertionError(f"checkpoint_resume[{r['role']}]: "
+                                 f"launches {r['launches']}")
+    resumed = pt.Scope()
+    pt.io.load_checkpoint(pt.Executor(pt.CPUPlace()), ckdir,
+                          step=2 * CKPT_K, scope=resumed)
+    resumed = _tensor_state(resumed)
+
+    main, startup, cost, hp = _ckpt_program(pt, T)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    for s in range(1, 2 * CKPT_K + 1):
+        exe.run(main, feed=_ckpt_feed(T, hp, s), fetch_list=[cost],
+                scope=scope)
+    want = _tensor_state(scope)
+    if sorted(resumed) != sorted(want):
+        raise AssertionError(f"checkpoint_resume: resumed state holds "
+                             f"{len(resumed)} of {len(want)} variables")
+    differ = [n for n in want if not np.array_equal(resumed[n], want[n])]
+    moments = [n for n in want if "moment" in n]
+    if differ or not moments:
+        raise AssertionError(f"checkpoint_resume: {len(differ)} variables "
+                             f"differ after the resume: {differ[:5]}")
+    gib = sum(a.nbytes for a in want.values()) / 2 ** 30
+
+    mgr = CheckpointManager(os.path.join(root, "here"), keep=2,
+                            executor=exe, main_program=main, scope=scope)
+    torch.cuda.synchronize()
+    # where a blocking save's time goes: the host copy of the live state
+    # timed alone, then a save under the ckpt.* spans; it clones nothing
+    # on the card (its device peak above the state is held under a
+    # quarter of the state; save_async's snapshot is the clone)
+    t = time.perf_counter()
+    shard_ckpt.host_state(pt.io._persistable_state(main, scope))
+    parts = {"host_copy": time.perf_counter() - t}
+    trace.clear()
+    trace.enable()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    path = mgr.save(2 * CKPT_K)
+    save_s = time.perf_counter() - t
+    save_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    trace.disable()
+    if save_peak_gib > gib / 4:
+        raise AssertionError(f"checkpoint_resume: a blocking save took "
+                             f"{save_peak_gib:.4f} GiB on the card above "
+                             f"a {gib:.4f} GiB state")
+    for sp in trace.snapshot_spans():
+        if sp["name"] in ("ckpt.write", "ckpt.manifest", "ckpt.rename",
+                          "ckpt.gc"):
+            parts[sp["name"][5:]] = sp["dur"]
+    parts["shard_writes_summed"] = sum(
+        sp["dur"] for sp in trace.snapshot_spans()
+        if sp["name"] == "ckpt.shard.write")
+    trace.clear()
+    t = time.perf_counter()
+    verify_checkpoint(path)
+    verify_s = time.perf_counter() - t
+    fresh = pt.Scope()
+    t = time.perf_counter()
+    pt.io.load_checkpoint(exe, mgr.dirname, scope=fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    del fresh
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    mgr.save_async(2 * CKPT_K + 1)
+    snapshot_s = time.perf_counter() - t
+    async_peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    exe.run(main, feed=_ckpt_feed(T, hp, 2 * CKPT_K + 1), fetch_list=[cost],
+            scope=scope)
+    mgr.wait_pending()
+    async_s = time.perf_counter() - t
+    written = shard_ckpt.read_state(
+        mgr.path(2 * CKPT_K + 1), shard_ckpt.read_manifest(
+            mgr.path(2 * CKPT_K + 1))["topology"])
+    after = _tensor_state(scope)
+    stale = [n for n in want if not np.array_equal(written[n][0], want[n])]
+    moved = [n for n in want if not np.array_equal(after[n], want[n])]
+    if stale or not moved:
+        raise AssertionError(f"checkpoint_resume: the async checkpoint "
+                             f"differs from its snapshot in {stale[:5]} "
+                             f"({len(moved)} variables moved by the step)")
+    launches = _take_launches()
+    if launches != {k: 18 * (2 * CKPT_K + 1) for k in kernels}:
+        raise AssertionError(f"checkpoint_resume: launches {launches}")
+    for r in (first, second):
+        for k, n in r["launches"].items():
+            launches[k] += n
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(state_gib=gib, variables=len(want), save_s=save_s,
+               verify_s=verify_s, restore_s=restore_s,
+               save_peak_gib=save_peak_gib, async_peak_gib=async_peak_gib,
+               async_snapshot_s=snapshot_s, async_total_s=async_s,
+               child_save_s=first["save_s"],
+               child_final_save_s=first["final_save_s"],
+               child_restore_s=second["restore_s"], save_parts_s=parts,
+               bit_identical=True, card=card_line())
+    log(f"checkpoint_resume[A, dropout 0]: state {gib:.4f} GiB in "
+        f"{len(want)} variables; SIGTERM after step {CKPT_K}, resumed in a "
+        f"second process from ckpt-{CKPT_K}: all variables bit-identical "
+        f"after {2 * CKPT_K} steps to the run that never stopped; save "
+        f"{save_s:.3f} s, verify {verify_s:.3f} s, restore "
+        f"{restore_s:.3f} s (the trainers': save {first['save_s']:.3f}, "
+        f"final {first['final_save_s']:.3f}, restore_latest "
+        f"{second['restore_s']:.3f}); device peak above the state: "
+        f"blocking save {save_peak_gib:.4f} GiB, save_async snapshot "
+        f"{async_peak_gib:.4f} GiB; save_async snapshot "
+        f"{snapshot_s:.3f} s, with a step and the commit {async_s:.3f} s, "
+        f"written = snapshot; a save's parts (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; card {out['card']}")
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 GEN_TRAIN_B, GEN_TRAIN_T, GEN_TRAIN_STEPS = 8, 256, 4
@@ -5272,6 +5723,10 @@ def main():
     s2s_buckets = phase_seq2seq_buckets()
     beam_decode = phase_beam_decode()
     optimizers = phase_optimizers()
+    by_path["reader_train"], by_path["reader_train_memory"], \
+        reader_train = phase_reader_train()
+    by_path["checkpoint_resume"], checkpoint_resume = \
+        phase_checkpoint_resume()
 
     kernels = []
     for k in ALL_KERNELS:
@@ -5366,6 +5821,8 @@ def main():
         f"card_cpu_score_rel={beam_decode['card_cpu_score_rel']:.2e}")
     log(f"optimizers: max abs diff card vs cpu "
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
+    log("reader_train: " + json.dumps(reader_train))
+    log("checkpoint_resume: " + json.dumps(checkpoint_resume))
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     for route, g in graph_train.items():
@@ -5382,6 +5839,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-trainer"]:
+        # a trainer process of phase_checkpoint_resume
+        sys.path.insert(0, ROOT)
+        sys.exit(ckpt_trainer(sys.argv[2:]))
     try:
         code = main()
     except Exception:

@@ -17,6 +17,7 @@ from paddle_tpu_torch.place import CPUPlace, CUDAPlace, default_place
 from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 from paddle_tpu_torch import ops  # registers the op lowerings
 from paddle_tpu_torch.executor import Executor
+from paddle_tpu_torch.ops.reader_ops import EOFException
 from paddle_tpu_torch.backward import append_backward, calc_gradient
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr
@@ -31,11 +32,14 @@ from paddle_tpu_torch.optimizer import (
 from paddle_tpu_torch import regularizer
 from paddle_tpu_torch import clip
 from paddle_tpu_torch import nets
+from paddle_tpu_torch.data_feeder import DataFeeder
 from paddle_tpu_torch import io
 from paddle_tpu_torch.io import (
-    save_vars, save_persistables, load_vars, load_persistables,
-    save_inference_model, load_inference_model,
+    save_vars, save_params, save_persistables, load_vars, load_params,
+    load_persistables, save_inference_model, load_inference_model,
 )
+from paddle_tpu_torch import reader
+from paddle_tpu_torch import fault
 
 __version__ = "0.1.0"
 

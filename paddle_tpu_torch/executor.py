@@ -66,6 +66,14 @@ feed.  Under the switch the capture rule lets an op marked
 ``eager_dyn_ok`` into a graph (``_host_ops(block, dyn=True)``) unless a
 feed keeps a static LoD (a multi-level one).
 
+Reader ops (``ops/reader_ops.py``): before each step, and before a
+``run_steps`` window, the host-side pre-pass :func:`_run_reader_ops`
+builds the readers of the block's creation ops into the scope (once)
+and pops a batch a ``read`` op (``steps`` batches, stacked) into the
+feeds, which then take the path of any feed: the signature holds their
+shapes, so a reader-fed window of like batches is one cache entry and
+one graph.  The step skips the reader ops.
+
 Control flow: ``aux["lower_block"]`` is :func:`lower_block`, which the
 lowerings of ``while``, ``conditional_block`` and ``recurrent`` run
 their sub-blocks through, over the run's own ``aux`` (its LoD map and
@@ -93,9 +101,10 @@ executor's run counter and the op's slot on the run's RNG counter
 (``aux["rng_counter"]``); a graph reseeds its generators with the same
 values before each replay, so its masks are the eager step's.  The
 counter advances by ``op.attrs.get("__rng_slots__", 1)`` for every op
-but feed and fetch, in sub-blocks too, and an op's slot is the counter
-after it advanced; the counter starts at -1, so an op of an unoptimized
-block without feed or fetch ops has its position as its slot.  An
+but feed, fetch and the reader ops, in sub-blocks too, and an op's slot
+is the counter after it advanced; the counter starts at -1, so an op of
+an unoptimized block without feed, fetch or reader ops has its position
+as its slot.  An
 optimization pass that removes or fuses ops charges their slots to the
 next surviving op, so every random op keeps the slot, and so the mask,
 it has in the unoptimized program.
@@ -134,6 +143,8 @@ from paddle_tpu_torch.lod import (SPLITS_SUFFIX, DynLoD, bucket_ragged_feed,
                                   next_bucket, validate_lod)
 from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.ops import registry
+from paddle_tpu_torch.ops.reader_ops import (READER_CREATE_OPS, READER_OPS,
+                                             EOFException, build_reader)
 from paddle_tpu_torch.place import default_place
 from paddle_tpu_torch.scope import global_scope
 from paddle_tpu_torch.step_graph import GeneratorTable, StepGraph
@@ -142,8 +153,74 @@ __all__ = ["Executor", "lower_block", "fetch_var", "jit_cache_capacity"]
 
 logger = logging.getLogger(__name__)
 
-# feed/fetch ops are rewritten by the executor (feeds arrive in the env)
-_SKIP_OPS = frozenset({"feed", "fetch"})
+# feed/fetch ops are rewritten by the executor (feeds arrive in the env);
+# reader ops run in the host-side pre-pass (_run_reader_ops), so the step
+# never sees them
+_SKIP_OPS = frozenset({"feed", "fetch"}) | READER_OPS
+
+
+def _reader_ops(block):
+    """The reader ops of ``block``, found once a program version (most
+    blocks have none, and the pre-pass then walks no ops)."""
+    version = block.program._version
+    cached = getattr(block, "_reader_ops_cache", None)
+    if cached is None or cached[0] != version:
+        cached = (version, tuple(op for op in block.ops
+                                 if op.type in READER_OPS))
+        block._reader_ops_cache = cached
+    return cached[1]
+
+
+def _run_reader_ops(block, scope, feeds, device, steps=None):
+    """Host-side reader pre-pass (the JAX package's, ``paddle_tpu/
+    executor.py:48``): construct the reader objects of creation ops
+    (once: a reader lives in the scope under its variable's name) and
+    pop one batch per ``read`` op into ``feeds`` as tensors on
+    ``device``, or, with ``steps``, ``steps`` batches stacked ``[steps,
+    ...]``.  A pull that hits EOF part-way returns the batches it took
+    to the reader (in order) and raises :class:`EOFException`."""
+    for op in _reader_ops(block):
+        if op.type in READER_CREATE_OPS:
+            out = op.output("Out")[0]
+            if scope.find_var(out) is None:
+                reader = build_reader(op, scope, device=device)
+                scope.set_var(out, reader)
+                # back-pointer for Variable.reset() with explicit scopes
+                var = block.vars.get(out)
+                if var is not None:
+                    var._reader_runtime = reader
+        elif op.type == "read":
+            reader = scope.find_var(op.input("Reader")[0])
+            if reader is None:
+                raise RuntimeError(
+                    f"reader {op.input('Reader')[0]!r} is not created — "
+                    f"run the startup program first")
+            try:
+                if steps is None:
+                    batch = reader.next()
+                else:
+                    pulled = []
+                    try:
+                        for _ in range(steps):
+                            pulled.append(reader.next())
+                    except StopIteration:
+                        # mid-pull EOF: return the consumed batches so a
+                        # later pull serves them (in order)
+                        for p in reversed(pulled):
+                            reader.unget(p)
+                        raise
+                    # a double buffer on the card staged device tensors
+                    stack = torch.stack if isinstance(
+                        pulled[0][0], torch.Tensor) else np.stack
+                    batch = tuple(stack([p[i] for p in pulled])
+                                  for i in range(len(pulled[0])))
+            except StopIteration:
+                raise EOFException(
+                    "reader exhausted — call reader.reset() to rewind")
+            for name, arr in zip(op.output("Out"), batch):
+                var = block.vars.get(name)
+                feeds[name] = to_tensor(arr, device,
+                                        getattr(var, "dtype", None))
 
 
 def lower_block(block, env, aux):
@@ -465,6 +542,7 @@ class Executor:
                                         getattr(var, "dtype", None))
                 # a dense feed clears a stale LoD of an earlier ragged one
                 scope.set_lod(name, lod)
+            _run_reader_ops(block, scope, feeds, self.device)
         with self._lock:
             with _span("executor.dispatch") as dsp:
                 compiled = self._get_compiled(program, block, feeds,
@@ -544,6 +622,10 @@ class Executor:
             else:
                 _enforce_feed(name, t, var)
                 const_feed[name] = t            # one batch, reused
+        # reader ops: `steps` batches a read op, stacked, sliced per step
+        reader_feed = {}
+        _run_reader_ops(block, scope, reader_feed, self.device, steps=steps)
+        per_step.update(reader_feed)
         sample = dict(const_feed)
         sample.update({n: t[0] for n, t in per_step.items()})
         outs, word, sites = [], None, None

@@ -1,14 +1,25 @@
-"""Model save/load and inference-model export (the port's counterpart of
-``paddle_tpu.io``; reference ``python/paddle/fluid/io.py``:
-``save_vars:66``, ``save_persistables:145``, ``load_persistables:234``,
-``save_inference_model:298``, ``load_inference_model:383``).
+"""Model save/load, inference-model export and training checkpoints (the
+port's counterpart of ``paddle_tpu.io``; reference
+``python/paddle/fluid/io.py``: ``save_vars:66``, ``save_persistables:145``,
+``load_persistables:234``, ``save_inference_model:298``,
+``load_inference_model:383``).
 
 Persistence runs through programs, as in the reference: ``save_vars`` /
-``load_vars`` build a program of one ``save_combine`` / ``load_combine``
-op and run it.  The files are the JAX package's (``__model__`` JSON plus
-the ``__params__`` records of ``ops/persist_ops.py``), so models cross
-between the two packages.  Only the combined form (one ``filename``) is
-ported; per-variable files and sharded checkpoints wait.
+``load_vars`` build a program of ``save`` / ``load`` ops (one per
+variable) or of one ``save_combine`` / ``load_combine`` op (when
+``filename`` is given) and run it.  The files are the JAX package's
+(``__model__`` JSON plus the records of ``ops/persist_ops.py``), so
+models cross between the two packages.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``): the JAX
+package's default format is orbax; the port always writes that
+package's other format, the shard format of
+:mod:`paddle_tpu_torch.fault.shard_ckpt` (one ``.npy`` a variable and a
+topology record in ``MANIFEST.json``), which the JAX package's
+``load_checkpoint`` reads, and reads it at any shard count.  An orbax
+directory raises.  Mesh-sharded saves and restores (``mesh=``,
+``shard_specs=``, ``shardings=``) wait for the port's mesh (ROADMAP
+queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -17,16 +28,20 @@ import json
 import os
 
 import numpy as np
+import torch
 
-from paddle_tpu_torch.framework import (Program, Variable,
+from paddle_tpu_torch.framework import (Parameter, Program, Variable,
                                         default_main_program)
 from paddle_tpu_torch.ops.persist_ops import read_record_names
+from paddle_tpu_torch.place import torch_device
 from paddle_tpu_torch.scope import global_scope
 
 __all__ = [
-    "save_vars", "save_persistables", "load_vars", "load_persistables",
-    "save_inference_model", "load_inference_model", "synth_feed_value",
-    "infer_feed_specs",
+    "save_vars", "save_params", "save_persistables", "load_vars",
+    "load_params", "load_persistables", "save_inference_model",
+    "load_inference_model", "save_checkpoint", "load_checkpoint",
+    "get_inference_program", "synth_feed_value", "infer_feed_specs",
+    "atomic_write", "snapshot_state",
 ]
 
 
@@ -34,9 +49,17 @@ def is_persistable(var):
     return var.persistable
 
 
+def is_parameter(var):
+    return isinstance(var, Parameter)
+
+
+def _var_path(dirname, name):
+    return os.path.join(dirname, name.replace("/", "%2F"))
+
+
 def _persist_program(vars, for_load):
     """A fresh program whose global block mirrors ``vars`` (persistable),
-    ready to host a save/load op over them."""
+    ready to host save/load ops over them."""
     prog = Program()
     prog.expect_host_ops = True
     block = prog.global_block()
@@ -49,31 +72,40 @@ def _persist_program(vars, for_load):
     return prog, block
 
 
-def _need_filename(filename):
-    if filename is None:
-        raise NotImplementedError(
-            "paddle_tpu_torch.io saves and loads the combined form only: "
-            "pass a filename (per-variable files are not ported)")
-
-
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
-    """Write the selected variables (sorted by name) into
-    ``dirname/filename`` through one ``save_combine`` op."""
-    _need_filename(filename)
+    """Write the selected variables through one ``save`` op each into
+    ``dirname/<name>``, or, with ``filename``, sorted by name through one
+    ``save_combine`` op into ``dirname/filename``."""
     scope = global_scope()
     if vars is None:
         main_program = main_program or default_main_program()
         vars = list(filter(predicate, main_program.list_vars()))
-    vars = sorted((v for v in vars if scope.find_var(v.name) is not None),
-                  key=lambda v: v.name)
+    # a reader variable is persistable too, but holds no tensor
+    vars = [v for v in vars if hasattr(scope.find_var(v.name), "dtype")]
     os.makedirs(dirname, exist_ok=True)
+    if filename is not None:
+        # combined records carry names, but the order is the contract:
+        # both ends sort by name
+        vars = sorted(vars, key=lambda v: v.name)
     prog, block = _persist_program(vars, for_load=False)
-    if vars:
-        block.append_op(
-            type="save_combine", inputs={"X": [v.name for v in vars]},
-            outputs={}, attrs={"file_path": os.path.join(dirname, filename)})
+    if filename is not None:
+        if vars:
+            block.append_op(
+                type="save_combine", inputs={"X": [v.name for v in vars]},
+                outputs={},
+                attrs={"file_path": os.path.join(dirname, filename)})
+    else:
+        for var in vars:
+            block.append_op(
+                type="save", inputs={"X": [var.name]}, outputs={},
+                attrs={"file_path": _var_path(dirname, var.name)})
+    if block.ops:
         executor.run(prog, feed={}, fetch_list=[])
+
+
+def save_params(executor, dirname, main_program=None, filename=None):
+    save_vars(executor, dirname, main_program, None, is_parameter, filename)
 
 
 def save_persistables(executor, dirname, main_program=None, filename=None):
@@ -83,37 +115,59 @@ def save_persistables(executor, dirname, main_program=None, filename=None):
 
 def load_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
-    """Read ``dirname/filename`` into the scope through one
-    ``load_combine`` op, matching records to the program's variables by
+    """Read the selected variables into the scope: one ``load`` op a
+    variable whose ``dirname/<name>`` exists, or, with ``filename``, one
+    ``load_combine`` op matching records to the program's variables by
     their recorded names."""
-    _need_filename(filename)
     if vars is None:
         main_program = main_program or default_main_program()
         vars = list(filter(predicate, main_program.list_vars()))
-    path = os.path.join(dirname, filename)
-    recorded = read_record_names(path)
-    by_name = {v.name: v for v in vars}
-    if any(n is None for n in recorded):
-        vars = sorted(vars, key=lambda v: v.name)  # files without names
-    else:
-        missing = [n for n in recorded if n not in by_name]
-        if missing:
-            raise ValueError(
-                f"load_vars: {path!r} holds records for "
-                f"{missing[:3]}... not present in the program")
-        vars = [by_name[n] for n in recorded]
+    if filename is not None:
+        path = os.path.join(dirname, filename)
+        recorded = read_record_names(path)
+        by_name = {v.name: v for v in vars}
+        if any(n is None for n in recorded):
+            vars = sorted(vars, key=lambda v: v.name)  # files without names
+        else:
+            missing = [n for n in recorded if n not in by_name]
+            if missing:
+                raise ValueError(
+                    f"load_vars: {path!r} holds records for "
+                    f"{missing[:3]}... not present in the program")
+            vars = [by_name[n] for n in recorded]
+        prog, block = _persist_program(vars, for_load=True)
+        if vars:
+            block.append_op(
+                type="load_combine", inputs={},
+                outputs={"Out": [v.name for v in vars]},
+                attrs={"file_path": path})
+            executor.run(prog, feed={}, fetch_list=[])
+        return
+    vars = [v for v in vars if os.path.exists(_var_path(dirname, v.name))]
     prog, block = _persist_program(vars, for_load=True)
-    if vars:
+    for var in vars:
         block.append_op(
-            type="load_combine", inputs={},
-            outputs={"Out": [v.name for v in vars]},
-            attrs={"file_path": path})
+            type="load", inputs={}, outputs={"Out": [var.name]},
+            attrs={"file_path": _var_path(dirname, var.name)})
+    if block.ops:
         executor.run(prog, feed={}, fetch_list=[])
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, None, is_parameter, filename)
 
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
     load_vars(executor, dirname, main_program, None, is_persistable,
               filename)
+
+
+def get_inference_program(target_vars, main_program=None):
+    main_program = main_program or default_main_program()
+    if not isinstance(target_vars, list):
+        target_vars = [target_vars]
+    pruned = main_program.prune(target_vars)
+    return pruned.inference_optimize()
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
@@ -188,3 +242,176 @@ def load_inference_model(dirname, executor, model_filename=None,
     fetch_vars = [program.global_block().var(n)
                   for n in model["fetch_var_names"]]
     return program, model["feed_var_names"], fetch_vars
+
+
+# ---------------------------------------------------------------------------
+# checkpoint/resume: the whole training state (parameters and optimizer
+# accumulators) in the shard format, committed crash-consistently
+# (``fault.checkpoint.commit_checkpoint``)
+# ---------------------------------------------------------------------------
+
+def atomic_write(path, data):
+    """Crash-safe small-file write (tmp + fsync + rename): a crash
+    mid-write keeps the old file.  ``data`` may be str or bytes.  The
+    idiom behind every pointer file the runtime commits (``latest``,
+    ``last_good``).  The temp name is deterministic (single-writer
+    protocol), so a crashed write's orphan is overwritten by the next
+    attempt."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb" if isinstance(data, bytes) else "w") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _write_latest(dirname, step):
+    atomic_write(os.path.join(dirname, "latest"), str(int(step)))
+
+
+def _persistable_state(main_program=None, scope=None):
+    """The scope's persistable values, name -> the live tensor or array
+    (no copy): what a blocking save copies straight to the host."""
+    main_program = main_program or default_main_program()
+    scope = scope or global_scope()
+    state = {}
+    for var in main_program.global_block().vars.values():
+        if not is_persistable(var):
+            continue
+        v = scope.find_var(var.name)
+        if v is not None and hasattr(v, "dtype"):
+            state[var.name] = v
+    return state
+
+
+def snapshot_state(main_program=None, scope=None):
+    """The persistable state a checkpoint captures, as a name -> tensor
+    dict of clones, for a save that writes later on another thread
+    (``CheckpointManager.save_async``).  The port's steps write the
+    scope's tensors in place (a CUDA graph's write-back), so unlike the
+    JAX package, whose arrays are immutable, the snapshot clones every
+    tensor on the device and waits for the clones before it returns:
+    the writer then serializes a consistent point-in-time view while
+    the next steps run.  A blocking save copies the live tensors to the
+    host instead and holds no second copy on the device."""
+    state = {}
+    devices = set()
+    for name, v in _persistable_state(main_program, scope).items():
+        if isinstance(v, torch.Tensor):
+            if v.is_cuda:
+                devices.add(v.device)
+            v = v.detach().clone()
+        else:
+            v = np.array(v)
+        state[name] = v
+    for device in devices:
+        torch.cuda.current_stream(device).synchronize()
+    return state
+
+
+def _no_mesh(what, **given):
+    named = [k for k, v in given.items() if v]
+    if named:
+        raise NotImplementedError(
+            f"{what}: {', '.join(named)} (a mesh-sharded checkpoint) needs "
+            f"the port's mesh, not ported yet: ROADMAP queue 1 item 7")
+
+
+def save_checkpoint(executor, dirname, main_program=None, step=0,
+                    scope=None, extras=None, mesh=None, shard_specs=None,
+                    state=None):
+    """Save ALL persistable state (params + optimizer accumulators) as
+    ``dirname/ckpt-<step>`` in the shard format, one ``.npy`` a
+    variable, and swing the ``latest`` pointer.
+
+    Crash-consistent: the state is written to a ``.tmp-`` dir, a
+    checksummed ``MANIFEST.json`` (with the topology record) is added,
+    and only then is the dir atomically renamed to ``ckpt-<step>``
+    (``fault.checkpoint.commit_checkpoint``).
+
+    ``extras``: optional ``filename -> bytes`` sidecar files (e.g. the
+    serialized datapipe iterator state) written into the checkpoint dir
+    BEFORE the commit, so they ride the same manifest/rename atomicity
+    as the tensors.  ``state``: a pre-snapshotted :func:`snapshot_state`
+    dict (the async-save path snapshots on the step path and writes
+    later, on its writer thread); without it the scope's tensors are
+    copied straight to the host.  ``mesh`` / ``shard_specs`` raise."""
+    import shutil
+
+    from paddle_tpu_torch.fault import chaos, shard_ckpt
+    from paddle_tpu_torch.fault.checkpoint import commit_checkpoint
+    from paddle_tpu_torch.obs.trace import span as _span
+
+    _no_mesh("save_checkpoint", mesh=mesh is not None,
+             shard_specs=shard_specs)
+    if state is None:
+        state = _persistable_state(main_program, scope)
+    os.makedirs(dirname, exist_ok=True)
+    path = os.path.abspath(os.path.join(dirname, f"ckpt-{int(step)}"))
+    tmp = os.path.abspath(os.path.join(dirname, f".tmp-ckpt-{int(step)}"))
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    chaos.fire("ckpt.save", step=step)
+    with _span("ckpt.write", step=int(step), vars=len(state)):
+        host = shard_ckpt.host_state(state)
+        os.makedirs(tmp, exist_ok=True)
+        topology = shard_ckpt.build_topology(host)
+        shard_ckpt.write_state(tmp, host, topology, step=int(step))
+        for name, blob in (extras or {}).items():
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
+    commit_checkpoint(tmp, path, step=int(step),
+                      extra={"topology": topology})
+    _write_latest(dirname, step)
+    return path
+
+
+def _restored_tensor(arr, dtype, device):
+    """A checkpoint array as a tensor on ``device``: bfloat16 words
+    re-viewed, anything else as its numpy dtype."""
+    if dtype == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                             .copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return t.to(device)
+
+
+def load_checkpoint(executor, dirname, main_program=None, step=None,
+                    scope=None, shardings=None, mesh=None):
+    """Restore ``dirname/ckpt-<step>`` (default: the ``latest`` pointer's
+    step) into the scope, every variable a tensor on the executor's
+    device (no executor: the default place's, ``cuda:0``); returns the
+    step.  Reads the shard format at any shard count
+    (a var's shards concatenated along its saved axis), whether written
+    by the port or by the JAX package with ``mesh=``.  The scope
+    is only changed after every var loaded.  An orbax checkpoint (the
+    JAX package's default format) raises, as do ``shardings`` and
+    ``mesh``."""
+    from paddle_tpu_torch.fault import chaos, shard_ckpt
+
+    _no_mesh("load_checkpoint", shardings=shardings, mesh=mesh is not None)
+    scope = scope or global_scope()
+    if step is None:
+        with open(os.path.join(dirname, "latest")) as f:
+            step = int(f.read().strip())
+    path = os.path.abspath(os.path.join(dirname, f"ckpt-{int(step)}"))
+    manifest = shard_ckpt.read_manifest(path)
+    topology = (manifest or {}).get("topology")
+    if topology is None:
+        raise ValueError(
+            f"{path} has no shard-format manifest (an orbax checkpoint of "
+            f"the JAX package, or a torn one?): the port reads the shard "
+            f"format only")
+    # the restore boundary: restores never mutate committed checkpoints
+    chaos.fire("ckpt.restore", step=int(step))
+    state = shard_ckpt.read_state(path, topology)
+    device = executor.device if executor is not None \
+        else torch_device(None)
+    tensors = {name: _restored_tensor(arr, dtype, device)
+               for name, (arr, dtype) in state.items()}
+    for name, value in tensors.items():
+        scope.set_var(name, value)
+    return int(step)

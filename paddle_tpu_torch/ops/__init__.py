@@ -21,6 +21,7 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     sequence_ops,
     control_flow_ops,
     io_ops,
+    reader_ops,
     beam_search_ops,
     fused_ops,
 )

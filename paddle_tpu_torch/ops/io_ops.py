@@ -1,7 +1,8 @@
-"""The ``print`` op (the port of ``paddle_tpu.ops.io_ops``'s print;
-reference ``print_op.cc``): ``layers.Print`` peeks at a tensor.  The
-JAX package's ``feed``, ``fetch`` and ``assign_from_scope`` are not
-ported (ROADMAP queue 1 item 6)."""
+"""IO-ish ops (the port of ``paddle_tpu.ops.io_ops``): ``print``
+(reference ``print_op.cc``; ``layers.Print`` peeks at a tensor) and the
+``feed`` / ``fetch`` placeholders (the executor handles feed and fetch at
+the block boundary, reference ``feed_op.cc`` / ``fetch_op.cc``) and
+``assign_from_scope``, registered for API parity as no-ops."""
 
 from __future__ import annotations
 
@@ -28,3 +29,18 @@ def print_grad_lower(ctx):
     g_out = ctx.op.input("Out@GRAD")
     if g_in and g_in[0] and g_out and g_out[0] in ctx.env:
         ctx.outputs[g_in[0]] = ctx.env[g_out[0]]
+
+
+@register_op("feed", no_gradient=True)
+def feed_lower(ctx):  # the executor skips feed ops
+    pass
+
+
+@register_op("fetch", no_gradient=True)
+def fetch_lower(ctx):  # the executor skips fetch ops
+    pass
+
+
+@register_op("assign_from_scope", no_gradient=True)
+def assign_from_scope_lower(ctx):  # internal helper, as in the JAX package
+    pass

@@ -1,5 +1,6 @@
-"""``save_combine`` / ``load_combine``: persistence as IR ops (the port's
-counterpart of ``paddle_tpu.ops.persist_ops``; reference
+"""``save`` / ``load`` / ``save_combine`` / ``load_combine``: persistence
+as IR ops (the port's counterpart of ``paddle_tpu.ops.persist_ops``;
+reference ``save_op.cc:1-130``, ``load_op.cc:1-87``,
 ``save_load_combine_op_test.cc``).
 
 The on-disk record format is the JAX package's, re-implemented here with
@@ -10,7 +11,9 @@ numpy and torch so bundles cross between the two packages unchanged:
 
 Data is little-endian C-order; bfloat16 is stored as uint16 words with
 dtype "bfloat16" in the header.  A combined file holds one record per
-variable, in the order of the X/Out slots.
+variable, in the order of the X/Out slots; ``save`` / ``load`` one
+record a file, its LoD written from, and read into, the run's LoD map
+(as the JAX package's ``save`` / ``load`` do).
 """
 
 from __future__ import annotations
@@ -90,17 +93,49 @@ def read_record_names(path):
     return names
 
 
+def _prepare_path(path, overwrite):
+    if os.path.exists(path) and not overwrite:
+        raise RuntimeError(
+            f"save: {path!r} exists and overwrite is disabled "
+            f"(reference save_op.cc PADDLE_ENFORCE)")
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+
+
+def _lod_of(ctx, name):
+    lod = ctx.aux.get("lod", {}).get(name)
+    return lod if isinstance(lod, list) else None
+
+
+@register_op("save", no_gradient=True, eager_only=True)
+def save_lower(ctx):
+    """One variable -> one file (reference ``save_op.cc:1-130``)."""
+    path = ctx.attr("file_path")
+    _prepare_path(path, ctx.attr("overwrite", True))
+    name = ctx.op.input("X")[0]
+    with open(path, "wb") as f:
+        write_tensor(f, ctx.env[name], _lod_of(ctx, name), name=name)
+
+
+@register_op("load", no_gradient=True, eager_only=True)
+def load_lower(ctx):
+    """One file -> one variable on the run's device (reference
+    ``load_op.cc:1-87``)."""
+    with open(ctx.attr("file_path"), "rb") as f:
+        t, lod = read_tensor(f)
+    name = ctx.op.output("Out")[0]
+    ctx.outputs[name] = t.to(ctx.device)
+    if lod:
+        ctx.aux.setdefault("lod", {})[name] = lod
+
+
 @register_op("save_combine", no_gradient=True,
              eager_only=True)
 def save_combine_lower(ctx):
     """All X inputs, in slot order, into one file."""
     path = ctx.attr("file_path")
-    if os.path.exists(path) and not ctx.attr("overwrite", True):
-        raise RuntimeError(
-            f"save: {path!r} exists and overwrite is disabled")
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
+    _prepare_path(path, ctx.attr("overwrite", True))
     with open(path, "wb") as f:
         for name in ctx.op.input("X"):
             write_tensor(f, ctx.env[name], name=name)

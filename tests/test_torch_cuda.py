@@ -1666,3 +1666,106 @@ def test_graph_device_faults_raise_after_the_replay_on_card(cuda_card):
     np.testing.assert_array_equal(run(3, 3), xv + 3)
     (stats,) = exe.graph_stats()
     assert (stats["captures"], stats["replays"]) == (1, 4)
+
+
+# ---------------------------------------------------------------------------
+# the reader pipeline on the card (``paddle_tpu_torch/ops/reader_ops.py``):
+# the double buffer copies on a side stream that the consumer waits on,
+# and a reader-fed ``run_steps`` window is one graph that equals the
+# memory-fed window bit for bit
+# ---------------------------------------------------------------------------
+
+def _regression_samples(path, n, dim=32, seed=0):
+    from paddle_tpu_torch.recordio_writer import \
+        convert_reader_to_recordio_file
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(n, dim).astype("float32")
+    ys = (xs[:, :1] * 0.5 + 0.1).astype("float32")
+    convert_reader_to_recordio_file(
+        str(path), lambda: ((xs[i], ys[i]) for i in range(n)), compressor=0)
+    return xs, ys
+
+
+@pytest.mark.cuda
+def test_double_buffer_stages_on_a_side_stream_on_card(cuda_card, tmp_path):
+    """Batches arrive as device tensors copied on the reader's own stream;
+    a batch the main stream still reads after its last reference is gone
+    keeps its block until that work is done (``record_stream``), while
+    the worker stages the next batches."""
+    from paddle_tpu_torch.ops import reader_ops
+    p = tmp_path / "d.rio"
+    xs, ys = _regression_samples(p, n=4096, dim=1024)
+    dev = torch.device("cuda", 0)
+    base = reader_ops.BatchReader(reader_ops.RecordIOReader(
+        str(p), [(1024,), (1,)], ["float32", "float32"]), 256)
+    db = reader_ops.DoubleBufferReader(base, device=dev, capacity=4)
+    assert db._stream != torch.cuda.current_stream(dev)
+    busy = torch.randn(2048, 2048, device=dev)
+    sums = []
+    for i in range(16):
+        x, y = db.next()
+        assert x.is_cuda and x.shape == (256, 1024)
+        for _ in range(4):               # hold the main stream back
+            busy = torch.tanh(busy @ busy)
+        sums.append(x.sum(dtype=torch.float64))   # runs after that
+        del x, y                         # freed while the sum is queued
+    torch.cuda.synchronize(dev)
+    want = xs.reshape(16, 256, 1024).astype(np.float64).sum(axis=(1, 2))
+    np.testing.assert_allclose([float(s) for s in sums], want, rtol=1e-9)
+    with pytest.raises(StopIteration):
+        db.next()
+
+
+@pytest.mark.cuda
+def test_reader_fed_window_is_one_graph_equal_to_memory_fed_on_card(
+        cuda_card, tmp_path):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler
+    p = tmp_path / "d.rio"
+    B, steps = 32, 8
+    xs, ys = _regression_samples(p, n=B * steps)
+
+    def program(reader_fed):
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = 7
+        with pt.framework.unique_name_scope("rw_"), \
+                pt.program_guard(main, startup):
+            if reader_fed:
+                r = pt.layers.open_recordio_file(
+                    filename=str(p), shapes=[(32,), (1,)],
+                    lod_levels=[0, 0], dtypes=["float32", "float32"],
+                    pass_num=10)
+                r = pt.layers.batch(r, batch_size=B)
+                r = pt.layers.double_buffer(r, capacity=steps + 2)
+                x, y = pt.layers.read_file(r)
+            else:
+                x = pt.layers.data("x", shape=[B, 32],
+                                   append_batch_size=False)
+                y = pt.layers.data("y", shape=[B, 1],
+                                   append_batch_size=False)
+            h = pt.layers.dropout(pt.layers.fc(x, 64, act="relu"), 0.2)
+            cost = pt.layers.mean(pt.layers.square_error_cost(
+                pt.layers.fc(h, 1), y))
+            pt.optimizer.Adam(1e-2).minimize(cost)
+        return main, startup, cost
+
+    feed = {"x": xs.reshape(steps, B, 32), "y": ys.reshape(steps, B, 1)}
+    runs = {}
+    for reader_fed in (True, False):
+        main, startup, cost = program(reader_fed)
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        misses = profiler.runtime_metrics.counter("jit_cache.misses")
+        losses = [exe.run_steps(main, feed=None if reader_fed else feed,
+                                fetch_list=[cost], steps=steps,
+                                scope=scope)[0] for _ in range(2)]
+        runs[reader_fed] = (np.concatenate(losses),
+                            profiler.runtime_metrics.counter(
+                                "jit_cache.misses") - misses,
+                            exe.graph_stats())
+    got, misses, stats = runs[True]
+    want, _, _ = runs[False]
+    assert misses == 1
+    assert [(s["captures"], s["replays"]) for s in stats] == \
+        [(1, 2 * steps - 1)]
+    np.testing.assert_array_equal(got, want)
