@@ -257,7 +257,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device peak under a quarter of the state (it clones nothing); the
    state's GiB and save, verify and restore seconds (``--ckpt-trainer``
    runs a trainer).
-13. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+13. The book's op families and semantic role labeling.
+   ``phase_op_families``: each of the 54 op types of the tensor, math,
+   loss, nn, metric, CRF and CTC families that this slice ported (held
+   against the registry: ``family_ops``) and each op whose NaN grads or
+   integer inputs were repaired runs on the card and on the CPU from the
+   same seeded inputs (``op_family_cases`` is also the CPU tests' case
+   list): float32 within ``F32_TOL``, integers and host outputs equal,
+   grads likewise; the random ops by range, moments and seeding.
+   ``phase_label_semantic_roles``: the Fluid book's SRL model (8
+   features, the fixed 44068 x 32 word embedding, hidden 512, depth 8,
+   59 labels, linear-chain CRF, B = 10 unclipped ``conll05`` sequences)
+   trains 20 SGD steps through ``layers``, ``SGD.minimize`` and
+   ``Executor.run``: losses finite and falling, ``ChunkEvaluator`` equal
+   to a plain IOB recount of the decoded paths, no hand-written kernel;
+   ms a step, tokens/s, peak memory.  ``phase_card_vs_cpu_srl``: one
+   float32 step of it on the card and on the CPU from one state: loss,
+   grads and parameters within the card-vs-CPU bounds, Viterbi paths
+   equal but at a counted near tie.
+14. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
@@ -3526,6 +3544,1065 @@ def phase_sequence_nets():
 
 
 # ---------------------------------------------------------------------------
+# the op families: each op type of the book's tensor, math, loss, nn,
+# metric, CRF and CTC families on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _fam_f(rng, *shape, scale=1.0):
+    import numpy as np
+    return (rng.randn(*shape) * scale).astype(np.float32)
+
+
+def _ints(*values):
+    import numpy as np
+    return np.array(values, np.int64).reshape(-1, 1)
+
+
+def _tied(r):
+    """Rows with ties: the first index must win."""
+    x = _fam_f(r, 3, 5)
+    x[0, 1] = x[0, 3] = x[0].max() + 1.0
+    x[1, 0] = x[1, 4] = x[1].min() - 1.0
+    x[2] = 0.5
+    return x
+
+
+def _pool_mask(r):
+    """``(values, mask)`` of a 2x2 max pool over 4x4 planes: each pooled
+    value with its flat index in the 16-element plane (``unpool``'s
+    inputs)."""
+    import numpy as np
+    x = _fam_f(r, 2, 3, 4, 4)
+    win = x.reshape(2, 3, 2, 2, 2, 2).transpose(0, 1, 2, 4, 3, 5) \
+        .reshape(2, 3, 2, 2, 4)
+    k = win.argmax(-1)
+    row = np.arange(2)[:, None] * 2 + k // 2
+    col = np.arange(2)[None, :] * 2 + k % 2
+    return win.max(-1), (row * 4 + col).astype(np.int64)
+
+
+def op_family_cases():
+    """The sweep's cases without a LoD (each row its own sequence for the
+    ops that read one): ``(id, op type, {slot: array, or a list of
+    arrays}, output slots, attrs)``, inputs made from a seed with numpy.
+    The departures of torch's library calls from the JAX package are
+    cases: floor semantics of mod / floordiv with negative operands,
+    lrn's alpha (not alpha / n), image_resize's corner-aligned and
+    antialiased resampling, pool2d_with_index's mask within each H x W
+    plane, spp's bin edges, scatter with unique ids only (the order of a
+    repeated id is XLA's and undefined), a tie for each arg op (the
+    first index wins).  ``tests/test_torch_ops.py`` holds the same cases
+    against the JAX package on the CPU."""
+    import numpy as np
+    _f = _fam_f
+    r = np.random.RandomState(41)
+    neg = _f(r, 3, 4) * 3
+    div = np.where(np.abs(_f(r, 3, 4)) < 0.5, 0.75, _f(r, 3, 4))
+    div = np.where(np.abs(div) < 0.5, -0.75, div).astype(np.float32)
+    ia = np.array([[7, -7, 5, -5], [0, 9, -9, 3]], np.int32)
+    ib = np.array([[3, 3, -2, -2], [4, -4, 4, 2]], np.int32)
+    pooled, mask = _pool_mask(r)
+    diff = _f(r, 4, 3)
+    smooth_y = diff + np.array([0.1, -0.2, 0.3], np.float32) * \
+        np.sign(_f(r, 4, 3))
+    return [
+        # tensor_ops
+        ("fill_zeros_like", "fill_zeros_like", {"X": _f(r, 3, 4)},
+         ["Out"], {}),
+        ("fill", "fill", {}, ["Out"],
+         {"shape": [2, 3], "dtype": "float32",
+          "value": [0.5, -1.0, 2.0, 3.25, 0.0, 1e-3]}),
+        ("fill_int", "fill", {}, ["Out"],
+         {"shape": [3], "dtype": "int32", "value": [4, -2, 7]}),
+        ("shape", "shape", {"Input": _f(r, 2, 3, 4)}, ["Out"], {}),
+        ("squeeze_axes", "squeeze", {"X": _f(r, 3, 1, 4, 1)}, ["Out"],
+         {"axes": [1, -1, 0]}),
+        ("squeeze_all", "squeeze", {"X": _f(r, 1, 3, 1, 4)}, ["Out"],
+         {"axes": []}),
+        ("unsqueeze", "unsqueeze", {"X": _f(r, 3, 4)}, ["Out"],
+         {"axes": [0, 2]}),
+        ("pad", "pad", {"X": _f(r, 2, 3)}, ["Out"],
+         {"paddings": [1, 0, 2, 1], "pad_value": 0.5}),
+        ("crop", "crop", {"X": _f(r, 4, 5)}, ["Out"],
+         {"offsets": [1, 2], "shape": [2, 3]}),
+        ("slice", "slice", {"Input": _f(r, 4, 5, 6)}, ["Out"],
+         {"axes": [0, 2], "starts": [1, -3], "ends": [3, 100]}),
+        ("scatter_unique", "scatter",
+         {"X": _f(r, 6, 3), "Ids": np.array([4, -1, 2], np.int64),
+          "Updates": _f(r, 3, 3)}, ["Out"], {}),
+        ("multiplex", "multiplex",
+         {"X": [_f(r, 4, 3), _f(r, 4, 3), _f(r, 4, 3)],
+          "Ids": _ints(2, 0, 1, 2).astype(np.int32)}, ["Out"], {}),
+        ("one_hot", "one_hot", {"X": _ints(0, 3, 4, 1, -1, 5)}, ["Out"],
+         {"depth": 5}),
+        ("argsort_ties", "argsort", {"X": _tied(r)}, ["Out", "Indices"],
+         {"axis": -1}),
+        ("argsort_axis0", "argsort", {"X": _tied(r)}, ["Out", "Indices"],
+         {"axis": 0}),
+        ("arg_max_ties", "arg_max", {"X": _tied(r)}, ["Out"], {"axis": -1}),
+        ("arg_max_axis0", "arg_max", {"X": _tied(r)}, ["Out"], {"axis": 0}),
+        ("arg_min_ties", "arg_min", {"X": _tied(r)}, ["Out"], {"axis": -1}),
+        ("arg_min_axis0", "arg_min", {"X": _tied(r)}, ["Out"], {"axis": 0}),
+        # math_ops
+        ("elementwise_mod_signs", "elementwise_mod", {"X": neg, "Y": div},
+         ["Out"], {"axis": -1}),
+        ("elementwise_mod_int", "elementwise_mod", {"X": ia, "Y": ib},
+         ["Out"], {"axis": -1}),
+        ("elementwise_floordiv_signs", "elementwise_floordiv",
+         {"X": neg, "Y": div}, ["Out"], {"axis": -1}),
+        ("elementwise_floordiv_int", "elementwise_floordiv",
+         {"X": ia, "Y": ib}, ["Out"], {"axis": -1}),
+        ("minus", "minus", {"X": _f(r, 3, 4), "Y": _f(r, 3, 4)}, ["Out"],
+         {}),
+        ("cumsum", "cumsum", {"X": _f(r, 3, 4)}, ["Out"], {"axis": 1}),
+        ("cumsum_exclusive_reverse", "cumsum", {"X": _f(r, 3, 4)},
+         ["Out"], {"axis": 0, "exclusive": True, "reverse": True}),
+        ("cumsum_exclusive", "cumsum", {"X": _f(r, 3, 4)}, ["Out"],
+         {"axis": -1, "exclusive": True}),
+        ("l1_norm", "l1_norm",
+         {"X": np.concatenate([_f(r, 5), [0.0]]).astype(np.float32)},
+         ["Out"], {}),
+        ("norm", "norm", {"X": _f(r, 2, 3, 4)}, ["Out", "Norm"],
+         {"axis": 1, "epsilon": 1e-10}),
+        ("cos_sim", "cos_sim", {"X": _f(r, 4, 5), "Y": _f(r, 4, 5)},
+         ["Out", "XNorm", "YNorm"], {}),
+        ("cos_sim_broadcast_y", "cos_sim",
+         {"X": _f(r, 4, 5), "Y": _f(r, 1, 5)}, ["Out", "XNorm", "YNorm"],
+         {}),
+        ("bilinear_tensor_product", "bilinear_tensor_product",
+         {"X": _f(r, 3, 4), "Y": _f(r, 3, 5), "Weight": _f(r, 2, 4, 5),
+          "Bias": _f(r, 1, 2)}, ["Out"], {}),
+        # loss_ops
+        ("squared_l2_distance", "squared_l2_distance",
+         {"X": _f(r, 4, 3), "Y": _f(r, 4, 3)}, ["Out", "sub_result"], {}),
+        ("squared_l2_distance_row_y", "squared_l2_distance",
+         {"X": _f(r, 4, 3), "Y": _f(r, 1, 3)}, ["Out", "sub_result"], {}),
+        ("smooth_l1_loss", "smooth_l1_loss",
+         {"X": diff, "Y": smooth_y,
+          "InsideWeight": np.abs(_f(r, 4, 3)) + 0.5,
+          "OutsideWeight": np.abs(_f(r, 4, 3)) + 0.5}, ["Out", "Diff"],
+         {"sigma": 2.0}),
+        ("smooth_l1_loss_plain", "smooth_l1_loss",
+         {"X": _f(r, 4, 3), "Y": _f(r, 4, 3)}, ["Out", "Diff"], {}),
+        ("hinge_loss", "hinge_loss",
+         {"Logits": _f(r, 6, 1), "Labels": (r.rand(6, 1) < 0.5)
+          .astype(np.float32)}, ["Loss"], {}),
+        ("huber_loss", "huber_loss", {"X": _f(r, 6, 1), "Y": _f(r, 6, 1)},
+         ["Out", "Residual"], {"delta": 0.5}),
+        ("log_loss", "log_loss",
+         {"Predicted": r.uniform(0.05, 0.95, (6, 1)).astype(np.float32),
+          "Labels": (r.rand(6, 1) < 0.5).astype(np.float32)}, ["Loss"],
+         {"epsilon": 1e-4}),
+        ("rank_loss", "rank_loss",
+         {"Left": _f(r, 5, 1), "Right": _f(r, 5, 1),
+          "Label": (r.rand(5, 1) < 0.5).astype(np.float32)}, ["Out"], {}),
+        ("margin_rank_loss", "margin_rank_loss",
+         {"X1": _f(r, 6, 1), "X2": _f(r, 6, 1),
+          "Label": np.where(r.rand(6, 1) < 0.5, -1.0, 1.0)
+          .astype(np.float32)}, ["Out", "Activated"], {"margin": 0.1}),
+        ("modified_huber_loss", "modified_huber_loss",
+         {"X": np.array([[-3.0], [-0.5], [0.2], [0.9], [1.5], [2.5]],
+                        np.float32),
+          "Y": np.array([[1], [1], [0], [1], [0], [1]], np.float32)},
+         ["Out", "IntermediateVal"], {}),
+        # nn_ops
+        ("conv2d_transpose", "conv2d_transpose",
+         {"Input": _f(r, 2, 4, 5, 5), "Filter": _f(r, 4, 3, 3, 3)},
+         ["Output"], {"strides": [2, 2], "paddings": [1, 1],
+                      "dilations": [1, 1], "groups": 1}),
+        ("conv2d_transpose_grouped_dilated", "conv2d_transpose",
+         {"Input": _f(r, 1, 4, 4, 5), "Filter": _f(r, 4, 2, 3, 2)},
+         ["Output"], {"strides": [1, 2], "paddings": [0, 1],
+                      "dilations": [2, 1], "groups": 2}),
+        ("conv3d_transpose", "conv3d_transpose",
+         {"Input": _f(r, 1, 2, 3, 4, 4), "Filter": _f(r, 2, 3, 2, 3, 3)},
+         ["Output"], {"strides": [1, 2, 2], "paddings": [0, 1, 1],
+                      "dilations": [1, 1, 1], "groups": 1}),
+        ("conv3d", "conv3d",
+         {"Input": _f(r, 2, 3, 5, 6, 6), "Filter": _f(r, 4, 3, 3, 3, 2)},
+         ["Output"], {"strides": [1, 2, 1], "paddings": [1, 1, 0],
+                      "dilations": [1, 1, 1], "groups": 1}),
+        ("conv3d_grouped", "conv3d",
+         {"Input": _f(r, 1, 4, 4, 4, 4), "Filter": _f(r, 4, 2, 2, 2, 2)},
+         ["Output"], {"strides": [1, 1, 1], "paddings": [0, 0, 0],
+                      "dilations": [1, 2, 1], "groups": 2}),
+        ("pool2d_with_index", "pool2d_with_index", {"X": _f(r, 2, 3, 5, 5)},
+         ["Out", "Mask"], {"ksize": [2, 2], "strides": [2, 2],
+                           "paddings": [0, 0]}),
+        ("pool2d_with_index_padded", "pool2d_with_index",
+         {"X": _f(r, 1, 2, 5, 6)}, ["Out", "Mask"],
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}),
+        ("pool2d_with_index_ties", "pool2d_with_index",
+         {"X": np.repeat(np.repeat(_f(r, 1, 2, 2, 2), 2, 2), 2, 3)},
+         ["Out", "Mask"], {"ksize": [2, 2], "strides": [2, 2],
+                           "paddings": [0, 0]}),
+        ("pool2d_with_index_global", "pool2d_with_index",
+         {"X": _f(r, 2, 2, 3, 4)}, ["Out", "Mask"],
+         {"ksize": [1, 1], "global_pooling": True}),
+        ("lrn", "lrn", {"X": _f(r, 2, 6, 3, 3)}, ["Out", "MidOut"],
+         {"n": 5, "k": 2.0, "alpha": 1e-2, "beta": 0.75}),
+        ("log_softmax", "log_softmax", {"X": _f(r, 3, 7)}, ["Out"], {}),
+        ("label_smooth", "label_smooth",
+         {"X": np.eye(5, dtype=np.float32)[[0, 3, 4]]}, ["Out"],
+         {"epsilon": 0.1}),
+        ("label_smooth_prior", "label_smooth",
+         {"X": np.eye(5, dtype=np.float32)[[1, 2]],
+          "PriorDist": np.abs(_f(r, 1, 5))}, ["Out"], {"epsilon": 0.2}),
+        ("pool3d_max", "pool3d", {"X": _f(r, 2, 2, 4, 5, 6)}, ["Out"],
+         {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [2, 2, 2],
+          "paddings": [0, 0, 0]}),
+        ("pool3d_avg_exclusive_ceil", "pool3d", {"X": _f(r, 1, 2, 5, 5, 4)},
+         ["Out"], {"pooling_type": "avg", "ksize": [3, 3, 2],
+                   "strides": [2, 2, 2], "paddings": [1, 1, 0],
+                   "ceil_mode": True, "exclusive": True}),
+        ("pool3d_avg_global", "pool3d", {"X": _f(r, 1, 3, 2, 3, 4)},
+         ["Out"], {"pooling_type": "avg", "ksize": [1, 1, 1],
+                   "global_pooling": True, "exclusive": False}),
+        ("unpool", "unpool", {"X": pooled, "Indices": mask}, ["Out"],
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0],
+          "unpooling_type": "max"}),
+        ("spp_max", "spp", {"X": _f(r, 2, 3, 5, 7)}, ["Out"],
+         {"pyramid_height": 3, "pooling_type": "max"}),
+        ("spp_avg", "spp", {"X": _f(r, 2, 3, 5, 7)}, ["Out"],
+         {"pyramid_height": 3, "pooling_type": "avg"}),
+        ("conv_shift", "conv_shift", {"X": _f(r, 3, 7), "Y": _f(r, 3, 3)},
+         ["Out"], {}),
+        ("image_resize_align_corners", "image_resize",
+         {"X": _f(r, 2, 3, 4, 5)}, ["Out"],
+         {"out_h": 7, "out_w": 3, "method": "bilinear"}),
+        ("image_resize_half_pixel", "image_resize",
+         {"X": _f(r, 2, 3, 4, 5)}, ["Out"],
+         {"out_h": 7, "out_w": 3, "method": "bilinear",
+          "align_corners": False}),
+        ("image_resize_nearest", "image_resize", {"X": _f(r, 2, 3, 4, 5)},
+         ["Out"], {"out_h": 7, "out_w": 3, "method": "nearest"}),
+        # metric_ops
+        ("auc", "auc",
+         {"Predict": np.stack([1 - (p := r.rand(20)), p], 1)
+          .astype(np.float32),
+          "Label": r.randint(0, 2, (20, 1)).astype(np.int64)},
+         ["AUC", "StatPosOut", "StatNegOut"], {"num_thresholds": 200}),
+        ("auc_accumulated", "auc",
+         {"Predict": np.stack([1 - (p := r.rand(12)), p], 1)
+          .astype(np.float32),
+          "Label": r.randint(0, 2, (12, 1)).astype(np.int64),
+          "StatPos": r.randint(0, 3, 11).astype(np.int64),
+          "StatNeg": r.randint(0, 3, 11).astype(np.int64)},
+         ["AUC", "StatPosOut", "StatNegOut"], {"num_thresholds": 10}),
+        ("precision_recall", "precision_recall",
+         {"MaxProbs": r.rand(8, 1).astype(np.float32),
+          "Indices": r.randint(0, 4, (8, 1)).astype(np.int64),
+          "Labels": r.randint(0, 4, (8, 1)).astype(np.int64)},
+         ["BatchMetrics", "AccumMetrics", "AccumStatesInfo"],
+         {"class_number": 4}),
+        ("precision_recall_weighted_states", "precision_recall",
+         {"MaxProbs": r.rand(8, 1).astype(np.float32),
+          "Indices": r.randint(0, 4, (8, 1)).astype(np.int64),
+          "Labels": r.randint(0, 4, (8, 1)).astype(np.int64),
+          "Weights": r.rand(8, 1).astype(np.float32),
+          "StatesInfo": r.rand(4, 4).astype(np.float32) * 3},
+         ["BatchMetrics", "AccumMetrics", "AccumStatesInfo"],
+         {"class_number": 4}),
+        ("chunk_eval_iob", "chunk_eval",
+         {"Inference": _ints(0, 1, 4, 2, 3, 3, 4, 0, 1, 1, 2, 4),
+          "Label": _ints(0, 1, 4, 2, 3, 4, 4, 0, 1, 4, 2, 3)},
+         ["Precision", "Recall", "F1-Score", "NumInferChunks",
+          "NumLabelChunks", "NumCorrectChunks"],
+         {"num_chunk_types": 2, "chunk_scheme": "IOB"}),
+        ("chunk_eval_iobes_excluded", "chunk_eval",
+         {"Inference": _ints(0, 1, 2, 3, 4, 5, 7, 8, 4, 6, 8),
+          "Label": _ints(0, 1, 2, 3, 4, 6, 7, 8, 5, 6, 8)},
+         ["Precision", "Recall", "F1-Score", "NumInferChunks",
+          "NumLabelChunks", "NumCorrectChunks"],
+         {"num_chunk_types": 2, "chunk_scheme": "IOBES",
+          "excluded_chunk_types": [1]}),
+        ("positive_negative_pair", "positive_negative_pair",
+         {"Score": np.round(_f(r, 10, 1), 1),
+          "Label": r.randint(0, 3, (10, 1)).astype(np.float32),
+          "QueryID": _ints(0, 0, 0, 1, 1, 1, 1, 2, 2, 2),
+          "Weight": r.rand(10, 1).astype(np.float32)},
+         ["PositivePair", "NegativePair", "NeutralPair"], {}),
+        # crf_ops / ctc_ops without a LoD: each row its own sequence
+        ("linear_chain_crf_rows", "linear_chain_crf",
+         {"Emission": _f(r, 5, 4), "Transition": _f(r, 6, 4),
+          "Label": _ints(0, 3, 1, 2, 3)},
+         ["LogLikelihood", "Alpha", "EmissionExps", "TransitionExps"], {}),
+        ("crf_decoding_rows", "crf_decoding",
+         {"Emission": _f(r, 5, 4), "Transition": _f(r, 6, 4)},
+         ["ViterbiPath"], {}),
+        ("crf_decoding_rows_label", "crf_decoding",
+         {"Emission": _f(r, 5, 4), "Transition": _f(r, 6, 4),
+          "Label": _ints(0, 3, 1, 2, 3)}, ["ViterbiPath"], {}),
+        ("warpctc_rows", "warpctc",
+         {"Logits": _f(r, 4, 5), "Label": _ints(1, 4, 2, 3)}, ["Loss"],
+         {"blank": 0, "norm_by_times": False}),
+        ("ctc_align_rows", "ctc_align", {"Input": _ints(0, 2, 2, 0, 3)},
+         ["Output"], {"blank": 0}),
+        ("edit_distance_rows", "edit_distance",
+         {"Hyps": _ints(1, 2, 3, 4), "Refs": _ints(1, 5, 3, 0)},
+         ["Out", "SequenceNum"], {"normalized": False}),
+    ]
+
+def op_family_lod_cases():
+    """The ops that read a LoD, over LoDs with a sequence of length 1
+    and an empty one where the op takes it: ``(id, op type, {slot:
+    array}, output slots, attrs, {slot: LoD})``."""
+    import numpy as np
+    _f = _fam_f
+    r = np.random.RandomState(47)
+    lod = [[0, 3, 4, 4, 9]]
+    n, k = 9, 6
+    labels = r.randint(0, k, (n, 1)).astype(np.int64)
+    logit_lod, label_lod = [[0, 4, 9, 10]], [[0, 2, 4, 5]]
+    chunk_lod = [[0, 5, 5, 12]]
+    return [
+        ("linear_chain_crf_lod", "linear_chain_crf",
+         {"Emission": _f(r, n, k), "Transition": _f(r, k + 2, k) * 0.5,
+          "Label": labels},
+         ["LogLikelihood", "Alpha", "EmissionExps", "TransitionExps"], {},
+         {"Emission": lod, "Label": lod}),
+        ("crf_decoding_lod", "crf_decoding",
+         {"Emission": _f(r, n, k), "Transition": _f(r, k + 2, k) * 0.5},
+         ["ViterbiPath"], {}, {"Emission": lod}),
+        ("crf_decoding_lod_label", "crf_decoding",
+         {"Emission": _f(r, n, k), "Transition": _f(r, k + 2, k) * 0.5,
+          "Label": labels}, ["ViterbiPath"], {},
+         {"Emission": lod, "Label": lod}),
+        ("warpctc_lod", "warpctc",
+         {"Logits": _f(r, 10, 5), "Label": _ints(1, 1, 2, 4, 3)},
+         ["Loss"], {"blank": 0, "norm_by_times": False},
+         {"Logits": logit_lod, "Label": label_lod}),
+        ("warpctc_lod_norm", "warpctc",
+         {"Logits": _f(r, 10, 5), "Label": _ints(2, 3, 3, 1, 4)},
+         ["Loss"], {"blank": 0, "norm_by_times": True},
+         {"Logits": logit_lod, "Label": label_lod}),
+        ("ctc_align_lod", "ctc_align",
+         {"Input": _ints(0, 1, 1, 0, 2, 2, 3, 0, 0, 4, 4, 1)}, ["Output"],
+         {"blank": 0}, {"Input": chunk_lod}),
+        ("edit_distance_lod", "edit_distance",
+         {"Hyps": _ints(1, 2, 3, 4, 5), "Refs": _ints(1, 3, 3, 9)},
+         ["Out", "SequenceNum"], {"normalized": True},
+         {"Hyps": [[0, 3, 5]], "Refs": [[0, 2, 4]]}),
+        ("chunk_eval_lod", "chunk_eval",
+         {"Inference": _ints(0, 1, 4, 2, 3, 3, 4, 0, 1, 1, 2, 4),
+          "Label": _ints(0, 1, 4, 2, 3, 4, 4, 0, 1, 4, 2, 3)},
+         ["Precision", "Recall", "F1-Score", "NumInferChunks",
+          "NumLabelChunks", "NumCorrectChunks"],
+         {"num_chunk_types": 2, "chunk_scheme": "IOB"},
+         {"Inference": chunk_lod, "Label": chunk_lod}),
+    ]
+
+
+def repaired_op_cases():
+    """The ops whose NaN grads and integer inputs were repaired (the
+    max-like family at a NaN, ties beside it; ``mean``, ``reduce_mean``,
+    ``sign`` and ``reduce_sum`` of an int32), in the form of
+    :func:`op_family_lod_cases`."""
+    import numpy as np
+    nan = np.nan
+    rows = np.array([[1, 3, 3, 2], [nan, 1, 2, 0]], np.float32)
+    pair = {"X": np.array([nan, 1, 2, 3], np.float32),
+            "Y": np.array([1, nan, 2, 1], np.float32)}
+    act = {"X": np.array([nan, 0.5, -0.5, 0.0, 0.25], np.float32)}
+    ints = np.array([1, 2, 4, 2147483647, 1, 0], np.int32)
+    red = {"dim": [1], "keep_dim": False, "reduce_all": False}
+    return [
+        ("reduce_max_nan", "reduce_max", {"X": rows}, ["Out"], red, {}),
+        ("reduce_min_nan", "reduce_min", {"X": rows}, ["Out"], red, {}),
+        ("maxout_nan", "maxout",
+         {"X": np.array([1, nan, 2, 3, 4, 4], np.float32)
+          .reshape(1, 6, 1, 1)}, ["Out"], {"groups": 2}, {}),
+        ("pool2d_max_nan", "pool2d",
+         {"X": np.array([1, nan, 2, 3, 5, 0, 7, 1, 9, 4, 4, 8, 2, 2, 6, 6],
+                        np.float32).reshape(1, 1, 4, 4)}, ["Out"],
+         {"ksize": [2, 2], "strides": [2, 2], "pooling_type": "max"}, {}),
+        ("sequence_pool_max_nan", "sequence_pool",
+         {"X": np.array([[1, 2], [nan, 0], [3, 3], [1, 3]], np.float32)},
+         ["Out", "MaxIndex"], {"pooltype": "MAX"}, {"X": [[0, 2, 4]]}),
+        ("elementwise_max_nan", "elementwise_max", pair, ["Out"],
+         {"axis": -1}, {}),
+        ("elementwise_min_nan", "elementwise_min", pair, ["Out"],
+         {"axis": -1}, {}),
+        ("relu_nan", "relu", act, ["Out"], {}, {}),
+        ("relu6_nan", "relu6", act, ["Out"], {"threshold": 6.0}, {}),
+        ("brelu_nan", "brelu", act, ["Out"],
+         {"t_min": -1.0, "t_max": 0.25}, {}),
+        ("clip_nan", "clip", act, ["Out"], {"min": -0.5, "max": 0.0}, {}),
+        ("hard_sigmoid_nan", "hard_sigmoid", act, ["Out"],
+         {"slope": 0.25, "offset": 0.5}, {}),
+        ("mean_int", "mean", {"X": ints}, ["Out"], {}, {}),
+        ("reduce_mean_int", "reduce_mean", {"X": ints}, ["Out"],
+         {"dim": [0], "keep_dim": False, "reduce_all": True}, {}),
+        ("sign_int", "sign", {"X": np.array([-7, 0, 3], np.int32)},
+         ["Out"], {}, {}),
+        ("reduce_sum_int", "reduce_sum", {"X": ints}, ["Out"],
+         {"dim": [0], "keep_dim": False, "reduce_all": False}, {}),
+    ]
+
+
+#: the modules of the sweep's families
+FAMILY_MODULES = ("tensor_ops", "math_ops", "loss_ops", "nn_ops",
+                  "metric_ops", "crf_ops", "ctc_ops")
+#: the op types of those modules that earlier slices ported, which their
+#: own phases run on the card
+EARLIER_FAMILY_OPS = frozenset((
+    "assign", "assign_value", "cast", "concat", "expand", "fill_constant",
+    "fill_constant_batch_size_like", "gather", "gaussian_random",
+    "lookup_table", "reshape", "split", "top_k", "transpose",
+    "uniform_random", "clip", "clip_by_norm", "elementwise_add",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_mul", "elementwise_pow", "elementwise_sub", "matmul",
+    "mean", "mul", "reduce_max", "reduce_mean", "reduce_min",
+    "reduce_prod", "reduce_sum", "scale", "sign", "squared_l2_norm", "sum",
+    "cross_entropy", "sigmoid_cross_entropy_with_logits",
+    "softmax_with_cross_entropy", "batch_norm", "conv2d",
+    "depthwise_conv2d", "dropout", "layer_norm", "pool2d", "softmax",
+    "accuracy"))
+#: the random ops of the families: checked by range, moments and seeding
+RNG_FAMILY_OPS = ("uniform_random_batch_size_like",
+                  "gaussian_random_batch_size_like", "sampling_id")
+
+
+def family_ops():
+    """The op types the sweep must cover, from the port's registry: every
+    forward op type registered by ``FAMILY_MODULES`` that no earlier slice
+    ported."""
+    from paddle_tpu_torch.ops import registry
+    ops = registry.all_ops()
+    return sorted(t for t, d in ops.items()
+                  if d.lower is not None and
+                  d.lower.__module__.rsplit(".", 1)[-1] in FAMILY_MODULES
+                  and not (t.endswith("_grad") and t[:-5] in ops)
+                  and t not in EARLIER_FAMILY_OPS)
+
+
+def _fam_named(inputs):
+    named = {}
+    for slot, arr in inputs.items():
+        if isinstance(arr, list):
+            named.update({f"in_{slot}_{i}": a for i, a in enumerate(arr)})
+        else:
+            named[f"in_{slot}"] = arr
+    return named
+
+
+def _fam_program(pt, op_type, inputs, out_slots, attrs, lods, cot=False):
+    """One ``op_type`` op over input variables ``in_<slot>`` (LoD level 1
+    where ``lods`` has the slot) into ``out_<slot>``; with ``cot``, then
+    ``loss = reduce_sum(out * cot)`` of the first output and the
+    cotangent ``cot`` a feed, every float input a data variable that
+    takes a grad."""
+    vars_, ins = [], {}
+    for slot, arr in inputs.items():
+        named = _fam_named({slot: arr})
+        ins[slot] = list(named)
+        for name, a in named.items():
+            vars_.append({"name": name, "shape": list(a.shape),
+                          "dtype": str(a.dtype), "persistable": False,
+                          "lod_level": 1 if slot in lods else 0,
+                          "is_data": True,
+                          "stop_gradient": a.dtype.kind != "f"})
+    outs = {s: [f"out_{s}"] for s in out_slots}
+    vars_ += [{"name": f"out_{s}", "shape": None, "dtype": "float32"}
+              for s in out_slots]
+    ops = [{"type": op_type, "inputs": ins, "outputs": outs,
+            "attrs": dict(attrs)}]
+    if cot:
+        vars_ += [{"name": "cot", "shape": None, "dtype": "float32",
+                   "is_data": True, "stop_gradient": True},
+                  {"name": "prod", "shape": None, "dtype": "float32"},
+                  {"name": "loss", "shape": [1], "dtype": "float32"}]
+        ops += [{"type": "elementwise_mul",
+                 "inputs": {"X": [f"out_{out_slots[0]}"], "Y": ["cot"]},
+                 "outputs": {"Out": ["prod"]}, "attrs": {"axis": -1}},
+                {"type": "reduce_sum", "inputs": {"X": ["prod"]},
+                 "outputs": {"Out": ["loss"]},
+                 "attrs": {"dim": [0], "keep_dim": False,
+                           "reduce_all": True}}]
+    return pt.Program.from_dict({"blocks": [{
+        "idx": 0, "parent_idx": -1, "vars": vars_, "ops": ops}]})
+
+
+def _fam_feed(inputs, lods):
+    return {n: (a, lods[n[3:]]) if n[3:] in lods else a
+            for n, a in _fam_named(inputs).items()}
+
+
+def _fam_forward(pt, case, device, seed=SEED):
+    """``{output name: numpy}`` of one op run through ``lower_block`` on
+    ``device``."""
+    import torch
+    from paddle_tpu_torch.convert import to_numpy, to_tensor
+    from paddle_tpu_torch.executor import lower_block
+    _, op_type, inputs, out_slots, attrs, lods = case
+    prog = _fam_program(pt, op_type, inputs, out_slots, attrs, lods)
+    block = prog.global_block()
+    env = {n: to_tensor(a, device) for n, a in _fam_named(inputs).items()}
+    aux = {"device": device, "rng_seed": seed, "amp": False,
+           "generator": torch.Generator().manual_seed(seed),
+           "lod": {f"in_{s}": lod for s, lod in lods.items()}}
+    with torch.no_grad():
+        lower_block(block, env, aux)
+    return {n: to_numpy(env[n]) for n in block.ops[0].output_arg_names
+            if n in env}
+
+
+def _fam_grads(pt, case, place, cot):
+    """The input grads of one op at the cotangent ``cot`` of its first
+    output, through ``append_backward`` and ``Executor.run`` on
+    ``place``."""
+    import numpy as np
+    _, op_type, inputs, out_slots, attrs, lods = case
+    prog = _fam_program(pt, op_type, inputs, out_slots, attrs, lods,
+                        cot=True)
+    pt.append_backward(prog.global_block().var("loss"))
+    grads = sorted(n for n in prog.global_block().vars
+                   if n.startswith("in_") and n.endswith("@GRAD"))
+    feed = _fam_feed(inputs, lods)
+    feed["cot"] = cot
+    vals = pt.Executor(place).run(prog, feed=feed, fetch_list=grads,
+                                  scope=pt.Scope())
+    return dict(zip(grads, [np.asarray(v) for v in vals]))
+
+
+def _fam_compare(got, want, what):
+    """Float32 within ``F32_TOL`` (NaN where NaN), anything else
+    equal; returns the largest float difference."""
+    import numpy as np
+    if set(got) != set(want):
+        raise AssertionError(f"op_families[{what}]: outputs {sorted(got)} "
+                             f"!= {sorted(want)}")
+    worst = 0.0
+    for n in want:
+        g, w = np.asarray(got[n]), np.asarray(want[n])
+        if g.shape != w.shape:
+            raise AssertionError(f"op_families[{what}]: {n} shape {g.shape}"
+                                 f" != {w.shape}")
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, atol=F32_TOL, rtol=F32_TOL,
+                                       equal_nan=True,
+                                       err_msg=f"op_families[{what}] {n}")
+            live = ~np.isnan(w)
+            if live.any():
+                worst = max(worst, float(np.abs(g[live] - w[live]).max()))
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"op_families"
+                                                        f"[{what}] {n}")
+    return worst
+
+
+def _fam_rng(pt, device):
+    """The random ops on ``device``: each draw repeats under its seed and
+    RNG slot and changes with either; ``U[min, max)`` within range at its
+    mean, ``N(mean, std**2)`` at its moments, ``sampling_id`` in ``[0,
+    C)`` at the row's probabilities (a zero one never)."""
+    import numpy as np
+    base = np.zeros((64, 3), np.float32)
+    attrs = {"shape": [-1, 512], "input_dim_idx": 0, "output_dim_idx": 0,
+             "dtype": "float32", "min": -0.5, "max": 0.25, "mean": 1.5,
+             "std": 0.5}
+    probs = np.tile(np.array([0.1, 0.0, 0.6, 0.3], np.float32), (8192, 1))
+    cases = {
+        "uniform_random_batch_size_like": ({"Input": base}, attrs),
+        "gaussian_random_batch_size_like": ({"Input": base}, attrs),
+        "sampling_id": ({"X": probs}, {})}
+    out = {}
+    for op_type, (inputs, at) in cases.items():
+        case = (op_type, op_type, inputs, ["Out"], at, {})
+        draws = [_fam_forward(pt, case, device, seed)["out_Out"]
+                 for seed in (SEED, SEED, SEED + 1)]
+        if not np.array_equal(draws[0], draws[1]) or \
+                np.array_equal(draws[0], draws[2]):
+            raise AssertionError(f"op_families[{op_type}]: not seeded")
+        d = draws[0]
+        if op_type.startswith("uniform"):
+            ok = d.shape == (64, 512) and d.min() >= -0.5 and \
+                d.max() < 0.25 and abs(d.mean() + 0.125) < 0.01
+        elif op_type.startswith("gaussian"):
+            ok = d.shape == (64, 512) and abs(d.mean() - 1.5) < 0.01 and \
+                abs(d.std() - 0.5) < 0.01
+        else:
+            freq = np.bincount(d.reshape(-1), minlength=4) / len(d)
+            ok = d.shape == (8192, 1) and d.dtype == np.int64 and \
+                freq[1] == 0 and np.abs(freq - probs[0]).max() < 0.02
+        if not ok:
+            raise AssertionError(f"op_families[{op_type}]: draws out of "
+                                 f"range or off their moments")
+        out[op_type] = float(d.mean())
+    return out
+
+
+def phase_op_families():
+    """Every op type of the book's families that this slice ported
+    (``family_ops``, from the registry) and every repaired op
+    (``repaired_op_cases``) on ``cuda:0`` and on the CPU from the same
+    seeded numpy inputs (``op_family_cases``, ``op_family_lod_cases``):
+    float32 outputs within ``F32_TOL`` (no case reduces over more than
+    1024 terms), integer and host outputs equal; the input grads of each
+    op that has one, through ``append_backward``, likewise (finite at
+    the NaN inputs of the repaired ops); the random ops by range,
+    moments and seeding (``_fam_rng``).  Fails if an op type of
+    ``family_ops()`` has no case, and if a hand-written kernel
+    launches."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import registry
+
+    required = family_ops()
+    cases = [c + ({},) for c in op_family_cases()] + \
+        op_family_lod_cases() + repaired_op_cases()
+    covered = {c[1] for c in cases} | set(RNG_FAMILY_OPS)
+    missing = sorted(set(required) - covered)
+    if missing:
+        raise AssertionError(f"op_families: no case for {missing}")
+    card = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    worst, n_grads = {}, 0
+    for case in cases:
+        what, op_type = case[0], case[1]
+        worst[what] = _fam_compare(_fam_forward(pt, case, card),
+                                   _fam_forward(pt, case,
+                                                torch.device("cpu")), what)
+        opdef = registry.lookup(op_type)
+        floats = [a for a in _fam_named(case[2]).values()
+                  if a.dtype.kind == "f"]
+        if not opdef.has_grad or not floats:
+            continue
+        out = _fam_forward(pt, case, torch.device("cpu"))
+        cot = np.random.RandomState(5).randn(
+            *out[f"out_{case[3][0]}"].shape).astype(np.float32)
+        got = _fam_grads(pt, case, pt.CUDAPlace(0), cot)
+        want = _fam_grads(pt, case, pt.CPUPlace(), cot)
+        if not want or not all(np.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"op_families[{what}]: grads {got}")
+        worst[what] = max(worst[what], _fam_compare(got, want,
+                                                    f"{what} grad"))
+        n_grads += 1
+    rng = _fam_rng(pt, card)
+    _no_launches("op_families")
+    seconds = time.perf_counter() - t0
+    top = max(worst, key=worst.get)
+    log(f"op_families[{card_line()}]: {len(required)} op types of "
+        f"{', '.join(FAMILY_MODULES)} ported here, {len(cases)} cases "
+        f"({len({c[1] for c in cases})} op types with the repaired ones), "
+        f"{n_grads} with grads, card against CPU: worst |diff| "
+        f"{worst[top]:.3e} ({top}); random ops seeded and in range "
+        f"{json.dumps(rng)}; {seconds:.1f} s")
+    return dict(op_types=len(required), cases=len(cases), grads=n_grads,
+                worst_abs_diff=worst[top], seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# the book's semantic role labeling: db_lstm + linear-chain CRF
+# ---------------------------------------------------------------------------
+
+#: the Fluid book's label_semantic_roles (chapter 07) at its widths: the
+#: eight features (the word, the five context words around the
+#: predicate, the predicate, the mark), word_dim 32, mark_dim 5,
+#: hidden_dim 512, depth 8, the CRF's transitions at lr 1e-3, batches of
+#: 10, IOB over ceil((59 - 1) / 2) = 29 chunk types; the dictionaries of
+#: the port's ``dataset.conll05``
+SRL_WORD_FEATURES = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+                     "ctx_p2")
+SRL_BOOK = dict(word_dict=44068, pred_dict=3162, label_dict=59,
+                mark_dict=2, word_dim=32, mark_dim=5, hidden=512, depth=8,
+                words=SRL_WORD_FEATURES, rows=None, book=True,
+                crf_lr=1e-3, batch=10, chunk_types=29)
+#: 5 distinct batches, 4 passes over them: the first 5 steps and the last
+#: 5 see the same batches
+SRL_BATCHES, SRL_EPOCHS = 5, 4
+#: the card-vs-CPU step: a CPU step of the full-width net takes seconds
+SRL_CARD_CPU_B = 10
+#: a Viterbi token may differ between the card and the CPU only where the
+#: CPU's two best final path scores lie this close (relative)
+SRL_TIE_RTOL = 1e-4
+
+
+def srl_net(pkg, cfg):
+    """The book's ``db_lstm`` (``cfg["depth"]`` mixed ``fc`` +
+    ``dynamic_lstm`` layers, the direction flipping with ``i % 2``) over
+    ``cfg["words"]`` word features, the predicate and the mark, then
+    ``linear_chain_crf`` ("crfw"), the mean cost, SGD, ``crf_decoding``
+    on "crfw" and a streaming IOB ``ChunkEvaluator``, built with
+    ``pkg``'s layers (the port's here; the JAX package's in
+    ``tests/test_torch_book.py``, which holds the two against each
+    other).  ``cfg["book"]``: the book's word embedding "emb" (fixed,
+    ``trainable=False``), sparse predicate and mark embeddings, ``tanh``
+    on every ``fc`` and the exponentially decayed learning rate;
+    otherwise the cut-down net of
+    ``tests/test_book_label_semantic_roles.py`` ("srl_emb", dense, no
+    activation, SGD at 0.01).  Returns ``(feed names, avg_cost, crf_decode,
+    evaluator)``."""
+    layers = pkg.layers
+    shape = [cfg["rows"], 1] if cfg["rows"] else [1]
+    names = list(cfg["words"]) + ["verb", "mark", "target"]
+    data = {n: layers.data(name=n, shape=shape, dtype="int64", lod_level=1,
+                           append_batch_size=not cfg["rows"])
+            for n in names}
+    book = cfg["book"]
+    pred_emb = layers.embedding(data["verb"],
+                                size=[cfg["pred_dict"], cfg["word_dim"]],
+                                param_attr="vemb", is_sparse=book)
+    mark_emb = layers.embedding(data["mark"],
+                                size=[cfg["mark_dict"], cfg["mark_dim"]],
+                                is_sparse=book)
+    word_attr = pkg.ParamAttr(name="emb", trainable=False) if book \
+        else "srl_emb"
+    embs = [layers.embedding(data[n], size=[cfg["word_dict"],
+                                            cfg["word_dim"]],
+                             param_attr=word_attr) for n in cfg["words"]]
+    embs += [pred_emb, mark_emb]
+    hid = cfg["hidden"]
+    act = "tanh" if book else None
+    hidden_0 = layers.sums(input=[layers.fc(input=e, size=hid, act=act)
+                                  for e in embs])
+    lstm_0, _ = layers.dynamic_lstm(
+        hidden_0, size=hid, candidate_activation="relu",
+        gate_activation="sigmoid", cell_activation="sigmoid")
+    input_tmp = [hidden_0, lstm_0]
+    for i in range(1, cfg["depth"]):
+        mix = layers.sums(input=[
+            layers.fc(input=input_tmp[0], size=hid, act=act),
+            layers.fc(input=input_tmp[1], size=hid, act=act)])
+        lstm, _ = layers.dynamic_lstm(
+            mix, size=hid, candidate_activation="relu",
+            gate_activation="sigmoid", cell_activation="sigmoid",
+            is_reverse=(i % 2) == 1)
+        input_tmp = [mix, lstm]
+    feature_out = layers.sums(input=[
+        layers.fc(input=input_tmp[0], size=cfg["label_dict"], act=act),
+        layers.fc(input=input_tmp[1], size=cfg["label_dict"], act=act)])
+    crf_attr = pkg.ParamAttr(name="crfw", learning_rate=cfg["crf_lr"]) \
+        if book else pkg.ParamAttr(name="crfw")
+    crf_cost = layers.linear_chain_crf(input=feature_out,
+                                       label=data["target"],
+                                       param_attr=crf_attr)
+    avg_cost = layers.mean(crf_cost)
+    lr = layers.exponential_decay(learning_rate=0.01, decay_steps=100000,
+                                  decay_rate=0.5, staircase=True) \
+        if book else 0.01
+    pkg.optimizer.SGD(learning_rate=lr).minimize(avg_cost)
+    crf_decode = layers.crf_decoding(input=feature_out,
+                                     param_attr=pkg.ParamAttr(name="crfw"))
+    evaluator = pkg.evaluator.ChunkEvaluator(
+        input=crf_decode, label=data["target"], chunk_scheme="IOB",
+        num_chunk_types=cfg["chunk_types"])
+    return names, avg_cost, crf_decode, evaluator
+
+
+def srl_batches(samples, cfg, n_batches):
+    """``n_batches`` feeds of ``cfg["batch"]`` sequences each from the
+    ``dataset.conll05`` sample iterator ``samples``, unclipped: every
+    feature ``[N, 1]`` int64 with the batch's LoD (sample fields: the six
+    words, the predicate, the mark, the labels)."""
+    import numpy as np
+    fields = SRL_WORD_FEATURES + ("verb", "mark", "target")
+    keep = [fields.index(n) for n in cfg["words"]] + [6, 7, 8]
+    out = []
+    for _ in range(n_batches):
+        batch = [next(samples) for _ in range(cfg["batch"])]
+        lod = [[0] + list(np.cumsum([len(b[0]) for b in batch]))]
+        feed = {}
+        for name, k in zip(list(cfg["words"]) + ["verb", "mark", "target"],
+                           keep):
+            feed[name] = (np.concatenate([np.asarray(b[k], np.int64)
+                                          for b in batch]).reshape(-1, 1),
+                          [[int(v) for v in lod[0]]])
+        out.append(feed)
+    return out
+
+
+def iob_chunks(tags, n_types):
+    """The ``(begin, end, type)`` chunks of an IOB tag sequence (tag
+    ``2 t`` begins a chunk of type t, ``2 t + 1`` continues one, any
+    type from ``n_types`` on is outside): a plain recount, independent
+    of the port's ``chunk_eval``."""
+    chunks, start, ctype = set(), None, None
+    for i, lab in enumerate(list(tags) + [2 * n_types]):
+        t, inside = int(lab) // 2, int(lab) // 2 < n_types
+        if start is not None and (not inside or int(lab) % 2 == 0 or
+                                  t != ctype):
+            chunks.add((start, i - 1, ctype))
+            start = None
+        if inside and start is None:
+            start, ctype = i, t
+    return chunks
+
+
+def _srl_program(pt, cfg):
+    """``(main, startup, names, cost, decode, evaluator)`` of
+    :func:`srl_net` in fresh programs seeded ``SEED``."""
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        names, cost, decode, ev = srl_net(pt, cfg)
+    return main, startup, names, cost, decode, ev
+
+
+def phase_label_semantic_roles():
+    """The book's SRL model trains on the card at its full widths
+    (``SRL_BOOK``) through ``layers``, ``SGD.minimize`` and
+    ``Executor.run`` with static LoD feeds of unclipped
+    ``dataset.conll05.train()`` sequences: ``SRL_BATCHES`` batches of 10,
+    ``SRL_EPOCHS`` passes; the fixed word embedding is
+    ``conll05.get_embedding()``.  Every loss finite, the mean of the last
+    5 below the mean of the first 5; ``ChunkEvaluator.eval``'s
+    precision, recall and F1 exactly those of a plain IOB recount
+    (:func:`iob_chunks`) of the fetched ``crf_decoding`` paths against
+    the targets over all steps; no hand-written kernel launched.  Printed:
+    ms a step, tokens a second, the state's GiB and the steps' peak
+    allocation above what was allocated before them; then
+    ``phase_card_vs_cpu_srl``."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import to_tensor
+    from paddle_tpu_torch.dataset import conll05
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+
+    cfg = SRL_BOOK
+    exe = pt.Executor()
+    if exe.device != torch.device("cuda", 0):
+        raise AssertionError(f"Executor landed on {exe.device}")
+    main, startup, names, cost, decode, ev = _srl_program(pt, cfg)
+    scope = pt.Scope()
+    batches = srl_batches(iter(conll05.train()()), cfg, SRL_BATCHES)
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        scope.set_var("emb", to_tensor(conll05.get_embedding(), exe.device))
+        ev.reset(exe)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        state_gib = sum(v.numel() * v.element_size()
+                        for _, v in scope.items()
+                        if isinstance(v, torch.Tensor)) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        for kern in ALL_KERNELS:
+            kern.launches = 0
+        losses, step_s, recount = [], [], [0, 0, 0]
+        for epoch in range(SRL_EPOCHS):
+            for feed in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, path, *_ = exe.run(main, feed=feed,
+                                         fetch_list=[cost, decode]
+                                         + ev.metrics)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                losses.append(float(np.asarray(loss).reshape(())))
+                path = np.asarray(path).reshape(-1)
+                target, lod = feed["target"]
+                target = target.reshape(-1)
+                n_types = cfg["chunk_types"]
+                for lo, hi in zip(lod[0][:-1], lod[0][1:]):
+                    inf = iob_chunks(path[lo:hi], n_types)
+                    lab = iob_chunks(target[lo:hi], n_types)
+                    recount[0] += len(inf)
+                    recount[1] += len(lab)
+                    recount[2] += len(inf & lab)
+        _no_launches("label_semantic_roles")
+        precision, recall, f1 = (float(v[0]) for v in ev.eval(exe))
+    # the main program stays eager (host ops: chunk_eval; LoD tables);
+    # the startup and the evaluator's reset program may run as graphs
+    _graphs("label_semantic_roles", exe, None)
+    n_inf, n_lab, n_ok = recount
+    want_p = n_ok / n_inf if n_inf else 0.0
+    want_r = n_ok / n_lab if n_lab else 0.0
+    want_f1 = 2 * want_p * want_r / (want_p + want_r) if n_ok else 0.0
+    if (precision, recall, f1) != (want_p, want_r, want_f1):
+        raise AssertionError(
+            f"label_semantic_roles: ChunkEvaluator {precision, recall, f1} "
+            f"!= the recount {want_p, want_r, want_f1} ({recount})")
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"label_semantic_roles: losses {losses} not "
+                             f"finite and falling")
+    # above what the process held before the steps (earlier phases'
+    # objects included), so the figure is the steps' own
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    tokens = [int(f["target"][0].shape[0]) for f in batches]
+    steady = float(np.mean(step_s[SRL_BATCHES:]))
+    tokens_per_s = float(np.mean(tokens)) / steady
+    lens = [int(d) for f in batches for d in np.diff(f["target"][1][0])]
+    log(f"label_semantic_roles[book, {card_line()}]: words {cfg['word_dict']}"
+        f" x {cfg['word_dim']} (fixed), {len(cfg['words'])} word features, "
+        f"hidden {cfg['hidden']} x depth {cfg['depth']}, {cfg['label_dict']} "
+        f"labels, B={cfg['batch']} lengths {min(lens)}..{max(lens)} "
+        f"({tokens} tokens a batch): losses {[round(x, 4) for x in losses]}; "
+        f"step ms {[round(1e3 * x, 2) for x in step_s]}; steady (passes "
+        f"2..) {1e3 * steady:.3f} ms = {tokens_per_s:.1f} tokens/s; state "
+        f"{state_gib:.4f} GiB, the steps' peak above what was allocated "
+        f"before them {peak_gib:.4f} GiB; ChunkEvaluator P/R/F1 "
+        f"{precision:.6f}/{recall:.6f}/{f1:.6f} = the recount of "
+        f"{n_inf} inferred, {n_lab} labelled, {n_ok} correct chunks")
+    out = dict(step_ms=1e3 * steady, tokens_per_s=tokens_per_s,
+               peak_gib=peak_gib, state_gib=state_gib, losses=losses,
+               first_step_ms=1e3 * step_s[0],
+               chunk=dict(precision=precision, recall=recall, f1=f1))
+    del main, startup, scope
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = phase_card_vs_cpu_srl()
+    _no_launches("label_semantic_roles card-vs-cpu")
+    return out
+
+
+def _dense_grad(value):
+    """``(grad, adds)``: a fetched grad as a float64 array (a sparse
+    embedding's ``SelectedRows``, fetched as a 0-d object array,
+    densified) and how many terms an update of each element sums (the
+    count of its row among a sparse grad's rows, at least 1; 1 for a
+    dense grad)."""
+    import numpy as np
+    from paddle_tpu_torch.convert import to_numpy
+    value = np.asarray(value)
+    if value.dtype != object:
+        return value.astype(np.float64), 1
+    sr = value.item()
+    dense = to_numpy(sr.to_dense()).astype(np.float64)
+    rows = to_numpy(sr.rows).reshape(-1)
+    rows = rows[(rows >= 0) & (rows < dense.shape[0])]
+    adds = np.bincount(rows, minlength=dense.shape[0]).clip(min=1)
+    return dense, adds.reshape((-1,) + (1,) * (dense.ndim - 1))
+
+
+def srl_final_scores(pt, main, state, feed):
+    """Each sequence's best and second-best final Viterbi score
+    (``crf_decoding``'s last scores plus the stop weights) on the CPU in
+    float64, from the emissions of a forward run of ``main``'s ops before
+    ``crf_decoding`` on the persistables ``state``: ``[B, 2]``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.convert import to_tensor
+    from paddle_tpu_torch.executor import lower_block
+    device = torch.device("cpu")
+    block = main.global_block()
+    decode_op = next(op for op in block.ops if op.type == "crf_decoding")
+    env = {n: to_tensor(v, device) for n, v in state.items()}
+    for name, (value, _) in feed.items():
+        env[name] = to_tensor(value, device, "int64")
+    aux = {"device": device, "amp": False, "rng_seed": SEED,
+           "lod": {n: lod for n, (_, lod) in feed.items()}}
+    sub = main.clone()
+    sub.global_block().ops = sub.global_block().ops[
+        :block.ops.index(decode_op)]
+    with torch.no_grad():
+        lower_block(sub.global_block(), env, aux)
+    em = env[decode_op.input("Emission")[0]].double().numpy()
+    trans = env[decode_op.input("Transition")[0]].double().numpy()
+    splits = feed["target"][1][0]
+    out = []
+    for lo, hi in zip(splits[:-1], splits[1:]):
+        v = trans[0] + em[lo]
+        for t in range(lo + 1, hi):
+            v = (v[:, None] + trans[2:]).max(axis=0) + em[t]
+        out.append(np.sort(v + trans[1])[::-1][:2])
+    return np.asarray(out)
+
+
+def phase_card_vs_cpu_srl():
+    """One float32 SGD step of the full-width SRL net (``SRL_BOOK``,
+    ``SRL_CARD_CPU_B`` sequences of ``conll05.test()``) from one startup
+    state on the card and on the CPU.  The loss is held to
+    ``CARD_CPU_LOSS_RTOL``; every parameter's grad (fetched; the sparse
+    predicate and mark embeddings' densified) to ``CARD_CPU_GRAD_RTOL``
+    of its norm; every updated parameter element to what its grad's
+    difference allows (``lr |dg|`` plus two roundings of each side for
+    each term of the update: a sparse row's duplicate slots).  The
+    Viterbi paths must be equal token for token, except in a sequence
+    whose two best final scores (the CPU's, in float64) lie within
+    ``SRL_TIE_RTOL`` of each other: a near tie, counted and printed."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy,
+                                          to_tensor)
+    from paddle_tpu_torch.dataset import conll05
+
+    cfg = dict(SRL_BOOK, batch=SRL_CARD_CPU_B)
+    main, startup, _, cost, decode, ev = _srl_program(pt, cfg)
+    block = main.global_block()
+    sgd = {op.input("Param")[0]: op for op in block.ops if op.type == "sgd"}
+    params = sorted(sgd)
+    if set(params) != {p.name for p in block.all_parameters()} - {"emb"}:
+        raise AssertionError(f"card-vs-cpu[srl]: sgd ops for {params}")
+    (feed,) = srl_batches(iter(conll05.test()()), cfg, 1)
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    with pt.scope_guard(cpu_scope):
+        cpu.run(startup)
+        cpu_scope.set_var("emb", to_tensor(conll05.get_embedding(),
+                                           cpu.device))
+        ev.reset(cpu)
+    state = {n: to_numpy(cpu_scope.find_var(n))
+             for n in persistable_names(main)}
+    card_scope = scope_from_numpy(state, None, main)
+    grads = [sgd[p].input("Grad")[0] for p in params]
+    fetched = {}
+    for tag, exe, scope in (("cpu", cpu, cpu_scope),
+                            ("card", pt.Executor(), card_scope)):
+        with pt.scope_guard(scope):
+            fetched[tag] = exe.run(main, feed=feed,
+                                   fetch_list=[cost, decode] + grads)
+    a = float(np.asarray(fetched["card"][0]).reshape(()))
+    b = float(np.asarray(fetched["cpu"][0]).reshape(()))
+    eps32 = float(np.finfo(np.float32).eps)
+    rel, p_ratio = {}, {}
+    for i, p in enumerate(params):
+        g_card, adds = _dense_grad(fetched["card"][2 + i])
+        g_cpu, _ = _dense_grad(fetched["cpu"][2 + i])
+        norm = float(np.linalg.norm(g_cpu))
+        if not norm > 0:
+            raise AssertionError(f"card-vs-cpu[srl]: {p} got no grad")
+        rel[p] = float(np.linalg.norm(g_card - g_cpu)) / norm
+        lr = 0.01 * (cfg["crf_lr"] if p == "crfw" else 1.0)
+        got = to_numpy(card_scope.find_var(p)).astype(np.float64)
+        want = to_numpy(cpu_scope.find_var(p)).astype(np.float64)
+        # two roundings of each side (``lr * g``, then the add), as
+        # ``_adam_first_step_errors`` allows, for each term of the
+        # update: a sparse row sums its duplicate slots one by one (in
+        # another order on the card)
+        allow = lr * np.abs(g_card - g_cpu) + 4 * eps32 * adds * (
+            np.abs(want) + lr * np.abs(g_cpu))
+        diff = np.abs(got - want)
+        p_ratio[p] = float(np.where(diff == 0, 0.0, diff / np.maximum(
+            allow, np.finfo(np.float64).tiny)).max())
+    worst, worst_p = max(rel, key=rel.get), max(p_ratio, key=p_ratio.get)
+    path_card = np.asarray(fetched["card"][1]).reshape(-1)
+    path_cpu = np.asarray(fetched["cpu"][1]).reshape(-1)
+    splits = feed["target"][1][0]
+    differ = [i for i, (lo, hi) in enumerate(zip(splits[:-1], splits[1:]))
+              if not np.array_equal(path_card[lo:hi], path_cpu[lo:hi])]
+    if differ:
+        scores = srl_final_scores(pt, main, state, feed)
+        for i in differ:
+            best, second = scores[i]
+            if not best - second <= SRL_TIE_RTOL * abs(best):
+                raise AssertionError(
+                    f"card-vs-cpu[srl]: sequence {i}'s Viterbi path differs "
+                    f"and its final scores {best!r}, {second!r} are no tie")
+    log(f"card-vs-cpu[srl] book widths B={cfg['batch']} "
+        f"({len(path_cpu)} tokens) f32: loss card {a!r} cpu {b!r} (rel "
+        f"{abs(a - b) / abs(b):.2e}, bound {CARD_CPU_LOSS_RTOL}); grads "
+        f"|card - cpu| / |cpu| worst {rel[worst]:.3e} ({worst}, bound "
+        f"{CARD_CPU_GRAD_RTOL}); parameters |dp| / allowed worst "
+        f"{p_ratio[worst_p]:.3e} ({worst_p}, bound 1); Viterbi paths equal "
+        f"in {len(splits) - 1 - len(differ)} of {len(splits) - 1} "
+        f"sequences, {len(differ)} near ties")
+    if not abs(a - b) <= CARD_CPU_LOSS_RTOL * abs(b):
+        raise AssertionError(f"card-vs-cpu[srl]: loss {a} vs {b}")
+    if rel[worst] > CARD_CPU_GRAD_RTOL:
+        raise AssertionError(f"card-vs-cpu[srl]: {worst}'s grad differs by "
+                             f"{rel[worst]} relative")
+    if p_ratio[worst_p] > 1.0:
+        raise AssertionError(f"card-vs-cpu[srl]: parameter {worst_p} moved "
+                             f"{p_ratio[worst_p]} x what its grad's "
+                             f"difference allows")
+    return dict(loss_rel=abs(a - b) / abs(b), grad_rel=rel[worst],
+                param_ratio=p_ratio[worst_p], viterbi_near_ties=len(differ))
+
+
+# ---------------------------------------------------------------------------
 # control flow: the attention seq2seq and its beam decode
 # ---------------------------------------------------------------------------
 
@@ -5727,6 +6804,8 @@ def main():
         reader_train = phase_reader_train()
     by_path["checkpoint_resume"], checkpoint_resume = \
         phase_checkpoint_resume()
+    op_families = phase_op_families()
+    srl = phase_label_semantic_roles()
 
     kernels = []
     for k in ALL_KERNELS:
@@ -5823,6 +6902,14 @@ def main():
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log("reader_train: " + json.dumps(reader_train))
     log("checkpoint_resume: " + json.dumps(checkpoint_resume))
+    log("op_families: " + json.dumps(op_families))
+    log(f"label_semantic_roles[book]: step_ms={srl['step_ms']:.3f} "
+        f"tokens_per_s={srl['tokens_per_s']:.1f} state_gib="
+        f"{srl['state_gib']:.4f} peak_above_gib={srl['peak_gib']:.4f} "
+        f"first_step_ms={srl['first_step_ms']:.1f} "
+        f"chunk={json.dumps(srl['chunk'])}; card-vs-cpu " + " ".join(
+            f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in srl["card_vs_cpu"].items()))
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     for route, g in graph_train.items():

@@ -40,6 +40,9 @@ from paddle_tpu_torch.io import (
 )
 from paddle_tpu_torch import reader
 from paddle_tpu_torch import fault
+from paddle_tpu_torch import metrics
+from paddle_tpu_torch import evaluator
+from paddle_tpu_torch import dataset
 
 __version__ = "0.1.0"
 

@@ -407,15 +407,48 @@ def segment_sum(x, seg, num):
     return out[:num]
 
 
+class _SegmentChoose(torch.autograd.Function):
+    """:func:`segment_reduce`'s forward with the JAX package's vjp of
+    ``segment_max`` / ``segment_min``: a segment's cotangent is split
+    evenly among its rows equal to the result, and a segment whose
+    result is NaN (equal to none) takes none, where the grad of torch's
+    ``scatter_reduce`` gives every row of it NaN."""
+
+    @staticmethod
+    def forward(x, seg, num, reduce, empty):
+        init = torch.full((num + 1,) + tuple(x.shape[1:]), empty,
+                          dtype=x.dtype, device=x.device)
+        idx = seg.view((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+        return init.scatter_reduce(0, idx, x, reduce,
+                                   include_self=True)[:num]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, seg, ctx.num, _, _ = inputs
+        ctx.save_for_backward(x, seg, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, seg, out = ctx.saved_tensors
+        num = ctx.num
+        live = (seg < num).view((-1,) + (1,) * (x.ndim - 1))
+        row = seg.clamp(max=max(num - 1, 0))
+        loc = (x == out.index_select(0, row)) & live
+        count = segment_sum(loc.to(g.dtype), seg, num).clamp(min=1)
+        share = (g / count).index_select(0, row)
+        return (torch.where(loc, share, torch.zeros_like(share)), None,
+                None, None, None)
+
+
 def segment_reduce(x, seg, num, reduce, empty):
     """``jax.ops.segment_max`` / ``segment_min`` (``reduce`` "amax" /
     "amin"): ``empty`` in a segment without rows, a ``seg`` of ``num``
-    dropped as :func:`segment_sum` drops it."""
+    dropped as :func:`segment_sum` drops it; a float ``x`` takes
+    :class:`_SegmentChoose`'s grads."""
     seg = seg.clamp(max=num)
-    init = torch.full((num + 1,) + tuple(x.shape[1:]), empty,
-                      dtype=x.dtype, device=x.device)
-    idx = seg.view((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
-    return init.scatter_reduce(0, idx, x, reduce, include_self=True)[:num]
+    if not x.is_floating_point() or num == 0:
+        return _SegmentChoose.forward(x, seg, num, reduce, empty)
+    return _SegmentChoose.apply(x, seg, num, reduce, empty)
 
 
 class DynSegmentTables:

@@ -24,4 +24,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     reader_ops,
     beam_search_ops,
     fused_ops,
+    crf_ops,
+    ctc_ops,
 )

@@ -7,13 +7,17 @@ its grad (the auto-vjp) takes JAX's value at a kink: a clip is
 value on a bound in half as ``jnp.clip``'s does (``torch.clamp`` passes
 all of it); ``abs`` has slope +1 at 0 as ``jnp.abs`` (torch: 0); a
 ``where`` sends the cotangent to the branch it picked, as
-``jnp.where``; a max over a group splits it among ties (``amax``)."""
+``jnp.where``; a max over a group splits it among ties.  At x = NaN the
+clips, ``relu`` and ``maxout`` pass no cotangent, as in the JAX package
+(:func:`math_ops.maximum`, :func:`math_ops.reduce_chooser`)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.ops.math_ops import (maximum, minimum,
+                                          reduce_chooser)
 from paddle_tpu_torch.ops.registry import register_op, infer_shape_unary
 
 
@@ -43,18 +47,36 @@ class _Abs(torch.autograd.Function):
         return torch.where(x >= 0, g, -g)
 
 
+class _Relu(torch.autograd.Function):
+    """``max(x, 0)`` whose grad is the cotangent where x > 0 and 0
+    elsewhere, at x = NaN too (``jax.nn.relu``; torch's passes it)."""
+
+    @staticmethod
+    def forward(x):
+        return torch.relu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.zeros_like(g))
+
+
 def _clip(x, lo, hi):
     """``jnp.clip(x, lo, hi)`` with its tie-splitting vjp."""
     # bounds filled on the device (no host copy: graph-safe)
     lo = torch.full((), lo, dtype=x.dtype, device=x.device)
     hi = torch.full((), hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return minimum(maximum(x, lo), hi)
 
 
 _unary("sigmoid", torch.sigmoid)
 _unary("logsigmoid", F.logsigmoid)
 _unary("exp", torch.exp)
-_unary("relu", torch.relu)
+_unary("relu", _Relu.apply)
 _unary("tanh", torch.tanh)
 _unary("tanh_shrink", lambda x: x - torch.tanh(x))
 _unary("sqrt", torch.sqrt)
@@ -178,5 +200,5 @@ def maxout_lower(ctx):
     x = ctx.input("X")  # NCHW
     groups = ctx.attr("groups")
     n, c, h, w = x.shape
-    ctx.set_output("Out",
-                   x.reshape(n, c // groups, groups, h, w).amax(dim=2))
+    ctx.set_output("Out", reduce_chooser(
+        x.reshape(n, c // groups, groups, h, w), (2,), False, True))

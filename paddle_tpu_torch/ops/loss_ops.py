@@ -1,16 +1,20 @@
-"""Loss ops (the port's counterpart of ``softmax_with_cross_entropy``,
-``cross_entropy`` and ``sigmoid_cross_entropy_with_logits`` in
-``paddle_tpu.ops.loss_ops``; reference
+"""Loss ops (the port of ``paddle_tpu.ops.loss_ops``; reference
 ``paddle/fluid/operators/softmax_with_cross_entropy_op.cc``,
-``cross_entropy_op.cc``, ``sigmoid_cross_entropy_with_logits_op.cc``).
-The grads of ``softmax_with_cross_entropy`` and
-``sigmoid_cross_entropy_with_logits`` are the auto-vjp of their
-lowerings; ``cross_entropy`` has its own."""
+``cross_entropy_op.cc``, ``sigmoid_cross_entropy_with_logits_op.cc``,
+``squared_l2_distance_op.cc``, ``smooth_l1_loss_op.cc``,
+``hinge_loss_op.cc``, ``huber_loss_op.cc``, ``log_loss_op.cc``,
+``rank_loss_op.cc``, ``margin_rank_loss_op.cc``,
+``modified_huber_loss_op.cc``).  ``cross_entropy`` has its own grad;
+every other grad is the auto-vjp of the lowering, so a ``where`` sends
+the cotangent to the branch it picked and a clip at 0 is
+:func:`math_ops.maximum`'s (half the cotangent on a tie), as in the JAX
+package."""
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.ops.math_ops import maximum
 from paddle_tpu_torch.ops.registry import (infer_shape_unary,
                                            register_grad_lower, register_op,
                                            ShapeInferenceSkip)
@@ -124,3 +128,106 @@ def sigmoid_cross_entropy_with_logits_lower(ctx):
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     ctx.set_output("Out", torch.maximum(x, zero) - x * label
                    + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+def _infer_sqdist(op, block):
+    x = block.var(op.input("X")[0])
+    if x.shape is not None:
+        sub = block.var(op.output("sub_result")[0])
+        sub.shape = x.shape
+        sub.dtype = x.dtype
+        out = block.var(op.output("Out")[0])
+        out.shape = (x.shape[0], 1)
+        out.dtype = x.dtype
+
+
+@register_op("squared_l2_distance", infer_shape=_infer_sqdist)
+def squared_l2_distance_lower(ctx):
+    """``sum((x - y)**2)`` over the last axis, ``[N, 1]``; Y may be one
+    row that broadcasts."""
+    sub = ctx.input("X") - ctx.input("Y")
+    ctx.set_output("sub_result", sub)
+    ctx.set_output("Out", torch.sum(sub * sub, dim=-1, keepdim=True))
+
+
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+@register_op("smooth_l1_loss", no_grad_inputs=("InsideWeight",
+                                               "OutsideWeight"))
+def smooth_l1_loss_lower(ctx):
+    """``0.5 sigma**2 d**2`` where ``|d| < 1 / sigma**2``, else ``|d| -
+    0.5 / sigma**2``, of ``d = (x - y) * InsideWeight``, times
+    ``OutsideWeight``, summed over all but the first axis: ``[N, 1]``."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    s2 = ctx.attr("sigma", 1.0) ** 2
+    inw, outw = ctx.input("InsideWeight"), ctx.input("OutsideWeight")
+    diff = x - y
+    if inw is not None:
+        diff = diff * inw
+    ad = torch.where(diff >= 0, diff, -diff)
+    val = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    ctx.set_output("Diff", diff)
+    if outw is not None:
+        val = val * outw
+    ctx.set_output("Out", torch.sum(val, dim=tuple(range(1, x.ndim)))
+                   .unsqueeze(1))
+
+
+@register_op("hinge_loss", no_grad_inputs=("Labels",))
+def hinge_loss_lower(ctx):
+    """``max(1 - (2 label - 1) logit, 0)``."""
+    logits, labels = ctx.input("Logits"), ctx.input("Labels")
+    z = 1.0 - (2.0 * labels - 1.0) * logits
+    ctx.set_output("Loss", maximum(z, _zero(z)))
+
+
+@register_op("huber_loss")
+def huber_loss_lower(ctx):
+    """``0.5 r**2`` where ``|r| <= delta``, else ``delta (|r| - delta /
+    2)``, of the residual ``r = y - x``."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    delta = ctx.attr("delta", 1.0)
+    r = y - x
+    ar = torch.where(r >= 0, r, -r)
+    ctx.set_output("Residual", r)
+    ctx.set_output("Out", torch.where(ar <= delta, 0.5 * r * r,
+                                      delta * (ar - 0.5 * delta)))
+
+
+@register_op("log_loss", no_grad_inputs=("Labels",))
+def log_loss_lower(ctx):
+    p, y = ctx.input("Predicted"), ctx.input("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    ctx.set_output("Loss", -y * torch.log(p + eps)
+                   - (1.0 - y) * torch.log(1.0 - p + eps))
+
+
+@register_op("rank_loss", no_grad_inputs=("Label",))
+def rank_loss_lower(ctx):
+    """``log(1 + exp(left - right)) - label (left - right)``."""
+    d = ctx.input("Left") - ctx.input("Right")
+    ctx.set_output("Out", torch.log1p(torch.exp(d)) - ctx.input("Label") * d)
+
+
+@register_op("margin_rank_loss", no_grad_inputs=("Label",))
+def margin_rank_loss_lower(ctx):
+    """``max(0, -label (x1 - x2) + margin)`` and the 0/1 ``Activated``."""
+    label = ctx.input("Label")
+    x1, x2 = ctx.input("X1"), ctx.input("X2")
+    z = -label * (x1 - x2) + ctx.attr("margin", 0.0)
+    out = maximum(_zero(z), z)
+    ctx.set_output("Out", out)
+    ctx.set_output("Activated", (out > 0).to(x1.dtype))
+
+
+@register_op("modified_huber_loss", no_grad_inputs=("Y",))
+def modified_huber_loss_lower(ctx):
+    """Of ``z = (2 y - 1) x``: ``-4 z`` where ``z < -1``, else
+    ``max(1 - z, 0)**2``."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    z = (2.0 * y - 1.0) * x
+    m = maximum(1.0 - z, _zero(z))
+    ctx.set_output("IntermediateVal", z)
+    ctx.set_output("Out", torch.where(z < -1.0, -4.0 * z, m * m))

@@ -1,8 +1,12 @@
 """Linear-algebra / elementwise / reduction ops (the port's counterpart
 of ``paddle_tpu.ops.math_ops``; reference ``paddle/fluid/operators/{mul,
-matmul,elementwise_*,scale,sum,mean,reduce_op,clip}``).  Plain matrix
+matmul,elementwise_*,scale,sum,mean,reduce_op,clip,minus,cum,l1_norm,
+norm,cos_sim,bilinear_tensor_product}``).  Plain matrix
 products go to ``torch.matmul``, as the JAX package left them to XLA.
-Their grads are the auto-vjp of these lowerings."""
+Their grads are the auto-vjp of these lowerings; the max-like ones
+(``elementwise_max`` / ``min``, ``clip``, ``reduce_max`` / ``min``) go
+through :func:`maximum`, :func:`minimum` and :func:`reduce_chooser`,
+which give the JAX package's vjp where torch's differs: at a NaN."""
 
 from __future__ import annotations
 
@@ -123,8 +127,84 @@ _make_elementwise("add", torch.add)
 _make_elementwise("sub", torch.sub)
 _make_elementwise("mul", torch.mul)
 _make_elementwise("div", torch.div)
-_make_elementwise("max", torch.maximum)
-_make_elementwise("min", torch.minimum)
+class _Chooser2(torch.autograd.Function):
+    """``torch.maximum`` / ``torch.minimum`` with the JAX package's vjp:
+    the cotangent goes to the operand that was chosen, half to each on a
+    tie, and none to either where the comparison fails (a NaN), where
+    torch's own passes it to both."""
+
+    @staticmethod
+    def forward(x, y, largest):
+        return torch.maximum(x, y) if largest else torch.minimum(x, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, ctx.largest = inputs
+        ctx.save_for_backward(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        x_wins = x > y if ctx.largest else x < y
+        y_wins = y > x if ctx.largest else y < x
+        half = torch.where(x == y, g * 0.5, torch.zeros_like(g))
+        gx = torch.where(x_wins, g, half).sum_to_size(x.shape)
+        gy = torch.where(y_wins, g, half).sum_to_size(y.shape)
+        return gx, gy, None
+
+
+def maximum(x, y):
+    """``jnp.maximum``: NaN-propagating, with :class:`_Chooser2`'s grads."""
+    return _Chooser2.apply(x, y, True)
+
+
+def minimum(x, y):
+    """``jnp.minimum``: NaN-propagating, with :class:`_Chooser2`'s grads."""
+    return _Chooser2.apply(x, y, False)
+
+
+class _Chooser(torch.autograd.Function):
+    """``amax`` / ``amin`` over ``dims`` with the JAX package's vjp: a
+    group's cotangent is split evenly among its elements equal to the
+    result, and a group whose result is NaN (equal to none) takes none,
+    where torch's own divides by a count of 0 and gives every element of
+    the group NaN."""
+
+    @staticmethod
+    def forward(x, dims, keepdim, largest):
+        fn = torch.amax if largest else torch.amin
+        return fn(x, dim=dims, keepdim=keepdim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.dims, ctx.keepdim, _ = inputs
+        ctx.save_for_backward(x, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if not ctx.keepdim:
+            for d in sorted(ctx.dims):
+                out, g = out.unsqueeze(d), g.unsqueeze(d)
+        loc = x == out
+        count = loc.sum(dim=ctx.dims, keepdim=True).clamp(min=1)
+        return (torch.where(loc, g / count.to(g.dtype), torch.zeros_like(g)),
+                None, None, None)
+
+
+def reduce_chooser(x, dims, keepdim, largest):
+    """``jnp.max`` / ``jnp.min`` of ``x`` over ``dims`` (a tuple of
+    non-negative axes) with :class:`_Chooser`'s grads."""
+    if not x.is_floating_point():
+        fn = torch.amax if largest else torch.amin
+        return fn(x, dim=dims, keepdim=keepdim)
+    return _Chooser.apply(x, tuple(dims), keepdim, largest)
+
+
+_make_elementwise("max", maximum)
+_make_elementwise("min", minimum)
+
+
 class _Power(torch.autograd.Function):
     """``x ** y`` with the JAX package's grads at the poles, where
     torch's own differ: dX is ``y * x ** (y - 1)`` everywhere (NaN at
@@ -171,6 +251,11 @@ def power(x, y):
 
 
 _make_elementwise("pow", power)
+# floor semantics with negative operands, as jnp.mod / jnp.floor_divide
+# (torch.fmod and truncating division differ); floordiv has no grad
+_make_elementwise("mod", torch.remainder)
+_make_elementwise("floordiv",
+                  lambda x, y: torch.div(x, y, rounding_mode="floor"))
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +301,15 @@ def _infer_mean(op, block):
     out.dtype = block.var(op.input("X")[0]).dtype
 
 
+def _float_of_int(x):
+    """An integer ``x`` as float32 (a mean of integers is a float32 in
+    the JAX package), any other ``x`` as it is."""
+    return x if x.is_floating_point() or x.is_complex() else x.float()
+
+
 @register_op("mean", infer_shape=_infer_mean)
 def mean_lower(ctx):
-    x = ctx.input("X")
+    x = _float_of_int(ctx.input("X"))
     lod = ctx.input_lod("X")
     if is_dyn(lod):
         # bucketed rows: the mean of the real rows only (rows past the
@@ -236,10 +327,13 @@ def mean_lower(ctx):
 
 @register_op("sign", infer_shape=infer_shape_unary())
 def sign_lower(ctx):
-    # NaN stays NaN, as jnp.sign gives (torch.sign gives 0); no grad
+    # NaN stays NaN, as jnp.sign gives (torch.sign gives 0); an integer
+    # keeps its dtype; no grad
     x = ctx.input("X")
-    ctx.set_output("Out", torch.where(torch.isnan(x), torch.nan,
-                                      torch.sign(x)))
+    out = torch.sign(x)
+    if x.is_floating_point():
+        out = torch.where(torch.isnan(x), torch.nan, out)
+    ctx.set_output("Out", out)
 
 
 @register_op("clip", infer_shape=infer_shape_unary())
@@ -250,7 +344,7 @@ def clip_lower(ctx):
     x = ctx.input("X")
     lo = torch.full((), ctx.attr("min"), dtype=x.dtype, device=x.device)
     hi = torch.full((), ctx.attr("max"), dtype=x.dtype, device=x.device)
-    ctx.set_output("Out", torch.minimum(torch.maximum(x, lo), hi))
+    ctx.set_output("Out", minimum(maximum(x, lo), hi))
 
 
 @register_op("clip_by_norm", infer_shape=infer_shape_unary())
@@ -331,8 +425,111 @@ def _make_reduce(name, fn):
     return lower
 
 
-_make_reduce("sum", lambda x, d, k: torch.sum(x, dim=d, keepdim=k))
-_make_reduce("mean", lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
-_make_reduce("max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
-_make_reduce("min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+def _sum(x, dim, keepdim):
+    """``jnp.sum``: an integer sum keeps its dtype (an int32 wraps at
+    2**31), where ``torch.sum`` promotes it to int64; a bool sum is
+    int64 (the port's integers)."""
+    keep = x.dtype if not (x.is_floating_point() or x.is_complex() or
+                           x.dtype == torch.bool) else None
+    return torch.sum(x, dim=dim, keepdim=keepdim, dtype=keep)
+
+
+_make_reduce("sum", _sum)
+_make_reduce("mean", lambda x, d, k: torch.mean(_float_of_int(x), dim=d,
+                                               keepdim=k))
+_make_reduce("max", lambda x, d, k: reduce_chooser(x, d, k, True))
+_make_reduce("min", lambda x, d, k: reduce_chooser(x, d, k, False))
 _make_reduce("prod", _prod)
+
+
+@register_op("minus", infer_shape=infer_shape_unary())
+def minus_lower(ctx):
+    ctx.set_output("Out", ctx.input("X") - ctx.input("Y"))
+
+
+@register_op("cumsum", infer_shape=infer_shape_unary())
+def cumsum_lower(ctx):
+    """Cumulative sum along ``axis``; ``exclusive`` drops each element's
+    own term, ``reverse`` sums from the end."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    reverse = ctx.attr("reverse", False)
+    xs = torch.flip(x, (axis,)) if reverse else x
+    out = torch.cumsum(xs, dim=axis)
+    if ctx.attr("exclusive", False):
+        out = out - xs
+    ctx.set_output("Out", torch.flip(out, (axis,)) if reverse else out)
+
+
+# ---------------------------------------------------------------------------
+# norms / similarity / bilinear product
+# ---------------------------------------------------------------------------
+
+@register_op("l1_norm", infer_shape=_infer_scalar_out)
+def l1_norm_lower(ctx):
+    """``sum(|x|)``; the slope of ``|x|`` at 0 is +1 (``jnp.abs``)."""
+    x = ctx.input("X")
+    ctx.set_output("Out", torch.where(x >= 0, x, -x).sum().reshape(1))
+
+
+def _infer_norm(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape = x.shape
+    out.dtype = x.dtype
+
+
+@register_op("norm", infer_shape=_infer_norm)
+def norm_lower(ctx):
+    """X over its L2 norm along ``axis`` (``epsilon`` inside the root);
+    ``Norm`` keeps the axis."""
+    x = ctx.input("X")
+    norm = torch.sqrt(torch.sum(x * x, dim=ctx.attr("axis", 1),
+                                keepdim=True) + ctx.attr("epsilon", 1e-10))
+    ctx.set_output("Out", x / norm)
+    ctx.set_output("Norm", norm)
+
+
+def _infer_cos_sim(op, block):
+    x = block.var(op.input("X")[0])
+    if x.shape is None:
+        raise ShapeInferenceSkip()
+    out = block.var(op.output("Out")[0])
+    out.shape = (x.shape[0], 1)
+    out.dtype = x.dtype
+
+
+@register_op("cos_sim", infer_shape=_infer_cos_sim)
+def cos_sim_lower(ctx):
+    """Row-wise cosine of X ``[B, D]`` and Y ``[B or 1, D]`` (no
+    epsilon: a zero row gives NaN, as in the JAX package), with the row
+    norms ``XNorm`` and ``YNorm``."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    xn = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=1, keepdim=True))
+    dot = torch.sum(x * y, dim=1, keepdim=True)
+    ctx.set_output("Out", dot / (xn * yn))
+    ctx.set_output("XNorm", xn)
+    ctx.set_output("YNorm", yn)
+
+
+def _infer_bilinear(op, block):
+    x = block.var(op.input("X")[0])
+    w = block.var(op.input("Weight")[0])
+    if x.shape is None or w.shape is None:
+        raise ShapeInferenceSkip()
+    out = block.var(op.output("Out")[0])
+    out.shape = (x.shape[0], w.shape[0])
+    out.dtype = x.dtype
+
+
+@register_op("bilinear_tensor_product", infer_shape=_infer_bilinear)
+def bilinear_tensor_product_lower(ctx):
+    """``out[b, s] = x[b] . W[s] . y[b]`` (X ``[B, M]``, Y ``[B, N]``,
+    Weight ``[S, M, N]``) plus the optional Bias."""
+    x, y, w = ctx.input("X"), ctx.input("Y"), ctx.input("Weight")
+    out = torch.einsum("bm,smn,bn->bs", x, w, y)
+    b = ctx.input("Bias")
+    if b is not None:
+        out = out + b
+    ctx.set_output("Out", out)

@@ -2,7 +2,10 @@
 ``paddle_tpu.ops.tensor_ops``; reference ``paddle/fluid/operators/
 {fill_constant,fill_constant_batch_size_like,assign_value,uniform_random,
 gaussian_random,cast,reshape,transpose,concat,split,lookup_table,expand,
-gather,top_k}_op``)."""
+gather,top_k,fill,fill_zeros_like,shape,squeeze,unsqueeze,pad,crop,slice,
+scatter,multiplex,one_hot,argsort,arg_min_max,sampling_id}_op``).  The
+integer outputs (``shape``, ``argsort``, ``arg_max``, ``arg_min``,
+``sampling_id``) are int64, as the port's integers are."""
 
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ import torch
 
 from paddle_tpu_torch.convert import to_tensor, torch_dtype
 from paddle_tpu_torch.ops.registry import (
-    auto_vjp_grad_lower, infer_shape_unary, register_grad_lower, register_op)
+    ShapeInferenceSkip, auto_vjp_grad_lower, infer_shape_unary,
+    register_grad_lower, register_op)
 from paddle_tpu_torch.selected_rows import SelectedRows
 
 
@@ -70,25 +74,35 @@ def _infer_assign_value(op, block):
     out.dtype = op.attr("dtype", "float32")
 
 
+def _constant(ctx, key, host, dtype=None):
+    """A constant of the op on the device: ``host()`` (a numpy array),
+    cast to ``dtype`` (an IR name; default its own), copied once per
+    prepared step (``aux["constants"]``, keyed by the op and ``key``),
+    so a CUDA graph reads the tensor its eager first run made."""
+    constants = ctx.aux.get("constants")
+    k = (id(ctx.op),) + tuple(key)
+    out = None if constants is None else constants.get(k)
+    if out is None:
+        arr = host()
+        out = to_tensor(arr, ctx.device, dtype or str(arr.dtype))
+        if constants is not None:
+            constants[k] = out
+    return out
+
+
 @register_op("assign_value", infer_shape=_infer_assign_value,
              no_gradient=True)
 def assign_value_lower(ctx):
-    """The op's constant on the device, copied from its attrs once per
-    prepared step (``aux["constants"]``, the executor's, keyed by the
-    op), so a CUDA graph reads it as it reads state."""
-    constants = ctx.aux.get("constants")
-    out = None if constants is None else constants.get(id(ctx.op))
-    if out is None:
-        dtype = ctx.attr("dtype", "float32")
+    """The op's constant on the device (:func:`_constant`)."""
+    dtype = ctx.attr("dtype", "float32")
+
+    def host():
         if dtype in ("float32", "float64", "bfloat16", "float16"):
-            host = np.asarray(ctx.attr("fp32_values"), np.float32)
+            values = np.asarray(ctx.attr("fp32_values"), np.float32)
         else:
-            host = np.asarray(ctx.attr("int32_values"), np.int32)
-        host = host.reshape(tuple(ctx.attr("shape")))
-        out = to_tensor(host, ctx.device, dtype)
-        if constants is not None:
-            constants[id(ctx.op)] = out
-    ctx.set_output("Out", out)
+            values = np.asarray(ctx.attr("int32_values"), np.int32)
+        return values.reshape(tuple(ctx.attr("shape")))
+    ctx.set_output("Out", _constant(ctx, (), host, dtype))
 
 
 def _host_generator(ctx):
@@ -457,3 +471,298 @@ def top_k_lower(ctx):
                            stable=True)
     ctx.set_output("Out", vals[..., :k].contiguous())
     ctx.set_output("Indices", idx[..., :k].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the rest of the creation / shape / index ops (reference fill_op.cc,
+# fill_zeros_like_op.cc, {uniform,gaussian}_random_batch_size_like_op.cc,
+# shape_op.cc, squeeze_op.cc, unsqueeze_op.cc, pad_op.cc, crop_op.cc,
+# slice_op.cc, scatter_op.cc, multiplex_op.cc, one_hot_op.cc,
+# argsort_op.cc, arg_min_max_op.cc, sampling_id_op.cc)
+# ---------------------------------------------------------------------------
+
+@register_op("fill_zeros_like", infer_shape=infer_shape_unary(),
+             no_gradient=True)
+def fill_zeros_like_lower(ctx):
+    ctx.set_output("Out", torch.zeros_like(ctx.input("X")))
+
+
+@register_op("fill", infer_shape=_infer_fill_constant, no_gradient=True)
+def fill_lower(ctx):
+    """The ``value`` attr (a flat list) as a ``shape`` tensor of
+    ``dtype``."""
+    dtype = ctx.attr("dtype", "float32")
+
+    def host():
+        np_dtype = np.float32 if dtype == "bfloat16" else np.dtype(dtype)
+        return np.asarray(ctx.attr("value"), np_dtype).reshape(
+            tuple(ctx.attr("shape")))
+    ctx.set_output("Out", _constant(ctx, (), host, dtype))
+
+
+def _batch_like_shape(ctx):
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ctx.input("Input").shape[ctx.attr("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+@register_op("uniform_random_batch_size_like",
+             infer_shape=_infer_fill_batch_like, no_gradient=True,
+             uses_rng=True)
+def uniform_random_batch_size_like_lower(ctx):
+    """``U[min, max)`` in float32, cast to ``dtype``, of ``shape`` with
+    the batch dim of ``Input``; drawn on the device from this op's RNG
+    slot (``LowerContext.generator``), as ``dropout`` draws."""
+    lo = float(ctx.attr("min", -1.0))
+    hi = float(ctx.attr("max", 1.0))
+    u = torch.rand(_batch_like_shape(ctx), generator=ctx.generator(),
+                   device=ctx.device, dtype=torch.float32)
+    ctx.set_output("Out", (u * (hi - lo) + lo).to(
+        torch_dtype(ctx.attr("dtype", "float32"))))
+
+
+@register_op("gaussian_random_batch_size_like",
+             infer_shape=_infer_fill_batch_like, no_gradient=True,
+             uses_rng=True)
+def gaussian_random_batch_size_like_lower(ctx):
+    """``N(mean, std**2)`` in float32, cast to ``dtype``; drawn as
+    ``uniform_random_batch_size_like`` is."""
+    n = torch.randn(_batch_like_shape(ctx), generator=ctx.generator(),
+                    device=ctx.device, dtype=torch.float32)
+    out = n * float(ctx.attr("std", 1.0)) + float(ctx.attr("mean", 0.0))
+    ctx.set_output("Out", out.to(torch_dtype(ctx.attr("dtype", "float32"))))
+
+
+def _infer_shape_op(op, block):
+    x = block.var(op.input("Input")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape = (len(x.shape),) if x.shape is not None else None
+    out.dtype = "int64"
+
+
+@register_op("shape", infer_shape=_infer_shape_op, no_gradient=True)
+def shape_lower(ctx):
+    """``Input``'s shape, int64 (a constant of the step)."""
+    shape = tuple(ctx.input("Input").shape)
+    ctx.set_output("Out", _constant(
+        ctx, shape, lambda: np.asarray(shape, np.int64)))
+
+
+def _infer_squeeze(op, block):
+    x = block.var(op.input("X")[0])
+    axes = op.attr("axes", [])
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        if axes:
+            out.shape = tuple(d for i, d in enumerate(x.shape)
+                              if not (i in axes and d == 1))
+        else:
+            out.shape = tuple(d for d in x.shape if d != 1)
+    out.dtype = x.dtype
+
+
+@register_op("squeeze", infer_shape=_infer_squeeze)
+def squeeze_lower(ctx):
+    """Drop the size-1 dims among ``axes`` (every size-1 dim without
+    them); a listed dim that is not 1 stays."""
+    x = ctx.input("X")
+    axes = ctx.attr("axes", [])
+    if axes:
+        out = x
+        for a in sorted({a % x.ndim for a in axes}, reverse=True):
+            if out.shape[a] == 1:
+                out = out.squeeze(a)
+    else:
+        out = x.squeeze()
+    ctx.set_output("Out", out)
+
+
+def _infer_unsqueeze(op, block):
+    x = block.var(op.input("X")[0])
+    axes = op.attr("axes", [])
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        shape = list(x.shape)
+        for a in sorted(axes):
+            shape.insert(a, 1)
+        out.shape = tuple(shape)
+    out.dtype = x.dtype
+
+
+@register_op("unsqueeze", infer_shape=_infer_unsqueeze)
+def unsqueeze_lower(ctx):
+    x = ctx.input("X")
+    for a in sorted(ctx.attr("axes", [])):
+        x = x.unsqueeze(a)
+    ctx.set_output("Out", x)
+
+
+def _infer_pad(op, block):
+    x = block.var(op.input("X")[0])
+    paddings = op.attr("paddings")
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        out.shape = tuple(
+            d + paddings[2 * i] + paddings[2 * i + 1] if d != -1 else -1
+            for i, d in enumerate(x.shape))
+    out.dtype = x.dtype
+
+
+@register_op("pad", infer_shape=_infer_pad)
+def pad_lower(ctx):
+    """``paddings`` = (before, after) per dim, filled with ``pad_value``."""
+    x = ctx.input("X")
+    p = ctx.attr("paddings")
+    flat = []
+    for i in reversed(range(x.ndim)):
+        flat += [p[2 * i], p[2 * i + 1]]
+    ctx.set_output("Out", torch.nn.functional.pad(
+        x, flat, mode="constant", value=ctx.attr("pad_value", 0.0)))
+
+
+def _infer_crop(op, block):
+    out = block.var(op.output("Out")[0])
+    out.shape = tuple(op.attr("shape"))
+    out.dtype = block.var(op.input("X")[0]).dtype
+
+
+@register_op("crop", infer_shape=_infer_crop)
+def crop_lower(ctx):
+    """The ``shape`` window of X at ``offsets``."""
+    x = ctx.input("X")
+    offsets = ctx.attr("offsets", [0] * x.ndim)
+    shape = ctx.attr("shape")
+    ctx.set_output("Out", x[tuple(slice(o, o + s)
+                                  for o, s in zip(offsets, shape))])
+
+
+def _infer_slice(op, block):
+    x = block.var(op.input("Input")[0])
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        shape = list(x.shape)
+        for ax, st, en in zip(op.attr("axes"), op.attr("starts"),
+                              op.attr("ends")):
+            d = shape[ax]
+            if d == -1:
+                continue
+            st2 = st if st >= 0 else st + d
+            en2 = min(en if en >= 0 else en + d, d)
+            shape[ax] = max(en2 - st2, 0)
+        out.shape = tuple(shape)
+    out.dtype = x.dtype
+
+
+@register_op("slice", infer_shape=_infer_slice)
+def slice_lower(ctx):
+    """``Input[starts:ends]`` along ``axes`` (Python slice semantics)."""
+    x = ctx.input("Input")
+    slices = [slice(None)] * x.ndim
+    for ax, st, en in zip(ctx.attr("axes"), ctx.attr("starts"),
+                          ctx.attr("ends")):
+        slices[ax] = slice(st, en)
+    ctx.set_output("Out", x[tuple(slices)])
+
+
+@register_op("scatter", infer_shape=infer_shape_unary("X"),
+             no_grad_inputs=("Ids",))
+def scatter_lower(ctx):
+    """X with its rows at ``Ids`` set to ``Updates`` (``x.at[ids].set``):
+    a negative id counts from the end, and an id still out of range is
+    dropped (its update goes to a spare row that is cut off).  Which of
+    repeated ids wins is undefined in the JAX package (XLA's scatter
+    order), as it is here."""
+    x = ctx.input("X")
+    n = x.shape[0]
+    ids, valid = _wrap_rows(ctx.input("Ids").reshape(-1).long(), n)
+    ids = torch.where(valid, ids, torch.full_like(ids, n))
+    spare = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    out = spare.index_put((ids,), ctx.input("Updates").to(x.dtype))
+    ctx.set_output("Out", out[:n])
+
+
+def _infer_multiplex(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    out.shape = x.shape
+    out.dtype = x.dtype
+
+
+@register_op("multiplex", infer_shape=_infer_multiplex,
+             no_grad_inputs=("Ids",))
+def multiplex_lower(ctx):
+    """Row b of the output is row b of ``X[Ids[b]]``."""
+    xs = torch.stack(ctx.inputs("X"))                    # [K, B, ...]
+    ids = ctx.input("Ids").reshape(-1).long()            # [B]
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    ctx.set_output("Out", xs[ids, rows])
+
+
+def _infer_one_hot(op, block):
+    x = block.var(op.input("X")[0])
+    depth = op.attr("depth")
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        out.shape = tuple(x.shape[:-1]) + (depth,)
+    out.dtype = "float32"
+
+
+@register_op("one_hot", infer_shape=_infer_one_hot, no_gradient=True)
+def one_hot_lower(ctx):
+    """float32 one-hot rows of ``depth`` (a trailing 1 of X squeezed); an
+    id outside ``[0, depth)`` gives a row of zeros, as
+    ``jax.nn.one_hot``."""
+    x = ctx.input("X")
+    if x.ndim and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    depth = int(ctx.attr("depth"))
+    classes = torch.arange(depth, device=x.device)
+    ctx.set_output("Out", (x.long().unsqueeze(-1) == classes).float())
+
+
+@register_op("argsort", no_gradient=True)
+def argsort_lower(ctx):
+    """X sorted along ``axis`` (stable, NaN last) and the int64 indices."""
+    vals, idx = torch.sort(ctx.input("X"), dim=ctx.attr("axis", -1),
+                           stable=True)
+    ctx.set_output("Out", vals)
+    ctx.set_output("Indices", idx)
+
+
+@register_op("arg_max", no_gradient=True)
+def arg_max_lower(ctx):
+    """The int64 index of the first largest value along ``axis``."""
+    ctx.set_output("Out", torch.argmax(ctx.input("X"),
+                                       dim=ctx.attr("axis", -1)))
+
+
+@register_op("arg_min", no_gradient=True)
+def arg_min_lower(ctx):
+    """The int64 index of the first smallest value along ``axis``."""
+    ctx.set_output("Out", torch.argmin(ctx.input("X"),
+                                       dim=ctx.attr("axis", -1)))
+
+
+def _infer_sampling_id(op, block):
+    x = block.var(op.input("X")[0])
+    if x.shape is None:
+        raise ShapeInferenceSkip()
+    out = block.var(op.output("Out")[0])
+    out.shape = (x.shape[0], 1)
+    out.dtype = "int64"
+
+
+@register_op("sampling_id", infer_shape=_infer_sampling_id,
+             no_gradient=True, uses_rng=True)
+def sampling_id_lower(ctx):
+    """One class id a row of the probabilities X ``[N, C]``, by the
+    inverse CDF: the count of the row's float32 cumulative sums below a
+    uniform draw of the op's RNG slot, clamped to ``C - 1``; ``[N, 1]``
+    int64."""
+    x = ctx.input("X")
+    u = torch.rand((x.shape[0], 1), generator=ctx.generator(),
+                   device=x.device, dtype=torch.float32)
+    cdf = torch.cumsum(x.float(), dim=1)
+    idx = (cdf < u).sum(dim=1, keepdim=True)
+    ctx.set_output("Out", idx.clamp(0, x.shape[1] - 1))

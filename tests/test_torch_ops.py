@@ -23,6 +23,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu.ops import registry as jax_registry
 from paddle_tpu_torch.convert import to_numpy
 from paddle_tpu_torch.ops import registry as torch_registry
+from chip_smoke import op_family_cases
 
 TOL = 1e-5
 
@@ -268,6 +269,7 @@ def _cases():
         *_edge_cases(),
         *_activation_cases(),
         *_logic_cases(r),
+        *op_family_cases(),
     ]
 
 
@@ -294,14 +296,58 @@ def _logic_cases(r):
     ]
 
 
+def _named(inputs):
+    """``{variable name: array}`` of a case's inputs: ``in_<slot>``, or
+    ``in_<slot>_<i>`` for each array of a slot given a list."""
+    named = {}
+    for slot, arr in inputs.items():
+        if isinstance(arr, list):
+            named.update({f"in_{slot}_{i}": a for i, a in enumerate(arr)})
+        else:
+            named[f"in_{slot}"] = arr
+    return named
+
+
+# ---------------------------------------------------------------------------
+# the op families of the book's chapters: tensor, math, loss, nn, metric,
+# CRF and CTC.  The cases are chip_smoke.py's (``op_family_cases``: the
+# card's sweep runs them too); ops that read a LoD run here without one
+# (each row its own sequence), tests/test_torch_crf_ctc.py runs them over
+# LoDs.
+# ---------------------------------------------------------------------------
+
+def _family_grad_cases():
+    """The grad of each of the families' ops that has one, but
+    ``pool2d_with_index``, whose grad the JAX package cannot take (its
+    variadic ``reduce_window`` has no vjp): tests/test_torch_misc_ops.py
+    holds the port's against the grad its mask implies."""
+    cases = []
+    for case in op_family_cases():
+        name, op_type = case[0], case[1]
+        if op_type in ("cumsum", "l1_norm", "norm", "cos_sim", "minus",
+                       "bilinear_tensor_product", "squeeze", "unsqueeze",
+                       "pad", "crop", "slice", "scatter", "multiplex",
+                       "conv2d_transpose", "conv3d_transpose", "conv3d",
+                       "lrn", "log_softmax",
+                       "label_smooth", "pool3d", "unpool", "spp",
+                       "conv_shift", "image_resize", "linear_chain_crf",
+                       "warpctc") or op_type.endswith("_loss") or \
+                op_type == "squared_l2_distance" or \
+                (op_type.startswith("elementwise_") and
+                 not name.endswith("_int")):
+            cases.append(case)
+    return cases
+
+
 def _op_dict(op_type, inputs, out_slots, attrs):
     """Program dict of one block: a var per input/output, one op."""
     vars_, ins, outs = [], {}, {}
     for slot, arr in inputs.items():
-        name = f"in_{slot}"
-        vars_.append({"name": name, "shape": list(arr.shape),
-                      "dtype": str(arr.dtype), "persistable": False})
-        ins[slot] = [name]
+        names = list(_named({slot: arr}))
+        for name, a in _named({slot: arr}).items():
+            vars_.append({"name": name, "shape": list(a.shape),
+                          "dtype": str(a.dtype), "persistable": False})
+        ins[slot] = names
     for slot in out_slots:
         # stateful outputs alias their input, as in the gen LM programs
         name = {"KCacheOut": "in_KCache",
@@ -317,7 +363,7 @@ def _op_dict(op_type, inputs, out_slots, attrs):
 def _run_jax(d, inputs):
     prog = fluid.Program.from_dict(d)
     block = prog.global_block()
-    env = {f"in_{s}": jnp.asarray(a) for s, a in inputs.items()}
+    env = {n: jnp.asarray(a) for n, a in _named(inputs).items()}
     op = block.ops[0]
     jax_registry.run_lowering(op, env, block, rng_key=None, training=False,
                               aux={})
@@ -327,7 +373,7 @@ def _run_jax(d, inputs):
 def _run_torch(d, inputs):
     prog = pt.Program.from_dict(d)
     block = prog.global_block()
-    env = {f"in_{s}": torch.from_numpy(a.copy()) for s, a in inputs.items()}
+    env = {n: torch.from_numpy(a.copy()) for n, a in _named(inputs).items()}
     op = block.ops[0]
     torch_registry.run_lowering(
         op, env, block, aux={"device": torch.device("cpu"),
@@ -527,6 +573,7 @@ def _grad_cases():
         ("expand", "expand", {"X": _f(r, 2, 1, 3)}, ["Out"],
          {"expand_times": [1, 4, 2]}),
         *_activation_cases(),
+        *_family_grad_cases(),
     ]
 
 
@@ -561,7 +608,7 @@ def test_grad_matches_reference(case):
     # forward once
     out_shape = _run_jax(_op_dict(op_type, inputs, out_slots, attrs),
                          inputs)[f"out_{out_slots[0]}"].shape
-    feed = {f"in_{s}": a for s, a in inputs.items()}
+    feed = _named(inputs)
     feed["cot"] = _f(np.random.RandomState(5), *out_shape)
     results = []
     for pkg in (fluid, pt):
@@ -575,7 +622,7 @@ def test_grad_matches_reference(case):
         results.append(dict(zip(grads, [np.asarray(v) for v in vals])))
     want, got = results
     assert set(got) == set(want) and want, sorted(want)
-    assert f"in_{next(iter(inputs))}@GRAD" in want
+    assert f"{next(iter(_named(inputs)))}@GRAD" in want
     for name in want:
         assert got[name].shape == want[name].shape, name
         np.testing.assert_allclose(got[name], want[name], atol=TOL,

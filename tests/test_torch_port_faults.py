@@ -1,9 +1,11 @@
-"""Five faults of the port against the JAX package, each pinned where the
-two packages once differed: ``check_nan_inf``, bfloat16 fetches,
+"""Faults of the port against the JAX package, each pinned where the two
+packages once differed: ``check_nan_inf``, bfloat16 fetches,
 out-of-range indices in ``gather`` and ``lookup_table``, float -> int
-``cast`` saturation, and the grads of ``elementwise_pow`` and ``pow`` at
-their poles.  Every case runs the same program, inputs and state through
-both packages on the CPU."""
+``cast`` saturation, the grads of ``elementwise_pow`` and ``pow`` at
+their poles, the grads of the max-like ops at a NaN (a group whose max is
+NaN takes no cotangent, even a zero one), and integer inputs to
+``mean``, ``reduce_mean``, ``sign`` and ``reduce_sum``.  Every case runs
+the same program, inputs and state through both packages on the CPU."""
 
 import numpy as np
 import pytest
@@ -306,3 +308,170 @@ def test_pow_grads_at_the_pole(case):
     else:
         assert np.isnan(gx[0])
         assert np.isnan(got["in_Y@GRAD"][2])
+
+
+# ---------------------------------------------------------------------------
+# 6. max-like grads at a NaN
+# ---------------------------------------------------------------------------
+
+NAN_ROWS = np.array([[1, 3, 3, 2], [np.nan, 1, 2, 0]], np.float32)
+NAN_PAIR = {"X": np.array([np.nan, 1, 2, 3], np.float32),
+            "Y": np.array([1, np.nan, 2, 1], np.float32)}
+NAN_ACT = np.array([np.nan, 0.5, -0.5, 0.0], np.float32)
+#: (id, op type, inputs, attrs, zero-cotangent mask or None): the grads
+#: run once at a cotangent of ones and once with the NaN group's
+#: cotangent zero (the case the fault hit hardest: a masked-out NaN put
+#: NaN into the whole group's grad)
+NAN_CASES = [
+    ("reduce_max_dim1", "reduce_max", {"X": NAN_ROWS},
+     {"dim": [1], "keep_dim": False, "reduce_all": False}, [1.0, 0.0]),
+    ("reduce_max_all", "reduce_max", {"X": NAN_ROWS},
+     {"dim": [1], "keep_dim": False, "reduce_all": True}, [0.0]),
+    ("reduce_min_keep", "reduce_min", {"X": NAN_ROWS},
+     {"dim": [1], "keep_dim": True, "reduce_all": False}, [[1.0], [0.0]]),
+    ("maxout", "maxout",
+     {"X": np.array([1, np.nan, 2, 3], np.float32).reshape(1, 4, 1, 1)},
+     {"groups": 2}, np.array([0.0, 1.0]).reshape(1, 2, 1, 1)),
+    ("pool2d_max", "pool2d",
+     {"X": np.array([1, np.nan, 2, 3, 5, 0, 7, 1, 9, 4, 4, 8, 2, 2, 6, 6],
+                    np.float32).reshape(1, 1, 4, 4)},
+     {"ksize": [2, 2], "strides": [2, 2], "pooling_type": "max"},
+     np.array([0.0, 1.0, 1.0, 1.0]).reshape(1, 1, 2, 2)),
+    ("elementwise_max", "elementwise_max", NAN_PAIR, {"axis": -1},
+     [0.0, 0.0, 1.0, 1.0]),
+    ("elementwise_min", "elementwise_min", NAN_PAIR, {"axis": -1},
+     [0.0, 0.0, 1.0, 1.0]),
+    ("relu", "relu", {"X": NAN_ACT}, {}, None),
+    ("relu6", "relu6", {"X": NAN_ACT}, {"threshold": 6.0}, None),
+    ("brelu", "brelu", {"X": NAN_ACT}, {"t_min": -1.0, "t_max": 0.0},
+     None),
+    ("clip", "clip", {"X": NAN_ACT}, {"min": -0.5, "max": 0.0}, None),
+    ("hard_sigmoid", "hard_sigmoid", {"X": NAN_ACT},
+     {"slope": 0.25, "offset": 0.5}, None),
+]
+
+
+def _both_grads(op_type, inputs, attrs, cot):
+    d = _grad_program_dict(op_type, inputs, ["Out"], attrs)
+    feed = {f"in_{s}": a for s, a in inputs.items()}
+    feed["cot"] = np.asarray(cot, np.float32)
+    results = []
+    for pkg in (fluid, pt):
+        prog = pkg.Program.from_dict(d)
+        pkg.append_backward(prog.global_block().var("loss"))
+        names = sorted(n for n in prog.global_block().vars
+                       if n.startswith("in_") and n.endswith("@GRAD"))
+        vals = _run(pkg, prog, feed, names)
+        results.append(dict(zip(names, [np.asarray(v) for v in vals])))
+    return results
+
+
+@pytest.mark.parametrize("cot_kind", ["ones", "zero_on_nan"])
+@pytest.mark.parametrize("case", NAN_CASES, ids=lambda c: c[0])
+def test_max_like_grads_at_nan(case, cot_kind):
+    """A NaN in a max-reduced group: the group takes no grad (the JAX
+    package's vjp), under a cotangent of ones and under one that is zero
+    on the NaN's group; ties elsewhere still split evenly.  The clips and
+    ``relu`` pass no cotangent at x = NaN; ``elementwise_max`` / ``min``
+    give neither operand one where either is NaN."""
+    _, op_type, inputs, attrs, zero_mask = case
+    out = _run_jax(_op_dict(op_type, inputs, ["Out"], attrs),
+                   inputs)["out_Out"]
+    cot = np.ones(out.shape, np.float32)
+    if cot_kind == "zero_on_nan":
+        if zero_mask is None:
+            cot = np.where(np.isnan(inputs["X"]), 0.0, 1.0)
+        else:
+            cot = np.asarray(zero_mask, np.float32).reshape(out.shape)
+    want, got = _both_grads(op_type, inputs, attrs, cot)
+    assert set(got) == set(want) and want
+    for name in want:
+        assert np.isfinite(got[name]).all(), (name, got[name])
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_max_ties_still_split_evenly():
+    """Ties share a group's cotangent evenly in both packages."""
+    x = np.array([[1, 3, 3, 2], [4, 4, 4, 0]], np.float32)
+    want, got = _both_grads("reduce_max", {"X": x},
+                            {"dim": [1], "keep_dim": False,
+                             "reduce_all": False}, [1.0, 3.0])
+    np.testing.assert_array_equal(got["in_X@GRAD"], want["in_X@GRAD"])
+    np.testing.assert_array_equal(got["in_X@GRAD"],
+                                  [[0, .5, .5, 0], [1, 1, 1, 0]])
+
+
+@pytest.mark.parametrize("pool", ["MAX", "MIN"])
+@pytest.mark.parametrize("cot_kind", ["ones", "zero"])
+def test_sequence_pool_grad_at_nan(pool, cot_kind):
+    """``sequence_pool`` MAX / MIN over a sequence holding a NaN: the NaN
+    column of that sequence takes no grad, in both packages, under a
+    cotangent of ones and a zero one."""
+    x = np.array([[1, 2], [np.nan, 0], [3, 3], [1, 3]], np.float32)
+    lod = [[0, 2, 4]]
+    outs = ["Out", "MaxIndex"] if pool == "MAX" else ["Out"]
+    d = _grad_program_dict("sequence_pool", {"X": x}, outs,
+                           {"pooltype": pool})
+    feed = {"in_X": (x, lod),
+            "cot": np.full((2, 2), 1.0 if cot_kind == "ones" else 0.0,
+                           np.float32)}
+    results = []
+    for pkg in (fluid, pt):
+        prog = pkg.Program.from_dict(d)
+        pkg.append_backward(prog.global_block().var("loss"))
+        (g,) = _run(pkg, prog, feed, ["in_X@GRAD"])
+        results.append(np.asarray(g))
+    want, got = results
+    assert np.isfinite(got).all(), got
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# 7. integer inputs
+# ---------------------------------------------------------------------------
+
+INTS = np.array([1, 2, 4, 2147483647, 1, 0], np.int32)
+INT_CASES = [
+    ("mean", {}, np.float32),
+    ("reduce_mean", {"dim": [0], "keep_dim": False, "reduce_all": False},
+     np.float32),
+    ("reduce_mean", {"dim": [0], "keep_dim": False, "reduce_all": True},
+     np.float32),
+    ("sign", {}, np.int32),
+    ("reduce_sum", {"dim": [0], "keep_dim": False, "reduce_all": False},
+     np.int32),
+]
+
+
+@pytest.mark.parametrize("case", INT_CASES,
+                         ids=["mean", "reduce_mean", "reduce_mean_all",
+                              "sign", "reduce_sum"])
+def test_integer_inputs(case):
+    """An int32 input: ``mean`` and ``reduce_mean`` compute in float32
+    (357913952.0 for ``INTS``), ``sign`` stays int32 and ``reduce_sum``
+    stays int32 and wraps at 2**31, as in the JAX package."""
+    op_type, attrs, dtype = case
+    x = INTS if op_type != "sign" else np.array([-7, 0, 3], np.int32)
+    d = _op_dict(op_type, {"X": x}, ["Out"], attrs)
+    want = _run_jax(d, {"X": x})["out_Out"]
+    got = _run_torch(d, {"X": x})["out_Out"]
+    assert got.dtype == want.dtype == dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+    if op_type.endswith("mean"):
+        np.testing.assert_array_equal(got, [357913952.0])
+
+
+def test_layers_mean_of_int_runs():
+    """``layers.mean`` of an int32 variable runs through
+    ``Executor.run`` in both packages and gives the float32 mean."""
+    results = []
+    for pkg in (fluid, pt):
+        main = pkg.Program()
+        with pkg.program_guard(main, pkg.Program()):
+            xv = pkg.layers.data("x", shape=[6], dtype="int32",
+                                 append_batch_size=False)
+            m = pkg.layers.mean(xv)
+        (out,) = _run(pkg, main, {"x": INTS}, [m])
+        results.append(np.asarray(out))
+    np.testing.assert_array_equal(results[1], results[0])
+    np.testing.assert_array_equal(results[1], [357913952.0])
