@@ -275,15 +275,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 step of it on the card and on the CPU from one state: loss,
    grads and parameters within the card-vs-CPU bounds, Viterbi paths
    equal but at a counted near tie.
-14. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+14. Detection, CSP and the C inference ABI.  ``phase_op_families``
+   also runs the ten detection op types (``detection_op_cases``; the
+   ``roi_pool`` and ``scale_sub_region`` grads) card against CPU.
+   ``phase_ssd``: MobileNet-SSD on Pascal VOC (``SSD_VOC``: PaddlePaddle's
+   2018 ``mobilenet_ssd.py`` at its published widths, 300 x 300, 21
+   classes, 1917 priors, B 32, ``ssd_loss`` summed, RMSProp under
+   ``piecewise_decay`` with L2Decay 5e-5; seeded images with 1 to 8
+   boxes each, ~10% difficult) trains 5 batches x 4 passes eagerly: loss
+   finite and falling, no hand-written kernel; then ``detection_output``
+   (NMS 0.45) and ``evaluator.DetectionMAP`` (11-point) over held-out
+   batches, the streamed mAP equal to a plain numpy recount
+   (``voc_map_recount``); then the test program's inference bundle
+   through ``load_inference_model`` + ``Executor.run``,
+   ``serving.Predictor`` and the C ABI (``native.load_capi``,
+   ``ctypes``): identical rows.  Printed: ms a step, images/s, state and
+   peak GiB.  ``phase_card_vs_cpu_ssd``: one float32 step at full width,
+   B 4, card against CPU (and the CPU in float64): loss, grads against
+   float64 as ResNet-50's, match indices equal, negatives equal but at
+   counted near ties.  ``phase_csp``: the programs of
+   ``tests/test_concurrency.py`` and a ``go`` body running device ops on
+   a tensor received through a channel, card against CPU, each run
+   joined within ``CSP_TIMEOUT_S``.
+15. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
-   repair and its route B device time, ``device_ms``), the card's name
-   and power limit, and as the last line ``{"ok": true, "device":
-   {...}}``.
+   repair and its route B device time, ``device_ms``), a
+   ``{"phase_seconds": {...}}`` line (each phase's wall seconds and the
+   run's), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  Exits non-zero when CUDA is
 unavailable or the port is not beside it.  Writes its bundle and build
@@ -3942,7 +3965,7 @@ def repaired_op_cases():
 
 #: the modules of the sweep's families
 FAMILY_MODULES = ("tensor_ops", "math_ops", "loss_ops", "nn_ops",
-                  "metric_ops", "crf_ops", "ctc_ops")
+                  "metric_ops", "crf_ops", "ctc_ops", "detection_ops")
 #: the op types of those modules that earlier slices ported, which their
 #: own phases run on the card
 EARLIER_FAMILY_OPS = frozenset((
@@ -4133,10 +4156,11 @@ def _fam_rng(pt, device):
 
 
 def phase_op_families():
-    """Every op type of the book's families that this slice ported
+    """Every op type of the book's families and of the detection ops
     (``family_ops``, from the registry) and every repaired op
     (``repaired_op_cases``) on ``cuda:0`` and on the CPU from the same
-    seeded numpy inputs (``op_family_cases``, ``op_family_lod_cases``):
+    seeded numpy inputs (``op_family_cases``, ``op_family_lod_cases``,
+    ``detection_op_cases``):
     float32 outputs within ``F32_TOL`` (no case reduces over more than
     1024 terms), integer and host outputs equal; the input grads of each
     op that has one, through ``append_backward``, likewise (finite at
@@ -4151,7 +4175,7 @@ def phase_op_families():
 
     required = family_ops()
     cases = [c + ({},) for c in op_family_cases()] + \
-        op_family_lod_cases() + repaired_op_cases()
+        op_family_lod_cases() + repaired_op_cases() + detection_op_cases()
     covered = {c[1] for c in cases} | set(RNG_FAMILY_OPS)
     missing = sorted(set(required) - covered)
     if missing:
@@ -4600,6 +4624,849 @@ def phase_card_vs_cpu_srl():
                              f"difference allows")
     return dict(loss_rel=abs(a - b) / abs(b), grad_rel=rel[worst],
                 param_ratio=p_ratio[worst_p], viterbi_near_ties=len(differ))
+
+
+# ---------------------------------------------------------------------------
+# detection: the detection ops' cases, MobileNet-SSD on Pascal VOC
+# ---------------------------------------------------------------------------
+
+def _boxes(r, n, lo=0.0, span=0.5):
+    """``n`` corner boxes ``[x1, y1, x2, y2]`` inside the unit square."""
+    import numpy as np
+    x1 = lo + r.rand(n) * span
+    y1 = lo + r.rand(n) * span
+    x2 = x1 + 0.05 + r.rand(n) * (1.0 - span - lo - 0.05)
+    y2 = y1 + 0.05 + r.rand(n) * (1.0 - span - lo - 0.05)
+    return np.stack([x1, y1, x2, y2], axis=1).astype(np.float32)
+
+
+def detection_op_cases():
+    """The detection ops' cases (``ops/detection_ops.py``), in the form
+    of :func:`op_family_lod_cases`: every op type, both ``box_coder``
+    codes, ``bipartite_match`` over a LoD, with ``per_prediction`` and on
+    a matrix of ties (the row-major first maximum wins), ``target_assign``
+    with both ``NegIndices`` forms, both mining types over tied losses,
+    ``multiclass_nms`` with suppression, ``keep_top_k``, ``nms_eta`` and
+    nothing kept, ``roi_pool`` at two scales, ``detection_map`` in both
+    AP versions, with difficult boxes and with carried state.
+    ``tests/test_torch_detection.py`` holds them against the JAX package
+    on the CPU."""
+    import numpy as np
+    _f = _fam_f
+    r = np.random.RandomState(43)
+    prior, target = _boxes(r, 6), _boxes(r, 3)
+    pvar = (r.rand(6, 4) * 0.3 + 0.1).astype(np.float32)
+    ties = (np.floor(r.rand(6, 9) * 4) / 4).astype(np.float32)
+    feat = np.zeros((1, 4, 3, 4), np.float32)
+    img = np.zeros((1, 3, 24, 32), np.float32)
+    match = np.array([[0, -1, 1, -1, 0], [-1, 0, -1, -1, -1]], np.int32)
+    dense_neg = np.array([[3, 1, -1, -1, -1], [2, 4, 0, -1, -1]], np.int32)
+    flat_neg = np.array([[3], [1], [2], [4]], np.int32)
+    tied_loss = np.array([[0.5, 0.9, 0.5, 0.3, 0.9, 0.5, 0.1, 0.5],
+                          [0.2, 0.2, 0.2, 0.2, 0.7, 0.7, 0.2, 0.2]],
+                         np.float32)
+    mine_match = np.array([[0, -1, -1, -1, -1, -1, 1, -1],
+                           [-1, -1, 0, -1, -1, -1, -1, -1]], np.int32)
+    mine_dist = (r.rand(2, 8) * 0.6).astype(np.float32)
+    nms_boxes = np.stack([np.concatenate([_boxes(r, 6, 0.0, 0.6),
+                                          _boxes(r, 6, 0.2, 0.3)])
+                          for _ in range(2)])
+    nms_scores = r.rand(2, 3, 12).astype(np.float32)
+    x = _f(r, 2, 3, 6, 6)
+    det = np.array([[1, 0.9, 0.1, 0.1, 0.4, 0.4],
+                    [1, 0.8, 0.6, 0.6, 0.9, 0.9],
+                    [2, 0.7, 0.12, 0.1, 0.45, 0.42],
+                    [1, 0.95, 0.5, 0.5, 0.8, 0.85],
+                    [2, 0.6, 0.05, 0.5, 0.3, 0.9],
+                    [1, 0.4, 0.52, 0.5, 0.8, 0.82]], np.float32)
+    label = np.array([[1, 0, 0.1, 0.1, 0.4, 0.4],
+                      [2, 1, 0.1, 0.1, 0.45, 0.4],
+                      [1, 0, 0.5, 0.5, 0.8, 0.8],
+                      [2, 0, 0.0, 0.5, 0.3, 0.9],
+                      [1, 1, 0.6, 0.1, 0.9, 0.3]], np.float32)
+    det_lod, lab_lod = [[0, 3, 6]], [[0, 2, 5]]
+    state = {"HasState": np.array([1], np.int32),
+             "PosCount": np.array([[0], [2], [1]], np.int32),
+             "TruePos": np.array([[0.85, 1], [0.3, 0], [0.5, 1]],
+                                 np.float32),
+             "FalsePos": np.array([[0.85, 0], [0.3, 1], [0.5, 0]],
+                                  np.float32)}
+    map_out = ["MAP", "AccumPosCount", "AccumTruePos", "AccumFalsePos"]
+    prior_attrs = {"min_sizes": [8.0, 14.0], "max_sizes": [12.0, 20.0],
+                   "aspect_ratios": [2.0, 3.0], "flip": True, "clip": True,
+                   "variances": [0.1, 0.1, 0.2, 0.2], "step_w": 0.0,
+                   "step_h": 0.0, "offset": 0.5}
+    nms = {"background_label": 0, "nms_threshold": 0.3, "nms_top_k": 8,
+           "keep_top_k": 10, "score_threshold": 0.2, "nms_eta": 1.0}
+    mine = {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5,
+            "mining_type": "max_negative", "sample_size": 0}
+    return [
+        ("iou_similarity", "iou_similarity",
+         {"X": _boxes(r, 5), "Y": _boxes(r, 7)}, ["Out"], {}, {}),
+        ("box_coder_encode", "box_coder",
+         {"PriorBox": prior, "PriorBoxVar": pvar, "TargetBox": target},
+         ["OutputBox"], {"code_type": "encode_center_size"}, {}),
+        ("box_coder_decode", "box_coder",
+         {"PriorBox": prior, "TargetBox": _f(r, 2, 6, 4) * 0.5},
+         ["OutputBox"], {"code_type": "decode_center_size"}, {}),
+        ("prior_box", "prior_box", {"Input": feat, "Image": img},
+         ["Boxes", "Variances"], prior_attrs, {}),
+        ("prior_box_steps", "prior_box", {"Input": feat, "Image": img},
+         ["Boxes", "Variances"],
+         dict(prior_attrs, max_sizes=[], aspect_ratios=[2.0], flip=False,
+              clip=False, step_w=9.0, step_h=7.0, offset=0.25), {}),
+        ("bipartite_match_lod", "bipartite_match",
+         {"DistMat": r.rand(11, 7).astype(np.float32)},
+         ["ColToRowMatchIndices", "ColToRowMatchDist"],
+         {"match_type": None, "dist_threshold": None},
+         {"DistMat": [[0, 5, 11]]}),
+        ("bipartite_match_per_prediction", "bipartite_match",
+         {"DistMat": r.rand(4, 10).astype(np.float32)},
+         ["ColToRowMatchIndices", "ColToRowMatchDist"],
+         {"match_type": "per_prediction", "dist_threshold": 0.5}, {}),
+        ("bipartite_match_ties", "bipartite_match", {"DistMat": ties},
+         ["ColToRowMatchIndices", "ColToRowMatchDist"],
+         {"match_type": "per_prediction", "dist_threshold": 0.25},
+         {"DistMat": [[0, 2, 6]]}),
+        ("target_assign", "target_assign",
+         {"X": _f(r, 3, 5, 4), "MatchIndices": match},
+         ["Out", "OutWeight"], {"mismatch_value": 9}, {"X": [[0, 2, 3]]}),
+        ("target_assign_dense_neg", "target_assign",
+         {"X": np.array([[[1]], [[2]], [[3]]], np.int32),
+          "MatchIndices": match, "NegIndices": dense_neg},
+         ["Out", "OutWeight"], {"mismatch_value": 0}, {"X": [[0, 2, 3]]}),
+        ("target_assign_flat_neg", "target_assign",
+         {"X": _f(r, 3, 1, 2), "MatchIndices": match,
+          "NegIndices": flat_neg},
+         ["Out", "OutWeight"], {"mismatch_value": 0},
+         {"X": [[0, 2, 3]], "NegIndices": [[0, 1, 4]]}),
+        ("mine_max_negative_ties", "mine_hard_examples",
+         {"ClsLoss": tied_loss, "MatchIndices": mine_match,
+          "MatchDist": mine_dist},
+         ["NegIndices", "UpdatedMatchIndices"], mine, {}),
+        ("mine_hard_example", "mine_hard_examples",
+         {"ClsLoss": tied_loss, "LocLoss": _f(r, 2, 8) * 0.1,
+          "MatchIndices": mine_match, "MatchDist": mine_dist},
+         ["NegIndices", "UpdatedMatchIndices"],
+         dict(mine, mining_type="hard_example", sample_size=3), {}),
+        ("multiclass_nms", "multiclass_nms",
+         {"BBoxes": nms_boxes, "Scores": nms_scores}, ["Out"], nms, {}),
+        ("multiclass_nms_keep_top_k", "multiclass_nms",
+         {"BBoxes": nms_boxes, "Scores": nms_scores}, ["Out"],
+         dict(nms, nms_threshold=0.6, keep_top_k=3, nms_top_k=-1), {}),
+        ("multiclass_nms_eta", "multiclass_nms",
+         {"BBoxes": nms_boxes, "Scores": nms_scores}, ["Out"],
+         dict(nms, nms_threshold=0.7, nms_eta=0.8), {}),
+        ("multiclass_nms_none", "multiclass_nms",
+         {"BBoxes": nms_boxes, "Scores": nms_scores * 0.1}, ["Out"], nms,
+         {}),
+        ("roi_pool", "roi_pool",
+         {"X": x, "ROIs": np.array([[0, 0, 0, 3, 3], [1, 2, 2, 5, 5],
+                                    [1, 1, 0, 4, 2]], np.int64)},
+         ["Out", "Argmax"],
+         {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 1.0}, {}),
+        ("roi_pool_scaled", "roi_pool",
+         {"X": x, "ROIs": np.array([[0, 1.0, 2.0, 9.0, 11.0],
+                                    [1, 0.0, 0.0, 11.0, 6.0]], np.float32)},
+         ["Out", "Argmax"],
+         {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.5}, {}),
+        ("detection_map_integral", "detection_map",
+         {"DetectRes": det, "Label": label}, map_out,
+         {"class_num": 3, "overlap_threshold": 0.5,
+          "evaluate_difficult": True, "ap_type": "integral",
+          "background_label": 0},
+         {"DetectRes": det_lod, "Label": lab_lod}),
+        ("detection_map_11point_state", "detection_map",
+         dict({"DetectRes": det, "Label": label}, **state), map_out,
+         {"class_num": 3, "overlap_threshold": 0.5,
+          "evaluate_difficult": False, "ap_type": "11point",
+          "background_label": 0},
+         {"DetectRes": det_lod, "Label": lab_lod,
+          "TruePos": [[0, 0, 2, 3]], "FalsePos": [[0, 0, 2, 3]]}),
+        ("scale_sub_region", "scale_sub_region",
+         {"X": _f(r, 3, 4, 5, 6),
+          "Indices": np.array([[1, 2, 1, 3, 2, 4], [2, 4, 2, 5, 1, 6],
+                               [3, 3, 1, 1, 1, 1]], np.float32)},
+         ["Out"], {"value": 2.5}, {}),
+    ]
+
+
+#: MobileNet-SSD on Pascal VOC as PaddlePaddle's 2018 models repo
+#: trains it (``fluid/object_detection/mobilenet_ssd.py``, ``train.py``):
+#: 3 x 300 x 300 images, 21 classes, the published widths (``scale``
+#: 1), ``ssd_loss`` with its defaults summed, RMSProp at 0.001 under
+#: ``piecewise_decay`` (boundaries 40000 and 60000, halving), L2Decay
+#: 5e-5, NMS at 0.45; B 32 a step (the script's default batch); 1 to
+#: ``max_boxes`` ground-truth boxes an image, about ``difficult`` of them
+#: marked difficult
+SSD_VOC = dict(image=300, classes=21, scale=1.0, batch=32, lr=0.001,
+               boundaries=(40000, 60000), l2=5e-5, nms_threshold=0.45,
+               max_boxes=8, difficult=0.1)
+#: the prior sizes at 300 x 300 (scaled with the image elsewhere)
+SSD_MIN_SIZES = (60.0, 105.0, 150.0, 195.0, 240.0, 285.0)
+SSD_MAX_SIZES = (None, 150.0, 195.0, 240.0, 285.0, 300.0)
+SSD_PRIORS = 1917
+#: training: batches, passes over them; evaluation: held-out batches
+SSD_BATCHES, SSD_PASSES, SSD_EVAL_BATCHES = 5, 4, 2
+#: the card-vs-CPU step's batch, and its grad bound: a deep conv net with
+#: batch norms and ReLUs, as ResNet-50's card-vs-CPU step
+SSD_CARD_CPU_B = 4
+SSD_CARD_CPU_GRAD_RTOL = 1e-4
+#: a near tie of two priors' mining losses (relative), where the card's
+#: and the CPU's negatives may differ
+SSD_TIE_RTOL = 1e-5
+
+
+def mobilenet_ssd(pkg, cfg):
+    """MobileNet-SSD (``mobilenet_ssd.py``'s ``mobile_net``: a 3x3/2
+    ``conv_bn`` of 32, thirteen depthwise-separable blocks, module11 at
+    19 x 19 and module13 at 10 x 10, four extra blocks down to 1 x 1,
+    ``multi_box_head`` over the six maps) and its ``ssd_loss`` summed,
+    built with ``pkg``'s layers at ``cfg["image"]`` and widths x
+    ``cfg["scale"]`` (the prior sizes scaled with the image).  Returns
+    the data variables, the head's outputs and the loss by name."""
+    L = pkg.layers
+    scale, size = cfg["scale"], cfg["image"]
+
+    def conv_bn(x, filter_size, num_filters, stride, padding, groups=1):
+        attr = pkg.ParamAttr(learning_rate=0.1,
+                             initializer=pkg.initializer.MSRA())
+        conv = L.conv2d(input=x, num_filters=num_filters,
+                        filter_size=filter_size, stride=stride,
+                        padding=padding, groups=groups, act=None,
+                        use_cudnn=groups == 1, param_attr=attr,
+                        bias_attr=False)
+        return L.batch_norm(input=conv, act="relu")
+
+    def depthwise_separable(x, f1, f2, groups, stride):
+        dw = conv_bn(x, 3, int(f1 * scale), stride, 1, int(groups * scale))
+        return conv_bn(dw, 1, int(f2 * scale), 1, 0)
+
+    def extra_block(x, f1, f2, groups, stride):
+        pw = conv_bn(x, 1, int(f1 * scale), 1, 0, int(groups * scale))
+        return conv_bn(pw, 3, int(f2 * scale), stride, 1,
+                       int(groups * scale))
+
+    image = L.data(name="image", shape=[3, size, size], dtype="float32")
+    gt_box = L.data(name="gt_box", shape=[4], dtype="float32", lod_level=1)
+    gt_label = L.data(name="gt_label", shape=[1], dtype="int32",
+                      lod_level=1)
+    difficult = L.data(name="difficult", shape=[1], dtype="int32",
+                       lod_level=1)
+    tmp = conv_bn(image, 3, int(32 * scale), 2, 1)
+    tmp = depthwise_separable(tmp, 32, 64, 32, 1)
+    tmp = depthwise_separable(tmp, 64, 128, 64, 2)
+    tmp = depthwise_separable(tmp, 128, 128, 128, 1)
+    tmp = depthwise_separable(tmp, 128, 256, 128, 2)
+    tmp = depthwise_separable(tmp, 256, 256, 256, 1)
+    tmp = depthwise_separable(tmp, 256, 512, 256, 2)
+    for _ in range(5):
+        tmp = depthwise_separable(tmp, 512, 512, 512, 1)
+    module11 = tmp
+    tmp = depthwise_separable(tmp, 512, 1024, 512, 2)
+    module13 = depthwise_separable(tmp, 1024, 1024, 1024, 1)
+    module14 = extra_block(module13, 256, 512, 1, 2)
+    module15 = extra_block(module14, 128, 256, 1, 2)
+    module16 = extra_block(module15, 128, 256, 1, 2)
+    module17 = extra_block(module16, 64, 128, 1, 2)
+    k = size / 300.0
+    locs, confs, box, box_var = L.multi_box_head(
+        inputs=[module11, module13, module14, module15, module16, module17],
+        image=image, num_classes=cfg["classes"], min_ratio=20,
+        max_ratio=90, min_sizes=[s * k for s in SSD_MIN_SIZES],
+        max_sizes=[[] if s is None else s * k for s in SSD_MAX_SIZES],
+        aspect_ratios=[[2.0]] + [[2.0, 3.0]] * 5, base_size=size,
+        offset=0.5, flip=True)
+    loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label, box,
+                                   box_var))
+    return dict(image=image, gt_box=gt_box, gt_label=gt_label,
+                difficult=difficult, locs=locs, confs=confs, box=box,
+                box_var=box_var, loss=loss)
+
+
+def ssd_programs(pkg, cfg, optimize=True):
+    """``(main, startup, test, net, nmsed, map_eval)``: ``main`` the
+    training step (:func:`mobilenet_ssd`, then RMSProp as ``train.py``
+    has it), ``test`` its clone for test taken before the optimizer, with
+    ``detection_output`` and ``evaluator.DetectionMAP`` (11-point,
+    difficult boxes not evaluated).  ``train.py`` builds
+    ``detection_output`` into the training program too; here it is the
+    test program's only, since no training step fetches it and its NMS
+    is a host op."""
+    L = pkg.layers
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pkg.program_guard(main, startup):
+        net = mobilenet_ssd(pkg, cfg)
+        test = main.clone(for_test=True)
+        with pkg.program_guard(test, startup):
+            nmsed = L.detection_output(
+                net["locs"], net["confs"], net["box"], net["box_var"],
+                nms_threshold=cfg["nms_threshold"])
+            map_eval = pkg.evaluator.DetectionMAP(
+                nmsed, net["gt_label"], net["gt_box"], net["difficult"],
+                cfg["classes"], overlap_threshold=0.5,
+                evaluate_difficult=False, ap_version="11point")
+        if optimize:
+            lr = cfg["lr"]
+            pkg.optimizer.RMSProp(
+                learning_rate=L.piecewise_decay(
+                    list(cfg["boundaries"]), [lr, lr * 0.5, lr * 0.25]),
+                regularization=pkg.regularizer.L2Decay(cfg["l2"])).minimize(
+                    net["loss"])
+    return main, startup, test, net, nmsed, map_eval
+
+
+def ssd_batches(cfg, n_batches, seed):
+    """``n_batches`` feeds of ``cfg["batch"]`` seeded images (standard
+    normal) with 1 to ``cfg["max_boxes"]`` boxes each (corners in the
+    unit square, sides 0.1 to 0.6), labels 1 to ``classes - 1``, about
+    ``cfg["difficult"]`` of them difficult: ``gt_box``, ``gt_label`` and
+    ``difficult`` share the batch's LoD."""
+    import numpy as np
+    r = np.random.RandomState(seed)
+    size, out = cfg["image"], []
+    for _ in range(n_batches):
+        counts = r.randint(1, cfg["max_boxes"] + 1, cfg["batch"])
+        n = int(counts.sum())
+        wh = 0.1 + r.rand(n, 2) * 0.5
+        xy = r.rand(n, 2) * (1.0 - wh)
+        boxes = np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+        lod = [[0] + [int(v) for v in np.cumsum(counts)]]
+        out.append({
+            "image": r.randn(cfg["batch"], 3, size, size).astype(
+                np.float32),
+            "gt_box": (boxes, lod),
+            "gt_label": (r.randint(1, cfg["classes"], (n, 1)).astype(
+                np.int32), lod),
+            "difficult": ((r.rand(n, 1) < cfg["difficult"]).astype(
+                np.int32), lod)})
+    return out
+
+
+def voc_map_recount(batches, overlap=0.5):
+    """The 11-point VOC mAP of the detections of ``batches`` (``[(feed,
+    detections, lod)]``: ``[No, 6]`` rows of label, score and box, their
+    image splits) over each feed's ground truth, difficult boxes
+    ignored, in plain numpy: a detection is a true positive when its box
+    (clipped to the unit square) overlaps its class's best ground truth
+    in its image by more than ``overlap`` and no higher-scored detection
+    took that box; a class counts where it has positives and detections.
+    Independent of the port's ``detection_map``."""
+    import numpy as np
+    scored, positives = {}, {}   # class -> [(score, tp)]; class -> count
+    for feed, dets_all, lod in batches:
+        boxes, glod = feed["gt_box"]
+        labels = feed["gt_label"][0].reshape(-1)
+        hard = feed["difficult"][0].reshape(-1).astype(bool)
+        for img in range(len(glod[0]) - 1):
+            lo, hi = glod[0][img], glod[0][img + 1]
+            for c in np.unique(labels[lo:hi]):
+                n = int(((labels[lo:hi] == c) & ~hard[lo:hi]).sum())
+                positives[int(c)] = positives.get(int(c), 0) + n
+            dets = dets_all[lod[img]:lod[img + 1]]
+            if dets.shape[-1] != 6:
+                continue                      # nothing detected
+            for c in np.unique(dets[:, 0]).astype(int):
+                mine = dets[dets[:, 0] == c]
+                mine = mine[np.argsort(-mine[:, 1], kind="stable")]
+                own = labels[lo:hi] == c
+                gts = boxes[lo:hi][own].astype(np.float64)
+                g_hard, taken = hard[lo:hi][own], np.zeros(own.sum(), bool)
+                for row in mine:
+                    tp = 0
+                    if len(gts):
+                        b = np.clip(row[2:6].astype(np.float64), 0.0, 1.0)
+                        iw = np.minimum(b[2], gts[:, 2]) - \
+                            np.maximum(b[0], gts[:, 0])
+                        ih = np.minimum(b[3], gts[:, 3]) - \
+                            np.maximum(b[1], gts[:, 1])
+                        inter = np.maximum(iw, 0) * np.maximum(ih, 0)
+                        union = (b[2] - b[0]) * (b[3] - b[1]) + \
+                            (gts[:, 2] - gts[:, 0]) * \
+                            (gts[:, 3] - gts[:, 1]) - inter
+                        iou = np.where(union > 0, inter / np.where(
+                            union > 0, union, 1), 0)
+                        j = int(np.argmax(iou))
+                        if iou[j] > overlap:
+                            if g_hard[j]:
+                                continue      # neither a hit nor a miss
+                            tp, taken[j] = int(not taken[j]), True
+                    scored.setdefault(int(c), []).append((row[1], tp))
+    aps = []
+    for c in sorted(positives):
+        if c == 0 or not positives[c] or not scored.get(c):
+            continue
+        pairs = sorted(scored[c], key=lambda p: -p[0])
+        tp = np.cumsum([t for _, t in pairs])
+        fp = np.cumsum([1 - t for _, t in pairs])
+        precision = tp / np.maximum(tp + fp, 1e-12)
+        recall = tp / float(positives[c])
+        best = np.array([precision[recall >= j / 10.0].max()
+                         if (recall >= j / 10.0).any() else 0.0
+                         for j in range(11)])
+        aps.append(float(np.sum(best) / 11.0))
+    return float(np.mean(aps)) if aps else 0.0
+
+
+def _ssd_priors(main):
+    """The prior count of ``main``'s ``prior_box`` ops (from their
+    inferred ``[h, w, priors, 4]`` shapes)."""
+    import numpy as np
+    block = main.global_block()
+    return sum(int(np.prod(block.var(op.output("Boxes")[0]).shape[:3]))
+               for op in block.ops if op.type == "prior_box")
+
+
+def _capi_rows(place_name, dirname, image):
+    """The detection rows of ``image`` through the port's C inference
+    ABI (``native.load_capi``, called with ``ctypes``): a predictor made
+    by ``pd_tpu_create`` (no place: ``cuda:0``) or, with ``place_name``,
+    ``pd_tpu_create_on``."""
+    import ctypes
+    import numpy as np
+    from paddle_tpu_torch import native
+    lib = native.load_capi()
+    if lib.pd_tpu_init() != 0:
+        raise AssertionError(f"capi: {lib.pd_tpu_last_error()}")
+    h = lib.pd_tpu_create(dirname.encode()) if place_name is None else \
+        lib.pd_tpu_create_on(dirname.encode(), place_name.encode())
+    if not h:
+        raise AssertionError(f"capi: {lib.pd_tpu_last_error()}")
+    try:
+        data = np.ascontiguousarray(image)
+        shape = (ctypes.c_longlong * data.ndim)(*data.shape)
+        res = lib.pd_tpu_run(
+            h, 1, (ctypes.c_char_p * 1)(b"image"),
+            (ctypes.c_void_p * 1)(data.ctypes.data_as(ctypes.c_void_p)),
+            (ctypes.c_longlong * 1)(data.nbytes),
+            (ctypes.POINTER(ctypes.c_longlong) * 1)(shape),
+            (ctypes.c_int * 1)(data.ndim), (ctypes.c_char_p * 1)(b"float32"))
+        if not res:
+            raise AssertionError(f"capi: {lib.pd_tpu_last_error()}")
+        try:
+            if lib.pd_tpu_result_count(res) != 1:
+                raise AssertionError("capi: one result a fetch expected")
+            dims = tuple(lib.pd_tpu_result_dim(res, 0, d)
+                         for d in range(lib.pd_tpu_result_rank(res, 0)))
+            blen = ctypes.c_longlong()
+            ptr = lib.pd_tpu_result_data(res, 0, ctypes.byref(blen))
+            return np.frombuffer(ctypes.string_at(ptr, blen.value),
+                                 lib.pd_tpu_result_dtype(res, 0).decode()
+                                 ).reshape(dims)
+        finally:
+            lib.pd_tpu_free_result(res)
+    finally:
+        lib.pd_tpu_destroy(h)
+
+
+def phase_ssd(cfg=SSD_VOC, place=None):
+    """MobileNet-SSD on Pascal VOC (``SSD_VOC``: 300 x 300, 21 classes,
+    the published widths, ``SSD_PRIORS`` priors, B 32) trains on
+    ``place`` (the card) through ``layers``, ``RMSProp.minimize`` and
+    ``Executor.run``: ``SSD_BATCHES`` seeded batches (static LoD feeds of
+    1 to 8 boxes an image), ``SSD_PASSES`` passes, eager (the matching
+    ops' LoD tables); every loss finite and the last pass's mean below
+    the first's; no hand-written kernel.  Then ``detection_output`` and
+    ``evaluator.DetectionMAP`` (11-point, difficult boxes not evaluated)
+    over ``SSD_EVAL_BATCHES`` held-out batches: the streamed mAP equal to
+    ``voc_map_recount`` of the fetched detections.  Then the test
+    program's inference bundle (``save_inference_model``): the rows of
+    ``load_inference_model`` + ``Executor.run``, of ``serving.Predictor``
+    and of the C inference ABI (``native.load_capi``, ``ctypes``) on the
+    same images identical.  Printed: ms a step, images/s, the state's
+    GiB, the steps' peak above it."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+
+    place = place or pt.CUDAPlace(0)
+    exe = pt.Executor(place)
+    card = exe.device.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    main, startup, test, net, nmsed, map_eval = ssd_programs(pt, cfg)
+    priors = _ssd_priors(main)
+    if cfg is SSD_VOC and priors != SSD_PRIORS:
+        raise AssertionError(f"ssd: {priors} priors, not {SSD_PRIORS}")
+    batches = ssd_batches(cfg, SSD_BATCHES, SEED)
+    held = ssd_batches(cfg, SSD_EVAL_BATCHES, SEED + 1)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        sync()
+        state_gib = sum(v.numel() * v.element_size()
+                        for _, v in scope.items()
+                        if isinstance(v, torch.Tensor)) / 2 ** 30
+        if card:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        for kern in ALL_KERNELS:
+            kern.launches = 0
+        losses, step_s = [], []
+        for _ in range(SSD_PASSES):
+            for feed in batches:
+                sync()
+                t = time.perf_counter()
+                (loss,) = exe.run(main, feed=feed,
+                                  fetch_list=[net["loss"]])
+                sync()
+                step_s.append(time.perf_counter() - t)
+                losses.append(float(np.asarray(loss).reshape(())))
+        _no_launches("ssd")
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30 \
+            if card else float("nan")
+        map_eval.reset(exe)
+        evaluated, t = [], time.perf_counter()
+        for feed in held:
+            dets, cur, accum = (np.asarray(v) for v in exe.run(
+                test, feed=feed, fetch_list=[nmsed] + map_eval.metrics))
+            evaluated.append((feed, dets, exe.last_fetch_lods[nmsed.name][0]))
+        eval_s = time.perf_counter() - t
+        _no_launches("ssd eval")
+        dirname = os.path.join(OUT_DIR, "ssd_bundle")
+        pt.io.save_inference_model(dirname, ["image"], [nmsed], exe,
+                                   main_program=test)
+    _graphs("ssd", exe, None)
+    recount = voc_map_recount(evaluated)
+    streamed = float(accum.reshape(()))
+    if np.float32(recount) != np.float32(streamed):
+        raise AssertionError(f"ssd: streamed mAP {streamed!r} != the "
+                             f"recount {recount!r}")
+    first, last = np.mean(losses[:SSD_BATCHES]), np.mean(losses[-SSD_BATCHES:])
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"ssd: losses {losses} not finite and falling")
+    # serve the same images three ways
+    image = held[0]["image"][:8]
+    infer = pt.Executor(place)
+    with pt.scope_guard(pt.Scope()):
+        prog, _, fetches = pt.io.load_inference_model(dirname, infer)
+        rows_exe = np.asarray(infer.run(prog, feed={"image": image},
+                                        fetch_list=fetches)[0])
+    rows_pred = np.asarray(serving.Predictor(dirname, place=place).run(
+        {"image": image})[0])
+    rows_capi = _capi_rows(None if card else "cpu", dirname, image)
+    for what, rows in (("Predictor", rows_pred), ("C ABI", rows_capi)):
+        if rows.shape != rows_exe.shape or not np.array_equal(rows,
+                                                              rows_exe):
+            raise AssertionError(f"ssd: {what} rows {rows.shape} differ from "
+                                 f"Executor.run's {rows_exe.shape}")
+    _no_launches("ssd serving")
+    steady = float(np.mean(step_s[SSD_BATCHES:]))
+    n_dets = sum(len(d) for _, d, _ in evaluated)
+    log(f"ssd[MobileNet-SSD, VOC widths, {card_line() if card else 'cpu'}]:"
+        f" {cfg['image']}x{cfg['image']}, {cfg['classes']} classes, "
+        f"{priors} priors, B={cfg['batch']}, {SSD_BATCHES} batches x "
+        f"{SSD_PASSES} passes: losses {[round(x, 3) for x in losses]} "
+        f"(pass means {first:.3f} -> {last:.3f}); step ms "
+        f"{[round(1e3 * x, 1) for x in step_s]}; steady (passes 2..) "
+        f"{1e3 * steady:.3f} ms = {cfg['batch'] / steady:.1f} images/s; "
+        f"state {state_gib:.4f} GiB, the steps' peak above what was "
+        f"allocated before them {peak_gib:.4f} GiB; eval {len(held)} x "
+        f"{cfg['batch']} images in {eval_s:.2f} s, {n_dets} detections, "
+        f"streamed mAP {streamed:.6f} = the recount; served "
+        f"{len(image)} images: {len(rows_exe)} rows identical through "
+        f"Executor.run, Predictor and the C ABI")
+    return dict(step_ms=1e3 * steady, images_per_s=cfg["batch"] / steady,
+                state_gib=state_gib, peak_gib=peak_gib, losses=losses,
+                first_step_ms=1e3 * step_s[0], map=streamed,
+                detections=n_dets, served_rows=len(rows_exe),
+                priors=priors, eval_s=eval_s)
+
+
+def phase_card_vs_cpu_ssd(cfg=SSD_VOC, card_place=None):
+    """One float32 RMSProp step of MobileNet-SSD at its full widths
+    (``SSD_CARD_CPU_B`` images) from one startup state on the card and
+    on the CPU, and on the CPU in float64.  The loss is held to
+    ``CARD_CPU_LOSS_RTOL``; every parameter's grad, read against the
+    float64 step, as ResNet-50's: the card's at most
+    ``CARD_CPU_F64_FACTOR`` times as far from it as the CPU's, at the
+    worst parameter and at the median.  The match indices must be equal;
+    each image's negatives (``mine_hard_examples``) the same set, but
+    where a prior that differs has a mining loss within ``SSD_TIE_RTOL``
+    of the last one taken: a near tie, counted and printed."""
+    import json as _json
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import (persistable_names,
+                                          scope_from_numpy, to_numpy)
+
+    cfg = dict(cfg, batch=SSD_CARD_CPU_B)
+    main, startup, _, net, _, _ = ssd_programs(pt, cfg)
+    main64 = pt.Program.from_dict(_json.loads(
+        _json.dumps(main.to_dict()).replace('"float32"', '"float64"')))
+    block = main.global_block()
+    grads = sorted(op.input("Grad")[0] for op in block.ops
+                   if op.type == "rmsprop")
+    match = next(op for op in block.ops if op.type == "bipartite_match")
+    mine = next(op for op in block.ops if op.type == "mine_hard_examples")
+    extra = [match.output("ColToRowMatchIndices")[0],
+             mine.output("NegIndices")[0], mine.input("ClsLoss")[0]]
+    (feed,) = ssd_batches(cfg, 1, SEED + 2)
+    def f64(v):
+        if isinstance(v, tuple):
+            return (f64(v[0]), v[1])
+        return v.astype(np.float64) if v.dtype == np.float32 else v
+
+    feed64 = {k: f64(v) for k, v in feed.items()}
+    cpu = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    state = {n: to_numpy(cpu_scope.find_var(n))
+             for n in persistable_names(main)}
+    state64 = {n: f64(v) for n, v in state.items()}
+    fetch = [net["loss"].name] + extra + grads
+    t = time.perf_counter()
+    got = {"cpu": cpu.run(main, feed=feed, fetch_list=fetch,
+                          scope=cpu_scope)}
+    cpu_s = time.perf_counter() - t
+    got["f64"] = cpu.run(main64, feed=feed64, fetch_list=fetch,
+                         scope=scope_from_numpy(state64, pt.CPUPlace(),
+                                                main64))
+    got["card"] = pt.Executor(card_place).run(
+        main, feed=feed, fetch_list=fetch,
+        scope=scope_from_numpy(state, card_place, main))
+    a, b = (float(np.asarray(got[k][0]).reshape(())) for k in ("card", "cpu"))
+    if not np.array_equal(got["card"][1], got["cpu"][1]):
+        raise AssertionError("card-vs-cpu[ssd]: match indices differ")
+    ties = 0
+    for i, (nc, nu, loss) in enumerate(zip(got["card"][2], got["cpu"][2],
+                                            got["cpu"][3])):
+        sc, su = set(nc[nc >= 0].tolist()), set(nu[nu >= 0].tolist())
+        if sc == su:
+            continue
+        edge = float(loss[nu[nu >= 0][-1]])
+        if any(abs(float(loss[p]) - edge) > SSD_TIE_RTOL * abs(edge)
+               for p in sc ^ su):
+            raise AssertionError(f"card-vs-cpu[ssd]: image {i}'s negatives "
+                                 f"differ off a near tie: {sorted(sc ^ su)}")
+        ties += 1
+
+    def rel(x, y):
+        """Each grad's distance from ``y``'s over its norm (0 where both
+        are zero: a head no prior of the batch was matched to)."""
+        out = []
+        for g, w in zip(x[4:], y[4:]):
+            g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+            norm = float(np.linalg.norm(w))
+            diff = float(np.linalg.norm(g - w))
+            if not norm > 0 and diff:
+                raise AssertionError("card-vs-cpu[ssd]: a zero grad is "
+                                     "nonzero on the other side")
+            out.append(diff / norm if norm > 0 else 0.0)
+        return np.asarray(out)
+
+    r = rel(got["card"], got["cpu"])
+    card64, cpu64 = rel(got["card"], got["f64"]), rel(got["cpu"], got["f64"])
+    worst = int(np.argmax(r))
+    log(f"card-vs-cpu[ssd] full widths B={cfg['batch']} f32: loss card "
+        f"{a!r} cpu {b!r} (rel {abs(a - b) / abs(b):.2e}, bound "
+        f"{CARD_CPU_LOSS_RTOL}); {len(grads)} grads |card - cpu| / |cpu| "
+        f"worst {r[worst]:.3e} ({grads[worst]}), median {np.median(r):.3e};"
+        f" from the CPU's float64 step: card worst {card64.max():.3e} "
+        f"median {np.median(card64):.3e}, cpu worst {cpu64.max():.3e} "
+        f"median {np.median(cpu64):.3e} (factor {CARD_CPU_F64_FACTOR}); "
+        f"match indices equal; negatives equal in "
+        f"{cfg['batch'] - ties} of {cfg['batch']} images, {ties} near ties;"
+        f" cpu step {cpu_s:.2f} s")
+    if not abs(a - b) <= CARD_CPU_LOSS_RTOL * abs(b):
+        raise AssertionError(f"card-vs-cpu[ssd]: loss {a} vs {b}")
+    if card64.max() > CARD_CPU_F64_FACTOR * cpu64.max() or \
+            np.median(card64) > CARD_CPU_F64_FACTOR * np.median(cpu64):
+        raise AssertionError(
+            f"card-vs-cpu[ssd]: the card's float32 grads lie farther from "
+            f"float64 than {CARD_CPU_F64_FACTOR} x the CPU's")
+    return dict(loss_rel=abs(a - b) / abs(b), grad_rel=float(r[worst]),
+                grad_rel_median=float(np.median(r)),
+                card_f64=float(np.median(card64)),
+                cpu_f64=float(np.median(cpu64)), negative_near_ties=ties)
+
+
+#: a CSP program's run, joined within this many seconds (else the phase
+#: fails)
+CSP_TIMEOUT_S = 120
+
+
+#: the CSP programs of ``tests/test_concurrency.py``, built with either
+#: package's ``Go`` / ``Select`` / channels (``tests/test_torch_concurrency.py``
+#: runs them in both, ``phase_csp`` on the card)
+
+def _csp_var(pkg, hint, dtype="int64", persistable=False):
+    block = pkg.default_main_program().current_block()
+    v = block.create_var(name=pkg.unique_name(hint), dtype=dtype)
+    v.persistable = persistable
+    return v
+
+
+def csp_simple_routine(pkg):
+    L = pkg.layers
+    ch = pkg.make_channel(dtype="float64")
+    result = _csp_var(pkg, "return_value", "float64")
+    with pkg.Go():
+        pkg.channel_send(ch, L.fill_constant(shape=[1], dtype="float64",
+                                             value=1234))
+    result, _ = pkg.channel_recv(ch, result)
+    pkg.channel_close(ch)
+    return [result]
+
+
+def csp_daisy_chain(pkg, n=20):
+    """Go daisy chain (talks.golang.org/2012/concurrency.slide#39)."""
+    L = pkg.layers
+    leftmost = pkg.make_channel(dtype="int64")
+    left = leftmost
+    for _ in range(n):
+        right = pkg.make_channel(dtype="int64")
+        with pkg.Go():
+            one = L.fill_constant(shape=[1], dtype="int64", value=1)
+            result, _ = pkg.channel_recv(right, _csp_var(pkg, "return_value"))
+            pkg.channel_send(left, L.elementwise_add(x=one, y=result))
+        left = right
+    with pkg.Go():
+        pkg.channel_send(right, L.fill_constant(shape=[1], dtype="int64",
+                                                value=1))
+    out, _ = pkg.channel_recv(leftmost, _csp_var(pkg, "return_value"))
+    return [out]
+
+
+def csp_select_buffered_send(pkg):
+    L = pkg.layers
+    ch1 = pkg.make_channel(dtype="float64", capacity=1)
+    result1 = _csp_var(pkg, "return_value", "float64")
+    value = L.fill_constant(shape=[1], dtype="float64", value=10)
+    with pkg.Select() as select:
+        with select.case(pkg.channel_send, ch1, value):
+            pass
+        with select.default():
+            pass
+    result1, _ = pkg.channel_recv(ch1, result1)
+    pkg.channel_close(ch1)
+    return [result1]
+
+
+def csp_fibonacci(pkg):
+    """Go Fibonacci select example (tour.golang.org/concurrency/5)."""
+    L = pkg.layers
+    quit_input = _csp_var(pkg, "quit_ch_input", "int32", persistable=True)
+    L.fill_constant(shape=[1], dtype="int32", value=0, out=quit_input)
+    result = _csp_var(pkg, "result", "int32", persistable=True)
+    L.fill_constant(shape=[1], dtype="int32", value=0, out=result)
+    x = L.fill_constant(shape=[1], dtype="int32", value=0)
+    y = L.fill_constant(shape=[1], dtype="int32", value=1)
+    while_cond = L.fill_constant(shape=[1], dtype="bool", value=True)
+    while_false = L.fill_constant(shape=[1], dtype="bool", value=False)
+    x_tmp = L.fill_constant(shape=[1], dtype="int32", value=0)
+    ch1 = pkg.make_channel(dtype="int32")
+    quit_ch = pkg.make_channel(dtype="int32")
+    with pkg.Go():
+        for _ in range(10):
+            pkg.channel_recv(ch1, result)
+        pkg.channel_send(quit_ch, quit_input)
+    while_op = L.While(cond=while_cond)
+    with while_op.block():
+        result2 = L.fill_constant(shape=[1], dtype="int32", value=0)
+        with pkg.Select() as select:
+            with select.case(pkg.channel_send, ch1, x, is_copy=True):
+                L.assign(x, output=x_tmp)
+                L.assign(y, output=x)
+                L.assign(L.elementwise_add(x=x_tmp, y=y), output=y)
+            with select.case(pkg.channel_recv, quit_ch, result2):
+                L.assign(while_false, output=while_cond)
+    pkg.channel_close(ch1)
+    pkg.channel_close(quit_ch)
+    return [result]
+
+
+def csp_device_routine(pkg):
+    """A routine that receives a tensor, runs device ops on it and sends
+    the result back."""
+    L = pkg.layers
+    to_go = pkg.make_channel(dtype="float32")
+    back = pkg.make_channel(dtype="float32")
+    x = L.fill_constant(shape=[2, 3], dtype="float32", value=1.5)
+    with pkg.Go():
+        got, _ = pkg.channel_recv(to_go, _csp_var(pkg, "got", "float32"))
+        pkg.channel_send(back, L.scale(L.elementwise_mul(got, got),
+                                       scale=2.0))
+    pkg.channel_send(to_go, x)
+    out, _ = pkg.channel_recv(back, _csp_var(pkg, "out", "float32"))
+    pkg.channel_close(to_go)
+    pkg.channel_close(back)
+    return [out]
+
+
+def csp_run(pkg, build, place=None, timeout=60, return_numpy=True):
+    """``build(pkg)`` in fresh programs, run once on ``place`` (the CPU
+    by default) in a worker thread joined within ``timeout`` seconds:
+    ``(fetches, main)``, the fetches numpy arrays (or, without
+    ``return_numpy``, as the executor returns them); a routine that
+    never ends fails."""
+    import threading
+    import numpy as np
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        fetch = build(pkg)
+    exe = pkg.Executor(place or pkg.CPUPlace())
+    out = {}
+
+    def run():
+        try:
+            out["value"] = exe.run(main, fetch_list=fetch,
+                                   scope=pkg.Scope(),
+                                   return_numpy=return_numpy)
+        except Exception as e:  # re-raised in the caller's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        raise TimeoutError(f"{build.__name__}: no result in {timeout} s")
+    if "error" in out:
+        raise out["error"]
+    if not return_numpy:
+        return out["value"], main
+    return [np.asarray(v) for v in out["value"]], main
+
+
+def phase_csp(place=None):
+    """The CSP programs of ``tests/test_concurrency.py`` (``csp_*``: the
+    simple routine, the daisy chain of 20, ``select`` on a buffered
+    channel, the fibonacci with ``select`` in a ``while``) and a ``go``
+    body that runs device ops on a tensor it received through an
+    unbuffered channel, on ``place`` (the card) and on the CPU: the
+    fetches equal, each run joined within ``CSP_TIMEOUT_S``; the device
+    routine's result a tensor on the card.  Nothing is caught: a timeout
+    or an error fails the run."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+
+    place = place or pt.CUDAPlace(0)
+    builds = [csp_simple_routine, csp_daisy_chain, csp_select_buffered_send,
+              csp_fibonacci, csp_device_routine]
+    out, t0 = {}, time.perf_counter()
+    for build in builds:
+        got, _ = csp_run(pt, build, place, timeout=CSP_TIMEOUT_S)
+        want, _ = csp_run(pt, build, pt.CPUPlace(), timeout=CSP_TIMEOUT_S)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"csp[{build.__name__}]: card {got} != cpu "
+                                 f"{want}")
+        out[build.__name__] = np.asarray(got[0]).reshape(-1).tolist()[:6]
+    (tensor,), _ = csp_run(pt, csp_device_routine, place,
+                           timeout=CSP_TIMEOUT_S, return_numpy=False)
+    if tensor.device.type != place.torch_device().type:
+        raise AssertionError(f"csp: the routine's result is on "
+                             f"{tensor.device}")
+    _no_launches("csp")
+    seconds = time.perf_counter() - t0
+    log(f"csp[{card_line()}]: {json.dumps(out)} equal to the CPU's; "
+        f"{seconds:.2f} s")
+    return dict(programs=len(builds), seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -6683,6 +7550,28 @@ KERNEL_NOTES = {
 }
 
 
+#: each phase's wall seconds (``timed``), printed on a line before the
+#: last
+PHASE_SECONDS = {}
+START = time.perf_counter()
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds added to
+    ``PHASE_SECONDS[name]`` (``name[arg]`` for a phase run once a string
+    argument, such as a route, ``name[key=value]`` with keywords)."""
+    tags = [a for a in args[:1] if isinstance(a, str)] + \
+        [f"{k}={v}" for k, v in kw.items()]
+    if tags:
+        name = f"{name}[{','.join(tags)}]"
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[name] = round(
+            PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t, 3)
+
+
 def main():
     try:
         import torch
@@ -6711,7 +7600,7 @@ def main():
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    logs = build.build_all()
+    logs = timed("build", build.build_all)
     log(f"build: {sorted(logs) or 'cached'} in "
         f"{time.perf_counter() - t0:.2f}s with {build.find_nvcc()}")
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
@@ -6729,83 +7618,95 @@ def main():
     os.environ.pop("PADDLE_TPU_FLASH_MIN_S", None)
     from paddle_tpu_torch.kernels import ALL_KERNELS
     errs, rows = {}, {}
-    errs["paged_decode"], paged_rows = phase_paged()
+    errs["paged_decode"], paged_rows = timed("paged", phase_paged)
     rows["paged_decode"] = paged_rows["serving"]
-    errs["bias_softmax"], sm_rows = phase_softmax()
+    errs["bias_softmax"], sm_rows = timed("softmax", phase_softmax)
     # route A runs 12 row-bias (encoder self, cross) bias softmaxes a step
     # for 6 causal ones, and 90 of its 110 launches here: that is the row
     rows["bias_softmax"] = sm_rows["route A row"]
     errs["bias_softmax_grad"], rows["bias_softmax_grad"] = \
-        phase_softmax_grad()
-    flash_err, flash_rows = phase_flash()
+        timed("softmax_grad", phase_softmax_grad)
+    flash_err, flash_rows = timed("flash", phase_flash)
     for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
         errs[name] = flash_err[name]
         # route B runs 12 key-masked (encoder self, cross) attentions a
         # step for 6 causal ones: the key-masked shape is the table's row
         rows[name] = flash_rows[(name, "key-masked")]
-    tensor_core = phase_sass()
-    smalls_err, smalls_rows = phase_smalls()
+    tensor_core = timed("sass", phase_sass)
+    smalls_err, smalls_rows = timed("smalls", phase_smalls)
     for name in ("smalls_fwd", "smalls_bwd"):
         errs[name] = smalls_err[name]
         # route C, like route B: 12 key-masked attentions a step for 6
         # causal ones
         rows[name] = smalls_rows[(name, "key-masked")]
-    bshd_err, bshd_rows = phase_bshd()
+    bshd_err, bshd_rows = timed("bshd", phase_bshd)
     for name in ("bshd_fwd", "bshd_bwd"):
         errs[name], rows[name] = bshd_err[name], bshd_rows[name]
-    errs["conv3x3"], conv_rows = phase_conv3x3()
+    errs["conv3x3"], conv_rows = timed("conv3x3", phase_conv3x3)
     # ResNet-50's first stage runs 3 of its 16 bodies at 56x56x64 and its
     # largest activations: the table's row
     rows["conv3x3"] = conv_rows[CONV3X3_SHAPES[0]]
 
     by_path = {}
-    by_path["serving"], serving = phase_serving()
-    by_path["http_generate"], http_gen = phase_http_generate(serving)
-    by_path["http_resume"], http_resume = phase_http_resume(serving)
-    http_predict = phase_http_predict()
-    cli = phase_cli(serving)
-    by_path["serving_budget"], serving_budget = phase_serving_budget(
-        serving, http_gen)
-    by_path["dense_decode"], dense = phase_serving(paged=False)
-    graph_serving = phase_graph_serving(serving)
+    by_path["serving"], serving = timed("serving", phase_serving)
+    by_path["http_generate"], http_gen = timed(
+        "http_generate", phase_http_generate, serving)
+    by_path["http_resume"], http_resume = timed(
+        "http_resume", phase_http_resume, serving)
+    http_predict = timed("http_predict", phase_http_predict)
+    cli = timed("cli", phase_cli, serving)
+    by_path["serving_budget"], serving_budget = timed(
+        "serving_budget", phase_serving_budget, serving, http_gen)
+    by_path["dense_decode"], dense = timed("serving", phase_serving,
+                                           paged=False)
+    graph_serving = timed("graph_serving", phase_graph_serving, serving)
     train, graph_train = {}, {}
     for route in ROUTES:
-        by_path[f"train_{route}"], train[route] = phase_train(route)
+        by_path[f"train_{route}"], train[route] = timed(
+            "train", phase_train, route)
     for route in ROUTES:
         by_path[f"graph_train_{route}"], graph_train[route] = \
-            phase_graph_train(route)
-    by_path["train_opt_A"], train_opt, opt_state = phase_train_opt("A")
-    by_path["check_nan_inf"], nan_check = phase_check_nan_inf(opt_state)
+            timed("graph_train", phase_graph_train, route)
+    by_path["train_opt_A"], train_opt, opt_state = timed(
+        "train_opt", phase_train_opt, "A")
+    by_path["check_nan_inf"], nan_check = timed(
+        "check_nan_inf", phase_check_nan_inf, opt_state)
     del opt_state
-    by_path["gen_lm_train"] = phase_gen_lm_train()
-    by_path["bshd_attention"], bshd_path = phase_bshd_path()
+    by_path["gen_lm_train"] = timed("gen_lm_train", phase_gen_lm_train)
+    by_path["bshd_attention"], bshd_path = timed("bshd_path", phase_bshd_path)
     for name, e in (("bshd_fwd", "fwd_plain"), ("bshd_bwd", "bwd_plain")):
         errs[name] = max(errs[name], bshd_path["numerics"][e])
     conv_train, resnet_state = {}, None
     for model in CONV_MODELS:
         by_path[f"{model}_train"], conv_train[model], state = \
-            phase_train_conv(model)
+            timed("train_conv", phase_train_conv, model)
         resnet_state = resnet_state or state
-    by_path["resnet50_infer"], infer_err = phase_infer_conv3x3(resnet_state)
+    by_path["resnet50_infer"], infer_err = timed(
+        "infer_conv3x3", phase_infer_conv3x3, resnet_state)
     errs["conv3x3"] = max(errs["conv3x3"], infer_err)
     del resnet_state
     torch.cuda.empty_cache()
-    checks = {route: phase_card_vs_cpu(route) for route in ROUTES}
-    resnet_check = phase_card_vs_cpu_resnet50()
-    wide_deep = phase_wide_deep()
-    stacked_lstm = phase_stacked_lstm()
-    lstm_buckets = phase_stacked_lstm_buckets()
-    sequence_nets = phase_sequence_nets()
-    seq2seq = phase_seq2seq()
-    s2s_buckets = phase_seq2seq_buckets()
-    beam_decode = phase_beam_decode()
-    optimizers = phase_optimizers()
+    checks = {route: timed("card_vs_cpu", phase_card_vs_cpu, route)
+              for route in ROUTES}
+    resnet_check = timed("card_vs_cpu_resnet50", phase_card_vs_cpu_resnet50)
+    wide_deep = timed("wide_deep", phase_wide_deep)
+    stacked_lstm = timed("stacked_lstm", phase_stacked_lstm)
+    lstm_buckets = timed("stacked_lstm_buckets", phase_stacked_lstm_buckets)
+    sequence_nets = timed("sequence_nets", phase_sequence_nets)
+    seq2seq = timed("seq2seq", phase_seq2seq)
+    s2s_buckets = timed("seq2seq_buckets", phase_seq2seq_buckets)
+    beam_decode = timed("beam_decode", phase_beam_decode)
+    optimizers = timed("optimizers", phase_optimizers)
     by_path["reader_train"], by_path["reader_train_memory"], \
-        reader_train = phase_reader_train()
+        reader_train = timed("reader_train", phase_reader_train)
     by_path["checkpoint_resume"], checkpoint_resume = \
-        phase_checkpoint_resume()
-    op_families = phase_op_families()
-    srl = phase_label_semantic_roles()
+        timed("checkpoint_resume", phase_checkpoint_resume)
+    op_families = timed("op_families", phase_op_families)
+    srl = timed("label_semantic_roles", phase_label_semantic_roles)
+    ssd = timed("ssd", phase_ssd)
+    torch.cuda.empty_cache()
+    ssd["card_vs_cpu"] = timed("card_vs_cpu_ssd", phase_card_vs_cpu_ssd)
+    csp = timed("csp", phase_csp)
 
     kernels = []
     for k in ALL_KERNELS:
@@ -6910,6 +7811,15 @@ def main():
         f"chunk={json.dumps(srl['chunk'])}; card-vs-cpu " + " ".join(
             f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
             for k, v in srl["card_vs_cpu"].items()))
+    log(f"ssd[MobileNet-SSD]: step_ms={ssd['step_ms']:.3f} "
+        f"images_per_s={ssd['images_per_s']:.1f} state_gib="
+        f"{ssd['state_gib']:.4f} peak_above_gib={ssd['peak_gib']:.4f} "
+        f"first_step_ms={ssd['first_step_ms']:.1f} map={ssd['map']:.6f} "
+        f"detections={ssd['detections']} served_rows={ssd['served_rows']}"
+        f"; card-vs-cpu " + " ".join(
+            f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in ssd["card_vs_cpu"].items()))
+    log("csp: " + json.dumps(csp))
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     for route, g in graph_train.items():
@@ -6918,6 +7828,8 @@ def main():
     log("graphed paths: " + json.dumps(sorted({g["path"] for g in GRAPHS})))
     log(json.dumps({"graphs": GRAPHS}))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"phase_seconds": PHASE_SECONDS,
+                    "total_s": round(time.perf_counter() - START, 1)}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

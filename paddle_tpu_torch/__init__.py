@@ -18,6 +18,12 @@ from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 from paddle_tpu_torch import ops  # registers the op lowerings
 from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.ops.reader_ops import EOFException
+from paddle_tpu_torch import concurrency
+from paddle_tpu_torch.concurrency import (Go, Select, make_channel,
+                                          channel_send, channel_recv,
+                                          channel_close)
+from paddle_tpu_torch.channel import (Channel as CSPChannel,
+                                      ChannelClosedError)
 from paddle_tpu_torch.backward import append_backward, calc_gradient
 from paddle_tpu_torch import initializer
 from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr

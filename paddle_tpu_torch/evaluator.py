@@ -4,8 +4,7 @@
 An Evaluator owns persistable state variables that its ops update every
 minibatch; ``eval()`` combines the accumulated state read from the
 global scope, ``reset()`` zeroes it (a program of ``fill_constant``
-ops, as the reference builds).  ``DetectionMAP`` needs the detection
-layers, which the port does not have yet."""
+ops, as the reference builds)."""
 
 from __future__ import annotations
 
@@ -18,12 +17,6 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = ["Evaluator", "ChunkEvaluator", "EditDistance", "DetectionMAP",
            "CTCErrorEvaluator"]
-
-#: ROADMAP's item for the detection ops and layers
-_DETECTION_ITEM = ("needs layers.detection and the detection ops "
-                   "(detection_map), not ported yet: ROADMAP queue 1 "
-                   "item 6, its detection part")
-
 
 def _clone_var(block, var):
     return block.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
@@ -150,11 +143,60 @@ class EditDistance(Evaluator):
 
 
 class DetectionMAP(Evaluator):
-    """Streaming VOC mAP (reference ``evaluator.py:258``): not ported, it
-    builds on the detection layers."""
+    """Streaming VOC mAP over the ``detection_map`` op's accumulator state
+    (reference ``evaluator.py:258``): ``cur_map`` is the batch's mAP,
+    ``accum_map`` the mAP of every batch since ``reset``.  The
+    accumulated true and false positives carry a per-class LoD, which
+    the executor keeps in the scope between runs."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"evaluator.DetectionMAP {_DETECTION_ITEM}")
+    def __init__(self, input, gt_label, gt_box, gt_difficult=None,
+                 class_num=None, background_label=0, overlap_threshold=0.5,
+                 evaluate_difficult=True, ap_version="integral"):
+        super().__init__("map_eval")
+        from paddle_tpu_torch.layers import detection
+        if gt_difficult is not None:
+            label = layers.concat([gt_label, gt_difficult, gt_box], axis=1)
+        else:
+            label = layers.concat([gt_label, gt_box], axis=1)
+        # batch mAP (stateless)
+        self.cur_map = detection.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult, ap_version=ap_version)
+        # streaming mAP through carried accumulators
+        self.has_state = self.helper.main_program.current_block().create_var(
+            name=unique_name("map_eval_has_state"), dtype="int32",
+            shape=(1,))
+        self.has_state.persistable = True
+        self.states = [self.has_state]
+        pos_count = self.create_state("pos_count", "int32", (class_num, 1))
+        true_pos = self.create_state("true_pos", "float32", (0, 2))
+        false_pos = self.create_state("false_pos", "float32", (0, 2))
+        self.accum_map = detection.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult,
+            has_state=self.has_state,
+            input_states=[pos_count, true_pos, false_pos],
+            out_states=[pos_count, true_pos, false_pos],
+            ap_version=ap_version)
+        layers.fill_constant(shape=[1], value=1, dtype="int32",
+                             out=self.has_state)
+        self.metrics.extend([self.cur_map, self.accum_map])
+
+    def get_map_var(self):
+        return self.cur_map, self.accum_map
+
+    def reset(self, executor, reset_program=None):
+        """Empty the state in the global scope: ``has_state`` 0, the
+        counts and positives of no batch, their LoDs dropped."""
+        from paddle_tpu_torch.scope import global_scope
+        scope = global_scope()
+        scope.set_var(self.has_state.name, np.zeros((1,), np.int32))
+        for var in self.states[1:]:
+            shape = [0 if d is None else max(d, 0) for d in var.shape]
+            scope.set_var(var.name, np.zeros(shape, var.dtype))
+            scope.set_lod(var.name, None)
 
 
 class CTCErrorEvaluator(EditDistance):

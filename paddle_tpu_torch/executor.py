@@ -137,12 +137,14 @@ import torch
 
 from paddle_tpu_torch import framework
 from paddle_tpu_torch import profiler as _profiler
+from paddle_tpu_torch.channel import Channel
 from paddle_tpu_torch.convert import fetch_numpy, to_tensor
 from paddle_tpu_torch.framework import Program, default_main_program
 from paddle_tpu_torch.lod import (SPLITS_SUFFIX, DynLoD, bucket_ragged_feed,
                                   next_bucket, validate_lod)
 from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.ops import registry
+from paddle_tpu_torch.ops.csp_ops import CSP_OPS
 from paddle_tpu_torch.ops.reader_ops import (READER_CREATE_OPS, READER_OPS,
                                              EOFException, build_reader)
 from paddle_tpu_torch.place import default_place
@@ -376,17 +378,64 @@ class _StateEnv(dict):
         self.device = device
         self.loaded = {}
 
-    def __missing__(self, name):
+    def _scope_value(self, name):
+        """``name``'s scope value, a host array moved to the device (and
+        stored back) once; a CSP channel as it is."""
         v = self.scope.find_var(name)
         if v is None:
             raise RuntimeError(
                 f"variable {name!r} is not initialized in the scope — "
                 f"run the startup program first")
-        if not isinstance(v, torch.Tensor) or v.device != self.device:
-            v = to_tensor(v, self.device)
-            self.scope.set_var(name, v)
+        if isinstance(v, torch.Tensor) and v.device == self.device or \
+                isinstance(v, Channel):
+            return v
+        v = to_tensor(v, self.device)
+        self.scope.set_var(name, v)
+        return v
+
+    def __missing__(self, name):
+        v = self._scope_value(name)
         self[name] = self.loaded[name] = v
         return v
+
+
+class _SharedStateEnv(_StateEnv):
+    """The env of a block holding CSP ops (``ops/csp_ops.py``): every
+    persistable variable is read from and written to the shared scope at
+    once, the JAX package's ``ScopeEnv`` (``paddle_tpu/executor.py:201``),
+    so that ``go`` routines (on clones of this env, ``clone_for_thread``)
+    and the block see each other's writes."""
+
+    def __init__(self, scope, device, persistable_names):
+        super().__init__(scope, device)
+        self.persistable_names = persistable_names
+
+    def __getitem__(self, name):
+        if name in self.persistable_names and \
+                self.scope.find_var(name) is not None:
+            return self._scope_value(name)
+        return super().__getitem__(name)
+
+    def get(self, name, default=None):
+        try:
+            return self[name]
+        except (KeyError, RuntimeError):
+            return default
+
+    def __setitem__(self, name, value):
+        dict.__setitem__(self, name, value)
+        if name in self.persistable_names:
+            self.scope.set_var(name, value)
+
+    def update(self, other=(), **kw):
+        items = other.items() if hasattr(other, "items") else other
+        for k, v in list(items) + list(kw.items()):
+            self[k] = v
+
+    def clone_for_thread(self):
+        env = _SharedStateEnv(self.scope, self.device, self.persistable_names)
+        dict.update(env, self)
+        return env
 
 
 def jit_cache_capacity():
@@ -437,6 +486,8 @@ class _EagerStep:
             check(fetches, new_state)
         for n, v in new_state.items():
             self.scope.set_var(n, v)
+        for n, lod in stats["state_lods"].items():
+            self.scope.set_lod(n, lod)
         return fetches, stats, True
 
 
@@ -469,6 +520,9 @@ class Executor:
         self._run_counter = 0
         #: ``{"while_trips": n, "host_reads": n}`` of the last run
         self.last_run = {}
+        #: ``{name: LoD}`` of the last run's fetched variables that have
+        #: one (host metadata: the reference's fetched ``LoDTensor.lod()``)
+        self.last_fetch_lods = {}
         # PADDLE_TPU_VERIFY: (id, version) of the programs verified
         self._verified = set()
         # PADDLE_TPU_OPT: (id, version, feeds, fetches) -> optimized clone
@@ -577,6 +631,7 @@ class Executor:
         fetches, stats, owned = compiled.fn(feeds, rng_seed, check)
         self.last_run = {k: stats.get(k, 0)
                          for k in ("while_trips", "host_reads")}
+        self.last_fetch_lods = stats.get("fetch_lods", {})
         fault = None
         if not owned and stats.get("fault") is not None:
             fault = (stats["fault"], stats["fault_sites"])
@@ -931,6 +986,14 @@ class Executor:
         param_names = tuple(
             n for n in inout_names + create_state
             if isinstance(_safe_var(block, n), framework.Parameter))
+        # persistable state read here: a LoD a lowering set on it in an
+        # earlier run is in the scope (detection_map's accumulators)
+        lod_state = tuple(
+            n for n in state_names
+            if getattr(_safe_var(block, n), "persistable", False))
+        # a block with CSP ops shares its persistables with its routines
+        shared = _persistable_names(program) if any(
+            op.type in CSP_OPS for op in _walk_ops(block)) else None
 
         feed_lods = {n: lod for n in feeds
                      for lod in (scope.find_lod(n),) if lod is not None}
@@ -966,8 +1029,16 @@ class Executor:
         constants = {}
 
         def step(feeds, rng_seed, generators, capturing):
-            env = _StateEnv(scope, device)
+            env = _StateEnv(scope, device) if shared is None else \
+                _SharedStateEnv(scope, device, shared)
             env.update(feeds)
+            lods = {n: lod if isinstance(lod, DynLoD)
+                    else [list(level) for level in lod]
+                    for n, lod in lod_map.items()}
+            for n in lod_state:
+                lod = scope.find_lod(n)
+                if lod is not None and not _is_dyn_meta(lod):
+                    lods[n] = [list(level) for level in lod]
             aux = {"device": device,
                    # random init ops: one host generator per run
                    "generator": torch.Generator().manual_seed(seed),
@@ -977,19 +1048,25 @@ class Executor:
                    "lower_block": lower_block, "profile": profiling,
                    "capturing": capturing, "constants": constants,
                    "traced": traced,
-                   # the feeds' LoDs; ops add theirs (set_output_lod) and
-                   # _share_lod passes them on
-                   "lod": {n: lod if isinstance(lod, DynLoD)
-                           else [list(level) for level in lod]
-                           for n, lod in lod_map.items()}}
+                   # the feeds' and the state's LoDs; ops add theirs
+                   # (set_output_lod) and _share_lod passes them on
+                   "lod": lods}
             with torch.no_grad():
                 lower_block(block, env, aux)
+            if aux.get("go_errors"):
+                raise RuntimeError(
+                    f"a go routine of block {block.idx} failed: "
+                    f"{aux['go_errors'][0]!r}") from aux["go_errors"][0]
             # a fetch the block did not write is read from the scope
             fetches = [env[n] for n in fetch_check(
                 fetch_names, {n for n in fetch_names
                               if n in env or scope.find_var(n) is not None})]
             new_state = {n: env[n] for n in write_names if n in env}
             stats = {k: aux.get(k, 0) for k in ("while_trips", "host_reads")}
+            stats["state_lods"] = {n: aux["lod"][n] for n in write_names
+                                   if n in aux.get("lods_set", ())}
+            stats["fetch_lods"] = {n: aux["lod"][n] for n in fetch_names
+                                   if isinstance(aux["lod"].get(n), list)}
             stats["fault"], stats["fault_sites"] = registry.fault_word(aux)
             return fetches, new_state, env.loaded, stats
 

@@ -12,6 +12,8 @@ from paddle_tpu_torch.layers.sequence import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import sequence  # noqa: F401
 from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
 from paddle_tpu_torch.layers.learning_rate_scheduler import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.detection import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import detection  # noqa: F401
 from paddle_tpu_torch.layers import nn  # noqa: F401
 from paddle_tpu_torch.layers import tensor  # noqa: F401
 from paddle_tpu_torch.layers import ops  # noqa: F401

@@ -1,13 +1,26 @@
-"""Native (host C++) runtime components, bound via ctypes: the recordio
-codec of ``recordio.cpp`` (the port's copy of
-``paddle_tpu/native/__init__.py``'s recordio part; the C inference ABI,
-``capi.cpp``, is not ported).
+"""Native (host C++) runtime components, bound via ctypes (the port of
+``paddle_tpu/native/__init__.py``): the recordio codec of
+``recordio.cpp`` and the C inference ABI of ``capi.cpp``.
 
-The shared library is built with ``g++`` at its first use, never at
-import, into ``native/_build/``.  Where no toolchain can build it,
+Each shared library is built with ``g++`` at its first use, never at
+import, into ``native/_build/``.  Where no toolchain can build the codec,
 :func:`load` returns None and the readers and writers of
 :mod:`paddle_tpu_torch.recordio_writer` run the pure-Python codec, which
 writes and reads the same bytes; :func:`codec` says which one runs.
+
+The C inference ABI (:func:`load_capi`) keeps the JAX package's
+``pd_tpu_*`` names and signatures and embeds CPython to run the port's
+``serving.Predictor`` (``serving._capi_create`` / ``_capi_feed_names`` /
+``_capi_run``).  One departure: ``pd_tpu_create(model_dir)`` makes a
+predictor on ``cuda:0``, and fails (NULL, the reason in
+``pd_tpu_last_error``) where CUDA is absent; a caller that wants the CPU
+says so with ``pd_tpu_create_on(model_dir, "cpu")`` (a place string as
+the CLI's ``--place`` takes it: ``cpu`` or ``cuda[:N]``).  The library
+is built with ``-Wl,-Bsymbolic`` and loaded ``RTLD_LOCAL``, so that the
+JAX package's library (loaded ``RTLD_GLOBAL``, the same symbol names) in
+the same process is never called by mistake.  It links ``libpython``
+where the running interpreter uses the shared one; otherwise (a static
+interpreter) the symbols come from the process that loads it.
 """
 
 from __future__ import annotations
@@ -18,7 +31,7 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["load", "codec"]
+__all__ = ["load", "codec", "load_capi"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "recordio.cpp")
@@ -32,17 +45,21 @@ _lib = None
 _build_error = None
 
 
-def _build():
-    """Compile into a temporary file and rename it into place, so that
-    processes building at once never load a half-written library."""
+def _build(src=_SRC, lib=_LIB, flags=("-lz", "-lpthread")):
+    """Compile ``src`` into a temporary file and rename it into place as
+    ``lib``, so that processes building at once never load a
+    half-written library."""
     os.makedirs(_BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
     os.close(fd)
     try:
-        subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC,
-                        "-o", tmp, "-lz", "-lpthread"],
-                       check=True, capture_output=True)
-        os.replace(tmp, _LIB)
+        out = subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                              src, "-o", tmp, *flags], capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise RuntimeError(f"g++ failed on {os.path.basename(src)}: "
+                               f"{out.stderr.strip()}")
+        os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -98,3 +115,70 @@ def codec():
     else ``"python"``: the codec recordio files are read and written
     with."""
     return "native" if load() is not None else "python"
+
+
+# ---------------------------------------------------------------------------
+# capi: the embeddable C inference ABI (capi.cpp), built apart from the
+# codec since it embeds CPython
+# ---------------------------------------------------------------------------
+
+_CAPI_SRC = os.path.join(_DIR, "capi.cpp")
+_CAPI_LIB = os.path.join(_BUILD, "libpaddletpu_torch_capi.so")
+_capi_lib = None
+
+
+def _python_flags():
+    """The compiler's include flag and, where the interpreter runs on
+    the shared ``libpython``, the link flags for it."""
+    import sysconfig
+    flags = ["-I" + sysconfig.get_path("include"), "-Wl,-Bsymbolic"]
+    if sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        ver = sysconfig.get_config_var("LDVERSION") or \
+            sysconfig.get_config_var("VERSION")
+        flags += ["-L" + sysconfig.get_config_var("LIBDIR"), f"-lpython{ver}"]
+    return flags
+
+
+def load_capi():
+    """Build (if needed) and load the C inference ABI, with its
+    ``argtypes`` and ``restype`` declared.  Raises where it cannot be
+    built (no ``g++``, no Python headers): the error names the cause."""
+    global _capi_lib
+    with _lock:
+        if _capi_lib is not None:
+            return _capi_lib
+        if (not os.path.exists(_CAPI_LIB) or
+                os.path.getmtime(_CAPI_LIB) < os.path.getmtime(_CAPI_SRC)):
+            _build(_CAPI_SRC, _CAPI_LIB, _python_flags())
+        lib = ctypes.CDLL(_CAPI_LIB, mode=ctypes.RTLD_LOCAL)
+        c_ll, c_ll_p = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+        for name, restype, argtypes in (
+                ("pd_tpu_init", ctypes.c_int, []),
+                ("pd_tpu_last_error", ctypes.c_char_p, []),
+                ("pd_tpu_create", ctypes.c_void_p, [ctypes.c_char_p]),
+                ("pd_tpu_create_on", ctypes.c_void_p,
+                 [ctypes.c_char_p, ctypes.c_char_p]),
+                ("pd_tpu_num_feeds", ctypes.c_int, [ctypes.c_void_p]),
+                ("pd_tpu_feed_name", ctypes.c_char_p,
+                 [ctypes.c_void_p, ctypes.c_int]),
+                ("pd_tpu_run", ctypes.c_void_p,
+                 [ctypes.c_void_p, ctypes.c_int,
+                  ctypes.POINTER(ctypes.c_char_p),
+                  ctypes.POINTER(ctypes.c_void_p), c_ll_p,
+                  ctypes.POINTER(c_ll_p), ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_char_p)]),
+                ("pd_tpu_result_count", ctypes.c_int, [ctypes.c_void_p]),
+                ("pd_tpu_result_data", ctypes.c_void_p,
+                 [ctypes.c_void_p, ctypes.c_int, c_ll_p]),
+                ("pd_tpu_result_rank", ctypes.c_int,
+                 [ctypes.c_void_p, ctypes.c_int]),
+                ("pd_tpu_result_dim", c_ll,
+                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]),
+                ("pd_tpu_result_dtype", ctypes.c_char_p,
+                 [ctypes.c_void_p, ctypes.c_int]),
+                ("pd_tpu_free_result", None, [ctypes.c_void_p]),
+                ("pd_tpu_destroy", None, [ctypes.c_void_p])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _capi_lib = lib
+        return _capi_lib

@@ -26,4 +26,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     fused_ops,
     crf_ops,
     ctc_ops,
+    detection_ops,
+    csp_ops,
 )

@@ -396,9 +396,13 @@ class LowerContext:
         return self.aux.get("lod", {}).get(name)
 
     def set_output_lod(self, slot, lod):
+        """Set an output's LoD (``aux["lod"]``); the names are kept in
+        ``aux["lods_set"]``, so that the executor keeps a persistable's
+        LoD in the scope for the next run."""
         names = self.op.output(slot)
         if names:
             self.aux.setdefault("lod", {})[names[0]] = lod
+            self.aux.setdefault("lods_set", set()).add(names[0])
 
     # -- host reads --------------------------------------------------------
     def host_scalar(self, slot):

@@ -15,8 +15,13 @@ inference server and its client (the port of ``paddle_tpu.serving``).
 - :class:`ServingClient` — a retrying client over one address or a list
   of them, with mid-stream resume of ``/generate``.
 
-The JAX package's C-ABI bridge (``_capi_*``) and master-backed replica
-discovery (``ServingClient(master=...)``) are not ported yet.
+- ``_capi_create`` / ``_capi_feed_names`` / ``_capi_run`` — the bridge
+  the C inference ABI (``native/capi.cpp``) calls through the CPython
+  API; its predictor runs on ``cuda:0`` unless the C caller names a
+  place (``native.load_capi``).
+
+Master-backed replica discovery (``ServingClient(master=...)``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -525,6 +530,37 @@ class MicroBatcher:
                 for p, r in zip(batch, results):
                     p.result = r
                     p.event.set()
+
+
+# ---------------------------------------------------------------------------
+# C-ABI bridge (called from native/capi.cpp through the CPython API)
+# ---------------------------------------------------------------------------
+
+def _capi_create(model_dir, place=None):
+    """A :class:`Predictor` over ``model_dir`` on ``place``, a place
+    string as the CLI's ``--place`` takes it (``cpu``, ``cuda[:N]``);
+    None: ``cuda:0``."""
+    from paddle_tpu_torch.cli import _place
+    return Predictor(model_dir, place=None if place is None
+                     else _place(place))
+
+
+def _capi_feed_names(predictor):
+    return predictor.feed_names
+
+
+def _capi_run(predictor, names, buffers, shapes, dtypes):
+    """names: list[str]; buffers: list[memoryview of raw bytes];
+    shapes: list[tuple]; dtypes: list[str].  Returns ``(list[bytes],
+    list[tuple[int]], list[str])``, one entry a fetch."""
+    feed = {}
+    for name, buf, shape, dtype in zip(names, buffers, shapes, dtypes):
+        feed[name] = np.frombuffer(buf, dtype=dtype).reshape(shape).copy()
+    outs = [np.asarray(o) for o in predictor.run(feed)]
+    payloads = [np.ascontiguousarray(o).tobytes() for o in outs]
+    out_shapes = [tuple(int(d) for d in o.shape) for o in outs]
+    out_dtypes = [str(o.dtype) for o in outs]
+    return payloads, out_shapes, out_dtypes
 
 
 # ---------------------------------------------------------------------------

@@ -290,5 +290,16 @@ def test_edit_distance_evaluators_accumulate_over_two_batches():
 
 
 def test_detection_map_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pt.evaluator.DetectionMAP(None, None, None)
+    """Item 6 is ported: ``DetectionMAP`` builds its batch and streamed
+    mAPs (tests/test_torch_detection.py runs them) where it raised
+    naming the item."""
+    main = pt.Program()
+    with pt.program_guard(main, pt.Program()):
+        L = pt.layers
+        ev = pt.evaluator.DetectionMAP(
+            L.data(name="det", shape=[6], lod_level=1),
+            L.data(name="lab", shape=[1], lod_level=1),
+            L.data(name="box", shape=[4], lod_level=1), class_num=3)
+    assert len(ev.metrics) == 2
+    assert [op.type for op in main.global_block().ops].count(
+        "detection_map") == 2

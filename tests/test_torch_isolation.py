@@ -58,7 +58,8 @@ def test_every_port_module_imports_with_jax_blocked():
                 "analysis.cost", "analysis.lints", "analysis.visualize",
                 "analysis.opt", "analysis.opt.passes",
                 "analysis.opt.pipeline", "memory_optimization_transpiler",
-                "ops.fused_ops"):
+                "ops.fused_ops", "ops.detection_ops", "ops.csp_ops",
+                "layers.detection", "channel", "concurrency", "native"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
@@ -169,3 +170,40 @@ def test_weight_norm_param_attr_is_exported_at_the_top():
     assert isinstance(attr, paddle_tpu_torch.ParamAttr)
     assert attr.dim == 0 and attr.name == "w"
 
+
+
+def _native_sources():
+    native = os.path.join(PKG_DIR, "native")
+    return sorted(os.path.join(native, n) for n in os.listdir(native)
+                  if n.endswith(".cpp"))
+
+
+@pytest.mark.parametrize("path", _native_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_native_sources_embed_only_the_port(path):
+    """The port's C and C++ sources import (``PyImport_ImportModule``) or
+    name in a string no module but the port's: no ``paddle_tpu`` module,
+    no JAX."""
+    import re
+    with open(path) as f:
+        src = f.read()
+    assert not re.findall(r'"(jax[\w.]*)', src), path
+    imported = re.findall(r'PyImport_\w+\(\s*"([^"]+)"', src)
+    for module in imported:
+        assert module.split(".")[0] == "paddle_tpu_torch", (path, module)
+    for name in re.findall(r'"(paddle_tpu[\w.]*)', src):
+        assert name.split(".")[0] == "paddle_tpu_torch", (path, name)
+    if path.endswith("capi.cpp"):
+        assert imported == ["paddle_tpu_torch.serving"]
+
+
+def test_csp_and_detection_modules_are_the_ports():
+    """The CSP and detection surfaces are the port's own, at the
+    package root as in the JAX package."""
+    from paddle_tpu_torch import channel, concurrency, evaluator, layers
+    assert paddle_tpu_torch.Go is concurrency.Go
+    assert paddle_tpu_torch.CSPChannel is channel.Channel
+    assert layers.ssd_loss is layers.detection.ssd_loss
+    assert evaluator.DetectionMAP.__module__ == "paddle_tpu_torch.evaluator"
+    assert paddle_tpu_torch.native.load_capi.__module__ == \
+        "paddle_tpu_torch.native"
