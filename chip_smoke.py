@@ -297,7 +297,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``tests/test_concurrency.py`` and a ``go`` body running device ops on
    a tensor received through a channel, card against CPU, each run
    joined within ``CSP_TIMEOUT_S``.
-15. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+15. Device-facing services on route A at full width (graphed, bf16
+   AMP).  ``phase_sentinel`` (dropout 0): ``SENTINEL_STEPS`` clean steps,
+   then the same steps from the same state under a ``Sentinel(cadence=1,
+   strikes=2)`` with a ``CheckpointManager`` (saves after steps 2 and 4)
+   and ``sentinel.nan`` on the 5th and 6th checks, in the explicit loop
+   of the ``Sentinel`` docstring: the applied losses equal the clean
+   run's bit for bit, ``sentinel.skipped_steps`` 2, ``.quarantined`` 2,
+   ``.rollbacks`` 1 to ``last_good_step()`` (2), the guarded step one
+   CUDA graph whose write-back follows the check, the bias-softmax pair
+   18 launches a run; an inf parameter before a guarded replay trips
+   naming it and leaves every tensor of the scope bit-equal; the guarded
+   and unguarded steps' medians and the ``train.*`` health gauges
+   printed; ``ckpt verify`` on the drill's directory (PASS with the
+   last-good pointer, exit 1 after a truncated file).  ``python -m
+   paddle_tpu_torch replay`` and ``replay --localize`` on a quarantined
+   bundle of ``SENTINEL_REPLAY_LAYERS`` layers (exit 0, the loss's op
+   named) run on the CPU in two subprocesses started after the kernel
+   phases (``start_replays``) and read at the end (``join_replays``), so
+   they overlap the card phases.  ``phase_perf`` (dropout 0.1): ``train.mfu`` after the graphed
+   steps equal to the record's ``flops / (step s x 989 TFLOP/s)``, the
+   HBM census (``params + optimizer`` the scope's bytes, ``total`` at
+   most ``memory_allocated()``, the watermark at least ``total``),
+   ``measure_device_seconds`` over 3 replays at most their wall time,
+   a trace's kernel union, plain sum and ``scope_device_seconds(...,
+   "bias_softmax")`` equal to that kernel's events; ``profile op`` lists
+   ``softmax`` and ``softmax_grad``, ``profile memory --json`` and
+   ``profile compile --json`` pass ``validate_report``; the paged
+   serving bundle's decode sets ``gen.decode_mfu``, leaves ``train.mfu``
+   and counts its pool as ``kv_pages``.
+16. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
@@ -2158,6 +2187,612 @@ def phase_checkpoint_resume():
     gc.collect()
     torch.cuda.empty_cache()
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the device-facing services on route A: the training sentinel
+# (skip, quarantine, rollback, replay), the checkpoint survey, the live
+# MFU, the HBM census and device time on torch.profiler
+# ---------------------------------------------------------------------------
+
+#: steps of the sentinel drill, the saves in it, and the failpoint: the
+#: 5th and 6th checked steps poisoned (two strikes, then the rollback)
+SENTINEL_STEPS, SENTINEL_SAVES = 10, (2, 4)
+#: layers of the bundle the ``replay`` subprocesses re-execute on the CPU,
+#: at the drill's widths: the full-width drill's own bundle took 98.6 s to
+#: replay and 255.5 s to localize there on 8 cores
+SENTINEL_REPLAY_LAYERS = 2
+#: CPU threads and niceness of each replay subprocess, which runs beside
+#: the card phases after the kernel phases
+REPLAY_THREADS, REPLAY_NICE = 2, 10
+#: the replay subprocesses in flight, stopped when the script ends
+REPLAYS = []
+#: guarded against unguarded graphed steps, timed after the drill
+SENTINEL_TIMED = 8
+
+
+def _tensors(scope):
+    import torch
+    return {n: v for n, v in scope.items() if isinstance(v, torch.Tensor)}
+
+
+def _snapshot(scope):
+    """Device clones of every tensor of ``scope``."""
+    return {n: v.clone() for n, v in _tensors(scope).items()}
+
+
+def _bit_equal(scope, snap):
+    """Names of the tensors of ``scope`` whose bytes differ from
+    ``snap``'s (NaN-safe: compared as raw words)."""
+    import torch
+    bad = []
+    cur = _tensors(scope)
+    if set(cur) != set(snap):
+        return sorted(set(cur) ^ set(snap))
+    for n, v in snap.items():
+        a, b = cur[n], v
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+                a.contiguous().view(torch.uint8),
+                b.contiguous().view(torch.uint8)):
+            bad.append(n)
+    return bad
+
+
+def _sentinel_drill(pt, T, main, cost, hp, state, root, inject):
+    """``SENTINEL_STEPS`` graphed route A steps from ``state`` (name ->
+    device tensor) in a fresh scope and executor.  With ``inject``: a
+    ``Sentinel(cadence=1, strikes=2)`` on a ``CheckpointManager``, saves
+    after ``SENTINEL_SAVES``, ``sentinel.nan`` on the 5th and 6th checks,
+    and the loop of the ``Sentinel`` docstring: a fault is handed to
+    ``handle_fault``, a rollback resumes after the restored step.
+    Returns ``(losses of the applied steps in order, step seconds, runs,
+    rollbacks, exe, scope, mgr, sentinel)``."""
+    import numpy as np
+    from paddle_tpu_torch.fault import (CheckpointManager, NumericalFault,
+                                        Sentinel, chaos)
+    exe, scope = pt.Executor(), pt.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    mgr = sentinel = None
+    if inject:
+        mgr = CheckpointManager(os.path.join(root, "ckpt"), keep=3,
+                                executor=exe, main_program=main,
+                                scope=scope)
+        sentinel = Sentinel(manager=mgr, cadence=1, strikes=2,
+                            mark_good_after=1, spike_factor=None)
+        chaos.inject("sentinel.nan", after=4, times=2)
+    losses, step_s, rollbacks, runs, step = {}, [], [], 0, 0
+    try:
+        while step < SENTINEL_STEPS:
+            step += 1
+            runs += 1
+            t = time.perf_counter()
+            try:
+                (loss,) = exe.run(main, feed=_ckpt_feed(T, hp, step),
+                                  fetch_list=[cost], scope=scope,
+                                  sentinel=sentinel)
+            except NumericalFault as fault:
+                restored = sentinel.handle_fault(fault, step=step)
+                if restored is not None:
+                    rollbacks.append((restored, mgr.last_good_step()))
+                    step = restored
+                    losses = {k: v for k, v in losses.items() if k <= step}
+                continue
+            step_s.append(time.perf_counter() - t)
+            losses[step] = float(np.asarray(loss).reshape(()))
+            if inject and step in SENTINEL_SAVES:
+                mgr.save(step)
+                sentinel.note_checkpoint(step)
+    finally:
+        chaos.clear("sentinel.nan")
+    return ([losses[k] for k in sorted(losses)], step_s, runs, rollbacks,
+            exe, scope, mgr, sentinel)
+
+
+def _replay_bundle_of(pt, T, layers, root):
+    """A quarantine bundle of one injected guarded route A step at
+    ``layers`` layers a stack (the drill's widths, batch and sequence)."""
+    from paddle_tpu_torch.fault import NumericalFault, Sentinel, chaos
+    B, S, _ = ROUTES["A"]
+    hp = T.ModelHyperParams()
+    hp.max_length = max(hp.max_length, S)
+    hp.dropout, hp.n_layer = 0.0, layers
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.framework.unique_name_scope("ck_"), \
+            pt.program_guard(main, startup):
+        cost, _ = T.transformer(B, S, S, hp)
+        pt.optimizer.Adam(learning_rate=1e-4).minimize(cost)
+    main.amp = True
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    sentinel = Sentinel(cadence=1, spike_factor=None,
+                        quarantine_dir=os.path.join(root, "replay"))
+    chaos.inject("sentinel.nan", times=1)
+    try:
+        exe.run(main, feed=_ckpt_feed(T, hp, 1), fetch_list=[cost],
+                scope=scope, sentinel=sentinel)
+    except NumericalFault as fault:
+        path = sentinel.quarantine(fault, step=1)
+    else:
+        raise AssertionError("replay bundle: the injected step did not "
+                             "trip")
+    finally:
+        chaos.clear("sentinel.nan")
+    loss_op = [op.type for op in main.global_block().ops
+               if cost.name in op.output_arg_names][0]
+    return path, loss_op
+
+
+def _reap(job):
+    """Wait for ``job``'s process; note its end, CPU seconds and peak
+    resident set (a thread per process, so the end is known when the
+    script reads it later)."""
+    try:
+        _, status, usage = os.wait4(job["proc"].pid, 0)
+    except ChildProcessError:   # reaped by a kill in stop_replays
+        return
+    job["end"] = time.perf_counter()
+    job["proc"].returncode = os.waitstatus_to_exitcode(status)
+    job["cpu_s"] = usage.ru_utime + usage.ru_stime
+    job["maxrss_gib"] = usage.ru_maxrss / 2 ** 20
+
+
+def start_replays():
+    """A quarantine bundle of one injected guarded route A step at
+    ``SENTINEL_REPLAY_LAYERS`` layers (its launches counted on no path),
+    then ``python -m paddle_tpu_torch replay --json`` and ``replay
+    --localize --json`` on it, started in two subprocesses on the CPU
+    (``REPLAY_THREADS`` threads each, niced, the card hidden) that run
+    beside the card phases; :func:`join_replays` reads them."""
+    import shutil
+    import threading
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer as T
+
+    root = os.path.join(OUT_DIR, "sentinel_replay")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    bundle, loss_op = _replay_bundle_of(pt, T, SENTINEL_REPLAY_LAYERS,
+                                        root)
+    _take_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    threads = str(REPLAY_THREADS)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+    jobs = []
+    for extra in ((), ("--localize",)):
+        tag = "localize" if extra else "replay"
+        out = open(os.path.join(root, f"{tag}.out"), "w+")
+        err = open(os.path.join(root, f"{tag}.err"), "w+")
+        job = {"tag": tag, "out": out, "err": err,
+               "start": time.perf_counter(),
+               "proc": subprocess.Popen(
+                   ["nice", "-n", str(REPLAY_NICE), sys.executable, "-m",
+                    "paddle_tpu_torch", "replay", *extra, "--json", bundle],
+                   cwd=ROOT, env=env, stdout=out, stderr=err)}
+        REPLAYS.append(job["proc"])
+        job["reaper"] = threading.Thread(target=_reap, args=(job,),
+                                         daemon=True)
+        job["reaper"].start()
+        jobs.append(job)
+    return {"root": root, "loss_op": loss_op, "jobs": jobs}
+
+
+def stop_replays():
+    """Kill the replay subprocesses still running (a failed run)."""
+    for proc in REPLAYS:
+        if proc.returncode is None:
+            try:
+                proc.kill()
+            except OSError:
+                pass
+
+
+def join_replays(started):
+    """Wait for :func:`start_replays`'s subprocesses (up to
+    ``HTTP_WAIT_S`` more each): ``replay`` exits 0 with the injected
+    fault reproduced, ``replay --localize`` exits 0 naming the op that
+    produces the loss.  Returns each one's wall seconds from its start,
+    CPU seconds, peak resident set and the seconds this join waited."""
+    import shutil
+
+    t = time.perf_counter()
+    reports = {}
+    for job in started["jobs"]:
+        job["reaper"].join(HTTP_WAIT_S)
+        if job["reaper"].is_alive():
+            stop_replays()
+            raise AssertionError(f"{job['tag']}: still running after "
+                                 f"{time.perf_counter() - job['start']:.0f}"
+                                 f" s")
+        job["out"].seek(0)
+        job["err"].seek(0)
+        text, err = job["out"].read(), job["err"].read()
+        try:
+            reports[job["tag"]] = json.loads(text)
+        except ValueError:
+            raise AssertionError(f"{job['tag']}: exit "
+                                 f"{job['proc'].returncode}, {text[-2000:]!r}"
+                                 f" {err[-2000:]!r}")
+    wait_s = time.perf_counter() - t
+    jobs = {job["tag"]: job for job in started["jobs"]}
+    report, loc = reports["replay"], reports["localize"]
+    rc_replay = jobs["replay"]["proc"].returncode
+    if rc_replay != 0 or not report["reproduced"] or \
+            report["reason"] != "non_finite":
+        raise AssertionError(f"replay: exit {rc_replay}, {report}")
+    rc_loc = jobs["localize"]["proc"].returncode
+    first = loc.get("first_bad_op") or {}
+    if rc_loc != 0 or first.get("type") != started["loss_op"]:
+        raise AssertionError(f"replay --localize: exit {rc_loc}, first bad "
+                             f"op {first.get('type')} (want "
+                             f"{started['loss_op']})")
+    out = {"replay_layers": SENTINEL_REPLAY_LAYERS,
+           "threads": REPLAY_THREADS, "localized_op": started["loss_op"],
+           "join_wait_s": wait_s}
+    for tag, job in jobs.items():
+        out[f"{tag}_s"] = job["end"] - job["start"]
+        out[f"{tag}_cpu_s"] = job["cpu_s"]
+        out[f"{tag}_maxrss_gib"] = job["maxrss_gib"]
+        job["out"].close()
+        job["err"].close()
+    shutil.rmtree(started["root"], ignore_errors=True)
+    return out
+
+
+def phase_sentinel():
+    """The training sentinel on route A at full width (dropout 0, bf16
+    AMP, graphed): a clean run of ``SENTINEL_STEPS`` steps, then the
+    same steps from the same state with a ``Sentinel`` guarding every
+    step (``_sentinel_drill``): the applied losses equal the clean run's
+    bit for bit, two steps skipped and quarantined, one rollback to
+    ``last_good_step()``; every guarded run launches the bias-softmax
+    pair 18 times.  A real fault: one parameter set to inf before a
+    guarded replay: the trip names it and the scope after it equals the
+    pre-step state bit for bit.  The guarded and unguarded graphed steps
+    timed, the health gauges printed.  ``ckpt verify`` on the drill's
+    directory (PASS, then 1 after a truncated file).  The CPU replays of
+    a quarantined bundle run beside the card phases (:func:`start_replays`,
+    :func:`join_replays`)."""
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import NumericalFault, Sentinel
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.profiler import runtime_metrics as m
+
+    _, _, kernels = ROUTES["A"]
+    root = os.path.join(OUT_DIR, "sentinel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    main, startup, cost, hp = _ckpt_program(pt, T)
+    exe0, scope0 = pt.Executor(), pt.Scope()
+    exe0.run(startup, scope=scope0)
+    state = _snapshot(scope0)
+    del exe0, scope0
+
+    _take_launches()
+    clean, clean_s, clean_runs, _, exe, scope, _, _ = _sentinel_drill(
+        pt, T, main, cost, hp, state, root, inject=False)
+    got = _take_launches()
+    want = {k: 18 * clean_runs for k in kernels}
+    if got != want:
+        raise AssertionError(f"sentinel[clean]: launches {got} != {want}")
+    unguarded_s = []
+    for s in range(SENTINEL_TIMED):
+        t = time.perf_counter()
+        exe.run(main, feed=_ckpt_feed(T, hp, 1 + s), fetch_list=[cost],
+                scope=scope)
+        unguarded_s.append(time.perf_counter() - t)
+    writeback = [c.fn.writeback_in_graph for c in exe._cache.values()
+                 if hasattr(c.fn, "writeback_in_graph")]
+    if writeback != [True]:
+        raise AssertionError(f"sentinel: the unguarded graph's write-back "
+                             f"{writeback}")
+    _graphs("sentinel_clean", exe, True)
+    exe.close()
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counters = ("sentinel.skipped_steps", "sentinel.quarantined",
+                "sentinel.rollbacks")
+    before = {n: m.counter(n) for n in counters}
+    _take_launches()
+    (losses, guarded_s, runs, rollbacks, exe, scope, mgr,
+     sentinel) = _sentinel_drill(pt, T, main, cost, hp, state, root,
+                                 inject=True)
+    launches = _take_launches()
+    delta = {n: m.counter(n) - before[n] for n in counters}
+    want = {k: 18 * runs for k in kernels}
+    if launches != want:
+        raise AssertionError(f"sentinel[drill]: launches {launches} != "
+                             f"{want} ({runs} guarded runs)")
+    if delta != {"sentinel.skipped_steps": 2, "sentinel.quarantined": 2,
+                 "sentinel.rollbacks": 1} or rollbacks != [(2, 2)]:
+        raise AssertionError(f"sentinel[drill]: counters {delta}, "
+                             f"rollbacks {rollbacks}")
+    if losses != clean:
+        raise AssertionError(f"sentinel[drill]: applied losses {losses} "
+                             f"!= the clean run's {clean}")
+    guarded = [c for c in exe._cache.values()
+               if hasattr(c.fn, "writeback_in_graph")]
+    if [c.fn.writeback_in_graph for c in guarded] != [False] or \
+            not guarded[0].fn.replays:
+        raise AssertionError("sentinel: the guarded step is not one "
+                             "graph whose write-back follows its replay")
+    health = {g: m.gauge(g) for g in ("train.param_norm", "train.grad_norm",
+                                      "train.update_ratio")}
+    if not all(v is not None and np.isfinite(v) for v in health.values()):
+        raise AssertionError(f"sentinel: health gauges {health}")
+
+    # the guarded step, timed as the unguarded one was
+    for s in range(SENTINEL_TIMED):
+        t = time.perf_counter()
+        exe.run(main, feed=_ckpt_feed(T, hp, 1 + s), fetch_list=[cost],
+                scope=scope, sentinel=sentinel)
+        guarded_s.append(time.perf_counter() - t)
+    # a real fault: one parameter inf before a guarded replay
+    pname = main.global_block().all_parameters()[0].name
+    with torch.no_grad():
+        scope.find_var(pname).view(-1)[0] = float("inf")
+    snap = _snapshot(scope)
+    guard = Sentinel(cadence=1, spike_factor=None)
+    replays0 = guarded[0].fn.replays
+    try:
+        exe.run(main, feed=_ckpt_feed(T, hp, 3), fetch_list=[cost],
+                scope=scope, sentinel=guard)
+    except NumericalFault as fault:
+        real = fault
+    else:
+        raise AssertionError("sentinel: an inf parameter did not trip")
+    if guarded[0].fn.replays != replays0 + 1 or pname not in real.bad or \
+            real.injected:
+        raise AssertionError(f"sentinel: the real fault's trip "
+                             f"{real.bad[:4]} (replayed "
+                             f"{guarded[0].fn.replays - replays0})")
+    changed = _bit_equal(scope, snap)
+    if changed:
+        raise AssertionError(f"sentinel: a tripped graphed step changed "
+                             f"{changed[:4]}")
+    _graphs("sentinel", exe, True)
+
+    # the checkpoint survey of the drill's directory
+    from paddle_tpu_torch import cli
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["ckpt", "verify", mgr.dirname])
+    survey = buf.getvalue()
+    if rc != 0 or "ckpt verify: PASS" not in survey or \
+            f"last_good: {mgr.last_good_step()}" not in survey:
+        raise AssertionError(f"ckpt verify (exit {rc}): {survey}")
+    steps = sorted(mgr.steps())
+    victim = mgr.path(steps[-1])
+    files = [os.path.join(d, f) for d, _, fs in os.walk(victim)
+             for f in fs if f != "MANIFEST.json"]
+    target = max(files, key=os.path.getsize)
+    with open(target, "r+b") as f:
+        f.truncate(os.path.getsize(target) // 2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_bad = cli.main(["ckpt", "verify", mgr.dirname])
+    if rc_bad != 1:
+        raise AssertionError(f"ckpt verify after a truncated file: exit "
+                             f"{rc_bad}")
+
+    bundles = sorted(os.listdir(sentinel.quarantine_dir))
+    out = dict(
+        steps=SENTINEL_STEPS, guarded_runs=runs, losses_equal_clean=True,
+        counters=delta, rollback_to=rollbacks[0][0],
+        unguarded_step_ms=1e3 * float(np.median(unguarded_s)),
+        guarded_step_ms=1e3 * float(np.median(guarded_s[-SENTINEL_TIMED:])),
+        unguarded_step_ms_range=[1e3 * min(unguarded_s),
+                                 1e3 * max(unguarded_s)],
+        guarded_step_ms_range=[1e3 * min(guarded_s[-SENTINEL_TIMED:]),
+                               1e3 * max(guarded_s[-SENTINEL_TIMED:])],
+        health=health, real_fault=pname, bundles=len(bundles),
+        ckpt_verify_exit=[rc, rc_bad], card=card_line())
+    log("sentinel[A]: " + json.dumps(out))
+    exe.close()
+    del exe, scope, state, snap
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _trace_kernel_seconds(path, substring):
+    """Seconds of the trace's kernels whose name contains ``substring``,
+    summed straight from the Chrome trace JSON."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(float(e["dur"]) for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"
+               and substring in str(e.get("name", ""))) / 1e6
+
+
+def phase_perf(serving):
+    """The live MFU, the HBM census and device time on route A at full
+    width (dropout 0.1, bf16 AMP, graphed): ``train.mfu`` after the
+    graphed steps equals the record's ``flops / (step s x peak)`` at the
+    card's bf16 peak (``gpu-peak``); the census's ``params + optimizer``
+    equals the byte sum of the scope's tensors, ``total`` is at most
+    ``memory_allocated()`` and ``high_watermark`` at least ``total``;
+    ``measure_device_seconds`` over 3 graphed replays is at most their
+    wall time, and a trace of 3 more gives the kernels' union, their plain
+    sum and ``scope_device_seconds(..., "bias_softmax")`` equal to the
+    sum of that kernel's events.  ``profile op`` lists ``softmax`` and
+    ``softmax_grad``; ``profile memory --json`` and ``profile compile
+    --json`` pass ``validate_report``.  Then the paged serving bundle's
+    decode: ``gen.decode_mfu`` set, ``train.mfu`` untouched, the census's
+    ``kv_pages`` equal to the predictor's pool bytes."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import cli, profiler
+    from paddle_tpu_torch.gen import GenPredictor, GenScheduler
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.obs import perf
+    from paddle_tpu_torch.profiler import runtime_metrics as m
+
+    B, S, kernels = ROUTES["A"]
+    hp = T.ModelHyperParams()
+    hp.max_length = max(hp.max_length, S)
+    main, startup, cost = _transformer_program(pt, T, hp, B, S, amp=True)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = T.fake_batch(B, S, S, hp, seed=SEED)
+    _take_launches()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_s.append(time.perf_counter() - t)
+    rec = exe._last_compiled.perf_record
+    peak, basis = perf.peak_flops_info(exe.device)
+    mfu = m.gauge("train.mfu")
+    want_mfu = rec["flops"] / (rec["last_step_seconds"] * peak)
+    if basis != "gpu-peak" or peak != 989e12 or rec["steps"] != TRAIN_STEPS \
+            or abs(mfu - want_mfu) > 1e-12 * want_mfu:
+        raise AssertionError(f"perf: train.mfu {mfu} != {want_mfu} "
+                             f"({basis}, {rec})")
+
+    # the census
+    census = perf.hbm_census(scope)
+    allocated = torch.cuda.memory_allocated()
+    storages = {}
+    for v in _tensors(scope).values():
+        st = v.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    state_bytes = sum(storages.values())
+    if census["params"] + census["optimizer"] != state_bytes or \
+            not census["total"] <= allocated or \
+            not census["high_watermark"] >= census["total"] or \
+            census["limit"] != torch.cuda.mem_get_info()[1]:
+        raise AssertionError(f"perf: census {census} against the state's "
+                             f"{state_bytes} bytes, allocated {allocated}")
+
+    # device time: 3 graphed replays under measure_device_seconds, 3 more
+    # under a trace read three ways
+    wall = []
+
+    def three():
+        t = time.perf_counter()
+        for _ in range(3):
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        wall.append(time.perf_counter() - t)
+
+    busy = profiler.measure_device_seconds(three)
+    if not 0 < busy <= wall[0]:
+        raise AssertionError(f"perf: device busy {busy} s over 3 replays "
+                             f"of {wall[0]} s wall")
+    td = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        profiler.start_profiler("All", td)
+        try:
+            three()
+        finally:
+            path = profiler.stop_profiler(profile_path=td)
+        union = profiler.device_busy_seconds(path)
+        plain_sum = sum(d for _, d in profiler.iter_trace_events(
+            path, device_only=True)) / 1e12
+        scoped = profiler.scope_device_seconds(path, "bias_softmax")
+        direct = _trace_kernel_seconds(path, "bias_softmax")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    if abs(scoped - direct) > 1e-9 * max(direct, 1e-9) + 1e-12 or \
+            not direct > 0 or not union <= wall[1]:
+        raise AssertionError(f"perf: scope_device_seconds {scoped} against "
+                             f"the trace's bias_softmax events {direct}; "
+                             f"union {union}, wall {wall[1]}")
+    launches = _take_launches()
+    runs = TRAIN_STEPS + 6
+    want = {k: 18 * runs for k in kernels}
+    if launches != want:
+        raise AssertionError(f"perf: launches {launches} != {want}")
+    _graphs("perf", exe, True)
+    exe.close()
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI: profile op (the eager step with op ranges), memory, compile
+    def run_cli(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        if rc != 0:
+            raise AssertionError(f"{' '.join(argv)}: exit {rc}")
+        return buf.getvalue()
+
+    table = run_cli("profile", "op", "--steps", "1")
+    ops = {line.split()[0] for line in table.splitlines()[1:] if line}
+    if not {"softmax", "softmax_grad"} <= ops:
+        raise AssertionError(f"profile op: no softmax rows in\n{table}")
+    mem = json.loads(run_cli("profile", "memory", "--json"))
+    comp = json.loads(run_cli("profile", "compile", "--json"))
+    problems = perf.validate_report(comp)
+    if problems or not mem["params"] > 0 or mem["total"] is None:
+        raise AssertionError(f"profile memory/compile: {problems} {mem}")
+    cli_launches = _take_launches()
+
+    # the paged decode feeds gen.decode_mfu, not train.mfu; its pool is
+    # the census's kv_pages (beside any predictor still alive)
+    gc.collect()
+    kv0 = perf.hbm_census(pt.Scope())["kv_pages"]
+    pred = GenPredictor(serving["bundle"])
+    train_mfu = m.gauge("train.mfu")
+    m.set_gauge("gen.decode_mfu", -1.0)
+    sched = GenScheduler(pred)
+    toks = list(sched.submit(serving["prompts"][0], max_new_tokens=8))
+    sched.close()
+    decode_mfu = m.gauge("gen.decode_mfu")
+    kv = perf.hbm_census(pt.Scope())
+    pool = sum(pred._scope.find_var(n).untyped_storage().nbytes()
+               for n in pred.cache_vars)
+    if toks != serving["streams"][0][:8] or not decode_mfu > 0 or \
+            m.gauge("train.mfu") != train_mfu or \
+            kv["kv_pages"] - kv0 != pool:
+        raise AssertionError(f"perf[decode]: tokens {toks}, decode_mfu "
+                             f"{decode_mfu}, train.mfu {m.gauge('train.mfu')}"
+                             f" (was {train_mfu}), kv_pages "
+                             f"{kv['kv_pages']} - {kv0} (pool {pool})")
+    decode_launches = _take_launches()
+    del pred
+    gc.collect()
+
+    gib = 2 ** 30
+    out = dict(
+        train_mfu=mfu, flops_per_step=rec["flops"],
+        flops_source=rec["flops_source"],
+        cost_estimate_s=rec["cost_seconds"],
+        mfu_step_ms=1e3 * rec["last_step_seconds"],
+        mfu_at_median=rec["flops"] / (float(np.median(step_s[2:])) * peak),
+        step_ms_median=1e3 * float(np.median(step_s[2:])),
+        peak_flops=peak, mfu_basis=basis,
+        first_run=dict(rec["phases"], temp_gib=(rec["memory"]["temp_bytes"]
+                                                or 0) / gib),
+        census_gib={k: (v / gib if isinstance(v, (int, float)) else v)
+                    for k, v in census.items()},
+        busy_3_replays_s=busy, wall_3_replays_s=wall[0],
+        trace_union_s=union, trace_kernel_sum_s=plain_sum,
+        trace_wall_s=wall[1], bias_softmax_s=scoped,
+        profile_op_rows=len(ops), gen_decode_mfu=decode_mfu,
+        kv_pages_gib=pool / gib,
+        replays_running=sum(p.returncode is None for p in REPLAYS),
+        card=card_line())
+    log("perf[A]: " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return launches, cli_launches, decode_launches, out
 
 
 GEN_TRAIN_B, GEN_TRAIN_T, GEN_TRAIN_STEPS = 8, 256, 4
@@ -7647,6 +8282,12 @@ def main():
     # largest activations: the table's row
     rows["conv3x3"] = conv_rows[CONV3X3_SHAPES[0]]
 
+    # the sentinel bundle's CPU replays run beside the phases from here
+    # on; the kernels' device times above are taken first, in a process
+    # that has run nothing else on the card (after a route A step the
+    # profiler's captures of the paged kernels came back short three
+    # times running)
+    replays = timed("sentinel_replay_start", start_replays)
     by_path = {}
     by_path["serving"], serving = timed("serving", phase_serving)
     by_path["http_generate"], http_gen = timed(
@@ -7701,12 +8342,16 @@ def main():
         reader_train = timed("reader_train", phase_reader_train)
     by_path["checkpoint_resume"], checkpoint_resume = \
         timed("checkpoint_resume", phase_checkpoint_resume)
+    by_path["sentinel"], sentinel = timed("sentinel", phase_sentinel)
+    by_path["perf"], by_path["perf_cli"], by_path["perf_decode"], \
+        perf_out = timed("perf", phase_perf, serving)
     op_families = timed("op_families", phase_op_families)
     srl = timed("label_semantic_roles", phase_label_semantic_roles)
     ssd = timed("ssd", phase_ssd)
     torch.cuda.empty_cache()
     ssd["card_vs_cpu"] = timed("card_vs_cpu_ssd", phase_card_vs_cpu_ssd)
     csp = timed("csp", phase_csp)
+    sentinel_replay = timed("sentinel_replay_join", join_replays, replays)
 
     kernels = []
     for k in ALL_KERNELS:
@@ -7803,6 +8448,9 @@ def main():
         f"{max(optimizers.values()):.3e} over {len(optimizers)} programs")
     log("reader_train: " + json.dumps(reader_train))
     log("checkpoint_resume: " + json.dumps(checkpoint_resume))
+    log("sentinel: " + json.dumps(sentinel))
+    log("sentinel_replay[A]: " + json.dumps(sentinel_replay))
+    log("perf: " + json.dumps(perf_out))
     log("op_families: " + json.dumps(op_families))
     log(f"label_semantic_roles[book]: step_ms={srl['step_ms']:.3f} "
         f"tokens_per_s={srl['tokens_per_s']:.1f} state_gib="
@@ -7848,4 +8496,6 @@ if __name__ == "__main__":
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         code = 1
+    finally:
+        stop_replays()
     sys.exit(code)

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port (the serving and static-analysis
-parts of ``paddle_tpu.cli``).
+"""Command-line entry points of the port (the serving, static-analysis,
+fault-tolerance and profiling parts of ``paddle_tpu.cli``).
 
 Usage: ``python -m paddle_tpu_torch <command> ...``
 
@@ -18,6 +18,14 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
   opt      MODEL_DIR | --zoo NAME    the optimization pass pipeline,
                                      offline: per-pass stats (--json,
                                      --passes a,b)
+  replay   BUNDLE                    re-execute a sentinel-quarantined
+                                     step on the CPU (--localize names
+                                     the first non-finite op; --json)
+  ckpt     inspect|verify DIR        survey / re-hash a checkpoint
+                                     directory (--step N, --json)
+  profile  op|compile|memory|step    device profiling: per-op device
+                                     time, per-signature cost records,
+                                     the HBM census, the step phases
 
 ``serve --master`` (fleet enrollment) and ``--compile-cache`` (the JAX
 package's persistent XLA cache) raise: the fleet is not ported yet, and
@@ -31,6 +39,7 @@ multi-device transpilers are ported (ROADMAP queue 1 item 7), and
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 __all__ = ["main"]
@@ -358,6 +367,401 @@ def _cmd_selfcheck(args):
         "and bench history); it follows ROADMAP queue 1 item 10")
 
 
+def _cmd_replay(args):
+    """Re-execute a quarantined training step from its repro bundle
+    (``fault.Sentinel`` quarantine output), on the CPU whatever device
+    the fault was seen on: the offline debugging loop for a numerical
+    fault, as the JAX package's ``replay`` pins its CPU platform
+    (``replay_bundle`` runs on ``CPUPlace``).  ``--localize``
+    re-executes op by op with per-op tensor-stat probes and names the
+    FIRST op whose output went non-finite, with its creation site and
+    the stat trail of the ops before it.  Exit code 0 when the fault
+    reproduces (or localizes), 1 when the step replays clean, 2 on a
+    malformed or unreplayable bundle, and 2 for a clean replay of a step
+    whose random draws the CPU cannot repeat (a card's, or the JAX
+    package's: ``rng_device_mismatch``), which proves nothing clean."""
+    try:
+        if args.localize:
+            from paddle_tpu_torch.obs.numerics import localize_bundle
+            report = localize_bundle(args.bundle)
+        else:
+            from paddle_tpu_torch.fault.sentinel import replay_bundle
+            report = replay_bundle(args.bundle)
+    except (OSError, ValueError, KeyError) as e:
+        print(f"replay: cannot load bundle {args.bundle!r}: {e}",
+              file=sys.stderr)
+        return 2
+    if args.localize:
+        code = _report_localize(report, json_out=args.json)
+    else:
+        code = _report_replay(report, json_out=args.json)
+    if code == 1 and report["rng_device_mismatch"]:
+        print(f"replay: no clean verdict: the recorded step drew random "
+              f"numbers on {report['rng_device'] or 'the JAX package'}'s "
+              f"generators, which this CPU replay does not repeat",
+              file=sys.stderr)
+        return 2
+    return code
+
+
+def _report_replay(report, json_out=False):
+    """Print a ``replay_bundle`` report; exit 0 = reproduced, 1 = the
+    step replayed clean."""
+    import json as _json
+
+    if json_out:
+        print(_json.dumps(report, indent=2, sort_keys=True))
+    elif report["reproduced"]:
+        bad = ", ".join(report["bad"][:6]) or "(loss spike)"
+        print(f"step {report['step']}: fault REPRODUCED "
+              f"({report['reason']}) in: {bad}"
+              + (" [chaos-injected]" if report["injected"] else ""))
+    else:
+        print(f"step {report['step']}: replayed CLEAN — the fault did "
+              f"not reproduce on CPU (suspect hardware/nondeterminism)")
+    return 0 if report["reproduced"] else 1
+
+
+def _report_localize(report, json_out=False):
+    """Print a ``numerics.localize_bundle`` report; exit 0 = localized,
+    1 = every op produced finite outputs."""
+    import json as _json
+
+    if json_out:
+        print(_json.dumps(report, indent=2, sort_keys=True))
+        return 0 if report["localized"] else 1
+    if not report["localized"]:
+        print(f"step {report['step']}: all {report['ops_probed']} op "
+              f"execution(s) produced finite outputs — nothing to "
+              f"localize (suspect hardware/nondeterminism)")
+        return 1
+    bad = report["first_bad_op"]
+    site = bad.get("creation_site")
+    where = f"{site[0]}:{site[1]}" if site else "(unknown site)"
+    tag = " [chaos-injected]" if report["injected"] else ""
+    print(f"step {report['step']}: first non-finite output at op "
+          f"#{bad['index']} `{bad['type']}` created at {where}{tag}")
+    for name, stats in (bad.get("outputs") or {}).items():
+        print(f"  out {name}: {stats}")
+    for name, stats in (bad.get("inputs") or {}).items():
+        print(f"  in  {name}: {stats}")
+    trail = bad.get("trail") or []
+    if trail:
+        print(f"  trail (last {len(trail)} op(s) before the fault):")
+        for row in trail:
+            outs = ", ".join(row.get("outputs", {}))
+            print(f"    #{row['index']} {row['type']} -> {outs}")
+    return 0
+
+
+def _ckpt_report(dirname, step=None, deep=False):
+    """The ``ckpt`` survey of a checkpoint directory, pure directory and
+    manifest reads (no executor, no program, no device): committed steps
+    with per-step manifest status (and per-shard file presence for
+    shard-format checkpoints), the saved topology, the latest and
+    last-good pointers, and quarantined directories.  ``deep`` re-hashes
+    every file (``verify``); shallow reads manifests only."""
+    from paddle_tpu_torch.fault import checkpoint as ckpt_mod
+    from paddle_tpu_torch.fault import shard_ckpt
+    from paddle_tpu_torch.fault.checkpoint import (CorruptCheckpoint,
+                                                   GOOD_POINTER_NAME)
+
+    report = {"dir": os.path.abspath(dirname), "steps": [],
+              "latest": None, "last_good": None, "quarantined": [],
+              "ok": True}
+    for pointer, key in (("latest", "latest"),
+                         (GOOD_POINTER_NAME, "last_good")):
+        try:
+            with open(os.path.join(dirname, pointer)) as f:
+                report[key] = int(f.read().strip())
+        except (OSError, ValueError):
+            pass
+    steps = []
+    for name in sorted(os.listdir(dirname)):
+        if name.endswith(".corrupt"):
+            report["quarantined"].append(name)
+            continue
+        if not name.startswith("ckpt-") or \
+                not name[len("ckpt-"):].isdigit():
+            continue
+        steps.append(int(name[len("ckpt-"):]))
+    for s in sorted(steps):
+        if step is not None and s != int(step):
+            continue
+        path = os.path.join(dirname, f"ckpt-{s}")
+        row = {"step": s, "format": "legacy", "status": "unverifiable",
+               "topology": None, "shards": None}
+        manifest = shard_ckpt.read_manifest(path)
+        if manifest is not None:
+            row["format"] = "manifest"
+            topo = manifest.get("topology")
+            if topo is not None:
+                row["format"] = "sharded"
+                shards = topo.get("shards") or {}
+                counts = [r.get("num_shards", 1) for r in shards.values()]
+                row["topology"] = {
+                    "mesh_shape": topo.get("mesh_shape"),
+                    "axis_names": topo.get("axis_names"),
+                    "processes": topo.get("processes"),
+                }
+                row["shards"] = {
+                    "vars": len(shards),
+                    "sharded_vars": sum(1 for c in counts if c > 1),
+                    "shard_files": sum(counts),
+                }
+            try:
+                if deep:
+                    ckpt_mod.verify_checkpoint(path)
+                else:
+                    # shallow: file presence + size + topology
+                    # self-consistency, no re-hash
+                    for rel, want in manifest.get("files", {}).items():
+                        p = os.path.join(path, rel)
+                        if not os.path.exists(p):
+                            raise CorruptCheckpoint(
+                                f"{path}: missing file {rel!r}")
+                        if os.path.getsize(p) != want["size"]:
+                            raise CorruptCheckpoint(
+                                f"{path}: {rel!r} size mismatch")
+                    if topo is not None:
+                        problems = shard_ckpt.validate_topology(manifest)
+                        if problems:
+                            raise CorruptCheckpoint("; ".join(problems))
+                row["status"] = "verified" if deep else "present"
+            except CorruptCheckpoint as e:
+                row["status"] = "CORRUPT"
+                row["error"] = str(e)
+                report["ok"] = False
+        report["steps"].append(row)
+    if step is not None and not report["steps"]:
+        report["ok"] = False
+        report["error"] = f"no committed ckpt-{int(step)} in {dirname}"
+    return report
+
+
+def _cmd_ckpt(args):
+    """Operator-facing checkpoint survey: ``inspect`` prints steps,
+    per-shard manifest status, the saved topology, and the latest and
+    last-good pointers; ``verify`` re-hashes every file of every
+    committed step (or ``--step N``) and exit-codes on corruption (1), so
+    restorability is checkable from a cron job without loading a program
+    or touching a device.  A missing directory exits 2."""
+    import json as _json
+
+    if not os.path.isdir(args.dir):
+        print(f"ckpt {args.action}: no such directory {args.dir!r}",
+              file=sys.stderr)
+        return 2
+    deep = args.action == "verify"
+    report = _ckpt_report(args.dir, step=args.step, deep=deep)
+    if args.json:
+        print(_json.dumps(report, indent=2, sort_keys=True))
+    else:
+        print(f"checkpoint dir: {report['dir']}")
+        print(f"latest: {report['latest']}   "
+              f"last_good: {report['last_good']}")
+        for row in report["steps"]:
+            line = (f"  ckpt-{row['step']}: {row['status']} "
+                    f"[{row['format']}]")
+            topo = row.get("topology")
+            if topo:
+                line += (f" mesh={topo['mesh_shape']}"
+                         f"{topo['axis_names']}")
+            sh = row.get("shards")
+            if sh:
+                line += (f" vars={sh['vars']} "
+                         f"sharded={sh['sharded_vars']} "
+                         f"shard_files={sh['shard_files']}")
+            print(line)
+            if row.get("error"):
+                print(f"    {row['error']}")
+        for q in report["quarantined"]:
+            print(f"  {q}: quarantined")
+        if report.get("error"):
+            print(f"ckpt {args.action}: {report['error']}",
+                  file=sys.stderr)
+        verdict = "PASS" if report["ok"] else "FAIL"
+        print(f"ckpt {args.action}: {verdict}")
+    return 0 if report["ok"] else 1
+
+
+def _profile_build(args):
+    """Shared model-building head of the ``profile op|step`` modes:
+    ``(exe, main_prog, startup, feed, cost_name)`` on ``--place``."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+
+    if args.model == "transformer":
+        from paddle_tpu_torch.models import transformer as T
+        hp = T.ModelHyperParams()
+        hp.d_model, hp.d_inner_hid, hp.n_layer = args.d_model, \
+            2 * args.d_model, args.layers
+        hp.n_head = max(1, args.d_model // 64)
+        hp.d_key = hp.d_value = args.d_model // hp.n_head
+        hp.src_vocab_size = hp.trg_vocab_size = 1000
+        hp.max_length = max(64, args.seq)
+        main_prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main_prog, startup):
+            cost, _ = T.transformer(args.batch, args.seq, args.seq, hp)
+            fluid.optimizer.Adam(learning_rate=1e-4).minimize(cost)
+        feed = T.fake_batch(args.batch, args.seq, args.seq, hp)
+    elif args.model == "resnet":
+        from paddle_tpu_torch.models import resnet as R
+        main_prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main_prog, startup):
+            cost, _, _ = R.resnet_train_program(
+                args.batch, class_dim=1000, depth=50,
+                image_shape=(3, args.seq, args.seq))
+            fluid.optimizer.Momentum(learning_rate=0.01,
+                                     momentum=0.9).minimize(cost)
+        rng = np.random.RandomState(0)
+        feed = {"image": rng.rand(args.batch, 3, args.seq,
+                                  args.seq).astype("float32"),
+                "label": rng.randint(0, 1000, (args.batch, 1))
+                .astype("int64")}
+    else:
+        raise SystemExit(f"unknown --model {args.model!r}")
+    exe = fluid.Executor(_place(args.place))
+    exe.run(startup)
+    return exe, main_prog, startup, feed, cost.name
+
+
+def _fmt_bytes(n):
+    return "-" if n is None else f"{n / 1e6:.2f}MB"
+
+
+def _fmt_ms(s):
+    return "-" if s is None else f"{s * 1e3:.1f}ms"
+
+
+def _profile_zoo_compile(args):
+    """Prepare a zoo model's train step (startup + one synthetic step on
+    ``--place``) so that its signatures land cost records; returns the
+    scope (for ``profile memory``'s census)."""
+    from paddle_tpu_torch.models import ZOO_MODELS, compile_zoo_step
+
+    name = args.zoo or "mnist"
+    if name not in ZOO_MODELS:
+        raise SystemExit(f"unknown --zoo {name!r}; expected one of "
+                         f"{ZOO_MODELS}")
+    return compile_zoo_step(name, place=_place(args.place))
+
+
+def _cmd_profile_compile(args):
+    """``profile compile``: prepare a zoo model's step and print the
+    per-signature table: the cost model's FLOPs and bytes, the memory
+    breakdown of the first run, and the prepare / first-run / capture
+    seconds it paid."""
+    import json as _json
+
+    from paddle_tpu_torch.obs import perf
+
+    _profile_zoo_compile(args)
+    report = perf.compile_report()
+    if args.json:
+        print(_json.dumps(report, indent=2, sort_keys=True))
+        return 0
+    print(f"backend={report['backend']} "
+          f"peak={report['peak_flops_per_chip']:.3g} FLOP/s "
+          f"({report['mfu_basis']})")
+    print(f"{'key':<10}{'GFLOPs':>10}{'bytes':>12}{'arg':>10}"
+          f"{'out':>10}{'temp':>10}{'prepare':>9}{'first':>9}"
+          f"{'capture':>9}  label")
+    for r in report["records"]:
+        mem = r["memory"] or {}
+        ph = r["phases"]
+        flops = "-" if r["flops"] is None else f"{r['flops'] / 1e9:.3f}"
+        print(f"{r['key']:<10}{flops:>10}"
+              f"{_fmt_bytes(r['bytes_accessed']):>12}"
+              f"{_fmt_bytes(mem.get('argument_bytes')):>10}"
+              f"{_fmt_bytes(mem.get('output_bytes')):>10}"
+              f"{_fmt_bytes(mem.get('temp_bytes')):>10}"
+              f"{_fmt_ms(ph['trace_seconds']):>9}"
+              f"{_fmt_ms(ph['lower_seconds']):>9}"
+              f"{_fmt_ms(ph['backend_seconds']):>9}  {r['label']}")
+    return 0
+
+
+def _cmd_profile_memory(args):
+    """``profile memory``: the HBM census: device bytes attributed to
+    params / optimizer state / KV pool / prefetch / other, the high
+    watermark and (on the card, or when PADDLE_TPU_HBM_LIMIT_BYTES
+    declares one) the limit and headroom."""
+    import json as _json
+
+    from paddle_tpu_torch.obs import perf
+
+    scope = _profile_zoo_compile(args)
+    census = perf.hbm_census(scope, device=_place(args.place)
+                             .torch_device())
+    if args.json:
+        print(_json.dumps(census, indent=2, sort_keys=True))
+        return 0
+    for key in ("params", "optimizer", "kv_cache", "kv_pages", "prefetch",
+                "other", "total", "high_watermark", "limit", "headroom"):
+        if census.get(key) is not None:
+            print(f"hbm.{key:<16}{census[key]:>14} bytes")
+    return 0
+
+
+def _cmd_profile_step(args):
+    """``profile step``: N measured steps with the per-step breakdown
+    armed (feed / dispatch / device-wait / fetch series), with a
+    ``torch.profiler`` trace of the same window under ``--trace-dir``,
+    and the live MFU the window sustained."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.obs import perf
+
+    exe, main_prog, _startup, feed, cost_name = _profile_build(args)
+    exe.run(main_prog, feed=feed, fetch_list=[cost_name])  # first run
+    perf.enable_step_phases()
+    try:
+        if args.trace_dir:
+            profiler.start_profiler(profile_path=args.trace_dir)
+        for _ in range(args.steps):
+            exe.run(main_prog, feed=feed, fetch_list=[cost_name])
+    finally:
+        if args.trace_dir:
+            profiler.stop_profiler(profile_path=args.trace_dir)
+        perf.disable_step_phases()
+    m = profiler.runtime_metrics
+    print(f"{'phase':<14}{'p50':>10}{'p95':>10}")
+    for phase in ("feed", "dispatch", "device_wait", "fetch"):
+        p = m.percentiles(f"perf.step.{phase}_seconds", qs=(50, 95))
+        print(f"{phase:<14}{_fmt_ms(p['p50']):>10}"
+              f"{_fmt_ms(p['p95']):>10}")
+    mfu = m.gauge("train.mfu")
+    basis = perf.peak_flops_info(exe.device)[1]
+    if mfu is not None:
+        print(f"train.mfu={mfu:.4f} ({basis})")
+    if args.trace_dir:
+        print(f"device trace written under {args.trace_dir} (Chrome "
+              f"trace JSON: Perfetto or chrome://tracing)")
+    return 0
+
+
+def _cmd_profile(args):
+    """The ``profile`` family: ``op`` (default) prints the per-IR-op
+    device-time table of a training step (the eager step with op ranges,
+    ``profiler.compiled_profiler``); ``compile`` the per-signature
+    cost/memory/phase table; ``memory`` the HBM census; ``step`` the
+    N-step feed/dispatch/device-wait/fetch breakdown."""
+    if args.action == "compile":
+        return _cmd_profile_compile(args)
+    if args.action == "memory":
+        return _cmd_profile_memory(args)
+    if args.action == "step":
+        return _cmd_profile_step(args)
+    from paddle_tpu_torch import profiler
+    exe, main_prog, _startup, feed, cost_name = _profile_build(args)
+    exe.run(main_prog, feed=feed, fetch_list=[cost_name])  # first run
+    with profiler.compiled_profiler(sorted_key=args.sorted_by):
+        for _ in range(args.steps):
+            exe.run(main_prog, feed=feed, fetch_list=[cost_name])
+    return 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch",
                                      description=__doc__)
@@ -504,6 +908,73 @@ def main(argv=None):
     p.add_argument("--json", action="store_true",
                    help="machine-readable report")
     p.set_defaults(fn=_cmd_opt)
+
+    p = sub.add_parser("replay", help="re-execute a sentinel-quarantined "
+                                      "step on the CPU (exit 0 = fault "
+                                      "reproduced)")
+    p.add_argument("bundle", help="pickled repro bundle from the "
+                                  "sentinel's quarantine dir")
+    p.add_argument("--localize", action="store_true",
+                   help="re-execute op by op with per-op tensor-stat "
+                        "probes and name the FIRST op producing a "
+                        "non-finite output (creation site + stat "
+                        "trail); exit 0 = localized, 1 = clean")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report instead of prose")
+    p.set_defaults(fn=_cmd_replay)
+
+    p = sub.add_parser("ckpt",
+                       help="survey a checkpoint directory: steps, "
+                            "per-shard manifest status, saved topology, "
+                            "last-good pointer; verify re-hashes and "
+                            "exit-codes on corruption")
+    p.add_argument("action", choices=["inspect", "verify"])
+    p.add_argument("dir", help="checkpoint directory "
+                               "(CheckpointManager dirname)")
+    p.add_argument("--step", type=int, default=None,
+                   help="limit to one committed step")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report")
+    p.set_defaults(fn=_cmd_ckpt)
+
+    p = sub.add_parser("profile",
+                       help="device-performance profiling family: "
+                            "per-op device time (op), per-signature "
+                            "cost/memory records (compile), HBM census "
+                            "(memory), N-step feed/dispatch/device-wait/"
+                            "fetch breakdown (step)")
+    p.add_argument("action", nargs="?", default="op",
+                   choices=["op", "compile", "memory", "step"],
+                   help="op = per-IR-op device-time table (default); "
+                        "compile = per-signature FLOPs/bytes/memory + "
+                        "prepare/first-run/capture seconds; memory = "
+                        "HBM census by collection; step = per-step "
+                        "phase breakdown (+ --trace-dir for a "
+                        "torch.profiler trace)")
+    p.add_argument("--model", default="transformer",
+                   choices=["transformer", "resnet"],
+                   help="built-in model for op/step modes")
+    p.add_argument("--zoo", default="mnist",
+                   help="zoo model for compile/memory modes "
+                        "(mnist|resnet|vgg|transformer|seq2seq|"
+                        "stacked_lstm|gen_lm)")
+    p.add_argument("--place", default="cuda:0",
+                   help="cuda[:N] (default cuda:0) or cpu")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=64,
+                   help="sequence length (transformer) or image side "
+                        "(resnet)")
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--sorted-by", default="total",
+                   choices=["total", "calls"])
+    p.add_argument("--trace-dir", default=None,
+                   help="with step: also write a torch.profiler trace "
+                        "of the measured window here")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report (compile/memory)")
+    p.set_defaults(fn=_cmd_profile)
 
     p = sub.add_parser("selfcheck", help="every static gate in one pass; "
                                          "not ported yet (raises)")

@@ -11,8 +11,10 @@ runs it as a CUDA graph:
      program id and version, block, AMP, scope id, op profiling, the
      feeds' names, dtypes and shapes, their frozen LoDs and the fetch
      names (and ``check_nan_inf``, which moves the write-back out of the
-     graph).  The reference's numerics probing and ``_release_memory``
-     are not ported (ROADMAP items 9 and 7) and are not in the key.
+     graph); a guarded step (``sentinel=``), numerics probing and the op
+     ranges of a device profile add a component, so an unguarded step's
+     key stays as it is.  The reference's ``_release_memory`` is not
+     ported (ROADMAP item 7) and is not in the key.
   2. ``_get_compiled`` looks the signature up in an LRU cache of
      ``jit_cache_capacity()`` entries (``PADDLE_TPU_JIT_CACHE_SIZE``,
      default 64), counting ``jit_cache.hits`` / ``.misses`` /
@@ -118,6 +120,27 @@ on a clone (:meth:`Executor._maybe_optimize`), and
 naming the first fetch or state variable that is not finite, after the
 step and before its write-back.
 
+The training sentinel (``run(..., sentinel=...)``, the JAX package's,
+``paddle_tpu/executor.py:519-531``): its check runs after the step and
+before the state's write-back, which a guarded signature keeps outside
+its CUDA graph, as ``check_nan_inf`` does; a trip leaves the scope
+holding the pre-step state (the rows a sparse optimizer branch wrote in
+place are put back from copies the guarded step takes before each
+write) and raises :class:`~paddle_tpu_torch.fault.NumericalFault` with a
+lazily built repro payload (:meth:`Executor._repro_payload`).  With
+``sentinel=None`` nothing of this runs.  Numerics probing
+(``obs.numerics.probe``) forces the eager step and calls
+``numerics.record_op`` after each op; ``profiler.compiled_profiler``
+forces it too and opens a ``torch.profiler.record_function`` range named
+``profiler.op_scope_name(op)`` around each op.
+
+Device performance (``obs/perf.py``): each prepared signature keeps a
+cost record; a step that returns numpy fetches sets the ``train.mfu``
+gauge (``gen.decode_mfu`` for a program tagged so, none for an untagged
+inference program, ``_mfu_gauge_for``), each step ticks the HBM census
+cadence, and under ``perf.enable_step_phases()`` the step records the
+``perf.step.{feed,dispatch,device_wait,fetch}_seconds`` series.
+
 Fetches come back as numpy arrays; a bfloat16 value is widened to
 float32 (:func:`~paddle_tpu_torch.convert.fetch_numpy`), where the JAX
 package returns an ml_dtypes bfloat16 array.  With ``return_numpy=False``
@@ -142,6 +165,8 @@ from paddle_tpu_torch.convert import fetch_numpy, to_tensor
 from paddle_tpu_torch.framework import Program, default_main_program
 from paddle_tpu_torch.lod import (SPLITS_SUFFIX, DynLoD, bucket_ragged_feed,
                                   next_bucket, validate_lod)
+from paddle_tpu_torch.obs import numerics as _numerics
+from paddle_tpu_torch.obs import perf as _perf
 from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.csp_ops import CSP_OPS
@@ -149,7 +174,8 @@ from paddle_tpu_torch.ops.reader_ops import (READER_CREATE_OPS, READER_OPS,
                                              EOFException, build_reader)
 from paddle_tpu_torch.place import default_place
 from paddle_tpu_torch.scope import global_scope
-from paddle_tpu_torch.step_graph import GeneratorTable, StepGraph
+from paddle_tpu_torch.step_graph import (GeneratorTable, StepGraph, checked,
+                                         undoer)
 
 __all__ = ["Executor", "lower_block", "fetch_var", "jit_cache_capacity"]
 
@@ -230,10 +256,14 @@ def lower_block(block, env, aux):
     tensor), merging each op's outputs into it.  Each op takes the next
     ``__rng_slots__`` (default 1) slots of ``aux["rng_counter"]``; the
     last of them keys its random draws.  While op profiling is on
-    (``aux["profile"]``) each op is timed (``profiler.record_op``); under
-    a CUDA graph capture (``aux["capturing"]``) a lowering that fails
-    raises naming its op."""
+    (``aux["profile"]``) each op is timed (``profiler.record_op``); with
+    ``aux["op_ranges"]`` it runs inside a ``record_function`` range named
+    ``profiler.op_scope_name(op)``; with ``aux["probe"]`` its outputs go
+    to ``numerics.record_op``; under a CUDA graph capture
+    (``aux["capturing"]``) a lowering that fails raises naming its op."""
     profiling = aux.get("profile")
+    ranges = aux.get("op_ranges")
+    probing = aux.get("probe")
     for i, op in enumerate(block.ops):
         if op.type in _SKIP_OPS:
             continue
@@ -243,7 +273,11 @@ def lower_block(block, env, aux):
         ctx = registry.LowerContext(op, env, block, aux=aux,
                                     op_index=aux["rng_counter"])
         try:
-            if profiling:
+            if ranges:
+                with torch.profiler.record_function(
+                        _profiler.op_scope_name(op)):
+                    opdef.lower(ctx)
+            elif profiling:
                 with _profiler.record_op(op.type, ctx):
                     opdef.lower(ctx)
             else:
@@ -257,6 +291,10 @@ def lower_block(block, env, aux):
                 raise err from e
             raise
         env.update(ctx.outputs)
+        if probing:
+            # per-op numerics probes (obs/numerics.py): stats of every
+            # output right after the op ran, first-non-finite capture
+            _numerics.record_op(op, ctx.outputs, env)
         _share_lod(op, ctx.outputs, env, aux)
     return env
 
@@ -452,13 +490,17 @@ def jit_cache_capacity():
 class _CompiledBlock:
     """A prepared block for one feed/fetch signature (the reference's
     holder of its jitted step): ``_prepare``'s partitions and capture
-    decision, and ``fn(feeds, rng_seed, check)``, which runs one step and
-    returns ``(fetches, stats, owned)``: the eager step
-    (:class:`_EagerStep`) or, on the card, a
-    :class:`~paddle_tpu_torch.step_graph.StepGraph`."""
+    decision, its cost record (``obs/perf.py``, or None), and ``fn(feeds,
+    rng_seed, check)``, which runs one step and returns ``(fetches,
+    stats, owned)``: the eager step (:class:`_EagerStep`) or, on the card,
+    a :class:`~paddle_tpu_torch.step_graph.StepGraph`.  ``check(fetches,
+    new_state, restore)`` runs before the write-back and returns the
+    values to write back; ``restore()`` puts back the rows a guarded
+    step wrote in place (:func:`undoer`)."""
 
-    def __init__(self, fn, parts, fetch_names):
+    def __init__(self, fn, parts, fetch_names, record=None):
         self.fn = fn
+        self.perf_record = record
         self.fetch_names = fetch_names
         self.feed_names = parts["feed_names"]
         self.ro_names = parts["ro_names"]
@@ -470,20 +512,28 @@ class _CompiledBlock:
 
 class _EagerStep:
     """``fn`` of an eager block: the prepared step, then the check and
-    the write-back of the written state to the scope."""
+    the write-back of the written state to the scope.  Its first call
+    fills the signature's cost record (``perf.FirstRun``)."""
 
-    def __init__(self, step, scope):
+    def __init__(self, step, scope, device, record=None):
         self.step = step
         self.scope = scope
+        self.device = device
+        self.record = record
 
     def __call__(self, feeds, rng_seed, check):
-        fetches, new_state, _, stats = self.step(
+        first = _perf.FirstRun(self.record, self.device)
+        fetches, new_state, state_in, stats = self.step(
             feeds, rng_seed, GeneratorTable(rng_seed), False)
+        first.done(feeds, state_in, fetches, new_state)
+        self.record = None
         registry.raise_fault(stats["fault"], stats["fault_sites"])
         if check is not None:
             # before the write-back: a failing step leaves the scope as
-            # it was (in-place updates of a pool or a table excepted)
-            check(fetches, new_state)
+            # it was (a guarded step's in-place rows are put back; a KV
+            # pool's in-place writes stay)
+            fetches, new_state = checked(check, fetches, new_state,
+                                         undoer(stats.get("undo")))
         for n, v in new_state.items():
             self.scope.set_var(n, v)
         for n, lod in stats["state_lods"].items():
@@ -515,6 +565,7 @@ class Executor:
     def __init__(self, place=None):
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
+        _perf.arm_census_from_env()
         self._cache = {}
         self._cache_capacity = jit_cache_capacity()
         self._run_counter = 0
@@ -546,27 +597,38 @@ class Executor:
 
     # ------------------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, use_program_cache=True):
+            return_numpy=True, use_program_cache=True, sentinel=None):
         """Run ``program``'s global block once.  ``feed``: name -> array
         or tensor, or ``(value, lod)`` for a ragged variable (``lod``: a
         list of levels of row splits, the last ending at the value's row
         count); ``fetch_list``: Variables or names.  Returns the fetched
         values as numpy arrays (``return_numpy``) or tensors on the
         place's device that the caller owns.  ``use_program_cache`` is
-        accepted for API parity: the step cache is always on."""
+        accepted for API parity: the step cache is always on.
+
+        ``sentinel``: an optional :class:`paddle_tpu_torch.fault.Sentinel`
+        guarding this step: its finite and spike checks run before the
+        state's write-back, and a trip discards the update and raises
+        :class:`~paddle_tpu_torch.fault.NumericalFault`.  A guarded
+        signature is a cache entry (and a CUDA graph) of its own, whose
+        write-back runs after the replay.  ``sentinel=None`` is the
+        unguarded step, with no added host sync."""
         program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list, feed)
         block = program.global_block()
         with _span("executor.run"):
             return self._run_traced(program, block, feed or {},
-                                    fetch_names, scope, return_numpy)
+                                    fetch_names, scope, return_numpy,
+                                    sentinel)
 
     def _run_traced(self, program, block, feed, fetch_names, scope,
-                    return_numpy):
+                    return_numpy, sentinel=None):
         """Body of :meth:`run`, phase-annotated as the JAX package's:
         ``executor.feed`` (host -> device), ``executor.dispatch`` (the
-        cache lookup and the step or graph replay), ``executor.fetch``
-        (the fetches' conversion)."""
+        cache lookup and the step or graph replay, with the sentinel's
+        check), ``executor.fetch`` (the fetches' conversion)."""
+        phases = _perf.step_phases_enabled()
+        t_feed = time.perf_counter()
         with _span("executor.feed"):
             feeds = {}
             for name, value in feed.items():
@@ -597,36 +659,59 @@ class Executor:
                 # a dense feed clears a stale LoD of an earlier ragged one
                 scope.set_lod(name, lod)
             _run_reader_ops(block, scope, feeds, self.device)
+        feed_dt = time.perf_counter() - t_feed
         with self._lock:
             with _span("executor.dispatch") as dsp:
-                compiled = self._get_compiled(program, block, feeds,
-                                              tuple(fetch_names), scope)
+                compiled = self._get_compiled(
+                    program, block, feeds, tuple(fetch_names), scope,
+                    guarded=sentinel is not None)
                 t0 = time.perf_counter()
-                fetches, owned, fault = self._dispatch(compiled, program,
-                                                       feeds)
+                fetches, owned, fault = self._dispatch(
+                    compiled, program, feeds, scope, sentinel)
                 dt = time.perf_counter() - t0
                 dsp.set(fetches=len(fetch_names), graphed=not owned)
             _profiler.runtime_metrics.observe("executor.step_seconds", dt)
+            _perf.census_tick(scope)
             with _span("executor.fetch"):
                 if fault is not None:
                     registry.raise_fault(*fault)
+                if phases:
+                    # profile-step mode only: one explicit sync separates
+                    # "device still computing" from the host conversion
+                    tw = time.perf_counter()
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    t_fetch = time.perf_counter()
+                    _profiler.runtime_metrics.observe(
+                        "perf.step.device_wait_seconds", t_fetch - tw)
                 if return_numpy:
-                    return [fetch_numpy(v) for v in fetches]
-                return fetches if owned else [v.clone() for v in fetches]
+                    result = [fetch_numpy(v) for v in fetches]
+                    gauge = _mfu_gauge_for(program)
+                    if gauge:
+                        # the host conversion waited for the device: the
+                        # whole step's wall time, feeds to fetches
+                        _perf.note_step(compiled.perf_record,
+                                        time.perf_counter() - t_feed,
+                                        gauge=gauge)
+                else:
+                    result = fetches if owned \
+                        else [v.clone() for v in fetches]
+                if phases:
+                    m = _profiler.runtime_metrics
+                    m.observe("perf.step.feed_seconds", feed_dt)
+                    m.observe("perf.step.dispatch_seconds", dt)
+                    m.observe("perf.step.fetch_seconds",
+                              time.perf_counter() - t_fetch)
+                return result
 
-    def _dispatch(self, compiled, program, feeds):
+    def _dispatch(self, compiled, program, feeds, scope=None, sentinel=None):
         """One step of ``compiled`` on ``feeds``: ``(fetches, owned,
         fault)``; ``fault`` is a replayed graph's ``(word, sites)``, for
         the caller to read (an eager step raised already), else None."""
         self._run_counter += 1
         rng_seed = int(program.random_seed or 0) * 1000003 + \
             self._run_counter
-        check = None
-        if _check_nan_inf_enabled(program):
-            names = compiled.fetch_names
-
-            def check(fetches, new_state):
-                _check_nan_inf(names, fetches, new_state)
+        check = self._step_check(compiled, program, feeds, scope, sentinel)
         self._last_compiled = compiled
         fetches, stats, owned = compiled.fn(feeds, rng_seed, check)
         self.last_run = {k: stats.get(k, 0)
@@ -636,6 +721,55 @@ class Executor:
         if not owned and stats.get("fault") is not None:
             fault = (stats["fault"], stats["fault_sites"])
         return fetches, owned, fault
+
+    def _step_check(self, compiled, program, feeds, scope, sentinel):
+        """The ``check(fetches, new_state, restore)`` a step runs before
+        its write-back: the sentinel's (``after_step``, with the pre-step
+        parameters for its health norms and a lazy repro payload, which
+        puts back in-place rows first), then ``check_nan_inf``'s; None
+        when neither is on."""
+        nan_check = _check_nan_inf_enabled(program)
+        if sentinel is None and not nan_check:
+            return None
+        names = compiled.fetch_names
+
+        def check(fetches, new_state, restore):
+            if sentinel is not None:
+                prev = {n: scope.find_var(n) for n in compiled.param_names}
+                fetches, new_state = sentinel.after_step(
+                    names, fetches, new_state,
+                    repro=lambda: (restore(), self._repro_payload(
+                        program, compiled, feeds, scope))[1],
+                    prev_state=prev, param_names=compiled.param_names)
+            if nan_check:
+                _check_nan_inf(names, fetches, new_state)
+            return fetches, new_state
+        return check
+
+    def _repro_payload(self, program, compiled, feeds, scope):
+        """Self-contained replay payload for a sentinel quarantine bundle
+        (the JAX package's, ``paddle_tpu/executor.py:576-592``): the
+        program dict, the PRE-step state the step reads, the batch and the
+        RNG coordinates needed to re-execute this exact step offline
+        (``python -m paddle_tpu_torch replay``), as numpy arrays (bfloat16
+        widened to float32), and the device type whose generators drew
+        the step's random values (``rng_device``).  Built lazily, only on
+        a trip, before the write-back."""
+        state = {}
+        for n in compiled.ro_names + compiled.inout_names:
+            v = scope.find_var(n)
+            if isinstance(v, (torch.Tensor, np.ndarray)):
+                state[n] = fetch_numpy(v)
+        return {"program": program.to_dict(),
+                "random_seed": program.random_seed,
+                "run_counter": self._run_counter,
+                # the step's generators are this device's (Philox on a
+                # card, MT19937 on the CPU): a replay elsewhere draws
+                # other values from the same seed
+                "rng_device": self.device.type,
+                "feed": {n: fetch_numpy(v) for n, v in feeds.items()},
+                "state": state,
+                "fetch_names": list(compiled.fetch_names)}
 
     def run_steps(self, program=None, feed=None, fetch_list=None, steps=1,
                   scope=None, return_numpy=True):
@@ -684,6 +818,7 @@ class Executor:
         sample = dict(const_feed)
         sample.update({n: t[0] for n, t in per_step.items()})
         outs, word, sites = [], None, None
+        t0 = time.perf_counter()
         with self._lock:
             compiled = self._get_compiled(program, block, sample,
                                           tuple(fetch_names), scope)
@@ -702,8 +837,17 @@ class Executor:
         registry.raise_fault(word, sites)
         stacked = [torch.stack([o[j] for o in outs])
                    for j in range(len(fetch_names))]
+        _perf.census_tick(scope)
         if return_numpy:
-            return [fetch_numpy(v) for v in stacked]
+            result = [fetch_numpy(v) for v in stacked]
+            gauge = _mfu_gauge_for(program)
+            if gauge:
+                # the window's wall time, its conversion waited for the
+                # device; the record prices one step
+                _perf.note_step(compiled.perf_record,
+                                time.perf_counter() - t0, gauge=gauge,
+                                flops_scale=steps)
+            return result
         return stacked
 
     def _ragged_window(self, program, block, scope, name, value, steps):
@@ -908,28 +1052,35 @@ class Executor:
         self._verified.add(key)
 
     # ------------------------------------------------------------------
-    def _signature(self, program, block, feeds, fetch_names, scope):
+    def _signature(self, program, block, feeds, fetch_names, scope,
+                   guarded=False):
         """Cheap cache key — no per-op work, safe to compute every step.
         The reference's components (``paddle_tpu/executor.py:1087``) but
-        numerics probing and ``_release_memory`` (not ported: ROADMAP
-        items 9 and 7), and ``check_nan_inf`` after them (it moves a
-        graph's write-back after the check).  A distinct LoD is a
-        distinct entry: the LoD is host metadata of the step; a bucketed
-        feed's is its meta ``("dyn", B, T_bucket)``, its splits a feed."""
+        ``_release_memory`` (not ported: ROADMAP item 7), and
+        ``check_nan_inf`` after them (it moves a graph's write-back after
+        the check).  A guarded step, numerics probing and the op ranges
+        of a device profile append one tuple naming them, so that an
+        unguarded, unprobed step's key is the plain one.  A distinct LoD
+        is a distinct entry: the LoD is host metadata of the step; a
+        bucketed feed's is its meta ``("dyn", B, T_bucket)``, its splits
+        a feed."""
         feed_lods = tuple(sorted(
             (n, _freeze_lod(scope.find_lod(n))) for n in feeds
             if scope.find_lod(n) is not None))
-        return (id(program), program._version, block.idx,
-                _amp_enabled(program),
-                id(scope),  # the step binds the scope
-                _profiler.op_profiling_enabled(),  # forces the eager step
-                tuple(sorted((n, str(a.dtype), tuple(a.shape))
-                             for n, a in feeds.items())),
-                feed_lods,
-                tuple(fetch_names),
-                _check_nan_inf_enabled(program))
+        sig = (id(program), program._version, block.idx,
+               _amp_enabled(program),
+               id(scope),  # the step binds the scope
+               _profiler.op_profiling_enabled(),  # forces the eager step
+               tuple(sorted((n, str(a.dtype), tuple(a.shape))
+                            for n, a in feeds.items())),
+               feed_lods,
+               tuple(fetch_names),
+               _check_nan_inf_enabled(program))
+        extra = _step_modes(guarded)
+        return sig + (extra,) if extra else sig
 
-    def _prepare(self, program, block, feeds, fetch_names, scope):
+    def _prepare(self, program, block, feeds, fetch_names, scope,
+                 guarded=False):
         """Classify the block's variables and build the step function
         (reference ``paddle_tpu/executor.py:1111``).
 
@@ -938,7 +1089,8 @@ class Executor:
         ``create_state``), ``param_names`` and ``interpret`` (the capture
         rule: True keeps the block eager).  O(#ops): callers hit the
         signature cache first."""
-        sig = self._signature(program, block, feeds, fetch_names, scope)
+        sig = self._signature(program, block, feeds, fetch_names, scope,
+                              guarded)
         feed_names = tuple(sorted(feeds))
 
         # classify non-feed external inputs (state) and written persistables
@@ -1008,13 +1160,17 @@ class Executor:
                 not getattr(program, "expect_host_ops", False):
             _warn_host_op_cliff(program, block, dyn)
         profiling = _profiler.op_profiling_enabled()
+        probing = _numerics.probing_enabled()
+        ranges = _profiler.op_ranges_enabled()
         opt_interpret = bool(getattr(program, "_opt_interpret", False))
-        interpret = host or profiling or opt_interpret
+        # op profiling, probes and op ranges act per op: the eager step
+        interpret = host or profiling or probing or ranges or opt_interpret
         # under the switch, the JAX package would trace this block (its
         # rule: no ``host`` op but the dynamic-LoD ones): a static LoD is
         # a constant of the step (``lod.tables``), and sequence_slice /
         # sequence_erase take their bucketed branch over it
-        traced = buckets and not (profiling or opt_interpret or any(
+        traced = buckets and not (profiling or probing or ranges or
+                                  opt_interpret or any(
             _ref_host(op, buckets) for op in _walk_ops(block)))
 
         lod_map = {n: DynLoD(n + SPLITS_SUFFIX, lod[1], lod[2])
@@ -1046,8 +1202,12 @@ class Executor:
                    "rng_seed": rng_seed, "generators": generators,
                    "rng_counter": -1, "amp": amp, "scope": scope,
                    "lower_block": lower_block, "profile": profiling,
+                   "probe": probing, "op_ranges": ranges,
                    "capturing": capturing, "constants": constants,
                    "traced": traced,
+                   # a guarded step's in-place writes, to put back on a
+                   # trip (the sparse optimizer branches fill it)
+                   "undo": [] if guarded else None,
                    # the feeds' and the state's LoDs; ops add theirs
                    # (set_output_lod) and _share_lod passes them on
                    "lod": lods}
@@ -1068,6 +1228,7 @@ class Executor:
             stats["fetch_lods"] = {n: aux["lod"][n] for n in fetch_names
                                    if isinstance(aux["lod"].get(n), list)}
             stats["fault"], stats["fault_sites"] = registry.fault_word(aux)
+            stats["undo"] = aux["undo"]
             return fetches, new_state, env.loaded, stats
 
         return {"sig": sig, "step": step, "feed_names": feed_names,
@@ -1075,23 +1236,31 @@ class Executor:
                 "create_state": create_state, "interpret": interpret,
                 "param_names": param_names}
 
-    def _get_compiled(self, program, block, feeds, fetch_names, scope):
+    def _get_compiled(self, program, block, feeds, fetch_names, scope,
+                      guarded=False):
         """The cached entry of this run's signature (an LRU hit bumps it,
         ``jit_cache.hits``), else a prepared one (``jit_cache.misses``,
-        ``executor.prepare_seconds``): on the card a
+        ``executor.prepare_seconds``, a cost record): on the card a
         :class:`~paddle_tpu_torch.step_graph.StepGraph` unless the capture
-        rule keeps the block eager."""
-        sig = self._signature(program, block, feeds, fetch_names, scope)
+        rule keeps the block eager.  The graph writes its state back as
+        its last nodes unless a check must see the step first
+        (``check_nan_inf`` or a sentinel)."""
+        sig = self._signature(program, block, feeds, fetch_names, scope,
+                              guarded)
         hit = self._cache.get(sig)
         if hit is not None:
             self._cache[sig] = self._cache.pop(sig)  # LRU bump
             _profiler.runtime_metrics.inc("jit_cache.hits")
             return hit
         _profiler.runtime_metrics.inc("jit_cache.misses")
+        t0 = time.perf_counter()
         with _profiler.record_latency("executor.prepare_seconds"):
-            parts = self._prepare(program, block, feeds, fetch_names, scope)
+            parts = self._prepare(program, block, feeds, fetch_names, scope,
+                                  guarded)
+        record = _perf.new_record(program, feeds, fetch_names,
+                                  time.perf_counter() - t0, self.device)
         if parts["interpret"] or self.device.type != "cuda":
-            fn = _EagerStep(parts["step"], scope)
+            fn = _EagerStep(parts["step"], scope, self.device, record)
         else:
             label = ",".join(f"{n}{list(feeds[n].shape)}"
                              for n in parts["feed_names"]) or "no feeds"
@@ -1100,8 +1269,10 @@ class Executor:
                            parts["create_state"],
                            self._graph_shared,
                            label=f"{label} -> {len(fetch_names)} fetches",
-                           writeback_in_graph=not sig[-1])
-        compiled = _CompiledBlock(fn, parts, tuple(fetch_names))
+                           writeback_in_graph=not (
+                               guarded or _check_nan_inf_enabled(program)),
+                           record=record)
+        compiled = _CompiledBlock(fn, parts, tuple(fetch_names), record)
         self._cache_insert(sig, compiled)
         return compiled
 
@@ -1124,6 +1295,27 @@ class Executor:
             self._graph_shared = _GraphShared(self.device)
             self._opt_cache.clear()
             self._verified.clear()
+
+
+def _step_modes(guarded):
+    """The signature's optional component: the modes that change how a
+    step runs (a sentinel guard, numerics probes, op ranges), or ()."""
+    return tuple(name for name, on in (
+        ("guarded", guarded), ("probing", _numerics.probing_enabled()),
+        ("op_ranges", _profiler.op_ranges_enabled())) if on)
+
+
+def _mfu_gauge_for(program):
+    """Which MFU gauge a program's steps feed (the JAX package's,
+    ``paddle_tpu/executor.py:1331``): an explicit ``_mfu_gauge`` tag wins
+    (``GenPredictor`` tags its decode program ``gen.decode_mfu``);
+    untagged TRAINING programs feed ``train.mfu``; untagged inference
+    programs (a serving ``Predictor``, a prefill) none, so that a one-shot
+    prefill does not overwrite the training and decode gauges."""
+    tagged = getattr(program, "_mfu_gauge", None)
+    if tagged:
+        return tagged
+    return None if program._is_inference else "train.mfu"
 
 
 def _safe_var(block, name):

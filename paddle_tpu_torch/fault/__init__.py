@@ -17,8 +17,10 @@
   failpoint names); a disarmed failpoint costs one dict lookup.
 - :mod:`paddle_tpu_torch.fault.retry` — :class:`RetryPolicy` (bounded
   attempts, exponential backoff + jitter, deadline).
-
-The sentinel is not ported yet (ROADMAP queue 1 item 9).
+- :mod:`paddle_tpu_torch.fault.sentinel` — :class:`Sentinel`: numerical
+  fault detection on ``Executor.run(..., sentinel=...)``, skip-step,
+  quarantine bundles, rollback to the last known-good checkpoint, and
+  the bundles' CPU replay.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ from paddle_tpu_torch.fault.checkpoint import (CheckpointManager,
 from paddle_tpu_torch.fault.lifecycle import (GracefulShutdown,
                                               graceful_shutdown)
 from paddle_tpu_torch.fault.retry import RetryError, RetryPolicy, retrying
+from paddle_tpu_torch.fault.sentinel import (BUNDLE_FORMAT, NumericalFault,
+                                             Sentinel, load_bundle,
+                                             replay_bundle,
+                                             sentinel_from_env)
 from paddle_tpu_torch.fault.shard_ckpt import ReshardError
 
 __all__ = [
@@ -40,6 +46,8 @@ __all__ = [
     "verify_checkpoint", "ReshardError",
     "GracefulShutdown", "graceful_shutdown",
     "RetryError", "RetryPolicy", "retrying",
+    "Sentinel", "NumericalFault", "sentinel_from_env", "replay_bundle",
+    "load_bundle", "BUNDLE_FORMAT",
 ]
 
 # parse PADDLE_TPU_CHAOS eagerly so a malformed spec fails fast at

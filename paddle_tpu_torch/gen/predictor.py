@@ -41,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -49,6 +50,7 @@ from paddle_tpu_torch.convert import to_numpy, to_tensor
 from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.fault import chaos
 from paddle_tpu_torch.io import load_inference_model
+from paddle_tpu_torch.obs import perf as _perf
 from paddle_tpu_torch.lod import pad_to_bucket, row_bucket
 from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.place import default_place
@@ -114,9 +116,29 @@ class GenPredictor:
             (self._pre_prog, self._pre_feeds, self._pre_fetch),
             (self._dec_prog, self._dec_feeds, self._dec_fetch),
             self.meta)).raise_on_errors(where="gen.GenPredictor")
+        # decode steps feed gen.decode_mfu (not train.mfu): the executor
+        # reads the gauge off this program attribute
+        self._dec_prog._mfu_gauge = "gen.decode_mfu"
         if self.paged:
             dec_block = self._dec_prog.global_block()
             self._hd = int(dec_block.var(self.cache_vars[0]).shape[-1])
+        # HBM census: the KV pool is a collection of its own, ``kv_pages``
+        # for a paged bundle and ``kv_cache`` for the dense layout (the
+        # host page table is no device memory); weakly referenced, so a
+        # dropped predictor is released
+        ref = weakref.ref(self)
+
+        def _kv_buffers():
+            p = ref()
+            if p is None:
+                return ()
+            return [v for v in (p._scope.find_var(n)
+                                for n in p.cache_vars) if v is not None]
+
+        self._hbm_token = _perf.register_hbm_provider(
+            "kv_pages" if self.paged else "kv_cache", _kv_buffers)
+        weakref.finalize(self, _perf.unregister_hbm_provider,
+                         self._hbm_token)
         # static prefill cost per (bucket[, pages]) and the cost model's
         # fits, built lazily; consumed by GenScheduler's admission budget
         self._prefill_cost = {}

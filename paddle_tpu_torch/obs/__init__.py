@@ -1,6 +1,6 @@
 """Observability spine of the port (its own copies of the JAX package's
-standard-library modules): structured tracing, the flight recorder,
-Prometheus exposition, the SLO watchdog and the warmup report.
+``obs`` modules): structured tracing, the flight recorder, Prometheus
+exposition, the SLO watchdog, device performance and numerics.
 
 - :mod:`paddle_tpu_torch.obs.trace` — spans with contextvar nesting and
   trace-context propagation, recorded into a bounded ring
@@ -12,7 +12,13 @@ Prometheus exposition, the SLO watchdog and the warmup report.
   runtime metrics (``/metrics``).
 - :mod:`paddle_tpu_torch.obs.slo` — declarative SLO specs
   (``PADDLE_TPU_SLO``) evaluated over the runtime metrics.
-- :mod:`paddle_tpu_torch.obs.perf` — ``WarmupReport``.
+- :mod:`paddle_tpu_torch.obs.perf` — one cost record per prepared
+  signature, the live MFU gauges (``train.mfu`` / ``gen.decode_mfu``),
+  the HBM census (``hbm.*``) with its headroom check, the step-phase
+  switch, and ``WarmupReport``.
+- :mod:`paddle_tpu_torch.obs.numerics` — per-op tensor-stat probes
+  (first non-finite op), bundle localization, and the fused
+  training-health norms the sentinel publishes.
 
 Metric, span and failpoint names are the JAX package's, listed in
 ``docs/observability.md`` and ``docs/fault_tolerance.md``.
@@ -24,6 +30,7 @@ from paddle_tpu_torch.obs import trace
 from paddle_tpu_torch.obs import flight
 from paddle_tpu_torch.obs import prom
 from paddle_tpu_torch.obs import perf
+from paddle_tpu_torch.obs import numerics
 from paddle_tpu_torch.obs import slo
 from paddle_tpu_torch.obs.trace import (span, record_span, trace_context,
                                         current_trace_id, new_trace_id,
@@ -33,7 +40,7 @@ from paddle_tpu_torch.obs.flight import write_postmortem, read_postmortem
 from paddle_tpu_torch.obs.prom import render_prometheus
 from paddle_tpu_torch.obs.slo import SLOWatchdog, load_spec, validate_spec
 
-__all__ = ["trace", "flight", "prom", "perf", "slo",
+__all__ = ["trace", "flight", "prom", "perf", "numerics", "slo",
            "span", "record_span", "trace_context",
            "current_trace_id", "new_trace_id", "chrome_trace",
            "dump_chrome_trace", "set_process_name", "snapshot_payload",

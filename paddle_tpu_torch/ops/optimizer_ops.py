@@ -20,7 +20,11 @@ a copy of the whole table each step here, which defeats O(batch·dim).
 Every slot of the grad takes part, its static count kept: a dead slot
 adds a zero at a clamped row (``sgd``) or rewrites a live slot's row with
 that slot's own new value (``adam``, ``adagrad``), so nothing is read on
-the host and a step may be captured in a CUDA graph.
+the host and a step may be captured in a CUDA graph.  Under a sentinel
+(``aux["undo"]`` a list) each in-place write first notes the rows it is
+about to change with their old values, which the executor puts back
+when the step's check trips, so a skipped step leaves the scope as it
+was, as the JAX package's functional update does.
 """
 
 from __future__ import annotations
@@ -67,6 +71,17 @@ def _target(ctx, in_slot, out_slot):
     return t
 
 
+def _rows_in_place(ctx, target, in_slot, rows, old):
+    """``target.<index write>_(0, rows, ...)`` is about to run: under a
+    guarded step note ``(target, rows, old)`` (``old`` the rows' values
+    before the write) so that a tripped check can put them back; only a
+    write into the input itself (not its copy) needs it."""
+    undo = ctx.aux.get("undo")
+    if undo is not None and target is ctx.input(in_slot):
+        undo.append((target, rows, old))
+    return target
+
+
 def _lr(ctx, dtype=None):
     lr = ctx.input("LearningRate").reshape(())
     return lr if dtype is None else lr.to(dtype)
@@ -81,6 +96,8 @@ def sgd_lower(ctx):
         # grad's rows, duplicates included
         rows, value = g.clamped()
         p = _target(ctx, "Param", "ParamOut")
+        if ctx.aux.get("undo") is not None:
+            _rows_in_place(ctx, p, "Param", rows, p.index_select(0, rows))
         ctx.set_output("ParamOut", p.index_add_(
             0, rows, (-_lr(ctx, p.dtype) * value).to(p.dtype)))
         return
@@ -136,13 +153,16 @@ def adam_lower(ctx):
         p_old = p.index_select(0, rows)
         p_rows = p_old - (lr_t * m1_rows /
                           (torch.sqrt(m2_rows) + eps)).to(p.dtype)
-        ctx.set_output("ParamOut", p.index_copy_(
-            0, rows, gate_dead_slots(live, first, p_rows, p_old)))
-        ctx.set_output("Moment1Out", _target(
-            ctx, "Moment1", "Moment1Out").index_copy_(
+        ctx.set_output("ParamOut", _rows_in_place(
+            ctx, p, "Param", rows, p_old).index_copy_(
+                0, rows, gate_dead_slots(live, first, p_rows, p_old)))
+        ctx.set_output("Moment1Out", _rows_in_place(
+            ctx, _target(ctx, "Moment1", "Moment1Out"), "Moment1", rows,
+            m1_old).index_copy_(
                 0, rows, gate_dead_slots(live, first, m1_rows, m1_old)))
-        ctx.set_output("Moment2Out", _target(
-            ctx, "Moment2", "Moment2Out").index_copy_(
+        ctx.set_output("Moment2Out", _rows_in_place(
+            ctx, _target(ctx, "Moment2", "Moment2Out"), "Moment2", rows,
+            m2_old).index_copy_(
                 0, rows, gate_dead_slots(live, first, m2_rows, m2_old)))
         return
     m1n = beta1 * m1 + (1.0 - beta1) * g
@@ -193,11 +213,13 @@ def adagrad_lower(ctx):
         p_old = p.index_select(0, rows)
         p_rows = (p_old - _lr(ctx) * gv /
                   (torch.sqrt(m_rows) + eps)).to(p.dtype)
-        ctx.set_output("MomentOut", _target(
-            ctx, "Moment", "MomentOut").index_copy_(
+        ctx.set_output("MomentOut", _rows_in_place(
+            ctx, _target(ctx, "Moment", "MomentOut"), "Moment", rows,
+            m_old).index_copy_(
                 0, rows, gate_dead_slots(live, first, m_rows, m_old)))
-        ctx.set_output("ParamOut", p.index_copy_(
-            0, rows, gate_dead_slots(live, first, p_rows, p_old)))
+        ctx.set_output("ParamOut", _rows_in_place(
+            ctx, p, "Param", rows, p_old).index_copy_(
+                0, rows, gate_dead_slots(live, first, p_rows, p_old)))
         return
     m_new = m + torch.square(g)
     ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))

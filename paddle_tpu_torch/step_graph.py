@@ -18,8 +18,11 @@ once, never pays a capture.
   value is the buffer itself (``paged_attention`` updates the pool in
   place); a new value or a fetch that shares storage with a written
   buffer is cloned first, so no copy reads what another wrote.  Under
-  ``check_nan_inf`` the copies run after the replay instead, once the
-  check passed.  Before a replay, a state whose scope tensor is no
+  ``check_nan_inf`` or a sentinel the copies run after the replay
+  instead, once the check passed; a guarded step's sparse optimizer
+  branches also copy out the rows they are about to write in place, and
+  a check that fails puts them back (:func:`undoer`), so the scope keeps
+  its pre-step state.  Before a replay, a state whose scope tensor is no
   longer the captured one (a user's ``set_var``, a load, the
   predictor's pool restore) is copied in and the scope pointed back at
   the buffer; one of another shape or dtype raises.
@@ -59,9 +62,28 @@ import torch
 from paddle_tpu_torch import profiler as _profiler
 from paddle_tpu_torch.convert import to_tensor
 from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.obs import perf as _perf
 from paddle_tpu_torch.ops.registry import raise_fault, slot_seed
 
-__all__ = ["GeneratorTable", "StepGraph", "graph_node_count"]
+__all__ = ["GeneratorTable", "StepGraph", "graph_node_count", "undoer",
+           "checked"]
+
+
+def undoer(entries):
+    """A ``restore()`` that puts back, once, the rows a guarded step wrote
+    in place: ``entries`` are its ``(tensor, rows, old_rows)`` in write
+    order (``aux["undo"]``, filled by the sparse optimizer branches), put
+    back in reverse.  Under a graph the rows and old values are the
+    capture's buffers, holding the last replay's."""
+    done = []
+
+    def restore():
+        if entries and not done:
+            done.append(True)
+            with torch.no_grad():
+                for target, rows, old in reversed(entries):
+                    target.index_copy_(0, rows, old)
+    return restore
 
 
 def _seed_of(key, rng_seed):
@@ -138,11 +160,12 @@ class StepGraph:
     from or write to the scope; ``shared()`` gives the executor's graph
     pool handle and capture stream (one each per executor: a stream of
     its own would leave a cuBLAS workspace behind at every capture);
-    ``label`` names the graph in :meth:`stats`.  Calls are serialized by
-    the executor."""
+    ``label`` names the graph in :meth:`stats`; ``record`` is the
+    signature's cost record (its first run and capture are noted there).
+    Calls are serialized by the executor."""
 
     def __init__(self, step, scope, device, state_names, shared, label,
-                 writeback_in_graph=True):
+                 writeback_in_graph=True, record=None):
         self.step = step
         self.scope = scope
         self.device = device
@@ -166,6 +189,8 @@ class StepGraph:
         self._copies = []
         self._tally = {}
         self._stats = {}
+        self._undo = None
+        self._record = record
 
     # ------------------------------------------------------------------
     def __call__(self, feeds, rng_seed, check):
@@ -186,12 +211,15 @@ class StepGraph:
         """The signature's first run: a real eager step, recording its
         random draws for the capture."""
         table = GeneratorTable(rng_seed)
-        fetches, new_state, _, stats = self.step(feeds, rng_seed, table,
-                                                 False)
+        first = _perf.FirstRun(self._record, self.device)
+        fetches, new_state, state_in, stats = self.step(feeds, rng_seed,
+                                                        table, False)
+        first.done(feeds, state_in, fetches, new_state)
         self._gen_keys = tuple(table.keys)
         raise_fault(stats["fault"], stats["fault_sites"])
         if check is not None:
-            check(fetches, new_state)
+            fetches, new_state = checked(check, fetches, new_state,
+                                         undoer(stats.get("undo")))
         for n, v in new_state.items():
             self.scope.set_var(n, v)
         return fetches, stats, True
@@ -260,6 +288,7 @@ class StepGraph:
         dt = time.perf_counter() - t0
         self.graph = graph
         self._tally = dict(tally)
+        self._undo = stats.get("undo")
         self._stats = dict(stats, host_reads=0)
         self.captures += 1
         self.capture_seconds += dt
@@ -267,6 +296,7 @@ class StepGraph:
                          - reserved0) / 2 ** 30
         _profiler.runtime_metrics.observe("compile.backend_seconds", dt)
         _profiler.runtime_metrics.inc("compile.events")
+        _perf.note_capture(self._record, dt)
 
     def _plan_write_back(self, fetches, new_state, state_in):
         """(Under the capture.)  The buffers the graph reads and writes
@@ -339,9 +369,14 @@ class StepGraph:
             kernel.add_launches(n)
         if not self.writeback_in_graph:
             if check is not None:
-                check(self._fetches, self._new_state)
-            for dst, src in self._copies:
-                dst.copy_(src)
+                # a poisoned copy the check returns is never written: a
+                # poison always trips it
+                checked(check, self._fetches, self._new_state,
+                        undoer(self._undo))
+            if self._copies:
+                # one multi-tensor copy for the whole write-back
+                torch._foreach_copy_([d for d, _ in self._copies],
+                                     [s for _, s in self._copies])
         return self._fetches
 
     def stats(self):
@@ -354,3 +389,12 @@ class StepGraph:
                 "random_streams": len(self._gen_keys),
                 "launches": {k.name: n for k, n in self._tally.items()}}
 
+
+def checked(check, fetches, new_state, restore):
+    """Run ``check`` before a write-back; a check that raises puts back
+    the step's in-place rows first."""
+    try:
+        return check(fetches, new_state, restore)
+    except BaseException:
+        restore()
+        raise

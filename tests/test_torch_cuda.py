@@ -29,6 +29,7 @@ the products of bf16 values are exact in float32, only the order of the
 sums differs) to one rounding, ``_assert_matches``."""
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -1769,3 +1770,114 @@ def test_reader_fed_window_is_one_graph_equal_to_memory_fed_on_card(
     assert [(s["captures"], s["replays"]) for s in stats] == \
         [(1, 2 * steps - 1)]
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the device-facing services on the card: the sentinel's guarded graph,
+# numerics' statistics of a CUDA tensor, the census and device time
+# ---------------------------------------------------------------------------
+
+def _guarded_programs(sparse):
+    """A small W&D step (sparse Adam rows, in place) or an fc + Adam
+    step, and its feed."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import wide_and_deep
+    rng = np.random.RandomState(5)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup):
+        if sparse:
+            cost, _, _ = wide_and_deep.wide_and_deep_train_program(
+                8, vocab_size=64, num_slots=4, emb_dim=4, hidden=8)
+            feed = {"slot_ids": rng.randint(0, 12, (8, 4, 1)).astype(
+                        "int64"),
+                    "dense": rng.rand(8, 8).astype("float32"),
+                    "label": rng.randint(0, 2, (8, 1)).astype("int64")}
+        else:
+            x = pt.layers.data("x", shape=[16], dtype="float32")
+            y = pt.layers.fc(pt.layers.fc(x, 32, act="relu"), 1)
+            cost = pt.layers.mean(y)
+            feed = {"x": rng.rand(8, 16).astype("float32")}
+        pt.optimizer.Adam(learning_rate=0.1).minimize(cost)
+    return main, startup, cost, feed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_guarded_graph_skip_step_is_bit_equal_on_card(cuda_card, sparse):
+    """An unguarded signature writes back inside its graph; a guarded one
+    is a graph of its own whose write-back follows the check, and a
+    tripped replay leaves every tensor of the scope bit-equal (the sparse
+    rows written in place put back)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import NumericalFault, Sentinel, chaos
+    main, startup, cost, feed = _guarded_programs(sparse)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    s = Sentinel(cadence=1, spike_factor=None)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope, sentinel=s)
+    graphs = {sig[-1] == ("guarded",): c.fn for sig, c in exe._cache.items()
+              if hasattr(c.fn, "writeback_in_graph")}
+    assert graphs[False].writeback_in_graph
+    assert not graphs[True].writeback_in_graph and graphs[True].replays
+    before = {n: v.clone() for n, v in scope.items()
+              if isinstance(v, torch.Tensor)}
+    chaos.inject("sentinel.nan", times=1)
+    try:
+        with pytest.raises(NumericalFault):
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                    sentinel=s)
+    finally:
+        chaos.clear()
+    for n, v in before.items():
+        assert torch.equal(scope.find_var(n), v), n
+    # the next guarded replay trains as the unguarded one would
+    got, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                   sentinel=s)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_tensor_stats_of_a_card_tensor_equal_the_cpu_ones(cuda_card):
+    from paddle_tpu_torch.obs import numerics
+    x = torch.randn(257, 33, generator=torch.Generator().manual_seed(3))
+    x[0, :5] = float("nan")
+    x[1, 0] = float("inf")
+    for t in (x, x.to(torch.bfloat16), (x > 0).int()):
+        got = numerics.tensor_stats(t.cuda())
+        want = numerics.tensor_stats(t)
+        assert set(got) == set(want)
+        for k, w in want.items():
+            if isinstance(w, float):
+                assert got[k] == pytest.approx(w, rel=1e-5, abs=1e-6), k
+            else:
+                assert got[k] == w, k
+
+
+@pytest.mark.cuda
+def test_census_and_device_time_on_card(cuda_card):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.obs import perf
+    main, startup, cost, feed = _guarded_programs(False)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    census = perf.hbm_census(scope)
+    state = sum(v.numel() * v.element_size() for _, v in scope.items()
+                if isinstance(v, torch.Tensor))
+    assert census["params"] + census["optimizer"] == state
+    assert census["total"] <= torch.cuda.memory_allocated()
+    assert census["high_watermark"] >= census["total"]
+    assert census["limit"] == torch.cuda.mem_get_info()[1]
+    rec = exe._last_compiled.perf_record
+    assert rec["memory"]["temp_bytes"] is not None
+    assert rec["phases"]["backend_seconds"] > 0
+    t0 = time.perf_counter()
+    busy = profiler.measure_device_seconds(
+        lambda: [exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+                 for _ in range(3)])
+    assert 0 < busy <= time.perf_counter() - t0
