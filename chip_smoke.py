@@ -250,13 +250,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batches from one startup state, 18 + 18 bias-softmax launches a step,
    one cache miss; ms a step both ways.  ``phase_checkpoint_resume``:
    route A at dropout 0 in a trainer process that saves, receives
-   SIGTERM under ``GracefulShutdown`` after step 4 and commits, and a
-   second that ``restore_latest()``s and runs steps 5 to 8: every
-   persistable bit-identical to a run that never stopped; ``save_async``
-   then a step: the checkpoint equals the snapshot; a blocking save's
-   device peak under a quarter of the state (it clones nothing); the
-   state's GiB and save, verify and restore seconds (``--ckpt-trainer``
-   runs a trainer).
+   SIGTERM under ``GracefulShutdown`` after step ``CKPT_K`` and commits,
+   and a second that ``restore_latest()``s and runs the next ``CKPT_K``:
+   every persistable bit-identical to a run that never stopped;
+   ``save_async`` then a step: the checkpoint equals the snapshot; a
+   blocking save's device peak under a quarter of the state (it clones
+   nothing); the state's GiB and save, verify and restore seconds
+   (``--ckpt-trainer`` runs a trainer).
 13. The book's op families and semantic role labeling.
    ``phase_op_families``: each of the 54 op types of the tensor, math,
    loss, nn, metric, CRF and CTC families that this slice ported (held
@@ -326,7 +326,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``profile compile --json`` pass ``validate_report``; the paged
    serving bundle's decode sets ``gen.decode_mfu``, leaves ``train.mfu``
    and counts its pool as ``kv_pages``.
-16. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+16. The training loop a real run uses, on route A at full width
+   (graphed, bf16 AMP).  ``phase_datapipe_train``: ``PIPE_STEPS`` x 64
+   per-sample records written by ``recordio_writer``, read by
+   ``RecordIOSource -> shuffle(256) -> map(decode, workers=4) ->
+   batch(64) -> prefetch(depth=2)`` onto ``cuda:0`` and driven by
+   ``Executor.run_pipeline`` with a ``RunLedger`` at dropout 0.1: losses
+   bit-identical to a memory-fed ``Executor.run`` of the same batches in
+   the same order from one state, 18 + 18 bias-softmax launches a step,
+   one graph, one ledger row a step, the census's ``prefetch`` bytes
+   above 0 while batches wait and 0 after, the ``datapipe.next`` and
+   ``train.step`` spans through ``trace dump --local``; at dropout 0 the
+   resume drill (``PIPE_K`` steps, a commit while prefetch holds queued
+   batches, a fresh executor, scope, pipeline and ledger,
+   ``restore_latest()``, ``PIPE_K`` more under a sentinel with two
+   poisoned checks: one rollback to the restored step, the pipeline and
+   ledger rewound; every persistable bit for bit an unbroken run's, the
+   ledger one row a step, each batch applied once),
+   ``release_memory`` on an eager step and a capture (losses unchanged;
+   peak and pool printed), ``bench record`` / ``check`` of its figures;
+   ms a step both ways and the stall's p50 / p99 printed, gated on no
+   time.  ``phase_cli`` also runs ``version``, ``train --config`` (route
+   A at 1 layer through ``manager_from_env``, ``run_pipeline`` and a
+   ``RunLedger``, read back by ``runs show`` / ``runs tail``) and
+   ``infer --place cuda`` as concurrent subprocesses.
+17. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
@@ -348,6 +372,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -1902,8 +1927,8 @@ def phase_reader_train():
 
 
 #: ``phase_checkpoint_resume``: the trainer is stopped after ``CKPT_K``
-#: of ``2 * CKPT_K`` steps
-CKPT_K = 4
+#: of ``2 * CKPT_K`` steps (4 until the run passed 700 s)
+CKPT_K = 3
 CKPT_CHILD_TIMEOUT_S = 300
 
 
@@ -2200,8 +2225,9 @@ def phase_checkpoint_resume():
 SENTINEL_STEPS, SENTINEL_SAVES = 10, (2, 4)
 #: layers of the bundle the ``replay`` subprocesses re-execute on the CPU,
 #: at the drill's widths: the full-width drill's own bundle took 98.6 s to
-#: replay and 255.5 s to localize there on 8 cores
-SENTINEL_REPLAY_LAYERS = 2
+#: replay and 255.5 s to localize there on 8 cores, a 2-layer one 97.8 s
+#: and 194.7 s beside the card phases (cut to 1 when the run passed 700 s)
+SENTINEL_REPLAY_LAYERS = 1
 #: CPU threads and niceness of each replay subprocess, which runs beside
 #: the card phases after the kernel phases
 REPLAY_THREADS, REPLAY_NICE = 2, 10
@@ -2603,6 +2629,457 @@ def phase_sentinel():
     shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the training loop a real run uses: the datapipe through
+# Executor.run_pipeline on route A at full width, the run ledger, the
+# resume and sentinel drills through the loop, early release
+# ---------------------------------------------------------------------------
+
+#: batches of ``phase_datapipe_train``'s epoch (``PIPE_STEPS`` x 64
+#: records), and the resume drill's stop: ``PIPE_K`` then ``PIPE_K`` more
+PIPE_STEPS, PIPE_K = 6, 3
+#: the pipeline's shuffle buffer, map workers and prefetch depth
+PIPE_SHUFFLE, PIPE_WORKERS, PIPE_DEPTH = 256, 4, 2
+#: the resume drill's guarded second half: the restored checkpoint turns
+#: known-good at the first clean check, the next two are poisoned (two
+#: strikes: the rollback)
+PIPE_NAN_AFTER = 1
+
+
+def _pipe_records(T, hp, path, n):
+    """``n`` per-sample records (tuples of the ``READER_KEYS`` rows of one
+    ``T.fake_batch``) in a recordio file; returns the rows."""
+    from paddle_tpu_torch.recordio_writer import \
+        convert_reader_to_recordio_file
+    _, S, _ = ROUTES["A"]
+    rows = T.fake_batch(n, S, S, hp, seed=SEED % 2 ** 31 + 7)
+    got = convert_reader_to_recordio_file(
+        path, lambda: (tuple(rows[k][i] for k in READER_KEYS)
+                       for i in range(n)), compressor=0)
+    if got != n:
+        raise AssertionError(f"datapipe_train: {got} of {n} records")
+    return rows
+
+
+def _decode_record(rec):
+    return dict(zip(READER_KEYS, rec))
+
+
+def _pipe(dp, path, prefetch=True):
+    """``RecordIOSource -> shuffle -> map(workers) -> batch(64) ->
+    prefetch`` onto ``cuda:0`` (without ``prefetch``: host batches)."""
+    B, _, _ = ROUTES["A"]
+    pipe = (dp.RecordIOSource(path)
+            .shuffle(PIPE_SHUFFLE, seed=SEED)
+            .map(_decode_record, workers=PIPE_WORKERS)
+            .batch(B, drop_last=True))
+    return pipe.prefetch(depth=PIPE_DEPTH) if prefetch else pipe
+
+
+def _cli_trace_dump(path):
+    """``python -m paddle_tpu_torch trace dump --local --output PATH`` in
+    this process (its span ring): the count of each span name written."""
+    import collections
+    import contextlib
+    import io
+    from paddle_tpu_torch import cli
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli.main(["trace", "dump", "--local", "--output", path])
+    if rc != 0 or "wrote" not in buf.getvalue():
+        raise AssertionError(f"cli trace dump (exit {rc}): "
+                             f"{buf.getvalue()!r}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return collections.Counter(ev.get("name") for ev in events)
+
+
+def _cli_bench(runs):
+    """``bench record`` of this run's pipeline figures as the
+    ``datapipe`` bench (samples/s through ``run_pipeline``; speedup: the
+    memory-fed step's time over the pipeline's), then ``bench check``,
+    on a trajectory under ``OUT_DIR`` (in this process): PASS."""
+    import contextlib
+    import io
+    from paddle_tpu_torch import cli
+    B, _, _ = ROUTES["A"]
+    traj = os.path.join(OUT_DIR, "bench_trajectory.json")
+    summary = os.path.join(OUT_DIR, "bench_datapipe_summary.json")
+    if os.path.exists(traj):
+        os.remove(traj)
+    with open(summary, "w") as f:
+        json.dump({"datapipe": {"samples_per_sec":
+                                1e3 * B / runs["pipeline"]["step_ms"]},
+                   "speedup": runs["memory"]["step_ms"] /
+                   runs["pipeline"]["step_ms"]}, f)
+    codes = []
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        codes.append(cli.main(["bench", "record", "--bench", "datapipe",
+                               "--summary", summary, "--trajectory", traj,
+                               "--baseline"]))
+        codes.append(cli.main(["bench", "check", "--trajectory", traj]))
+    text = buf.getvalue()
+    if codes != [0, 0] or "bench check (regression gate): PASS" not in \
+            text:
+        raise AssertionError(f"cli bench (exits {codes}): {text!r}")
+    with open(traj) as f:
+        return json.load(f)["runs"][0]["metrics"]
+
+
+def _loss_list(outs):
+    import numpy as np
+    return [float(np.asarray(o[0]).reshape(())) for o in outs]
+
+
+def _state_scope(pt, state):
+    """A fresh scope holding device clones of ``state``."""
+    scope = pt.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    return scope
+
+
+def _release_figures(pt, main, cost, state, feed):
+    """Two route A steps from ``state`` on fresh executors, with and
+    without ``release_memory`` on a clone of ``main``: the first eager,
+    the second captured (and replayed).  Losses bit-identical either way;
+    the eager step's peak allocation above its start, the graph's pool,
+    and the bytes and vars the walk dropped."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.analysis.opt import clone_program
+    out, losses = {}, {}
+    for released in (False, True):
+        key = "released" if released else "kept"
+        prog = clone_program(main)
+        if released:
+            pt.release_memory(prog)
+        exe, scope = pt.Executor(), _state_scope(pt, state)
+        got = []
+        for step in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got.append(float(np.asarray(exe.run(
+                prog, feed=feed, fetch_list=[cost],
+                scope=scope)[0]).reshape(())))
+            if step == 0:
+                torch.cuda.synchronize()
+                out[f"{key}_peak_gib"] = (
+                    torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                if released:
+                    out["eager_dropped"] = dict(prog._release_stats)
+        stats = exe.graph_stats()
+        if len(stats) != 1 or stats[0]["captures"] != 1:
+            raise AssertionError(f"datapipe_train[release]: graphs {stats}")
+        out[f"{key}_pool_gib"] = stats[0]["pool_gib"]
+        if released:
+            out["capture_dropped"] = dict(prog._release_stats)
+        losses[released] = got
+        exe.close()
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    if losses[True] != losses[False]:
+        raise AssertionError(f"datapipe_train[release]: losses {losses}")
+    out["losses"] = losses[True]
+    return out
+
+
+def phase_datapipe_train():
+    """Route A (Transformer-base, S 256, B 64, bf16 AMP, Adam) through
+    the port's training loop: ``PIPE_STEPS`` x 64 per-sample records
+    (rows of ``T.fake_batch``) written by ``recordio_writer``, read by
+    ``RecordIOSource -> shuffle(256) -> map(decode, workers=4) ->
+    batch(64, drop_last) -> prefetch(depth=2)`` onto ``cuda:0`` and
+    driven by ``exe.run_pipeline(..., ledger=RunLedger)`` on the default
+    (graphed) path, dropout 0.1.  Held to: losses bit-identical to a
+    memory-fed ``Executor.run`` of the same batches in the same order
+    (the same pipeline without ``prefetch``, on the host) from the same
+    startup state and a fresh executor; 18 + 18 bias-softmax launches a
+    step both ways; one graph; the ledger's ``PIPE_STEPS`` rows, each
+    step once; the census's ``prefetch`` bytes above 0 while batches are
+    staged and 0 after the epoch.  Then at dropout 0 (the dropout masks
+    follow the executor's run counter, which no checkpoint holds): the
+    resume drill (``PIPE_K`` steps with a ``CheckpointManager(datapipe,
+    ledger)`` committing at step ``PIPE_K - 1`` while prefetch holds
+    queued batches; a fresh executor, scope, pipeline and ledger handle;
+    ``restore_latest()``; the rest of the epoch through ``run_pipeline``
+    under a ``Sentinel(strikes=2)`` whose 2nd and 3rd checks are
+    poisoned, so it rolls back to the restored checkpoint, rewinding the
+    pipeline and the ledger): every persistable bit for bit a ``2 *
+    PIPE_K``-step run that never stopped, the returned losses each batch
+    once, the ledger ``2 * PIPE_K`` rows, each step once (none for a
+    skipped step); ``release_memory``: an eager step and a capture on
+    fresh executors, losses unchanged, peak and pool printed.  Prints ms
+    a step through ``run_pipeline`` against memory-fed, the prefetch
+    stall's p50 / p99 and the census's bytes; gates on no time."""
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.datapipe as dp
+    from paddle_tpu_torch.fault import CheckpointManager, Sentinel, chaos
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.obs import perf, trace
+    from paddle_tpu_torch.obs.ledger import RunLedger, read_rows
+    from paddle_tpu_torch.profiler import runtime_metrics as m
+
+    B, S, kernels = ROUTES["A"]
+    root = os.path.join(OUT_DIR, "datapipe_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    hp = T.ModelHyperParams()          # Transformer-base, dropout 0.1
+    hp.max_length = max(hp.max_length, S)
+    path = os.path.join(root, "records.recordio")
+    t = time.perf_counter()
+    _pipe_records(T, hp, path, PIPE_STEPS * B)
+    write_s = time.perf_counter() - t
+    order = list(_pipe(dp, path, prefetch=False))
+    if len(order) != PIPE_STEPS:
+        raise AssertionError(f"datapipe_train: {len(order)} host batches")
+    launches, parts_s = {}, {}
+    t_part = time.perf_counter()
+
+    def take(part, steps):
+        got = _take_launches()
+        want = {k: 18 * steps for k in kernels}
+        if got != want:
+            raise AssertionError(f"datapipe_train[{part}]: launches "
+                                 f"{got} != {want}")
+        launches[part] = got
+
+    # -- the epoch at dropout 0.1: pipeline against memory-fed ---------
+    main, startup, cost = _reader_program(pt, T, hp, B, S)
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    _take_launches()        # the counts set to 0 just before the path
+    runs = {}
+    for mode in ("pipeline", "memory"):
+        scope = _scope_copy(pt, scope0)
+        exe = pt.Executor()
+        marks, staged = [], []
+        torch.cuda.synchronize()
+        if mode == "pipeline":
+            ledger = RunLedger(os.path.join(root, "ledger_epoch"),
+                               install=False)
+            pipe = _pipe(dp, path)
+
+            def on_step(step, fetches):
+                marks.append(time.perf_counter())
+                if step == 0:
+                    # batches wait while the first (eager) step runs; a
+                    # census outside the timed steps after the capture
+                    staged.append(perf.hbm_census(scope)["prefetch"])
+
+            trace.clear()
+            trace.enable(4 * trace.DEFAULT_RING)   # a span a sample
+            t0 = time.perf_counter()
+            outs = exe.run_pipeline(main, pipe, fetch_list=[cost],
+                                    scope=scope, ledger=ledger,
+                                    on_step=on_step)
+            trace.disable()
+            spans = _cli_trace_dump(os.path.join(root, "trace.json"))
+            trace.clear()
+            trace.enable(trace.DEFAULT_RING)
+            trace.disable()
+            after = perf.hbm_census(scope)["prefetch"]
+            ledger.close()
+            rows = read_rows(ledger.dirname)
+            if [r["step"] for r in rows] != list(range(PIPE_STEPS)) or \
+                    ledger.rows_total != PIPE_STEPS:
+                raise AssertionError(f"datapipe_train: ledger rows "
+                                     f"{[r['step'] for r in rows]}")
+            (staged_max,) = staged
+            if not staged_max > 0 or after != 0:
+                raise AssertionError(f"datapipe_train: census prefetch "
+                                     f"bytes {staged} then {after}")
+            stall = m.snapshot()["series"]["datapipe.prefetch.stall_seconds"]
+            if spans.get("datapipe.next") != PIPE_STEPS or \
+                    spans.get("train.step") != PIPE_STEPS:
+                raise AssertionError(f"datapipe_train: trace dump spans "
+                                     f"{spans}")
+        else:
+            t0 = time.perf_counter()
+            outs = []
+            for b in order:
+                outs.append(exe.run(main, feed=b, fetch_list=[cost],
+                                    scope=scope))
+                marks.append(time.perf_counter())
+        take(mode, PIPE_STEPS)
+        replays = _graphs(f"datapipe_train_{mode}", exe, True)
+        if len(exe.graph_stats()) != 1 or replays != PIPE_STEPS - 1:
+            raise AssertionError(f"datapipe_train[{mode}]: graphs "
+                                 f"{exe.graph_stats()}")
+        steps_ms = np.diff([t0] + marks) * 1e3
+        runs[mode] = dict(losses=_loss_list(outs),
+                          step_ms=float(np.median(steps_ms[2:])),
+                          step_ms_range=[float(steps_ms[2:].min()),
+                                         float(steps_ms[2:].max())],
+                          first_two_ms=[float(x) for x in steps_ms[:2]])
+        exe.close()
+        del exe, scope
+        gc.collect()
+        torch.cuda.empty_cache()
+    got, want = runs["pipeline"]["losses"], runs["memory"]["losses"]
+    if got != want or not np.all(np.isfinite(got)):
+        raise AssertionError(f"datapipe_train: pipeline losses {got} "
+                             f"against memory-fed {want}")
+    del scope0
+
+    parts_s["epoch"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # -- dropout 0: the resume drill, its second half guarded ---------
+    main0, startup0, cost0, _ = _ckpt_program(pt, T)
+    exe0, scope0 = pt.Executor(), pt.Scope()
+    exe0.run(startup0, scope=scope0)
+    state = _snapshot(scope0)
+    del exe0, scope0
+    feed0 = {k: v for k, v in order[0].items()}
+
+    scope, exe = _state_scope(pt, state), pt.Executor()
+    ledger = RunLedger(os.path.join(root, "ledger_unbroken"),
+                       install=False)
+    outs = exe.run_pipeline(main0, _pipe(dp, path), fetch_list=[cost0],
+                            scope=scope, max_steps=2 * PIPE_K,
+                            ledger=ledger)
+    clean = _loss_list(outs)
+    want_state = _tensor_state(scope)
+    ledger.close()
+    take("unbroken", 2 * PIPE_K)
+    exe.close()
+    del exe, scope
+    parts_s["unbroken"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    ckdir = os.path.join(root, "ckpt")
+    led_dir = os.path.join(root, "ledger_resume")
+    scope, pipe, exe = _state_scope(pt, state), _pipe(dp, path), \
+        pt.Executor()
+    ledger = RunLedger(led_dir, install=False)
+    mgr = CheckpointManager(ckdir, keep=2, executor=exe, main_program=main0,
+                            scope=scope, datapipe=pipe, ledger=ledger)
+    queued = []
+
+    def commit(step, fetches):
+        if step == PIPE_K - 1:
+            q = pipe._q
+            queued.append(q.qsize() if q is not None else 0)
+            mgr.save(PIPE_K)
+    first = exe.run_pipeline(main0, pipe, fetch_list=[cost0], scope=scope,
+                             max_steps=PIPE_K, ledger=ledger,
+                             on_step=commit)
+    pending = len(pipe._pending)
+    ledger.close()
+    exe.close()
+    del exe, scope, pipe, mgr, ledger
+    gc.collect()
+    parts_s["first_half"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # a fresh executor, scope, pipeline and ledger handle; the rest of the
+    # epoch under a sentinel whose 2nd and 3rd checks are poisoned: two
+    # strikes roll back to the restored checkpoint (made known-good by
+    # the first clean check), rewinding the pipeline and the ledger
+    counters = ("sentinel.skipped_steps", "sentinel.quarantined",
+                "sentinel.rollbacks")
+    before = {n: m.counter(n) for n in counters}
+    scope, pipe, exe = pt.Scope(), _pipe(dp, path), pt.Executor()
+    ledger = RunLedger(led_dir, install=False)
+    mgr = CheckpointManager(ckdir, keep=2, executor=exe, main_program=main0,
+                            scope=scope, datapipe=pipe, ledger=ledger)
+    t = time.perf_counter()
+    restored = mgr.restore_latest()
+    restore_s = time.perf_counter() - t
+    if restored != PIPE_K or ledger.rows_total != PIPE_K or \
+            not mgr.last_restore_rewound:
+        raise AssertionError(f"datapipe_train[resume]: restored "
+                             f"{restored}, ledger {ledger.rows_total} rows")
+    sentinel = Sentinel(manager=mgr, cadence=1, strikes=2,
+                        mark_good_after=1, spike_factor=None,
+                        quarantine_dir=os.path.join(root, "quarantine"))
+    sentinel.note_checkpoint(PIPE_K)
+    chaos.inject("sentinel.nan", after=PIPE_NAN_AFTER, times=2)
+    try:
+        t = time.perf_counter()
+        outs = exe.run_pipeline(main0, pipe, fetch_list=[cost0],
+                                scope=scope, sentinel=sentinel)
+        second_s = time.perf_counter() - t
+    finally:
+        chaos.clear("sentinel.nan")
+    ledger.close()
+    guarded = PIPE_NAN_AFTER + 2 + PIPE_K
+    take("resume", PIPE_K + guarded)
+    delta = {n: m.counter(n) - before[n] for n in counters}
+    resumed = _loss_list(first) + _loss_list(outs)
+    got_state = _tensor_state(scope)
+    differ = [n for n in want_state
+              if not np.array_equal(got_state.get(n), want_state[n])]
+    steps = [r["step"] for r in read_rows(led_dir)]
+    if differ or sorted(got_state) != sorted(want_state) or \
+            resumed != clean or steps != list(range(2 * PIPE_K)):
+        raise AssertionError(f"datapipe_train[resume]: {len(differ)} "
+                             f"variables differ ({differ[:4]}), losses "
+                             f"{resumed} against {clean}, ledger steps "
+                             f"{steps}")
+    if delta != {"sentinel.skipped_steps": 2, "sentinel.quarantined": 2,
+                 "sentinel.rollbacks": 1} or \
+            mgr.last_good_step() != PIPE_K:
+        raise AssertionError(f"datapipe_train[sentinel]: counters {delta}, "
+                             f"last good {mgr.last_good_step()}")
+    exe.close()
+    del exe, scope, pipe, mgr, ledger, sentinel, got_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts_s["second_half"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # -- release_memory: an eager step and a capture -------------------
+    release = _release_figures(pt, main0, cost0, state, feed0)
+    parts_s["release"] = time.perf_counter() - t_part
+    take("release", 4)
+    if release["losses"][0] != clean[0]:
+        raise AssertionError(f"datapipe_train[release]: losses "
+                             f"{release['losses']} against {clean[0]}")
+    del state
+    bench = _cli_bench(runs)
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(
+        pipeline_step_ms=runs["pipeline"]["step_ms"],
+        memory_step_ms=runs["memory"]["step_ms"],
+        pipeline_step_ms_range=runs["pipeline"]["step_ms_range"],
+        memory_step_ms_range=runs["memory"]["step_ms_range"],
+        first_two_ms={k: v["first_two_ms"] for k, v in runs.items()},
+        stall_p50_ms=1e3 * stall["p50"], stall_p99_ms=1e3 * stall["p99"],
+        stall_count=stall["count"], prefetch_bytes_staged=staged_max,
+        prefetch_bytes_after=after, records_write_s=write_s,
+        losses_bit_identical=True, resume_bit_identical=True,
+        resume_restore_s=restore_s, prefetch_queued_at_commit=queued[0],
+        prefetch_pending_at_stop=pending, guarded_second_half_s=second_s,
+        guarded_runs=guarded, release=release, bench=bench,
+        parts_s=parts_s,
+        trace_spans={k: spans[k] for k in ("datapipe.next", "train.step")},
+        card=card_line())
+    log(f"datapipe_train[A]: run_pipeline + prefetch "
+        f"{out['pipeline_step_ms']:.3f} ms a step against memory-fed "
+        f"{out['memory_step_ms']:.3f} (median of the {PIPE_STEPS - 2} "
+        f"steps after the capture); "
+        f"losses bit-identical over {PIPE_STEPS} steps; stall p50 "
+        f"{out['stall_p50_ms']:.3f} ms, p99 {out['stall_p99_ms']:.3f} ms; "
+        f"census prefetch {staged_max} bytes staged, {after} after; "
+        f"resume at dropout 0 ({PIPE_K} + {PIPE_K}, {queued[0]} batches "
+        f"queued at the commit; the second half guarded: 2 skipped, 1 "
+        f"rollback to the restored step) bit-identical to the unbroken "
+        f"run, ledger one row a step; release: eager peak "
+        f"{release['kept_peak_gib']:.3f} -> "
+        f"{release['released_peak_gib']:.3f} GiB, graph pool "
+        f"{release['kept_pool_gib']:.3f} -> "
+        f"{release['released_pool_gib']:.3f} GiB; card {out['card']}")
     return launches, out
 
 
@@ -7388,14 +7865,211 @@ def _free_port():
         return sock.getsockname()[1]
 
 
+#: ``phase_cli``'s ``train --config`` script: route A at 1 layer a stack
+#: (Transformer-base widths, S 256, B 64, bf16 AMP, Adam, dropout 0.1)
+#: through ``run_pipeline`` with a ``RunLedger`` in the directory
+#: ``--checkpoint-dir`` exports; argv: B S steps seed keys
+CLI_TRAIN_SCRIPT = r'''
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+import paddle_tpu_torch as pt
+import paddle_tpu_torch.datapipe as dp
+from paddle_tpu_torch.fault import manager_from_env
+from paddle_tpu_torch.kernels import ALL_KERNELS
+from paddle_tpu_torch.models import transformer as T
+from paddle_tpu_torch.obs.ledger import RunLedger
+
+torch.backends.cuda.matmul.allow_tf32 = False
+B, S, steps, seed = (int(a) for a in sys.argv[1:5])
+keys = sys.argv[5].split(",")
+hp = T.ModelHyperParams()
+hp.max_length = max(hp.max_length, S)
+hp.n_layer = 1
+main, startup = pt.Program(), pt.Program()
+main.random_seed = startup.random_seed = seed
+with pt.program_guard(main, startup):
+    cost, _ = T.transformer(B, S, S, hp)
+    pt.optimizer.Adam(learning_rate=1e-4).minimize(cost)
+main.amp = True
+exe, scope = pt.Executor(), pt.Scope()
+exe.run(startup, scope=scope)
+rows = T.fake_batch(B * steps, S, S, hp, seed=seed % 2 ** 31)
+samples = [{k: rows[k][i] for k in keys} for i in range(B * steps)]
+pipe = (dp.InMemorySource(samples).shuffle(B, seed=seed)
+        .map(dict, workers=2).batch(B, drop_last=True).prefetch(depth=2))
+mgr = manager_from_env(executor=exe, main_program=main, scope=scope)
+ledger = RunLedger(mgr.dirname)
+mgr.datapipe, mgr.ledger = pipe, ledger
+outs = []
+for _ in range(int(os.environ.get("PADDLE_NUM_PASSES", "1"))):
+    outs += exe.run_pipeline(
+        main, pipe, fetch_list=[cost], scope=scope, ledger=ledger,
+        on_step=lambda s, f: s == steps - 1 and mgr.save(len(outs) + s))
+ledger.close()
+print(json.dumps({
+    "losses": [float(np.asarray(o[0]).reshape(())) for o in outs],
+    "keep": mgr.keep, "steps": mgr.steps(),
+    "launches": {k.name: k.launches for k in ALL_KERNELS if k.launches},
+    "graphs": [(g["captures"], g["replays"]) for g in exe.graph_stats()]}))
+'''
+#: its batches a pass
+CLI_TRAIN_STEPS = 4
+
+
+def _cli_train_infer(env):
+    """Start ``version``, ``train --config`` and ``infer --place cuda``
+    as concurrent subprocesses; returns them and ``finish()``, which
+    waits for them and checks: the version line names the card; the train script's
+    loop (1-layer route A, ``manager_from_env``, ``run_pipeline`` and a
+    ``RunLedger`` under the checkpoint directory D) launches the
+    bias-softmax pair 3 times a step through one graph, and ``runs show
+    D --json`` / ``runs tail D -n 3`` print its rows; the saved MLP
+    (``_predict_bundle``) through ``infer`` equals this process's run of
+    it to ``PREDICT_TOL``.  ``finish()`` returns the launches of the
+    train script and a report."""
+    import shutil
+    import numpy as np
+    B, S, kernels = ROUTES["A"]
+    root = os.path.join(OUT_DIR, "cli_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    script = os.path.join(root, "train_route_a.py")
+    with open(script, "w") as f:
+        f.write(CLI_TRAIN_SCRIPT)
+    model = _predict_bundle(os.path.join(root, "model"))
+    x = np.random.RandomState(SEED % 2 ** 31).rand(
+        8, PREDICT_FEATURE).astype("float32")
+    np.save(os.path.join(root, "x.npy"), x)
+    ckdir = os.path.join(root, "ckpt")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch"]
+    jobs = {
+        "version": cmd + ["version"],
+        "train": cmd + ["train", "--config", script, "--num-passes", "1",
+                        "--checkpoint-dir", ckdir, "--keep-checkpoints",
+                        "2", str(B), str(S), str(CLI_TRAIN_STEPS),
+                        str(SEED), ",".join(READER_KEYS)],
+        "infer": cmd + ["infer", "--model", model, "--feed",
+                        f"x={os.path.join(root, 'x.npy')}", "--output",
+                        root, "--place", "cuda"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in jobs.items()}
+    # each job's output and its own wall seconds, taken by a reader
+    # thread (the server part runs meanwhile)
+    ends = {}
+
+    def reap(k, proc):
+        try:
+            out, err = proc.communicate(timeout=HTTP_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        ends[k] = (out, err, time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=reap, args=kv, daemon=True)
+               for kv in procs.items()]
+    for r in readers:
+        r.start()
+    return procs, lambda: _cli_jobs_finish(procs, readers, ends, root,
+                                           model, ckdir, x, kernels)
+
+
+def _cli_jobs_finish(procs, readers, ends, root, model, ckdir, x,
+                     kernels):
+    """The checks of :func:`_cli_train_infer`'s jobs."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import cli
+    done, seconds = {}, {}
+    for r in readers:
+        r.join(HTTP_WAIT_S + 30)
+    for k, proc in procs.items():
+        if k not in ends or proc.returncode != 0:
+            out, err, _ = ends.get(k, ("", "", None))
+            raise AssertionError(f"cli {k} (exit {proc.returncode}): "
+                                 f"{out[-2000:]!r} {err[-2000:]!r}")
+        done[k], _, seconds[k] = ends[k]
+    name = torch.cuda.get_device_name(0)
+    if name not in done["version"] or "torch" not in done["version"]:
+        raise AssertionError(f"cli version: {done['version']!r}")
+    report = json.loads(done["train"].strip().splitlines()[-1])
+    losses = report["losses"]
+    want = {k: 3 * CLI_TRAIN_STEPS for k in kernels}
+    if report["launches"] != want or report["graphs"] != \
+            [[1, CLI_TRAIN_STEPS - 1]] or report["keep"] != 2 or \
+            report["steps"] != [CLI_TRAIN_STEPS - 1] or \
+            len(losses) != CLI_TRAIN_STEPS or \
+            not np.all(np.isfinite(losses)):
+        raise AssertionError(f"cli train: {report}")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc_show = cli.main(["runs", "show", ckdir, "--json"])
+    show = json.loads(buf.getvalue())
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc_tail = cli.main(["runs", "tail", ckdir, "-n", "3"])
+    tail = buf.getvalue().strip().splitlines()
+    header = tail[0].split()
+    tail_steps = [int(line.split()[0]) for line in tail[1:]]
+    tail_losses = [float(line.split()[header.index("loss")])
+                   for line in tail[1:]]
+    if rc_show or rc_tail or show["rows"] != CLI_TRAIN_STEPS or \
+            show["fields"]["loss"]["first"] != losses[0] or \
+            show["fields"]["loss"]["last"] != losses[-1] or \
+            tail_steps != list(range(CLI_TRAIN_STEPS))[-3:] or \
+            not np.allclose(tail_losses, losses[-3:], rtol=1e-5):
+        raise AssertionError(f"cli runs: show {show}, tail {tail}")
+    (out_file,) = [f for f in os.listdir(root) if f.endswith(".npy")
+                   and f != "x.npy"]
+    got = np.load(os.path.join(root, out_file))
+    exe = pt.Executor()
+    with pt.scope_guard(pt.Scope()):
+        prog, _, fetches = pt.io.load_inference_model(model, exe)
+        (want_y,) = exe.run(prog, feed={"x": x}, fetch_list=fetches)
+    err = float(np.abs(got - want_y).max())
+    if got.shape != (8, 4) or err > PREDICT_TOL:
+        raise AssertionError(f"cli infer: {got.shape}, max abs err {err}")
+    shutil.rmtree(root, ignore_errors=True)
+    return report["launches"], dict(
+        version=done["version"].strip(), train_losses=losses,
+        runs_rows=show["rows"], infer_max_abs_err=err,
+        seconds={k: round(v, 3) for k, v in seconds.items()})
+
+
+
 def phase_cli(serving):
     """``python -m paddle_tpu_torch serve --model <bundle> --warmup`` in a
     subprocess, then ``generate`` against it (the first prompt's
     in-process stream) and ``stats``; the server is terminated and every
-    wait bounded."""
+    wait bounded.  Beside them, ``version``, ``train --config`` and
+    ``infer`` (:func:`_cli_train_infer`; their subprocesses start first,
+    so the server's ``ready_s`` is taken beside them); ``trace dump`` and
+    ``bench record`` / ``check`` run in ``phase_datapipe_train``, over
+    its spans and figures."""
     port = _free_port()
     addr = f"127.0.0.1:{port}"
     env = dict(os.environ, PYTHONPATH=ROOT)
+    jobs, finish = _cli_train_infer(env)
+    try:
+        return _cli_serve(serving, addr, port, env, finish)
+    finally:
+        for job in jobs.values():      # a failed serve check leaves them
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+
+
+def _cli_serve(serving, addr, port, env, finish):
+    """``phase_cli``'s server part, then ``finish()`` of its jobs."""
     cmd = [sys.executable, "-m", "paddle_tpu_torch"]
     log_path = os.path.join(OUT_DIR, "cli_serve.log")
     with open(log_path, "w") as server_log:
@@ -7437,7 +8111,13 @@ def phase_cli(serving):
     log(f"cli: serve ready in {ready_s:.2f}s (warmup cache {cache}), "
         f"generate printed the in-process stream, stats ok, server "
         f"exited {proc.returncode}")
-    return dict(ready_s=ready_s, warmup_cache=cache)
+    launches, more = finish()
+    log(f"cli: {more['version']!r}; train --config (1-layer route A "
+        f"through run_pipeline, {CLI_TRAIN_STEPS} steps, losses "
+        f"{more['train_losses']}) and runs show / tail agree; infer "
+        f"--place cuda max abs err {more['infer_max_abs_err']:.3e}; "
+        f"seconds {more['seconds']}")
+    return launches, dict(ready_s=ready_s, warmup_cache=cache, **more)
 
 
 # ---------------------------------------------------------------------------
@@ -8295,7 +8975,7 @@ def main():
     by_path["http_resume"], http_resume = timed(
         "http_resume", phase_http_resume, serving)
     http_predict = timed("http_predict", phase_http_predict)
-    cli = timed("cli", phase_cli, serving)
+    by_path["cli_train"], cli = timed("cli", phase_cli, serving)
     by_path["serving_budget"], serving_budget = timed(
         "serving_budget", phase_serving_budget, serving, http_gen)
     by_path["dense_decode"], dense = timed("serving", phase_serving,
@@ -8343,6 +9023,10 @@ def main():
     by_path["checkpoint_resume"], checkpoint_resume = \
         timed("checkpoint_resume", phase_checkpoint_resume)
     by_path["sentinel"], sentinel = timed("sentinel", phase_sentinel)
+    dp_launches, datapipe_train = timed("datapipe_train",
+                                        phase_datapipe_train)
+    for part, n in dp_launches.items():
+        by_path[f"datapipe_{part}"] = n
     by_path["perf"], by_path["perf_cli"], by_path["perf_decode"], \
         perf_out = timed("perf", phase_perf, serving)
     op_families = timed("op_families", phase_op_families)
@@ -8449,6 +9133,7 @@ def main():
     log("reader_train: " + json.dumps(reader_train))
     log("checkpoint_resume: " + json.dumps(checkpoint_resume))
     log("sentinel: " + json.dumps(sentinel))
+    log("datapipe_train: " + json.dumps(datapipe_train))
     log("sentinel_replay[A]: " + json.dumps(sentinel_replay))
     log("perf: " + json.dumps(perf_out))
     log("op_families: " + json.dumps(op_families))

@@ -18,6 +18,9 @@ from paddle_tpu_torch.scope import Scope, global_scope, scope_guard
 from paddle_tpu_torch import ops  # registers the op lowerings
 from paddle_tpu_torch.executor import Executor
 from paddle_tpu_torch.ops.reader_ops import EOFException
+from paddle_tpu_torch import memory_optimization_transpiler
+from paddle_tpu_torch.memory_optimization_transpiler import (memory_optimize,
+                                                             release_memory)
 from paddle_tpu_torch import concurrency
 from paddle_tpu_torch.concurrency import (Go, Select, make_channel,
                                           channel_send, channel_recv,
@@ -49,7 +52,19 @@ from paddle_tpu_torch import fault
 from paddle_tpu_torch import metrics
 from paddle_tpu_torch import evaluator
 from paddle_tpu_torch import dataset
+from paddle_tpu_torch import datapipe
+from paddle_tpu_torch import obs
 
 __version__ = "0.1.0"
 
 Tensor = Variable  # convenience alias
+
+
+def __getattr__(name):
+    # the deprecated alias imports (and warns) only on first touch, so a
+    # plain `import paddle_tpu_torch` stays warning-free
+    if name == "debuger":
+        import importlib
+        return importlib.import_module("paddle_tpu_torch.debuger")
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")

@@ -1,8 +1,19 @@
-"""Command-line entry points of the port (the serving, static-analysis,
-fault-tolerance and profiling parts of ``paddle_tpu.cli``).
+"""Command-line entry points of the port (the single-device parts of
+``paddle_tpu.cli``: training, inference, serving, observability, static
+analysis, fault tolerance and profiling).
 
 Usage: ``python -m paddle_tpu_torch <command> ...``
 
+  version                            torch, CUDA and the card's name
+  train    --config SCRIPT           run a training script (the
+                                     ``paddle_trainer --config`` analog;
+                                     --num-passes N, --checkpoint-dir D
+                                     --keep-checkpoints K export what
+                                     ``fault.manager_from_env`` reads)
+  infer    --model DIR --feed name=path.npy
+                                     load + run an inference model
+                                     (--output DIR; --place cpu runs on
+                                     the CPU, the default is cuda:0)
   serve    --model DIR --port P      HTTP inference server (--batch
                                      --warmup; --place cpu runs on the
                                      CPU, the default is cuda:0)
@@ -12,6 +23,13 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
                                      serving replica (/stats); --local
                                      for this process; --prom for
                                      Prometheus text
+  trace    dump [--addr H:P|--local] Chrome trace-event JSON of the span
+                                     ring (PADDLE_TPU_TRACE); --output
+  bench    check [--dry] | record    bench-trajectory gate over the
+                                     port's BENCH_TRAJECTORY_TORCH.json:
+                                     newest run vs recorded baseline;
+                                     exit 1 on regression
+  runs     tail|show|compare DIR     run-ledger readers (obs.ledger)
   lint     MODEL_DIR | --zoo NAME    static analysis of a program IR
                                      (PTA*** diagnostics; --json,
                                      --strict, --dot OUT, --verbose)
@@ -27,19 +45,22 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
                                      time, per-signature cost records,
                                      the HBM census, the step phases
 
-``serve --master`` (fleet enrollment) and ``--compile-cache`` (the JAX
-package's persistent XLA cache) raise: the fleet is not ported yet, and
-the port's kernels always build into the build directory beside their
-sources.  ``lint --pair`` and ``lint --pipeline`` raise until the
-multi-device transpilers are ported (ROADMAP queue 1 item 7), and
-``selfcheck`` raises until the planes it checks are (it follows item
-10).
+``serve --master`` (fleet enrollment), ``trace dump --fleet`` and
+``--compile-cache`` (the JAX package's persistent XLA cache) raise: the
+fleet is not ported yet (ROADMAP queue 1 item 8), and the port's kernels
+always build into the build directory beside their sources.  ``lint
+--pair`` and ``lint --pipeline`` raise until the multi-device
+transpilers are ported (item 7), and ``selfcheck`` raises until the
+planes it checks are (it follows items 7 and 8).  ``train --use-tpu``
+is not carried over: the JAX package's flag only exports
+``PADDLE_TPU_USE_TPU``, which no code reads.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import runpy
 import sys
 
 __all__ = ["main"]
@@ -52,6 +73,215 @@ def _place(name):
     if name.startswith("cuda"):
         return CUDAPlace(int(name.partition(":")[2] or 0))
     raise ValueError(f"--place must be cpu or cuda[:N], got {name!r}")
+
+
+def _cmd_version(args):
+    """torch's version, the CUDA version torch was built for, and the
+    card's name (``unavailable (...)`` off a card)."""
+    import torch
+    import paddle_tpu_torch
+    try:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available")
+        device = torch.cuda.get_device_name(0)
+    except Exception as e:
+        device = f"unavailable ({e})"
+    print(f"paddle_tpu_torch {paddle_tpu_torch.__version__} (torch "
+          f"{torch.__version__}, cuda {torch.version.cuda or 'none'}, "
+          f"device {device})")
+    return 0
+
+
+def _cmd_train(args):
+    """Run a training script, the ``paddle_trainer --config`` analog.
+    The script sees ``PADDLE_NUM_PASSES`` and, with ``--checkpoint-dir``,
+    ``PADDLE_TPU_CKPT_DIR`` / ``PADDLE_TPU_CKPT_KEEP`` (read by
+    ``fault.manager_from_env``), like the reference's gflags.  The JAX
+    package's ``--use-tpu`` is not carried over: it only exports
+    ``PADDLE_TPU_USE_TPU``, which no code in the repo reads."""
+    if args.num_passes is not None:
+        os.environ["PADDLE_NUM_PASSES"] = str(args.num_passes)
+    if args.checkpoint_dir is not None:
+        os.environ["PADDLE_TPU_CKPT_DIR"] = args.checkpoint_dir
+        os.environ["PADDLE_TPU_CKPT_KEEP"] = str(args.keep_checkpoints)
+    sys.argv = [args.config] + (args.script_args or [])
+    runpy.run_path(args.config, run_name="__main__")
+    return 0
+
+
+def _cmd_infer(args):
+    """Load a saved inference model and run it on ``.npy`` feeds (the
+    C++ ``inference::Load`` + run flow, ``inference/io.h:35``) on
+    ``--place`` (default ``cuda:0``; raises without CUDA)."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+
+    exe = pt.Executor(_place(args.place))
+    program, feed_names, fetch_targets = \
+        pt.io.load_inference_model(args.model, exe)
+    feed = {}
+    for spec in args.feed or []:
+        name, path = spec.split("=", 1)
+        feed[name] = np.load(path)
+    missing = [n for n in feed_names if n not in feed]
+    if missing:
+        print(f"missing feeds: {missing}; expected {feed_names}",
+              file=sys.stderr)
+        return 2
+    outs = exe.run(program, feed=feed, fetch_list=fetch_targets)
+    for target, value in zip(fetch_targets, outs):
+        name = target.name if hasattr(target, "name") else str(target)
+        arr = np.asarray(value)
+        print(f"{name}: shape={arr.shape}")
+        if args.output:
+            np.save(os.path.join(args.output, f"{name}.npy"), arr)
+    return 0
+
+
+def _cmd_trace(args):
+    """Dump a span ring as Chrome trace-event JSON: this process's with
+    --local (enable PADDLE_TPU_TRACE first), a serving replica's via its
+    /trace endpoint with --addr.  The output loads in Perfetto
+    (ui.perfetto.dev) or chrome://tracing.  ``--fleet`` (the whole
+    fleet's rings through its router) waits for the fleet."""
+    import json as _json
+
+    if args.fleet:
+        raise NotImplementedError(
+            "trace dump --fleet needs the fleet router (fleet/router.py), "
+            "not ported yet: ROADMAP queue 1 item 8")
+    if args.addr:
+        from paddle_tpu_torch.serving import ServingClient
+        obj = ServingClient(args.addr).trace()
+    else:
+        from paddle_tpu_torch.obs import trace as _trace
+        obj = _trace.chrome_trace()
+    body = _json.dumps(obj)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(body)
+        print(f"wrote {len(obj['traceEvents'])} span(s) to {args.output}")
+    else:
+        print(body)
+    return 0
+
+
+def _cmd_bench(args):
+    """Bench trajectory gate: ``bench check`` compares each bench's
+    newest run of the port's trajectory (``BENCH_TRAJECTORY_TORCH.json``
+    unless ``--trajectory``) against its recorded baseline under
+    per-metric tolerance bands (exit 1 on regression, a schema problem
+    or a missing file); ``bench record`` imports a bench summary JSON as
+    a new trajectory run."""
+    import json as _json
+
+    from paddle_tpu_torch.obs import bench_history
+
+    if args.action == "record":
+        if not args.bench or not args.summary:
+            print("bench record: need --bench NAME --summary FILE",
+                  file=sys.stderr)
+            return 2
+        try:
+            with open(args.summary) as f:
+                summary = _json.load(f)
+            metrics = bench_history.summary_metrics(args.bench, summary)
+            entry = bench_history.record(
+                args.bench, metrics, path=args.trajectory,
+                baseline=args.baseline, source=args.summary)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"bench record: {e}", file=sys.stderr)
+            return 2
+        print(_json.dumps(entry, indent=2, sort_keys=True))
+        return 0
+    report = bench_history.check(path=args.trajectory, dry=args.dry)
+    if args.json:
+        print(_json.dumps(report, indent=2, sort_keys=True))
+    else:
+        for line in report["problems"]:
+            print(f"schema: {line}")
+        for bench, b in sorted(report.get("benches", {}).items()):
+            for row in b["comparisons"]:
+                mark = "ok  " if row["ok"] else "FAIL"
+                print(f"[{mark}] {bench}.{row['metric']}: "
+                      f"newest={row['newest']:g} vs "
+                      f"baseline={row['baseline']:g} "
+                      f"({row['direction']}, band={row['band']:g}, "
+                      f"bound={row['bound']:g})")
+        verdict = "PASS" if report["ok"] else "FAIL"
+        what = "schema" if args.dry else "regression gate"
+        print(f"bench check ({what}): {verdict} [{report['path']}]")
+    return 0 if report["ok"] else 1
+
+
+def _fmt_cell(value):
+    if value is None:
+        return "-"
+    if isinstance(value, float):
+        return f"{value:.6g}"
+    return str(value)
+
+
+def _cmd_runs(args):
+    """Read side of the run ledger (``obs.ledger``): ``tail`` prints the
+    last N step rows of a ledger directory, ``show`` a whole-run digest
+    (row/segment counts, per-field first/last/min/max), ``compare`` two
+    runs side by side with last-value deltas.  Pure file readers (no
+    executor, no device), usable while the training process is still
+    appending; a directory either package wrote.  Exit 2 on an
+    unreadable ledger."""
+    import json as _json
+
+    from paddle_tpu_torch.obs import ledger as _ledger
+
+    try:
+        if args.action == "tail":
+            rows = _ledger.tail_rows(args.dir, n=args.n)
+            if args.json:
+                print(_json.dumps(rows, indent=2, sort_keys=True))
+                return 0
+            fields = [f for f in _ledger.ROW_FIELDS
+                      if any(r.get(f) is not None for r in rows)]
+            header = ["step", "time_unix"] + fields
+            print("  ".join(header))
+            for r in rows:
+                print("  ".join(_fmt_cell(r.get(k)) for k in header))
+            return 0
+        if args.action == "show":
+            body = _ledger.summarize(args.dir)
+            if args.json:
+                print(_json.dumps(body, indent=2, sort_keys=True))
+                return 0
+            print(f"{body['dir']}: {body['rows']} row(s) in "
+                  f"{body['segments']} segment(s), steps "
+                  f"{body['first_step']}..{body['last_step']}")
+            for field, st in sorted(body["fields"].items()):
+                print(f"  {field}: first={_fmt_cell(st['first'])} "
+                      f"last={_fmt_cell(st['last'])} "
+                      f"min={_fmt_cell(st['min'])} "
+                      f"max={_fmt_cell(st['max'])} "
+                      f"({st['samples']} sample(s))")
+            return 0
+        if not args.dir_b:
+            print("runs compare: need two ledger directories",
+                  file=sys.stderr)
+            return 2
+        body = _ledger.compare(args.dir, args.dir_b)
+        if args.json:
+            print(_json.dumps(body, indent=2, sort_keys=True))
+            return 0
+        print(f"A: {body['a']['dir']} ({body['a']['rows']} row(s), "
+              f"last step {body['a']['last_step']})")
+        print(f"B: {body['b']['dir']} ({body['b']['rows']} row(s), "
+              f"last step {body['b']['last_step']})")
+        for field, d in sorted(body["deltas"].items()):
+            print(f"  {field}: A last={_fmt_cell(d['a_last'])}  "
+                  f"B last={_fmt_cell(d['b_last'])}  "
+                  f"delta={_fmt_cell(d['delta_last'])}")
+        return 0
+    except ValueError as e:
+        print(f"runs: {e}", file=sys.stderr)
+        return 2
 
 
 def _cmd_serve(args):
@@ -361,10 +591,10 @@ def _cmd_selfcheck(args):
     """The JAX package's one-pass gate over every static check; most of
     its sections check planes the port does not have yet."""
     raise NotImplementedError(
-        "selfcheck: 8 of its 17 sections check code the port does not "
-        "have yet (the transpilers, sharded embeddings, the fleet "
-        "controller, checkpoint manifests, compile_zoo_step, the ledger "
-        "and bench history); it follows ROADMAP queue 1 item 10")
+        "selfcheck: some of its 17 sections check code the port does not "
+        "have yet (the distribute and pipeline transpilers, sharded "
+        "embeddings, the fleet controller); it follows ROADMAP queue 1 "
+        "items 7 and 8")
 
 
 def _cmd_replay(args):
@@ -767,6 +997,28 @@ def main(argv=None):
                                      description=__doc__)
     sub = parser.add_subparsers(dest="command", required=True)
 
+    p = sub.add_parser("version", help="print version info")
+    p.set_defaults(fn=_cmd_version)
+
+    p = sub.add_parser("train", help="run a training script")
+    p.add_argument("--config", required=True, help="python training script")
+    p.add_argument("--num-passes", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="export PADDLE_TPU_CKPT_DIR for the script's "
+                        "fault.manager_from_env()")
+    p.add_argument("--keep-checkpoints", type=int, default=5)
+    p.add_argument("script_args", nargs="*")
+    p.set_defaults(fn=_cmd_train)
+
+    p = sub.add_parser("infer", help="run a saved inference model")
+    p.add_argument("--model", required=True, help="save_inference_model dir")
+    p.add_argument("--feed", action="append",
+                   help="name=path.npy (repeatable)")
+    p.add_argument("--output", default=None, help="dir for output .npy")
+    p.add_argument("--place", default="cuda:0",
+                   help="cuda[:N] (default cuda:0) or cpu")
+    p.set_defaults(fn=_cmd_infer)
+
     p = sub.add_parser("serve", help="HTTP inference server")
     p.add_argument("--model", required=True,
                    help="save_inference_model dir or generation bundle")
@@ -852,6 +1104,59 @@ def main(argv=None):
                    help="Prometheus text exposition format (the /metrics "
                         "body) instead of the snapshot table")
     p.set_defaults(fn=_cmd_stats)
+
+    p = sub.add_parser("trace", help="dump the span ring as Chrome "
+                                     "trace-event JSON (Perfetto)")
+    p.add_argument("action", choices=["dump"])
+    p.add_argument("--addr", default=None,
+                   help="host:port of a serving replica (/trace); "
+                        "default: this process's ring (--local)")
+    p.add_argument("--local", action="store_true",
+                   help="this process's span ring (the default when "
+                        "--addr is not given)")
+    p.add_argument("--fleet", action="store_true",
+                   help="assembled fleet timeline via the fleet router; "
+                        "not ported yet (raises)")
+    p.add_argument("--output", default=None,
+                   help="write the JSON here instead of stdout")
+    p.set_defaults(fn=_cmd_trace)
+
+    p = sub.add_parser("bench",
+                       help="bench trajectory: record runs into "
+                            "BENCH_TRAJECTORY_TORCH.json and gate on "
+                            "regressions vs the recorded baseline")
+    p.add_argument("action", choices=["check", "record"])
+    p.add_argument("--trajectory", default=None,
+                   help="trajectory file (default: the repo's "
+                        "BENCH_TRAJECTORY_TORCH.json)")
+    p.add_argument("--dry", action="store_true",
+                   help="with check: validate the schema only, no "
+                        "regression comparison")
+    p.add_argument("--bench", default=None,
+                   help="with record: bench name (serving|datapipe|"
+                        "fleet|decode|...)")
+    p.add_argument("--summary", default=None,
+                   help="with record: the bench's summary JSON to import")
+    p.add_argument("--baseline", action="store_true",
+                   help="with record: flag the run as the bench's "
+                        "comparison baseline")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report")
+    p.set_defaults(fn=_cmd_bench)
+
+    p = sub.add_parser("runs",
+                       help="run-ledger readers (obs.ledger JSONL step "
+                            "series): tail the last rows, digest a whole "
+                            "run, or compare two runs")
+    p.add_argument("action", choices=["tail", "show", "compare"])
+    p.add_argument("dir", help="ledger directory (RunLedger dirname)")
+    p.add_argument("dir_b", nargs="?", default=None,
+                   help="second ledger directory (compare only)")
+    p.add_argument("-n", type=int, default=10,
+                   help="with tail: number of rows (default 10)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report")
+    p.set_defaults(fn=_cmd_runs)
 
     p = sub.add_parser("lint", help="static-analyze a program IR "
                                     "(PTA*** diagnostics)")

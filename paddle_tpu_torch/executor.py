@@ -9,12 +9,12 @@ runs it as a CUDA graph:
 
   1. ``_signature`` (the reference's, ``paddle_tpu/executor.py:1087``):
      program id and version, block, AMP, scope id, op profiling, the
-     feeds' names, dtypes and shapes, their frozen LoDs and the fetch
-     names (and ``check_nan_inf``, which moves the write-back out of the
-     graph); a guarded step (``sentinel=``), numerics probing and the op
-     ranges of a device profile add a component, so an unguarded step's
-     key stays as it is.  The reference's ``_release_memory`` is not
-     ported (ROADMAP item 7) and is not in the key.
+     early-release flag (``memory_optimization_transpiler.
+     release_memory``), the feeds' names, dtypes and shapes, their
+     frozen LoDs and the fetch names (and ``check_nan_inf``, which moves
+     the write-back out of the graph); a guarded step (``sentinel=``),
+     numerics probing and the op ranges of a device profile add a
+     component, so an unguarded step's key stays as it is.
   2. ``_get_compiled`` looks the signature up in an LRU cache of
      ``jit_cache_capacity()`` entries (``PADDLE_TPU_JIT_CACHE_SIZE``,
      default 64), counting ``jit_cache.hits`` / ``.misses`` /
@@ -167,6 +167,7 @@ from paddle_tpu_torch.lod import (SPLITS_SUFFIX, DynLoD, bucket_ragged_feed,
                                   next_bucket, validate_lod)
 from paddle_tpu_torch.obs import numerics as _numerics
 from paddle_tpu_torch.obs import perf as _perf
+from paddle_tpu_torch.obs.trace import record_span as _record_span
 from paddle_tpu_torch.obs.trace import span as _span
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.csp_ops import CSP_OPS
@@ -260,10 +261,15 @@ def lower_block(block, env, aux):
     ``aux["op_ranges"]`` it runs inside a ``record_function`` range named
     ``profiler.op_scope_name(op)``; with ``aux["probe"]`` its outputs go
     to ``numerics.record_op``; under a CUDA graph capture
-    (``aux["capturing"]``) a lowering that fails raises naming its op."""
+    (``aux["capturing"]``) a lowering that fails raises naming its op.
+    With a release plan for the block (``aux["release"]``, from
+    ``memory_optimization_transpiler.release_memory``) the env entries
+    whose last use has passed are dropped after each op, their bytes
+    and count added to the plan's ``stats``."""
     profiling = aux.get("profile")
     ranges = aux.get("op_ranges")
     probing = aux.get("probe")
+    release = (aux.get("release") or {}).get(block.idx)
     for i, op in enumerate(block.ops):
         if op.type in _SKIP_OPS:
             continue
@@ -296,6 +302,17 @@ def lower_block(block, env, aux):
             # output right after the op ran, first-non-finite capture
             _numerics.record_op(op, ctx.outputs, env)
         _share_lod(op, ctx.outputs, env, aux)
+        if release is not None:
+            # early release: an intermediate otherwise lives in the env
+            # until the step ends; drop it past its last use, as the
+            # reference's delete_var ops do (under a capture the graph's
+            # pool reuses the block later in the same capture)
+            stats = release["stats"]
+            for n in release["dead_after"].get(i, ()):
+                v = dict.pop(env, n, None)
+                if isinstance(v, torch.Tensor):
+                    stats["bytes"] += v.numel() * v.element_size()
+                    stats["vars"] += 1
     return env
 
 
@@ -895,6 +912,147 @@ class Executor:
                 name + SPLITS_SUFFIX: to_tensor(np.stack(splits),
                                                 self.device, "int32")}
 
+    def run_pipeline(self, program=None, pipeline=None, fetch_list=None,
+                     scope=None, max_steps=None, return_numpy=True,
+                     on_step=None, sentinel=None, ledger=None):
+        """Drive one epoch (or ``max_steps`` batches) of a ``datapipe``
+        pipeline through :meth:`run` (reference
+        ``paddle_tpu/executor.py:914``, on the same signature).
+
+        Each batch must be a feed dict (``name -> array``), the shape a
+        ``Batch`` stage with dict samples (or a custom collate) emits;
+        batches already on the card from a ``DevicePrefetch`` stage
+        enter :meth:`run` without a host copy.  Fires the ``train.step``
+        failpoint per batch (so ``PADDLE_TPU_CHAOS`` kill drills target
+        this loop), records the ``datapipe.next`` and ``train.step``
+        spans and ``datapipe.step_seconds``.  ``max_steps`` is checked
+        before the pull, so no batch is lost; stopping there closes the
+        iterator cleanly: threaded stages quiesce with their position
+        intact, so a following ``pipeline.state_dict()`` checkpoints
+        mid-epoch.
+
+        ``on_step(step_index, fetches)`` runs after each batch (metrics,
+        checkpointing).  Returns the list of per-batch fetch lists.
+
+        ``sentinel``: a :class:`paddle_tpu_torch.fault.Sentinel` turns
+        this loop into the automatic recovery loop: a tripped check skips
+        the poisoned update, quarantines the batch as a repro bundle,
+        and after K strikes rolls back to the sentinel's last known-good
+        checkpoint (which also rewinds the pipeline's iterator position)
+        and resumes.  Skipped steps never appear in the returned fetch
+        lists, and a rollback also drops the entries it rewound (their
+        batches re-run and re-append), so each applied batch appears
+        exactly once.
+
+        ``ledger``: a :class:`paddle_tpu_torch.obs.ledger.RunLedger`
+        appends one step row per APPLIED batch (skipped steps write no
+        row), BEFORE ``on_step`` runs, so that a checkpoint committed by
+        ``on_step`` carries a sidecar whose ``rows_total`` includes its
+        own step.  When omitted, the sentinel's checkpoint manager's
+        ``ledger`` (if any) is used.  Disabled, it is one ``None`` check
+        a step."""
+        from paddle_tpu_torch.fault import chaos as _chaos
+        from paddle_tpu_torch.fault.sentinel import NumericalFault
+        if pipeline is None:
+            raise ValueError("run_pipeline requires a datapipe pipeline")
+        outs = []
+        # checkpoint step -> len(outs) when the manager committed it,
+        # keyed by the step number the checkpoint was SAVED under (which
+        # need not match this loop's 0-based index: a resumed trainer
+        # may number globally); observed through the manager's
+        # in-process last_committed_step after each on_step, so that the
+        # rollback branch can truncate exactly (not latest_step(): that
+        # lists the directory, and a restarted trainer renumbering from
+        # 0 under a directory holding a prior run's higher ckpt-N would
+        # never see its own commits through it)
+        marks = {}
+        mgr = sentinel.manager if sentinel is not None else None
+        last_ckpt = getattr(mgr, "last_committed_step", None) \
+            if mgr is not None else None
+        if ledger is None and mgr is not None:
+            ledger = getattr(mgr, "ledger", None)
+        fetch_name_list = [v.name if hasattr(v, "name") else str(v)
+                           for v in (fetch_list or [])]
+        it = iter(pipeline)
+        try:
+            step = 0
+            # check the budget BEFORE pulling: a batch pulled past the
+            # limit would be dropped (lost from the resume sequence)
+            while max_steps is None or step < max_steps:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                stall = time.perf_counter() - t0
+                # recorded only on success: a normal epoch-end
+                # StopIteration is not an error-tagged span
+                _record_span("datapipe.next", t0, stall, step=step)
+                _chaos.fire("train.step", step=step)
+                try:
+                    with _span("train.step", step=step):
+                        with _profiler.record_latency(
+                                "datapipe.step_seconds"):
+                            fetches = self.run(program=program, feed=batch,
+                                               fetch_list=fetch_list,
+                                               scope=scope,
+                                               return_numpy=return_numpy,
+                                               sentinel=sentinel)
+                        if ledger is not None:
+                            ledger.note_step(fetch_names=fetch_name_list,
+                                             fetches=fetches,
+                                             stall_seconds=stall)
+                        if on_step is not None:
+                            on_step(step, fetches)
+                except NumericalFault as fault:
+                    if sentinel is None:
+                        raise
+                    restored = sentinel.handle_fault(fault, step=step)
+                    if restored is not None:
+                        mgr = sentinel.manager
+                        if getattr(mgr, "last_restore_rewound", False) \
+                                and hasattr(pipeline, "load_state_dict"):
+                            # the rollback rewound the pipeline's
+                            # position; the open iterator still points at
+                            # the pre-rollback stream: reopen it, and
+                            # drop the entries the rollback undid (their
+                            # batches re-run from the rewound stream).  A
+                            # checkpoint this loop never committed
+                            # rewinds past everything it returned
+                            close = getattr(it, "close", None)
+                            if close is not None:
+                                close()
+                            it = iter(pipeline)
+                            del outs[marks.get(restored, 0):]
+                        else:
+                            # params-only rollback: no datapipe state to
+                            # rewind; keep consuming the current iterator
+                            # (reopening would restart the epoch)
+                            logger.warning(
+                                "sentinel rollback restored step %s "
+                                "params-only (no datapipe state to "
+                                "rewind): batches since that step "
+                                "cannot be replayed; attach datapipe= "
+                                "to CheckpointManager for exact-once "
+                                "semantics", restored)
+                    step += 1
+                    continue
+                outs.append(fetches)
+                if mgr is not None and on_step is not None:
+                    # did on_step commit a checkpoint this step?  Its
+                    # saved position is AFTER this batch, so the mark
+                    # includes the entry just appended
+                    ckpt = getattr(mgr, "last_committed_step", None)
+                    if ckpt is not None and ckpt != last_ckpt:
+                        marks[ckpt] = len(outs)
+                        last_ckpt = ckpt
+                step += 1
+        finally:
+            close = getattr(it, "close", None)  # plain iterables lack it
+            if close is not None:
+                close()
+        return outs
+
     def warmup(self, program=None, feed_shapes=None, fetch_list=None,
                scope=None, allow_state_updates=False):
         """Run ``program`` for each declared feed signature on zero feeds
@@ -1030,6 +1188,12 @@ class Executor:
             program, feed_names=tuple(feed or ()),
             fetch_names=tuple(fetch_names))
         logger.debug("PADDLE_TPU_OPT: %r", report)
+        if getattr(program, "_release_memory", False):
+            # the early-release plan keys op indices: rebuild it against
+            # the optimized op list
+            from paddle_tpu_torch.memory_optimization_transpiler import \
+                release_memory
+            release_memory(optimized)
         if len(self._opt_cache) > 256:  # id()-reuse bound, not a cache
             self._opt_cache.clear()
         self._opt_cache[key] = optimized
@@ -1055,12 +1219,12 @@ class Executor:
     def _signature(self, program, block, feeds, fetch_names, scope,
                    guarded=False):
         """Cheap cache key — no per-op work, safe to compute every step.
-        The reference's components (``paddle_tpu/executor.py:1087``) but
-        ``_release_memory`` (not ported: ROADMAP item 7), and
-        ``check_nan_inf`` after them (it moves a graph's write-back after
-        the check).  A guarded step, numerics probing and the op ranges
-        of a device profile append one tuple naming them, so that an
-        unguarded, unprobed step's key is the plain one.  A distinct LoD
+        The reference's components (``paddle_tpu/executor.py:1087``),
+        its ``_release_memory`` after them, and ``check_nan_inf`` last
+        (it moves a graph's write-back after the check).  A guarded
+        step, numerics probing and the op ranges of a device profile
+        append one tuple naming them, so that an unguarded, unprobed
+        step's key is the plain one.  A distinct LoD
         is a distinct entry: the LoD is host metadata of the step; a
         bucketed feed's is its meta ``("dyn", B, T_bucket)``, its splits
         a feed."""
@@ -1075,6 +1239,7 @@ class Executor:
                             for n, a in feeds.items())),
                feed_lods,
                tuple(fetch_names),
+               bool(getattr(program, "_release_memory", False)),
                _check_nan_inf_enabled(program))
         extra = _step_modes(guarded)
         return sig + (extra,) if extra else sig
@@ -1183,6 +1348,8 @@ class Executor:
         fetch_check = Executor.fetch_missing_check
         # the block's constants on the device (assign_value), made once
         constants = {}
+        release = self._release_plan(program, block, fetch_names,
+                                     write_names)
 
         def step(feeds, rng_seed, generators, capturing):
             env = _StateEnv(scope, device) if shared is None else \
@@ -1211,6 +1378,10 @@ class Executor:
                    # the feeds' and the state's LoDs; ops add theirs
                    # (set_output_lod) and _share_lod passes them on
                    "lod": lods}
+            if release is not None:
+                stats = release[block.idx]["stats"]
+                stats["bytes"] = stats["vars"] = 0  # per-walk measurement
+                aux["release"] = release
             with torch.no_grad():
                 lower_block(block, env, aux)
             if aux.get("go_errors"):
@@ -1235,6 +1406,31 @@ class Executor:
                 "ro_names": ro_names, "inout_names": inout_names,
                 "create_state": create_state, "interpret": interpret,
                 "param_names": param_names}
+
+    @staticmethod
+    def _release_plan(program, block, fetch_names, write_names):
+        """The early-release map of a released program's ``block``
+        (``{block.idx: {"dead_after": {op index: [names]}, "stats"}}``,
+        reference ``paddle_tpu/executor.py:1207-1224``), or None: each
+        variable dies after its last use (a control-flow op lists its
+        sub-block's outer reads among its inputs) but the fetches, the
+        written state and every persistable.  ``program._release_stats`` is the
+        stats dict, filled by each walk of the op list (a graph's only at
+        its capture)."""
+        if not getattr(program, "_release_memory", False):
+            return None
+        plan = getattr(program, "_memory_plan", None)
+        if plan is None or block.idx not in plan.last_use:
+            return None
+        protect = set(fetch_names) | set(write_names) | \
+            set(_persistable_names(program))
+        dead_after = {}
+        for name, idx in plan.last_use[block.idx].items():
+            if name not in protect:
+                dead_after.setdefault(idx, []).append(name)
+        stats = {"bytes": 0, "vars": 0}
+        program._release_stats = stats
+        return {block.idx: {"dead_after": dead_after, "stats": stats}}
 
     def _get_compiled(self, program, block, feeds, fetch_names, scope,
                       guarded=False):

@@ -180,11 +180,11 @@ def commit_checkpoint(tmp_path, final_path, step=None, extra=None):
 
 def manager_from_env(executor=None, main_program=None, scope=None):
     """Build a :class:`CheckpointManager` from the ``PADDLE_TPU_CKPT_DIR``
-    / ``PADDLE_TPU_CKPT_KEEP`` env vars (exported by the JAX package's
-    ``paddle_tpu train --checkpoint-dir``; the port's CLI has no ``train``
-    yet, ROADMAP queue 1 item 10); returns None when unset — training
-    scripts call
-    this once and checkpoint/resume only when the operator asked for it."""
+    / ``PADDLE_TPU_CKPT_KEEP`` env vars (exported by ``python -m
+    paddle_tpu_torch train --checkpoint-dir D [--keep-checkpoints N]``,
+    as by the JAX package's ``train``); returns None when unset.
+    Training scripts call this once and checkpoint/resume only when the
+    operator asked for it."""
     dirname = os.environ.get("PADDLE_TPU_CKPT_DIR")
     if not dirname:
         return None

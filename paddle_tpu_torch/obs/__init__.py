@@ -19,6 +19,14 @@ exposition, the SLO watchdog, device performance and numerics.
 - :mod:`paddle_tpu_torch.obs.numerics` — per-op tensor-stat probes
   (first non-finite op), bundle localization, and the fused
   training-health norms the sentinel publishes.
+- :mod:`paddle_tpu_torch.obs.ledger` — the persistent run ledger: the
+  loss, norm, MFU and stall series as JSONL segments that survive the
+  process and rewind with a checkpoint (``runs tail|show|compare``).
+- :mod:`paddle_tpu_torch.obs.bench_history` — the bench trajectory and
+  its regression gate (``bench check|record``), over the port's own
+  ``BENCH_TRAJECTORY_TORCH.json``.
+
+The fleet's federated metrics (``obs/aggregate.py``) come with the fleet.
 
 Metric, span and failpoint names are the JAX package's, listed in
 ``docs/observability.md`` and ``docs/fault_tolerance.md``.
@@ -32,6 +40,8 @@ from paddle_tpu_torch.obs import prom
 from paddle_tpu_torch.obs import perf
 from paddle_tpu_torch.obs import numerics
 from paddle_tpu_torch.obs import slo
+from paddle_tpu_torch.obs import ledger
+from paddle_tpu_torch.obs import bench_history
 from paddle_tpu_torch.obs.trace import (span, record_span, trace_context,
                                         current_trace_id, new_trace_id,
                                         chrome_trace, dump_chrome_trace,
@@ -41,6 +51,7 @@ from paddle_tpu_torch.obs.prom import render_prometheus
 from paddle_tpu_torch.obs.slo import SLOWatchdog, load_spec, validate_spec
 
 __all__ = ["trace", "flight", "prom", "perf", "numerics", "slo",
+           "ledger", "bench_history",
            "span", "record_span", "trace_context",
            "current_trace_id", "new_trace_id", "chrome_trace",
            "dump_chrome_trace", "set_process_name", "snapshot_payload",

@@ -79,6 +79,15 @@ def write_postmortem(path=None, reason="", extra=None):
         }
         if extra:
             body["extra"] = extra
+        try:
+            from paddle_tpu_torch.obs import ledger as _ledger
+            rows = _ledger.active_tail(32)
+            if rows:
+                # the loss/grad trajectory INTO the fault, next to the
+                # span timeline (obs/ledger.py)
+                body["ledger_tail"] = rows
+        except Exception:
+            pass
         # the tmp name must be unique PER CALL, not per process: a
         # graceful shutdown dumps twice concurrently (the async
         # signal-handler thread and the __exit__ backstop), and two

@@ -489,6 +489,45 @@ def test_datapipe_and_ledger_sidecars_ride_the_commit(tmp_path):
     assert mgr.restore_latest() == 2 and (pipe.pos, ledger.pos) == (20, 200)
 
 
+def test_real_datapipe_and_ledger_sidecars_ride_the_commit(tmp_path):
+    """The stub's drill with the real sidecars: a prefetching pipeline
+    and a run ledger driven by ``run_pipeline``; a restore of an older
+    step rewinds both, and the loop resumes on the saved position."""
+    import paddle_tpu_torch.datapipe as dp
+    from paddle_tpu_torch.obs.ledger import RunLedger, read_rows
+    port = _Port()
+    rng = np.random.RandomState(0)
+    samples = [{"x": rng.rand(8).astype("float32"),
+                "y": rng.rand(1).astype("float32")} for _ in range(32)]
+
+    pipe = dp.InMemorySource(samples).shuffle(8, seed=2).batch(
+        4, drop_last=True).prefetch(depth=2, device="cpu")
+    ledger = RunLedger(str(tmp_path / "ledger"), flush_every=1,
+                       install=False)
+    mgr = port.manager(tmp_path / "ckpt", datapipe=pipe, ledger=ledger)
+
+    def on_step(s, fetches):
+        mgr.save(s + 1)
+
+    outs = port.exe.run_pipeline(
+        port.main, pipe, fetch_list=[port.loss], scope=port.scope,
+        max_steps=5, ledger=ledger, on_step=on_step)
+    assert len(outs) == 5 and ledger.rows_total == 5
+    seen = ledger.tail(5)
+    assert mgr.restore(2) is not None
+    assert mgr.last_restore_rewound is True
+    assert (ledger.rows_total, ledger.last_step) == (2, 1)
+    rest = port.exe.run_pipeline(port.main, pipe, fetch_list=[port.loss],
+                                 scope=port.scope, ledger=ledger)
+    # the pipeline resumed at batch 3 of the 8: the same batches, once
+    assert len(rest) == 6
+    np.testing.assert_array_equal(
+        [float(np.asarray(o[0]).reshape(())) for o in rest[:3]],
+        [r["loss"] for r in seen[2:]])
+    ledger.close()
+    assert [r["step"] for r in read_rows(ledger.dirname)] == list(range(8))
+
+
 def test_restore_reports_params_only_when_no_datapipe_state(tmp_path):
     mgr, _ = _train_and_save(tmp_path, steps=1)
     mgr.mark_good(1)

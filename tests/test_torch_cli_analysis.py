@@ -155,5 +155,6 @@ def test_multi_program_modes_and_selfcheck_raise(tmp_path):
         cli.main(["lint", "--pair", "a", "b"])
     with pytest.raises(NotImplementedError, match="item 7"):
         cli.main(["lint", "--zoo", "mnist", "--pipeline", "2"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the rest of item 10, selfcheck, waits for items 7 and 8
+    with pytest.raises(NotImplementedError, match="items 7 and 8"):
         cli.main(["selfcheck"])

@@ -1881,3 +1881,183 @@ def test_census_and_device_time_on_card(cuda_card):
         lambda: [exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
                  for _ in range(3)])
     assert 0 < busy <= time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# the input pipeline on the card: DevicePrefetch's copy stream, the
+# allocator, the census; run_pipeline and early release on a graph
+# ---------------------------------------------------------------------------
+
+def _pipe_samples(n, dim):
+    rng = np.random.RandomState(5)
+    return [{"x": rng.rand(dim).astype("float32"),
+             "y": np.array([i], np.int64)} for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_prefetch_orders_a_delayed_copy_on_card(cuda_card):
+    """The copy stream is held back (a sleep queued on it before any
+    copy): every batch read on the current stream still has its values,
+    as the current stream waits on each copy's event."""
+    import paddle_tpu_torch.datapipe as dp
+    dev = torch.device("cuda", 0)
+    samples = _pipe_samples(64, 4096)
+    pipe = dp.InMemorySource(samples).batch(16).prefetch(depth=2)
+    assert pipe.device == dev
+    pipe._stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(pipe._stream):
+        torch.cuda._sleep(int(2e8))
+    sums = []
+    for b in pipe:
+        assert b["x"].is_cuda and b["x"].device == dev
+        sums.append(b["x"].sum(dtype=torch.float64))
+    torch.cuda.synchronize(dev)
+    want = np.stack([s["x"] for s in samples]).astype(np.float64) \
+        .reshape(4, 16, 4096).sum(axis=(1, 2))
+    np.testing.assert_allclose([float(s) for s in sums], want, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_prefetch_batches_keep_their_blocks_on_card(cuda_card):
+    """A batch the current stream still reads after its last reference
+    is gone keeps its block (``record_stream``) while the worker stages
+    the next batches on the copy stream."""
+    import paddle_tpu_torch.datapipe as dp
+    dev = torch.device("cuda", 0)
+    samples = _pipe_samples(256, 8192)
+    pipe = dp.InMemorySource(samples).batch(16).prefetch(depth=4)
+    busy = torch.randn(2048, 2048, device=dev)
+    sums = []
+    for b in pipe:
+        assert pipe._stream != torch.cuda.current_stream(dev)
+        for _ in range(4):               # hold the current stream back
+            busy = torch.tanh(busy @ busy)
+        sums.append(b["x"].sum(dtype=torch.float64))  # runs after that
+        del b                            # freed while the sum is queued
+    torch.cuda.synchronize(dev)
+    want = np.stack([s["x"] for s in samples]).astype(np.float64) \
+        .reshape(16, 16, 8192).sum(axis=(1, 2))
+    np.testing.assert_allclose([float(s) for s in sums], want, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_prefetch_census_and_state_on_card(cuda_card):
+    """The staged batches are the census's ``prefetch`` collection while
+    they wait, 0 after the epoch; a state taken mid-epoch carries them as
+    host arrays, placed on the card again by the stage that loads it."""
+    import pickle
+    import paddle_tpu_torch.datapipe as dp
+    from paddle_tpu_torch.obs import perf
+    samples = _pipe_samples(64, 1024)
+    pipe = dp.InMemorySource(samples).batch(8).prefetch(depth=3)
+    it = iter(pipe)
+    first = next(it)
+    deadline = time.time() + 10
+    while pipe._q.qsize() < 3 and time.time() < deadline:
+        time.sleep(0.01)
+    staged = perf.hbm_census()["prefetch"]
+    assert staged >= 3 * 8 * (1024 * 4 + 8)
+    it.close()
+    blob = pickle.dumps(pipe.state_dict())
+    fresh = dp.InMemorySource(samples).batch(8).prefetch(depth=3)
+    fresh.load_state_dict(pickle.loads(blob))
+    rest = list(fresh)
+    assert all(b["x"].is_cuda for b in rest)
+    ids = [int(i) for b in [first] + rest for i in b["y"][:, 0].cpu()]
+    assert ids == list(range(64))
+    del first, rest, it, pipe        # the first stage held the state's
+    import gc                        # batches until it is collected
+    gc.collect()
+    assert perf.hbm_census()["prefetch"] == 0
+
+
+@pytest.mark.cuda
+def test_run_pipeline_prefetched_equals_memory_fed_on_card(cuda_card):
+    """``run_pipeline`` over a prefetching pipeline on the default
+    (graphed) path: the losses of the same batches fed from memory, bit
+    for bit, one graph; the batches enter ``run`` on the card."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.datapipe as dp
+    from paddle_tpu_torch.obs.ledger import RunLedger
+
+    def program():
+        main, startup = pt.Program(), pt.Program()
+        main.random_seed = startup.random_seed = 7
+        with pt.framework.unique_name_scope("rp_"), \
+                pt.program_guard(main, startup):
+            x = pt.layers.data("x", shape=[256], dtype="float32")
+            y = pt.layers.data("y", shape=[1], dtype="float32")
+            h = pt.layers.fc(x, 512, act="relu")
+            cost = pt.layers.mean(pt.layers.square_error_cost(
+                pt.layers.fc(h, 1), y))
+            pt.optimizer.Adam(1e-3).minimize(cost)
+        return main, startup, cost
+
+    rng = np.random.RandomState(1)
+    samples = [{"x": rng.rand(256).astype("float32"),
+                "y": rng.rand(1).astype("float32")} for _ in range(320)]
+    order = [{k: np.asarray(v) for k, v in b.items()} for b in
+             dp.InMemorySource(samples).shuffle(64, seed=3).batch(32)]
+    runs = {}
+    for mode in ("pipeline", "memory"):
+        main, startup, cost = program()
+        exe, scope = pt.Executor(), pt.Scope()
+        exe.run(startup, scope=scope)
+        if mode == "pipeline":
+            import tempfile
+            pipe = dp.InMemorySource(samples).shuffle(64, seed=3) \
+                .batch(32).prefetch(depth=2)
+            with tempfile.TemporaryDirectory() as d:
+                ledger = RunLedger(d, install=False)
+                outs = exe.run_pipeline(main, pipe, fetch_list=[cost],
+                                        scope=scope, ledger=ledger)
+                assert ledger.rows_total == 10
+                ledger.close()
+        else:
+            outs = [exe.run(main, feed=b, fetch_list=[cost], scope=scope)
+                    for b in order]
+        runs[mode] = (np.array([o[0] for o in outs]), exe.graph_stats())
+    (got, stats), (want, _) = runs["pipeline"], runs["memory"]
+    np.testing.assert_array_equal(got, want)
+    assert len(stats) == 1 and stats[0]["replays"] == 9   # capture + 8
+
+
+@pytest.mark.cuda
+def test_release_memory_graphed_and_eager_same_fetches_on_card(cuda_card):
+    """Early release in the eager walk and in the captured one: the
+    same losses bit for bit; the captured walk drops the intermediates
+    inside the capture (its stats counted there)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.analysis.opt import clone_program
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[512], dtype="float32")
+        h = x
+        for _ in range(4):
+            h = pt.layers.fc(h, 512, act="relu")
+        cost = pt.layers.mean(pt.layers.fc(h, 1))
+        pt.optimizer.SGD(1e-3).minimize(cost)
+    feed = {"x": np.random.RandomState(0).rand(64, 512).astype("float32")}
+    exe0, scope0 = pt.Executor(), pt.Scope()
+    exe0.run(startup, scope=scope0)
+    state = {n: v.clone() for n, v in scope0.items()}
+    runs = {}
+    for eager in (False, True):
+        for released in (False, True):
+            prog = clone_program(main)
+            prog._opt_interpret = eager
+            if released:
+                pt.release_memory(prog)
+            exe, scope = pt.Executor(), pt.Scope()
+            for n, v in state.items():
+                scope.set_var(n, v.clone())
+            losses = [exe.run(prog, feed=feed, fetch_list=[cost],
+                              scope=scope)[0] for _ in range(3)]
+            if released:
+                assert prog._release_stats["vars"] > 5
+            assert bool(exe.graph_stats()) is not eager
+            runs[(eager, released)] = np.array(losses)
+    for eager in (False, True):
+        np.testing.assert_array_equal(runs[(eager, True)],
+                                      runs[(eager, False)])

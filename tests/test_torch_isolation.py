@@ -59,7 +59,9 @@ def test_every_port_module_imports_with_jax_blocked():
                 "analysis.opt", "analysis.opt.passes",
                 "analysis.opt.pipeline", "memory_optimization_transpiler",
                 "ops.fused_ops", "ops.detection_ops", "ops.csp_ops",
-                "layers.detection", "channel", "concurrency", "native"):
+                "layers.detection", "channel", "concurrency", "native",
+                "datapipe", "datapipe.prefetch", "obs.ledger",
+                "obs.bench_history", "debuger"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

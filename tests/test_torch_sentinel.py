@@ -323,7 +323,9 @@ def test_unguarded_step_is_structurally_free(monkeypatch):
     (sig,) = [k for k in exe._cache if k[0] == id(main)]
     feeds = {n: torch.as_tensor(v) for n, v in _feed(1).items()}
     assert sig == exe._signature(main, block, feeds, (loss.name,), scope)
-    assert len(sig) == 10 and sig[-1] is False
+    # the reference's components (the early-release flag among them) and
+    # check_nan_inf: no guard component
+    assert len(sig) == 11 and sig[-1] is False
     assert exe._step_check(exe._cache[sig], main, feeds, scope,
                            None) is None
     s = Sentinel(cadence=1, strikes=99, spike_factor=None)
