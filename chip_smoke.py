@@ -350,13 +350,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    A at 1 layer through ``manager_from_env``, ``run_pipeline`` and a
    ``RunLedger``, read back by ``runs show`` / ``runs tail``) and
    ``infer --place cuda`` as concurrent subprocesses.
-17. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+17. Multi-GPU at world size 1 (the card is one GPU; NCCL refuses two
+   ranks on one device).  ``phase_parallel_train``: ``init_parallel_env``
+   in this process over NCCL, then route A at full width (dropout 0)
+   through ``ParallelExecutor`` on a ``(1, 1)`` ``("data", "model")``
+   mesh with ``tp_shardings()`` and ZeRO for ``PARALLEL_STEPS`` steps
+   (a CUDA graph from the second): losses and every persistable
+   bit-identical to ``Executor.run``
+   of the same state and feeds, 18 + 18 bias-softmax launches a step on
+   the kernels and none of their plain versions; ms a step both ways,
+   the collectives of a step (none at one rank) and the first step's
+   NCCL broadcasts, the graph (an op that DTensor refuses fails it);
+   the ``ring_attention`` op at ``seq`` size 1 against plain attention
+   (``RING_TOL``) and the eight ``c_*`` ops pinned to ``data``, one NCCL
+   collective each.  The process group is destroyed after it.
+18. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
    ``also_replaces``, the redesigned kernels what their redesign changed
    and their SASS's tensor-core instruction counts, ``flash_fwd`` its
    repair and its route B device time, ``device_ms``), a
+   ``{"profiler_short_captures": [...]}`` line (every ``torch.profiler``
+   capture that came back short of launches the wrappers counted), a
    ``{"phase_seconds": {...}}`` line (each phase's wall seconds and the
    run's), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -459,12 +475,42 @@ def _device_events(fn, iters, warmup):
             if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
-#: profiler captures ``device_ms`` takes before it fails: the profiler
-#: has returned a capture short of some launches (4 of 10 flash forwards
-#: once, the next run of the same tree all 10), so a short capture is
-#: taken again; a wrapper that launches its kernel less often than once a
-#: call is short every time and still fails
-DEVICE_MS_CAPTURES = 3
+#: profiler captures ``device_ms`` takes before it fails.  The profiler
+#: has returned captures short of launches that the wrappers counted (4
+#: of 10 flash forwards once; 8, 0 and 5 of 10 in three captures
+#: running, and three short of the flash backward before a full one, in
+#: two runs of one tree whose next runs, and the parent's in the same
+#: call, saw every launch), so a short capture is taken again.  Each
+#: capture must still see every launch, and the wrappers' counts must
+#: show a launch on every call of every capture (``_captured``), so a
+#: wrapper that skips its kernel fails at its first capture however many
+#: retakes there are
+DEVICE_MS_CAPTURES = 8
+#: every capture the profiler returned short of launches that the
+#: wrappers' own counts show ran: ``{"kernels", "seen", "calls",
+#: "launched"}`` each, printed in the ``{"profiler_short_captures"}``
+#: line so that their trend shows from run to run
+PROFILER_SHORT = []
+
+
+def _wrapper_launches():
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    return sum(k.launches for k in ALL_KERNELS)
+
+
+def _captured(fn, iters, warmup):
+    """``_device_events`` and the launches the wrappers counted in it,
+    which must be the same whole number for each of its ``warmup + 1 +
+    iters`` calls: a wrapper that skips its kernel on some calls fails
+    here, whatever the profiler saw."""
+    calls = warmup + 1 + iters
+    before = _wrapper_launches()
+    events = _device_events(fn, iters, warmup)
+    launched = _wrapper_launches() - before
+    if launched <= 0 or launched % calls:
+        raise AssertionError(f"the wrappers counted {launched} launches in "
+                             f"{calls} calls")
+    return events, launched
 
 
 def device_ms(fn, names, iters=10, warmup=2):
@@ -474,15 +520,19 @@ def device_ms(fn, names, iters=10, warmup=2):
     for _ in range(DEVICE_MS_CAPTURES):
         us = dict.fromkeys(names, 0.0)
         seen = dict.fromkeys(names, 0)
-        for name, t in _device_events(fn, iters, warmup):
+        events, launched = _captured(fn, iters, warmup)
+        for name, t in events:
             for n in names:
                 if n in name:
                     us[n] += t
                     seen[n] += 1
         if all(seen[n] == iters for n in names):
             return {n: us[n] / iters / 1e3 for n in names}
-        log(f"device_ms: profiler saw launches {seen}, want {iters} each; "
-            f"capturing again")
+        PROFILER_SHORT.append({"kernels": list(names), "seen": seen,
+                               "calls": iters, "launched": launched})
+        log(f"device_ms: profiler saw launches {seen}, want {iters} each "
+            f"(the wrappers counted {launched} in {warmup + 1 + iters} "
+            f"calls); capturing again")
     raise AssertionError(f"profiler saw launches {seen}, want {iters} each "
                          f"in {DEVICE_MS_CAPTURES} captures")
 
@@ -492,12 +542,15 @@ def device_ms_sum(fn, names, iters=10, warmup=2):
     kernel whose name holds one of ``names`` (launched any number of times
     a call, at least once), by ``torch.profiler`` over ``iters`` calls."""
     for _ in range(DEVICE_MS_CAPTURES):
-        hits = [t for name, t in _device_events(fn, iters, warmup)
-                if any(n in name for n in names)]
+        events, launched = _captured(fn, iters, warmup)
+        hits = [t for name, t in events if any(n in name for n in names)]
         if len(hits) >= iters:
             return sum(hits) / iters / 1e3
+        PROFILER_SHORT.append({"kernels": list(names), "seen": len(hits),
+                               "calls": iters, "launched": launched})
         log(f"device_ms_sum: profiler saw {len(hits)} launches of {names} "
-            f"in {iters} calls; capturing again")
+            f"in {iters} calls (the wrappers counted {launched} in "
+            f"{warmup + 1 + iters} calls); capturing again")
     raise AssertionError(f"profiler saw {len(hits)} launches of {names} in "
                          f"{iters} calls in {DEVICE_MS_CAPTURES} captures")
 
@@ -3082,6 +3135,228 @@ def phase_datapipe_train():
         f"{release['released_pool_gib']:.3f} GiB; card {out['card']}")
     return launches, out
 
+
+#: steps of ``phase_parallel_train`` (route A at full width, dropout 0)
+PARALLEL_STEPS = 6
+#: the ``ring_attention`` op's check at ``seq`` size 1: [B, H, S, D]
+#: float32, against plain float32 attention on the card (the op falls
+#: back to the unfused route, the bias-softmax kernel; the two sum in
+#: different orders)
+RING_SHAPE = (4, 8, 256, 64)
+RING_TOL = 2e-5
+
+
+def _ring_op_check(pt, parallel):
+    """The ``ring_attention`` op through ``ParallelExecutor`` on a
+    ``(1, 1)`` ``("data", "seq")`` mesh, causal, against plain attention
+    in float32: the max abs error."""
+    import numpy as np
+    import torch
+    B, H, S, D = RING_SHAPE
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        q, k, v = (pt.layers.data(name=n, shape=list(RING_SHAPE),
+                                  append_batch_size=False)
+                   for n in ("rq", "rk", "rv"))
+        out = pt.layers.ring_attention(q, k, v, causal=True)
+    rng = np.random.RandomState(SEED)
+    feed = {n: (rng.randn(*RING_SHAPE) * 0.5).astype("float32")
+            for n in ("rq", "rk", "rv")}
+    mesh = parallel.make_mesh((1, 1), ("data", "seq"))
+    pexe = parallel.ParallelExecutor(main_program=main, mesh=mesh)
+    (got,) = pexe.run(feed=feed, fetch_list=[out], scope=pt.Scope())
+    qt, kt, vt = (torch.from_numpy(feed[n]).cuda() for n in ("rq", "rk", "rv"))
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * D ** -0.5
+    mask = torch.ones(S, S, dtype=torch.bool, device="cuda").triu(1)
+    want = torch.matmul(torch.softmax(s.masked_fill(mask, float("-inf")),
+                                      -1), vt).cpu().numpy()
+    return float(np.abs(got - want).max())
+
+
+def _collective_ops_check(pt, parallel):
+    """The eight ``c_*`` ops pinned to the ``data`` axis
+    (``axis="data"``) through ``ParallelExecutor`` at world size 1: each
+    runs its NCCL collective on this rank's value, which at one rank
+    gives the value back (``c_allreduce_prod`` as ``exp(log x)``, within
+    rounding).  Returns the collectives counted and the max abs error."""
+    import numpy as np
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    ops = ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+           "c_allreduce_prod", "c_broadcast", "c_allgather",
+           "c_reducescatter", "c_alltoall")
+    main, startup = pt.Program(), pt.Program()
+    outs = []
+    with pt.program_guard(main, startup):
+        x = pt.layers.data(name="cx", shape=[8, 16], append_batch_size=False)
+        for t in ops:
+            helper = LayerHelper(t)
+            out = helper.create_tmp_variable("float32")
+            helper.append_op(type=t, inputs={"X": [x]},
+                             outputs={"Out": [out]}, attrs={"axis": "data"})
+            outs.append(out)
+    xv = np.random.RandomState(SEED).uniform(0.5, 2.0, (8, 16)).astype(
+        "float32")
+    mesh = parallel.make_mesh((1,), ("data",))
+    pexe = parallel.ParallelExecutor(main_program=main, mesh=mesh)
+    pexe.count_collectives = True
+    got = pexe.run(feed={"cx": xv}, fetch_list=outs, scope=pt.Scope())
+    err = max(float(np.abs(g - xv).max()) for g in got)
+    return pexe.collective_stats, err
+
+
+def phase_parallel_train():
+    """Route A at full width through ``ParallelExecutor`` on NCCL at world
+    size 1 (``init_parallel_env`` in this process): Transformer-base,
+    S 256, B 64, bf16 AMP, Adam, dropout 0, on a ``(1, 1)`` ``("data",
+    "model")`` mesh with ``tp_shardings()`` and ZeRO, ``PARALLEL_STEPS``
+    steps.  The losses and every persistable must be bit-identical to
+    ``Executor.run`` of the same state and feeds; the bias-softmax pair
+    must launch 18 + 18 times a step on its kernels and its plain
+    versions never.  Prints ms a step both ways (medians of the steps
+    after the first; both graphed: the first step eager, the second
+    captured, the rest replays), the collectives of one step (counted on
+    the second, the capture: none at world size 1, where DTensor elides
+    the collectives of a one-rank mesh axis) and their bytes, the first
+    step's NCCL broadcasts of the state, the graph, the ``ring_attention``
+    op's error at ``seq`` size 1, and the eight ``c_*`` ops pinned to
+    the ``data`` axis, each one NCCL collective.  The process group is
+    destroyed at the end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.models import transformer as T
+    import importlib
+    bsm = importlib.import_module("paddle_tpu_torch.kernels.bias_softmax")
+
+    B, S = ROUTE_A_B, ROUTE_A_S
+    hp = T.ModelHyperParams()
+    hp.dropout = 0.0
+    hp.max_length = max(hp.max_length, S)
+    main, startup, cost = _transformer_program(pt, T, hp, B, S, amp=True)
+    feeds = [T.fake_batch(B, S, S, hp, seed=SEED + i)
+             for i in range(PARALLEL_STEPS)]
+    parallel.init_parallel_env()
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"parallel_train: {dist.get_backend()} "
+                                 f"world of {dist.get_world_size()}")
+        scope = pt.Scope()
+        exe = pt.Executor()
+        exe.run(startup, scope=scope)
+        init = _snapshot(scope)
+        plain_losses, plain_s = [], []
+        for feed in feeds:
+            t = time.perf_counter()
+            (loss,) = exe.run(main, feed=feed, fetch_list=[cost],
+                              scope=scope)
+            plain_s.append(time.perf_counter() - t)
+            plain_losses.append(np.asarray(loss).reshape(()))
+        plain_state = _snapshot(scope)
+        _graphs("parallel_train_plain", exe, True)
+        del exe, scope
+        torch.cuda.empty_cache()
+
+        pscope = pt.Scope()
+        for n, v in init.items():
+            pscope.set_var(n, v)
+        del init
+        mesh = parallel.make_mesh((1, 1), ("data", "model"))
+        pexe = parallel.ParallelExecutor(
+            loss_name=cost.name, main_program=main, mesh=mesh,
+            param_shardings=T.tp_shardings(), zero=True)
+        plain_calls = {"fwd": 0, "grad": 0}
+        ref_fwd, ref_grad = bsm.bias_softmax_reference, \
+            bsm.bias_softmax_grad_reference
+
+        def fwd(*a, **k):
+            plain_calls["fwd"] += 1
+            return ref_fwd(*a, **k)
+
+        def grad(*a, **k):
+            plain_calls["grad"] += 1
+            return ref_grad(*a, **k)
+
+        bsm.bias_softmax_reference = fwd
+        bsm.bias_softmax_grad_reference = grad
+        _take_launches()
+        losses, par_s, comms = [], [], None
+        try:
+            for i, feed in enumerate(feeds):
+                pexe.count_collectives = i == 1
+                t = time.perf_counter()
+                (loss,) = pexe.run(feed=feed, fetch_list=[cost],
+                                   scope=pscope)
+                par_s.append(time.perf_counter() - t)
+                losses.append(np.asarray(loss).reshape(()))
+                if i == 1:
+                    comms = pexe.collective_stats
+            launches = _take_launches()
+        finally:
+            bsm.bias_softmax_reference = ref_fwd
+            bsm.bias_softmax_grad_reference = ref_grad
+        want = {"bias_softmax": 18 * PARALLEL_STEPS,
+                "bias_softmax_grad": 18 * PARALLEL_STEPS}
+        if launches != want or any(plain_calls.values()):
+            raise AssertionError(f"parallel_train: launches {launches} != "
+                                 f"{want}, plain versions {plain_calls}")
+        if [x.tobytes() for x in losses] != \
+                [x.tobytes() for x in plain_losses]:
+            raise AssertionError(f"parallel_train: losses {losses} != "
+                                 f"Executor.run's {plain_losses}")
+        got = {n: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+               for n, v in _tensors(pscope).items()}
+        holder = pt.Scope()
+        for n, v in got.items():
+            holder.set_var(n, v)
+        bad = _bit_equal(holder, plain_state)
+        if bad:
+            raise AssertionError(f"parallel_train: {len(bad)} persistables "
+                                 f"differ from Executor.run's: {bad[:5]}")
+        graphs = pexe.graph_stats()
+        if not graphs or not all(g["graphed"] for g in graphs) or \
+                _graphs("parallel_train", pexe, True) != PARALLEL_STEPS - 1:
+            raise AssertionError(f"parallel_train: graph state {graphs}")
+        if comms is None or not pexe.broadcast_stats["calls"]:
+            raise AssertionError(f"parallel_train: no first-step "
+                                 f"broadcast ({pexe.broadcast_stats})")
+        broadcasts = dict(pexe.broadcast_stats)
+        placed = {n: str(tuple(v.placements)) for n, v in
+                  _tensors(pscope).items() if hasattr(v, "placements") and
+                  any(p.is_shard() for p in v.placements)}
+        del pexe, pscope, holder, got, plain_state
+        torch.cuda.empty_cache()
+        ring_err = _ring_op_check(pt, parallel)
+        if not ring_err <= RING_TOL:
+            raise AssertionError(f"parallel_train: ring_attention at seq "
+                                 f"size 1 off by {ring_err}")
+        c_ops, c_err = _collective_ops_check(pt, parallel)
+        if sum(c_ops["calls"].values()) != 8 or not c_err <= 1e-6:
+            raise AssertionError(f"parallel_train: c_* ops {c_ops}, max "
+                                 f"abs err {c_err}")
+        _take_launches()
+    finally:
+        parallel.destroy_parallel_env()
+    out = {"steps": PARALLEL_STEPS,
+           "losses": [float(x) for x in losses],
+           "parallel_step_ms": 1e3 * float(np.median(par_s[1:])),
+           "plain_step_ms": 1e3 * float(np.median(plain_s[1:])),
+           "parallel_step_s": [round(x, 4) for x in par_s],
+           "plain_step_s": [round(x, 4) for x in plain_s],
+           "collectives_a_step": comms["calls"],
+           "collective_bytes_a_step": comms["bytes"],
+           "first_step_broadcasts": broadcasts,
+           "graph_state": {k: graphs[0][k] for k in (
+               "graphed", "captures", "replays", "seconds", "nodes",
+               "pool_gib")},
+           "sharded_state": len(placed),
+           "launches_a_step": {k: v // PARALLEL_STEPS
+                               for k, v in launches.items()},
+           "ring_attention_seq1_max_abs_err": ring_err,
+           "c_ops_collectives": c_ops, "c_ops_max_abs_err": c_err}
+    log(f"parallel_train: {json.dumps(out)}")
+    return launches, out
 
 def _trace_kernel_seconds(path, substring):
     """Seconds of the trace's kernels whose name contains ``substring``,
@@ -9035,6 +9310,8 @@ def main():
     torch.cuda.empty_cache()
     ssd["card_vs_cpu"] = timed("card_vs_cpu_ssd", phase_card_vs_cpu_ssd)
     csp = timed("csp", phase_csp)
+    by_path["parallel_train"], parallel_train = timed(
+        "parallel_train", phase_parallel_train)
     sentinel_replay = timed("sentinel_replay_join", join_replays, replays)
 
     kernels = []
@@ -9153,6 +9430,7 @@ def main():
             f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
             for k, v in ssd["card_vs_cpu"].items()))
     log("csp: " + json.dumps(csp))
+    log("parallel_train: " + json.dumps(parallel_train))
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     for route, g in graph_train.items():
@@ -9161,6 +9439,7 @@ def main():
     log("graphed paths: " + json.dumps(sorted({g["path"] for g in GRAPHS})))
     log(json.dumps({"graphs": GRAPHS}))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"profiler_short_captures": PROFILER_SHORT}))
     log(json.dumps({"phase_seconds": PHASE_SECONDS,
                     "total_s": round(time.perf_counter() - START, 1)}))
     log(card)

@@ -63,8 +63,15 @@ Tensor = Variable  # convenience alias
 def __getattr__(name):
     # the deprecated alias imports (and warns) only on first touch, so a
     # plain `import paddle_tpu_torch` stays warning-free
+    import importlib
     if name == "debuger":
-        import importlib
         return importlib.import_module("paddle_tpu_torch.debuger")
+    # the multi-rank plane imports torch.distributed.tensor: only a
+    # process that asks for it pays for that import
+    if name == "parallel":
+        return importlib.import_module("paddle_tpu_torch.parallel")
+    if name == "ParallelExecutor":
+        return importlib.import_module(
+            "paddle_tpu_torch.parallel").ParallelExecutor
     raise AttributeError(
         f"module 'paddle_tpu_torch' has no attribute {name!r}")

@@ -18,7 +18,7 @@ Three call sites, three shapes:
   the pass named.
 
 ``check_pipeline_carriers`` checks what the pipeline transpiler
-produces and comes with it (ROADMAP queue 1 item 7).
+produces and comes with it (ROADMAP queue 1 item 7b).
 """
 
 from __future__ import annotations

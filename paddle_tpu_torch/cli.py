@@ -36,6 +36,10 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
   opt      MODEL_DIR | --zoo NAME    the optimization pass pipeline,
                                      offline: per-pass stats (--json,
                                      --passes a,b)
+  launch   --nproc N SCRIPT [args]   spawn an N-process world on this
+                                     host (PADDLE_COORDINATOR,
+                                     PADDLE_TRAINER_ID, PADDLE_TRAINERS);
+                                     one rank failing stops the others
   replay   BUNDLE                    re-execute a sentinel-quarantined
                                      step on the CPU (--localize names
                                      the first non-finite op; --json)
@@ -49,9 +53,9 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
 ``--compile-cache`` (the JAX package's persistent XLA cache) raise: the
 fleet is not ported yet (ROADMAP queue 1 item 8), and the port's kernels
 always build into the build directory beside their sources.  ``lint
---pair`` and ``lint --pipeline`` raise until the multi-device
-transpilers are ported (item 7), and ``selfcheck`` raises until the
-planes it checks are (it follows items 7 and 8).  ``train --use-tpu``
+--pipeline`` raises until the pipeline transpiler is ported (item 7b),
+and ``selfcheck`` raises until the planes it checks are (it follows
+items 7 and 8).  ``train --use-tpu``
 is not carried over: the JAX package's flag only exports
 ``PADDLE_TPU_USE_TPU``, which no code reads.
 """
@@ -389,11 +393,10 @@ def _cmd_stats(args):
     return 0
 
 
-#: ROADMAP's item for the multi-program lint modes
-_TRANSPILERS_ITEM = ("needs the multi-device transpilers "
-                     "(distribute_transpiler, pipeline_transpiler) and "
-                     "the rest of analysis/distributed.py, not ported "
-                     "yet: ROADMAP queue 1 item 7")
+#: ROADMAP's item for ``lint --pipeline``
+_PIPELINE_ITEM = ("needs the pipeline transpiler, PTA015 and "
+                  "analyzer.check_pipeline_carriers, not ported yet: "
+                  "ROADMAP queue 1 item 7b")
 
 
 def _zoo_targets(args, cmd):
@@ -440,10 +443,30 @@ def _cmd_lint(args):
 
     from paddle_tpu_torch import analysis
 
-    if args.pair:
-        raise NotImplementedError(f"lint --pair {_TRANSPILERS_ITEM}")
     if args.pipeline:
-        raise NotImplementedError(f"lint --pipeline {_TRANSPILERS_ITEM}")
+        raise NotImplementedError(f"lint --pipeline {_PIPELINE_ITEM}")
+    if args.pair:
+        from paddle_tpu_torch.analysis.distributed import load_saved_program
+        members = []
+        for role, target in zip(("trainer", "pserver"), args.pair):
+            try:
+                program, feeds, fetches = load_saved_program(target)
+            except (OSError, ValueError, KeyError) as e:
+                print(f"lint: cannot load a program from {target!r}: "
+                      f"{e}", file=sys.stderr)
+                return 2
+            members.append((role, program, feeds, fetches))
+        results = [(label, analysis.lint_program(
+            program, feed_names=feeds, fetch_names=fetches))
+            for label, program, feeds, fetches in members]
+        results.append(("pair", analysis.lint_pair(
+            (members[0][0], members[0][1]),
+            [(members[1][0], members[1][1])])))
+        if args.dot:
+            print("lint: --dot renders exactly one main program "
+                  "(not a --pair / gen-bundle family)", file=sys.stderr)
+            return 2
+        return _report_lint(results, args)
     if args.target and os.path.isdir(args.target) and \
             os.path.isfile(os.path.join(args.target, "gen_meta.json")):
         try:
@@ -992,6 +1015,59 @@ def _cmd_profile(args):
     return 0
 
 
+def _cmd_launch(args, poll_s=0.1):
+    """Spawn an N-process world on this host (the cluster_train
+    launcher analog): each process gets the reference's env convention,
+    ``PADDLE_COORDINATOR`` (``127.0.0.1:<port>``), ``PADDLE_TRAINER_ID``
+    and ``PADDLE_TRAINERS``, which ``parallel.init_parallel_env`` reads.
+    Unlike the JAX package's launcher, the first rank to fail stops the
+    others (SIGTERM, then SIGKILL after 10 s), so no rank is left waiting
+    in a collective for a peer that died.  Returns the first failing
+    rank's exit code, else 0."""
+    import signal
+    import subprocess
+    import time
+
+    procs = []
+    for rank in range(args.nproc):
+        env = dict(os.environ)
+        env["PADDLE_COORDINATOR"] = f"127.0.0.1:{args.port}"
+        env["PADDLE_TRAINER_ID"] = str(rank)
+        env["PADDLE_TRAINERS"] = str(args.nproc)
+        procs.append(subprocess.Popen(
+            [sys.executable, args.script] + (args.script_args or []),
+            env=env))
+    rc = 0
+    try:
+        live = list(procs)
+        while live:
+            for p in list(live):
+                code = p.poll()
+                if code is None:
+                    continue
+                live.remove(p)
+                if code != 0 and rc == 0:
+                    rc = code
+                    print(f"launch: rank {procs.index(p)} exited with "
+                          f"{code}; stopping the other ranks",
+                          file=sys.stderr)
+                    for q in live:
+                        q.send_signal(signal.SIGTERM)
+                    deadline = time.monotonic() + 10
+                    for q in live:
+                        try:
+                            q.wait(max(0.0, deadline - time.monotonic()))
+                        except subprocess.TimeoutExpired:
+                            q.kill()
+            time.sleep(poll_s)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rc
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch",
                                      description=__doc__)
@@ -1280,6 +1356,13 @@ def main(argv=None):
     p.add_argument("--json", action="store_true",
                    help="machine-readable report (compile/memory)")
     p.set_defaults(fn=_cmd_profile)
+
+    p = sub.add_parser("launch", help="spawn a local N-process world")
+    p.add_argument("--nproc", type=int, required=True)
+    p.add_argument("--port", type=int, default=8357)
+    p.add_argument("script")
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=_cmd_launch)
 
     p = sub.add_parser("selfcheck", help="every static gate in one pass; "
                                          "not ported yet (raises)")

@@ -17,6 +17,8 @@ bit for bit.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -72,12 +74,58 @@ def to_tensor(value, device, dtype=None):
     return t
 
 
+def is_dtensor(value):
+    """``value`` is a ``torch.distributed.tensor.DTensor`` (the state of
+    ``ParallelExecutor``).  Such a tensor exists only once that module is
+    imported, so a process that never forms a mesh does not import it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(value, mod.DTensor)
+
+
+def shard_layout(tensors, dims):
+    """``(mesh, placements)`` that DTensors ``tensors`` share when that
+    layout splits ``dims`` only, else None (not all DTensors, or another
+    layout)."""
+    if not all(is_dtensor(t) for t in tensors):
+        return None
+    mesh, pl = tensors[0].device_mesh, tuple(tensors[0].placements)
+    if any(t.device_mesh is not mesh or tuple(t.placements) != pl
+           for t in tensors):
+        return None
+    if not all(p.is_replicate() or (p.is_shard() and p.dim in dims)
+               for p in pl):
+        return None
+    return mesh, pl
+
+
+def on_local_shards(fn, tensors, dims, shape):
+    """``fn`` of the local shards of DTensors ``tensors`` that share one
+    layout, split over ``dims`` only (dims along which ``fn`` works piece
+    by piece), wrapped back with that layout as a DTensor of global
+    ``shape``; None when :func:`shard_layout` finds no such layout, for
+    DTensor's own rules.  For a torch call whose own DTensor rule is
+    missing or refuses a view it makes."""
+    layout = shard_layout(tensors, dims)
+    if layout is None:
+        return None
+    from torch.distributed.tensor import DTensor
+    out = fn(*(t.to_local() for t in tensors))
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(out, *layout, run_check=False, shape=shape,
+                              stride=stride)
+
+
 def to_numpy(value):
     """Host numpy copy of a tensor (or array), never a view of a CPU
     tensor that a later in-place update could change.  bfloat16 comes
     back as its raw ``uint16`` words (numpy has no bfloat16 of its
     own)."""
     if isinstance(value, torch.Tensor):
+        if is_dtensor(value):
+            # the global value (a collective: every rank of its mesh
+            # calls this together)
+            value = value.full_tensor()
         t = value.detach().cpu().contiguous()
         if t.data_ptr() == value.data_ptr():
             t = t.clone()

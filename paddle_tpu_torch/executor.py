@@ -1350,6 +1350,7 @@ class Executor:
         constants = {}
         release = self._release_plan(program, block, fetch_names,
                                      write_names)
+        extra_aux = self._step_aux()
 
         def step(feeds, rng_seed, generators, capturing):
             env = _StateEnv(scope, device) if shared is None else \
@@ -1378,6 +1379,7 @@ class Executor:
                    # the feeds' and the state's LoDs; ops add theirs
                    # (set_output_lod) and _share_lod passes them on
                    "lod": lods}
+            aux.update(extra_aux)
             if release is not None:
                 stats = release[block.idx]["stats"]
                 stats["bytes"] = stats["vars"] = 0  # per-walk measurement
@@ -1406,6 +1408,11 @@ class Executor:
                 "ro_names": ro_names, "inout_names": inout_names,
                 "create_state": create_state, "interpret": interpret,
                 "param_names": param_names}
+
+    def _step_aux(self):
+        """Entries a subclass adds to every step's ``aux`` (the mesh of
+        ``ParallelExecutor``)."""
+        return {}
 
     @staticmethod
     def _release_plan(program, block, fetch_names, write_names):

@@ -24,6 +24,9 @@ import json
 import os
 import pickle
 import shutil
+from concurrent.futures import Future
+
+import torch.distributed as dist
 
 from paddle_tpu_torch.fault import chaos
 from paddle_tpu_torch.obs.trace import span as _span
@@ -38,6 +41,12 @@ LEDGER_STATE_NAME = "ledger_state.pkl"
 GOOD_POINTER_NAME = "last_good"
 
 
+def _rank():
+    """This process's rank in the world (0 outside one): rank 0 alone
+    commits, collects and points in a shared checkpoint directory."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _datapipe_state_name(rank=None, processes=None):
     """Per-host sidecar name: each trainer's iterator position is
     host-local state (its own input shard), so multi-host runs save one
@@ -46,9 +55,9 @@ def _datapipe_state_name(rank=None, processes=None):
     topology-changed restore derives rank 0's saved name through the
     same formatter that wrote it)."""
     if processes is None:
-        processes = 1       # the port is one process
+        processes = dist.get_world_size() if dist.is_initialized() else 1
     if rank is None:
-        rank = 0
+        rank = _rank()
     if processes == 1:
         return DATAPIPE_STATE_NAME
     return f"datapipe_state.{rank}.pkl"
@@ -193,6 +202,47 @@ def manager_from_env(executor=None, main_program=None, scope=None):
                              main_program=main_program, scope=scope)
 
 
+class _MeshPending:
+    """An async save on a mesh: its writer thread's file writes
+    (``writing``), and the commit that :meth:`commit` runs on the calling
+    thread.  ``future`` is what ``save_async`` returned: it resolves at
+    the commit, and its ``result()`` commits first when the save is
+    still pending."""
+
+    def __init__(self, manager, save, writing):
+        self.manager, self.save, self.writing = manager, save, writing
+        self.future = _CommitOnResult(manager)
+
+    def commit(self):
+        try:
+            # the writes end; a failure in them is kept for the commit,
+            # which every rank must reach
+            self.writing.result()
+            with _span("ckpt.save", step=self.save.step):
+                path = self.save.commit()
+                self.manager._committed_step(self.save.step)
+        except BaseException as e:
+            self.future.set_exception(e)
+            raise
+        self.future.set_result(path)
+        return path
+
+
+class _CommitOnResult(Future):
+    """The future of an async save on a mesh: ``result()`` on a pending
+    one runs the manager's :meth:`CheckpointManager.wait_pending` (the
+    commit's collectives) on the calling thread."""
+
+    def __init__(self, manager):
+        super().__init__()
+        self._manager = manager
+
+    def result(self, timeout=None):
+        if not self.done():
+            self._manager.wait_pending()
+        return super().result(timeout)
+
+
 class CheckpointManager:
     """Keep-N managed checkpoints over ``io.save_checkpoint`` /
     ``io.load_checkpoint`` with corruption-tolerant recovery.
@@ -211,14 +261,16 @@ class CheckpointManager:
     tensors) and restored alongside them, so a killed trainer resumes
     mid-epoch with the exact sample sequence it would have seen.
 
-    ``mesh`` + ``shard_specs`` (a mesh-sharded save and an elastic
-    restore in the JAX package) wait for the port's mesh (ROADMAP queue
-    1 item 7): passing either makes a save or restore raise.  Every save
-    writes the shard format at one shard a variable.  ``save_async``
-    moves the whole write+commit off the step path: the state snapshot
+    ``mesh`` + ``shard_specs``: a mesh-sharded save (each rank writes
+    the shards it owns, rank 0 commits) and an elastic restore onto
+    another mesh (:func:`paddle_tpu_torch.io.load_checkpoint`).  Without
+    a mesh every save writes the shard format at one shard a variable.
+    ``save_async`` moves the write off the step path: the state snapshot
     is taken synchronously (a device clone, as the port's steps update
-    the scope's tensors in place), the host copy, shard writes, and
-    atomic commit run on a background thread; a blocking ``save``
+    the scope's tensors in place), the host copy and shard writes run on
+    a background thread, and so does the atomic commit without a mesh
+    (on a mesh it waits for the calling thread: :meth:`save_async`); a
+    blocking ``save``
     copies the live tensors to the host and clones nothing.  A restore
     puts the state on ``executor``'s device, without one on the default
     place's (``cuda:0``).
@@ -297,16 +349,38 @@ class CheckpointManager:
         saves are serialized on one writer thread (single-writer
         directory protocol), and a pending save is drained before any
         synchronous :meth:`save`, any restore, or
-        :meth:`wait_pending`."""
+        :meth:`wait_pending`.
+
+        On a mesh the save's collectives stay on the calling thread,
+        whose steps issue their own on the same process group (two
+        threads would order them differently on different ranks): the
+        redistribution of each var to its saved split and the clones of
+        this rank's pieces run here, the writer thread writes files
+        only, and the commit (every rank's writes agreed on, the first
+        rank's rename) runs at the next :meth:`wait_pending` (or save,
+        restore, or the future's ``result()``) on the calling thread."""
         from concurrent.futures import ThreadPoolExecutor
         self.wait_pending()
-        state, extras = self._snapshot(clone=True)
         if self._async_pool is None:
             self._async_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="ckpt-async")
+        if self.mesh is not None:
+            return self._save_async_mesh(step)
+        state, extras = self._snapshot(clone=True)
         self._pending = self._async_pool.submit(
             self._save_committed, step, state, extras)
         return self._pending
+
+    def _save_async_mesh(self, step):
+        from paddle_tpu_torch import io
+        state, extras = self._snapshot(clone=False)
+        self._drop_good_pointer(step)
+        with _span("ckpt.save", step=step):
+            save = io._MeshSave(self.dirname, step, state, self.mesh,
+                                self.shard_specs, clone=True)
+        writing = self._async_pool.submit(save.write, extras)
+        self._pending = _MeshPending(self, save, writing)
+        return self._pending.future
 
     def wait_pending(self):
         """Block until the in-flight async save (if any) committed;
@@ -314,6 +388,8 @@ class CheckpointManager:
         pending, self._pending = self._pending, None
         if pending is None:
             return None
+        if isinstance(pending, _MeshPending):
+            return pending.commit()
         return pending.result()
 
     def _snapshot(self, clone):
@@ -335,7 +411,19 @@ class CheckpointManager:
 
     def _save_committed(self, step, state, extras):
         from paddle_tpu_torch import io
-        if self.last_good_step() == int(step):
+        self._drop_good_pointer(step)
+        with _span("ckpt.save", step=step):
+            path = io.save_checkpoint(self.executor, self.dirname,
+                                      main_program=self.main_program,
+                                      step=step, scope=self.scope,
+                                      extras=extras, mesh=self.mesh,
+                                      shard_specs=self.shard_specs,
+                                      state=state)
+            self._committed_step(step)
+        return path
+
+    def _drop_good_pointer(self, step):
+        if _rank() == 0 and self.last_good_step() == int(step):
             # re-saving the anchor's step displaces the PROMOTED state
             # with one that has not yet earned its clean checks (the
             # restart-renumbering pattern) — drop the pointer before
@@ -346,22 +434,21 @@ class CheckpointManager:
                 os.remove(self._good_pointer())
             except OSError:
                 pass
-        with _span("ckpt.save", step=step):
-            path = io.save_checkpoint(self.executor, self.dirname,
-                                      main_program=self.main_program,
-                                      step=step, scope=self.scope,
-                                      extras=extras, mesh=self.mesh,
-                                      shard_specs=self.shard_specs,
-                                      state=state)
-            self._committed.add(int(step))
-            self._verified.discard(int(step))   # content just changed
-            self._verify_failed.discard(int(step))
-            self.last_committed_step = int(step)
-            with _span("ckpt.gc", step=step):
-                self._gc(fresh=int(step))
-        return path
+
+    def _committed_step(self, step):
+        self._committed.add(int(step))
+        self._verified.discard(int(step))   # content just changed
+        self._verify_failed.discard(int(step))
+        self.last_committed_step = int(step)
+        with _span("ckpt.gc", step=step):
+            self._gc(fresh=int(step))
 
     def _gc(self, fresh=None):
+        # GC mirrors the commit protocol: only the coordinator rank
+        # mutates the shared directory (the others would sweep
+        # .tmp-ckpt-<step> out from under rank 0's manifest and rename)
+        if _rank() != 0:
+            return
         steps = self.steps()
         victims = steps[:-self.keep] if self.keep else []
         if victims:
@@ -474,8 +561,9 @@ class CheckpointManager:
             # rollback itself re-verifies in restore_last_good either
             # way.)
             verify_checkpoint(self.path(step))
-        from paddle_tpu_torch.io import atomic_write
-        atomic_write(self._good_pointer(), str(step))
+        if _rank() == 0:
+            from paddle_tpu_torch.io import atomic_write
+            atomic_write(self._good_pointer(), str(step))
         from paddle_tpu_torch import profiler as _profiler
         _profiler.runtime_metrics.inc("ckpt.marked_good")
         return step
@@ -487,9 +575,9 @@ class CheckpointManager:
         restore falls back to :meth:`restore_latest` (newest verifiable
         wins).  Returns the restored step or None.
 
-        ``shardings`` / ``mesh`` (the JAX package's sharded and elastic
-        restores) raise until the port has a mesh (ROADMAP queue 1 item
-        7).  Defaults to the manager's own ``mesh``."""
+        ``shardings`` / ``mesh``: the sharded and elastic restores of
+        :func:`paddle_tpu_torch.io.load_checkpoint`.  ``mesh`` defaults
+        to the manager's own."""
         from paddle_tpu_torch import io
         self.wait_pending()
         mesh = mesh if mesh is not None else self.mesh
@@ -511,7 +599,7 @@ class CheckpointManager:
                                  main_program=self.main_program,
                                  step=step, scope=self.scope,
                                  shardings=shardings, mesh=mesh)
-        io._write_latest(self.dirname, step)
+        self._point_latest(step)
         self._restore_datapipe(step)
         self._restore_ledger(step)
         return got
@@ -609,7 +697,7 @@ class CheckpointManager:
                         mesh=mesh)
                 except Exception:
                     continue
-                io._write_latest(self.dirname, step)
+                self._point_latest(step)
                 self._restore_datapipe(step)
                 self._restore_ledger(step)
                 return got
@@ -619,7 +707,7 @@ class CheckpointManager:
                 scope=self.scope, shardings=shardings, mesh=mesh)
             # re-point ``latest`` in case it referenced a checkpoint we
             # just quarantined (load_checkpoint(step=None) keeps working)
-            io._write_latest(self.dirname, step)
+            self._point_latest(step)
             self._restore_datapipe(step)
             self._restore_ledger(step)
             return got
@@ -632,7 +720,16 @@ class CheckpointManager:
             pass
         return None
 
+    def _point_latest(self, step):
+        """Swing ``latest`` to a restored step: the coordinator rank's
+        write only (the ranks share the directory)."""
+        from paddle_tpu_torch import io
+        if _rank() == 0:
+            io._write_latest(self.dirname, step)
+
     def _quarantine(self, path):
+        if _rank() != 0:
+            return      # the coordinator rank moves it; the others skip it
         target = path + _QUARANTINE_SUFFIX
         if os.path.exists(target):
             shutil.rmtree(target, ignore_errors=True)

@@ -5,12 +5,16 @@ manifest carries a **topology record** (mesh shape, axis names, and a
 per-var shard map) so a later boot reads the checkpoint's geometry
 without loading a tensor.
 
-The port writes this format at world size 1: one shard a variable, a
-mesh of one device (``mesh_shape [1]``, axis ``"dp"``), so the JAX
-package's ``io.load_checkpoint`` reads it.  It reads the format at any
-shard count: the pieces of a var are concatenated along its saved axis.
-Restoring onto a mesh (``plan_restore``) waits for the port's mesh
-(ROADMAP queue 1 item 7).
+Without a mesh the port writes this format at world size 1: one shard
+a variable, a mesh of one device (``mesh_shape [1]``, axis ``"dp"``),
+so the JAX package's ``io.load_checkpoint`` reads it.  With a mesh
+(:func:`build_mesh_topology`, :func:`mesh_pieces`) a var named in
+``shard_specs`` is cut along its first split dim into as many shards as
+that mesh axis has ranks, and each rank writes the shards it owns (the
+rank at coordinate 0 of every other axis; a replicated var the mesh's
+first rank).  It reads the format at any shard count: the pieces of a
+var are concatenated along its saved axis, and :func:`plan_restore`
+proves a restore onto another mesh before any shard is read.
 
 bfloat16 has no numpy dtype of its own here: a bfloat16 tensor is
 written as its 16-bit words under the ``.npy`` descr ``'<V2'`` (the bytes
@@ -38,7 +42,9 @@ from paddle_tpu_torch.fault import chaos
 __all__ = ["ReshardError", "SHARD_DIR", "TOPOLOGY_FORMAT",
            "build_topology", "write_state", "read_state",
            "validate_topology", "shard_relpath", "read_manifest",
-           "host_state"]
+           "host_state", "build_mesh_topology", "mesh_pieces",
+           "write_pieces",
+           "plan_restore", "owns_shard"]
 
 SHARD_DIR = "shards"
 TOPOLOGY_FORMAT = 1
@@ -47,7 +53,8 @@ _BF16_DESCR = "<V2"
 
 class ReshardError(RuntimeError):
     """A checkpoint's shards cannot be reassembled into the shapes its
-    topology declares.  Raised before the scope is touched."""
+    topology declares, or a restore plan cannot map the saved topology
+    onto the target mesh.  Raised before the scope is touched."""
 
     retryable = True
 
@@ -164,6 +171,175 @@ def write_state(tmp_path, state, topology, step=None):
             for f in futs:
                 f.result()   # surface the first failure (incl. chaos)
     return len(jobs)
+
+
+def _dtype_name(t):
+    """The topology's dtype record of a tensor or array."""
+    import torch
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            return "bfloat16"
+        return str(torch.empty(0, dtype=t.dtype).numpy().dtype)
+    return "bfloat16" if t.dtype.name == "bfloat16" else str(t.dtype)
+
+
+def build_mesh_topology(mesh, state, shard_specs=None):
+    """The manifest topology record of ``state`` (name -> tensor, a
+    DTensor's global shape) saved on ``mesh`` (a ``DeviceMesh``), the JAX
+    package's ``build_topology``: ``shard_specs`` maps names to
+    placement tuples (``ZeroPlan.checkpoint_specs()``); unlisted vars,
+    and vars whose split dim does not divide, are one replicated
+    shard."""
+    import torch.distributed as dist
+    shard_specs = shard_specs or {}
+    axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    shards = {}
+    for name in sorted(state):
+        value = state[name]
+        shape = tuple(int(d) for d in value.shape)
+        spec = tuple(shard_specs.get(name) or ())
+        axis, axis_name = _shard_axis(spec)
+        n = int(axis_sizes.get(axis_name, 1)) if axis_name else 1
+        if axis is None or n <= 1 or len(shape) <= axis or \
+                shape[axis] % n != 0:
+            spec, axis, n = (), None, 1
+        shards[name] = {
+            "shape": list(shape),
+            "dtype": _dtype_name(value),
+            "spec": [a if a is None else str(a) for a in spec],
+            "axis": axis,
+            "num_shards": n,
+            "shard_ranks": list(range(n)),
+        }
+    return {
+        "format": TOPOLOGY_FORMAT,
+        "mesh_shape": [int(d) for d in mesh.shape],
+        "axis_names": [str(a) for a in mesh.mesh_dim_names],
+        "processes": dist.get_world_size() if dist.is_initialized() else 1,
+        "shards": shards,
+    }
+
+
+def owns_shard(mesh, axis_name=None):
+    """``(owner, k)``: whether this rank writes its piece of a var split
+    over ``axis_name`` (None: replicated), and that piece's index.  The
+    owner is the rank at coordinate 0 of every other mesh axis."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return False, 0
+    names = list(mesh.mesh_dim_names)
+    k = 0 if axis_name is None else coord[names.index(axis_name)]
+    owner = all(c == 0 for i, c in enumerate(coord)
+                if axis_name is None or names[i] != axis_name)
+    return owner, k
+
+
+def mesh_pieces(state, topology, mesh, clone=False):
+    """This rank's owned pieces of ``state`` (name -> tensor or DTensor)
+    under ``topology``: ``[(name, k, n, dtype, piece)]``, each piece a
+    tensor or array.  A DTensor is first redistributed to its saved split
+    (a collective: every rank of the mesh takes part, var by var in name
+    order, so it runs on the thread that runs the steps); a plain tensor
+    is the whole value and is sliced here.  ``clone``: each piece is
+    copied on its device (and the copies waited for) so that it outlives
+    the next step's in-place writes, for a write on another thread."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from paddle_tpu_torch.parallel.mesh import P, placements
+    pieces = []
+    devices = set()
+    for name in sorted(topology["shards"]):
+        rec = topology["shards"][name]
+        n, axis = rec["num_shards"], rec["axis"]
+        axis_name = None if axis is None else rec["spec"][axis]
+        owner, k = owns_shard(mesh, axis_name)
+        value = state[name]
+        if isinstance(value, DTensor):
+            spec = [None] * len(rec["shape"])
+            if axis is not None:
+                spec[axis] = axis_name
+            value = value.redistribute(
+                mesh, placements(P(*spec), mesh)).to_local()
+        elif axis is not None:
+            size = rec["shape"][axis] // n
+            value = value.narrow(axis, k * size, size) \
+                if hasattr(value, "narrow") else \
+                np.take(value, range(k * size, (k + 1) * size), axis=axis)
+        if not owner:
+            continue
+        if clone:
+            if isinstance(value, torch.Tensor):
+                if value.is_cuda:
+                    devices.add(value.device)
+                value = value.detach().clone()
+            else:
+                value = np.array(value)
+        pieces.append((name, k, n, rec["dtype"], value))
+    for device in devices:
+        torch.cuda.current_stream(device).synchronize()
+    return pieces
+
+
+def write_pieces(tmp_path, pieces, step=None):
+    """Write :func:`mesh_pieces` under ``tmp_path/shards/``, concurrently:
+    host copies and files only, no collective, so it may run on a writer
+    thread.  Returns the number of files written."""
+    from paddle_tpu_torch.convert import to_numpy
+    jobs = []
+    for name, k, n, dtype, value in pieces:
+        piece = to_numpy(value)
+        if piece.dtype.name == "bfloat16":
+            piece = piece.view(np.uint16)
+        path = os.path.join(tmp_path, shard_relpath(name, k, n))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        jobs.append((path, piece, dtype, name, k, n))
+    if not jobs:
+        return 0
+    workers = min(8, len(jobs), os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futs = [pool.submit(_write_one, *job, step) for job in jobs]
+        for f in futs:
+            f.result()   # surface the first failure (incl. chaos)
+    return len(jobs)
+
+
+def plan_restore(topology, mesh):
+    """Map a saved topology onto ``mesh``: the restore plan, name ->
+    placement tuple, statically verified against the new mesh (axis
+    exists, dims divide) through the PTA016 facts
+    (``analysis.distributed._validate_spec``) BEFORE any shard is read;
+    raises :class:`ReshardError` with every violation (the JAX package's
+    ``plan_restore``, ``paddle_tpu/fault/shard_ckpt.py:266``)."""
+    chaos.fire("ckpt.reshard", mesh_shape=[int(d) for d in mesh.shape])
+    from paddle_tpu_torch.analysis.distributed import _validate_spec
+    axis_sizes = {str(a): int(s) for a, s in
+                  zip(mesh.mesh_dim_names, mesh.shape)}
+    plan = {}
+    diags = []
+    resliced = 0
+    for name, rec in sorted(topology["shards"].items()):
+        spec = tuple(a if a is None else str(a)
+                     for a in rec.get("spec") or ())
+        shape = tuple(int(d) for d in rec.get("shape") or ())
+        _validate_spec(name, spec, shape, axis_sizes, diags,
+                       program="restore-plan")
+        plan[name] = spec
+        _, axis_name = _shard_axis(spec)
+        if axis_name is not None and \
+                axis_sizes.get(axis_name) != rec.get("num_shards"):
+            resliced += 1
+    if diags:
+        raise ReshardError(
+            "restore plan does not map the saved topology "
+            f"(mesh {topology.get('mesh_shape')} "
+            f"{topology.get('axis_names')}) onto the target mesh "
+            f"({[int(d) for d in mesh.shape]} "
+            f"{list(mesh.mesh_dim_names)}):\n"
+            + "\n".join(d.format() for d in diags))
+    from paddle_tpu_torch import profiler as _profiler
+    _profiler.runtime_metrics.inc("reshard.plans")
+    _profiler.runtime_metrics.inc("reshard.vars", resliced)
+    return plan
 
 
 def _load_npy(path, dtype):

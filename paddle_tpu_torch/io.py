@@ -17,9 +17,10 @@ package's other format, the shard format of
 :mod:`paddle_tpu_torch.fault.shard_ckpt` (one ``.npy`` a variable and a
 topology record in ``MANIFEST.json``), which the JAX package's
 ``load_checkpoint`` reads, and reads it at any shard count.  An orbax
-directory raises.  Mesh-sharded saves and restores (``mesh=``,
-``shard_specs=``, ``shardings=``) wait for the port's mesh (ROADMAP
-queue 1 item 7).
+directory raises.  A mesh-sharded save (``mesh=``, ``shard_specs=``)
+has each rank write the shards it owns and the mesh's first rank
+commit; a restore onto a mesh (``mesh=``, ``shardings=``) places every
+var as a DTensor, re-slicing the saved pieces for another world size.
 """
 
 from __future__ import annotations
@@ -309,14 +310,6 @@ def snapshot_state(main_program=None, scope=None):
     return state
 
 
-def _no_mesh(what, **given):
-    named = [k for k, v in given.items() if v]
-    if named:
-        raise NotImplementedError(
-            f"{what}: {', '.join(named)} (a mesh-sharded checkpoint) needs "
-            f"the port's mesh, not ported yet: ROADMAP queue 1 item 7")
-
-
 def save_checkpoint(executor, dirname, main_program=None, step=0,
                     scope=None, extras=None, mesh=None, shard_specs=None,
                     state=None):
@@ -335,17 +328,28 @@ def save_checkpoint(executor, dirname, main_program=None, step=0,
     as the tensors.  ``state``: a pre-snapshotted :func:`snapshot_state`
     dict (the async-save path snapshots on the step path and writes
     later, on its writer thread); without it the scope's tensors are
-    copied straight to the host.  ``mesh`` / ``shard_specs`` raise."""
+    copied straight to the host.
+
+    ``mesh`` (a ``DeviceMesh``; every rank of it calls this together):
+    the mesh-sharded save of the JAX package.  ``shard_specs`` (name ->
+    placement tuple, e.g. ``ZeroPlan.checkpoint_specs()``) names the vars
+    cut over a mesh axis; each rank writes the shards it owns, and once
+    every rank wrote the mesh's first rank commits and swings ``latest``
+    (:class:`_MeshSave`); a failed write or commit raises on every rank."""
+    from paddle_tpu_torch.fault import shard_ckpt
+
+    if state is None:
+        state = _persistable_state(main_program, scope)
+    if mesh is not None:
+        save = _MeshSave(dirname, step, state, mesh, shard_specs)
+        save.write(extras)
+        return save.commit()
     import shutil
 
-    from paddle_tpu_torch.fault import chaos, shard_ckpt
+    from paddle_tpu_torch.fault import chaos
     from paddle_tpu_torch.fault.checkpoint import commit_checkpoint
     from paddle_tpu_torch.obs.trace import span as _span
 
-    _no_mesh("save_checkpoint", mesh=mesh is not None,
-             shard_specs=shard_specs)
-    if state is None:
-        state = _persistable_state(main_program, scope)
     os.makedirs(dirname, exist_ok=True)
     path = os.path.abspath(os.path.join(dirname, f"ckpt-{int(step)}"))
     tmp = os.path.abspath(os.path.join(dirname, f".tmp-ckpt-{int(step)}"))
@@ -368,6 +372,109 @@ def save_checkpoint(executor, dirname, main_program=None, step=0,
     return path
 
 
+def _mesh_flag(mesh, ok, root=False):
+    """``ok`` agreed on every rank: the mesh's first rank's (``root``
+    True), else whether every rank's is."""
+    import torch.distributed as dist
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+    flag = torch.tensor([1 if ok else 0], dtype=torch.int32, device=device)
+    if root:
+        dist.broadcast(flag, int(mesh.mesh.flatten()[0]))
+    else:
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+class _MeshSave:
+    """A mesh-sharded save (every rank of ``mesh`` takes part) in three
+    parts, so that every collective runs on the thread that runs the
+    steps and only file writes may run on another
+    (``CheckpointManager.save_async``):
+
+    - the constructor (collectives): the mesh's first rank makes the
+      temp dir, a barrier, then each var redistributed to its saved split
+      and this rank's pieces taken (``shard_ckpt.mesh_pieces``; ``clone``
+      copies them on the device, for a write after the next steps);
+    - :meth:`write` (no collective): the pieces and ``extras`` written
+      under the temp dir; a failure is kept for :meth:`commit`;
+    - :meth:`commit` (collectives): whether every rank wrote, agreed on
+      every rank; the first rank commits and swings ``latest``; its
+      status shared, so a failure raises on every rank instead of leaving
+      the others at a collective.  Returns the committed path."""
+
+    def __init__(self, dirname, step, state, mesh, shard_specs=None,
+                 clone=False):
+        import shutil
+
+        import torch.distributed as dist
+
+        from paddle_tpu_torch.fault import chaos, shard_ckpt
+        self.dirname, self.step, self.mesh = dirname, int(step), mesh
+        self.coordinator = dist.get_rank() == int(mesh.mesh.flatten()[0])
+        self.path = os.path.abspath(os.path.join(dirname,
+                                                 f"ckpt-{self.step}"))
+        # one temp path on every rank: each writes its shards into it,
+        # the coordinator commits it
+        self.tmp = os.path.abspath(os.path.join(dirname,
+                                                f".tmp-ckpt-{self.step}"))
+        if self.coordinator:
+            os.makedirs(dirname, exist_ok=True)
+            if os.path.exists(self.tmp):
+                shutil.rmtree(self.tmp)
+            os.makedirs(self.tmp)
+        dist.barrier()
+        chaos.fire("ckpt.save", step=self.step)
+        self.vars = len(state)
+        self.topology = shard_ckpt.build_mesh_topology(mesh, state,
+                                                       shard_specs)
+        self.pieces = shard_ckpt.mesh_pieces(state, self.topology, mesh,
+                                             clone=clone)
+        self.error = None
+
+    def write(self, extras=None):
+        from paddle_tpu_torch.fault import shard_ckpt
+        from paddle_tpu_torch.obs.trace import span as _span
+        try:
+            with _span("ckpt.write", step=self.step, vars=self.vars):
+                shard_ckpt.write_pieces(self.tmp, self.pieces, self.step)
+                for name, blob in (extras or {}).items():
+                    with open(os.path.join(self.tmp, name), "wb") as f:
+                        f.write(blob)
+                        f.flush()
+                        os.fsync(f.fileno())
+        except BaseException as e:
+            self.error = e
+        self.pieces = None
+        return self.tmp
+
+    def commit(self):
+        from paddle_tpu_torch.fault.checkpoint import commit_checkpoint
+        # every rank's shards and extras land before the manifest walk
+        written = _mesh_flag(self.mesh, self.error is None)
+        if self.error is not None:
+            raise self.error
+        if not written:
+            raise RuntimeError(f"checkpoint step {self.step}: a rank "
+                               f"failed to write its shards")
+        commit_error = None
+        if self.coordinator:
+            try:
+                commit_checkpoint(self.tmp, self.path, step=self.step,
+                                  extra={"topology": self.topology})
+                _write_latest(self.dirname, self.step)
+            except BaseException as e:
+                commit_error = e
+        # no rank returns before the commit
+        ok = _mesh_flag(self.mesh, commit_error is None, root=True)
+        if commit_error is not None:
+            raise commit_error
+        if not ok:
+            raise RuntimeError(f"checkpoint commit for step {self.step} "
+                               f"failed on the coordinator rank")
+        return self.path
+
+
 def _restored_tensor(arr, dtype, device):
     """A checkpoint array as a tensor on ``device``: bfloat16 words
     re-viewed, anything else as its numpy dtype."""
@@ -388,11 +495,18 @@ def load_checkpoint(executor, dirname, main_program=None, step=None,
     (a var's shards concatenated along its saved axis), whether written
     by the port or by the JAX package with ``mesh=``.  The scope
     is only changed after every var loaded.  An orbax checkpoint (the
-    JAX package's default format) raises, as do ``shardings`` and
-    ``mesh``."""
+    JAX package's default format) raises.
+
+    ``mesh``: the mesh the restoring run trains on (every rank of it
+    calls this).  ``shard_ckpt.plan_restore`` maps the saved topology
+    onto it, and proves the plan, before any shard is read; each var
+    becomes a DTensor at its planned placement, the saved pieces
+    re-sliced for the new mesh (a dp4 checkpoint restores on dp2).
+    ``shardings``: name -> ``P`` partition spec, placing the named vars
+    over ``mesh`` (default: the default mesh) and the rest whole, as the
+    JAX package's ``shardings`` place the named arrays."""
     from paddle_tpu_torch.fault import chaos, shard_ckpt
 
-    _no_mesh("load_checkpoint", shardings=shardings, mesh=mesh is not None)
     scope = scope or global_scope()
     if step is None:
         with open(os.path.join(dirname, "latest")) as f:
@@ -405,13 +519,33 @@ def load_checkpoint(executor, dirname, main_program=None, step=None,
             f"{path} has no shard-format manifest (an orbax checkpoint of "
             f"the JAX package, or a torn one?): the port reads the shard "
             f"format only")
+    plan = None
+    if mesh is not None:
+        # plan (and prove) BEFORE touching data
+        plan = shard_ckpt.plan_restore(topology, mesh)
+    elif shardings:
+        from paddle_tpu_torch.parallel.mesh import default_mesh
+        mesh = default_mesh()
+        plan = {n: tuple(spec) for n, spec in shardings.items()}
     # the restore boundary: restores never mutate committed checkpoints
     chaos.fire("ckpt.restore", step=int(step))
     state = shard_ckpt.read_state(path, topology)
-    device = executor.device if executor is not None \
-        else torch_device(None)
+    if executor is not None:
+        device = executor.device
+    elif mesh is not None:
+        device = torch.device("cpu") if mesh.device_type == "cpu" else \
+            torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch_device(None)
     tensors = {name: _restored_tensor(arr, dtype, device)
                for name, (arr, dtype) in state.items()}
+    if plan is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from paddle_tpu_torch.parallel.mesh import P, placements
+        tensors = {name: distribute_tensor(
+            t, mesh, placements(P(*(plan.get(name) or ())), mesh),
+            src_data_rank=None) for name, t in tensors.items()}
     for name, value in tensors.items():
         scope.set_var(name, value)
     return int(step)

@@ -13,6 +13,13 @@ the kernels.  The forward picks its body by shape alone
 16-byte pieces, else one block a row.  :class:`BiasSoftmaxFunction`
 puts the pair under torch autograd; the IR's ``softmax_grad`` op calls
 the backward directly on the saved output.
+
+Under ``ParallelExecutor`` the scores are DTensors (a DTensor has no
+storage of its own): both wrappers then run the kernel on this rank's
+local shard, after making the softmax rows whole (a split of the last
+axis, or a pending sum, is redistributed first) and cutting the biases
+as the scores are cut, and wrap the local result with the scores'
+placements (:func:`_on_local_rows`).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.convert import is_dtensor
 from paddle_tpu_torch.kernels.build import CudaKernel
 
 __all__ = ["BIAS_SOFTMAX", "BIAS_SOFTMAX_GRAD", "MAX_ROW", "WARP_MAX_ROW",
@@ -87,6 +95,67 @@ def bias_softmax_body_of(x, row_bias=None, tri_bias=None):
     return bias_softmax_body(x.shape[-1], x.dtype, aligned)
 
 
+def _whole_rows(x):
+    """``x``'s placements with no split of the last axis and no pending
+    sum: each rank then holds whole softmax rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    return [Replicate() if p.is_partial() or
+            (isinstance(p, Shard) and p.dim == last) else p
+            for p in x.placements]
+
+
+def _as_dtensor(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _local_bias(bias, placements, mesh, dims, B):
+    """This rank's piece of a bias whose dim ``i`` runs along the scores'
+    dim ``dims[i]`` (a leading dim of 1 broadcasts over the batch)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if bias is None:
+        return None
+    bias = _as_dtensor(bias, mesh)
+    target = []
+    for p in placements:
+        if isinstance(p, Shard) and p.dim in dims and \
+                not (p.dim == 0 and bias.shape[0] != B):
+            target.append(Shard(dims.index(p.dim)))
+        else:
+            target.append(Replicate())
+    return bias.redistribute(mesh, target).to_local().contiguous()
+
+
+def _on_local_rows(x, fn, *others):
+    """``fn`` of the local shards of DTensor ``x`` (rows made whole) and of
+    ``others`` (each laid out as ``x``), wrapped back as a DTensor with
+    ``x``'s row-whole placements."""
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    pl = _whole_rows(x)
+    xd = x.redistribute(mesh, pl)
+    locs = [_as_dtensor(o, mesh).redistribute(mesh, pl).to_local()
+            .contiguous() for o in others]
+    out = fn(xd.to_local().contiguous(), *locs)
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=xd.shape, stride=xd.stride())
+
+
+def _bias_softmax_dtensor(x, row_bias, tri_bias):
+    mesh = x.device_mesh
+    pl = _whole_rows(x)
+    if tri_bias is not None and tri_bias.ndim == 2:
+        tri_bias = tri_bias.unsqueeze(0)
+    B = x.shape[0]
+    rb = _local_bias(row_bias, pl, mesh, (0, 3), B)
+    tb = _local_bias(tri_bias, pl, mesh, (0, 2, 3), B)
+    return _on_local_rows(x, lambda xl: bias_softmax(xl, rb, tb))
+
+
 def _bias_arg(bias, B, shape, name, device):
     """``(pointer, batch stride)`` of a float32 bias of ``shape`` (its
     leading dim B or 1), or ``(None, 0)``."""
@@ -112,7 +181,10 @@ def bias_softmax(x, row_bias=None, tri_bias=None):
     """``softmax(x + biases)`` over the last axis; see
     :func:`bias_softmax_reference` for the contract.  On the CPU it is the
     plain version; on the card it launches the CUDA kernel (x float32 or
-    bfloat16 and contiguous, biases float32 and contiguous) or raises."""
+    bfloat16 and contiguous, biases float32 and contiguous) or raises.
+    A DTensor runs on its local shard."""
+    if is_dtensor(x):
+        return _bias_softmax_dtensor(x, row_bias, tri_bias)
     if x.device.type == "cpu":
         return bias_softmax_reference(x, row_bias, tri_bias)
     if x.device.type != "cuda":
@@ -157,7 +229,10 @@ def bias_softmax_grad(y, dy):
     """``dx = (dy - sum(dy * y)) * y`` over the last axis; see
     :func:`bias_softmax_grad_reference`.  On the CPU it is the plain
     version; on the card it launches the CUDA kernel (y and dy float32 or
-    bfloat16, same shape, contiguous) or raises."""
+    bfloat16, same shape, contiguous) or raises.  A DTensor runs on its
+    local shard."""
+    if is_dtensor(y):
+        return _on_local_rows(y, bias_softmax_grad, dy)
     if y.device.type == "cpu":
         return bias_softmax_grad_reference(y, dy)
     if y.device.type != "cuda" or dy.device != y.device:

@@ -9,7 +9,8 @@ two packages build the same IR dict: dense padded batches with explicit
 ``scaled_dot_product_attention`` op (the flash kernels) from
 ``PADDLE_TPU_FLASH_MIN_S`` on.  Its default of 512 is the JAX package's
 TPU crossover, kept so that the IR matches; it has not been measured on
-the H100.  ``tp_shardings`` waits for multi-GPU training.
+the H100.  ``tp_shardings`` gives the tensor-parallel placement rules
+that ``ParallelExecutor(param_shardings=...)`` takes.
 """
 
 from __future__ import annotations
@@ -381,3 +382,21 @@ def train_flops_per_token(hp: ModelHyperParams = None, seq=None):
     seq = seq if seq is not None else hp.max_length
     attn_flops = 12 * seq * hp.d_model * (3 * hp.n_layer)
     return 6 * matmul_param_count(hp) + attn_flops
+
+
+def tp_shardings():
+    """Megatron-style tensor-parallel partition-spec rules for the
+    model's parameters (and, by substring match, their Adam moments) over
+    a mesh with a ``model`` axis: the JAX package's seven rules.  Pass to
+    ``ParallelExecutor(param_shardings=...)``; DTensor's sharding
+    propagation makes the collectives."""
+    from paddle_tpu_torch.parallel.mesh import P
+    return [
+        (r"_(q|k|v)\.w", P(None, "model")),         # column parallel
+        (r"_attnout\.w", P("model", None)),         # row parallel
+        (r"_ffn1\.w", P(None, "model")),
+        (r"_ffn1\.b", P("model")),                  # bias [FF]
+        (r"_ffn2\.w", P("model", None)),
+        (r"(src|trg)_word_emb", P(None, "model")),  # shard d_model
+        (r"proj_logits\.w", P(None, "model")),      # shard vocab
+    ]

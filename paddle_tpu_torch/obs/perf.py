@@ -564,6 +564,8 @@ def hbm_census(scope=None, metrics=None, device=None):
     CPU ``total``, ``other`` and ``high_watermark`` are None and there is
     no ``limit``)."""
     import torch
+
+    from paddle_tpu_torch.convert import is_dtensor
     m = metrics or _metrics()
     device = _census_device(device)
     counted = set()
@@ -574,6 +576,8 @@ def hbm_census(scope=None, metrics=None, device=None):
             if not isinstance(t, torch.Tensor) or \
                     t.device.type != device.type:
                 continue     # host arrays (a page table) are not HBM
+            if is_dtensor(t):
+                t = t.to_local()     # this rank's shard
             st = t.untyped_storage()
             key = (str(t.device), st.data_ptr())
             if key in counted:

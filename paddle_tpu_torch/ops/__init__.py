@@ -28,4 +28,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     ctc_ops,
     detection_ops,
     csp_ops,
+    collective_ops,
 )

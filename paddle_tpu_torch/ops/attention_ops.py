@@ -191,6 +191,91 @@ def sdpa_lower(ctx):
 
 
 # ---------------------------------------------------------------------------
+# ring_attention (the JAX package's ``attention_ops.py:707-740``): sequence
+# parallelism over the mesh's ``seq_axis``; plain attention when the run
+# has no such axis of size > 1, or it does not divide S
+# ---------------------------------------------------------------------------
+
+def _infer_ring_attn(op, block):
+    q = block.var(op.input("Q")[0])
+    v = block.var(op.input("V")[0])
+    out = block.var(op.output("Out")[0])
+    if q.shape is None or v.shape is None:
+        raise ShapeInferenceSkip()
+    out.shape = tuple(q.shape[:-1]) + (v.shape[-1],)
+    out.dtype = q.dtype
+
+
+def _ring_route(ctx, q):
+    """``(mesh, seq_axis)`` when the run's mesh has a ``seq_axis`` of size
+    > 1 dividing S, else ``(None, seq_axis)``."""
+    seq_axis = ctx.attr("seq_axis", "seq")
+    mesh = ctx.aux.get("mesh")
+    if mesh is None:
+        return None, seq_axis
+    p = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(seq_axis, 1)
+    if p > 1 and q.shape[2] % p == 0:
+        return mesh, seq_axis
+    return None, seq_axis
+
+
+def _ring_scale(ctx, q):
+    scale = ctx.attr("scale", None)
+    return float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
+
+
+def _ring_attn_grad_lower(ctx):
+    """dQ, dK, dV of ``ring_attention``: the ring's own backward
+    (:func:`~paddle_tpu_torch.parallel.ring_attention.ring_attention_bwd`,
+    after a recompute of the forward's output and log normalizer), or the
+    unfused route's backward where the forward fell back to it."""
+    op = ctx.op
+    q, k, v = (ctx.env[op.input(s)[0]] for s in ("Q", "K", "V"))
+    g = ctx.env[op.input("Out@GRAD")[0]]
+    causal = bool(ctx.attr("causal", False))
+    scale = _ring_scale(ctx, q)
+    mesh, axis = _ring_route(ctx, q)
+    if mesh is not None:
+        from paddle_tpu_torch.parallel.ring_attention import (
+            ring_attention_bwd, ring_attention_fwd)
+        out, lse = ring_attention_fwd(q, k, v, mesh, axis, causal, scale)
+        grads = ring_attention_bwd(q, k, v, out, lse, g.to(q.dtype), mesh,
+                                   axis, causal, scale)
+    else:
+        grads = unfused_attention_bwd(q, k, v, None, None, None,
+                                      g.to(q.dtype).contiguous(), causal,
+                                      scale)
+    for slot, val, prim in zip(("Q@GRAD", "K@GRAD", "V@GRAD"), grads,
+                               (q, k, v)):
+        names = op.output(slot)
+        if names and names[0]:
+            ctx.outputs[names[0]] = val.to(prim.dtype)
+
+
+@register_op("ring_attention", infer_shape=_infer_ring_attn,
+             grad_lower=_ring_attn_grad_lower)
+def ring_attention_lower(ctx):
+    """Q, K, V: [B, H, S, D]; Out: [B, H, S, Dv].  attrs: causal, scale
+    (None: D ** -0.5), seq_axis.  Over the run's mesh
+    (``ParallelExecutor``) with ``seq_axis`` of size p > 1 dividing S,
+    the K/V shards rotate around that axis
+    (:mod:`paddle_tpu_torch.parallel.ring_attention`); otherwise the
+    unfused route (:func:`unfused_attention_fwd`, the reference's
+    ``_reference_attention``)."""
+    q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
+    causal = bool(ctx.attr("causal", False))
+    scale = _ring_scale(ctx, q)
+    mesh, axis = _ring_route(ctx, q)
+    if mesh is not None:
+        from paddle_tpu_torch.parallel.ring_attention import \
+            ring_attention_fwd
+        out, _ = ring_attention_fwd(q, k, v, mesh, axis, causal, scale)
+    else:
+        out, _ = unfused_attention_fwd(q, k, v, None, causal, scale)
+    ctx.set_output("Out", out)
+
+
+# ---------------------------------------------------------------------------
 # paged_attention
 # ---------------------------------------------------------------------------
 

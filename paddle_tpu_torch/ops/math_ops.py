@@ -13,10 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paddle_tpu_torch.convert import (is_dtensor, on_local_shards,
+                                      shard_layout)
 from paddle_tpu_torch.lod import is_dyn
 from paddle_tpu_torch.ops.registry import (
-    register_op, infer_shape_elementwise, infer_shape_unary,
-    ShapeInferenceSkip)
+    register_op, register_grad_lower, auto_vjp_grad_lower,
+    infer_shape_elementwise, infer_shape_unary, ShapeInferenceSkip)
 from paddle_tpu_torch.selected_rows import (SelectedRows, is_selected_rows,
                                             to_dense)
 
@@ -88,13 +90,76 @@ def matmul_lower(ctx):
         x = x.transpose(-1, -2)
     if ctx.attr("transpose_Y", False) and y.ndim >= 2:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = None
+    if x.ndim >= 3 and y.ndim == x.ndim and x.shape[:-2] == y.shape[:-2]:
+        # DTensors split alike over batch dims (ParallelExecutor): each
+        # rank's product; torch's matmul would fold the batch dims with a
+        # view that DTensor refuses when two of them are split over
+        # different mesh axes (attention's batch and heads)
+        out = on_local_shards(torch.matmul, (x, y), range(x.ndim - 2),
+                              x.shape[:-1] + y.shape[-1:])
+    if out is None:
+        out = torch.matmul(x, y)
     alpha = ctx.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
     if out.ndim == 0:
         out = out.reshape(1)
     ctx.set_output("Out", out)
+
+
+@register_grad_lower("matmul")
+def matmul_grad_lower(ctx):
+    """The auto-vjp of :func:`matmul_lower`, except for DTensors that the
+    forward multiplied on local shards: their grads are each rank's
+    products too (the auto-vjp traces the forward on functorch's wrapped
+    tensors, which are no DTensors and reach torch's matmul)."""
+    if not _matmul_grad_on_shards(ctx):
+        auto_vjp_grad_lower("matmul")(ctx)
+
+
+def _matmul_grad_on_shards(ctx):
+    """``dX = alpha * dOut @ Y^T`` and ``dY = alpha * X^T @ dOut`` (after
+    the forward's transposes and mixed-precision casts, undone after) on
+    local shards; False when the operands are not DTensors of the layout
+    :func:`matmul_lower` multiplies locally."""
+    op = ctx.op
+    x, y = ctx.input("X"), ctx.input("Y")
+    gnames = op.input("Out@GRAD")
+    if not (is_dtensor(x) and is_dtensor(y)) or x.ndim < 3 or \
+            y.ndim != x.ndim or not gnames or not gnames[0] or \
+            not is_dtensor(ctx.env.get(gnames[0])):
+        return False
+    amp = ctx.aux.get("amp")
+    xt, yt = (t.to(torch.bfloat16) if amp and t.dtype == torch.float32
+              else t for t in (x, y))
+    tx, ty = ctx.attr("transpose_X", False), ctx.attr("transpose_Y", False)
+    if tx:
+        xt = xt.transpose(-1, -2)
+    if ty:
+        yt = yt.transpose(-1, -2)
+    batch = range(xt.ndim - 2)
+    if xt.shape[:-2] != yt.shape[:-2] or \
+            shard_layout((xt, yt), batch) is None:
+        return False
+    g = ctx.env[gnames[0]].redistribute(xt.device_mesh, xt.placements)
+    g = g.to(xt.dtype)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        g = g * alpha
+    dxt = on_local_shards(
+        lambda gl, yl: torch.matmul(gl, yl.transpose(-1, -2)), (g, yt),
+        batch, xt.shape)
+    dyt = on_local_shards(
+        lambda xl, gl: torch.matmul(xl.transpose(-1, -2), gl), (xt, g),
+        batch, yt.shape)
+    for slot, d, t, transposed in (("X", dxt, x, tx), ("Y", dyt, y, ty)):
+        names = op.output(slot + "@GRAD")
+        if names and names[0]:
+            if transposed:
+                d = d.transpose(-1, -2)
+            ctx.outputs[names[0]] = d.to(t.dtype)
+    return True
 
 
 # ---------------------------------------------------------------------------

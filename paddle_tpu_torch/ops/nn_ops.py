@@ -354,9 +354,10 @@ class _MaxPool(torch.autograd.Function):
         pool = F.max_pool2d if x.ndim == 4 else F.max_pool3d
         _, idx = pool(finite, ctx.ksize, ctx.strides, return_indices=True)
         n, c = x.shape[:2]
-        dx = torch.zeros((n, c, x[0, 0].numel()), dtype=g.dtype,
-                         device=g.device)
-        dx.scatter_add_(2, idx.reshape(n, c, -1), g.reshape(n, c, -1))
+        # out of place: DTensor (ParallelExecutor) refuses a scatter into
+        # a new plain tensor in place
+        dx = g.new_zeros((n, c, x[0, 0].numel())).scatter_add(
+            2, idx.reshape(n, c, -1), g.reshape(n, c, -1))
         return dx.reshape(x.shape), None, None
 
 

@@ -25,7 +25,9 @@ once, never pays a capture.
   its pre-step state.  Before a replay, a state whose scope tensor is no
   longer the captured one (a user's ``set_var``, a load, the
   predictor's pool restore) is copied in and the scope pointed back at
-  the buffer; one of another shape or dtype raises.
+  the buffer; one of another shape or dtype raises.  ``ParallelExecutor``'s
+  state is DTensors: the graph reads and writes their local shards, and
+  a new value is written back only at its buffer's placement.
 * **Memory.**  Every graph of one executor captures into one pool
   (``torch.cuda.graph_pool_handle``).  The executor serializes replays,
   and no pool tensor outlives one: the executor clones or converts the
@@ -60,7 +62,7 @@ import time
 import torch
 
 from paddle_tpu_torch import profiler as _profiler
-from paddle_tpu_torch.convert import to_tensor
+from paddle_tpu_torch.convert import is_dtensor, to_tensor
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.obs import perf as _perf
 from paddle_tpu_torch.ops.registry import raise_fault, slot_seed
@@ -119,15 +121,23 @@ class GeneratorTable:
         return self._generators[i]
 
 
+def _local(t):
+    """The tensor whose memory the graph reads and writes: a DTensor's
+    local shard (``ParallelExecutor``'s state), any other tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _storage(t):
-    return t.untyped_storage().data_ptr()
+    return _local(t).untyped_storage().data_ptr()
 
 
 def _is_buffer(value, buf):
     """``value`` is ``buf`` itself, or a view of the same elements."""
-    return value is buf or (
-        value.data_ptr() == buf.data_ptr() and value.shape == buf.shape
-        and value.stride() == buf.stride() and value.dtype == buf.dtype)
+    if value is buf:
+        return True
+    value, buf = _local(value), _local(buf)
+    return (value.data_ptr() == buf.data_ptr() and value.shape == buf.shape
+            and value.stride() == buf.stride() and value.dtype == buf.dtype)
 
 
 _libcuda = None
@@ -312,16 +322,22 @@ class StepGraph:
         for n, v in new_state.items():
             buf = self._buffers.get(n)
             if not isinstance(v, torch.Tensor) or buf is None or \
-                    v.shape != buf.shape or v.dtype != buf.dtype:
+                    v.shape != buf.shape or v.dtype != buf.dtype or \
+                    getattr(v, "placements", None) != \
+                    getattr(buf, "placements", None):
                 raise RuntimeError(
                     f"state {n!r} cannot be written back under a CUDA "
                     f"graph: the step gives "
-                    f"{getattr(v, 'shape', type(v).__name__)}, the scope "
-                    f"holds {getattr(buf, 'shape', None)}")
+                    f"{getattr(v, 'shape', type(v).__name__)} "
+                    f"{getattr(v, 'placements', '')}, the scope holds "
+                    f"{getattr(buf, 'shape', None)} "
+                    f"{getattr(buf, 'placements', '')}")
             if not _is_buffer(v, buf):
                 dests[n] = (buf, v)
         written = {_storage(buf) for buf, _ in dests.values()}
-        self._copies = [(buf, v.clone() if _storage(v) in written else v)
+        # DTensors of one placement copy shard to shard
+        self._copies = [(_local(buf), _local(v).clone()
+                         if _storage(v) in written else _local(v))
                         for buf, v in dests.values()]
         self._new_state = new_state
         outs = []

@@ -250,15 +250,22 @@ def test_reference_orbax_checkpoint_raises_in_the_port(tmp_path):
 
 
 def test_mesh_arguments_raise_naming_item_7(tmp_path):
+    """The mesh arguments came with item 7 (``tests/
+    test_torch_mesh_ckpt.py`` drives them over gloo worlds): without a
+    mesh, ``shard_specs`` is ignored as in the JAX package (one shard a
+    variable), and a restore onto something that is not a DeviceMesh
+    raises before the scope changes."""
     port = _Port()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.io.save_checkpoint(port.exe, str(tmp_path), port.main,
-                              scope=port.scope, shard_specs={"ck_w": ("dp",)})
     pt.io.save_checkpoint(port.exe, str(tmp_path), port.main,
-                          scope=port.scope)
-    with pytest.raises(NotImplementedError, match="item 7"):
+                          scope=port.scope, shard_specs={"ck_w": ("dp",)})
+    from paddle_tpu_torch.fault import shard_ckpt
+    topo = shard_ckpt.read_manifest(str(tmp_path / "ckpt-0"))["topology"]
+    assert {r["num_shards"] for r in topo["shards"].values()} == {1}
+    before = {n: port.scope.find_var(n) for n in port.scope.local_var_names()}
+    with pytest.raises(AttributeError):
         pt.io.load_checkpoint(port.exe, str(tmp_path), scope=port.scope,
                               mesh=object())
+    assert all(port.scope.find_var(n) is v for n, v in before.items())
 
 
 def test_bfloat16_state_round_trips_both_ways(tmp_path):

@@ -151,9 +151,10 @@ def test_lint_of_a_saved_model_and_a_gen_bundle(tmp_path, capsys):
 
 
 def test_multi_program_modes_and_selfcheck_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.main(["lint", "--pair", "a", "b"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # --pair came with item 7a (tests/test_torch_analysis_distributed.py):
+    # an unloadable pair is a bad target
+    assert cli.main(["lint", "--pair", "a", "b"]) == 2
+    with pytest.raises(NotImplementedError, match="item 7b"):
         cli.main(["lint", "--zoo", "mnist", "--pipeline", "2"])
     # the rest of item 10, selfcheck, waits for items 7 and 8
     with pytest.raises(NotImplementedError, match="items 7 and 8"):

@@ -2061,3 +2061,117 @@ def test_release_memory_graphed_and_eager_same_fetches_on_card(cuda_card):
     for eager in (False, True):
         np.testing.assert_array_equal(runs[(eager, True)],
                                       runs[(eager, False)])
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU at world size 1 (the card has one GPU; NCCL refuses two ranks
+# on one device): the collective helpers on NCCL, the bias-softmax pair on
+# a DTensor's local shard, a parallel step bit-equal to Executor.run
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    if not torch.cuda.is_available() or build.find_nvcc() is None:
+        pytest.skip(f"needs an NVIDIA GPU and nvcc: "
+                    f"torch.cuda.is_available()={torch.cuda.is_available()}"
+                    f", nvcc={build.find_nvcc() or 'not found'}, torch "
+                    f"{torch.__version__} (CUDA {torch.version.cuda})")
+    from paddle_tpu_torch import parallel
+    build.build_all()
+    parallel.init_parallel_env()
+    yield parallel
+    parallel.destroy_parallel_env()
+
+
+@pytest.mark.cuda
+def test_world1_nccl_collectives_on_card(nccl_world):
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import collective
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    mesh = nccl_world.make_mesh((1,), ("data",))
+    x = torch.randn(4, 6, device="cuda")
+    for got in (collective.all_reduce(x, "data", mesh=mesh),
+                collective.all_reduce(x, "data", "max", mesh=mesh),
+                collective.all_gather(x, "data", mesh=mesh),
+                collective.reduce_scatter(x, "data", mesh=mesh),
+                collective.all_to_all(x, "data", 0, 1, mesh=mesh),
+                collective.broadcast(x, "data", mesh=mesh)):
+        assert got.is_cuda
+        torch.testing.assert_close(got, x, atol=0, rtol=0)
+    # the differentiable sum: its grad is the summed cotangent
+    xg = x.clone().requires_grad_()
+    collective.all_reduce(xg, "data", mesh=mesh).sum().backward()
+    torch.testing.assert_close(xg.grad, torch.ones_like(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["batch_head", "last"])
+def test_bias_softmax_on_a_dtensor_local_shard_on_card(nccl_world, split):
+    """A DTensor runs the kernels on its local shard (a split of the
+    softmax axis made whole first), and the result equals the kernel on
+    the plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    mesh = nccl_world.make_mesh((1, 1), ("data", "model"))
+    x, row = _softmax_case(64, B=2, H=4, Sq=64, Sk=64)
+    x = torch.from_numpy(x).to(torch.bfloat16).cuda()
+    row = torch.from_numpy(row).cuda()
+    pl = [Shard(0), Shard(1)] if split == "batch_head" else \
+        [Shard(0), Shard(3)]
+    xd = distribute_tensor(x, mesh, pl)
+    before = BIAS_SOFTMAX.launches
+    got = bias_softmax(xd, row)
+    assert BIAS_SOFTMAX.launches == before + 1
+    assert isinstance(got, DTensor)
+    want = bias_softmax(x, row)
+    assert torch.equal(got.full_tensor(), want)
+    dy = torch.randn_like(x)
+    before = BIAS_SOFTMAX_GRAD.launches
+    dx = bias_softmax_grad(got, distribute_tensor(dy, mesh, pl))
+    assert BIAS_SOFTMAX_GRAD.launches == before + 1
+    assert torch.equal(dx.full_tensor(), bias_softmax_grad(want, dy))
+
+
+@pytest.mark.cuda
+def test_parallel_executor_world1_equals_executor_on_card(nccl_world):
+    """Route A's composed attention at a small width: ParallelExecutor on
+    a (1, 1) mesh with the tensor-parallel rules and ZeRO, graphed from
+    its second step, gives the losses of Executor.run bit for bit,
+    launching the bias-softmax pair
+    on its kernels 6 + 6 times a step at 2 layers (18 + 18 in three
+    steps)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer as T
+    hp = T.ModelHyperParams()
+    hp.d_model, hp.d_inner_hid, hp.n_layer = 64, 128, 2
+    hp.n_head, hp.d_key, hp.d_value = 4, 16, 16
+    hp.src_vocab_size = hp.trg_vocab_size = 64
+    hp.max_length, hp.dropout = 32, 0.0
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup):
+        cost, _ = T.transformer(4, 16, 16, hp)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(cost)
+    main.amp = True
+    feeds = [T.fake_batch(4, 16, 16, hp, seed=i) for i in range(3)]
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.items()
+            if isinstance(v, torch.Tensor)}
+    want = [exe.run(main, feed=f, fetch_list=[cost], scope=scope)[0]
+            for f in feeds]
+    pscope = pt.Scope()
+    for n, v in init.items():
+        pscope.set_var(n, v)
+    pexe = nccl_world.ParallelExecutor(
+        main_program=main, param_shardings=T.tp_shardings(), zero=True,
+        mesh=nccl_world.make_mesh((1, 1), ("data", "model")))
+    before = (BIAS_SOFTMAX.launches, BIAS_SOFTMAX_GRAD.launches)
+    got = [pexe.run(feed=f, fetch_list=[cost], scope=pscope)[0]
+           for f in feeds]
+    assert (BIAS_SOFTMAX.launches - before[0],
+            BIAS_SOFTMAX_GRAD.launches - before[1]) == (18, 18)
+    assert [g.tobytes() for g in got] == [w.tobytes() for w in want]
+    # eager, captured, replayed: one graph, as Executor.run's
+    (graph,) = pexe.graph_stats()
+    assert graph["graphed"] and graph["replays"] == 2

@@ -61,7 +61,12 @@ def test_every_port_module_imports_with_jax_blocked():
                 "ops.fused_ops", "ops.detection_ops", "ops.csp_ops",
                 "layers.detection", "channel", "concurrency", "native",
                 "datapipe", "datapipe.prefetch", "obs.ledger",
-                "obs.bench_history", "debuger"):
+                "obs.bench_history", "debuger", "parallel",
+                "parallel.mesh", "parallel.distributed",
+                "parallel.collective", "parallel.zero",
+                "parallel.distribute_transpiler",
+                "parallel.parallel_executor", "parallel.ring_attention",
+                "ops.collective_ops"):
         assert f"paddle_tpu_torch.{new}" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
@@ -197,6 +202,26 @@ def test_native_sources_embed_only_the_port(path):
         assert name.split(".")[0] == "paddle_tpu_torch", (path, name)
     if path.endswith("capi.cpp"):
         assert imported == ["paddle_tpu_torch.serving"]
+
+
+def test_parallel_entry_points_without_a_place_raise_when_cuda_is_absent(
+        monkeypatch):
+    """``init_parallel_env`` forms an NCCL world on the card unless given
+    ``CPUPlace()``; without CUDA it raises, and no process group forms.
+    A mesh needs a world."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import parallel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for var in ("PADDLE_TRAINERS", "TRAINERS", "WORLD_SIZE",
+                "PADDLE_INIT_NUM_GRADIENT_SERVERS"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel.init_parallel_env()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
+        parallel.make_mesh()
+    assert parallel.get_world_size() == 1 and parallel.get_rank() == 0
 
 
 def test_csp_and_detection_modules_are_the_ports():

@@ -65,9 +65,23 @@ def _doc_rows(name, pattern=r"^\|\s*`([a-zA-Z0-9_.<>]+)`\s*\|"):
 
 
 def _documented_spans():
+    """Every dotted name the doc gives in backticks.  A row's shorthand
+    (``collective.all_reduce`` / ``.all_gather``, each in backticks)
+    names ``collective.all_gather`` too: the prefix of the name before
+    it."""
     with open(os.path.join(DOCS, "observability.md")) as f:
         doc = f.read()
-    return set(re.findall(r"`([a-z0-9_]+(?:\.[a-z0-9_]+)+)`", doc))
+    names = set()
+    for line in doc.splitlines():
+        prefix = None
+        for tok in re.findall(r"`(\.?[a-z0-9_]+(?:\.[a-z0-9_]+)*)`", line):
+            if tok.startswith("."):
+                if prefix is not None:
+                    names.add(prefix + tok)
+            elif "." in tok:
+                names.add(tok)
+                prefix = tok.split(".")[0]
+    return names
 
 
 def test_scanners_find_the_serving_front():
