@@ -364,6 +364,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the ``ring_attention`` op at ``seq`` size 1 against plain attention
    (``RING_TOL``) and the eight ``c_*`` ops pinned to ``data``, one NCCL
    collective each.  The process group is destroyed after it.
+   ``phase_pipeline_train``: route A at full width (dropout 0, bf16 AMP)
+   through ``pipeline_transpiler(main, 1, ...)`` on a world-1 NCCL
+   ``pipe`` mesh, the batch of 64 as ``PIPE_MICROBATCHES`` microbatches of
+   16, forward and backward of the summed loss for ``PIPELINE_STEPS``
+   steps: each microbatch's loss within one bf16 rounding
+   (``BF16_RTOL``) of ``Executor.run`` of it on the same scope (printed:
+   whether bit-identical), every parameter's grad within one bf16
+   rounding (``BF16_RTOL``, ``BF16_ATOL_SCALE`` x RMS) of the
+   ``append_backward`` grads summed over the microbatches, the
+   bias-softmax pair on its kernels 72 + 72 times a step (18 + 18 a
+   microbatch; the backward reads the forward's kept graph, no
+   recompute) and its plain versions never, ``lint_pipeline`` of the
+   program at 2 and 4 stages clean; ms a step.
+   ``phase_sharded_tables``: W&D-Criteo at ``phase_wide_deep``'s widths
+   and table height through ``ParallelExecutor`` on a world-1 NCCL
+   ``data`` mesh with ``plan_sharded_tables``' rules (each table and its
+   Adam moments ``Shard(0)``), ``WD_COMPARE_STEPS`` steps: losses and
+   every persistable bit-identical to ``Executor.run`` from the same
+   state, no kernel launched; ``sharded_gather`` /
+   ``sharded_scatter_add`` of a batch's ids at the table's height equal
+   to dense indexing.  Each destroys its process group.
 18. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
@@ -382,6 +403,7 @@ unavailable or the port is not beside it.  Writes its bundle and build
 logs under ``runs/chip_smoke/``.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -3204,6 +3226,33 @@ def _collective_ops_check(pt, parallel):
     return pexe.collective_stats, err
 
 
+@contextlib.contextmanager
+def _plain_bias_softmax_calls():
+    """``{"fwd": n, "grad": n}``: the calls of the bias-softmax pair's
+    plain versions inside the block (none may run on the card)."""
+    import importlib
+    bsm = importlib.import_module("paddle_tpu_torch.kernels.bias_softmax")
+    calls = {"fwd": 0, "grad": 0}
+    ref_fwd, ref_grad = bsm.bias_softmax_reference, \
+        bsm.bias_softmax_grad_reference
+
+    def fwd(*a, **k):
+        calls["fwd"] += 1
+        return ref_fwd(*a, **k)
+
+    def grad(*a, **k):
+        calls["grad"] += 1
+        return ref_grad(*a, **k)
+
+    bsm.bias_softmax_reference = fwd
+    bsm.bias_softmax_grad_reference = grad
+    try:
+        yield calls
+    finally:
+        bsm.bias_softmax_reference = ref_fwd
+        bsm.bias_softmax_grad_reference = ref_grad
+
+
 def phase_parallel_train():
     """Route A at full width through ``ParallelExecutor`` on NCCL at world
     size 1 (``init_parallel_env`` in this process): Transformer-base,
@@ -3227,8 +3276,6 @@ def phase_parallel_train():
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import parallel
     from paddle_tpu_torch.models import transformer as T
-    import importlib
-    bsm = importlib.import_module("paddle_tpu_torch.kernels.bias_softmax")
 
     B, S = ROUTE_A_B, ROUTE_A_S
     hp = T.ModelHyperParams()
@@ -3266,23 +3313,9 @@ def phase_parallel_train():
         pexe = parallel.ParallelExecutor(
             loss_name=cost.name, main_program=main, mesh=mesh,
             param_shardings=T.tp_shardings(), zero=True)
-        plain_calls = {"fwd": 0, "grad": 0}
-        ref_fwd, ref_grad = bsm.bias_softmax_reference, \
-            bsm.bias_softmax_grad_reference
-
-        def fwd(*a, **k):
-            plain_calls["fwd"] += 1
-            return ref_fwd(*a, **k)
-
-        def grad(*a, **k):
-            plain_calls["grad"] += 1
-            return ref_grad(*a, **k)
-
-        bsm.bias_softmax_reference = fwd
-        bsm.bias_softmax_grad_reference = grad
         _take_launches()
         losses, par_s, comms = [], [], None
-        try:
+        with _plain_bias_softmax_calls() as plain_calls:
             for i, feed in enumerate(feeds):
                 pexe.count_collectives = i == 1
                 t = time.perf_counter()
@@ -3293,9 +3326,6 @@ def phase_parallel_train():
                 if i == 1:
                     comms = pexe.collective_stats
             launches = _take_launches()
-        finally:
-            bsm.bias_softmax_reference = ref_fwd
-            bsm.bias_softmax_grad_reference = ref_grad
         want = {"bias_softmax": 18 * PARALLEL_STEPS,
                 "bias_softmax_grad": 18 * PARALLEL_STEPS}
         if launches != want or any(plain_calls.values()):
@@ -3357,6 +3387,262 @@ def phase_parallel_train():
            "c_ops_collectives": c_ops, "c_ops_max_abs_err": c_err}
     log(f"parallel_train: {json.dumps(out)}")
     return launches, out
+
+#: route A's batch of 64 as this many microbatches (``phase_pipeline_train``)
+PIPE_MICROBATCHES = 4
+#: forward + backward steps of the pipelined route A
+PIPELINE_STEPS = 3
+
+
+def _bf16_grad_misses(got, want):
+    """Elements of ``got`` beyond one bf16 rounding of ``want`` (numpy,
+    float64): ``BF16_ATOL_SCALE`` times ``want``'s RMS plus ``BF16_RTOL``
+    of each element; ``(misses, largest err / tol)``."""
+    import numpy as np
+    rms = float(np.sqrt(np.mean(np.square(want)))) if want.size else 0.0
+    tol = BF16_ATOL_SCALE * rms + BF16_RTOL * np.abs(want)
+    err = np.abs(got - want)
+    ratio = float(np.max(err / np.maximum(tol, 1e-30))) if err.size else 0.0
+    return int(np.sum(err > tol)), ratio
+
+
+def phase_pipeline_train():
+    """Route A at full width through the pipeline transpiler at one
+    stage on a world-1 NCCL ``pipe`` mesh (see the module docstring,
+    phase 17): losses and grads against the unsplit program's on
+    ``Executor.run``, the bias-softmax launches, ``lint_pipeline`` at 2
+    and 4 stages, ms a step.  The process group is destroyed at the
+    end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import analysis, parallel
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel.pipeline_transpiler import \
+        pipeline_transpiler
+
+    S = ROUTE_A_S
+    mb = ROUTE_A_B // PIPE_MICROBATCHES
+    hp = T.ModelHyperParams()
+    hp.dropout = 0.0
+    hp.max_length = max(hp.max_length, S)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        cost, feed_names = T.transformer(mb, S, S, hp)
+    main.amp = True
+    cost = cost.name
+    grad_main = main.clone()
+    with pt.program_guard(grad_main):
+        pt.append_backward(grad_main.global_block().var(cost))
+    block = grad_main.global_block()
+    params = sorted(p.name for p in block.all_parameters()
+                    if block.has_var(p.name + "@GRAD"))
+    batches = [T.fake_batch(mb, S, S, hp, seed=SEED + i)
+               for i in range(PIPE_MICROBATCHES)]
+    lint = {}
+    for n in (2, 4):
+        result = analysis.lint_pipeline(main, n, list(feed_names), [cost])
+        if result.diagnostics:
+            raise AssertionError(f"pipeline_train: lint_pipeline at {n} "
+                                 f"stages:\n{result.format()}")
+        lint[n] = "clean"
+    parallel.init_parallel_env()
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"pipeline_train: {dist.get_backend()} "
+                                 f"world of {dist.get_world_size()}")
+        scope = pt.Scope()
+        exe = pt.Executor()
+        exe.run(startup, scope=scope)
+        mesh = parallel.make_mesh((1,), ("pipe",))
+        pp = pipeline_transpiler(main, 1, list(feed_names), [cost], mesh)
+        pp.build(scope, batches[0])
+        xs = pp.stack_microbatches(batches)
+        run = pp.run_fn()
+        _take_launches()
+        step_s = []
+        with _plain_bias_softmax_calls() as plain_calls:
+            for _ in range(PIPELINE_STEPS):
+                packed = {lane: v.detach().requires_grad_(lane != "i32")
+                          for lane, v in pp.packed_params.items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses = pp.select_fetch(run(packed, xs), cost)
+                losses.sum().backward()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+            launches = _take_launches()
+        a_step = {k: v // PIPELINE_STEPS for k, v in launches.items()}
+        want = {"bias_softmax": 18 * PIPE_MICROBATCHES * PIPELINE_STEPS,
+                "bias_softmax_grad": 18 * PIPE_MICROBATCHES * PIPELINE_STEPS}
+        if launches != want or any(plain_calls.values()):
+            raise AssertionError(f"pipeline_train: launches {launches} != "
+                                 f"{want}, plain versions {plain_calls}")
+        got_losses = losses.detach().float().cpu().numpy().reshape(-1)
+        got_grads = pp.unpack_grads({lane: v.grad for lane, v in
+                                     packed.items() if v.grad is not None})
+        if sorted(got_grads) != params:
+            raise AssertionError(f"pipeline_train: grads of "
+                                 f"{sorted(set(params) ^ set(got_grads))}")
+        # the unsplit program, a microbatch at a time, on the same scope
+        ref_losses, ref_grads = [], {n: 0.0 for n in params}
+        for b in batches:
+            (loss,) = exe.run(main, feed=b, fetch_list=[cost], scope=scope)
+            ref_losses.append(np.asarray(loss, np.float32).reshape(()))
+            vals = exe.run(grad_main, feed=b, scope=scope,
+                           fetch_list=[n + "@GRAD" for n in params])
+            for n, g in zip(params, vals):
+                ref_grads[n] = ref_grads[n] + np.asarray(g, np.float64)
+        _take_launches()
+        ref_losses = np.array(ref_losses)
+        if not np.all(np.isfinite(got_losses)) or not np.allclose(
+                got_losses, ref_losses, rtol=BF16_RTOL, atol=0):
+            raise AssertionError(f"pipeline_train: losses {got_losses} "
+                                 f"against Executor.run's {ref_losses}")
+        misses, worst = {}, 0.0
+        for n in params:
+            m, r = _bf16_grad_misses(got_grads[n], ref_grads[n])
+            worst = max(worst, r)
+            if m:
+                misses[n] = m
+        if misses:
+            raise AssertionError(f"pipeline_train: grads beyond one bf16 "
+                                 f"rounding: {misses} (largest err / tol "
+                                 f"{worst:.3f})")
+        out = {"microbatches": PIPE_MICROBATCHES, "microbatch": mb,
+               "steps": PIPELINE_STEPS,
+               "step_ms": 1e3 * float(np.median(step_s[1:])),
+               "step_s": [round(x, 4) for x in step_s],
+               "losses": [float(x) for x in got_losses],
+               "executor_losses": [float(x) for x in ref_losses],
+               "losses_bit_identical": got_losses.astype(np.float32)
+               .tobytes() == ref_losses.astype(np.float32).tobytes(),
+               "loss_max_rel": float(np.max(np.abs(got_losses - ref_losses)
+                                            / np.abs(ref_losses))),
+               "grads_checked": len(params),
+               "grad_worst_err_over_tol": worst,
+               "launches_a_step": a_step,
+               "carrier_lanes": list(pp.carrier_lanes),
+               "param_lanes": list(pp.param_lanes),
+               "lint_pipeline": lint}
+        del pp, xs, packed, losses, exe, scope
+        torch.cuda.empty_cache()
+    finally:
+        parallel.destroy_parallel_env()
+    log(f"pipeline_train: {json.dumps(out)}")
+    return launches, out
+
+
+def phase_sharded_tables():
+    """W&D-Criteo through ``ParallelExecutor`` with
+    ``plan_sharded_tables``' rules on a world-1 NCCL ``data`` mesh,
+    against ``Executor.run`` bit for bit, and the sharded gather and
+    scatter at the table's height (see the module docstring, phase
+    17).  The process group is destroyed at the end."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.embedding import (plan_sharded_tables,
+                                            sharded_gather,
+                                            sharded_scatter_add)
+    from paddle_tpu_torch.models import wide_and_deep as W
+
+    B, vocab = W.CRITEO_BATCH, W.CRITEO["vocab_size"]
+    main, startup, cost = _wd_program(pt, vocab, True)
+    feeds = [W.fake_batch(B, SEED + i) for i in range(WD_COMPARE_STEPS)]
+    parallel.init_parallel_env()
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"sharded_tables: {dist.get_backend()} "
+                                 f"world of {dist.get_world_size()}")
+        scope = pt.Scope()
+        exe = pt.Executor()
+        exe.run(startup, scope=scope)
+        init = _snapshot(scope)
+        plain_losses, plain_s = [], []
+        for f in feeds:
+            t = time.perf_counter()
+            (loss,) = exe.run(main, feed=f, fetch_list=[cost], scope=scope)
+            plain_s.append(time.perf_counter() - t)
+            plain_losses.append(np.asarray(loss).reshape(()))
+        plain_state = _snapshot(scope)
+        del exe, scope
+        torch.cuda.empty_cache()
+
+        mesh = parallel.make_mesh((1,), ("data",))
+        plan = plan_sharded_tables(main, mesh_axis="data", mesh=mesh)
+        pscope = pt.Scope()
+        for n, v in init.items():
+            pscope.set_var(n, v)
+        del init
+        pexe = parallel.ParallelExecutor(
+            loss_name=cost.name, main_program=main, mesh=mesh,
+            param_shardings=plan.rules())
+        _take_launches()
+        losses, par_s = [], []
+        for f in feeds:
+            t = time.perf_counter()
+            (loss,) = pexe.run(feed=f, fetch_list=[cost], scope=pscope)
+            par_s.append(time.perf_counter() - t)
+            losses.append(np.asarray(loss).reshape(()))
+        _no_launches("sharded_tables")
+        if [x.tobytes() for x in losses] != \
+                [x.tobytes() for x in plain_losses]:
+            raise AssertionError(f"sharded_tables: losses {losses} != "
+                                 f"Executor.run's {plain_losses}")
+        placed = {n: [p.dim if p.is_shard() else None
+                      for p in pscope.find_var(n).placements]
+                  for n in plan.all_placements()}
+        if any(p != [0] for p in placed.values()) or len(placed) < 6:
+            raise AssertionError(f"sharded_tables: placements {placed}")
+        holder = pt.Scope()
+        for n, v in _tensors(pscope).items():
+            holder.set_var(n, v.full_tensor() if hasattr(v, "full_tensor")
+                           else v)
+        bad = _bit_equal(holder, plain_state)
+        if bad:
+            raise AssertionError(f"sharded_tables: {len(bad)} persistables "
+                                 f"differ from Executor.run's: {bad[:5]}")
+        table = pscope.find_var("wide_deep_emb").to_local()
+        ids = torch.from_numpy(feeds[0]["slot_ids"]).cuda().reshape(-1)
+        gathered = sharded_gather(table, ids, "data", mesh)
+        if not torch.equal(gathered, table[ids]):
+            raise AssertionError("sharded_tables: sharded_gather differs "
+                                 "from dense indexing")
+        rows = torch.unique(ids)
+        vals = torch.randn((rows.numel(), table.shape[1]), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(
+                               SEED))
+        scattered = sharded_scatter_add(table, rows, vals, "data", mesh)
+        dense = table.clone()
+        dense[rows] += vals
+        if not torch.equal(scattered, dense):
+            raise AssertionError("sharded_tables: sharded_scatter_add "
+                                 "differs from dense indexing")
+        out = {"steps": WD_COMPARE_STEPS, "vocab": vocab,
+               "losses": [float(x) for x in losses],
+               # the first step eager, the second captured, the rest
+               # replays: ms a step of the replays
+               "parallel_replay_ms": 1e3 * float(np.median(par_s[2:])),
+               "plain_replay_ms": 1e3 * float(np.median(plain_s[2:])),
+               "parallel_step_s": [round(x, 5) for x in par_s],
+               "plain_step_s": [round(x, 5) for x in plain_s],
+               "sharded": sorted(placed),
+               "graphs": [{k: g[k] for k in ("graphed", "reason")
+                           if k in g} for g in pexe.graph_stats()],
+               "gather_ids": int(ids.numel()),
+               "scatter_rows": int(rows.numel())}
+        del pexe, pscope, holder, table, scattered, dense
+        torch.cuda.empty_cache()
+    finally:
+        parallel.destroy_parallel_env()
+    log(f"sharded_tables: {json.dumps(out)}")
+    return out
+
 
 def _trace_kernel_seconds(path, substring):
     """Seconds of the trace's kernels whose name contains ``substring``,
@@ -5199,6 +5485,14 @@ def op_family_cases():
           "StatPos": r.randint(0, 3, 11).astype(np.int64),
           "StatNeg": r.randint(0, 3, 11).astype(np.int64)},
          ["AUC", "StatPosOut", "StatNegOut"], {"num_thresholds": 10}),
+        # scores past the int32 range saturate into the top bucket
+        ("auc_saturating", "auc",
+         {"Predict": np.stack([1 - (p := np.array(
+             [0.1, 0.7, 2e7, 3e38, np.inf, 0.4, 0.9, 0.2], np.float32)),
+             p], 1),
+          "Label": np.array([0, 1, 1, 0, 1, 0, 1, 0],
+                            np.int64).reshape(8, 1)},
+         ["AUC", "StatPosOut", "StatNegOut"], {"num_thresholds": 200}),
         ("precision_recall", "precision_recall",
          {"MaxProbs": r.rand(8, 1).astype(np.float32),
           "Indices": r.randint(0, 4, (8, 1)).astype(np.int64),
@@ -9312,6 +9606,9 @@ def main():
     csp = timed("csp", phase_csp)
     by_path["parallel_train"], parallel_train = timed(
         "parallel_train", phase_parallel_train)
+    by_path["pipeline_train"], pipeline_train = timed(
+        "pipeline_train", phase_pipeline_train)
+    sharded_tables = timed("sharded_tables", phase_sharded_tables)
     sentinel_replay = timed("sentinel_replay_join", join_replays, replays)
 
     kernels = []
@@ -9431,6 +9728,8 @@ def main():
             for k, v in ssd["card_vs_cpu"].items()))
     log("csp: " + json.dumps(csp))
     log("parallel_train: " + json.dumps(parallel_train))
+    log("pipeline_train: " + json.dumps(pipeline_train))
+    log("sharded_tables: " + json.dumps(sharded_tables))
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     for route, g in graph_train.items():

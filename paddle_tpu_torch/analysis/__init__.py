@@ -11,8 +11,8 @@
   donation/aliasing hazards (PTA007–PTA009);
 * :mod:`~paddle_tpu_torch.analysis.distributed` — the cross-program
   checks: collective matching, Send/Recv pairing, split reassembly,
-  sharding propagation and the generation bundle's (PTA011–PTA014,
-  PTA016–PTA019);
+  stage boundary agreement, sharding propagation and the generation
+  bundle's (PTA011–PTA019);
 * :mod:`~paddle_tpu_torch.analysis.opmeta` — the SHARED op-metadata
   registry (pure/effectful/stateful/sub-block classification) the lints,
   the optimization passes and the cost model all ride;
@@ -30,15 +30,15 @@
 Entry points: ``lint_program`` (everything; ``python -m
 paddle_tpu_torch lint``), ``verify_program`` (structural, raising — the
 ``PADDLE_TPU_VERIFY=1`` executor hook), ``verify_transpiled`` (the
-post-rewrite contract every rewriter calls), ``lint_gen_bundle`` and
-``lint_pair``.  The pipeline stage checks (PTA015,
-``check_pipeline_carriers``, ``lint_pipeline``) and ``selfcheck`` are
-not ported yet (ROADMAP queue 1 items 7b and 10).
+post-rewrite contract every rewriter calls), ``check_pipeline_carriers``
+(the pipeline transpiler's static i32-lane check), ``lint_gen_bundle``,
+``lint_pipeline`` and ``lint_pair``.  ``selfcheck`` is not ported yet
+(ROADMAP queue 1 item 10; it follows item 8).
 """
 
 from paddle_tpu_torch.analysis.analyzer import (  # noqa: F401
-    AnalysisResult, analyze_program, lint_program, verify_program,
-    verify_transpiled)
+    AnalysisResult, analyze_program, check_pipeline_carriers, lint_program,
+    verify_program, verify_transpiled)
 from paddle_tpu_torch.analysis.diagnostics import (  # noqa: F401
     DIAGNOSTIC_CODES, Diagnostic, ProgramVerificationError,
     format_diagnostics)
@@ -48,14 +48,16 @@ from paddle_tpu_torch.analysis import cost  # noqa: F401
 from paddle_tpu_torch.analysis import opmeta  # noqa: F401
 from paddle_tpu_torch.analysis import visualize  # noqa: F401
 from paddle_tpu_torch.analysis.distributed import (  # noqa: F401
-    check_distributed_spec, check_gen_bundle, check_transpiled_pair,
-    lint_gen_bundle, lint_pair, load_saved_program, verify_gen_bundle)
+    check_distributed_spec, check_gen_bundle, check_stage_set,
+    check_transpiled_pair, lint_gen_bundle, lint_pair, lint_pipeline,
+    load_saved_program, verify_gen_bundle)
 
 __all__ = [
     "AnalysisResult", "analyze_program", "lint_program", "verify_program",
-    "verify_transpiled", "DIAGNOSTIC_CODES", "Diagnostic",
-    "ProgramVerificationError", "format_diagnostics", "typecheck",
-    "distributed", "cost", "opmeta", "visualize", "check_gen_bundle",
-    "lint_gen_bundle", "load_saved_program", "verify_gen_bundle",
-    "check_distributed_spec", "check_transpiled_pair", "lint_pair",
+    "verify_transpiled", "check_pipeline_carriers", "DIAGNOSTIC_CODES",
+    "Diagnostic", "ProgramVerificationError", "format_diagnostics",
+    "typecheck", "distributed", "cost", "opmeta", "visualize",
+    "check_distributed_spec", "check_gen_bundle", "check_stage_set",
+    "check_transpiled_pair", "lint_gen_bundle", "lint_pair",
+    "lint_pipeline", "load_saved_program", "verify_gen_bundle",
 ]

@@ -13,22 +13,24 @@ Three call sites, three shapes:
   program's first run (memoized per program version — a cached step
   pays one set lookup).
 * ``verify_transpiled`` — ``verify_program`` with a ``where=`` tag,
-  called by every program rewriter (``backward.append_backward``) so a
-  rewrite that emits an ill-formed program fails AT THE REWRITE with
-  the pass named.
+  called by every program rewriter (``backward.append_backward``, the
+  pipeline transpiler) so a rewrite that emits an ill-formed program
+  fails AT THE REWRITE with the pass named.
 
-``check_pipeline_carriers`` checks what the pipeline transpiler
-produces and comes with it (ROADMAP queue 1 item 7b).
+``check_pipeline_carriers`` is the static half of the pipeline
+transpiler's i32 carrier-lane contract (PTA010).
 """
 
 from __future__ import annotations
 
 from paddle_tpu_torch.analysis import lints, structural, typecheck
-from paddle_tpu_torch.analysis.diagnostics import (ProgramVerificationError,
+from paddle_tpu_torch.analysis.diagnostics import (Diagnostic,
+                                                   ProgramVerificationError,
                                                    format_diagnostics)
 
 __all__ = ["AnalysisResult", "analyze_program", "lint_program",
-           "verify_program", "verify_transpiled"]
+           "verify_program", "verify_transpiled",
+           "check_pipeline_carriers"]
 
 
 class AnalysisResult:
@@ -106,3 +108,39 @@ def verify_transpiled(program, where):
     """Post-rewrite contract check for transpilers: a pass that emits a
     structurally broken program must fail HERE, naming itself."""
     return verify_program(program, where=where)
+
+
+def check_pipeline_carriers(block, boundaries, where="pipeline_transpiler"):
+    """Static half of the pipeline i32-carrier contract (the runtime
+    half is ``_Layout.pack``'s range guard): an int64 var crossing a
+    stage boundary rides the i32 lane, so a boundary value PROVABLY
+    outside int32 range — an int64 ``fill_constant`` literal feeding
+    the carrier — is rejected at transpile time (PTA010) instead of
+    raising step-side."""
+    diags = []
+    const_int64 = {}  # var name -> literal value(s)
+    for i, op in enumerate(block.ops):
+        if op.type in ("fill_constant", "fill") and \
+                op.attr("dtype") == "int64":
+            for n in op.output("Out"):
+                const_int64[n] = (i, op.attr("value", 0))
+    crossing = {n for names in boundaries for n in names}
+    for n in sorted(crossing & set(const_int64)):
+        i, value = const_int64[n]
+        try:
+            fits = typecheck.int64_fits_i32_lane(value)
+        except (TypeError, ValueError):
+            continue
+        if not fits:
+            diags.append(Diagnostic(
+                "PTA010",
+                f"`{n}` (int64 constant from op #{i}) crosses a "
+                f"pipeline stage boundary, but its value is outside "
+                f"int32 range — the i32 carrier lane cannot carry it "
+                f"exactly",
+                block_idx=block.idx, op_index=i,
+                op_type=block.ops[i].type, var=n,
+                site=getattr(block.ops[i], "creation_site", None)))
+    if diags:
+        raise ProgramVerificationError(diags, where=where)
+    return diags

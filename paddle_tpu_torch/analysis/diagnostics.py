@@ -4,9 +4,8 @@ of ``paddle_tpu.analysis.diagnostics``).
 Every finding the analyzer can emit has a STABLE code (``PTA001``...),
 a severity, and a one-line title.  The codes and titles are the JAX
 package's, so a finding reads the same in both packages; codes are
-never renumbered or reused.  The port emits PTA001–PTA014 and
-PTA016–PTA019; PTA015 checks what the pipeline transpiler produces
-(ROADMAP queue 1 item 7b).
+never renumbered or reused.  The port emits all of them,
+PTA001–PTA019.
 
 Severities:
   * ``error``   — the program is provably ill-formed; ``verify_program``

@@ -12,6 +12,12 @@ messages.
   peer, with agreeing declared shape and dtype.
 * **split reassembly** (PTA014): pserver-side ``<name>.block<k>``
   pieces sum back to the original variable's shape.
+* **stage boundary agreement** (PTA015): pipeline boundary carriers
+  agree between producer and consumer stages (same names in the same
+  order, since the carrier layout is positional; same shape and dtype),
+  and every value a stage consumes from upstream rides the boundary
+  before it (``check_stage_set``, ``check_pipeline_stages``,
+  ``lint_pipeline``).
 * **sharding propagation** (PTA016/PTA017): partition-spec placements
   validated against the mesh and propagated through per-op
   :func:`sharding_rule` functions; a provably invalid spec is an error,
@@ -23,10 +29,6 @@ messages.
   (``verify_gen_bundle``).  On the port a bucket escape does not
   recompile (the executor is eager), but it runs a shape that warmup
   never built or checked, so the codes stay the JAX package's.
-
-The pipeline stage checks (PTA015, ``check_stage_set``,
-``check_pipeline_stages``, ``lint_pipeline``) come with the pipeline
-transpiler (ROADMAP queue 1 item 7b).
 
 Like every analysis pass, the contract is ZERO false positives: checks
 fire only on facts provable from the IR (and the declared metadata)
@@ -47,9 +49,10 @@ from paddle_tpu_torch.framework import Program
 __all__ = [
     "COLLECTIVE_OP_TYPES", "collective_signature",
     "check_collective_match", "check_send_recv", "check_param_splits",
-    "check_transpiled_pair", "sharding_rule", "sharding_rules",
-    "check_sharding", "check_distributed_spec", "check_gen_bundle",
-    "lint_gen_bundle", "lint_pair", "verify_gen_bundle",
+    "check_transpiled_pair", "check_stage_set", "check_pipeline_stages",
+    "sharding_rule", "sharding_rules", "check_sharding",
+    "check_distributed_spec", "check_gen_bundle", "lint_gen_bundle",
+    "lint_pipeline", "lint_pair", "verify_gen_bundle",
     "load_saved_program", "ShardEnv",
 ]
 
@@ -353,6 +356,147 @@ def check_transpiled_pair(trainer, pservers):
 
 
 # ---------------------------------------------------------------------------
+# pipeline stage set (PTA011 across stages, PTA015 boundaries)
+# ---------------------------------------------------------------------------
+
+def check_stage_set(block, stage_ops, boundaries, feed_names=(),
+                    param_names=None):
+    """Validate a ``split_program`` stage set against its boundary
+    carriers (the generalization of the i32 carrier-lane check):
+
+    * every non-parameter value a stage consumes from upstream must
+      ride the boundary immediately before it (PTA015 — it would
+      simply be absent from the flat carrier at runtime);
+    * every boundary name must be produced by an earlier stage or be a
+      feed (PTA015 — the carrier would pack an undefined value);
+    * the stages must emit matching collective sequences
+      (PTA011/PTA012 — the JAX package runs them as ``lax.switch``
+      branches on the same devices, and a branch-local collective its
+      peers don't run deadlocks the mesh).
+    """
+    from paddle_tpu_torch.framework import Parameter
+
+    def is_param(name):
+        v = block.vars.get(name)
+        return v is not None and (isinstance(v, Parameter) or
+                                  getattr(v, "persistable", False))
+
+    if param_names is None:
+        param_names = {n for n in block.vars if is_param(n)}
+    feed_set = set(feed_names)
+    diags = []
+
+    produced_by = {}
+    for s, sops in enumerate(stage_ops):
+        for op in sops:
+            for n in op.output_arg_names:
+                if n:
+                    produced_by.setdefault(n, s)
+
+    def external_inputs(op):
+        names = [n for n in op.input_arg_names if n]
+        for sub in _sub_blocks(op):
+            for sop in sub.ops:
+                names.extend(external_inputs(sop))
+        return names
+
+    for s, sops in enumerate(stage_ops):
+        if s == 0:
+            continue
+        carried = set(boundaries[s]) if s < len(boundaries) else set()
+        for op in sops:
+            for n in external_inputs(op):
+                if n in param_names or n in carried:
+                    continue
+                src = produced_by.get(n)
+                if src is not None and src >= s:
+                    continue  # produced locally or downstream-fed
+                if src is None and n not in feed_set:
+                    continue  # scope state, not a carrier concern
+                diags.append(Diagnostic(
+                    "PTA015",
+                    f"stage {s} op `{op.type}` consumes `{n}` "
+                    f"(produced by "
+                    f"{'the feed' if src is None else f'stage {src}'}) "
+                    f"but the boundary before stage {s} does not carry "
+                    f"it — the value is absent from the flat carrier "
+                    f"at runtime",
+                    op_type=op.type, var=n,
+                    site=getattr(op, "creation_site", None),
+                    program=f"stage{s}"))
+                break  # one finding per op keeps the report readable
+    for b, names in enumerate(boundaries):
+        for n in names:
+            src = produced_by.get(n)
+            if src is None and n not in feed_set:
+                if block.has_var(n):  # scope state rides nothing
+                    continue
+                diags.append(Diagnostic(
+                    "PTA015",
+                    f"boundary {b} carries `{n}`, which no stage "
+                    f"produces and no feed provides — the carrier "
+                    f"would pack an undefined value", var=n,
+                    program=f"boundary{b}"))
+            elif src is not None and b <= src < len(stage_ops) and \
+                    b != len(boundaries) - 1 and b > 0:
+                diags.append(Diagnostic(
+                    "PTA015",
+                    f"boundary {b} carries `{n}` but it is only "
+                    f"produced later, by stage {src} — the carrier "
+                    f"would pack an undefined value", var=n,
+                    program=f"boundary{b}"))
+
+    members = [(f"stage{s}", sops, block)
+               for s, sops in enumerate(stage_ops)]
+    diags.extend(check_collective_match(members))
+    return diags
+
+
+def check_pipeline_stages(stages):
+    """``stages``: ordered list of ``(label, program, in_names,
+    out_names)`` — per-stage programs of one pipeline (the
+    multi-program CLI unit).  Adjacent stages must agree on the
+    carrier: the producer's out list IS the consumer's in list (the
+    flat carrier layout is positional, so order matters), and
+    same-named vars must declare agreeing shape/dtype (PTA015).
+    Collectives must match across all stages (PTA011/PTA012)."""
+    diags = []
+    for (a_label, a_prog, _a_in, a_out), \
+            (b_label, b_prog, b_in, _b_out) in zip(stages, stages[1:]):
+        if list(a_out) != list(b_in):
+            diags.append(Diagnostic(
+                "PTA015",
+                f"boundary between `{a_label}` and `{b_label}` "
+                f"disagrees: producer emits {list(a_out)} but consumer "
+                f"expects {list(b_in)} — the positional carrier layout "
+                f"desyncs",
+                var=next((n for n, m in zip(a_out, list(b_in) + [None])
+                          if n != m), None),
+                program=b_label))
+            continue
+        a_block = a_prog.global_block()
+        b_block = b_prog.global_block()
+        for n in a_out:
+            a_shape, a_dtype = _var_meta(a_block, n)
+            b_shape, b_dtype = _var_meta(b_block, n)
+            bad = []
+            if a_shape is not None and b_shape is not None and \
+                    a_shape != b_shape:
+                bad.append(f"shape {a_shape} vs {b_shape}")
+            if a_dtype is not None and b_dtype is not None and \
+                    a_dtype != b_dtype:
+                bad.append(f"dtype {a_dtype} vs {b_dtype}")
+            if bad:
+                diags.append(Diagnostic(
+                    "PTA015",
+                    f"carrier `{n}` drifts between `{a_label}` "
+                    f"(producer) and `{b_label}` (consumer): "
+                    + "; ".join(bad), var=n, program=b_label))
+    diags.extend(check_collective_match(
+        [(label, prog) for label, prog, _i, _o in stages]))
+    return diags
+
+
 # ---------------------------------------------------------------------------
 # sharding-spec propagation (PTA016 / PTA017)
 # ---------------------------------------------------------------------------
@@ -923,6 +1067,25 @@ def verify_gen_bundle(dirname, where="gen.export"):
     return errors
 
 
+def lint_pipeline(program, n_stages, feed_names, fetch_names):
+    """Multi-program lint of one program's pipeline split: split into
+    stages and validate the stage set (boundary carriers, cross-stage
+    collectives, i32 carrier lanes).  Returns an AnalysisResult."""
+    from paddle_tpu_torch.analysis.analyzer import check_pipeline_carriers
+    from paddle_tpu_torch.parallel.pipeline_transpiler import split_program
+
+    block, stage_ops, _stage_params, boundaries = split_program(
+        program, n_stages, list(feed_names or ()),
+        list(fetch_names or ()))
+    diags = check_stage_set(block, stage_ops, boundaries,
+                            feed_names=feed_names or ())
+    try:
+        check_pipeline_carriers(block, boundaries)
+    except ProgramVerificationError as e:
+        diags.extend(e.diagnostics)
+    return AnalysisResult(diags)
+
+
 def lint_pair(trainer, pservers):
     """Multi-program lint of a transpiled trainer/pserver family:
     Send/Recv pairing + split reassembly.  ``trainer``/``pservers``
@@ -933,6 +1096,6 @@ def lint_pair(trainer, pservers):
     all-reduce rendezvouses with the other trainers, never with the
     pserver, so requiring matching sequences across the pair would be
     a guaranteed false positive.  Collective matching applies to
-    homogeneous families only (replicas of one role):
-    :func:`check_collective_match`."""
+    homogeneous families only (replicas of one role, pipeline stages):
+    :func:`check_collective_match` / :func:`check_pipeline_stages`."""
     return AnalysisResult(check_transpiled_pair(trainer, pservers))

@@ -52,10 +52,9 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
 ``serve --master`` (fleet enrollment), ``trace dump --fleet`` and
 ``--compile-cache`` (the JAX package's persistent XLA cache) raise: the
 fleet is not ported yet (ROADMAP queue 1 item 8), and the port's kernels
-always build into the build directory beside their sources.  ``lint
---pipeline`` raises until the pipeline transpiler is ported (item 7b),
-and ``selfcheck`` raises until the planes it checks are (it follows
-items 7 and 8).  ``train --use-tpu``
+always build into the build directory beside their sources.
+``selfcheck`` raises until the planes it checks are ported (it follows
+item 8).  ``train --use-tpu``
 is not carried over: the JAX package's flag only exports
 ``PADDLE_TPU_USE_TPU``, which no code reads.
 """
@@ -393,12 +392,6 @@ def _cmd_stats(args):
     return 0
 
 
-#: ROADMAP's item for ``lint --pipeline``
-_PIPELINE_ITEM = ("needs the pipeline transpiler, PTA015 and "
-                  "analyzer.check_pipeline_carriers, not ported yet: "
-                  "ROADMAP queue 1 item 7b")
-
-
 def _zoo_targets(args, cmd):
     """``(label, program, feeds, fetches)`` of ``--zoo NAME|all``: each
     model's main program and its startup; None after printing why."""
@@ -443,8 +436,6 @@ def _cmd_lint(args):
 
     from paddle_tpu_torch import analysis
 
-    if args.pipeline:
-        raise NotImplementedError(f"lint --pipeline {_PIPELINE_ITEM}")
     if args.pair:
         from paddle_tpu_torch.analysis.distributed import load_saved_program
         members = []
@@ -516,9 +507,25 @@ def _cmd_lint(args):
         program_dot(mains[0][1], path=args.dot)
         print(f"wrote {args.dot} ({mains[0][0]})")
 
-    results = [(label, analysis.lint_program(
-        program, feed_names=feeds, fetch_names=fetches))
-        for label, program, feeds, fetches in targets]
+    results = []
+    for label, program, feeds, fetches in targets:
+        results.append((label, analysis.lint_program(
+            program, feed_names=feeds, fetch_names=fetches)))
+        # like --feed/--fetch, --pipeline applies to MAIN programs
+        # only: splitting a */startup initializer into "stages"
+        # verifies nothing
+        if args.pipeline and not label.endswith("/startup"):
+            try:
+                results.append((f"{label}/pipeline{args.pipeline}",
+                                analysis.lint_pipeline(
+                                    program, args.pipeline, feeds,
+                                    fetches)))
+            except ValueError as e:
+                # the split itself rejected the program (e.g. a
+                # tensor_array would cross a cut) — a target problem,
+                # not a diagnostic
+                print(f"lint: {label}: {e}", file=sys.stderr)
+                return 2
     return _report_lint(results, args)
 
 
@@ -611,13 +618,12 @@ def _cmd_opt(args):
 
 
 def _cmd_selfcheck(args):
-    """The JAX package's one-pass gate over every static check; most of
-    its sections check planes the port does not have yet."""
+    """The JAX package's one-pass gate over every static check; some of
+    its sections check a plane the port does not have yet."""
     raise NotImplementedError(
         "selfcheck: some of its 17 sections check code the port does not "
-        "have yet (the distribute and pipeline transpilers, sharded "
-        "embeddings, the fleet controller); it follows ROADMAP queue 1 "
-        "items 7 and 8")
+        "have yet (the fleet controller); it follows ROADMAP queue 1 "
+        "item 8")
 
 
 def _cmd_replay(args):
@@ -1243,10 +1249,13 @@ def main(argv=None):
                         "+ cross-program signature checks)")
     p.add_argument("--pair", nargs=2, metavar=("TRAINER", "PSERVER"),
                    default=None,
-                   help="a transpiled trainer/pserver pair; not ported "
-                        "yet (raises)")
+                   help="lint a transpiled trainer/pserver pair as one "
+                        "unit: Send/Recv matching, split reassembly, "
+                        "collective sync (PTA011-PTA014)")
     p.add_argument("--pipeline", type=int, default=None, metavar="N",
-                   help="pipeline-split lint; not ported yet (raises)")
+                   help="also split each linted program into N "
+                        "pipeline stages and verify boundary carriers "
+                        "+ cross-stage collective sync (PTA011/PTA015)")
     p.add_argument("--zoo", default=None,
                    help="lint a built-in model's forward+backward "
                         "program instead (mnist|resnet|vgg|transformer|"

@@ -10,10 +10,9 @@ Two facts every layer of a sharded-embedding stack must agree on:
   (k+1)*V/N)``), so ownership is ``id // rows_per_shard``, a divide,
   not a hash.
 
-The JAX package's ``register_table`` also sets the ``embedding.tables``
-gauge of its profiler's runtime metrics; the port has no profiler yet,
-so it keeps no gauge.  Sharded tables (``sharded_table.py``) wait for
-the port's multi-GPU training.
+``register_table`` keeps the ``embedding.tables`` gauge of the runtime
+metrics (``profiler.runtime_metrics``), as the JAX package's does; the
+row-sharded tables over a mesh are ``sharded_table.py``'s.
 """
 
 from __future__ import annotations
@@ -32,11 +31,13 @@ _TABLES = {}
 def register_table(name, vocab=None, dim=None):
     """Record ``name`` as an embedding-table parameter (idempotent;
     later registrations may fill in geometry the first one lacked)."""
+    from paddle_tpu_torch import profiler as _profiler
     meta = _TABLES.setdefault(str(name), {"vocab": None, "dim": None})
     if vocab is not None:
         meta["vocab"] = int(vocab)
     if dim is not None:
         meta["dim"] = int(dim)
+    _profiler.runtime_metrics.set_gauge("embedding.tables", len(_TABLES))
     return meta
 
 

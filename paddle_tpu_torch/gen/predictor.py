@@ -31,9 +31,9 @@ executor clones a graph's outputs), so :meth:`write_slot` may read them
 after the lock is released.  The bundle is checked against its meta at
 load (``analysis.check_gen_bundle``).
 
-The cost-model planners of the JAX package (``prefill_cost``,
-``plan_prompt_buckets``, ``plan_page_buckets``) need its static cost
-model, which is not ported yet: they raise ``NotImplementedError``.
+The cost-model planners (``prefill_cost``, ``plan_prompt_buckets``,
+``plan_page_buckets``) price a prefill with ``analysis.cost``'s static
+model, as the JAX package's do.
 """
 
 from __future__ import annotations

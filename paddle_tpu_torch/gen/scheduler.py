@@ -27,9 +27,10 @@ semantics — new requests are admitted only when the pool is EMPTY, so a
 batch runs start-to-finish as a unit while later arrivals queue behind
 it (the benchmark baseline of continuous batching).
 
-The JAX package's cost-weighted admission (``prefill_budget``) needs
-its static cost model, not ported yet: a budget other than None raises
-``NotImplementedError``.
+Cost-weighted admission (``prefill_budget``, continuous admission
+only): an admission pass admits prefills until their summed static
+cost (``GenPredictor.prefill_cost``, from ``analysis.cost``) would pass
+the budget; the first of a pass is always admitted.
 """
 
 from __future__ import annotations

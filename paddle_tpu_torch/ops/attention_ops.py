@@ -125,6 +125,39 @@ def attention_kernels(q, k, v, use_flash=True):
     return flash_attention_fwd, flash_attention_bwd
 
 
+class AttentionRouteFunction(torch.autograd.Function):
+    """``(out, lse)`` of the route :func:`attention_kernels` picks, under
+    torch autograd: its forward, and its backward on the saved ``out``
+    and ``lse`` (the unfused route recomputes from q, k, v), as
+    ``scaled_dot_product_attention``'s grad op runs it.  The kernels are
+    launched through ctypes, which autograd cannot see through."""
+
+    @staticmethod
+    def forward(q, k, v, k_mask, causal, scale, use_flash):
+        fwd, _ = attention_kernels(q, k, v, use_flash)
+        return fwd(q, k, v, k_mask, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, k_mask, causal, scale, use_flash = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, k_mask, out, lse)
+        ctx.args = (causal, scale, use_flash)
+        if lse is not None:
+            ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, k_mask, out, lse = ctx.saved_tensors
+        causal, scale, use_flash = ctx.args
+        _, bwd = attention_kernels(q, k, v, use_flash)
+        if bwd is unfused_attention_bwd:
+            out = lse = None
+        dq, dk, dv = bwd(q, k, v, k_mask, out, lse,
+                         dout.to(q.dtype).contiguous(), causal, scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def _kernel_mask(k_mask):
     """The key mask as the kernels take it (contiguous float32), or None."""
     return None if k_mask is None else k_mask.float().contiguous()
@@ -179,11 +212,16 @@ def sdpa_lower(ctx):
     False takes the unfused route, see :func:`attention_kernels`).
     """
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
-    attention_fwd, _ = attention_kernels(
-        q, k, v, bool(ctx.attr("use_flash", True)))
-    out, lse = attention_fwd(
-        q, k, v, _kernel_mask(ctx.input("KMask")),
-        bool(ctx.attr("causal", False)), float(ctx.attr("scale", 1.0)))
+    args = (q, k, v, _kernel_mask(ctx.input("KMask")),
+            bool(ctx.attr("causal", False)), float(ctx.attr("scale", 1.0)),
+            bool(ctx.attr("use_flash", True)))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:3]):
+        # under autograd (a pipeline stage): the route's backward, as
+        # the grad op runs it
+        out, lse = AttentionRouteFunction.apply(*args)
+    else:
+        attention_fwd, _ = attention_kernels(q, k, v, args[-1])
+        out, lse = attention_fwd(*args[:-1])
     ctx.set_output("Out", out)
     if lse is not None:
         # saved residual; consumed by the grad op

@@ -110,9 +110,11 @@ def cross_entropy_grad_lower(ctx):
     if op.attr("soft_label", False):
         dx = -dy * label.float() * inv
     else:
-        idx = _hard_label(label)
-        dx = torch.zeros_like(x).scatter_(
-            1, idx, -dy * torch.gather(inv, 1, idx))
+        # elementwise (no in-place scatter, which DTensor refuses on a
+        # batch split over a mesh): -dy / p at each row's label
+        cols = torch.arange(x.shape[1], device=x.device)
+        dx = torch.where(cols[None, :] == _hard_label(label), -dy * inv,
+                         0.0)
     ctx.outputs[gx[0]] = dx.to(xe.dtype)
 
 

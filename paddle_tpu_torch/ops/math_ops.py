@@ -194,9 +194,10 @@ _make_elementwise("mul", torch.mul)
 _make_elementwise("div", torch.div)
 class _Chooser2(torch.autograd.Function):
     """``torch.maximum`` / ``torch.minimum`` with the JAX package's vjp:
-    the cotangent goes to the operand that was chosen, half to each on a
-    tie, and none to either where the comparison fails (a NaN), where
-    torch's own passes it to both."""
+    the cotangent times a mask of 1 for the operand that was chosen, ½
+    for each on a tie and 0 for either where the comparison fails (a
+    NaN), where torch's own passes it to both.  The mask multiplies, as
+    the JAX package's does, so a NaN cotangent reaches both operands."""
 
     @staticmethod
     def forward(x, y, largest):
@@ -212,10 +213,10 @@ class _Chooser2(torch.autograd.Function):
         x, y = ctx.saved_tensors
         x_wins = x > y if ctx.largest else x < y
         y_wins = y > x if ctx.largest else y < x
-        half = torch.where(x == y, g * 0.5, torch.zeros_like(g))
-        gx = torch.where(x_wins, g, half).sum_to_size(x.shape)
-        gy = torch.where(y_wins, g, half).sum_to_size(y.shape)
-        return gx, gy, None
+        half = torch.where(x == y, 0.5, 0.0)
+        gx = g * torch.where(x_wins, 1.0, half).to(g.dtype)
+        gy = g * torch.where(y_wins, 1.0, half).to(g.dtype)
+        return gx.sum_to_size(x.shape), gy.sum_to_size(y.shape), None
 
 
 def maximum(x, y):

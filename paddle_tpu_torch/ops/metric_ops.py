@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.ops.registry import register_op
+from paddle_tpu_torch.ops.tensor_ops import saturating_cast
 
 
 def _infer_accuracy(op, block):
@@ -50,8 +51,8 @@ def auc_lower(ctx):
     predict = ctx.input("Predict")
     label = ctx.input("Label").reshape(-1)
     num_buckets = ctx.attr("num_thresholds", 200) + 1
-    bucket = (predict[:, -1] * (num_buckets - 1)).to(torch.int32).clamp(
-        0, num_buckets - 1).long()
+    bucket = saturating_cast(predict[:, -1] * (num_buckets - 1),
+                             torch.int32).clamp(0, num_buckets - 1).long()
     is_pos = (label > 0).long()
     zeros = torch.zeros(num_buckets, dtype=torch.int64,
                         device=predict.device)

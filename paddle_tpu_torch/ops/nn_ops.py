@@ -22,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.kernels.bias_softmax import (bias_softmax,
+from paddle_tpu_torch.kernels.bias_softmax import (BiasSoftmaxFunction,
+                                                   bias_softmax,
                                                    bias_softmax_grad)
 from paddle_tpu_torch.ops.math_ops import reduce_chooser
 from paddle_tpu_torch.ops.registry import (
@@ -165,7 +166,11 @@ def softmax_lower(ctx):
         split = split_attention_bias(x, bias)
         if split is not None:
             row_bias, tri_bias = split
-            ctx.set_output("Out", bias_softmax(x, row_bias, tri_bias))
+            # under autograd (a pipeline stage) the kernel pair, whose
+            # launches autograd cannot see through
+            fn = BiasSoftmaxFunction.apply if torch.is_grad_enabled() and \
+                x.requires_grad else bias_softmax
+            ctx.set_output("Out", fn(x, row_bias, tri_bias))
             return
         x = x + bias.to(x.dtype)
     ctx.set_output("Out", torch.softmax(x.float(), dim=-1).to(x.dtype))

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.convert import is_dtensor
 from paddle_tpu_torch.ops.registry import register_op
 from paddle_tpu_torch.selected_rows import (gate_dead_slots,
                                             is_selected_rows,
@@ -61,25 +62,39 @@ def _infer_param_out(op, block):
                 pass
 
 
-def _target(ctx, in_slot, out_slot):
-    """The tensor a sparse branch updates in place for ``out_slot``: the
-    ``in_slot`` input itself when both name one variable (as every
-    optimizer binds them), else a copy of it."""
-    t = ctx.input(in_slot)
+def _target(ctx, in_slot, out_slot, t):
+    """The tensor a sparse branch updates in place for ``out_slot``:
+    ``t`` (the ``in_slot`` input, or this rank's block of it) itself when
+    both slots name one variable (as every optimizer binds them), else a
+    copy of it."""
     if ctx.op.output(out_slot)[0] != ctx.op.input(in_slot)[0]:
         t = t.clone()
     return t
 
 
-def _rows_in_place(ctx, target, in_slot, rows, old):
+def _rows_in_place(ctx, target, source, rows, old):
     """``target.<index write>_(0, rows, ...)`` is about to run: under a
     guarded step note ``(target, rows, old)`` (``old`` the rows' values
     before the write) so that a tripped check can put them back; only a
-    write into the input itself (not its copy) needs it."""
+    write into the input ``source`` itself (not its copy) needs it."""
     undo = ctx.aux.get("undo")
-    if undo is not None and target is ctx.input(in_slot):
+    if undo is not None and target is source:
         undo.append((target, rows, old))
     return target
+
+
+def _row_blocks(g, *tables):
+    """``(g, tables, wrap, local)`` of a sparse update: for a table on a
+    mesh, split by rows over an axis or replicated (and its row-shaped
+    state, placed alike), the grad over this rank's block and the local
+    blocks, which the update writes, with ``wrap(block, like)`` giving
+    the DTensor back (``embedding.sharded_table.row_blocks``) and
+    ``local(x)`` a replicated value's local tensor (the learning rate,
+    the beta powers); else everything as it is."""
+    if not is_dtensor(tables[0]):
+        return g, tables, lambda t, like: t, lambda x: x
+    from paddle_tpu_torch.embedding import sharded_table
+    return sharded_table.row_blocks(g, *tables) + (sharded_table.whole,)
 
 
 def _lr(ctx, dtype=None):
@@ -94,12 +109,13 @@ def sgd_lower(ctx):
     if is_selected_rows(g):
         # reference sgd_op.h's SelectedRows kernel: scatter-add at the
         # grad's rows, duplicates included
+        g, (pb,), wrap, local = _row_blocks(g, p)
         rows, value = g.clamped()
-        p = _target(ctx, "Param", "ParamOut")
+        t = _target(ctx, "Param", "ParamOut", pb)
         if ctx.aux.get("undo") is not None:
-            _rows_in_place(ctx, p, "Param", rows, p.index_select(0, rows))
-        ctx.set_output("ParamOut", p.index_add_(
-            0, rows, (-_lr(ctx, p.dtype) * value).to(p.dtype)))
+            _rows_in_place(ctx, t, pb, rows, t.index_select(0, rows))
+        ctx.set_output("ParamOut", wrap(t.index_add_(
+            0, rows, (-local(_lr(ctx, t.dtype)) * value).to(t.dtype)), p))
         return
     ctx.set_output("ParamOut", p - _lr(ctx, p.dtype) * g)
 
@@ -143,27 +159,29 @@ def adam_lower(ctx):
     ctx.set_output("Beta1PowOut", (b1p * beta1).reshape(1))
     ctx.set_output("Beta2PowOut", (b2p * beta2).reshape(1))
     if is_selected_rows(g):
+        g, (pb, m1b, m2b), wrap, local = _row_blocks(g, p, m1, m2)
+        lr_t = local(lr_t)
         g = g.merge_duplicates()
         live, rows, first = redirect_dead_slots(g.rows, g.height)
         gv = g.value
-        m1_old, m2_old = m1.index_select(0, rows), m2.index_select(0, rows)
+        m1_old, m2_old = m1b.index_select(0, rows), m2b.index_select(0, rows)
         m1_rows = beta1 * m1_old + (1.0 - beta1) * gv
         m2_rows = beta2 * m2_old + (1.0 - beta2) * torch.square(gv)
-        p = _target(ctx, "Param", "ParamOut")
-        p_old = p.index_select(0, rows)
+        t = _target(ctx, "Param", "ParamOut", pb)
+        p_old = t.index_select(0, rows)
         p_rows = p_old - (lr_t * m1_rows /
-                          (torch.sqrt(m2_rows) + eps)).to(p.dtype)
-        ctx.set_output("ParamOut", _rows_in_place(
-            ctx, p, "Param", rows, p_old).index_copy_(
-                0, rows, gate_dead_slots(live, first, p_rows, p_old)))
-        ctx.set_output("Moment1Out", _rows_in_place(
-            ctx, _target(ctx, "Moment1", "Moment1Out"), "Moment1", rows,
+                          (torch.sqrt(m2_rows) + eps)).to(t.dtype)
+        ctx.set_output("ParamOut", wrap(_rows_in_place(
+            ctx, t, pb, rows, p_old).index_copy_(
+                0, rows, gate_dead_slots(live, first, p_rows, p_old)), p))
+        ctx.set_output("Moment1Out", wrap(_rows_in_place(
+            ctx, _target(ctx, "Moment1", "Moment1Out", m1b), m1b, rows,
             m1_old).index_copy_(
-                0, rows, gate_dead_slots(live, first, m1_rows, m1_old)))
-        ctx.set_output("Moment2Out", _rows_in_place(
-            ctx, _target(ctx, "Moment2", "Moment2Out"), "Moment2", rows,
+                0, rows, gate_dead_slots(live, first, m1_rows, m1_old)), m1))
+        ctx.set_output("Moment2Out", wrap(_rows_in_place(
+            ctx, _target(ctx, "Moment2", "Moment2Out", m2b), m2b, rows,
             m2_old).index_copy_(
-                0, rows, gate_dead_slots(live, first, m2_rows, m2_old)))
+                0, rows, gate_dead_slots(live, first, m2_rows, m2_old)), m2))
         return
     m1n = beta1 * m1 + (1.0 - beta1) * g
     m2n = beta2 * m2 + (1.0 - beta2) * torch.square(g)
@@ -204,22 +222,23 @@ def adagrad_lower(ctx):
     m = ctx.input("Moment")
     eps = ctx.attr("epsilon", 1e-6)
     if is_selected_rows(g):
+        g, (pb, mb), wrap, local = _row_blocks(g, p, m)
         g = g.merge_duplicates()
         live, rows, first = redirect_dead_slots(g.rows, g.height)
         gv = g.value
-        m_old = m.index_select(0, rows)
+        m_old = mb.index_select(0, rows)
         m_rows = m_old + torch.square(gv)
-        p = _target(ctx, "Param", "ParamOut")
-        p_old = p.index_select(0, rows)
-        p_rows = (p_old - _lr(ctx) * gv /
-                  (torch.sqrt(m_rows) + eps)).to(p.dtype)
-        ctx.set_output("MomentOut", _rows_in_place(
-            ctx, _target(ctx, "Moment", "MomentOut"), "Moment", rows,
+        t = _target(ctx, "Param", "ParamOut", pb)
+        p_old = t.index_select(0, rows)
+        p_rows = (p_old - local(_lr(ctx)) * gv /
+                  (torch.sqrt(m_rows) + eps)).to(t.dtype)
+        ctx.set_output("MomentOut", wrap(_rows_in_place(
+            ctx, _target(ctx, "Moment", "MomentOut", mb), mb, rows,
             m_old).index_copy_(
-                0, rows, gate_dead_slots(live, first, m_rows, m_old)))
-        ctx.set_output("ParamOut", _rows_in_place(
-            ctx, p, "Param", rows, p_old).index_copy_(
-                0, rows, gate_dead_slots(live, first, p_rows, p_old)))
+                0, rows, gate_dead_slots(live, first, m_rows, m_old)), m))
+        ctx.set_output("ParamOut", wrap(_rows_in_place(
+            ctx, t, pb, rows, p_old).index_copy_(
+                0, rows, gate_dead_slots(live, first, p_rows, p_old)), p))
         return
     m_new = m + torch.square(g)
     ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paddle_tpu_torch.convert import to_tensor, torch_dtype
+from paddle_tpu_torch.convert import is_dtensor, to_tensor, torch_dtype
 from paddle_tpu_torch.ops.registry import (
     ShapeInferenceSkip, auto_vjp_grad_lower, infer_shape_unary,
     register_grad_lower, register_op)
@@ -318,17 +318,31 @@ def _infer_lookup_table(op, block):
     out.lod_level = ids.lod_level
 
 
+def _sharded_table():
+    from paddle_tpu_torch.embedding import sharded_table
+    return sharded_table
+
+
+def _table_shard(w):
+    """``(mesh, axis)`` of a table split by rows over a mesh axis (a
+    planned table under ``ParallelExecutor``), else None."""
+    return _sharded_table().row_shard(w) if is_dtensor(w) else None
+
+
 @register_op("lookup_table", infer_shape=_infer_lookup_table,
              no_grad_inputs=("Ids",))
 def lookup_table_lower(ctx):
     """Rows of ``W`` at ``Ids``; a trailing 1 of the ids is squeezed
     (``[S, 1]`` decode ids give ``[S, d]``), and rows at ``padding_idx``
-    are zero."""
+    are zero.  A table split by rows over a mesh axis gathers its rows by
+    ownership (``embedding.sharded_table.lookup_rows``)."""
     w, ids = ctx.input("W"), ctx.input("Ids")
     if ids.ndim and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     ids = ids.long()
-    out = take_rows(w, ids)
+    shard = _table_shard(w)
+    out = take_rows(w, ids) if shard is None else \
+        _sharded_table().lookup_rows(w, ids, shard)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).unsqueeze(-1).to(out.dtype)
@@ -342,7 +356,8 @@ def lookup_table_grad_lower(ctx):
     (reference ``lookup_table_op.cc``'s SelectedRows branch) whose rows
     are the flattened ids, one slot each, and whose values are
     ``Out@GRAD`` as ``[N, dim]`` (zero at ``padding_idx``): O(batch·dim),
-    no vocab-sized tensor."""
+    no vocab-sized tensor; whole on every rank for a table on a
+    mesh."""
     if not ctx.attr("is_sparse", False):
         auto_vjp_grad_lower("lookup_table")(ctx)
         return
@@ -350,8 +365,13 @@ def lookup_table_grad_lower(ctx):
     if not gname or not gname[0]:
         return
     w = ctx.input("W")
-    rows = ctx.input("Ids").reshape(-1).long()
-    vals = ctx.input("Out@GRAD").reshape(-1, w.shape[-1])
+    ids, dout = ctx.input("Ids"), ctx.input("Out@GRAD")
+    if is_dtensor(w):
+        # a mesh's table: the grad whole on every rank; each rank's
+        # update keeps the rows it holds (embedding.sharded_table)
+        ids, dout = (_sharded_table().whole(t) for t in (ids, dout))
+    rows = ids.reshape(-1).long()
+    vals = dout.reshape(-1, w.shape[-1])
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         vals = vals * (rows != padding_idx).unsqueeze(1).to(vals.dtype)

@@ -9,11 +9,14 @@ of ``paddle_tpu.parallel``): NCCL between cards, gloo on the CPU.
   * the ``c_*`` collective IR ops and their helpers (``collective``;
     the ops live in ``ops/collective_ops.py``).
   * ring attention over a ``seq`` axis (``ring_attention``).
+  * GPipe over a ``pipe`` axis (``pipeline``: ``gpipe``,
+    ``stack_stage_params``) and the pipeline transpiler that splits a
+    Program into stages (``pipeline_transpiler``), imported from their
+    modules as in the JAX package.
   * the world's bootstrap (``distributed``) and meshes (``mesh``).
 
 Not here yet: ``MasterService`` / ``partition_files`` (the Go master's
-task dispatch, ROADMAP queue 1 item 8) and ``gpipe`` with the pipeline
-transpiler (item 7b).
+task dispatch, ROADMAP queue 1 item 8).
 """
 
 from paddle_tpu_torch.parallel.mesh import (P, default_mesh, device_count,

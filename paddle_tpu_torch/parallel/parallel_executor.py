@@ -42,7 +42,11 @@ instead (``convert.on_local_shards``): the batched ``matmul`` of two
 tensors split alike over batch dims (torch's matmul folds those dims
 with a view, which torch 2.11's DTensor refuses when two of them are
 split over different mesh axes, as attention's batch and heads are),
-and the max pool's grad (an in-place scatter into a new tensor).
+and the max pool's grad (an in-place scatter into a new tensor).  An
+embedding table's lookups, ``SelectedRows`` grads and sparse optimizer
+updates, which DTensor has no rules for, run by row ownership on each
+rank's block of the table (``embedding.sharded_table``: a
+``plan_sharded_tables`` table split by rows, or a replicated one whole).
 
 On the card a parallel signature runs as a CUDA graph by the executor's
 rule (``step_graph.StepGraph``: the first step eager, the second

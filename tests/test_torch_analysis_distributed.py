@@ -1,15 +1,16 @@
 """The port's distributed-program verifier (``paddle_tpu_torch.analysis.
-distributed``: PTA011–PTA014, PTA016, PTA017) against the JAX package's
-(mirror of ``tests/test_analysis_distributed.py``).
+distributed``: PTA011–PTA017) against the JAX package's (mirror of
+``tests/test_analysis_distributed.py``).
 
 Every case builds its program family with the JAX package (the builders
 of ``tests/test_analysis_distributed.py``), carries each program across
 with ``Program.to_dict()`` / ``from_dict()``, runs both packages' check
 and holds the port's diagnostics to the JAX package's: the same codes,
 messages, variables, op types and members, in the same order.  The
-pipeline code PTA015 comes with the pipeline transpiler (ROADMAP queue 1
-item 7b), and the gen-bundle codes PTA018/PTA019 are held in
-``tests/test_torch_cli_analysis.py``.
+pipeline cases (PTA015, ``check_stage_set``, ``check_pipeline_stages``,
+``lint_pipeline``, ``check_pipeline_carriers``' PTA010 and ``lint
+--pipeline``) run the same way; the gen-bundle codes PTA018/PTA019 are
+held in ``tests/test_torch_cli_analysis.py``.
 """
 
 import json
@@ -170,6 +171,46 @@ def _one_sided_contraction(D, cv):
                             mesh_axes={"model": 2})
 
 
+def _stages(cv, stages):
+    return [(label, cv(prog), ins, outs) for label, prog, ins, outs in stages]
+
+
+def _pta015(D, cv):
+    return D.check_pipeline_stages(_stages(cv, J._stage_pair(
+        consumer_shape=(2, 8))))
+
+
+def _pta015_reordered(D, cv):
+    return D.check_pipeline_stages(_stages(cv, J._stage_pair(reorder=True)))
+
+
+def _pta011_across_stages(D, cv):
+    """The headline drill: a pipeline stage whose collectives are
+    reordered against its peer's is a static deadlock."""
+    stages = J._stage_pair()
+    s0 = stages[0][1].global_block()
+    s1 = stages[1][1].global_block()
+    s0.append_op(type="c_allreduce_sum", inputs={"X": ["h"]},
+                 outputs={"Out": ["h_r"]}, attrs={"axis": "pipe"})
+    s0.append_op(type="c_broadcast", inputs={"X": ["h_r"]},
+                 outputs={"Out": ["h_b"]}, attrs={"axis": "pipe", "root": 0})
+    s1.append_op(type="c_broadcast", inputs={"X": ["y"]},
+                 outputs={"Out": ["y_b"]}, attrs={"axis": "pipe", "root": 0})
+    s1.append_op(type="c_allreduce_sum", inputs={"X": ["y_b"]},
+                 outputs={"Out": ["y_r"]}, attrs={"axis": "pipe"})
+    return D.check_pipeline_stages(_stages(cv, stages))
+
+
+def _stages_matching_collectives(D, cv):
+    stages = J._stage_pair()
+    for _, prog, _i, _o in stages:
+        prog.global_block().append_op(
+            type="c_allreduce_sum",
+            inputs={"X": [prog.global_block().ops[0].output_arg_names[0]]},
+            outputs={"Out": ["r"]}, attrs={"axis": "pipe"})
+    return D.check_pipeline_stages(_stages(cv, stages))
+
+
 #: case -> the codes it must give (empty: silent, zero false positives)
 CASES = {
     "pta011_reordered_collectives": (_pta011, ["PTA011"]),
@@ -189,6 +230,12 @@ CASES = {
     "zero_shape_state_plan_is_silent": (_zero_shape_silent, []),
     "replicated_everything_is_silent": (_replicated_silent, []),
     "one_sided_contraction_shard": (_one_sided_contraction, ["PTA017"]),
+    "pta015_boundary_carrier_mismatch": (_pta015, ["PTA015"]),
+    "reordered_carrier_is_pta015": (_pta015_reordered, ["PTA015"]),
+    "reordered_collective_pipeline_pair": (_pta011_across_stages,
+                                           ["PTA011"]),
+    "matching_collectives_across_stages": (_stages_matching_collectives,
+                                           []),
 }
 
 
@@ -312,3 +359,89 @@ def test_lint_pair_mode_equals_the_reference(tmp_path, capsys, recv_side,
         return report
 
     assert strip(got) == strip(want)
+
+
+def test_tampered_boundary_is_pta015():
+    """``check_stage_set`` (the pipelined program's wiring): dropping a
+    consumed carrier from a boundary is caught statically, as in the JAX
+    package; the untampered split is clean."""
+    from paddle_tpu.parallel.pipeline_transpiler import split_program as js
+    from paddle_tpu_torch.parallel.pipeline_transpiler import \
+        split_program as ts
+    import paddle_tpu as fluid
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        h = fluid.layers.fc(input=x, size=8, act="relu")
+        y = fluid.layers.fc(input=h, size=2)
+    keys = []
+    for D, split, prog in ((JD, js, main), (TD, ts, _t(main))):
+        block, stage_ops, _params, boundaries = split(prog, 2, ["x"],
+                                                      [y.name])
+        tampered = [list(names) for names in boundaries]
+        tampered[1] = []  # stage 1 consumes the carrier; drop it all
+        keys.append(_key(D.check_stage_set(block, stage_ops, tampered,
+                                           feed_names=["x"])))
+        assert not D.check_stage_set(block, stage_ops, boundaries,
+                                     feed_names=["x"])
+    assert keys[0] == keys[1] and "PTA015" in {k[0] for k in keys[1]}
+
+
+def test_pipeline_carrier_constant_out_of_range_is_pta010():
+    """``check_pipeline_carriers``: an int64 literal outside int32 range
+    crossing a stage boundary is rejected at transpile time (PTA010); an
+    in-range one crosses freely."""
+    from paddle_tpu import analysis as JA
+    from paddle_tpu_torch import analysis as TA
+    p, b = J._prog()
+    b.append_op(type="fill_constant", outputs={"Out": ["big_id"]},
+                attrs={"shape": [2], "dtype": "int64", "value": 2 ** 40})
+    b.append_op(type="relu", inputs={"X": ["big_id"]},
+                outputs={"Out": ["y"]})
+    keys = []
+    for A, prog in ((JA, p), (TA, _t(p))):
+        with pytest.raises(A.ProgramVerificationError) as ei:
+            A.check_pipeline_carriers(prog.global_block(), [["big_id"]])
+        keys.append(_key(ei.value.diagnostics))
+    assert keys[0] == keys[1] and keys[1][0][0] == "PTA010"
+    p2, b2 = J._prog()
+    b2.append_op(type="fill_constant", outputs={"Out": ["small_id"]},
+                 attrs={"shape": [2], "dtype": "int64", "value": 7})
+    assert TA.check_pipeline_carriers(_t(p2).global_block(),
+                                      [["small_id"]]) == []
+
+
+@pytest.mark.parametrize("name", _zoo())
+def test_zoo_pipeline_split_equals_the_reference(name):
+    """Each zoo model's 2-stage split lints clean in both packages, or
+    both reject it with the same message."""
+    from paddle_tpu import analysis as JA
+    from paddle_tpu.models import build_train_program
+    from paddle_tpu_torch import analysis as TA
+    main, _startup, feeds, fetches = build_train_program(name)
+    if feeds is None:
+        feeds = [v.name for v in main.global_block().vars.values()
+                 if getattr(v, "is_data", False)]
+    results = []
+    for A, prog in ((JA, main), (TA, _t(main))):
+        try:
+            results.append(_key(A.lint_pipeline(prog, 2, feeds, fetches)))
+        except ValueError as e:
+            results.append(("unsplittable", str(e)))
+    assert results[0] == results[1]
+    assert results[1] == [] or results[1][0] == "unsplittable"
+
+
+def test_lint_pipeline_mode_equals_the_reference(capsys):
+    from paddle_tpu.cli import main as jmain
+    from paddle_tpu_torch.cli import main as tmain
+    argv = ["lint", "--zoo", "mnist", "--pipeline", "2", "--json"]
+    assert jmain(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert tmain(argv) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert [t["target"] for t in got["targets"]] == \
+        ["mnist", "mnist/pipeline2", "mnist/startup"]
+    assert got["errors"] == 0
+    assert [t["target"] for t in got["targets"]] == \
+        [t["target"] for t in want["targets"]]

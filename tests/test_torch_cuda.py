@@ -2175,3 +2175,139 @@ def test_parallel_executor_world1_equals_executor_on_card(nccl_world):
     # eager, captured, replayed: one graph, as Executor.run's
     (graph,) = pexe.graph_stats()
     assert graph["graphed"] and graph["replays"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the pipeline transpiler and row-sharded tables at world size 1
+# ---------------------------------------------------------------------------
+
+def _small_transformer(pt, T, batch, seq):
+    hp = T.ModelHyperParams()
+    hp.d_model, hp.d_inner_hid, hp.n_layer = 64, 128, 2
+    hp.n_head, hp.d_key, hp.d_value = 4, 16, 16
+    hp.src_vocab_size = hp.trg_vocab_size = 64
+    hp.max_length, hp.dropout = 32, 0.0
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup):
+        cost, feeds = T.transformer(batch, seq, seq, hp)
+    main.amp = True
+    return hp, main, startup, cost.name, list(feeds)
+
+
+@pytest.mark.cuda
+def test_one_stage_pipeline_equals_executor_on_card(nccl_world):
+    """Route A's composed attention at a small width through a one-stage
+    pipeline of 4 microbatches on a world-1 NCCL ``pipe`` mesh: each
+    microbatch's loss within one bf16 rounding of ``Executor.run``'s,
+    every grad within one bf16 rounding of the summed ``append_backward``
+    grads, and the bias-softmax pair on its kernels 6 + 6 times a
+    microbatch under autograd (2 layers)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel.pipeline_transpiler import \
+        pipeline_transpiler
+    hp, main, startup, cost, feeds = _small_transformer(pt, T, 4, 16)
+    batches = [T.fake_batch(4, 16, 16, hp, seed=i) for i in range(4)]
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    pp = pipeline_transpiler(main, 1, feeds, [cost],
+                             nccl_world.make_mesh((1,), ("pipe",)))
+    pp.build(scope, batches[0])
+    packed = {lane: v.detach().requires_grad_(lane != "i32")
+              for lane, v in pp.packed_params.items()}
+    before = (BIAS_SOFTMAX.launches, BIAS_SOFTMAX_GRAD.launches)
+    losses = pp.select_fetch(pp.run_fn()(packed, pp.stack_microbatches(
+        batches)), cost)
+    losses.sum().backward()
+    assert (BIAS_SOFTMAX.launches - before[0],
+            BIAS_SOFTMAX_GRAD.launches - before[1]) == (24, 24)
+    got = pp.unpack_grads({lane: v.grad for lane, v in packed.items()
+                           if v.grad is not None})
+    gmain = main.clone()
+    with pt.program_guard(gmain):
+        pt.append_backward(gmain.global_block().var(cost))
+    names = sorted(got)
+    want_losses, want = [], {n: 0.0 for n in names}
+    for b in batches:
+        want_losses.append(float(np.asarray(exe.run(
+            main, feed=b, fetch_list=[cost], scope=scope)[0]).reshape(())))
+        for n, g in zip(names, exe.run(gmain, feed=b, scope=scope,
+                                       fetch_list=[n + "@GRAD"
+                                                   for n in names])):
+            want[n] = want[n] + np.asarray(g, np.float64)
+    np.testing.assert_allclose(losses.detach().cpu().numpy().reshape(-1),
+                               want_losses, rtol=2.0 ** -7, atol=0)
+    assert len(names) > 20
+    for n in names:
+        rms = float(np.sqrt(np.mean(np.square(want[n]))))
+        np.testing.assert_allclose(got[n], want[n], rtol=2.0 ** -7,
+                                   atol=2.0 ** -8 * rms, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_i32_lane_guard_on_a_cuda_int64_tensor(cuda_card):
+    """The i32 carrier lane's range guard keys on the dtype on the card
+    too: an int64 CUDA tensor outside int32 range raises, at once or,
+    inside a schedule, where its fault flag is read."""
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.parallel.pipeline_transpiler import _Layout
+    lay = _Layout(["ids"], [(2,)], [torch.int64])
+    with pytest.raises(ValueError, match="int32 range"):
+        lay.pack({"ids": torch.tensor([1, 2 ** 31], device="cuda")},
+                 ["i32"], torch.device("cuda"))
+    ok = lay.pack({"ids": torch.tensor([-(2 ** 31), 7], device="cuda")},
+                  ["i32"], torch.device("cuda"))
+    assert ok["i32"].is_cuda and ok["i32"].tolist() == [-(2 ** 31), 7]
+    faults = {}
+    lay.pack({"ids": torch.tensor([0, -(2 ** 33)], device="cuda")},
+             ["i32"], torch.device("cuda"), faults)
+    with pytest.raises(ValueError, match="int32 range"):
+        registry.raise_fault(*registry.fault_word({"fault_flags": faults}))
+
+
+@pytest.mark.cuda
+def test_sharded_tables_world1_equal_executor_on_card(nccl_world):
+    """Wide & Deep with ``plan_sharded_tables``' rules through
+    ``ParallelExecutor`` on a world-1 ``data`` mesh (each table and its
+    moments ``Shard(0)``), graphed from its second step: losses and
+    every persistable bit-identical to ``Executor.run``'s."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.embedding import plan_sharded_tables
+    from paddle_tpu_torch.models import wide_and_deep as W
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup):
+        cost, _, _ = W.wide_and_deep_train_program(
+            64, vocab_size=4096, num_slots=26, dense_dim=13)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(cost)
+    feeds = [W.fake_batch(64, 7 + i, vocab_size=4096) for i in range(3)]
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.items()
+            if isinstance(v, torch.Tensor)}
+    want = [exe.run(main, feed=f, fetch_list=[cost], scope=scope)[0]
+            for f in feeds]
+    mesh = nccl_world.make_mesh((1,), ("data",))
+    plan = plan_sharded_tables(main, mesh_axis="data", mesh=mesh)
+    pscope = pt.Scope()
+    for n, v in init.items():
+        pscope.set_var(n, v)
+    pexe = nccl_world.ParallelExecutor(main_program=main, mesh=mesh,
+                                       param_shardings=plan.rules())
+    got = [pexe.run(feed=f, fetch_list=[cost], scope=pscope)[0]
+           for f in feeds]
+    assert [g.tobytes() for g in got] == [w.tobytes() for w in want]
+    for n, v in scope.items():
+        if isinstance(v, torch.Tensor):
+            p = pscope.find_var(n)
+            p = p.full_tensor() if hasattr(p, "full_tensor") else p
+            assert torch.equal(p.reshape(-1).view(torch.uint8),
+                               v.reshape(-1).view(torch.uint8)), n
+    assert all(pscope.find_var(n).placements[0].is_shard()
+               for n in plan.all_placements())
+    # eager, captured, replayed: one graph, as Executor.run's
+    (graph,) = pexe.graph_stats()
+    assert graph["graphed"] and graph["replays"] == 2

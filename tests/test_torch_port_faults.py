@@ -390,6 +390,64 @@ def test_max_like_grads_at_nan(case, cot_kind):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
+_NAN_COT_X = np.array([1.0, -2.0, 0.25, 7.0, -0.5, 3.0], np.float32)
+#: (id, op type, inputs, attrs): a NaN cotangent in a third of the
+#: places, where the chosen operand or the clipped side differs from the
+#: one that takes the cotangent
+NAN_COT_CASES = [
+    ("elementwise_max", "elementwise_max",
+     {"X": _NAN_COT_X, "Y": np.array([0, 0, 0.25, 9, 1, -1], np.float32)},
+     {"axis": -1}),
+    ("elementwise_min", "elementwise_min",
+     {"X": _NAN_COT_X, "Y": np.array([0, 0, 0.25, 9, 1, -1], np.float32)},
+     {"axis": -1}),
+    ("clip", "clip", {"X": _NAN_COT_X}, {"min": -0.5, "max": 0.5}),
+    ("relu6", "relu6", {"X": _NAN_COT_X * 2}, {"threshold": 6.0}),
+    ("brelu", "brelu", {"X": _NAN_COT_X}, {"t_min": -1.0, "t_max": 2.0}),
+    ("hard_sigmoid", "hard_sigmoid", {"X": _NAN_COT_X},
+     {"slope": 0.25, "offset": 0.5}),
+    ("soft_relu", "soft_relu", {"X": _NAN_COT_X * 10},
+     {"threshold": 5.0}),
+    ("margin_rank_loss", "margin_rank_loss",
+     {"X1": _NAN_COT_X.reshape(6, 1),
+      "X2": np.array([0, 0, 1, 9, 1, -1], np.float32).reshape(6, 1),
+      "Label": np.array([1, -1, 1, 1, -1, -1], np.float32).reshape(6, 1)},
+     {"margin": 0.1}),
+    ("modified_huber_loss", "modified_huber_loss",
+     {"X": _NAN_COT_X.reshape(6, 1),
+      "Y": np.array([1, 0, 1, 1, 1, 0], np.float32).reshape(6, 1)}, {}),
+]
+
+
+@pytest.mark.parametrize("case", NAN_COT_CASES, ids=lambda c: c[0])
+def test_nan_cotangent_reaches_both_operands(case):
+    """A NaN cotangent goes through the 0 / ½ / 1 mask of the max-like
+    ops as a product, as in the JAX package: the operand that was not
+    chosen, and a clipped input, get NaN where the cotangent is NaN."""
+    _, op_type, inputs, attrs = case
+    out = _run_jax(_op_dict(op_type, inputs, ["Out"], attrs),
+                   inputs)["out_Out"]
+    cot = np.ones(out.shape, np.float32).reshape(-1)
+    cot[::3] = np.nan
+    want, got = _both_grads(op_type, inputs, attrs, cot.reshape(out.shape))
+    assert set(got) == set(want) and want
+    for name in want:
+        assert np.isnan(want[name]).any(), name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_modified_huber_grad_at_a_nan_input():
+    """At X = NaN ``modified_huber_loss``'s grad is NaN in the JAX package
+    under a finite cotangent: the NaN reaches its max through the
+    cotangent of ``m * m``, which the mask multiplies."""
+    inputs = {"X": np.array([[np.nan], [0.5], [-3.0]], np.float32),
+              "Y": np.array([[1.0], [0.0], [1.0]], np.float32)}
+    want, got = _both_grads("modified_huber_loss", inputs, {},
+                            np.ones((3, 1), np.float32))
+    assert np.isnan(want["in_X@GRAD"][0, 0])
+    np.testing.assert_array_equal(got["in_X@GRAD"], want["in_X@GRAD"])
+
+
 def test_max_ties_still_split_evenly():
     """Ties share a group's cotangent evenly in both packages."""
     x = np.array([[1, 3, 3, 2], [4, 4, 4, 0]], np.float32)

@@ -1,6 +1,7 @@
 """Spawned gloo worlds for the port's multi-rank CPU tests
 (``tests/test_torch_parallel.py``, ``test_torch_collective.py``,
-``test_torch_mesh_ckpt.py``).  Not a test module: it imports only numpy,
+``test_torch_mesh_ckpt.py``, ``test_torch_pipeline_transpiler.py``,
+``test_torch_sharded_table.py``).  Not a test module: it imports only numpy,
 torch and the port, so a spawned rank never loads JAX.
 
 :func:`run_world` starts ``world`` ranks with the ``spawn`` start method;
@@ -417,3 +418,185 @@ def ckpt_save_async(rank, world, case):
             "pending_while_stepping": pending, "fetches": fetches,
             "collective_threads": threads,
             "after": {n: _numpy(scope.find_var(n)) for n in names}}
+
+
+def pipeline_cases(rank, world, cases):
+    """Each case runs a program (a JAX package ``Program.to_dict()``)
+    through the port's pipeline transpiler from the given state:
+    ``{"program", "state", "batches" (one feed dict a microbatch),
+    "feeds", "fetch", "stages", "mesh": (shape, names), "data_axis",
+    "grads": differentiate the sum of the first fetch}``.  Returns per
+    case every fetch ``[M, ...]``, the named grads, whether every rank
+    got the same fetches and grads, the carrier lanes and the stage op
+    counts; or ``{"error": message}`` where the transpiler raised
+    ``ValueError``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.pipeline_transpiler import \
+        pipeline_transpiler
+    out = []
+    for case in cases:
+        prog = pt.Program.from_dict(case["program"])
+        scope = scope_from_numpy(case["state"], pt.CPUPlace())
+        mesh = _mesh(*case["mesh"])
+        try:
+            pp = pipeline_transpiler(prog, case["stages"], case["feeds"],
+                                     case["fetch"], mesh)
+            pp.build(scope, case["batches"][0])
+            xs = pp.stack_microbatches(case["batches"])
+            packed = {lane: v.clone().requires_grad_(lane != "i32")
+                      for lane, v in pp.packed_params.items()}
+            outs = pp.run_fn(data_axis=case.get("data_axis"))(packed, xs)
+        except ValueError as e:
+            out.append({"error": str(e)})
+            continue
+        fetches = {n: pp.select_fetch(outs, n).detach().numpy()
+                   for n in case["fetch"]}
+        grads = None
+        if case.get("grads"):
+            pp.select_fetch(outs, case["fetch"][0]).sum().backward()
+            grads = pp.unpack_grads({lane: v.grad for lane, v in
+                                     packed.items() if v.grad is not None})
+        mine = (fetches, grads)
+        every = _gather_objects(mine)
+        same = all(_same(mine, other) for other in every)
+        out.append({"fetches": fetches, "grads": grads,
+                    "same_on_every_rank": same,
+                    "carrier_lanes": pp.carrier_lanes,
+                    "stage_ops": [len(s) for s in pp.stage_ops],
+                    "n_outputs": {lane: tuple(v.shape)
+                                  for lane, v in outs.items()}})
+    return out
+
+
+def _same(a, b):
+    """Equal nested fetch/grad structures, array by array, bitwise."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and \
+            all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+
+def gpipe_cases(rank, world, cases):
+    """``gpipe`` of ``x + tanh(x @ w + b)`` stages (the JAX package's
+    ``tests/test_pipeline.py`` stage): ``{"kind": "grads" | "train" |
+    "encoder", ...}``.  ``grads``: the outputs and the grads of
+    ``sum(out ** 2)`` for the stacked ``w``, ``b`` and the microbatches;
+    ``train``: the losses of ``steps`` SGD steps on the pipelined MSE;
+    ``encoder``: a lowered Transformer encoder layer (a JAX package
+    ``Program.to_dict()``) as the stage function, its parameters
+    stacked a stage."""
+    import torch
+    from paddle_tpu_torch.parallel.pipeline import gpipe, stack_stage_params
+    out = []
+    for case in cases:
+        mesh = _mesh(*case["mesh"])
+        if case["kind"] == "encoder":
+            out.append(_gpipe_encoder(case, mesh))
+            continue
+        per_stage = [{k: torch.from_numpy(v) for k, v in p.items()}
+                     for p in case["per_stage"]]
+        params = {k: v.requires_grad_() for k, v in
+                  stack_stage_params(per_stage).items()}
+        xs = torch.from_numpy(case["xs"]).requires_grad_()
+
+        def stage_fn(p, x):
+            return x + torch.tanh(x @ p["w"] + p["b"])
+
+        if case["kind"] == "grads":
+            got = gpipe(stage_fn, params, xs, mesh, axis="pipe")
+            (got ** 2).sum().backward()
+            out.append({"out": got.detach().numpy(),
+                        "w": params["w"].grad.numpy(),
+                        "b": params["b"].grad.numpy(),
+                        "xs": xs.grad.numpy()})
+            continue
+        target = torch.from_numpy(case["target"])
+        losses = []
+        for _ in range(case["steps"]):
+            for v in params.values():
+                v.grad = None
+            loss = ((gpipe(stage_fn, params, xs.detach(), mesh,
+                           axis="pipe") - target) ** 2).mean()
+            loss.backward()
+            with torch.no_grad():
+                for v in params.values():
+                    v -= 0.1 * v.grad
+            losses.append(float(loss.detach()))
+        out.append({"losses": losses})
+    return out
+
+
+def _gpipe_encoder(case, mesh):
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.executor import lower_block
+    from paddle_tpu_torch.parallel.pipeline import gpipe, stack_stage_params
+    prog = pt.Program.from_dict(case["program"])
+    block = prog.global_block()
+    per_stage = [{n: torch.from_numpy(a) for n, a in p.items()}
+                 for p in case["per_stage"]]
+
+    def stage_fn(params, x):
+        env = dict(params)
+        env["x"] = x
+        aux = {"device": torch.device("cpu"), "rng_counter": -1,
+               "lower_block": lower_block, "lod": {}}
+        lower_block(block, env, aux)
+        return env[case["out"]]
+
+    got = gpipe(stage_fn, stack_stage_params(per_stage),
+                torch.from_numpy(case["xs"]), mesh, axis="pipe")
+    return {"out": got.detach().numpy()}
+
+
+def sharded_table_cases(rank, world, case):
+    """Row-sharded tables on a ``(world,)`` ``data`` mesh.  The exchange:
+    ``sharded_gather`` of ``case["ids"]`` from each rank's block of
+    ``case["w"]``, and ``sharded_scatter_add`` of ``(case["rows"],
+    case["vals"])`` into zero blocks (every rank's new block).  The
+    training: ``case["program"]`` (a JAX package ``to_dict()``) from
+    ``case["state"]`` through ``ParallelExecutor`` over ``case["feeds"]``,
+    once with ``plan_sharded_tables``' rules and once replicated: the
+    losses, the final state (global values) and, sharded, rank 0's local
+    heights of the planned tensors."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.embedding import (plan_sharded_tables,
+                                            sharded_gather,
+                                            sharded_scatter_add)
+    from paddle_tpu_torch.parallel import ParallelExecutor
+    mesh = _mesh((world,), ("data",))
+    per = case["w"].shape[0] // world
+    block = torch.from_numpy(case["w"][rank * per:(rank + 1) * per])
+    out = {"gather": sharded_gather(block, torch.from_numpy(case["ids"]),
+                                    "data", mesh).numpy()}
+    new = sharded_scatter_add(torch.zeros_like(block),
+                              torch.from_numpy(case["rows"]),
+                              torch.from_numpy(case["vals"]), "data", mesh)
+    out["scatter_blocks"] = _gather_objects(new.numpy())
+    prog = pt.Program.from_dict(case["program"])
+    plan = plan_sharded_tables(prog, mesh_axis="data", mesh=mesh)
+    for name, rules in (("sharded", plan.rules()), ("replicated", None)):
+        scope = scope_from_numpy(case["state"], pt.CPUPlace())
+        pexe = ParallelExecutor(loss_name=case["fetch"][0],
+                                main_program=prog, mesh=mesh,
+                                param_shardings=rules)
+        losses = [np.asarray(pexe.run(feed=f, fetch_list=case["fetch"],
+                                      scope=scope)[0])
+                  for f in case["feeds"]]
+        names = sorted(n for n, v in scope.items()
+                       if isinstance(v, torch.Tensor))
+        out[name] = {"losses": losses,
+                     "state": {n: _numpy(scope.find_var(n)) for n in names}}
+        if rules:
+            out[name]["local_rows"] = {
+                n: tuple(scope.find_var(n).to_local().shape)[0]
+                for n in plan.all_placements()}
+            out[name]["placements"] = plan.checkpoint_specs()
+    return out
