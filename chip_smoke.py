@@ -385,7 +385,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    state, no kernel launched; ``sharded_gather`` /
    ``sharded_scatter_add`` of a batch's ids at the table's height equal
    to dense indexing.  Each destroys its process group.
-18. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
+18. The fleet (``phase_fleet``, ``phase_fleet_controller``,
+   ``phase_master_train``).  Phase 3's paged bundle served by a
+   ``MasterServer`` holding replica leases (TTL ``FLEET_LEASE_TTL_S``),
+   two in-process ``FleetReplica``s and a child ``serve --master`` on
+   ``cuda:0``, behind a master-discovered ``FleetRouter``: the ten
+   streams through it token-identical to phase 3's; the router's
+   ``gen.session.kill_owner`` drill and the child's own
+   ``fleet.replica.kill=kill@N`` each resumed on a survivor token- and
+   index-identical with one resume, the child's lease dropped within TTL
+   + one heartbeat, the corpse stale in ``/metrics?fleet=1`` and a
+   failure of ``trace dump --fleet``; ``master.lease.expire`` answered
+   503 ``lease_lost`` then a rejoin; a rolling restart under a stream
+   with a warmed replacement that builds nothing; the federation's
+   headroom rollup equal to the least the replicas report; the kernels
+   launched ``n_layer`` times a prefill and a decode step.  Then a
+   ``FleetController`` (``CTL_POLICY``) over one replica with a standby
+   warmed on the card, a ``TrafficReplay`` step of real streams against
+   a p99 TTFT objective of half the one-replica median at the peak: the
+   ladder climbs, the standby is enrolled and serves without a build, no
+   accepted request is lost, every shed carries ``Retry-After``, the
+   idle drain returns to one replica.  Then route A at full width
+   (dropout 0) fed by the master's task leases: through
+   ``cloud_reader``, and through a trainer that abandons a lease and a
+   fresh one that restores its checkpoint after the requeue, every
+   persistable bit-identical.
+19. Report: a ``{"graphs": [...]}`` line (each graph's path, signature,
    captures, replays, capture seconds, nodes, pool growth), a
    ``{"kernels": [...]}`` line (every kernel's fields; the
    single-pass kernels also name the second TPU kernel each stands for,
@@ -406,6 +431,7 @@ logs under ``runs/chip_smoke/``.
 import contextlib
 import gc
 import json
+import logging
 import os
 import re
 import subprocess
@@ -9415,6 +9441,1034 @@ def phase_graph_serving(serving):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the serving fleet on the card (the master's replica leases,
+# FleetReplica, FleetRouter with mid-stream failover, the federation and
+# the assembled fleet trace), the fleet controller under a traffic step,
+# and route A fed by the master's task leases through a trainer's crash
+# ---------------------------------------------------------------------------
+
+#: the replicas' lease, the longest the JAX package's drills use; a
+#: replica heartbeats every third of it (``FleetReplica``'s default)
+FLEET_LEASE_TTL_S = 3.0
+FLEET_HEARTBEAT_S = FLEET_LEASE_TTL_S / 3.0
+#: the child replica's ``fleet.replica.kill=kill@N``: it lets N
+#: heartbeats pass and exits 137 at the next one, N + 1 heartbeats after
+#: its enrolment; the drill's stream on it starts ``FLEET_CHILD_LEAD_S``
+#: before that
+FLEET_CHILD_KILL_AFTER = 7
+FLEET_CHILD_LEAD_S = 1.0
+#: the child's own ``gen.decode.stall`` (seconds a decode step), so that
+#: the stream it owns outlives the kill: 32 tokens take over 3 s there
+FLEET_CHILD_STALL_S = 0.1
+#: rounds of the ten streams straight to one replica and through a router
+#: in front of it, alternating
+FLEET_ROUNDS = 3
+
+
+def _http_get(addr, path):
+    """``(status, body bytes)`` of one GET (599, b"" when nothing
+    answers)."""
+    import http.client
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    except OSError:
+        return 599, b""
+    finally:
+        conn.close()
+
+
+def _stream_events(addr, prompt):
+    """One streamed ``ServingClient(addr).generate`` of ``prompt``:
+    ``(events, arrival times)``, each token event with its ``index``."""
+    from paddle_tpu_torch.serving import ServingClient
+    events, times = [], []
+    t0 = time.perf_counter()
+    for ev in ServingClient(addr, timeout=120).generate(
+            prompt, max_new_tokens=MAX_NEW_TOKENS):
+        events.append(ev)
+        times.append(time.perf_counter())
+        if time.perf_counter() - t0 > HTTP_WAIT_S:
+            raise AssertionError(f"a stream through {addr} hung")
+    return events, times
+
+
+def _check_stream(tag, events, want):
+    """The stream ended ``length`` with ``want``'s tokens at indices
+    ``0 ... MAX_NEW_TOKENS - 1``, none lost or repeated."""
+    toks = [e["token"] for e in events if "token" in e]
+    idxs = [e["index"] for e in events if "token" in e]
+    tail = events[-1] if events else {}
+    if toks != want or idxs != list(range(MAX_NEW_TOKENS)) or \
+            tail.get("finish_reason") != "length":
+        raise AssertionError(f"{tag}: tokens {toks} (want {want}), "
+                             f"indices {idxs}, tail {tail}")
+
+
+def _largest_gap(times):
+    """Seconds of the longest wait between two consecutive tokens."""
+    return max(b - a for a, b in zip(times, times[1:]))
+
+
+def _wait_for(what, cond, timeout, step=0.01):
+    """Poll ``cond()`` until true; fails naming ``what`` after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout}s")
+        time.sleep(step)
+
+
+def _fleet_replica(bundle, maddr, rid):
+    """A ``FleetReplica`` over ``bundle`` on ``cuda:0`` (the default
+    place), warmed before it enrolls."""
+    from paddle_tpu_torch.fleet import FleetReplica
+    return FleetReplica(bundle, maddr, replica_id=rid,
+                        lease_ttl=FLEET_LEASE_TTL_S, warmup=True)
+
+
+class _Launches:
+    """The kernels' launch counts of a phase's serving, banked around
+    the warmups of replicas started in it (a warmup launches the kernels
+    of every bucket and counts no prefill or decode step): ``warm(fn)``
+    runs ``fn`` and keeps its launches apart."""
+
+    def __init__(self):
+        import collections
+        self.serving = collections.Counter()
+        self.warmups = []
+        _take_launches()
+
+    def warm(self, fn):
+        self.serving.update(_take_launches())
+        out = fn()
+        self.warmups.append(_take_launches())
+        return out
+
+    def take(self):
+        self.serving.update(_take_launches())
+        return dict(self.serving)
+
+
+def _expect_serving_launches(tag, launches, preds, extra=None):
+    """``bias_softmax`` launched ``n_layer`` times a prefill and
+    ``paged_decode`` ``n_layer`` times a decode step of ``preds`` (plus
+    ``extra``, the launches of warmups that could not be kept apart),
+    and no other kernel."""
+    from paddle_tpu_torch.models.gen_lm_long import GenLongConfig
+    n_layer = int(GenLongConfig().n_layer)
+    prefills = sum(p.prefills for p in preds)
+    steps = sum(p.decode_steps for p in preds)
+    want = {"bias_softmax": n_layer * prefills,
+            "paged_decode": n_layer * steps}
+    for k, n in (extra or {}).items():
+        want[k] = want.get(k, 0) + n
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want} "
+                             f"({prefills} prefills, {steps} decode steps "
+                             f"over {len(preds)} replicas)")
+    return prefills, steps
+
+
+def phase_fleet(serving):
+    """``phase_serving``'s paged GenLongConfig bundle served by a fleet on
+    the card: a ``MasterServer`` holding the replicas' leases, two
+    in-process ``FleetReplica``s and a child ``python -m
+    paddle_tpu_torch serve --master ... --warmup`` (a second CUDA
+    context; its kernels load from the build directory), behind a
+    master-discovered ``FleetRouter``.
+
+    (a) The ten prompts as concurrent streams through the router equal
+    ``phase_serving``'s streams; what each replica took shows in its
+    ``/stats``.  (b) Two kill drills, each stream completing on a
+    survivor token- and index-identical with one resume: the router's
+    ``gen.session.kill_owner`` (``after=3``) in process, then the
+    child's own ``fleet.replica.kill=kill@N`` (``PADDLE_TPU_CHAOS``)
+    while it owns a stream: ``os._exit(137)``, its lease dropped by the
+    master within TTL + one heartbeat, the router's live set one
+    smaller, the failed-over ``X-Request-Id`` in the survivor's
+    ``/trace``; meanwhile ``/metrics?fleet=1`` marks the corpse stale
+    and ``trace dump --fleet`` lists it under ``fleetAssembly.failures``
+    beside a process row for the router and each reachable replica.
+    (c) ``master.lease.expire``: the replica answers ``/readyz`` 503
+    ``lease_lost``, rejoins and answers 200.  (d) A rolling restart: one
+    replica drained under a stream (migrated, completed identical), a
+    warmed replacement enrolled without a kernel build, never fewer than
+    N - 1 leases.  (e) ``/metrics?fleet=1`` has every live replica up
+    and the least ``hbm.headroom_bytes`` they report, under the card's
+    memory.  The in-process replicas' kernel launches are ``n_layer``
+    times their prefills and decode steps.  Prints TTFT and tokens/s
+    through a router against straight to its one replica, the failover
+    gaps and the seconds from the kill to the lease drop."""
+    import io
+    import re
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.fault import chaos
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.obs import trace
+    from paddle_tpu_torch.parallel.master import MasterServer, MasterService
+    from paddle_tpu_torch.profiler import runtime_metrics
+    from paddle_tpu_torch.serving import ServingClient
+
+    prompts, want = serving["prompts"], serving["streams"]
+    bundle = serving["bundle"]
+    out = {}
+    t_phase = time.perf_counter()
+    trace.enable(65536)
+    trace.clear()
+    svc = MasterService(replica_ttl=FLEET_LEASE_TTL_S)
+    master = MasterServer(svc, port=0)
+    master.start_background()
+    maddr = f"127.0.0.1:{master.addr[1]}"
+    # the child first: it takes longest to serve (a new process, its own
+    # CUDA context, the bundle, the warmup)
+    child_log = os.path.join(OUT_DIR, "fleet_child.log")
+    env = dict(os.environ, PYTHONPATH=ROOT, PADDLE_TPU_CHAOS=(
+        f"fleet.replica.kill=kill@{FLEET_CHILD_KILL_AFTER};"
+        f"gen.decode.stall=delay:{FLEET_CHILD_STALL_S}"))
+    with open(child_log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch", "serve", "--model",
+             bundle, "--master", maddr, "--warmup", "--port",
+             str(_free_port()), "--replica-id", "child", "--lease-ttl",
+             str(FLEET_LEASE_TTL_S)], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    reps, routers, threads, drained = [], [], [], []
+    launches = _Launches()
+    try:
+        builds0 = dict(build.counts)
+        for i in range(2):
+            reps.append(launches.warm(
+                lambda i=i: _fleet_replica(bundle, maddr,
+                                           f"card-{i}").start()))
+        if launches.warmups[0] != launches.warmups[1]:
+            raise AssertionError(f"fleet: two warmups launched "
+                                 f"{launches.warmups}")
+        addr = {r.replica_id: f"127.0.0.1:{r.addr[1]}" for r in reps}
+        router = FleetRouter(master_addr=maddr, poll_interval=0.05)
+        router.start_background()
+        routers.append(router)
+        raddr = f"127.0.0.1:{router.addr[1]}"
+
+        def child_lease():
+            return next((r for r in svc.list_replicas()
+                         if r["id"] == "child"), None)
+
+        enrolled = {}
+
+        def enrolment_watch():
+            while child_lease() is None and proc.poll() is None:
+                time.sleep(0.005)
+            enrolled["t"] = time.monotonic()
+
+        threads.append(threading.Thread(target=enrolment_watch,
+                                        daemon=True))
+        threads[-1].start()
+
+        # what needs no child runs while it loads (its kill counts
+        # heartbeats from its enrolment), the rest after its drill: the
+        # router's in-process drill, then the router's own cost (the ten
+        # streams straight to card-0 and through a static router in
+        # front of it)
+        solo = FleetRouter(replicas=[addr["card-0"]])
+        solo.start_background()
+        routers.append(solo)
+        rounds = {"direct": [], "router": []}
+
+        def one_round(kind, a):
+            def run():
+                wall, results = _concurrent_streams(
+                    lambda p: ServingClient(a, timeout=120).generate(
+                        p, max_new_tokens=MAX_NEW_TOKENS), prompts)
+                if [r[2] for r in results] != want:
+                    raise AssertionError(f"fleet[{kind}]: streams differ "
+                                         f"from phase_serving's")
+                rounds[kind].append(_stream_metrics(wall, results))
+            return run
+
+        def kill_owner_drill():
+            # (b) the router cuts the owner after its fourth token
+            chaos.inject("gen.decode.stall", delay=RESUME_STALL_S)
+            resumes = runtime_metrics.counter("gen.session.resumes")
+            chaos.inject("gen.session.kill_owner", error=True, times=1,
+                         after=3)
+            try:
+                events, times = _stream_events(raddr, prompts[0])
+            finally:
+                chaos.clear("gen.decode.stall")
+            _check_stream("fleet[kill_owner]", events, want[0])
+            if runtime_metrics.counter("gen.session.resumes") != \
+                    resumes + 1:
+                raise AssertionError("fleet[kill_owner]: not one resume")
+            out["kill_owner_gap_ms"] = 1e3 * _largest_gap(times)
+            _wait_for("fleet: the cut owner's cooldown",
+                      lambda: not any(e["down"] for e in
+                                      router.table().values()), 10)
+
+        fillers = [kill_owner_drill] + [
+            one_round(kind, a) for _ in range(FLEET_ROUNDS)
+            for kind, a in (("direct", addr["card-0"]),
+                            ("router", f"127.0.0.1:{solo.addr[1]}"))]
+        while fillers and "t" not in enrolled:
+            fillers.pop(0)()
+        out["fillers_before_child"] = 2 * FLEET_ROUNDS + 1 - len(fillers)
+        _wait_for("fleet: the child's enrolment", lambda: "t" in enrolled,
+                  HTTP_WAIT_S)
+        if proc.poll() is not None:
+            raise AssertionError(f"fleet: the child exited "
+                                 f"{proc.returncode} before its drill "
+                                 f"(see {child_log})")
+        t_enrolled = enrolled["t"]
+        t_kill = t_enrolled + (FLEET_CHILD_KILL_AFTER + 1) * \
+            FLEET_HEARTBEAT_S
+        child = child_lease()["addr"]
+        _wait_for("fleet: three live replicas in the router",
+                  lambda: len(router.live_replicas()) == 3, 10)
+        out["child_enrolled_s"] = time.perf_counter() - t_phase
+        with open(child_log) as f:
+            started = f.read()
+        if "fleet replica child serving" not in started or \
+                "cuda:0" not in started:
+            raise AssertionError(f"fleet: the child's start line "
+                                 f"{started!r}")
+        st, body = _http_get(child, "/stats")
+        child_builds = json.loads(body)["server"]["kernel_builds"]
+        if st != 200 or child_builds.get("compiled"):
+            raise AssertionError(f"fleet: the child built kernels: "
+                                 f"{child_builds}")
+
+        # (a) the ten streams through the router over three replicas
+        preds = [r.server.gen_predictor for r in reps]
+        pre0 = [p.prefills for p in preds]
+        took0 = {e["id"]: e["requests"] for e in router.table().values()}
+        wall, results = _concurrent_streams(
+            lambda p: ServingClient(raddr, timeout=120).generate(
+                p, max_new_tokens=MAX_NEW_TOKENS), prompts)
+        bad = {i: (r[2], r[3]) for i, r in enumerate(results)
+               if r[2] != want[i]}
+        if bad:
+            with open(child_log) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(
+                f"fleet: routed streams differ from phase_serving's: "
+                f"{bad} (want {[want[i] for i in bad]}); the router's "
+                f"table {router.table()}; the child's log: {tail}")
+        took = {e["id"]: e["requests"] - took0.get(e["id"], 0)
+                for e in router.table().values()}
+        st, body = _http_get(child, "/stats")
+        child_admitted = json.loads(body)["counters"].get(
+            "gen.admissions", 0)
+        in_process = sum(p.prefills - p0 for p, p0 in zip(preds, pre0))
+        if sum(took.values()) != len(prompts) or \
+                child_admitted != took.get("child", 0) or \
+                in_process != took.get("card-0", 0) + took.get("card-1", 0):
+            raise AssertionError(f"fleet: the router's picks {took} "
+                                 f"against the child's admissions "
+                                 f"{child_admitted} and the in-process "
+                                 f"prefills {in_process}")
+        out["routed"] = dict(took, tokens_per_s=_stream_metrics(
+            wall, results)["tokens_per_s"])
+
+        # (b) the child's death while it owns a stream: the in-process
+        # replicas each take a stream first, so least-outstanding hands
+        # the child the third
+        chaos.inject("gen.decode.stall", delay=RESUME_STALL_S)
+        lead = t_kill - time.monotonic()
+        if lead < FLEET_CHILD_LEAD_S / 2:
+            raise AssertionError(
+                f"fleet: the child's kill is {lead:.2f}s away when its "
+                f"drill starts ({time.monotonic() - t_enrolled:.2f}s after "
+                f"its enrolment): raise FLEET_CHILD_KILL_AFTER")
+        time.sleep(max(0.0, lead - FLEET_CHILD_LEAD_S))
+        out["child_kill_slack_s"] = lead - FLEET_CHILD_LEAD_S
+        died = {}
+
+        def watch():
+            proc.wait()
+            died["t"] = time.monotonic()
+
+        def lease_watch():
+            while child_lease() is not None:
+                time.sleep(0.005)
+            died["lease_t"] = time.monotonic()
+
+        for fn in (watch, lease_watch):
+            threads.append(threading.Thread(target=fn, daemon=True))
+            threads[-1].start()
+        resumes = runtime_metrics.counter("gen.session.resumes")
+        failovers = len(router.failover_log)
+        drill = [None] * 3
+
+        def run(i):
+            try:
+                drill[i] = _stream_events(raddr, prompts[i])
+            except Exception as e:      # reported below
+                drill[i] = e
+
+        for i in range(3):
+            threads.append(threading.Thread(target=run, args=(i,),
+                                            daemon=True))
+            threads[-1].start()
+            _wait_for("fleet: the drill's stream reaching a replica",
+                      lambda i=i: sum(e["outstanding"] for e in
+                                      router.table().values()) == i + 1,
+                      10, step=0.001)
+        owners = {e["id"]: e["outstanding"]
+                  for e in router.table().values()}
+        for th in threads[-3:]:
+            th.join(HTTP_WAIT_S)
+        bad = [d for d in drill if not isinstance(d, tuple)]
+        if bad:
+            raise AssertionError(f"fleet[child kill]: streams failed {bad}")
+        for i, (events, _) in enumerate(drill):
+            _check_stream(f"fleet[child kill, prompt {i}]", events,
+                          want[i])
+        if owners != {"card-0": 1, "card-1": 1, "child": 1} or \
+                proc.wait(HTTP_WAIT_S) != 137 or \
+                runtime_metrics.counter("gen.session.resumes") != \
+                resumes + 1:
+            raise AssertionError(
+                f"fleet[child kill]: owners {owners}, child exit "
+                f"{proc.returncode}, resumes "
+                f"{runtime_metrics.counter('gen.session.resumes') - resumes}")
+        out["child_failover_gap_ms"] = 1e3 * max(
+            _largest_gap(t) for _, t in drill)
+        # the router logs a failover after it relays the stream's last
+        # chunk, so the client can finish first
+        _wait_for("fleet[child kill]: the router's failover record",
+                  lambda: len(router.failover_log) > failovers, 5)
+        (rid, *chain), = list(router.failover_log)[failovers:]
+        if chain[0] != child:
+            raise AssertionError(f"fleet[child kill]: failover {chain}")
+        survivor = chain[-1]
+
+        # the corpse, before its lease runs out: stale in the federation,
+        # a failure of the assembled trace
+        if child not in router.table():
+            raise AssertionError("fleet: the child's lease dropped before "
+                                 "the fleet views were taken")
+        st, body = _http_get(raddr, "/metrics?fleet=1")
+        text = body.decode()
+        if st != 200 or f'paddle_tpu_fleet_replica_up{{replica="{child}",' \
+                f'id="child",stale="1"}} 0' not in text:
+            raise AssertionError(f"fleet: /metrics?fleet=1 ({st}) does not "
+                                 f"mark the child stale")
+        path = os.path.join(OUT_DIR, "fleet_trace.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["trace", "dump", "--fleet", "--addr", raddr,
+                           "--output", path])
+        with open(path) as f:
+            fleet_trace = json.load(f)
+        asm = fleet_trace["fleetAssembly"]
+        rows = sorted(p["source"] for p in asm["processes"])
+        if rc != 0 or [x["source"] for x in asm["failures"]] != [child] or \
+                rows != sorted(["router", *addr.values()]):
+            raise AssertionError(f"fleet: trace dump --fleet (exit {rc}): "
+                                 f"processes {rows}, failures "
+                                 f"{asm['failures']}")
+        st, body = _http_get(survivor, "/trace")
+        served = {(ev["args"].get("request_id"), ev["args"].get("port"))
+                  for ev in json.loads(body)["traceEvents"]
+                  if ev["name"] == "gen.request"}
+        if (rid, int(survivor.rsplit(":", 1)[1])) not in served:
+            raise AssertionError(f"fleet: the failed-over request {rid} "
+                                 f"is not in {survivor}'s /trace")
+        _wait_for("fleet: the master dropping the child's lease",
+                  lambda: "lease_t" in died, 2 * FLEET_LEASE_TTL_S)
+        out["kill_to_lease_drop_s"] = died["lease_t"] - died["t"]
+        if out["kill_to_lease_drop_s"] > FLEET_LEASE_TTL_S + \
+                FLEET_HEARTBEAT_S:
+            raise AssertionError(f"fleet: lease dropped "
+                                 f"{out['kill_to_lease_drop_s']:.3f}s "
+                                 f"after the kill")
+        _wait_for("fleet: the router's live set shrinking",
+                  lambda: sorted(router.live_replicas()) ==
+                  sorted(addr.values()), 2)
+        chaos.clear("gen.decode.stall")
+        for task in fillers:
+            task()
+        solo.shutdown()
+        routers.remove(solo)
+        out["direct"], out["router"] = (_spread(rounds["direct"]),
+                                        _spread(rounds["router"]))
+
+        # (c) a lease lost while alive, then the rejoin
+        for r in reps:
+            r.auto_rejoin = False
+        chaos.inject("master.lease.expire", error=True, times=1)
+        _wait_for("fleet: a lost lease",
+                  lambda: any(r.server.lease_state == "lost" for r in reps),
+                  3 * FLEET_HEARTBEAT_S)
+        lost = next(r for r in reps if r.server.lease_state == "lost")
+        other = next(r for r in reps if r is not lost)
+        st, body = _http_get(addr[lost.replica_id], "/readyz")
+        err = json.loads(body)
+        if st != 503 or err["error"]["type"] != "lease_lost" or \
+                _http_status(addr[other.replica_id], "/readyz") != 200:
+            raise AssertionError(f"fleet: /readyz of the lost lease "
+                                 f"{st} {err}")
+        for r in reps:
+            r.auto_rejoin = True
+        _wait_for("fleet: the rejoin",
+                  lambda: lost.server.lease_state == "held",
+                  3 * FLEET_HEARTBEAT_S)
+        if _http_status(addr[lost.replica_id], "/readyz") != 200:
+            raise AssertionError("fleet: /readyz after the rejoin")
+        _wait_for("fleet: the router seeing the rejoin",
+                  lambda: len(router.live_replicas()) == 2, 2)
+
+        # (d) the rolling restart: drain the owner of a live stream, then
+        # a warmed replacement
+        ready = []
+        stop = threading.Event()
+
+        def monitor():
+            while not stop.wait(0.005):
+                ready.append(len(svc.list_replicas()))
+
+        threads.append(threading.Thread(target=monitor, daemon=True))
+        threads[-1].start()
+        resumes = runtime_metrics.counter("gen.session.resumes")
+        chaos.inject("gen.decode.stall", delay=RESUME_STALL_S)
+        stream = {}
+        threads.append(threading.Thread(
+            target=lambda: stream.update(r=_stream_events(raddr,
+                                                          prompts[3])),
+            daemon=True))
+        threads[-1].start()
+        _wait_for("fleet: the rolling restart's stream on a replica",
+                  lambda: sum(bool(r.server._gen.active_slots)
+                              for r in reps) == 1, 10, step=0.001)
+        time.sleep(4 * RESUME_STALL_S)
+        owner = next(r for r in reps if r.server._gen.active_slots)
+        migrated = owner.drain(deadline_s=0)
+        drained.append(owner)
+        threads[-1].join(HTTP_WAIT_S)
+        chaos.clear("gen.decode.stall")
+        _check_stream("fleet[rolling restart]", stream["r"][0], want[3])
+        if len(migrated) != 1 or \
+                runtime_metrics.counter("gen.session.resumes") != \
+                resumes + 1:
+            raise AssertionError(f"fleet[rolling restart]: {len(migrated)} "
+                                 f"migrated")
+        builds = dict(build.counts)
+        t = time.perf_counter()
+        reps.append(launches.warm(
+            lambda: _fleet_replica(bundle, maddr, "card-2").start()))
+        out["replacement_ready_s"] = time.perf_counter() - t
+        addr["card-2"] = f"127.0.0.1:{reps[-1].addr[1]}"
+        events, _ = _stream_events(addr["card-2"], prompts[4])
+        _check_stream("fleet[replacement]", events, want[4])
+        stop.set()
+        if dict(build.counts) != builds or launches.warmups[-1] != \
+                launches.warmups[0] or min(ready) < 1 or \
+                len(svc.list_replicas()) != 2:
+            raise AssertionError(
+                f"fleet[rolling restart]: builds {builds} -> "
+                f"{dict(build.counts)}, warmup launches "
+                f"{launches.warmups}, fewest leases {min(ready)}")
+        _wait_for("fleet: the router seeing the replacement",
+                  lambda: len(router.live_replicas()) == 2, 2)
+
+        # (e) the federation of the live fleet, idle
+        st, body = _http_get(raddr, "/metrics?fleet=1")
+        text = body.decode()
+        heads = []
+        for rec in svc.list_replicas():
+            if f'paddle_tpu_fleet_replica_up{{replica="{rec["addr"]}",' \
+                    f'id="{rec["id"]}",stale="0"}} 1' not in text:
+                raise AssertionError(f"fleet: {rec['id']} is not up in "
+                                     f"/metrics?fleet=1")
+            gauges = json.loads(_http_get(rec["addr"], "/stats")[1])[
+                "gauges"]
+            heads.append(gauges.get("hbm.headroom_bytes", -1.0))
+        m = re.search(r"^paddle_tpu_fleet_hbm_headroom_min_bytes (\S+)$",
+                      text, re.M)
+        total = torch.cuda.get_device_properties(0).total_memory
+        if st != 200 or m is None or float(m.group(1)) != min(heads) or \
+                not 0 < min(heads) < total:
+            raise AssertionError(f"fleet: headroom rollup "
+                                 f"{m and m.group(1)} against the "
+                                 f"replicas' {heads} (card {total})")
+        out["hbm_headroom_min_gib"] = min(heads) / 2 ** 30
+        out["builds"] = builds0 == dict(build.counts)
+        prefills, steps = _expect_serving_launches(
+            "fleet", launches.take(),
+            [r.server.gen_predictor for r in reps])
+    finally:
+        chaos.clear()
+        for r in routers:
+            r.shutdown()
+        for r in reps:
+            if r not in drained:
+                r.drain(deadline_s=0)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        master.shutdown()
+        trace.disable()
+        trace.clear()
+    out.update(prefills=prefills, decode_steps=steps,
+               warmup_launches=launches.warmups[0], card=card_line())
+    log(f"fleet: router over 2 in-process replicas and a child process on "
+        f"cuda:0; routed streams token-identical ({out['routed']}); "
+        f"kill_owner and child kill (exit 137) resumed token-identical, "
+        f"gaps {out['kill_owner_gap_ms']:.1f} / "
+        f"{out['child_failover_gap_ms']:.1f} ms; lease dropped "
+        f"{out['kill_to_lease_drop_s']:.3f} s after the kill; lease_lost "
+        f"503 and rejoin; rolling restart with a replacement ready in "
+        f"{out['replacement_ready_s']:.2f} s, no build; headroom min "
+        f"{out['hbm_headroom_min_gib']:.2f} GiB; launches over "
+        f"{prefills} prefills, {steps} decode steps; card {out['card']}")
+    for kind in ("direct", "router"):
+        log(f"fleet[{kind}, median min max of {FLEET_ROUNDS} rounds]: " +
+            " ".join(f"{k}={v['median']:.3f},{v['min']:.3f},{v['max']:.3f}"
+                     for k, v in out[kind].items()))
+    return launches.take(), out
+
+
+#: the controller drill: a step from ``CTL_BASE_RPS`` to ``CTL_PEAK_RPS``
+#: streams a second at ``CTL_STEP_AT_S`` for ``CTL_PEAK_S``, in a replay
+#: of ``CTL_REPLAY_S``; the one-replica TTFT is measured over
+#: ``CTL_MEASURE_S`` at the peak
+CTL_BASE_RPS, CTL_PEAK_RPS = 10.0, 60.0
+CTL_STEP_AT_S, CTL_PEAK_S, CTL_REPLAY_S = 1.0, 3.0, 5.0
+CTL_MEASURE_S = 2.0
+#: the controller's policy: one replica at least, two at most, one warm
+#: standby, a tick of 0.1 s
+CTL_POLICY = {
+    "version": 1, "interval_seconds": 0.1, "min_replicas": 1,
+    "max_replicas": 2, "standby_pool": 1, "ready_timeout_seconds": 300.0,
+    "scale_up": {"pressure_ratio": 1.0, "sustained_ticks": 2,
+                 "cooldown_seconds": 1.0},
+    "scale_down": {"idle_rps_per_replica": 0.5, "sustained_ticks": 5,
+                   "cooldown_seconds": 0.0},
+    "degrade": {"ladder": [0.0, 0.25, 0.5], "engage_ratio": 1.0,
+                "recover_ticks": 2, "retry_after_seconds": 0.2},
+}
+
+
+def _generate_sender(raddr, prompts, want, errors, ttft=None, slo=None):
+    """``TrafficReplay``'s ``send``: request ``i`` streams prompt
+    ``i % 10`` through the router at ``raddr`` (``X-Deadline-Ms`` 30 s)
+    and must return that prompt's stream (else its error goes to the
+    list ``errors`` and the replay counts it lost); its time to the
+    first token goes to the list ``ttft`` and the series
+    ``gen.ttft_seconds`` of the registry ``slo``."""
+    import http.client
+    host, port = raddr.rsplit(":", 1)
+
+    def send(i):
+        try:
+            return one(i)
+        except Exception as e:
+            errors.append(f"request {i}: {e!r}")
+            raise
+
+    def one(i):
+        conn = http.client.HTTPConnection(host, int(port), timeout=120)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", "/generate", json.dumps(
+                {"prompt": prompts[i % len(prompts)],
+                 "max_new_tokens": MAX_NEW_TOKENS}).encode(),
+                {"Content-Type": "application/json",
+                 "X-Deadline-Ms": "30000"})
+            resp = conn.getresponse()
+            if resp.status != 200:
+                resp.read()
+                return {"status": resp.status,
+                        "retry_after": resp.getheader("Retry-After")}
+            toks, first, tail = [], None, None
+            for line in resp:
+                ev = json.loads(line)
+                if "token" in ev:
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    toks.append(ev["token"])
+                elif ev.get("done"):
+                    tail = ev
+                    break
+            if toks != want[i % len(prompts)]:
+                raise AssertionError(f"tokens {toks}, tail {tail}")
+            if ttft is not None:
+                ttft.append(first)
+            if slo is not None:
+                slo.observe("gen.ttft_seconds", first)
+            return {"status": 200}
+        finally:
+            conn.close()
+
+    return send
+
+
+def phase_fleet_controller(serving):
+    """``FleetController(router, policy=CTL_POLICY, standby_factory=...)``
+    on the card: one ``FleetReplica`` serving, a standby warmed on
+    ``cuda:0`` by ``prewarm()``, ``TrafficReplay`` stepping real
+    ``/generate`` streams (the ten prompts, each returned stream checked)
+    from ``CTL_BASE_RPS`` to ``CTL_PEAK_RPS``.  The p99 TTFT objective is
+    half the one-replica TTFT median measured at the peak in the phase,
+    so the breach is device work.  Held to: the ladder climbs, the
+    standby is enrolled (``controller.scale_ups`` + 1,
+    ``controller.standbys_warmed`` >= 1) and serves without a kernel
+    build, no accepted request lost, every shed with ``Retry-After``;
+    after the step the idle drain returns the fleet to one replica and
+    ``shutdown(drain_owned=True)`` leaves only the base replica, drained
+    last.  Launches: ``n_layer`` a prefill and a decode step plus the
+    standbys' warmups (each as the base's).  Prints the time to scale,
+    sheds and TTFT p50 / p99 before (one replica) and under the
+    controller."""
+    import numpy as np
+    from paddle_tpu_torch.fleet import FleetController, FleetRouter
+    from paddle_tpu_torch.fleet.traffic import TrafficReplay, step
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.obs.slo import SLOWatchdog
+    from paddle_tpu_torch.parallel.master import MasterServer, MasterService
+    from paddle_tpu_torch.profiler import RuntimeMetrics, runtime_metrics
+
+    prompts, want = serving["prompts"], serving["streams"]
+    bundle = serving["bundle"]
+    # the watchdog logs every breaching evaluation (ten a second here)
+    slo_logger = logging.getLogger("paddle_tpu_torch.obs.slo")
+    slo_level = slo_logger.level
+    slo_logger.setLevel(logging.ERROR)
+    svc = MasterService(replica_ttl=FLEET_LEASE_TTL_S)
+    master = MasterServer(svc, port=0)
+    master.start_background()
+    maddr = f"127.0.0.1:{master.addr[1]}"
+    launches = _Launches()
+    made, router, controller, base, errors = [], None, None, None, []
+    counter = runtime_metrics.counter
+    c0 = {k: counter(k) for k in ("controller.scale_ups",
+                                  "controller.scale_downs",
+                                  "controller.standbys_warmed",
+                                  "fleet.admission_shed")}
+    out = {}
+    try:
+        base = launches.warm(
+            lambda: _fleet_replica(bundle, maddr, "ctl-base").start())
+        router = FleetRouter(master_addr=maddr, poll_interval=0.05)
+        router.start_background()
+        raddr = f"127.0.0.1:{router.addr[1]}"
+        _wait_for("controller: the base replica in the router",
+                  lambda: len(router.live_replicas()) == 1, 10)
+
+        # one replica at the peak: its TTFT median, halved, is the SLO
+        before = []
+        summary = TrafficReplay(
+            _generate_sender(raddr, prompts, want, errors, ttft=before),
+            lambda t: CTL_PEAK_RPS, CTL_MEASURE_S, seed=SEED % 2 ** 31,
+            max_inflight=256).run()
+        if summary["lost_accepted"] or not before:
+            raise AssertionError(f"controller: one replica at the peak "
+                                 f"{summary}, errors {errors[:5]}")
+        objective = float(np.median(before)) / 2
+        slo = RuntimeMetrics()
+        watchdog = SLOWatchdog({
+            "version": 1, "interval_seconds": 0.1,
+            "sustained_breaches": 2,
+            "objectives": [{"name": "ttft-p99", "kind": "quantile",
+                            "series": "gen.ttft_seconds", "quantile": "p99",
+                            "max": objective}]}, metrics=slo)
+
+        def factory():
+            made.append(_fleet_replica(bundle, maddr,
+                                       f"ctl-standby-{len(made)}"))
+            return made[-1]
+
+        controller = FleetController(router, policy=CTL_POLICY,
+                                     standby_factory=factory,
+                                     watchdog=watchdog)
+        builds = dict(build.counts)
+        launches.warm(lambda: controller.prewarm())
+        if len(made) != 1 or launches.warmups[-1] != launches.warmups[0]:
+            raise AssertionError(f"controller: prewarm made {len(made)} "
+                                 f"standbys, launches {launches.warmups}")
+        standby_launches = launches.warmups.pop()
+        seen = {}
+
+        def watch():
+            while controller is not None and not seen.get("stop"):
+                st = controller.state()
+                if st["degrade_level"] and "climb_t" not in seen:
+                    seen["climb_t"] = time.monotonic()
+                if counter("controller.scale_ups") > \
+                        c0["controller.scale_ups"] and "scale_t" not in seen:
+                    seen["scale_t"] = time.monotonic()
+                seen["max_level"] = max(seen.get("max_level", 0),
+                                        st["degrade_level"])
+                time.sleep(0.01)
+
+        controller.start()
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        after = []
+        t0 = time.monotonic()
+        summary = TrafficReplay(
+            _generate_sender(raddr, prompts, want, errors, ttft=after,
+                             slo=slo),
+            step(CTL_BASE_RPS, CTL_PEAK_RPS, CTL_STEP_AT_S, CTL_PEAK_S),
+            CTL_REPLAY_S, seed=SEED % 2 ** 31 + 1, max_inflight=256).run()
+        # the promoted standby's own request (the step may end before
+        # the router sends it one), while the pressure still holds it in
+        promoted = made[0]
+        events, _ = _stream_events(f"127.0.0.1:{promoted.addr[1]}",
+                                   prompts[0])
+        _check_stream("controller[promoted standby]", events, want[0])
+        # the burst's window closes with the replay: from here on the
+        # objective has nothing to judge and the ladder walks down
+        slo.reset()
+        _wait_for("controller: the idle drain back to one replica",
+                  lambda: counter("controller.scale_downs") >
+                  c0["controller.scale_downs"] and
+                  len(router.live_replicas()) == 1 and
+                  controller.state()["degrade_level"] == 0, 60)
+        seen["stop"] = True
+        watcher.join(10)
+        served = promoted.server.gen_predictor.prefills
+        controller.shutdown(drain_owned=True)
+        gone = [r for r in made
+                if _http_status(f"127.0.0.1:{r.addr[1]}", "/healthz") != 599]
+        delta = {k: counter(k) - v for k, v in c0.items()}
+        if seen.get("max_level", 0) < 1 or \
+                delta["controller.scale_ups"] != 1 or \
+                delta["controller.standbys_warmed"] < 1 or \
+                delta["controller.scale_downs"] < 1 or not served or \
+                dict(build.counts) != builds or gone or \
+                summary["lost_accepted"] or summary["shed_without_hint"] or \
+                summary["outcomes"]["dropped"]:
+            raise AssertionError(
+                f"controller: seen {seen}, counters {delta}, the promoted "
+                f"standby's prefills {served}, builds {builds} -> "
+                f"{dict(build.counts)}, still serving {gone}, replay "
+                f"{summary}, errors {errors[:5]}")
+        step_t = t0 + CTL_STEP_AT_S
+        out.update(
+            objective_ms=1e3 * objective,
+            time_to_climb_s=seen["climb_t"] - step_t,
+            time_to_scale_s=seen["scale_t"] - step_t,
+            max_level=seen["max_level"], counters=delta,
+            replay=summary,
+            ttft_before_ms={q: 1e3 * float(np.percentile(before, q))
+                            for q in (50, 99)},
+            ttft_after_ms={q: 1e3 * float(np.percentile(after, q))
+                           for q in (50, 99)})
+        # the standbys warmed after prewarm's ran on the controller's
+        # thread, beside the traffic: each launched what prewarm's did
+        extra = {k: n * (delta["controller.standbys_warmed"] - 1)
+                 for k, n in standby_launches.items()}
+        prefills, steps = _expect_serving_launches(
+            "controller", launches.take(),
+            [base.server.gen_predictor] +
+            [r.server.gen_predictor for r in made], extra=extra)
+        out.update(prefills=prefills, decode_steps=steps)
+    finally:
+        if controller is not None:
+            controller.shutdown(drain_owned=True)
+        if router is not None:
+            router.shutdown()
+        if base is not None:
+            base.drain(deadline_s=0)
+        master.shutdown()
+        slo_logger.setLevel(slo_level)
+    out["card"] = card_line()
+    log(f"fleet_controller: objective p99 TTFT {out['objective_ms']:.1f} ms "
+        f"(half the one-replica median at {CTL_PEAK_RPS:g}/s); ladder to "
+        f"level {out['max_level']} {out['time_to_climb_s']:.3f} s and the "
+        f"standby enrolled {out['time_to_scale_s']:.3f} s after the step; "
+        f"counters {out['counters']}; replay {out['replay']}; TTFT ms "
+        f"before {out['ttft_before_ms']}, under the controller "
+        f"{out['ttft_after_ms']}; card {out['card']}")
+    return launches.take(), out
+
+
+#: ``phase_master_train``: the tasks (one batch in each recordio file),
+#: the tasks the first trainer finishes before it abandons its next
+#: lease (the last, so the drained order is the uninterrupted one), and
+#: the master's lease timeout, over a task's first run
+MASTER_TASKS, MASTER_ABANDON_AFTER = 3, 2
+MASTER_TASK_TIMEOUT_S = 4.0
+
+
+def phase_master_train():
+    """Route A at full width (Transformer-base, S 256, B 64, bf16 AMP,
+    Adam, dropout 0 as in ``phase_checkpoint_resume``) fed by the
+    master's task leases: ``MASTER_TASKS`` distinct ``T.fake_batch``
+    batches, one pickled record in each recordio file, split into tasks
+    by ``partition_files`` and served by a ``MasterServer``.  Run 1:
+    ``cloud_reader`` yields every batch and ``Executor.run`` trains on
+    each in task order.  Run 2, the JAX package's fault-tolerance drill
+    in process: a ``MasterClient`` loop get_task -> run -> task_finished
+    -> ``CheckpointManager.save``; after ``MASTER_ABANDON_AFTER`` tasks
+    it leases one more and drops it with its executor and scope; the
+    master requeues it at its lease timeout with a new epoch, the old
+    epoch's late finish is refused, and a fresh executor
+    ``restore_latest()``s and drains the rest.  Every persistable after
+    run 2 equals run 1's bit for bit; both runs launch 18 bias softmaxes
+    and 18 grads a step.  Prints a task's seconds and the requeue
+    delay."""
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import CheckpointManager
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel.master import (MasterClient, MasterServer,
+                                                  MasterService,
+                                                  partition_files)
+    from paddle_tpu_torch.reader.creator import cloud_reader
+    from paddle_tpu_torch.recordio_writer import (
+        RecordIOScanner, convert_reader_to_recordio_file)
+
+    B, S, kernels = ROUTES["A"]
+    root = os.path.join(OUT_DIR, "master_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    main, startup, cost, hp = _ckpt_program(pt, T)
+    paths = []
+    for i in range(MASTER_TASKS):
+        b = T.fake_batch(B, S, S, hp, seed=SEED % 2 ** 31 + 300 + i)
+        paths.append(os.path.join(root, f"task-{i}.recordio"))
+        convert_reader_to_recordio_file(
+            paths[-1], lambda b=b: iter([tuple(b[k] for k in READER_KEYS)]),
+            compressor=0)
+    scope0 = pt.Scope()
+    pt.Executor().run(startup, scope=scope0)
+    _no_launches("master_train")
+    want_launches = {k: 18 * MASTER_TASKS for k in kernels}
+    servers = []
+
+    def serve():
+        svc = MasterService(partition_files(paths),
+                            timeout=MASTER_TASK_TIMEOUT_S)
+        servers.append(MasterServer(svc, port=0))
+        servers[-1].start_background()
+        return svc, f"127.0.0.1:{servers[-1].addr[1]}"
+
+    def run_task(exe, scope, task):
+        (path,) = task.chunks
+        (rec,) = list(RecordIOScanner(path))
+        exe.run(main, feed=dict(zip(READER_KEYS, pickle.loads(rec))),
+                fetch_list=[cost], scope=scope)
+
+    try:
+        # run 1: cloud_reader over the master, uninterrupted
+        svc, maddr = serve()
+        exe, scope = pt.Executor(), _scope_copy(pt, scope0)
+        n = 0
+        for sample in cloud_reader(maddr)():
+            exe.run(main, feed=dict(zip(READER_KEYS, sample)),
+                    fetch_list=[cost], scope=scope)
+            n += 1
+        if n != MASTER_TASKS or svc.stats()["done"] != MASTER_TASKS:
+            raise AssertionError(f"master_train: cloud_reader yielded {n} "
+                                 f"batches, {svc.stats()}")
+        want = _tensor_state(scope)
+        first = _take_launches()
+        del exe, scope
+
+        # run 2: a trainer dies holding a lease; the master requeues it
+        svc, maddr = serve()
+        ckdir = os.path.join(root, "ckpt")
+        exe, scope = pt.Executor(), _scope_copy(pt, scope0)
+        mgr = CheckpointManager(ckdir, keep=2, executor=exe,
+                                main_program=main, scope=scope)
+        client = MasterClient(maddr, trainer_id="trainer-0")
+        task_s, save_s = [], []
+        while True:
+            task = client.get_task()
+            if len(task_s) == MASTER_ABANDON_AFTER:
+                break
+            t = time.perf_counter()
+            run_task(exe, scope, task)
+            torch.cuda.synchronize()
+            task_s.append(time.perf_counter() - t)
+            if not client.task_finished(task.id, task.epoch):
+                raise AssertionError(f"master_train: task {task.id} "
+                                     f"refused")
+            t = time.perf_counter()
+            mgr.save(len(task_s))
+            save_s.append(time.perf_counter() - t)
+        abandoned, t_abandon = task, time.monotonic()
+        client.close()
+        del exe, scope, mgr, client
+        gc.collect()
+        exe, scope = pt.Executor(), pt.Scope()
+        mgr = CheckpointManager(ckdir, keep=2, executor=exe,
+                                main_program=main, scope=scope)
+        t = time.perf_counter()
+        restored = mgr.restore_latest()
+        restore_s = time.perf_counter() - t
+        client = MasterClient(maddr, trainer_id="trainer-1")
+        requeue_s = None
+        while True:
+            task = client.get_task()
+            if task is None:
+                if client.all_done():
+                    break
+                time.sleep(0.01)
+                continue
+            if task.id == abandoned.id:
+                requeue_s = time.monotonic() - t_abandon
+                if task.epoch <= abandoned.epoch or client.task_finished(
+                        abandoned.id, abandoned.epoch):
+                    raise AssertionError(
+                        f"master_train: the requeued lease's epoch "
+                        f"{task.epoch} after {abandoned.epoch}, or the "
+                        f"old epoch's finish taken")
+            t = time.perf_counter()
+            run_task(exe, scope, task)
+            torch.cuda.synchronize()
+            task_s.append(time.perf_counter() - t)
+            if not client.task_finished(task.id, task.epoch):
+                raise AssertionError(f"master_train: task {task.id} "
+                                     f"refused")
+        client.close()
+        got = _tensor_state(scope)
+        second = _take_launches()
+        stats = svc.stats()
+    finally:
+        for s in servers:
+            s.shutdown()
+    differ = [n for n in want if n not in got or
+              not np.array_equal(got[n], want[n])]
+    if restored != MASTER_ABANDON_AFTER or requeue_s is None or \
+            sorted(got) != sorted(want) or differ or \
+            stats["done"] != MASTER_TASKS or \
+            first != want_launches or second != want_launches:
+        raise AssertionError(
+            f"master_train: restored {restored}, requeued after "
+            f"{requeue_s}, {len(differ)} variables differ {differ[:5]}, "
+            f"master {stats}, launches {first} / {second}")
+    shutil.rmtree(root, ignore_errors=True)
+    del scope0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(task_s=task_s, save_s=save_s, restore_s=restore_s,
+               requeue_s=requeue_s, variables=len(want),
+               bit_identical=True, card=card_line())
+    log(f"master_train[A, dropout 0]: {MASTER_TASKS} tasks leased through "
+        f"cloud_reader, then a trainer abandoning task {abandoned.id} "
+        f"after {MASTER_ABANDON_AFTER}: requeued with a new epoch after "
+        f"{requeue_s:.3f} s, the old epoch's finish refused, restored "
+        f"step {restored} in {restore_s:.3f} s; all {len(want)} "
+        f"persistables bit-identical; a task's seconds "
+        f"{[round(x, 3) for x in task_s]}, saves {save_s}; card "
+        f"{out['card']}")
+    launches = {k: first.get(k, 0) + second.get(k, 0) for k in kernels}
+    return launches, out
+
+
 KERNEL_NOTES = {
     "flash_fwd": {"repaired": "bf16 T(p) cast before the product with v",
                   "redesigned": "bf16 on the tensor cores"},
@@ -9609,6 +10663,11 @@ def main():
     by_path["pipeline_train"], pipeline_train = timed(
         "pipeline_train", phase_pipeline_train)
     sharded_tables = timed("sharded_tables", phase_sharded_tables)
+    by_path["fleet"], fleet = timed("fleet", phase_fleet, serving)
+    by_path["fleet_controller"], fleet_controller = timed(
+        "fleet_controller", phase_fleet_controller, serving)
+    by_path["master_train"], master_train = timed("master_train",
+                                                  phase_master_train)
     sentinel_replay = timed("sentinel_replay_join", join_replays, replays)
 
     kernels = []
@@ -9730,6 +10789,9 @@ def main():
     log("parallel_train: " + json.dumps(parallel_train))
     log("pipeline_train: " + json.dumps(pipeline_train))
     log("sharded_tables: " + json.dumps(sharded_tables))
+    log("fleet: " + json.dumps(fleet))
+    log("fleet_controller: " + json.dumps(fleet_controller))
+    log("master_train: " + json.dumps(master_train))
     log("bshd attention (forward + backward): " + " ".join(
         f"{r}={bshd_path[f'{r}_ms']:.4f}ms" for r in bshd_path["route_errs"]))
     for route, g in graph_train.items():

@@ -32,8 +32,8 @@ paddle_tpu_torch lint``), ``verify_program`` (structural, raising — the
 ``PADDLE_TPU_VERIFY=1`` executor hook), ``verify_transpiled`` (the
 post-rewrite contract every rewriter calls), ``check_pipeline_carriers``
 (the pipeline transpiler's static i32-lane check), ``lint_gen_bundle``,
-``lint_pipeline`` and ``lint_pair``.  ``selfcheck`` is not ported yet
-(ROADMAP queue 1 item 10; it follows item 8).
+``lint_pipeline`` and ``lint_pair``.  ``selfcheck`` is not in the port
+yet (the rest of ROADMAP queue 1 item 10, the next slice).
 """
 
 from paddle_tpu_torch.analysis.analyzer import (  # noqa: F401

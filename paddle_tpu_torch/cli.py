@@ -1,6 +1,6 @@
-"""Command-line entry points of the port (the single-device parts of
-``paddle_tpu.cli``: training, inference, serving, observability, static
-analysis, fault tolerance and profiling).
+"""Command-line entry points of the port (``paddle_tpu.cli``'s: training,
+inference, serving and its fleet, observability, static analysis, fault
+tolerance, profiling and the local launcher).
 
 Usage: ``python -m paddle_tpu_torch <command> ...``
 
@@ -14,9 +14,27 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
                                      load + run an inference model
                                      (--output DIR; --place cpu runs on
                                      the CPU, the default is cuda:0)
+  master   --files GLOB --port P     serve the task-dispatch master
+                                     (task leases and the fleet's
+                                     replica leases)
   serve    --model DIR --port P      HTTP inference server (--batch
                                      --warmup; --place cpu runs on the
-                                     CPU, the default is cuda:0)
+                                     CPU, the default is cuda:0;
+                                     --master HOST:PORT enrolls the
+                                     replica in a fleet)
+  router   --master HOST:PORT --port P
+                                     health-aware fleet router (or
+                                     --replicas a,b,c)
+  controller --master H:P --model DIR
+                                     router + closed-loop autoscaler:
+                                     warm-standby scale-up, idle drain,
+                                     admission backpressure (--policy
+                                     POLICY.json or PADDLE_TPU_AUTOSCALE;
+                                     --place as serve)
+  fleet-stats --router H:P | --master H:P | --replicas a,b
+                                     federated fleet metrics: one
+                                     exposition, per-replica labels,
+                                     rollups, stale-marked corpses
   generate --addr HOST:PORT --prompt "1 2 3"
                                      stream tokens from /generate
   stats    --addr HOST:PORT          runtime metrics snapshot of a
@@ -24,7 +42,9 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
                                      for this process; --prom for
                                      Prometheus text
   trace    dump [--addr H:P|--local] Chrome trace-event JSON of the span
-                                     ring (PADDLE_TPU_TRACE); --output
+                                     ring (PADDLE_TPU_TRACE); --output;
+                                     --fleet assembles the whole fleet's
+                                     rings through its router
   bench    check [--dry] | record    bench-trajectory gate over the
                                      port's BENCH_TRAJECTORY_TORCH.json:
                                      newest run vs recorded baseline;
@@ -49,12 +69,11 @@ Usage: ``python -m paddle_tpu_torch <command> ...``
                                      time, per-signature cost records,
                                      the HBM census, the step phases
 
-``serve --master`` (fleet enrollment), ``trace dump --fleet`` and
-``--compile-cache`` (the JAX package's persistent XLA cache) raise: the
-fleet is not ported yet (ROADMAP queue 1 item 8), and the port's kernels
-always build into the build directory beside their sources.
-``selfcheck`` raises until the planes it checks are ported (it follows
-item 8).  ``train --use-tpu``
+``--compile-cache`` (the JAX package's persistent XLA cache) raises: the
+port's kernels always build into the build directory beside their
+sources, and a warm standby is one whose warmup built or loaded them.
+``selfcheck`` raises: it is the rest of ROADMAP queue 1 item 10 and comes
+next.  ``train --use-tpu``
 is not carried over: the JAX package's flag only exports
 ``PADDLE_TPU_USE_TPU``, which no code reads.
 """
@@ -145,15 +164,21 @@ def _cmd_trace(args):
     """Dump a span ring as Chrome trace-event JSON: this process's with
     --local (enable PADDLE_TPU_TRACE first), a serving replica's via its
     /trace endpoint with --addr.  The output loads in Perfetto
-    (ui.perfetto.dev) or chrome://tracing.  ``--fleet`` (the whole
-    fleet's rings through its router) waits for the fleet."""
+    (ui.perfetto.dev) or chrome://tracing.  ``--fleet`` (against a
+    router) dumps the ASSEMBLED fleet timeline: every process's spans
+    merged onto one clock with a distinct pid row per process."""
     import json as _json
 
     if args.fleet:
-        raise NotImplementedError(
-            "trace dump --fleet needs the fleet router (fleet/router.py), "
-            "not ported yet: ROADMAP queue 1 item 8")
-    if args.addr:
+        import urllib.request
+        if not args.addr:
+            print("trace dump --fleet: need --addr ROUTER_HOST:PORT",
+                  file=sys.stderr)
+            return 2
+        url = f"http://{args.addr}/trace?fleet=1"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            obj = _json.loads(r.read())
+    elif args.addr:
         from paddle_tpu_torch.serving import ServingClient
         obj = ServingClient(args.addr).trace()
     else:
@@ -287,13 +312,36 @@ def _cmd_runs(args):
         return 2
 
 
+def _cmd_master(args):
+    """Serve the fault-tolerant task master (go master binary analog)."""
+    import glob
+
+    from paddle_tpu_torch.parallel.master import (MasterServer,
+                                                  MasterService,
+                                                  partition_files)
+    files = sorted(glob.glob(args.files))
+    if not files:
+        print(f"no files match {args.files!r}", file=sys.stderr)
+        return 2
+    tasks = partition_files(files, args.chunks_per_task)
+    service = MasterService(tasks, timeout=args.timeout,
+                            failure_max=args.failure_max,
+                            snapshot_path=args.snapshot,
+                            heartbeat_timeout=args.heartbeat_timeout)
+    server = MasterServer(service, host=args.host, port=args.port)
+    print(f"master serving {len(tasks)} tasks on "
+          f"{server.addr[0]}:{server.addr[1]}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def _cmd_serve(args):
-    """HTTP inference server over a saved model or a generation bundle."""
-    if args.master:
-        raise NotImplementedError(
-            "serve --master needs the fleet master and replica "
-            "(parallel/master.py, fleet/replica.py), not ported yet: "
-            "ROADMAP queue 1 item 8")
+    """HTTP inference server over a saved model or a generation bundle.
+    With --master the replica enrolls in the serving fleet: register on
+    readiness, heartbeat-renew the lease, drain cleanly on SIGTERM."""
     if args.compile_cache:
         raise NotImplementedError(
             "serve --compile-cache: the port has no XLA compilation "
@@ -303,15 +351,156 @@ def _cmd_serve(args):
     warmup_sizes = None
     if args.warmup_batch_sizes:
         warmup_sizes = [int(s) for s in args.warmup_batch_sizes.split(",")]
-    serve(args.model, host=args.host, port=args.port,
-          async_load=args.async_load, max_inflight=args.max_inflight,
-          request_timeout=args.request_timeout, batching=args.batch,
-          max_batch_size=args.max_batch_size,
-          max_batch_delay=args.max_batch_delay,
-          batch_queue_size=args.batch_queue_size, warmup=args.warmup,
-          warmup_batch_sizes=warmup_sizes,
-          gen_admission=args.gen_admission,
-          gen_queue_size=args.gen_queue_size, place=_place(args.place))
+    server_kwargs = dict(
+        async_load=args.async_load,
+        max_inflight=args.max_inflight,
+        request_timeout=args.request_timeout, batching=args.batch,
+        max_batch_size=args.max_batch_size,
+        max_batch_delay=args.max_batch_delay,
+        batch_queue_size=args.batch_queue_size, warmup=args.warmup,
+        warmup_batch_sizes=warmup_sizes,
+        gen_admission=args.gen_admission,
+        gen_queue_size=args.gen_queue_size, place=_place(args.place))
+    if args.master:
+        from paddle_tpu_torch.fault import GracefulShutdown
+        from paddle_tpu_torch.fleet import FleetReplica
+        replica = FleetReplica(args.model, args.master,
+                               replica_id=args.replica_id,
+                               host=args.host, port=args.port,
+                               lease_ttl=args.lease_ttl,
+                               advertise_host=args.advertise_host,
+                               **server_kwargs)
+        replica.start()
+        print(f"fleet replica {replica.replica_id} serving {args.model} "
+              f"on {replica.addr[0]}:{replica.addr[1]} "
+              f"(master {args.master}; "
+              f"{replica.server.place.torch_device()})",
+              flush=True)
+        # rolling restart contract: SIGTERM -> deregister (router stops
+        # routing), finish in-flight, release the lease, exit 0
+        with GracefulShutdown() as stop:
+            stop.wait()
+        migrated = replica.drain(deadline_s=args.drain_deadline_s)
+        if migrated:
+            print(f"drained: {len(migrated)} active session(s) "
+                  f"checkpoint-migrated to survivors", flush=True)
+        return 0
+    serve(args.model, host=args.host, port=args.port, **server_kwargs)
+    return 0
+
+
+def _cmd_router(args):
+    """Serve the health-aware fleet router (master-discovered or static
+    replica list)."""
+    from paddle_tpu_torch.fleet import FleetRouter
+    replicas = [a for a in (args.replicas or "").split(",") if a]
+    router = FleetRouter(master_addr=args.master or None,
+                         replicas=replicas or None,
+                         host=args.host, port=args.port,
+                         default_deadline=args.default_deadline,
+                         poll_interval=args.poll_interval,
+                         slo_spec=args.slo or None)
+    n = len(router.live_replicas())
+    print(f"fleet router on {router.addr[0]}:{router.addr[1]} "
+          f"({'master ' + args.master if args.master else 'static'}; "
+          f"{n} replica(s) live)", flush=True)
+    try:
+        router.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _cmd_controller(args):
+    """Serve the fleet router WITH the closed control loop in-process:
+    a FleetController senses SLO pressure / scraper rollups and scales
+    a warm standby pool of replicas built from --model on --place."""
+    import itertools
+
+    from paddle_tpu_torch.fault import GracefulShutdown
+    from paddle_tpu_torch.fleet import FleetController, FleetReplica, \
+        FleetRouter
+    if args.compile_cache:
+        raise NotImplementedError(
+            "controller --compile-cache: the port has no XLA compilation "
+            "cache; a standby's warmup builds or loads its CUDA kernels "
+            "from paddle_tpu_torch/kernels/_build/")
+    place = _place(args.place)
+    router = FleetRouter(master_addr=args.master,
+                         host=args.host, port=args.port,
+                         default_deadline=args.default_deadline,
+                         poll_interval=args.poll_interval,
+                         slo_spec=args.slo or None)
+    router.start_background()
+    seq = itertools.count()
+
+    def factory():
+        return FleetReplica(args.model, args.master,
+                            replica_id=f"auto-{os.getpid()}-{next(seq)}",
+                            lease_ttl=args.lease_ttl, warmup=True,
+                            place=place)
+
+    controller = FleetController(router, policy=args.policy or None,
+                                 standby_factory=factory)
+    warmed = controller.prewarm(raise_on_failure=False)
+    controller.start()
+    print(f"fleet controller on {router.addr[0]}:{router.addr[1]} "
+          f"(master {args.master}; policy "
+          f"{controller.policy.source or 'defaults'}; "
+          f"{warmed} standby(s) warm)", flush=True)
+    try:
+        with GracefulShutdown() as stop:
+            stop.wait()
+    except KeyboardInterrupt:
+        pass
+    controller.shutdown(drain_owned=True)
+    router.shutdown()
+    return 0
+
+
+def _cmd_fleet_stats(args):
+    """Fleet-level federated metrics: scrape every replica's /stats and
+    render ONE Prometheus exposition with per-replica labels + rollups
+    (dead replicas marked stale, never fatal).  Three target modes:
+    --router proxies the router's own /metrics?fleet=1 (the router's
+    scraper keeps rate state between pulls); --master discovers the
+    lease table and scrapes in-process; --replicas scrapes a static
+    list."""
+    import json as _json
+    import urllib.request
+
+    from paddle_tpu_torch.obs import aggregate
+
+    if args.router:
+        url = f"http://{args.router}/metrics?fleet=1"
+        with urllib.request.urlopen(url, timeout=args.timeout) as r:
+            print(r.read().decode(), end="")
+        return 0
+    if args.master:
+        from paddle_tpu_torch.parallel.master import MasterClient
+        client = MasterClient(args.master)
+        try:
+            targets = [(r["addr"], r["id"])
+                       for r in client.list_replicas()]
+        finally:
+            client.close()
+    elif args.replicas:
+        targets = [(a, a) for a in args.replicas.split(",") if a]
+    else:
+        print("fleet-stats: need --router, --master, or --replicas",
+              file=sys.stderr)
+        return 2
+    scraper = aggregate.FleetScraper(lambda: targets,
+                                     timeout=args.timeout)
+    text, scrapes = scraper.federate()
+    if args.json:
+        print(_json.dumps(
+            {"replicas": [{k: s[k] for k in
+                           ("addr", "id", "ok", "error", "rtt_s")}
+                          for s in scrapes]},
+            indent=2, sort_keys=True))
+    else:
+        print(text, end="")
     return 0
 
 
@@ -618,12 +807,11 @@ def _cmd_opt(args):
 
 
 def _cmd_selfcheck(args):
-    """The JAX package's one-pass gate over every static check; some of
-    its sections check a plane the port does not have yet."""
+    """The JAX package's one-pass gate over every static check; not in
+    the port yet."""
     raise NotImplementedError(
-        "selfcheck: some of its 17 sections check code the port does not "
-        "have yet (the fleet controller); it follows ROADMAP queue 1 "
-        "item 8")
+        "selfcheck: the one-pass gate over every static check is the "
+        "rest of ROADMAP queue 1 item 10, the next slice of the port")
 
 
 def _cmd_replay(args):
@@ -1101,6 +1289,20 @@ def main(argv=None):
                    help="cuda[:N] (default cuda:0) or cpu")
     p.set_defaults(fn=_cmd_infer)
 
+    p = sub.add_parser("master", help="serve the data-task master")
+    p.add_argument("--files", required=True, help="glob of input files")
+    p.add_argument("--chunks-per-task", type=int, default=1)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8037)
+    p.add_argument("--timeout", type=float, default=60.0)
+    p.add_argument("--failure-max", type=int, default=3)
+    p.add_argument("--snapshot", default=None,
+                   help="snapshot file for restart recovery")
+    p.add_argument("--heartbeat-timeout", type=float, default=None,
+                   help="reclaim leases of trainers silent this long "
+                        "(default: lease timeout only)")
+    p.set_defaults(fn=_cmd_master)
+
     p = sub.add_parser("serve", help="HTTP inference server")
     p.add_argument("--model", required=True,
                    help="save_inference_model dir or generation bundle")
@@ -1138,7 +1340,22 @@ def main(argv=None):
     p.add_argument("--compile-cache", default=None,
                    help="not supported by the port (raises)")
     p.add_argument("--master", default=None,
-                   help="fleet master HOST:PORT; not ported yet (raises)")
+                   help="HOST:PORT of the fleet master: register this "
+                        "replica for discovery and heartbeat-renew its "
+                        "lease (SIGTERM drains cleanly)")
+    p.add_argument("--replica-id", default=None,
+                   help="stable replica id (default: generated)")
+    p.add_argument("--lease-ttl", type=float, default=5.0,
+                   help="fleet lease TTL seconds; missing renews this "
+                        "long drops the replica from routing")
+    p.add_argument("--drain-deadline-s", type=float, default=30.0,
+                   help="rolling-restart drain bound: seconds in-flight "
+                        "generative streams may run to completion "
+                        "before the rest are checkpoint-migrated to "
+                        "survivors")
+    p.add_argument("--advertise-host", default=None,
+                   help="host other machines should dial (default: the "
+                        "bind host)")
     p.add_argument("--gen-admission", default="continuous",
                    choices=("continuous", "batch"),
                    help="generation-bundle scheduler policy: admit into "
@@ -1153,7 +1370,7 @@ def main(argv=None):
     p = sub.add_parser("generate", help="stream tokens from a "
                                         "generation server's /generate")
     p.add_argument("--addr", required=True,
-                   help="host:port of a serving replica")
+                   help="host:port of a serving replica or fleet router")
     p.add_argument("--prompt", required=True,
                    help="prompt token ids (space/comma separated)")
     p.add_argument("--max-new", type=int, default=16,
@@ -1173,6 +1390,60 @@ def main(argv=None):
                    help="disable mid-stream resume: a dead replica "
                         "surfaces as a terminal error event instead")
     p.set_defaults(fn=_cmd_generate)
+
+    p = sub.add_parser("router", help="health-aware fleet router over "
+                                      "serving replicas")
+    p.add_argument("--master", default=None,
+                   help="HOST:PORT of the fleet master (live replica "
+                        "discovery)")
+    p.add_argument("--replicas", default=None,
+                   help="comma-separated host:port list (static fleet, "
+                        "no master)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8868)
+    p.add_argument("--default-deadline", type=float, default=30.0,
+                   help="end-to-end budget seconds for requests without "
+                        "an X-Deadline-Ms header")
+    p.add_argument("--poll-interval", type=float, default=0.25,
+                   help="master discovery poll interval seconds")
+    p.add_argument("--slo", default=None, metavar="SPEC.json",
+                   help="SLO spec to evaluate in-router (breach "
+                        "counters + post-mortem on sustained breach; "
+                        "default: PADDLE_TPU_SLO when set)")
+    p.set_defaults(fn=_cmd_router)
+
+    p = sub.add_parser("controller",
+                       help="fleet router + closed-loop autoscaler "
+                            "(warm-standby scale-up, idle drain, "
+                            "admission-control backpressure)")
+    p.add_argument("--master", required=True,
+                   help="HOST:PORT of the fleet master (replica "
+                        "discovery AND standby enrollment)")
+    p.add_argument("--model", required=True,
+                   help="save_inference_model dir or generation bundle "
+                        "standbys serve")
+    p.add_argument("--place", default="cuda:0",
+                   help="where standbys run: cuda[:N] (default cuda:0) "
+                        "or cpu")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8868)
+    p.add_argument("--policy", default=None, metavar="POLICY.json",
+                   help="autoscaler policy (default: "
+                        "PADDLE_TPU_AUTOSCALE when set, else the "
+                        "documented defaults)")
+    p.add_argument("--slo", default=None, metavar="SPEC.json",
+                   help="SLO spec the controller steers by (default: "
+                        "PADDLE_TPU_SLO when set)")
+    p.add_argument("--default-deadline", type=float, default=30.0,
+                   help="end-to-end budget seconds for requests without "
+                        "an X-Deadline-Ms header")
+    p.add_argument("--poll-interval", type=float, default=0.25,
+                   help="master discovery poll interval seconds")
+    p.add_argument("--lease-ttl", type=float, default=5.0,
+                   help="fleet lease TTL seconds for promoted standbys")
+    p.add_argument("--compile-cache", default=None,
+                   help="not supported by the port (raises)")
+    p.set_defaults(fn=_cmd_controller)
 
     p = sub.add_parser("stats", help="fetch a serving replica's /stats "
                                      "metrics snapshot")
@@ -1197,11 +1468,35 @@ def main(argv=None):
                    help="this process's span ring (the default when "
                         "--addr is not given)")
     p.add_argument("--fleet", action="store_true",
-                   help="assembled fleet timeline via the fleet router; "
-                        "not ported yet (raises)")
+                   help="assembled fleet timeline via the router's "
+                        "/trace?fleet=1 (--addr names the router): every "
+                        "process's spans merged onto one clock, one pid "
+                        "row per process")
     p.add_argument("--output", default=None,
                    help="write the JSON here instead of stdout")
     p.set_defaults(fn=_cmd_trace)
+
+    p = sub.add_parser("fleet-stats",
+                       help="federated fleet metrics: one Prometheus "
+                            "exposition over every replica's registry "
+                            "(per-replica labels + rollups; dead "
+                            "replicas marked stale)")
+    p.add_argument("--router", default=None,
+                   help="host:port of the fleet router (proxies its "
+                        "/metrics?fleet=1 — keeps rate state between "
+                        "pulls)")
+    p.add_argument("--master", default=None,
+                   help="HOST:PORT of the fleet master: scrape the "
+                        "current lease table in-process")
+    p.add_argument("--replicas", default=None,
+                   help="comma-separated host:port list to scrape "
+                        "(static fleet, no master)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="per-replica scrape timeout seconds")
+    p.add_argument("--json", action="store_true",
+                   help="per-replica scrape health instead of the "
+                        "exposition text")
+    p.set_defaults(fn=_cmd_fleet_stats)
 
     p = sub.add_parser("bench",
                        help="bench trajectory: record runs into "
@@ -1374,7 +1669,7 @@ def main(argv=None):
     p.set_defaults(fn=_cmd_launch)
 
     p = sub.add_parser("selfcheck", help="every static gate in one pass; "
-                                         "not ported yet (raises)")
+                                         "not in the port yet (raises)")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_selfcheck)
 

@@ -14,9 +14,9 @@ of ``paddle_tpu.parallel``): NCCL between cards, gloo on the CPU.
     Program into stages (``pipeline_transpiler``), imported from their
     modules as in the JAX package.
   * the world's bootstrap (``distributed``) and meshes (``mesh``).
-
-Not here yet: ``MasterService`` / ``partition_files`` (the Go master's
-task dispatch, ROADMAP queue 1 item 8).
+  * the Go master's fault-tolerant task dispatch and the serving fleet's
+    replica leases (``master``: ``MasterService``, ``MasterServer``,
+    ``MasterClient``, ``partition_files``).
 """
 
 from paddle_tpu_torch.parallel.mesh import (P, default_mesh, device_count,
@@ -31,9 +31,13 @@ from paddle_tpu_torch.parallel.distributed import (destroy_parallel_env,
                                                    global_mesh,
                                                    init_parallel_env)
 from paddle_tpu_torch.parallel.zero import ZeroPlan, zero_plan
+from paddle_tpu_torch.parallel.master import (MasterClient, MasterServer,
+                                              MasterService,
+                                              partition_files)
 
 __all__ = ["ParallelExecutor", "default_mesh", "make_mesh", "device_count",
            "set_default_mesh", "DistributeTranspiler", "DistributedSpec",
            "collective", "ring_attention", "init_parallel_env", "get_rank",
            "get_world_size", "global_mesh", "ZeroPlan", "zero_plan", "P",
-           "destroy_parallel_env"]
+           "destroy_parallel_env", "MasterService", "MasterServer",
+           "MasterClient", "partition_files"]

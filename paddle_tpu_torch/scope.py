@@ -13,6 +13,7 @@ from __future__ import annotations
 __all__ = ["Scope", "global_scope", "scope_guard"]
 
 import contextlib
+import threading
 
 
 class Scope:
@@ -90,17 +91,29 @@ class Scope:
 
 _global_scope = Scope()
 _current_scope = _global_scope
+# the scopes each thread has entered: a thread inside a ``scope_guard``
+# reads its own guard's scope, whatever another thread enters meanwhile
+# (in-process serving replicas each run their predictor's programs under
+# a guard of its own scope, from their own threads); a thread inside no
+# guard reads the process-wide current scope, as before
+_guards = threading.local()
 
 
 def global_scope():
-    return _current_scope
+    stack = getattr(_guards, "stack", None)
+    return stack[-1] if stack else _current_scope
 
 
 @contextlib.contextmanager
 def scope_guard(scope):
     global _current_scope
+    stack = getattr(_guards, "stack", None)
+    if stack is None:
+        stack = _guards.stack = []
+    stack.append(scope)
     prev, _current_scope = _current_scope, scope
     try:
         yield
     finally:
         _current_scope = prev
+        stack.pop()

@@ -12,16 +12,14 @@ inference server and its client (the port of ``paddle_tpu.serving``).
   ``/meta``, ``/stats``, ``/metrics``, ``/trace``, ``/spans``,
   ``/predict`` (``/run``) and, for a generation bundle, the streamed or
   buffered ``/generate`` with resume, drain and migration.
-- :class:`ServingClient` — a retrying client over one address or a list
-  of them, with mid-stream resume of ``/generate``.
+- :class:`ServingClient` — a retrying client over one address, a list
+  of them or the replicas a fleet master lists, with mid-stream resume
+  of ``/generate``.
 
 - ``_capi_create`` / ``_capi_feed_names`` / ``_capi_run`` — the bridge
   the C inference ABI (``native/capi.cpp``) calls through the CPython
   API; its predictor runs on ``cuda:0`` unless the C caller names a
   place (``native.load_capi``).
-
-Master-backed replica discovery (``ServingClient(master=...)``) is not
-ported yet.
 """
 
 from __future__ import annotations
@@ -645,6 +643,11 @@ class InferenceServer:
         self.predictor = None
         self._gen = None          # GenScheduler for generation bundles
         self.gen_predictor = None
+        # master-backed fleet membership (set by fleet.FleetReplica):
+        # None = not fleet-managed, "held" = lease current, "lost" = the
+        # master expired our lease while this process is alive — /readyz
+        # then reports 503 lease_lost so the LB and the router agree
+        self.lease_state = None
         self._gen_conf = {"admission": str(gen_admission),
                           "queue_size": int(gen_queue_size),
                           "prefill_budget": gen_prefill_budget}
@@ -793,6 +796,15 @@ class InferenceServer:
                         self._error(500, "batcher_down",
                                     f"batcher is down: {batcher.failed}",
                                     retryable=False)
+                    elif server.lease_state == "lost":
+                        # alive and loaded, but the master expired our
+                        # lease: the router already dropped us, so stop
+                        # reporting ready (retryable — re-registration
+                        # restores the lease without a process restart)
+                        self._error(503, "lease_lost",
+                                    "fleet lease expired; replica is "
+                                    "out of the routing table",
+                                    retryable=True)
                     elif server._ready.is_set():
                         self._reply(200, {"status": "ready"})
                     else:
@@ -1394,11 +1406,13 @@ class ServingClient:
 
     ``addr`` may be one ``host:port`` or a LIST of them: requests then
     round-robin across the replicas and every retry prefers a replica
-    that has not failed this request yet (client-side failover).
-    Exhausted retries raise :class:`paddle_tpu_torch.fault.RetryError`
-    with ``.history`` holding the per-attempt replica bases — the
-    forensic trail of a failed failover chain.  Master-backed discovery
-    (``master=``) needs the fleet master, not ported yet: it raises.
+    that has not failed this request yet (client-side failover).  With
+    ``master=`` the replica list is discovered live from a
+    :class:`paddle_tpu_torch.parallel.master.MasterService` (lease-expired
+    replicas drop out on the next refresh).  Exhausted retries raise
+    :class:`paddle_tpu_torch.fault.RetryError` with ``.history`` holding
+    the per-attempt replica bases — the forensic trail of a failed
+    failover chain.
 
     Idempotency/traceability: every logical request carries ONE
     ``X-Request-Id`` (the ambient trace id when set, else freshly
@@ -1410,22 +1424,19 @@ class ServingClient:
     """
 
     def __init__(self, addr=None, retry=None, timeout=30.0, master=None,
-                 deadline=None):
+                 refresh_interval=1.0, deadline=None):
         from paddle_tpu_torch.fault.retry import RetryPolicy, parse_hostport
-        if master is not None:
-            raise NotImplementedError(
-                "ServingClient(master=...) needs the fleet master "
-                "(parallel/master.py), not ported yet: ROADMAP queue 1 "
-                "item 8; pass the replicas' addresses instead")
-        if addr is None:
-            raise ValueError("ServingClient needs addr(s)")
+        if addr is None and master is None:
+            raise ValueError("ServingClient needs addr(s) or master=")
         # end-to-end budget (seconds) for one LOGICAL request including
         # every retry: each attempt ships the remaining budget as
         # X-Deadline-Ms (the router forwards it, the replica's batcher
         # bounds its wait by it) and the retry chain is cut when the
         # budget can't cover the next backoff
         self._deadline = None if deadline is None else float(deadline)
-        if isinstance(addr, list):
+        if addr is None:
+            addrs = []
+        elif isinstance(addr, list):
             addrs = list(addr)
         elif isinstance(addr, tuple) and len(addr) == 2 and \
                 (isinstance(addr[1], int) or str(addr[1]).isdigit()):
@@ -1443,17 +1454,58 @@ class ServingClient:
                                            max_delay=2.0, deadline=60.0)
         self._lock = threading.Lock()
         self._rr = 0
+        self._master_addr = master
+        self._master = None
+        self._refresh_interval = float(refresh_interval)
+        self._refreshed_at = 0.0
 
     @property
     def _base(self):
-        """The first replica base (single-replica callers)."""
-        return self._bases[0] if self._bases else None
+        """The first live replica base (single-replica callers)."""
+        bases = self._live_bases()
+        return bases[0] if bases else None
+
+    def _live_bases(self):
+        """Current replica bases, refreshing from the master when one is
+        configured and the cached list is stale (or empty)."""
+        if self._master_addr is None:
+            return list(self._bases)
+        now = time.monotonic()
+        with self._lock:
+            stale = now - self._refreshed_at > self._refresh_interval
+            cached = list(self._bases)
+        if not stale and cached:
+            return cached
+        try:
+            with self._lock:
+                if self._master is None:
+                    from paddle_tpu_torch.parallel.master import \
+                        MasterClient
+                    self._master = MasterClient(self._master_addr)
+                master = self._master
+            live = master.list_replicas()
+            from paddle_tpu_torch.fault.retry import parse_hostport
+            bases = []
+            for rec in live:
+                host, port = parse_hostport(rec["addr"])
+                bases.append(f"http://{host}:{port}")
+            with self._lock:
+                self._bases = bases
+                self._refreshed_at = now
+            return bases
+        except Exception:
+            # master briefly unreachable: serve from the cached list —
+            # and back off (stamp the refresh time) so the request hot
+            # path doesn't re-dial the dead master on every attempt
+            with self._lock:
+                self._refreshed_at = now
+            return cached
 
     def _pick_base(self, tried):
         """Round-robin over live bases, preferring one not yet tried by
         THIS request (failover targets a *different* replica while any
         remain)."""
-        bases = self._bases
+        bases = self._live_bases()
         if not bases:
             raise ConnectionError("no live serving replicas")
         with self._lock:
@@ -1760,8 +1812,12 @@ class ServingClient:
             return r.read().decode()
 
     def close(self):
-        """Nothing to release (no master connection); kept for the
-        reference's client surface."""
+        """Release the master discovery connection (no-op without
+        ``master=``)."""
+        with self._lock:
+            master, self._master = self._master, None
+        if master is not None:
+            master.close()
 
     def healthy(self):
         """Single-shot liveness probe (no retries — probes must be cheap)."""

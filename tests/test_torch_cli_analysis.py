@@ -156,6 +156,7 @@ def test_multi_program_modes_and_selfcheck_raise(tmp_path):
     assert cli.main(["lint", "--pair", "a", "b"]) == 2
     # --pipeline came with item 7b (tests/test_torch_analysis_distributed.py)
     assert cli.main(["lint", "--zoo", "mnist", "--pipeline", "2"]) == 0
-    # the rest of item 10, selfcheck, waits for item 8
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the rest of item 10, selfcheck, is the next slice
+    with pytest.raises(NotImplementedError, match="rest of ROADMAP queue 1 "
+                                                  "item 10"):
         cli.main(["selfcheck"])

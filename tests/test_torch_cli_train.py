@@ -226,9 +226,51 @@ def test_trace_dump_local(tmp_path):
     assert rc == 0 and "traceEvents" in json.loads(text)
 
 
-def test_trace_dump_fleet_waits_for_the_fleet():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["trace", "dump", "--fleet", "--addr", "127.0.0.1:1"])
+def test_trace_dump_fleet_waits_for_the_fleet(tmp_path):
+    """``trace dump --fleet`` against a router: one assembled timeline
+    with a process row for the router and one for the replica, the
+    routed request's spans in both (the name is kept from when the fleet
+    was not ported)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.obs import trace as _trace
+    from paddle_tpu_torch.serving import InferenceServer, ServingClient
+    assert cli.main(["trace", "dump", "--fleet"]) == 2   # needs --addr
+    d = str(tmp_path / "m")
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[4], dtype="float32")
+        y = pt.layers.fc(x, 2)
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        pt.io.save_inference_model(d, ["x"], [y], exe, main)
+    _trace.enable()
+    _trace.clear()
+    server = InferenceServer(d, port=0, place=pt.CPUPlace())
+    server.start_background()
+    router = None
+    try:
+        router = FleetRouter(replicas=[f"{server.addr[0]}:{server.addr[1]}"])
+        router.start_background()
+        ServingClient(router.addr).predict({"x": np.ones((2, 4), "float32")})
+        out = str(tmp_path / "fleet.json")
+        rc, text = _cli(["trace", "dump", "--fleet", "--addr",
+                         f"{router.addr[0]}:{router.addr[1]}",
+                         "--output", out])
+        assert rc == 0 and "wrote" in text
+        with open(out) as f:
+            obj = json.load(f)
+        sources = {p["source"] for p in obj["fleetAssembly"]["processes"]}
+        assert "router" in sources and len(sources) == 2, sources
+        names = {e["name"] for e in obj["traceEvents"] if e["ph"] == "X"}
+        assert {"fleet.request", "serving.request"} <= names, names
+    finally:
+        if router is not None:
+            router.shutdown()
+        server.shutdown()
+        _trace.disable()
+        _trace.clear()
 
 
 def test_bench_record_then_check(tmp_path):

@@ -2311,3 +2311,106 @@ def test_sharded_tables_world1_equal_executor_on_card(nccl_world):
     # eager, captured, replayed: one graph, as Executor.run's
     (graph,) = pexe.graph_stats()
     assert graph["graphed"] and graph["replays"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet on the card: one router over two in-process replicas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_router_over_two_replicas_on_card(cuda_toolchain, tmp_path):
+    """A master-discovered ``FleetRouter`` over two ``FleetReplica``s on
+    ``cuda:0`` serving one paged ``GenConfig`` bundle: four concurrent
+    streams equal the replicas' own scheduler streams, a
+    ``gen.session.kill_owner`` drill resumes on the other replica
+    token- and index-identical, and the two kernels launch ``n_layer``
+    times a prefill and a decode step."""
+    import threading
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fault import chaos
+    from paddle_tpu_torch.fleet import FleetReplica, FleetRouter
+    from paddle_tpu_torch.kernels import ALL_KERNELS
+    from paddle_tpu_torch.models import gen_lm
+    from paddle_tpu_torch.parallel.master import MasterServer, MasterService
+    from paddle_tpu_torch.serving import ServingClient
+
+    hp = gen_lm.GenConfig()
+    d = str(tmp_path / "bundle")
+    gen_lm.export_gen_model(d, hp, num_slots=4, paged=True,
+                            place=pt.CPUPlace(), seed=3)
+    rng = np.random.RandomState(3)
+    prompts = [[int(t) for t in rng.randint(0, hp.vocab_size, n)]
+               for n in (5, 9, 17, 30)]
+    svc = MasterService(replica_ttl=3.0)
+    master = MasterServer(svc, port=0)
+    master.start_background()
+    maddr = f"127.0.0.1:{master.addr[1]}"
+    reps, router = [], None
+    try:
+        for i in range(2):
+            reps.append(FleetReplica(d, maddr, replica_id=f"r{i}",
+                                     lease_ttl=3.0, warmup=True).start())
+        preds = [r.server.gen_predictor for r in reps]
+        assert all(p.device.type == "cuda" for p in preds)
+        sched = reps[0].server._gen          # the server's own scheduler
+        want = []
+        for p in prompts:
+            st = sched.submit(p, max_new_tokens=12)
+            toks = []
+            while True:
+                kind, v = st.next_event(timeout=60)
+                if kind == "done":
+                    break
+                toks.append(v)
+            want.append(toks)
+        router = FleetRouter(master_addr=maddr, poll_interval=0.05)
+        router.start_background()
+        deadline = time.time() + 10
+        while len(router.live_replicas()) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        raddr = f"127.0.0.1:{router.addr[1]}"
+        for k in ALL_KERNELS:
+            k.launches = 0
+        pre0 = [(p.prefills, p.decode_steps) for p in preds]
+        got = [None] * len(prompts)
+
+        def run(i):
+            got[i] = [e["token"] for e in ServingClient(raddr).generate(
+                prompts[i], max_new_tokens=12) if "token" in e]
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        [t.start() for t in threads]
+        [t.join(120) for t in threads]
+        assert got == want
+        chaos.inject("gen.decode.stall", delay=0.02)
+        chaos.inject("gen.session.kill_owner", error=True, times=1, after=3)
+        events = list(ServingClient(raddr).generate(prompts[2],
+                                                    max_new_tokens=12))
+        assert [e["token"] for e in events if "token" in e] == want[2]
+        assert [e["index"] for e in events if "token" in e] == \
+            list(range(12))
+        assert events[-1]["finish_reason"] == "length"
+        # the router logs the failover after relaying the last chunk
+        deadline = time.time() + 5
+        while not router.failover_log and time.time() < deadline:
+            time.sleep(0.01)
+        assert len(router.failover_log) == 1
+        # the cut owner decodes on until it sees its client gone
+        deadline = time.time() + 30
+        while any(r.server._gen.active_slots for r in reps) and \
+                time.time() < deadline:
+            time.sleep(0.01)
+        prefills = sum(p.prefills - a for p, (a, _) in zip(preds, pre0))
+        steps = sum(p.decode_steps - b for p, (_, b) in zip(preds, pre0))
+        launches = {k.name: k.launches for k in ALL_KERNELS if k.launches}
+        assert launches == {"bias_softmax": hp.n_layer * prefills,
+                            "paged_decode": hp.n_layer * steps}
+    finally:
+        chaos.clear()
+        if router is not None:
+            router.shutdown()
+        for r in reps:
+            r.drain(deadline_s=0)
+        master.shutdown()

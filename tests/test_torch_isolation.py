@@ -158,14 +158,58 @@ def test_serving_entry_points_without_a_place_raise_when_cuda_is_absent(
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--master", "127.0.0.1:1"], "item 8"),
+    (["--master"], "registers"),
     (["--compile-cache", "/nonexistent"], "no XLA compilation cache"),
 ])
 def test_cli_serve_options_the_port_lacks_raise(tmp_path, argv, match):
-    from paddle_tpu_torch import cli
+    """``--compile-cache`` raises (the port has no XLA cache);
+    ``serve --master`` on the CPU enrolls the replica with the port's
+    master, serves, and on SIGTERM deregisters and exits 0."""
+    import signal
+    import time
+
+    import numpy as np
+
+    from paddle_tpu_torch import cli, serving
     d = _mlp_bundle(str(tmp_path / "mlp"))
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["serve", "--model", d, "--place", "cpu"] + argv)
+    if match != "registers":
+        with pytest.raises(NotImplementedError, match=match):
+            cli.main(["serve", "--model", d, "--place", "cpu"] + argv)
+        return
+    from paddle_tpu_torch.parallel.master import (MasterServer,
+                                                  MasterService)
+    svc = MasterService(replica_ttl=3.0)
+    master = MasterServer(svc, port=0)
+    master.start_background()
+    maddr = f"{master.addr[0]}:{master.addr[1]}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "serve", "--model", d,
+         "--place", "cpu", "--port", "0", "--replica-id", "cli-r0",
+         "--lease-ttl", "1.0"] + argv + [maddr],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        deadline = time.time() + 60
+        while not svc.list_replicas() and time.time() < deadline \
+                and proc.poll() is None:
+            time.sleep(0.1)
+        (rec,) = svc.list_replicas()
+        assert rec["id"] == "cli-r0"
+        client = serving.ServingClient(rec["addr"])
+        (out,) = client.predict({"x": np.ones((3, 4), "float32")})
+        assert out.shape == (3, 2)
+        time.sleep(1.2)          # past one TTL: the heartbeat renewed it
+        assert [r["id"] for r in svc.list_replicas()] == ["cli-r0"]
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err[-2000:]
+        assert "fleet replica cli-r0 serving" in out and "cpu" in out
+        assert svc.list_replicas() == []     # drained: deregistered
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        master.shutdown()
 
 
 def test_weight_norm_param_attr_is_exported_at_the_top():

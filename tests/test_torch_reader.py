@@ -281,8 +281,23 @@ def test_creators_match_reference(tmp_path):
         paths.append(q)
     assert list(torch_creator.recordio(",".join(paths))()) == \
         list(jax_creator.recordio(paths)())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        torch_creator.cloud_reader("127.0.0.1:1")
+    # cloud_reader over the port's master: every record of every leased
+    # file, each task finished; the JAX package's reader over the same
+    # master (its client speaks the same wire format) reads the same
+    from paddle_tpu_torch.parallel.master import (MasterServer,
+                                                  MasterService,
+                                                  partition_files)
+    want = sorted(jax_creator.recordio(paths)())
+    for creator in (torch_creator, jax_creator):
+        svc = MasterService(partition_files(paths), timeout=30.0)
+        server = MasterServer(svc, port=0)
+        server.start_background()
+        try:
+            addr = f"{server.addr[0]}:{server.addr[1]}"
+            assert sorted(creator.cloud_reader(addr)()) == want
+            assert svc.stats()["done"] == len(paths)
+        finally:
+            server.shutdown()
 
 
 # ---------------------------------------------------------------------------

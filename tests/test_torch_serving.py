@@ -361,7 +361,34 @@ def test_predictor_warmup_signatures_match(mlp_dir, bucket):
     assert {b["cache"] for b in got.buckets} == {"warm"}
 
 
-def test_client_master_raises():
+def test_client_master_raises(mlp_dir):
+    """``ServingClient(master=...)`` discovers the live replicas from the
+    port's master and drops a lease-expired one on its next refresh (the
+    name is kept from when ``master=`` raised)."""
     serving, _ = _torch_modules()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serving.ServingClient(master="127.0.0.1:1")
+    from paddle_tpu_torch.parallel.master import (MasterServer,
+                                                  MasterService)
+    with pytest.raises(ValueError, match="master="):
+        serving.ServingClient()
+    svc = MasterService(replica_ttl=60.0)
+    master = MasterServer(svc, port=0)
+    master.start_background()
+    try:
+        with _server("torch", mlp_dir) as srv:
+            live = f"{srv.addr[0]}:{srv.addr[1]}"
+            svc.register_replica("live", live)
+            svc.register_replica("dead", "127.0.0.1:1", ttl=0.2)
+            client = serving.ServingClient(
+                master=f"{master.addr[0]}:{master.addr[1]}",
+                refresh_interval=0.05)
+            try:
+                assert sorted(client._live_bases()) == [
+                    "http://127.0.0.1:1", f"http://{live}"]
+                time.sleep(0.3)         # the dead replica's lease runs out
+                assert client._live_bases() == [f"http://{live}"]
+                (out,) = client.predict({"x": _rows(3, 0)})
+                assert out.shape == (3, 32)
+            finally:
+                client.close()
+    finally:
+        master.shutdown()
